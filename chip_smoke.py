@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's headline solve once on one CUDA card.
+"""Drive the PyTorch/CUDA port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Imports torch, numpy and ``poms_tpu_torch`` only.  Phases, in order; no
 exception is caught, so any failure exits non-zero:
 
-1. build   — nvcc the kron_apply kernel (K1) from poms_tpu_torch/csrc.
+1. build   — nvcc the kernels of poms_tpu_torch/csrc (K1 kron_apply, K2
+             stencil_apply, K4 stream_probe), one nvcc per source, all
+             started together; prints ptxas registers and spills.
 2. K1      — the kernel against its plain PyTorch version on the card, at
              the shapes of the headline solve's levels and a few ragged and
              periodic ones, f32 and f64 (max|Δ|/max|y| ≤ 1e-5 and ≤ 1e-12:
@@ -23,27 +25,63 @@ exception is caught, so any failure exits non-zero:
              A second, warm solve is timed.
 5. check   — the same solve at n_el = 16 on the card and on the CPU (plain
              versions): same iteration count, solutions agree to 1e-6.
+6. K4      — the stream ceiling at n = 128, p = 3 (a band-sized f32
+             buffer, 343 planes), library and contiguous layouts, in GB/s
+             with the reference's byte count (w³ + 2)·n³·4; the kernel
+             against torch.sum (≤ 1e-5).
+7. K2      — each mode (spmv, residual, jacobi, rbgs) in f32 and f64
+             against its plain version on the card, at the 3D level shapes
+             129³, 65³, 33³, 17³ (p3), a ragged 3D shape, 2D 1025² p3, 1D
+             2²⁰ p3, a periodic-ghosted 2D case, the 2D level shapes of
+             phase 9 (513², 257², 129², 65², 33² p3), RB-GS with starts 0 and 1
+             (max|Δ|/max|y| ≤ 1e-5 f32, ≤ 1e-12 f64; RB-GS points of the
+             other colour bit-equal to x); at 129³ p3 f32 the device and
+             stream times of kernel and plain, GB/s, Gnnz/s and % of K4.
+8. banded PCG — 3D Poisson p3, n_el = 128, 5 levels, banded operator,
+             f64-mixed MG-preconditioned CG, Chebyshev(4) over
+             [λmax/16, λmax], ν1 = ν2 = 1, to 1e-10: converges, the true
+             f64 residual through K2's f64 spmv is ≤ 5e-10, K2's spmv and
+             residual launched.
+9. banded MG — MultigridSolver(operator="banded"), f64: 3D p3 n_el = 128,
+             5 levels, RB-GS ω = 1, ν1 = ν2 = 2, 3 cycles (the residual
+             falls every cycle); 2D p3 n_el = 512, 6 levels, Jacobi
+             ω = 0.8, ν1 = ν2 = 2, to 1e-10.
+10. banded check — phase 8's solve at n_el = 16 on the card and on the
+             CPU's plain versions, with the card's λs: same iterations,
+             solutions within 1e-6 of max|x|.
 
 Prints the card's name and power limit early, one JSON line of per-kernel
 results before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The launch counts of the JSON line come from the paths, each counted from
+0 just before it: K1 from phase 4, K4 from phase 6's ceiling, K2 from
+phases 8 and 9; launches made to compare a kernel with its plain version
+are not counted.
 """
 import json
 import math
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from poms_tpu_torch.bench.device import nvidia_smi_name_power
+from poms_tpu_torch.bench.kernel_probe import (cuda_event_ms, make_band,
+                                               probe_stream, stream_probe,
+                                               stream_probe_plain)
+from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.mg.cycles import CycleConfig
 from poms_tpu_torch.mg.mixed import MGPreconditionedCG
 from poms_tpu_torch.mg.smoother import SmootherConfig
+from poms_tpu_torch.mg.solver import MultigridSolver
 from poms_tpu_torch.models.poisson import (l2_error_manufactured,
                                            poisson_problem)
 from poms_tpu_torch.ops import _build
 from poms_tpu_torch.ops.kron import kron_apply, kron_apply_plain
+from poms_tpu_torch.ops.stencil import (MODES, color_mask, stencil_apply,
+                                        stencil_apply_plain)
 from poms_tpu_torch.ops.twofloat import (dw_add, dw_mul, split_f64,
                                          two_prod, two_sum)
 
@@ -53,6 +91,22 @@ K1_SHAPES = [((9, 9, 9), 3, False), ((17, 17, 17), 3, False),
              ((8, 8, 128), 2, True)]
 K1_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 HEADLINE = dict(n_el=128, degree=3, levels=5, tol=1e-10, maxiter=30)
+# K2 shapes: (npts, pads, periodic, starts of the second RB-GS check)
+K2_SHAPES = [((129, 129, 129), (3, 3, 3), (False,) * 3, (1, 0, 0)),
+             ((65, 65, 65), (3, 3, 3), (False,) * 3, (0, 1, 0)),
+             ((33, 33, 33), (3, 3, 3), (False,) * 3, (0, 0, 1)),
+             ((17, 17, 17), (3, 3, 3), (False,) * 3, (1, 1, 1)),
+             ((20, 45, 70), (3, 2, 3), (False,) * 3, (1, 0, 0)),
+             ((1025, 1025), (3, 3), (False, False), (1, 0)),
+             ((1 << 20,), (3,), (False,), (1,)),
+             ((256, 300), (3, 3), (True, False), (0, 1))]
+# the smoothed levels of phase 9's 2D solve (n_el = 512, 6 levels)
+K2_SHAPES += [((n, n), (3, 3), (False, False), (0, 1))
+              for n in (513, 257, 129, 65, 33)]
+K2_REPLACES = {"spmv": 343, "residual": 349, "jacobi": 359, "rbgs": 369}
+# banded multigrid: 3D RB-GS cycles and the 2D Jacobi solve (n_el, levels)
+BANDED_MG = dict(rbgs=(128, 5), jacobi=(512, 6))
+K4_SIZE = (128, 3)   # the stream probe's (n, p): a 129^3 p3 band's size
 
 
 def log(msg):
@@ -69,21 +123,6 @@ def _k1_operands(npts, p, dtype, dev, seed):
     terms = [[Ks[b] if b == a else Ms[b] for b in range(3)] for a in range(3)]
     x = torch.as_tensor(rng.standard_normal(npts), dtype=dtype, device=dev)
     return terms, x
-
-
-def _cuda_ms(fn, reps=20):
-    """Stream time per call by CUDA events (includes the gaps in which the
-    host is still enqueuing: wrapper and launch overhead)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _device_ms(fn, reps=20):
@@ -106,16 +145,25 @@ def _device_ms(fn, reps=20):
 
 
 def phase_build():
+    names = ("kron_apply", "stencil_apply", "stream_probe")
     t0 = time.perf_counter()
-    path = _build.build("kron_apply")
-    _build.load("kron_apply")
-    log(f"[build] kron_apply.cu -> {path.name} in "
-        f"{time.perf_counter() - t0:.3f} s (cold nvcc, sm_90a)")
-    report = (_build.BUILD_DIR / "kron_apply.log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {line.strip()}")
+
+    def build(name):
+        path = _build.build(name)
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build, names)))
+    for name in names:
+        path, secs = built[name]
+        _build.load(name)
+        log(f"[build] {name}.cu -> {path.name} ready at {secs:.3f} s "
+            f"(cold nvcc, sm_90a, {len(names)} in parallel)")
+        report = (_build.BUILD_DIR / f"{name}.log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"[build] {name}: {line.strip()}")
 
 
 def phase_k1(dev):
@@ -144,7 +192,7 @@ def phase_k1(dev):
 
                 result["ms"] = _device_ms(kernel)
                 result["plain_ms"] = _device_ms(plain)
-                events = (_cuda_ms(kernel), _cuda_ms(plain))
+                events = (cuda_event_ms(kernel), cuda_event_ms(plain))
     log(f"[K1] 129^3 p3 f32 device time (profiler, mean of 20): kernel "
         f"{result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms")
     log(f"[K1] 129^3 p3 f32 stream time (CUDA events, mean of 20, host "
@@ -186,7 +234,7 @@ def phase_eft(dev):
 
 def _solver(n_el, levels, dev):
     prob = poisson_problem(3, n_el, degree=HEADLINE["degree"],
-                           dtype=torch.float64, device=dev)
+                           dtype=torch.float64, device=dev, operator="kron")
     cfg = CycleConfig(nu1=1, nu2=1,
                       smoother=SmootherConfig("chebyshev", cheb_fraction=16.0,
                                               cheb_degree=4))
@@ -251,6 +299,245 @@ def phase_check(dev, l2_fine):
     assert l2_fine < l2, (l2_fine, l2)
 
 
+def phase_k4(dev):
+    """The stream ceiling (the bench's path: probe_stream) in both layouts,
+    then the kernel against torch.sum on the same buffer."""
+    n, p = K4_SIZE
+    stream_probe.launches = 0
+    ceiling = {}
+    for contiguous in (False, True):
+        ms, gbps = probe_stream(n, p, contiguous, device=dev)
+        ceiling["contiguous" if contiguous else "library"] = gbps
+        log(f"[K4] stream ceiling {n}^3 p{p} f32, "
+            f"{'contiguous (w,n,w,w,n,n)' if contiguous else 'library (w,w,w,n,n,n)'}"
+            f" layout: {ms:.4f} ms = {gbps:.1f} GB/s (CUDA events, mean "
+            f"of 20; (w^3 + 2) n^3 * 4 bytes)")
+    launches = stream_probe.launches
+    band = make_band(n, p, False, dev, seed=1)
+    x = torch.randn((n, n, n), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    y = stream_probe(band, x, False)
+    torch.cuda.synchronize()
+    want = stream_probe_plain(band, x, False)
+    err = float((y - want).abs().max())
+    rel = err / float(want.abs().max())
+    log(f"[K4] kernel vs torch.sum at {n}^3 p{p}: max|d|={err:.3e} "
+        f"rel={rel:.3e}")
+    if not (math.isfinite(rel) and rel <= 1e-5):
+        raise AssertionError(f"K4 disagrees with torch.sum: {rel}")
+    ms = _device_ms(lambda: stream_probe(band, x, False))
+    plain_ms = _device_ms(lambda: stream_probe_plain(band, x, False))
+    log(f"[K4] device time (profiler, mean of 20): kernel {ms:.4f} ms, "
+        f"plain torch.sum {plain_ms:.4f} ms")
+    del band, x, y, want
+    torch.cuda.empty_cache()
+    assert launches > 0, "the ceiling was measured without the K4 kernel"
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "gbps": ceiling["library"]}
+
+
+def _k2_operands(npts, pads, periodic, dtype, dev, seed):
+    """Random band (diagonal plane shifted by 4), ghosted x (zeros or the
+    periodic wrap) and b as a strided interior view, drawn on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    win = tuple(2 * p + 1 for p in pads)
+    band = torch.randn(win + npts, generator=g, dtype=dtype, device=dev)
+    band.div_(8)
+    band[tuple(pads)] += 4.0
+    x = torch.randn(npts, generator=g, dtype=dtype, device=dev)
+    b_pad = torch.randn(tuple(n + 2 * p for n, p in zip(npts, pads)),
+                        generator=g, dtype=dtype, device=dev)
+    b = b_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
+    return band, ghost_pad(x, pads, periodic).contiguous(), b
+
+
+def phase_k2(dev, k4_gbps):
+    result = {m: {"max_abs_err": 0.0} for m in MODES}
+    for npts, pads, periodic, starts in K2_SHAPES:
+        zero = (0,) * len(npts)
+        runs = [("spmv", 0, zero), ("residual", 0, zero), ("jacobi", 0, zero),
+                ("rbgs", 0, zero), ("rbgs", 0, starts), ("rbgs", 1, zero)]
+        for dtype in (torch.float32, torch.float64):
+            band, x_pad, b = _k2_operands(npts, pads, periodic, dtype, dev,
+                                          seed=sum(npts))
+            x_int = x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
+            rels = []
+            for mode, color, st in runs:
+                kw = dict(b=None if mode == "spmv" else b,
+                          omega=0.8 if mode in ("jacobi", "rbgs") else None,
+                          color=color, starts=st)
+                y = stencil_apply(mode, band, x_pad, npts, pads, **kw)
+                torch.cuda.synchronize()
+                want = stencil_apply_plain(mode, band, x_pad, npts, pads,
+                                           **kw)
+                err = float((y - want).abs().max())
+                rel = err / float(want.abs().max())
+                rels.append(rel)
+                if not (math.isfinite(rel) and rel <= K1_TOL[dtype]):
+                    raise AssertionError(f"K2 {mode} disagrees at {npts} "
+                                         f"{dtype} starts={st}: {rel}")
+                if mode == "rbgs":
+                    other = ~color_mask(npts, color, st, device=dev)
+                    if not torch.equal(y[other], x_int[other]):
+                        raise AssertionError("K2 rbgs changed points of the "
+                                             f"other colour at {npts}")
+                if (npts == (129,) * 3 and dtype == torch.float32
+                        and st == zero and color == 0):
+                    result[mode]["max_abs_err"] = err
+
+                    def kernel(mode=mode, kw=kw):
+                        return stencil_apply(mode, band, x_pad, npts, pads,
+                                             **kw)
+
+                    def plain(mode=mode, kw=kw):
+                        return stencil_apply_plain(mode, band, x_pad, npts,
+                                                   pads, **kw)
+
+                    result[mode]["ms"] = _device_ms(kernel)
+                    result[mode]["plain_ms"] = _device_ms(plain)
+                    result[mode]["events"] = (cuda_event_ms(kernel),
+                                              cuda_event_ms(plain))
+                del y, want
+            log(f"[K2] {npts} p={pads} periodic={periodic} {dtype}: rel err "
+                + " ".join(f"{m}{'' if m != 'rbgs' else f'(c{c},s{s})'}"
+                           f"={r:.2e}" for (m, c, s), r in zip(runs, rels)))
+            del band, x_pad, b, x_int
+            torch.cuda.empty_cache()
+    points, terms = 129 ** 3, 343
+    nbytes, nnz = (terms + 2) * points * 4, terms * points
+    for mode in MODES:
+        r = result[mode]
+        log(f"[K2] 129^3 p3 f32 {mode}: device time (profiler, mean of 20) "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; stream "
+            f"time (CUDA events, host overhead included) kernel "
+            f"{r['events'][0]:.4f} ms, plain {r['events'][1]:.4f} ms")
+    r = result["spmv"]
+    for who, ms in (("kernel", r["ms"]), ("plain", r["plain_ms"])):
+        gbps = nbytes / (ms * 1e-3) / 1e9
+        log(f"[K2] 129^3 p3 f32 spmv {who}: {gbps:.1f} GB/s, "
+            f"{nnz / (ms * 1e-3) / 1e9:.2f} Gnnz/s (device time; "
+            f"(terms + 2) * points * 4 bytes), {100 * gbps / k4_gbps:.1f}% "
+            f"of K4's {k4_gbps:.1f} GB/s")
+    return result
+
+
+def _banded_pcg(n_el, levels, dev):
+    prob = poisson_problem(3, n_el, degree=HEADLINE["degree"],
+                           dtype=torch.float64, device=dev)
+    cfg = CycleConfig(nu1=1, nu2=1,
+                      smoother=SmootherConfig("chebyshev", cheb_fraction=16.0,
+                                              cheb_degree=4))
+    pcg = MGPreconditionedCG(prob, num_levels=levels, cfg=cfg, mixed=True,
+                             precision="f64")
+    return prob, pcg
+
+
+def _reset_k2():
+    for mode in MODES:
+        stencil_apply.launches[mode] = 0
+
+
+def phase_banded_pcg(dev, l2_kron):
+    h = HEADLINE
+    torch.cuda.synchronize()
+    _reset_k2()
+    t0 = time.perf_counter()
+    prob, pcg = _banded_pcg(h["n_el"], h["levels"], dev)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    res = pcg.solve(tol=h["tol"], maxiter=h["maxiter"])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t1
+    launches = dict(stencil_apply.launches)
+    x = res.x.interior
+    assert tuple(x.shape) == prob.space.npts and bool(torch.isfinite(x).all())
+    log(f"[banded PCG] {h['n_el'] + 1}^3 f64-mixed PCG, banded operator: "
+        f"{res.iterations} iterations, converged={res.converged}, history "
+        f"{['%.3e' % r for r in res.residuals]}")
+    assert res.converged, res.residuals
+    true_rn = float(torch.linalg.vector_norm(
+        prob.b.interior - prob.A.dot(res.x).interior))
+    l2 = l2_error_manufactured(prob, res.x)
+    log(f"[banded PCG] final |r| {res.residuals[-1]:.3e}, true f64 "
+        f"|b - Ax| {true_rn:.3e} (K2 f64 spmv), L2 error vs manufactured "
+        f"{l2:.3e} (kron dw solve: {l2_kron:.3e})")
+    assert true_rn <= 5e-10, true_rn
+    assert launches["spmv"] > 0 and launches["residual"] > 0, launches
+    t2 = time.perf_counter()
+    _, rn, it = pcg.solve_compiled(tol=h["tol"], maxiter=h["maxiter"])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t2
+    assert float(rn) <= h["tol"] and it == res.iterations, (float(rn), it)
+    log(f"[banded PCG] cold setup (band, hierarchy, lambda) {cold:.3f} s; "
+        f"first solve {first:.3f} s; warm solve {warm:.3f} s = "
+        f"{warm / it * 1e3:.2f} ms/iteration; K2 launches {launches}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_banded_mg(dev):
+    _reset_k2()
+    n_el, levels = BANDED_MG["rbgs"]
+    prob = poisson_problem(3, n_el, degree=3, dtype=torch.float64,
+                           device=dev)
+    mg = MultigridSolver(prob, levels, CycleConfig(
+        nu1=2, nu2=2, smoother=SmootherConfig("rbgs", omega=1.0)))
+    res = mg.solve(tol=1e-10, maxiter=3)
+    torch.cuda.synchronize()
+    rbgs = dict(stencil_apply.launches)
+    log(f"[banded MG] {n_el + 1}^3 p3 RB-GS V(2,2), {levels} levels: "
+        f"residuals "
+        f"{['%.3e' % r for r in res.residuals]}, factors "
+        f"{['%.3f' % f for f in res.convergence_factors]}, wall/cycle "
+        f"{['%.3f s' % w for w in res.wall_times]}; K2 launches {rbgs}")
+    assert len(res.residuals) == 4 and all(
+        b < a for a, b in zip(res.residuals, res.residuals[1:])), \
+        res.residuals
+    assert rbgs["rbgs"] > 0, rbgs
+    del prob, mg, res
+    torch.cuda.empty_cache()
+
+    _reset_k2()
+    t0 = time.perf_counter()
+    n_el, levels = BANDED_MG["jacobi"]
+    prob = poisson_problem(2, n_el, degree=3, dtype=torch.float64, device=dev)
+    mg = MultigridSolver(prob, levels, CycleConfig(
+        nu1=2, nu2=2, smoother=SmootherConfig("jacobi", omega=0.8)))
+    setup = time.perf_counter() - t0
+    res = mg.solve(tol=1e-10, maxiter=200)
+    torch.cuda.synchronize()
+    jac = dict(stencil_apply.launches)
+    log(f"[banded MG] {n_el + 1}^2 p3 Jacobi(0.8) V(2,2), {levels} levels: "
+        f"{res.iterations} cycles, converged={res.converged}, final |r| "
+        f"{res.residuals[-1]:.3e}, median factor "
+        f"{float(np.median(res.convergence_factors)):.3f}, setup (host "
+        f"SpGEMM RAP) {setup:.3f} s, solve {sum(res.wall_times):.3f} s; "
+        f"K2 launches {jac}")
+    assert res.converged, res.residuals[-5:]
+    assert jac["jacobi"] > 0, jac
+    del prob, mg, res
+    torch.cuda.empty_cache()
+    return {m: rbgs[m] + jac[m] for m in MODES}
+
+
+def phase_banded_check(dev):
+    """Phase 8's solve at n_el = 16 on the card and on the CPU."""
+    out, lams = {}, None
+    for d in (dev, torch.device("cpu")):
+        _, pcg = _banded_pcg(16, 2, d)
+        pcg.lams = lams = lams or pcg.lams   # the card's λs on both
+        out[d.type] = pcg.solve(tol=1e-10, maxiter=30)
+    rc, rh = out["cuda"], out["cpu"]
+    xc, xh = rc.x.interior.cpu(), rh.x.interior
+    rel = float((xc - xh).abs().max() / xh.abs().max())
+    log(f"[banded check] 17^3: card {rc.iterations} it, cpu {rh.iterations} "
+        f"it, max|x_card - x_cpu|/max|x| {rel:.3e}")
+    assert rc.converged and rh.converged
+    assert rc.iterations == rh.iterations, (rc.iterations, rh.iterations)
+    assert rel <= 1e-6, rel
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card "
@@ -267,12 +554,36 @@ def main():
     phase_eft(dev)
     solve = phase_solve(dev)
     phase_check(dev, solve["l2"])
-    log(json.dumps({"kernels": [{
+    torch.cuda.empty_cache()
+    k4 = phase_k4(dev)
+    k2 = phase_k2(dev, k4["gbps"])
+    torch.cuda.reset_peak_memory_stats()
+    pcg_launches = phase_banded_pcg(dev, solve["l2"])
+    torch.cuda.empty_cache()
+    mg_launches = phase_banded_mg(dev)
+    phase_banded_check(dev)
+    k2_launches = {m: pcg_launches[m] + mg_launches[m] for m in MODES}
+    missing = [m for m in MODES if not k2_launches[m] > 0]
+    assert not missing, f"the banded paths never launched K2 in {missing}"
+    kernels = [{
         "name": "kron_apply", "route": "cuda",
         "source": "poms_tpu_torch/csrc/kron_apply.cu",
         "replaces": "poms_tpu/ops/pallas/kron.py:157",
         "launches": solve["launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]}))
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]
+    kernels += [{
+        "name": f"stencil_apply.{m}", "route": "cuda",
+        "source": "poms_tpu_torch/csrc/stencil_apply.cu",
+        "replaces": f"poms_tpu/ops/pallas/spmv.py:{K2_REPLACES[m]}",
+        "launches": k2_launches[m], "max_abs_err": k2[m]["max_abs_err"],
+        "ms": k2[m]["ms"], "plain_ms": k2[m]["plain_ms"]} for m in MODES]
+    kernels.append({
+        "name": "stream_probe", "route": "cuda",
+        "source": "poms_tpu_torch/csrc/stream_probe.cu",
+        "replaces": "poms_tpu/bench/kernel_probe.py:85",
+        "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"]})
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from poms_tpu_torch.core.kron import KroneckerSumOperator
+from poms_tpu_torch.core.matrix import StencilMatrix
 from poms_tpu_torch.core.space import StencilVectorSpace
 from poms_tpu_torch.core.vector import StencilVector
 from poms_tpu_torch.mg.hierarchy import Level
@@ -21,8 +22,8 @@ from poms_tpu_torch.models.poisson import PoissonProblem
 from poms_tpu_torch.ops.cholesky import DenseCholesky
 from poms_tpu_torch.ops.transfer import TransferBand
 
-__all__ = ["tensor", "space", "kron_operator", "transfer_band", "cholesky",
-           "levels", "problem", "lams"]
+__all__ = ["tensor", "space", "kron_operator", "stencil_matrix", "operator",
+           "transfer_band", "cholesky", "levels", "problem", "lams"]
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -55,6 +56,19 @@ def kron_operator(ref_A, device="cpu") -> KroneckerSumOperator:
     return KroneckerSumOperator(space(ref_A.space, device), terms)
 
 
+def stencil_matrix(ref_A, device="cpu") -> StencilMatrix:
+    """The banded operator of ``ref_A.band_t`` (offset-major)."""
+    return StencilMatrix(space(ref_A.space, device),
+                         band_t=tensor(ref_A.band_t, device))
+
+
+def operator(ref_A, device="cpu"):
+    """A banded or Kronecker-sum operator, whichever ``ref_A`` is."""
+    if hasattr(ref_A, "band_t"):
+        return stencil_matrix(ref_A, device)
+    return kron_operator(ref_A, device)
+
+
 def transfer_band(tb, device="cpu") -> TransferBand:
     return TransferBand(w=tensor(tb.w, device),
                         c0=tensor(tb.c0, device).to(torch.int64),
@@ -71,7 +85,7 @@ def levels(ref_levels, device="cpu"):
         return None if tbs is None else tuple(transfer_band(tb, device)
                                               for tb in tbs)
 
-    return [Level(A=kron_operator(lev.A, device),
+    return [Level(A=operator(lev.A, device),
                   restrict=tbands(lev.restrict), prolong=tbands(lev.prolong),
                   chol=(None if lev.chol is None
                         else cholesky(lev.chol, device)))
@@ -79,7 +93,7 @@ def levels(ref_levels, device="cpu"):
 
 
 def problem(ref_prob, device="cpu") -> PoissonProblem:
-    """The problem's space, Kronecker operator, padded RHS and 1D splines."""
+    """The problem's space, operator, padded RHS and 1D splines."""
     sp = space(ref_prob.space, device)
     splines = tuple(
         Spline1D(n_el=s.n_el, degree=s.degree, knots=np.asarray(s.knots),
@@ -88,7 +102,7 @@ def problem(ref_prob, device="cpu") -> PoissonProblem:
         for s in ref_prob.splines)
     return PoissonProblem(dim=ref_prob.dim, degree=ref_prob.degree,
                           n_el=tuple(ref_prob.n_el), space=sp,
-                          A=kron_operator(ref_prob.A, device),
+                          A=operator(ref_prob.A, device),
                           b=StencilVector(sp, tensor(ref_prob.b.data, device)),
                           splines=splines)
 

@@ -6,6 +6,7 @@ periodicity flags, the field dtype and the device the fields live on.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Tuple
 
@@ -63,6 +64,15 @@ class StencilVectorSpace:
     @property
     def padded_shape(self) -> Tuple[int, ...]:
         return tuple(n + 2 * p for n, p in zip(self.npts, self.pads))
+
+    @property
+    def band_shape(self) -> Tuple[int, ...]:
+        """Shape of the per-row stencil band: (2p+1) per dimension."""
+        return tuple(2 * p + 1 for p in self.pads)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.npts)
 
     @property
     def interior(self) -> Tuple[slice, ...]:

@@ -98,6 +98,21 @@ class StencilVector:
     def interior(self) -> torch.Tensor:
         return self.data[self.space.interior]
 
+    def toarray(self):
+        """Flattened interior as a host numpy array (scipy interop)."""
+        return self.interior.detach().cpu().numpy().ravel()
+
+    def update_ghost_regions(self) -> "StencilVector":
+        """A copy with ghosts refreshed (zeros, or the periodic wrap)."""
+        return StencilVector(self.space,
+                             update_ghosts_serial(self.data, self.space))
+
+    def __add__(self, other: "StencilVector") -> "StencilVector":
+        return StencilVector(self.space, self.data + other.data)
+
+    def __sub__(self, other: "StencilVector") -> "StencilVector":
+        return StencilVector(self.space, self.data - other.data)
+
     def axpy(self, alpha, other: "StencilVector") -> "StencilVector":
         return StencilVector(self.space, self.data + alpha * other.data)
 

@@ -166,7 +166,10 @@ int launch(const T* xp, const T* b0, const T* b1, const T* b2, T* y, int R,
     const cudaError_t err = cudaFuncSetAttribute(
         kron_apply_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch reports it
+      return (int)err;
+    }
   }
   const dim3 grid((n2 + T2 - 1) / T2, (n1 + T1 - 1) / T1, (n0 + T0 - 1) / T0);
   kron_apply_kernel<T><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(

@@ -6,9 +6,10 @@ preconditioner) with one multigrid cycle as the preconditioner.
 
 - ``precision="dw"``: x and r are double-word f32 pairs, A·p is the
   double-word Kronecker apply, directions and the V-cycle are f32, and
-  α, β, ρ are f64 scalars on the device.  Needs ``mixed=True``.
+  α, β, ρ are f64 scalars on the device.  Needs ``mixed=True`` and
+  ``operator="kron"``.
 - ``precision="f64"``: the recurrences in f64, the cycle in f32 when
-  ``mixed`` (else in f64).
+  ``mixed`` (else in f64); banded (K2) or Kronecker-sum (K1) levels.
 
 ``solve`` is the host loop with its residual history; ``solve_compiled``
 runs the same iterations without the history and returns ``(x, rn, it)``.
@@ -22,6 +23,7 @@ from typing import Optional
 import torch
 
 from poms_tpu_torch.core.kron import KroneckerSumOperator
+from poms_tpu_torch.core.matrix import StencilMatrix
 from poms_tpu_torch.core.vector import StencilVector
 from poms_tpu_torch.mg.cycles import CycleConfig, cycle
 from poms_tpu_torch.mg.hierarchy import Level, build_hierarchy
@@ -41,7 +43,7 @@ def _cast_levels(levels, dtype: torch.dtype):
     """Cast a hierarchy's bands, transfer weights and Cholesky factor.
 
     Each distinct tensor is cast once (keyed by identity), so the terms of
-    a cast operator share band objects as the originals did."""
+    a cast Kronecker-sum operator share band objects as the originals did."""
     cast = {}
 
     def c(t):
@@ -55,8 +57,12 @@ def _cast_levels(levels, dtype: torch.dtype):
 
     out = []
     for lev in levels:
-        terms = [[c(B) for B in term] for term in lev.A.terms]
-        A = KroneckerSumOperator(lev.A.space.with_dtype(dtype), terms)
+        sp = lev.A.space.with_dtype(dtype)
+        if isinstance(lev.A, StencilMatrix):
+            A = StencilMatrix(sp, band_t=c(lev.A.band_t))
+        else:
+            A = KroneckerSumOperator(
+                sp, [[c(B) for B in term] for term in lev.A.terms])
         chol = None if lev.chol is None else DenseCholesky(L=c(lev.chol.L))
         out.append(Level(A=A, restrict=tbands(lev.restrict),
                          prolong=tbands(lev.prolong), chol=chol))
@@ -86,13 +92,16 @@ class MGPreconditionedCG:
     def __init__(self, problem: PoissonProblem, num_levels: int,
                  cfg: CycleConfig = CycleConfig(), mixed: bool = True,
                  low_dtype: torch.dtype = torch.float32,
-                 operator: str = "kron", precision: str = "f64"):
+                 operator: str = "banded", precision: str = "f64"):
         if precision == "dwrr":
             raise NotImplementedError(
                 "precision='dwrr' (residual-replacement PCG) is ROADMAP "
                 "slice 2, item 16")
         if precision not in ("f64", "dw"):
             raise ValueError(f"precision={precision!r}")
+        if precision == "dw" and operator != "kron":
+            raise ValueError("precision='dw' needs the Kronecker-sum operator "
+                             "(the double-word apply exploits it)")
         if low_dtype == torch.bfloat16:
             raise NotImplementedError(
                 "low_dtype=bfloat16 cycles are ROADMAP slice 2, item 16")

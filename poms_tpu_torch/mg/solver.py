@@ -1,15 +1,24 @@
-"""Solve results (counterpart of ``poms_tpu.mg.solver.SolveResult``).
+"""Multigrid solver driver: hierarchy setup, convergence loop, history.
 
-``MultigridSolver`` is ROADMAP slice 2.
+Counterpart of ``poms_tpu.mg.solver``: :meth:`MultigridSolver.solve`
+iterates cycles until ‖r‖₂ ≤ tol (absolute, or relative to ‖b‖ with
+``rtol=True``) and records the residual history; ``solve_compiled`` runs
+the same cycles without the history and returns ``(x, rn, it)``.  PyTorch
+runs eagerly, so both are host loops over the same cycle; the history
+costs one host sync per cycle.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List
+import time
+from dataclasses import dataclass, field, replace
+from typing import List, Optional
 
 from poms_tpu_torch.core.vector import StencilVector
+from poms_tpu_torch.mg.cycles import CycleConfig, cycle, fmg
+from poms_tpu_torch.mg.hierarchy import Level, build_hierarchy
+from poms_tpu_torch.mg.smoother import attach_spectral_estimates, resolve_omega
 
-__all__ = ["SolveResult"]
+__all__ = ["MultigridSolver", "SolveResult"]
 
 
 @dataclass
@@ -24,3 +33,81 @@ class SolveResult:
     def convergence_factors(self) -> List[float]:
         r = self.residuals
         return [r[i + 1] / r[i] for i in range(len(r) - 1) if r[i] > 0]
+
+
+class MultigridSolver:
+    """Geometric multigrid solver for tensor-product B-spline problems.
+
+    ``lams`` holds the per-level λmax(D⁻¹A) estimates (Chebyshev only); the
+    cycles read it at every call, so it may be replaced after construction.
+    """
+
+    def __init__(self, problem, num_levels: int,
+                 cfg: CycleConfig = CycleConfig(), operator: str = "banded"):
+        self.problem = problem
+        self.levels: List[Level] = build_hierarchy(problem, num_levels,
+                                                   operator=operator)
+        self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
+                                                       self.levels[0].A))
+        self.lams = attach_spectral_estimates(self.levels, self.cfg.smoother)
+
+    def _residual_norm(self, x: StencilVector, b: StencilVector):
+        return (b - self.levels[0].A.dot(x)).norm()
+
+    def _step(self, x: StencilVector, b: StencilVector):
+        x = cycle(self.levels, 0, x, b, self.cfg, self.lams)
+        return x, self._residual_norm(x, b)
+
+    def solve(self, b: Optional[StencilVector] = None,
+              x0: Optional[StencilVector] = None,
+              tol: float = 1e-10, maxiter: int = 50,
+              rtol: bool = False, use_fmg: bool = False,
+              logger=None) -> SolveResult:
+        """Iterate cycles to tolerance, recording ‖r‖₂ after each.
+
+        ``use_fmg`` starts from a full-multigrid pass, else from ``x0`` (zero
+        by default).  Convergence logging (``logger``) is not ported yet:
+        pass None.
+        """
+        if logger is not None:
+            raise NotImplementedError(
+                "logger: utils/logging.py is not ported yet (ROADMAP slice 2)")
+        b = b if b is not None else self.problem.b
+        space = self.levels[0].A.space
+        if use_fmg:
+            x = fmg(self.levels, b, self.cfg, lams=self.lams)
+        elif x0 is None:
+            x = StencilVector.zeros(space)
+        else:
+            x = x0
+        residuals = [float(self._residual_norm(x, b))]
+        wall = []
+        target = tol * float(b.norm()) if rtol else tol
+        converged = residuals[-1] <= target
+        it = 0
+        while not converged and it < maxiter:
+            t0 = time.perf_counter()
+            x, rn = self._step(x, b)
+            rn = float(rn)
+            wall.append(time.perf_counter() - t0)
+            residuals.append(rn)
+            it += 1
+            converged = rn <= target
+        return SolveResult(x=x, residuals=residuals, iterations=it,
+                           converged=converged, wall_times=wall)
+
+    def solve_compiled(self, b: Optional[StencilVector] = None,
+                       tol: float = 1e-10, maxiter: int = 50):
+        """The cycles of :meth:`solve` from x = 0 without the history.
+
+        Returns ``(x, rn, it)``: ``rn`` a 0-dim tensor on the field's
+        device, ``it`` an int.
+        """
+        b = b if b is not None else self.problem.b
+        x = StencilVector.zeros(self.levels[0].A.space)
+        rn = self._residual_norm(x, b)
+        it = 0
+        while float(rn) > tol and it < maxiter:
+            x, rn = self._step(x, b)
+            it += 1
+        return x, rn, it

@@ -1,10 +1,13 @@
-"""Tensor-product B-spline Poisson problems, Kronecker-sum operator.
+"""Tensor-product B-spline Poisson problems (1D/2D/3D).
 
-Counterpart of ``poms_tpu.models.poisson`` (the ``operator="kron"`` branch):
-−Δu = f on the unit d-cube, homogeneous Dirichlet conditions, degree-p
-B-splines.  The stiffness operator is A = Σ_a M ⊗ … ⊗ K_a ⊗ … ⊗ M, and the
-manufactured solution u = Π_a sin(π x_a) gives f = d π² u, so the RHS is an
-outer product of 1D sine moments.
+Counterpart of ``poms_tpu.models.poisson``: −Δu = f on the unit d-cube,
+homogeneous Dirichlet conditions, degree-p B-splines.  The stiffness
+operator is A = Σ_a M ⊗ … ⊗ K_a ⊗ … ⊗ M, held either as a banded
+:class:`StencilMatrix` (``operator="banded"``, the default: the band of
+(2p+1)^d coefficients per point, composed on the device from the 1D bands)
+or as a :class:`KroneckerSumOperator` (``operator="kron"``: the 1D bands
+only).  The manufactured solution u = Π_a sin(π x_a) gives f = d π² u, so
+the RHS is an outer product of 1D sine moments.
 """
 from __future__ import annotations
 
@@ -15,9 +18,11 @@ import numpy as np
 import torch
 
 from poms_tpu_torch.core.kron import KroneckerSumOperator
+from poms_tpu_torch.core.matrix import StencilMatrix
 from poms_tpu_torch.core.space import StencilVectorSpace
 from poms_tpu_torch.core.vector import StencilVector
-from poms_tpu_torch.mg.hierarchy import _kron_operator_from_1d
+from poms_tpu_torch.mg.hierarchy import (_kron_operator_from_1d,
+                                         _kron_sum_band)
 from poms_tpu_torch.models.bspline import (Spline1D, assemble_spline_1d,
                                            basis_funs, find_span,
                                            sin_moment_1d)
@@ -31,19 +36,21 @@ class PoissonProblem:
     degree: int
     n_el: Tuple[int, ...]
     space: StencilVectorSpace
-    A: KroneckerSumOperator
+    A: StencilMatrix | KroneckerSumOperator
     b: StencilVector
     splines: Tuple[Spline1D, ...]
 
 
 def poisson_problem(dim: int, n_el, degree: int = 3,
                     dtype: torch.dtype = torch.float64,
-                    operator: str = "kron", device="cpu") -> PoissonProblem:
-    """Assemble the d-D Poisson system (Kronecker-sum A, manufactured b)."""
-    if operator != "kron":
-        raise NotImplementedError(
-            f"operator={operator!r}: the banded StencilMatrix path is ROADMAP "
-            "slice 3; this port has operator='kron' only")
+                    operator: str = "banded", device="cpu") -> PoissonProblem:
+    """Assemble the d-D Poisson system (stiffness A, manufactured b).
+
+    ``operator="banded"`` materializes the full (2p+1)^d-per-point band on
+    ``device``; ``"kron"`` keeps A in the O(n) Kronecker-sum form.
+    """
+    if operator not in ("banded", "kron"):
+        raise ValueError(f"operator={operator!r}: 'banded' or 'kron'")
     if isinstance(n_el, int):
         n_el = (n_el,) * dim
     n_el = tuple(int(x) for x in n_el)
@@ -52,7 +59,12 @@ def poisson_problem(dim: int, n_el, degree: int = 3,
     splines = tuple(assemble_spline_1d(ne, degree) for ne in n_el)
     space = StencilVectorSpace(npts=tuple(s.n for s in splines), pads=degree,
                                periodic=False, dtype=dtype, device=device)
-    A = _kron_operator_from_1d([(s.K, s.M) for s in splines], space)
+    bands_1d = [(s.K, s.M) for s in splines]
+    if operator == "kron":
+        A = _kron_operator_from_1d(bands_1d, space)
+    else:
+        A = StencilMatrix.from_band_t(
+            space, _kron_sum_band(bands_1d, dtype, space.device))
     # b = d π² ⊗_a s_a as a broadcast outer product (same order of
     # multiplies as the JAX package, so the f64 RHS is bitwise equal)
     moments = [torch.as_tensor(sin_moment_1d(s, m=1, interior=True),

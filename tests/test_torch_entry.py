@@ -22,6 +22,11 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import poms_tpu_torch, poms_tpu_torch.convert\n"
         "import poms_tpu_torch.bench.one_pcg, poms_tpu_torch.ops.twofloat\n"
+        "import poms_tpu_torch.sparse, poms_tpu_torch.core.matrix\n"
+        "import poms_tpu_torch.ops.dispatch, poms_tpu_torch.mg.solver\n"
+        "import poms_tpu_torch.bench.one_impl\n"
+        "import poms_tpu_torch.bench.kernel_probe\n"
+        "import poms_tpu_torch.bench.profile_banded\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'poms_tpu'))\n"
         "assert not bad, bad\n"
@@ -43,5 +48,30 @@ def test_one_pcg_refuses_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the bench would run")
     proc = _run(["-m", "poms_tpu_torch.bench.one_pcg", "16"])
+    assert proc.returncode != 0
+    assert "RESULT" not in proc.stdout
+
+
+def test_one_impl_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the bench would run")
+    proc = _run(["-m", "poms_tpu_torch.bench.one_impl", "k2", "3", "16",
+                 "3"])
+    assert proc.returncode != 0
+    assert "RESULT" not in proc.stdout
+
+
+def test_kernel_probe_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the probe would run")
+    proc = _run(["-m", "poms_tpu_torch.bench.kernel_probe", "16", "1"])
+    assert proc.returncode != 0
+    assert "RESULT" not in proc.stdout
+
+
+def test_profile_banded_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the profile would run")
+    proc = _run(["-m", "poms_tpu_torch.bench.profile_banded", "8", "2", "1"])
     assert proc.returncode != 0
     assert "RESULT" not in proc.stdout

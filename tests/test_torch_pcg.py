@@ -38,7 +38,7 @@ def _solve_both(precision):
             precision=precision)
         lams = ref_lams(ref.levels, ref.cfg.smoother)
         rres = ref.solve(tol=TOL, maxiter=30)
-    pp = poisson_problem(3, N_EL, degree=DEGREE)
+    pp = poisson_problem(3, N_EL, degree=DEGREE, operator="kron")
     port = MGPreconditionedCG(pp, LEVELS, CycleConfig(
         nu1=1, nu2=1, smoother=SmootherConfig("chebyshev",
                                               cheb_fraction=16.0)),
@@ -96,24 +96,31 @@ def test_solve_compiled_matches_solve(solved):
 def test_dw_b_pair_and_unported_options():
     from poms_tpu_torch.ops.twofloat import split_f64
 
-    pp = poisson_problem(3, 8, degree=2)
+    pp = poisson_problem(3, 8, degree=2, operator="kron")
     cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
         "chebyshev", cheb_fraction=16.0))
-    pcg = MGPreconditionedCG(pp, 2, cfg, precision="dw")
+    pcg = MGPreconditionedCG(pp, 2, cfg, operator="kron", precision="dw")
     x, rn, it = pcg.solve_compiled(tol=TOL, maxiter=30)
     x2, rn2, it2 = pcg.solve_compiled(
         tol=TOL, maxiter=30, b_pair=split_f64(pp.b.interior))
     assert it2 == it and torch.equal(x2.interior, x.interior)
     with pytest.raises(NotImplementedError):
-        MGPreconditionedCG(pp, 2, cfg, precision="dwrr")
+        MGPreconditionedCG(pp, 2, cfg, operator="kron", precision="dwrr")
     with pytest.raises(NotImplementedError):
-        MGPreconditionedCG(pp, 2, cfg, low_dtype=torch.bfloat16)
+        MGPreconditionedCG(pp, 2, cfg, operator="kron",
+                           low_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         MixedPrecisionMG(pp, 2)
-    with pytest.raises(NotImplementedError):
-        poisson_problem(3, 8, operator="banded")
     with pytest.raises(ValueError):
-        MGPreconditionedCG(pp, 2, cfg, mixed=False, precision="dw")
+        MGPreconditionedCG(pp, 2, cfg, operator="kron", mixed=False,
+                           precision="dw")
+    # the double-word apply needs the Kronecker-sum operator, as in the
+    # JAX package (poms_tpu/mg/mixed.py:401-404)
+    banded = poisson_problem(3, 8, degree=2)
+    with pytest.raises(ValueError):
+        MGPreconditionedCG(banded, 2, cfg, precision="dw")
+    with pytest.raises(ValueError):
+        RefPCG(ref_problem(3, 8, degree=2), 2, RefCycle(), precision="dw")
 
 
 def test_f64_unmixed_matches_jax():
@@ -126,7 +133,8 @@ def test_f64_unmixed_matches_jax():
             operator="kron", precision="f64")
         lams = ref_lams(ref.levels, ref.cfg.smoother)
         rres = ref.solve(tol=TOL, maxiter=30)
-    port = MGPreconditionedCG(poisson_problem(3, 8, degree=3), 2, CycleConfig(
+    port = MGPreconditionedCG(poisson_problem(3, 8, degree=3,
+                                              operator="kron"), 2, CycleConfig(
         **cheb, smoother=SmootherConfig("chebyshev", cheb_fraction=16.0)),
         mixed=False, operator="kron", precision="f64")
     assert port.levels_pre is port.levels
@@ -139,3 +147,42 @@ def test_f64_unmixed_matches_jax():
     assert want.dtype == np.float64
     assert (np.abs(pres.x.interior.numpy() - want).max()
             <= 1e-9 * np.abs(want).max())
+
+
+def test_banded_f64_mixed_pcg_matches_jax():
+    """The banded path end to end: f64-mixed PCG (f64 recurrences and K2
+    f64 SpMV, f32 banded V-cycle) at 16³ p3, 2 levels, against the JAX
+    reference run eagerly, with the reference's λs: equal iterations,
+    histories within 1e-3 through iteration 3 and 5e-2 after.
+
+    The f32 smoothing is bitwise equal to the reference's eager run; the
+    only rounding difference is the f32 coarse triangular solves (4e-7
+    relative), which PCG amplifies to 2.7e-3 at iteration 4 (measured).
+    The reference's own jitted and eager runs differ by 9e-4 there and by
+    up to 9e-2 later, so the bound stops at iteration 3."""
+    cyc = dict(nu1=1, nu2=1)
+    with jax.disable_jit():
+        rp = ref_problem(3, N_EL, degree=DEGREE)
+        ref = RefPCG(rp, LEVELS, RefCycle(**cyc, smoother=RefSmoother(
+            "chebyshev", cheb_fraction=16.0)), mixed=True, precision="f64")
+        lams = ref_lams(ref.levels, ref.cfg.smoother)
+        rres = ref.solve(tol=TOL, maxiter=30)
+    pp = poisson_problem(3, N_EL, degree=DEGREE)
+    port = MGPreconditionedCG(pp, LEVELS, CycleConfig(
+        **cyc, smoother=SmootherConfig("chebyshev", cheb_fraction=16.0)),
+        mixed=True, precision="f64")
+    assert port.levels_pre[0].A.band_t.dtype == torch.float32
+    port.lams = convert.lams(lams)
+    pres = port.solve(tol=TOL, maxiter=30)
+    assert rres.converged and pres.converged
+    assert pres.iterations == rres.iterations, (pres.iterations,
+                                                rres.iterations)
+    for i, (a, b) in enumerate(zip(pres.residuals, rres.residuals)):
+        tol = 1e-3 if i <= 3 else 5e-2
+        assert abs(a - b) <= tol * b, (i, a, b)
+    r = pp.b.interior - pp.A.dot(pres.x).interior
+    assert float(torch.linalg.vector_norm(r)) <= 5e-10
+    want = np.asarray(rres.x.interior)
+    assert want.dtype == np.float64
+    assert (np.abs(pres.x.interior.numpy() - want).max()
+            <= 1e-6 * np.abs(want).max())
