@@ -49,17 +49,33 @@ exception is caught, so any failure exits non-zero:
 10. banded check — phase 8's solve at n_el = 16 on the card and on the
              CPU's plain versions, with the card's λs: same iterations,
              solutions within 1e-6 of max|x|.
+11. K3      — the v2 engine's kernel in each mode, f32 and f64, against its
+             plain version (from the same pack) at every K2 shape, with K2's
+             tolerances and the RB-GS other-colour bit-equality; device and
+             stream times of K3, K2 and plain at 129³ and 128³ p3 f32, with
+             GB/s, Gnnz/s and % of K4.
+12. v2 banded — POMS_TPU_SPMV=v2 set in-process (restored after): phases 8
+             and 9 again through K3 (every banded level packed once at
+             setup): the PCG in phase 8's iteration count with a true f64
+             residual ≤ 5e-10, the MG runs converging as there; K3 launched
+             in all four modes and K2 not at all.
+13. probes  — K4c (compute), K4v (v15) and K4a (ablate: full, noshift,
+             nolane, nomul) against their plain versions at 32³ and 128³ p3
+             f32; each probe's timing path (probe_compute, probe_v15,
+             probe_ablate) at 128³ p3, and one table of device times beside
+             K4, K2 and K3.
 
 Prints the card's name and power limit early, one JSON line of per-kernel
 results before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The launch counts of the JSON line come from the paths, each counted from
 0 just before it: K1 from phase 4, K4 from phase 6's ceiling, K2 from
-phases 8 and 9; launches made to compare a kernel with its plain version
-are not counted.
+phases 8 and 9, K3 from phase 12, the probes from phase 13's timing paths;
+launches made to compare a kernel with its plain version are not counted.
 """
 import json
 import math
+import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -68,6 +84,7 @@ import numpy as np
 import torch
 
 from poms_tpu_torch.bench.device import nvidia_smi_name_power
+from poms_tpu_torch.bench import kernel_probe as kp
 from poms_tpu_torch.bench.kernel_probe import (cuda_event_ms, make_band,
                                                probe_stream, stream_probe,
                                                stream_probe_plain)
@@ -82,6 +99,8 @@ from poms_tpu_torch.ops import _build
 from poms_tpu_torch.ops.kron import kron_apply, kron_apply_plain
 from poms_tpu_torch.ops.stencil import (MODES, color_mask, stencil_apply,
                                         stencil_apply_plain)
+from poms_tpu_torch.ops.stencil_v2 import (pack_band_v2, stencil_apply_v2,
+                                           stencil_apply_v2_plain)
 from poms_tpu_torch.ops.twofloat import (dw_add, dw_mul, split_f64,
                                          two_prod, two_sum)
 
@@ -104,9 +123,11 @@ K2_SHAPES = [((129, 129, 129), (3, 3, 3), (False,) * 3, (1, 0, 0)),
 K2_SHAPES += [((n, n), (3, 3), (False, False), (0, 1))
               for n in (513, 257, 129, 65, 33)]
 K2_REPLACES = {"spmv": 343, "residual": 349, "jacobi": 359, "rbgs": 369}
+K3_REPLACES = {"spmv": 795, "residual": 802, "jacobi": 813, "rbgs": 823}
 # banded multigrid: 3D RB-GS cycles and the 2D Jacobi solve (n_el, levels)
 BANDED_MG = dict(rbgs=(128, 5), jacobi=(512, 6))
 K4_SIZE = (128, 3)   # the stream probe's (n, p): a 129^3 p3 band's size
+PROBE_SIZES = (32, 128)   # p = 3, f32; the probes are timed at 128^3
 
 
 def log(msg):
@@ -145,7 +166,8 @@ def _device_ms(fn, reps=20):
 
 
 def phase_build():
-    names = ("kron_apply", "stencil_apply", "stream_probe")
+    names = ("kron_apply", "stencil_apply", "stream_probe",
+             "stencil_apply_v2", "probe_v15")
     t0 = time.perf_counter()
 
     def build(name):
@@ -351,7 +373,26 @@ def _k2_operands(npts, pads, periodic, dtype, dev, seed):
     return band, ghost_pad(x, pads, periodic).contiguous(), b
 
 
-def phase_k2(dev, k4_gbps):
+def _engine(name):
+    """(kernel, plain) of K2 or K3 with K2's signature; K3 packs the band
+    once per operand set (``prepare``), as an operator does at setup."""
+    if name == "K2":
+        return (lambda band, npts, pads: None,
+                lambda mode, band, pk, *a, **kw: stencil_apply(
+                    mode, band, *a, **kw),
+                lambda mode, band, pk, *a, **kw: stencil_apply_plain(
+                    mode, band, *a, **kw))
+    return (pack_band_v2,
+            lambda mode, band, pk, *a, **kw: stencil_apply_v2(
+                mode, band, *a, packed=pk, **kw),
+            lambda mode, band, pk, *a, **kw: stencil_apply_v2_plain(
+                mode, pk, *a, **kw))
+
+
+def phase_stencil(dev, k4_gbps, name):
+    """K2 or K3 (``name``): every mode and dtype against the plain version
+    at every K2 shape; device and stream times at 129^3 p3 f32."""
+    prepare, kernel_fn, plain_fn = _engine(name)
     result = {m: {"max_abs_err": 0.0} for m in MODES}
     for npts, pads, periodic, starts in K2_SHAPES:
         zero = (0,) * len(npts)
@@ -360,65 +401,97 @@ def phase_k2(dev, k4_gbps):
         for dtype in (torch.float32, torch.float64):
             band, x_pad, b = _k2_operands(npts, pads, periodic, dtype, dev,
                                           seed=sum(npts))
+            pk = prepare(band, npts, pads)
             x_int = x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
             rels = []
             for mode, color, st in runs:
                 kw = dict(b=None if mode == "spmv" else b,
                           omega=0.8 if mode in ("jacobi", "rbgs") else None,
                           color=color, starts=st)
-                y = stencil_apply(mode, band, x_pad, npts, pads, **kw)
+                y = kernel_fn(mode, band, pk, x_pad, npts, pads, **kw)
                 torch.cuda.synchronize()
-                want = stencil_apply_plain(mode, band, x_pad, npts, pads,
-                                           **kw)
+                want = plain_fn(mode, band, pk, x_pad, npts, pads, **kw)
                 err = float((y - want).abs().max())
                 rel = err / float(want.abs().max())
                 rels.append(rel)
                 if not (math.isfinite(rel) and rel <= K1_TOL[dtype]):
-                    raise AssertionError(f"K2 {mode} disagrees at {npts} "
+                    raise AssertionError(f"{name} {mode} disagrees at {npts} "
                                          f"{dtype} starts={st}: {rel}")
                 if mode == "rbgs":
                     other = ~color_mask(npts, color, st, device=dev)
                     if not torch.equal(y[other], x_int[other]):
-                        raise AssertionError("K2 rbgs changed points of the "
-                                             f"other colour at {npts}")
+                        raise AssertionError(f"{name} rbgs changed points of "
+                                             f"the other colour at {npts}")
                 if (npts == (129,) * 3 and dtype == torch.float32
                         and st == zero and color == 0):
                     result[mode]["max_abs_err"] = err
 
                     def kernel(mode=mode, kw=kw):
-                        return stencil_apply(mode, band, x_pad, npts, pads,
-                                             **kw)
+                        return kernel_fn(mode, band, pk, x_pad, npts, pads,
+                                         **kw)
 
                     def plain(mode=mode, kw=kw):
-                        return stencil_apply_plain(mode, band, x_pad, npts,
-                                                   pads, **kw)
+                        return plain_fn(mode, band, pk, x_pad, npts, pads,
+                                        **kw)
 
                     result[mode]["ms"] = _device_ms(kernel)
                     result[mode]["plain_ms"] = _device_ms(plain)
                     result[mode]["events"] = (cuda_event_ms(kernel),
                                               cuda_event_ms(plain))
                 del y, want
-            log(f"[K2] {npts} p={pads} periodic={periodic} {dtype}: rel err "
-                + " ".join(f"{m}{'' if m != 'rbgs' else f'(c{c},s{s})'}"
-                           f"={r:.2e}" for (m, c, s), r in zip(runs, rels)))
-            del band, x_pad, b, x_int
+            log(f"[{name}] {npts} p={pads} periodic={periodic} {dtype}: rel "
+                "err " + " ".join(
+                    f"{m}{'' if m != 'rbgs' else f'(c{c},s{s})'}={r:.2e}"
+                    for (m, c, s), r in zip(runs, rels)))
+            del band, pk, x_pad, b, x_int
             torch.cuda.empty_cache()
     points, terms = 129 ** 3, 343
     nbytes, nnz = (terms + 2) * points * 4, terms * points
     for mode in MODES:
         r = result[mode]
-        log(f"[K2] 129^3 p3 f32 {mode}: device time (profiler, mean of 20) "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; stream "
-            f"time (CUDA events, host overhead included) kernel "
+        log(f"[{name}] 129^3 p3 f32 {mode}: device time (profiler, mean of "
+            f"20) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+            f"stream time (CUDA events, host overhead included) kernel "
             f"{r['events'][0]:.4f} ms, plain {r['events'][1]:.4f} ms")
     r = result["spmv"]
     for who, ms in (("kernel", r["ms"]), ("plain", r["plain_ms"])):
         gbps = nbytes / (ms * 1e-3) / 1e9
-        log(f"[K2] 129^3 p3 f32 spmv {who}: {gbps:.1f} GB/s, "
+        log(f"[{name}] 129^3 p3 f32 spmv {who}: {gbps:.1f} GB/s, "
             f"{nnz / (ms * 1e-3) / 1e9:.2f} Gnnz/s (device time; "
             f"(terms + 2) * points * 4 bytes), {100 * gbps / k4_gbps:.1f}% "
             f"of K4's {k4_gbps:.1f} GB/s")
     return result
+
+
+def phase_k3_times(dev, k4_gbps):
+    """K3, K2 and plain spmv at 128^3 and 129^3 p3 f32 on one band: device
+    time (profiler) and stream time (CUDA events), GB/s, Gnnz/s, % of K4;
+    K3's pack against the band's bytes."""
+    out = {}
+    for n in (128, 129):
+        npts, pads = (n,) * 3, (3,) * 3
+        band, x_pad, _ = _k2_operands(npts, pads, (False,) * 3,
+                                      torch.float32, dev, seed=n)
+        pk = pack_band_v2(band, npts, pads)
+        log(f"[K3] {n}^3 p3 f32 pack: {pk['blk'].numel() / band.numel():.4f}"
+            f" x the band's bytes (tile {pk['tile']}, lanes to {pk['N'][2]})")
+        fns = {"K3": lambda: stencil_apply_v2("spmv", band, x_pad, npts,
+                                               pads, packed=pk),
+               "K2": lambda: stencil_apply("spmv", band, x_pad, npts, pads),
+               "plain": lambda: stencil_apply_plain("spmv", band, x_pad,
+                                                    npts, pads)}
+        nbytes, nnz = 345 * n ** 3 * 4, 343 * n ** 3
+        for who in ("K3", "K2", "plain", "K3", "K2"):
+            ms, ev = _device_ms(fns[who]), cuda_event_ms(fns[who])
+            gbps = nbytes / (ms * 1e-3) / 1e9
+            out[(n, who)] = ms
+            log(f"[K3] {n}^3 p3 f32 spmv {who}: device {ms:.4f} ms, events "
+                f"{ev:.4f} ms; {gbps:.1f} GB/s, "
+                f"{nnz / (ms * 1e-3) / 1e9:.2f} Gnnz/s, "
+                f"{100 * gbps / k4_gbps:.1f}% of K4")
+        del band, x_pad, pk
+        torch.cuda.empty_cache()
+    return out
 
 
 def _banded_pcg(n_el, levels, dev):
@@ -432,15 +505,22 @@ def _banded_pcg(n_el, levels, dev):
     return prob, pcg
 
 
-def _reset_k2():
-    for mode in MODES:
-        stencil_apply.launches[mode] = 0
+_WRAPPERS = {"K2": stencil_apply, "K3": stencil_apply_v2}
 
 
-def phase_banded_pcg(dev, l2_kron):
+def _reset_counts():
+    for wrapper in _WRAPPERS.values():
+        for mode in MODES:
+            wrapper.launches[mode] = 0
+
+
+def phase_banded_pcg(dev, l2_kron, name="K2"):
+    """The 128^3 banded f64-mixed PCG through ``name`` (K3: the v2 engine
+    is selected by the caller); returns (launches, iterations)."""
     h = HEADLINE
+    counts = _WRAPPERS[name].launches
     torch.cuda.synchronize()
-    _reset_k2()
+    _reset_counts()
     t0 = time.perf_counter()
     prob, pcg = _banded_pcg(h["n_el"], h["levels"], dev)
     torch.cuda.synchronize()
@@ -449,19 +529,19 @@ def phase_banded_pcg(dev, l2_kron):
     res = pcg.solve(tol=h["tol"], maxiter=h["maxiter"])
     torch.cuda.synchronize()
     first = time.perf_counter() - t1
-    launches = dict(stencil_apply.launches)
+    launches = dict(counts)
     x = res.x.interior
     assert tuple(x.shape) == prob.space.npts and bool(torch.isfinite(x).all())
-    log(f"[banded PCG] {h['n_el'] + 1}^3 f64-mixed PCG, banded operator: "
-        f"{res.iterations} iterations, converged={res.converged}, history "
-        f"{['%.3e' % r for r in res.residuals]}")
+    log(f"[banded PCG {name}] {h['n_el'] + 1}^3 f64-mixed PCG, banded "
+        f"operator: {res.iterations} iterations, converged={res.converged}, "
+        f"history {['%.3e' % r for r in res.residuals]}")
     assert res.converged, res.residuals
     true_rn = float(torch.linalg.vector_norm(
         prob.b.interior - prob.A.dot(res.x).interior))
     l2 = l2_error_manufactured(prob, res.x)
-    log(f"[banded PCG] final |r| {res.residuals[-1]:.3e}, true f64 "
-        f"|b - Ax| {true_rn:.3e} (K2 f64 spmv), L2 error vs manufactured "
-        f"{l2:.3e} (kron dw solve: {l2_kron:.3e})")
+    log(f"[banded PCG {name}] final |r| {res.residuals[-1]:.3e}, true f64 "
+        f"|b - Ax| {true_rn:.3e} ({name} f64 spmv), L2 error vs "
+        f"manufactured {l2:.3e} (kron dw solve: {l2_kron:.3e})")
     assert true_rn <= 5e-10, true_rn
     assert launches["spmv"] > 0 and launches["residual"] > 0, launches
     t2 = time.perf_counter()
@@ -469,15 +549,20 @@ def phase_banded_pcg(dev, l2_kron):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t2
     assert float(rn) <= h["tol"] and it == res.iterations, (float(rn), it)
-    log(f"[banded PCG] cold setup (band, hierarchy, lambda) {cold:.3f} s; "
-        f"first solve {first:.3f} s; warm solve {warm:.3f} s = "
-        f"{warm / it * 1e3:.2f} ms/iteration; K2 launches {launches}; peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    log(f"[banded PCG {name}] cold setup (band, hierarchy, lambda"
+        f"{', packs' if name == 'K3' else ''}) {cold:.3f} s; first solve "
+        f"{first:.3f} s; warm solve {warm:.3f} s = "
+        f"{warm / it * 1e3:.2f} ms/iteration; {name} launches {launches}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, res.iterations
 
 
-def phase_banded_mg(dev):
-    _reset_k2()
+def phase_banded_mg(dev, name="K2"):
+    """Banded RB-GS cycles at 128^3 and the 2D Jacobi solve at 512^2
+    through ``name``; returns the launches per mode."""
+    counts = _WRAPPERS[name].launches
+    _reset_counts()
     n_el, levels = BANDED_MG["rbgs"]
     prob = poisson_problem(3, n_el, degree=3, dtype=torch.float64,
                            device=dev)
@@ -485,12 +570,12 @@ def phase_banded_mg(dev):
         nu1=2, nu2=2, smoother=SmootherConfig("rbgs", omega=1.0)))
     res = mg.solve(tol=1e-10, maxiter=3)
     torch.cuda.synchronize()
-    rbgs = dict(stencil_apply.launches)
-    log(f"[banded MG] {n_el + 1}^3 p3 RB-GS V(2,2), {levels} levels: "
+    rbgs = dict(counts)
+    log(f"[banded MG {name}] {n_el + 1}^3 p3 RB-GS V(2,2), {levels} levels: "
         f"residuals "
         f"{['%.3e' % r for r in res.residuals]}, factors "
         f"{['%.3f' % f for f in res.convergence_factors]}, wall/cycle "
-        f"{['%.3f s' % w for w in res.wall_times]}; K2 launches {rbgs}")
+        f"{['%.3f s' % w for w in res.wall_times]}; {name} launches {rbgs}")
     assert len(res.residuals) == 4 and all(
         b < a for a, b in zip(res.residuals, res.residuals[1:])), \
         res.residuals
@@ -498,7 +583,7 @@ def phase_banded_mg(dev):
     del prob, mg, res
     torch.cuda.empty_cache()
 
-    _reset_k2()
+    _reset_counts()
     t0 = time.perf_counter()
     n_el, levels = BANDED_MG["jacobi"]
     prob = poisson_problem(2, n_el, degree=3, dtype=torch.float64, device=dev)
@@ -507,18 +592,115 @@ def phase_banded_mg(dev):
     setup = time.perf_counter() - t0
     res = mg.solve(tol=1e-10, maxiter=200)
     torch.cuda.synchronize()
-    jac = dict(stencil_apply.launches)
-    log(f"[banded MG] {n_el + 1}^2 p3 Jacobi(0.8) V(2,2), {levels} levels: "
-        f"{res.iterations} cycles, converged={res.converged}, final |r| "
-        f"{res.residuals[-1]:.3e}, median factor "
+    jac = dict(counts)
+    log(f"[banded MG {name}] {n_el + 1}^2 p3 Jacobi(0.8) V(2,2), {levels} "
+        f"levels: {res.iterations} cycles, converged={res.converged}, final "
+        f"|r| {res.residuals[-1]:.3e}, median factor "
         f"{float(np.median(res.convergence_factors)):.3f}, setup (host "
         f"SpGEMM RAP) {setup:.3f} s, solve {sum(res.wall_times):.3f} s; "
-        f"K2 launches {jac}")
+        f"{name} launches {jac}")
     assert res.converged, res.residuals[-5:]
     assert jac["jacobi"] > 0, jac
     del prob, mg, res
     torch.cuda.empty_cache()
     return {m: rbgs[m] + jac[m] for m in MODES}
+
+
+def phase_v2_banded(dev, l2_kron, k2_iterations):
+    """Phases 8 and 9 under POMS_TPU_SPMV=v2: every banded apply is K3."""
+    before = os.environ.get("POMS_TPU_SPMV")
+    os.environ["POMS_TPU_SPMV"] = "v2"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        pcg, iterations = phase_banded_pcg(dev, l2_kron, "K3")
+        k2_pcg = dict(stencil_apply.launches)
+        torch.cuda.empty_cache()
+        mg = phase_banded_mg(dev, "K3")
+        k2_mg = dict(stencil_apply.launches)
+    finally:
+        if before is None:
+            del os.environ["POMS_TPU_SPMV"]
+        else:
+            os.environ["POMS_TPU_SPMV"] = before
+    assert iterations == k2_iterations, (iterations, k2_iterations)
+    k3 = {m: pcg[m] + mg[m] for m in MODES}
+    k2 = {m: k2_pcg[m] + k2_mg[m] for m in MODES}
+    log(f"[v2 banded] K3 launches {k3}; K2 launches {k2}")
+    missing = [m for m in MODES if not k3[m] > 0]
+    assert not missing, f"the v2 banded paths never launched K3 in {missing}"
+    assert not any(k2.values()), f"K2 ran under the v2 engine: {k2}"
+    return k3
+
+
+def phase_probes(dev, k4_gbps, times):
+    """K4c, K4v and K4a against their plain versions, then each probe's
+    timing path at 128^3 p3 f32 and a table of device times beside K4, K2
+    and K3 (``times`` from phase_k3_times)."""
+    variants = ("compute",) + kp.ABLATE_VARIANTS
+    err = dict.fromkeys(variants + ("v15",), 0.0)
+    for n in PROBE_SIZES:
+        npts, pads = (n,) * 3, (3,) * 3
+        band, x_pad = kp.probe_operands(n, 3, dev, seed=n)
+        rels = {}
+        for v in variants + ("v15",):
+            y = (kp.v15_apply(band, x_pad, npts, pads) if v == "v15"
+                 else kp.stencil_probe(v, band, x_pad, npts, pads))
+            torch.cuda.synchronize()
+            want = (stencil_apply_plain("spmv", band, x_pad, npts, pads)
+                    if v == "v15"
+                    else kp.stencil_probe_plain(v, band, x_pad, npts, pads))
+            e = float((y - want).abs().max())
+            rels[v] = e / float(want.abs().max())
+            if not (math.isfinite(rels[v]) and rels[v] <= 1e-5):
+                raise AssertionError(f"probe {v} disagrees at {n}^3: "
+                                     f"{rels[v]}")
+            if n == 128:
+                err[v] = e
+            del y, want
+        log(f"[probes] {n}^3 p3 f32 against plain, max|d|/max|y|: "
+            + " ".join(f"{v}={r:.2e}" for v, r in rels.items()))
+        del band, x_pad
+        torch.cuda.empty_cache()
+
+    # the timing paths, counted from 0
+    for v in kp.PROBE_VARIANTS:
+        kp.stencil_probe.launches[v] = 0
+    kp.v15_apply.launches = 0
+    n, p = 128, 3
+    kp.probe_compute(n, p)
+    kp.probe_v15(n, p)
+    for v in kp.ABLATE_VARIANTS:
+        kp.probe_ablate(n, p, v)
+    launches = dict(kp.stencil_probe.launches, v15=kp.v15_apply.launches)
+
+    band, x_pad = kp.probe_operands(n, p, dev)
+    args = (band, x_pad, (n,) * 3, (p,) * 3)
+    fns = {v: (lambda v=v: kp.stencil_probe(v, *args)) for v in variants}
+    fns["v15"] = lambda: kp.v15_apply(*args)
+    plain = {v: (lambda v=v: kp.stencil_probe_plain(v, *args))
+             for v in variants}
+    plain["v15"] = lambda: stencil_apply_plain("spmv", *args)
+    out = {v: {"launches": launches[v], "max_abs_err": err[v],
+               "ms": _device_ms(fns[v]), "plain_ms": _device_ms(plain[v])}
+           for v in variants + ("v15",)}
+    del band, x_pad, args, fns, plain
+    torch.cuda.empty_cache()
+    floor = 343 * n ** 3 * 4 / (k4_gbps * 1e9) * 1e3
+    rows = [("K4 stream (library layout), band bytes only", floor),
+            ("K2 spmv", times[(128, "K2")]), ("K3 spmv", times[(128, "K3")]),
+            ("K4a full (K2's template)", out["full"]["ms"]),
+            ("K4a noshift (axis-1 x offset 0)", out["noshift"]["ms"]),
+            ("K4a nolane (axis-2 x offset 0)", out["nolane"]["ms"]),
+            ("K4a nomul (no band read)", out["nomul"]["ms"]),
+            ("K4c compute (band of tile 0 only)", out["compute"]["ms"]),
+            ("K4v v15 (plane reuse, t0=8 t2=8)", out["v15"]["ms"])]
+    log(f"[probes] {n}^3 p3 f32, device time (profiler, mean of 20; K4 row: "
+        "343 n^3 * 4 bytes at K4's GB/s):")
+    for label, ms in rows:
+        log(f"[probes]   {label:44s} {ms:8.4f} ms")
+    missing = [v for v in out if not out[v]["launches"] > 0]
+    assert not missing, f"the probe paths never launched {missing}"
+    return out
 
 
 def phase_banded_check(dev):
@@ -536,6 +718,9 @@ def phase_banded_check(dev):
     assert rc.converged and rh.converged
     assert rc.iterations == rh.iterations, (rc.iterations, rh.iterations)
     assert rel <= 1e-6, rel
+
+
+T_START = time.perf_counter()
 
 
 def main():
@@ -556,15 +741,19 @@ def main():
     phase_check(dev, solve["l2"])
     torch.cuda.empty_cache()
     k4 = phase_k4(dev)
-    k2 = phase_k2(dev, k4["gbps"])
+    k2 = phase_stencil(dev, k4["gbps"], "K2")
     torch.cuda.reset_peak_memory_stats()
-    pcg_launches = phase_banded_pcg(dev, solve["l2"])
+    pcg_launches, k2_iterations = phase_banded_pcg(dev, solve["l2"])
     torch.cuda.empty_cache()
     mg_launches = phase_banded_mg(dev)
     phase_banded_check(dev)
     k2_launches = {m: pcg_launches[m] + mg_launches[m] for m in MODES}
     missing = [m for m in MODES if not k2_launches[m] > 0]
     assert not missing, f"the banded paths never launched K2 in {missing}"
+    k3 = phase_stencil(dev, k4["gbps"], "K3")
+    times = phase_k3_times(dev, k4["gbps"])
+    k3_launches = phase_v2_banded(dev, solve["l2"], k2_iterations)
+    probes = phase_probes(dev, k4["gbps"], times)
     kernels = [{
         "name": "kron_apply", "route": "cuda",
         "source": "poms_tpu_torch/csrc/kron_apply.cu",
@@ -583,6 +772,21 @@ def main():
         "replaces": "poms_tpu/bench/kernel_probe.py:85",
         "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
         "ms": k4["ms"], "plain_ms": k4["plain_ms"]})
+    kernels += [{
+        "name": f"stencil_apply_v2.{m}", "route": "cuda",
+        "source": "poms_tpu_torch/csrc/stencil_apply_v2.cu",
+        "replaces": f"poms_tpu/ops/pallas/spmv.py:{K3_REPLACES[m]}",
+        "launches": k3_launches[m], "max_abs_err": k3[m]["max_abs_err"],
+        "ms": k3[m]["ms"], "plain_ms": k3[m]["plain_ms"]} for m in MODES]
+    probe_rows = [("compute", "stencil_apply.cu", 145)]
+    probe_rows += [("v15", "probe_v15.cu", 266)]
+    probe_rows += [(v, "stencil_apply.cu", 392) for v in kp.ABLATE_VARIANTS]
+    kernels += [{
+        "name": f"stencil_probe.{v}" if v != "v15" else "probe_v15",
+        "route": "cuda", "source": f"poms_tpu_torch/csrc/{src}",
+        "replaces": f"poms_tpu/bench/kernel_probe.py:{line}",
+        **probes[v]} for v, src, line in probe_rows]
+    log(f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

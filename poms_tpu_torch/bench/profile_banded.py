@@ -13,8 +13,9 @@ loop makes (one host sync per iteration):
   around the iterations) and ``busy_ms`` (the trace's device intervals —
   kernels, copies, memsets — merged), so ``idle_share`` =
   1 − busy_ms / profiled_step_ms is measured, not inferred;
-- ``kernel_ms``, ``kernels`` and ``k2_ms``: device time, launches and K2's
-  share of it per iteration, from the same trace;
+- ``kernel_ms``, ``kernels``, ``k2_ms`` and ``k3_ms``: device time,
+  launches and the banded kernels' share of it per iteration, from the
+  same trace (K3 under ``POMS_TPU_SPMV=v2``, which ``engine`` names);
 - ``ap_ms`` and ``precond_ms``: CUDA events around the f64 A·p (ghost
   refresh included) and the f32 V-cycle alone.
 
@@ -54,6 +55,8 @@ def main():
     from poms_tpu_torch.mg.mixed import MGPreconditionedCG
     from poms_tpu_torch.mg.smoother import SmootherConfig
     from poms_tpu_torch.models.poisson import poisson_problem
+    from poms_tpu_torch.ops import dispatch
+    from poms_tpu_torch.ops.stencil_v2 import stencil_apply_v2
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_banded measures the card: no CUDA device "
@@ -98,8 +101,10 @@ def main():
                     if e.device_type == DeviceType.CUDA),
                    key=lambda e: -e.self_device_time_total)
     kernel_ms = sum(e.self_device_time_total for e in stats) / 1e3 / reps
-    k2_ms = sum(e.self_device_time_total for e in stats
-                if "stencil_apply_kernel" in e.key) / 1e3 / reps
+
+    def share(kernel):
+        return sum(e.self_device_time_total for e in stats
+                   if kernel in e.key) / 1e3 / reps
     for e in stats[:12]:
         print(f"{e.self_device_time_total / 1e3 / reps:9.4f} ms "
               f"{e.count / reps:7.1f}x  {e.key[:100]}", flush=True)
@@ -113,7 +118,10 @@ def main():
         "levels": levels, "reps": reps, "step_ms": step_ms,
         "profiled_step_ms": profiled_ms, "busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / profiled_ms, "kernel_ms": kernel_ms,
-        "kernels": sum(e.count for e in stats) / reps, "k2_ms": k2_ms,
+        "kernels": sum(e.count for e in stats) / reps,
+        "k2_ms": share("stencil_apply_kernel"),
+        "k3_ms": share("stencil_apply_v2_kernel"),
+        "engine": "v2" if dispatch.engine() is stencil_apply_v2 else "v1",
         "ap_ms": ap_ms, "precond_ms": precond_ms,
         "device": torch.cuda.get_device_name(0), "power_limit": power}),
         flush=True)

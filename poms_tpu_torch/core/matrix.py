@@ -10,7 +10,10 @@ space's device in the space's dtype.
 
 Conversions (COO/CSR/BSR/dense) run on the host in numpy, at setup and in
 tests.  The hot path is :meth:`StencilMatrix.dot` →
-:func:`poms_tpu_torch.ops.dispatch.spmv`.
+:func:`poms_tpu_torch.ops.dispatch.spmv`.  Under the v2 engine
+(``POMS_TPU_SPMV=v2``) :meth:`StencilMatrix.ensure_packed_v2` relays the
+band out once for K3 (:func:`poms_tpu_torch.ops.stencil_v2.pack_band_v2`)
+and :meth:`dot` and :meth:`residual` pass the pack on.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from poms_tpu_torch.core.space import StencilVectorSpace
 from poms_tpu_torch.core.vector import StencilVector
 from poms_tpu_torch.ops import dispatch
+from poms_tpu_torch.ops.stencil_v2 import pack_band_v2, stencil_apply_v2
 
 __all__ = ["StencilMatrix"]
 
@@ -39,7 +43,7 @@ class StencilMatrix:
     checks it).
     """
 
-    __slots__ = ("space", "band_t")
+    __slots__ = ("space", "band_t", "_packed_v2")
 
     def __init__(self, space: StencilVectorSpace, band=None, *, band_t=None):
         self.space = space
@@ -53,6 +57,7 @@ class StencilMatrix:
                                  dtype=space.dtype, device=space.device)
         self.band_t = torch.as_tensor(band_t, dtype=space.dtype,
                                       device=space.device).contiguous()
+        self._packed_v2 = None
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -81,21 +86,39 @@ class StencilMatrix:
         return _to_offset_major(self.band_t, self.space.ndim)
 
     # -- linear-operator interface -----------------------------------------
+    def ensure_packed_v2(self) -> "StencilMatrix":
+        """Pack the band for K3 if the v2 engine is selected and it is not
+        packed yet (a no-op otherwise).  Call at setup (hierarchy build,
+        hierarchy cast): the pack is a full band relayout, and it is not
+        refreshed if ``band_t`` is later changed in place."""
+        if self._packed_v2 is None and dispatch.engine() is stencil_apply_v2:
+            sp = self.space
+            self._packed_v2 = pack_band_v2(self.band_t, sp.npts, sp.pads)
+        return self
+
+    @property
+    def packed_v2(self):
+        """The :func:`pack_band_v2` dict if :meth:`ensure_packed_v2`
+        packed the band, else None (the v2 engine then packs per call)."""
+        return self._packed_v2
+
     def dot(self, v: StencilVector) -> StencilVector:
-        """y = A v: refresh the ghosts, then one banded SpMV (K2)."""
+        """y = A v: refresh the ghosts, then one banded SpMV (K2 or K3)."""
         sp = self.space
         vg = v.update_ghost_regions()
-        out = dispatch.spmv(self.band_t, vg.data, sp.npts, sp.pads)
+        out = dispatch.spmv(self.band_t, vg.data, sp.npts, sp.pads,
+                            packed=self._packed_v2)
         return StencilVector.from_interior(sp, out)
 
     def __matmul__(self, v: StencilVector) -> StencilVector:
         return self.dot(v)
 
     def residual(self, x: StencilVector, b: StencilVector) -> torch.Tensor:
-        """Interior of b − A x: one fused K2 pass."""
+        """Interior of b − A x: one fused K2 (or K3) pass."""
         sp = self.space
         return dispatch.residual(self.band_t, x.update_ghost_regions().data,
-                                 b.interior, sp.npts, sp.pads)
+                                 b.interior, sp.npts, sp.pads,
+                                 packed=self._packed_v2)
 
     def diagonal(self) -> torch.Tensor:
         """Main diagonal as an interior-shaped array."""

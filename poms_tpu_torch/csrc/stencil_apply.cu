@@ -36,6 +36,17 @@
 // 64-bit: the 129^3 p = 3 band has 736 M elements (5.9 GB in f64).
 // Later work: compile-time p for full unrolling, TMA/cp.async staging of
 // the band planes, fusion of the ghost refresh.
+//
+// The same template, with one part of the inner loop changed at compile
+// time, is the kernel-limit probes K4c and K4a (stencil_probe_f32, spmv
+// mode, f32, 3D):
+//   compute  (K4c, replaces poms_tpu/bench/kernel_probe.py::probe_compute)
+//            every block reads the band of tile (0, 0, 0), so the band
+//            comes from L1/L2 and the time is K2's arithmetic, shared-memory
+//            reads and x window without the band stream;
+//   noshift, nolane, nomul  (K4a, replaces probe_ablate): the axis-1 x
+//            offset held at 0, the axis-2 x offset held at 0, or no band
+//            read (acc += x).  Their results are deliberately not the SpMV.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +54,9 @@
 namespace {
 
 enum Mode { kSpmv = 0, kResidual = 1, kJacobi = 2, kRbgs = 3 };
+// K2 itself, and the probes' changes to its inner loop
+enum Variant { kFull = 0, kPinBand = 1, kNoShift = 2, kNoLane = 3,
+               kNoMul = 4 };
 
 struct Geometry {
   int n0, n1, n2, p0, p1, p2;
@@ -51,7 +65,7 @@ struct Geometry {
   int64_t pbase;          // global index sum of the field's first point
 };
 
-template <typename T, int T0, int T1, int T2>
+template <typename T, int T0, int T1, int T2, int V>
 __global__ void __launch_bounds__(T1 * T2)
 stencil_apply_kernel(const T* __restrict__ band, const T* __restrict__ xp,
                      const T* __restrict__ b, T* __restrict__ out, T omega,
@@ -92,14 +106,22 @@ stencil_apply_kernel(const T* __restrict__ band, const T* __restrict__ xp,
 #pragma unroll
   for (int i = 0; i < T0; ++i) acc[i] = T(0);
 
-  const T* bk = band + pt0;
+  // the compute probe reads the band at the same point of tile (0, 0, 0)
+  const T* bk = band + (V == kPinBand ? (int64_t)tj * g.n2 + tl : pt0);
   for (int k0 = 0; k0 < w0; ++k0) {
     for (int k1 = 0; k1 < w1; ++k1) {
-      const T* xrow = xw + (k0 * W1 + tj + k1) * W2 + tl;
+      const int s1 = V == kNoShift ? 0 : k1;
+      const T* xrow = xw + (k0 * W1 + tj + s1) * W2 + tl;
       for (int k2 = 0; k2 < w2; ++k2) {
+        const int s2 = V == kNoLane ? 0 : k2;
 #pragma unroll
         for (int i = 0; i < T0; ++i) {
-          if (i < rows) acc[i] += bk[i * plane_i] * xrow[i * xstep + k2];
+          if (i < rows) {
+            if (V == kNoMul)
+              acc[i] += xrow[i * xstep + s2];
+            else
+              acc[i] += bk[i * plane_i] * xrow[i * xstep + s2];
+          }
         }
         bk += N;
       }
@@ -133,14 +155,14 @@ stencil_apply_kernel(const T* __restrict__ band, const T* __restrict__ xp,
   }
 }
 
-template <typename T, int T0, int T1, int T2>
+template <typename T, int T0, int T1, int T2, int V = kFull>
 int launch_tiles(const T* band, const T* xp, const T* b, T* out, T omega,
                  const Geometry& g, void* stream) {
   const size_t bytes = (size_t)(T0 + 2 * g.p0) * (T1 + 2 * g.p1) *
                        (T2 + 2 * g.p2) * sizeof(T);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        stencil_apply_kernel<T, T0, T1, T2>,
+        stencil_apply_kernel<T, T0, T1, T2, V>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, or the next launch reports it
@@ -151,7 +173,7 @@ int launch_tiles(const T* band, const T* xp, const T* b, T* out, T omega,
                   (g.n0 + T0 - 1) / T0);
   if (grid.y > 65535 || grid.z > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  stencil_apply_kernel<T, T0, T1, T2>
+  stencil_apply_kernel<T, T0, T1, T2, V>
       <<<grid, T1 * T2, bytes, (cudaStream_t)stream>>>(band, xp, b, out,
                                                        omega, g);
   return (int)cudaGetLastError();
@@ -193,6 +215,33 @@ int stencil_apply_f64(const double* band, const double* xp, const double* b,
                       void* stream) {
   return launch<double>(band, xp, b, out, omega, n0, n1, n2, p0, p1, p2, bs0,
                         bs1, bs2, mode, color, pbase, stream);
+}
+
+// the probes: spmv mode, f32, 3D, K2's 3D tile; variant is a Variant
+int stencil_probe_f32(int variant, const float* band, const float* xp,
+                      float* out, int n0, int n1, int n2, int p0, int p1,
+                      int p2, void* stream) {
+  if (n0 < 4 || n1 < 8 || n2 < 32 || p0 < 0 || p1 < 0 || p2 < 0)
+    return (int)cudaErrorInvalidValue;  // tile (0, 0, 0) must be whole
+  const Geometry g{n0, n1, n2, p0, p1, p2, 0, 0, 0, kSpmv, 0, 0};
+  switch (variant) {
+    case kFull:
+      return launch_tiles<float, 4, 8, 32, kFull>(band, xp, nullptr, out,
+                                                  0.f, g, stream);
+    case kPinBand:
+      return launch_tiles<float, 4, 8, 32, kPinBand>(band, xp, nullptr, out,
+                                                     0.f, g, stream);
+    case kNoShift:
+      return launch_tiles<float, 4, 8, 32, kNoShift>(band, xp, nullptr, out,
+                                                     0.f, g, stream);
+    case kNoLane:
+      return launch_tiles<float, 4, 8, 32, kNoLane>(band, xp, nullptr, out,
+                                                    0.f, g, stream);
+    case kNoMul:
+      return launch_tiles<float, 4, 8, 32, kNoMul>(band, xp, nullptr, out,
+                                                   0.f, g, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* stencil_apply_error_string(int err) {

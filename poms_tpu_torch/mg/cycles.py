@@ -2,7 +2,8 @@
 
 Counterpart of ``poms_tpu.mg.cycles``: the recursion runs eagerly over the
 level list; each smoothing sweep and residual goes through the level
-operator (K2's fused passes on a banded level, K1 on a Kronecker-sum level
+operator (K2's fused passes on a banded level, K3's under
+``POMS_TPU_SPMV=v2`` with the level's packed band, K1 on a Kronecker-sum level
 on the card), transfers are banded gathers, and the coarsest level is a
 pair of triangular solves.
 """
@@ -42,7 +43,7 @@ def cycle(levels: List[Level], l: int, x: StencilVector, b: StencilVector,
         return _coarse_solve(level, b)
     for _ in range(cfg.nu1):
         x = smooth_step(level.A, x, b, cfg.smoother, lam_max=lam)
-    r_int = level.A.residual(x, b)   # one fused K2 pass on a banded level
+    r_int = level.A.residual(x, b)   # one fused K2/K3 pass if banded
     sp_c = levels[l + 1].A.space
     b_c = StencilVector.from_interior(sp_c,
                                       apply_transfer(level.restrict, r_int))

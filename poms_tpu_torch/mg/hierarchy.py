@@ -12,7 +12,8 @@ of two formats:
 - ``operator="kron"``: :class:`KroneckerSumOperator` levels from the 1D
   triple products.
 
-The coarsest level gets a dense Cholesky.
+The coarsest level gets a dense Cholesky.  Under the v2 engine
+(``POMS_TPU_SPMV=v2``) every banded level packs its band for K3 here.
 """
 from __future__ import annotations
 
@@ -183,4 +184,7 @@ def build_hierarchy(problem: PoissonProblem, num_levels: int,
         A, n_el = A_c, n_el_c
     levels.append(Level(A=A, restrict=None, prolong=None,
                         chol=factor_dense_cholesky(A)))
+    for lev in levels:   # v2 engine: pack each banded level once, here
+        if isinstance(lev.A, StencilMatrix):
+            lev.A.ensure_packed_v2()
     return levels

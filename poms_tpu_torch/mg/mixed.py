@@ -58,8 +58,8 @@ def _cast_levels(levels, dtype: torch.dtype):
     out = []
     for lev in levels:
         sp = lev.A.space.with_dtype(dtype)
-        if isinstance(lev.A, StencilMatrix):
-            A = StencilMatrix(sp, band_t=c(lev.A.band_t))
+        if isinstance(lev.A, StencilMatrix):   # packed for K3 under v2
+            A = StencilMatrix(sp, band_t=c(lev.A.band_t)).ensure_packed_v2()
         else:
             A = KroneckerSumOperator(
                 sp, [[c(B) for B in term] for term in lev.A.terms])

@@ -5,7 +5,8 @@ Counterpart of ``poms_tpu.mg.smoother``.  Every smoother takes a banded
 :class:`StencilMatrix` or a generic operator (a
 :class:`KroneckerSumOperator`); on a banded operator the Jacobi sweep, the
 red-black colour phases and the Chebyshev residuals are single fused K2
-passes (:mod:`poms_tpu_torch.ops.dispatch`).
+passes (:mod:`poms_tpu_torch.ops.dispatch`), or K3 passes over the
+operator's packed band under ``POMS_TPU_SPMV=v2``.
 
 Update rules (the semantics the JAX package and its oracle define):
 
@@ -56,7 +57,8 @@ def _cast_operator_f32(A):
     """f32 copy of a banded or Kronecker-sum operator (setup-time only)."""
     sp32 = A.space.with_dtype(torch.float32)
     if _banded(A):
-        return StencilMatrix(sp32, band_t=A.band_t.to(torch.float32))
+        return StencilMatrix(sp32, band_t=A.band_t.to(torch.float32)
+                             ).ensure_packed_v2()
     return KroneckerSumOperator(sp32, A.terms)
 
 
@@ -108,7 +110,8 @@ def jacobi_step(A, x: StencilVector, b: StencilVector,
     sp = A.space
     if _banded(A):
         x_new = dispatch.jacobi(A.band_t, x.update_ghost_regions().data,
-                                b.interior, omega, sp.npts, sp.pads)
+                                b.interior, omega, sp.npts, sp.pads,
+                                packed=A.packed_v2)
         return StencilVector.from_interior(sp, x_new)
     x_new = x.interior + omega * A.residual(x, b) / A.diagonal()
     return StencilVector.from_interior(sp, x_new)
@@ -123,7 +126,7 @@ def rbgs_step(A, x: StencilVector, b: StencilVector, omega: float,
         for color in (0, 1):
             x_new = dispatch.rbgs_color(
                 A.band_t, x.update_ghost_regions().data, b.interior, omega,
-                color, sp.npts, sp.pads, starts)
+                color, sp.npts, sp.pads, starts, packed=A.packed_v2)
             x = StencilVector.from_interior(sp, x_new)
         return x
     diag = A.diagonal()

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from poms_tpu_torch.bench import kernel_probe as kp
 from poms_tpu_torch.bench.kernel_probe import (make_band, stream_probe,
                                                stream_probe_plain)
 from poms_tpu_torch.core.vector import ghost_pad
@@ -19,6 +20,8 @@ from poms_tpu_torch.models.poisson import poisson_problem
 from poms_tpu_torch.ops.kron import kron_apply, kron_apply_plain
 from poms_tpu_torch.ops.stencil import (MODES, color_mask, stencil_apply,
                                         stencil_apply_plain)
+from poms_tpu_torch.ops.stencil_v2 import (pack_band_v2, stencil_apply_v2,
+                                           stencil_apply_v2_plain)
 
 torch.set_num_threads(1)
 
@@ -206,3 +209,91 @@ def test_banded_pcg_on_card_matches_cpu(dev):
     assert gpu.converged and gpu.iterations == cpu.iterations
     xg, xc = gpu.x.interior.cpu(), cpu.x.interior
     assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-6
+
+
+# -- K3: the v2 engine -------------------------------------------------------
+
+@pytest.mark.parametrize("npts,pads,periodic,starts", K2_SHAPES)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_kernel_matches_plain(dev, npts, pads, periodic, starts, mode,
+                                 dtype):
+    """K2's tolerances: K3 sums each point's terms in the plain version's
+    offset order, with FMAs; other-colour RB-GS points bit for bit."""
+    band, x_pad, b = _k2_operands(npts, pads, periodic, dtype, dev,
+                                  seed=sum(npts) + 1)
+    packed = pack_band_v2(band, npts, pads)
+    kw = dict(b=None if mode == "spmv" else b,
+              omega=0.8 if mode in ("jacobi", "rbgs") else None,
+              color=0, starts=starts)
+    before = stencil_apply_v2.launches[mode]
+    y = stencil_apply_v2(mode, band, x_pad, npts, pads, packed=packed, **kw)
+    torch.cuda.synchronize()
+    assert stencil_apply_v2.launches[mode] == before + 1
+    want = stencil_apply_v2_plain(mode, packed, x_pad, npts, pads, **kw)
+    assert float((y - want).abs().max() / want.abs().max()) <= K2_TOL[dtype]
+    if mode == "rbgs":
+        x_int = x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
+        other = ~color_mask(npts, 0, starts, device=dev)
+        assert torch.equal(y[other], x_int[other])
+
+
+def test_k3_failed_launch_raises(dev):
+    """p = 20: the band ring needs more shared memory than a block may
+    have; the launch is refused, the wrapper raises, the next launch runs."""
+    npts, pads = (2, 2, 2), (20, 20, 20)
+    band = torch.zeros((41,) * 3 + npts, device=dev)
+    x_pad = torch.zeros((42,) * 3, device=dev)
+    before = stencil_apply_v2.launches["spmv"]
+    with pytest.raises(RuntimeError):
+        stencil_apply_v2("spmv", band, x_pad, npts, pads)
+    assert stencil_apply_v2.launches["spmv"] == before
+    band, x_pad, _ = _k2_operands((9, 13, 70), (1, 2, 1), (False,) * 3,
+                                  torch.float32, dev)
+    y = stencil_apply_v2("spmv", band, x_pad, (9, 13, 70), (1, 2, 1))
+    want = stencil_apply_plain("spmv", band, x_pad, (9, 13, 70), (1, 2, 1))
+    assert float((y - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_v2_banded_pcg_on_card_matches_k2(dev, monkeypatch):
+    """The banded PCG at 19³ under POMS_TPU_SPMV=v2 launches K3 and never
+    K2, and takes the K2 run's iterations and solution."""
+    cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=16.0))
+    runs, lams = {}, None
+    for engine in ("v1", "v2"):
+        monkeypatch.setenv("POMS_TPU_SPMV", engine)
+        pcg = MGPreconditionedCG(poisson_problem(3, 16, degree=3,
+                                                 device=dev), 2, cfg)
+        pcg.lams = lams = lams or pcg.lams
+        k2, k3 = dict(stencil_apply.launches), dict(stencil_apply_v2.launches)
+        runs[engine] = pcg.solve(tol=1e-10, maxiter=30)
+        if engine == "v2":
+            assert stencil_apply.launches == k2
+            assert stencil_apply_v2.launches["residual"] > k3["residual"]
+    assert runs["v2"].converged
+    assert runs["v2"].iterations == runs["v1"].iterations
+    x2, x3 = runs["v1"].x.interior, runs["v2"].x.interior
+    assert float((x3 - x2).abs().max() / x2.abs().max()) <= 1e-9
+
+
+# -- K4c, K4v, K4a: the probes ----------------------------------------------
+
+@pytest.mark.parametrize("n,p", [(32, 3), (40, 2)])
+@pytest.mark.parametrize("variant", kp.PROBE_VARIANTS + ("v15",))
+def test_probe_kernels_match_plain(dev, n, p, variant):
+    band, x_pad = kp.probe_operands(n, p, dev, seed=n + p)
+    args = (band, x_pad, (n,) * 3, (p,) * 3)
+    if variant == "v15":
+        before = kp.v15_apply.launches
+        y = kp.v15_apply(*args)
+        torch.cuda.synchronize()
+        assert kp.v15_apply.launches == before + 1
+        want = stencil_apply_plain("spmv", *args)
+    else:
+        before = kp.stencil_probe.launches[variant]
+        y = kp.stencil_probe(variant, *args)
+        torch.cuda.synchronize()
+        assert kp.stencil_probe.launches[variant] == before + 1
+        want = kp.stencil_probe_plain(variant, *args)
+    assert float((y - want).abs().max() / want.abs().max()) <= 1e-5

@@ -27,6 +27,7 @@ def test_port_imports_no_jax():
         "import poms_tpu_torch.bench.one_impl\n"
         "import poms_tpu_torch.bench.kernel_probe\n"
         "import poms_tpu_torch.bench.profile_banded\n"
+        "import poms_tpu_torch.bench.roofline, poms_tpu_torch.ops.stencil_v2\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'poms_tpu'))\n"
         "assert not bad, bad\n"
@@ -52,21 +53,34 @@ def test_one_pcg_refuses_without_a_card():
     assert "RESULT" not in proc.stdout
 
 
-def test_one_impl_refuses_without_a_card():
+def _refuses(args):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the bench would run")
-    proc = _run(["-m", "poms_tpu_torch.bench.one_impl", "k2", "3", "16",
-                 "3"])
+    proc = _run(["-m", *args])
     assert proc.returncode != 0
     assert "RESULT" not in proc.stdout
+    return proc
+
+
+def test_one_impl_refuses_without_a_card():
+    _refuses(["poms_tpu_torch.bench.one_impl", "k2", "3", "16", "3"])
+
+
+def test_one_impl_k3_refuses_without_a_card():
+    """K3 never falls back to K2 or to the CPU."""
+    _refuses(["poms_tpu_torch.bench.one_impl", "k3", "3", "16", "3"])
 
 
 def test_kernel_probe_refuses_without_a_card():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present; the probe would run")
-    proc = _run(["-m", "poms_tpu_torch.bench.kernel_probe", "16", "1"])
-    assert proc.returncode != 0
-    assert "RESULT" not in proc.stdout
+    proc = _refuses(["poms_tpu_torch.bench.kernel_probe", "compute", "16",
+                     "1"])
+    assert "no CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("probe", ["stream", "streamc", "v15", "ablate"])
+def test_each_kernel_probe_refuses_without_a_card(probe):
+    proc = _refuses(["poms_tpu_torch.bench.kernel_probe", probe, "16", "1"])
+    assert "no CUDA device" in proc.stderr
 
 
 def test_profile_banded_refuses_without_a_card():
