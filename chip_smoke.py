@@ -6,23 +6,37 @@
 Imports torch, numpy and ``poms_tpu_torch`` only.  Phases, in order; no
 exception is caught, so any failure exits non-zero:
 
-1. build   — nvcc the kernels of poms_tpu_torch/csrc (K1 kron_apply, K2
-             stencil_apply, K4 stream_probe), one nvcc per source, all
-             started together; prints ptxas registers and spills.
-2. K1      — the kernel against its plain PyTorch version on the card, at
-             the shapes of the headline solve's levels and a few ragged and
-             periodic ones, f32 and f64 (max|Δ|/max|y| ≤ 1e-5 and ≤ 1e-12:
-             the summation order differs and the kernel uses FMA); the
-             device time (profiler) and stream time (CUDA events) of both
-             at 129³ f32.
+1. build   — nvcc the kernels of poms_tpu_torch/csrc (K1 kron_apply, K5
+             kron_apply_dw, K2 stencil_apply, K3 stencil_apply_v2, K4
+             stream_probe, K4v probe_v15), one nvcc per source, all started
+             together; prints ptxas registers and spills.
+2. K1      — each mode (apply, residual, dinv, cheb first and later step)
+             against its plain PyTorch version on the card, f32 and f64, at
+             the shapes of the headline solve's levels, a few ragged and
+             periodic ones, a 2D, a 1D and a mixed-periodic 3D shape with
+             unequal pads, and a 4-term operator that takes two launches
+             (max|Δ|/max|y| ≤ 1e-5 and ≤ 1e-12: the summation order differs
+             and the kernel uses FMA); the device time (profiler) of each
+             mode at 129³, 65³, 33³, 17³ f32 beside its bound (bytes each
+             moved once at the card's published bandwidth), and of the plain
+             versions at 129³.
 3. EFT     — two_sum, two_prod and dw_mul on the card are exact (checked in
              f64), also with broadcast operands.
+3b. K5     — the double-word Kronecker residual kernel against
+             residual_kron_df_plain on the card at the level shapes, a
+             ragged, a periodic, a 2D and a 1D one, with b and x_l given and
+             with the zero flags of the A·p call: the words are bit-equal;
+             the kernel's own two_sum/two_prod/dw_mul/dw_add (its test
+             entry) are bit-equal to the toolbox's and exact in f64; device
+             time at 129³ beside plain and both bounds.
 4. solve   — 3D Poisson, cubic B-splines, n_el = 128 (129³ unknowns), 5
              levels, Chebyshev(4) over [λmax/16, λmax] with ν1 = ν2 = 1,
-             dw-precision MG-preconditioned CG to ‖r‖₂ ≤ 1e-10: it converges,
-             the true residual recomputed in f64 (K1's f64 instantiation) is
-             ≤ 5e-10, and every kernel of the path launched during the run.
-             A second, warm solve is timed.
+             dw-precision MG-preconditioned CG to ‖r‖₂ ≤ 1e-10: it converges
+             in at most 8 iterations, the true residual recomputed in f64
+             (K1's f64 instantiation) is ≤ 5e-10; K1's cheb and residual
+             modes and K5 launched and K1's apply mode did not (no
+             apply-then-subtract); launches per iteration per kernel.  A
+             second, warm solve is timed.
 5. check   — the same solve at n_el = 16 on the card and on the CPU (plain
              versions): same iteration count, solutions agree to 1e-6.
 6. K4      — the stream ceiling at n = 128, p = 3 (a band-sized f32
@@ -69,9 +83,16 @@ Prints the card's name and power limit early, one JSON line of per-kernel
 results before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The launch counts of the JSON line come from the paths, each counted from
-0 just before it: K1 from phase 4, K4 from phase 6's ceiling, K2 from
-phases 8 and 9, K3 from phase 12, the probes from phase 13's timing paths;
-launches made to compare a kernel with its plain version are not counted.
+0 just before it: K1 and K5 from phase 4 (setup and both solves), K4 from
+phase 6's ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes
+from phase 13's timing paths; launches made to compare a kernel with its
+plain version are not counted.  Each kernel's ``bound_ms`` is the larger of
+its bytes (every input read once, every output written once) over 3.35 TB/s
+and its operations over 67 TFLOP/s (f32 outside the tensor cores), from
+this run's shapes; ``library_ms`` times one PyTorch call of the same
+function where there is one (``torch.sum`` for K4; a sparse CSR product,
+built on the card from the band, for the kernels that compute a banded
+spmv), which the port itself never calls.
 """
 import json
 import math
@@ -83,6 +104,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from poms_tpu_torch.bench.device import device_ms as _device_ms
 from poms_tpu_torch.bench.device import nvidia_smi_name_power
 from poms_tpu_torch.bench import kernel_probe as kp
 from poms_tpu_torch.bench.kernel_probe import (cuda_event_ms, make_band,
@@ -96,7 +118,8 @@ from poms_tpu_torch.mg.solver import MultigridSolver
 from poms_tpu_torch.models.poisson import (l2_error_manufactured,
                                            poisson_problem)
 from poms_tpu_torch.ops import _build
-from poms_tpu_torch.ops.kron import kron_apply, kron_apply_plain
+from poms_tpu_torch.ops import kron as k1
+from poms_tpu_torch.ops import twofloat
 from poms_tpu_torch.ops.stencil import (MODES, color_mask, stencil_apply,
                                         stencil_apply_plain)
 from poms_tpu_torch.ops.stencil_v2 import (pack_band_v2, stencil_apply_v2,
@@ -108,7 +131,19 @@ K1_SHAPES = [((9, 9, 9), 3, False), ((17, 17, 17), 3, False),
              ((33, 33, 33), 3, False), ((65, 65, 65), 3, False),
              ((129, 129, 129), 3, False), ((17, 33, 65), 3, False),
              ((8, 8, 128), 2, True)]
+# further K1 shapes: (npts, pads, periodic): 2D, 1D, mixed-periodic 3D
+K1_MORE = [((300, 257), (3, 3), (False, False)),
+           ((1 << 16,), (3,), (True,)),
+           ((12, 20, 40), (2, 3, 1), (True, False, True))]
 K1_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+K1_TIMED = (129, 65, 33, 17)      # the smoothed levels of the headline solve
+K1_FIELDS = {"apply": 2, "residual": 3, "dinv": 2, "cheb": 5}  # moved once
+K5_SHAPES = [((n,) * 3, (3,) * 3, (False,) * 3) for n in (129, 65, 33, 17, 9)]
+K5_SHAPES += [((17, 33, 65), (3, 3, 3), (False,) * 3),
+              ((8, 8, 128), (2, 2, 2), (True,) * 3),
+              ((300, 257), (3, 3), (False, False)), ((5000,), (2,), (True,))]
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
+F32_FLOPS = 67e12             # f32 outside the tensor cores, published
 HEADLINE = dict(n_el=128, degree=3, levels=5, tol=1e-10, maxiter=30)
 # K2 shapes: (npts, pads, periodic, starts of the second RB-GS check)
 K2_SHAPES = [((129, 129, 129), (3, 3, 3), (False,) * 3, (1, 0, 0)),
@@ -134,39 +169,42 @@ def log(msg):
     print(msg, flush=True)
 
 
-def _k1_operands(npts, p, dtype, dev, seed):
-    """Poisson-shaped terms (K on axis a, M elsewhere) and x from numpy."""
+def _k1_operands(npts, pads, dtype, dev, seed, free_terms=0):
+    """Poisson-shaped terms (K on axis a, M elsewhere; ``free_terms`` > 0:
+    that many terms sharing nothing) with a dominant centre column, and
+    three fields, from numpy."""
     rng = np.random.default_rng(seed)
-    Ks = [torch.as_tensor(rng.standard_normal((n, 2 * p + 1)) / 4,
-                          dtype=dtype, device=dev) for n in npts]
-    Ms = [torch.as_tensor(rng.standard_normal((n, 2 * p + 1)) / 4,
-                          dtype=dtype, device=dev) for n in npts]
-    terms = [[Ks[b] if b == a else Ms[b] for b in range(3)] for a in range(3)]
-    x = torch.as_tensor(rng.standard_normal(npts), dtype=dtype, device=dev)
-    return terms, x
+    d = len(npts)
+
+    def band(n, p):
+        return torch.as_tensor(
+            rng.standard_normal((n, 2 * p + 1)) / 4
+            + 2.0 * (np.arange(2 * p + 1) == p), dtype=dtype, device=dev)
+
+    if free_terms:
+        terms = [[band(n, p) for n, p in zip(npts, pads)]
+                 for _ in range(free_terms)]
+    else:
+        Ks = [band(n, p) for n, p in zip(npts, pads)]
+        Ms = [band(n, p) for n, p in zip(npts, pads)]
+        terms = [[Ks[b] if b == a else Ms[b] for b in range(d)]
+                 for a in range(d)]
+    fields = [torch.as_tensor(rng.standard_normal(npts), dtype=dtype,
+                              device=dev) for _ in range(3)]
+    return terms, fields
 
 
-def _device_ms(fn, reps=20):
-    """Kernel time per call on the card: the profiler's device time summed
-    over every kernel the call launched."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us > 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / reps
+def _k1_runs(b, d):
+    """(label, mode, kwargs) of every K1 check: cheb as the first step
+    (no direction yet) and as a later one."""
+    return [("apply", "apply", {}), ("residual", "residual", {"b": b}),
+            ("dinv", "dinv", {}),
+            ("cheb0", "cheb", {"b": b, "d": None, "c1": 0.0, "c2": 0.7}),
+            ("cheb", "cheb", {"b": b, "d": d, "c1": 0.3, "c2": 0.7})]
 
 
 def phase_build():
-    names = ("kron_apply", "stencil_apply", "stream_probe",
+    names = ("kron_apply", "kron_apply_dw", "stencil_apply", "stream_probe",
              "stencil_apply_v2", "probe_v15")
     t0 = time.perf_counter()
 
@@ -189,37 +227,70 @@ def phase_build():
 
 
 def phase_k1(dev):
-    result = {}
-    for npts, p, periodic in K1_SHAPES:
+    result = {m: {} for m in k1.MODES}
+    shapes = [(npts, (p,) * 3, (per,) * 3, 0) for npts, p, per in K1_SHAPES]
+    shapes += [(*case, 0) for case in K1_MORE]
+    shapes.append(((20, 21, 22), (2, 2, 2), (False,) * 3, 4))
+    for npts, pads, periodic, free in shapes:
         for dtype in (torch.float32, torch.float64):
-            terms, x = _k1_operands(npts, p, dtype, dev, seed=sum(npts) + p)
-            args = (npts, (p,) * 3, (periodic,) * 3)
-            y = kron_apply(terms, x, *args)
-            torch.cuda.synchronize()
-            want = kron_apply_plain(terms, x, *args)
-            err = float((y - want).abs().max())
-            rel = err / float(want.abs().max())
-            log(f"[K1] {npts} p={p} periodic={periodic} {dtype}: "
-                f"max|d|={err:.3e} rel={rel:.3e}")
-            if not (math.isfinite(rel) and rel <= K1_TOL[dtype]):
-                raise AssertionError(f"K1 disagrees at {npts} {dtype}: {rel}")
-            if npts == (129, 129, 129) and dtype == torch.float32:
-                result["max_abs_err"] = err
-
-                def kernel():
-                    return kron_apply(terms, x, *args)
-
-                def plain():
-                    return kron_apply_plain(terms, x, *args)
-
-                result["ms"] = _device_ms(kernel)
-                result["plain_ms"] = _device_ms(plain)
-                events = (cuda_event_ms(kernel), cuda_event_ms(plain))
-    log(f"[K1] 129^3 p3 f32 device time (profiler, mean of 20): kernel "
-        f"{result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms")
-    log(f"[K1] 129^3 p3 f32 stream time (CUDA events, mean of 20, host "
-        f"overhead included): kernel {events[0]:.4f} ms, plain "
-        f"{events[1]:.4f} ms")
+            terms, (x, b, d) = _k1_operands(npts, pads, dtype, dev,
+                                            sum(npts) + pads[0], free)
+            plan = k1.build_kron_plan(terms, npts, pads, periodic)
+            diag = plan.diagonal()
+            rels = {}
+            for label, mode, kw in _k1_runs(b, d):
+                kw_k = dict(kw)
+                if kw.get("d") is not None:
+                    kw_k["d"] = d.clone()     # the kernel updates d in place
+                got = k1.kron_mode(mode, plan, x, **kw_k)
+                torch.cuda.synchronize()
+                want = k1.kron_mode_plain(mode, terms, x, npts, pads,
+                                          periodic, diag=diag, **kw)
+                if mode != "cheb":
+                    got, want = (got,), (want,)
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                rels[label] = max(float((g - w).abs().max() / w.abs().max())
+                                  for g, w in zip(got, want))
+                if not (math.isfinite(rels[label])
+                        and rels[label] <= K1_TOL[dtype]):
+                    raise AssertionError(f"K1 {label} disagrees at {npts} "
+                                         f"{dtype}: {rels[label]}")
+                if (npts == (129, 129, 129) and dtype == torch.float32
+                        and label in k1.MODES):
+                    result[mode]["max_abs_err"] = err
+                    result[mode]["plain_ms"] = _device_ms(
+                        lambda: k1.kron_mode_plain(
+                            mode, terms, x, npts, pads, periodic, diag=diag,
+                            **kw), 5)
+            log(f"[K1] {npts} p={pads} periodic={periodic} terms="
+                f"{len(terms)} launches/apply={len(plan.plans)} {dtype}: "
+                "rel err " + " ".join(f"{k}={v:.2e}"
+                                      for k, v in rels.items()))
+    for n in K1_TIMED:
+        npts, pads, periodic = (n,) * 3, (3,) * 3, (False,) * 3
+        terms, (x, b, d) = _k1_operands(npts, pads, torch.float32, dev, n)
+        plan = k1.build_kron_plan(terms, npts, pads, periodic)
+        out = torch.empty_like(x)
+        for label, mode, kw in _k1_runs(b, d):
+            if label == "cheb0":
+                continue
+            ms = _device_ms(lambda: k1.kron_mode(mode, plan, x, out=out,
+                                                 **kw))
+            bound = K1_FIELDS[mode] * n ** 3 * 4 / HBM_BYTES_PER_S * 1e3
+            log(f"[K1] {n}^3 p3 f32 {mode}: device time (profiler, mean of "
+                f"20) {ms * 1e3:.2f} us, tiling {plan.tiling}; bound "
+                f"{bound * 1e3:.2f} us ({K1_FIELDS[mode]} fields once at "
+                f"3.35 TB/s): {100 * bound / ms:.1f}% of it"
+                + ("" if n > 33 else "; at this size the launch's own cost "
+                   "bounds it, not the bytes"))
+            if n == 129:
+                result[mode].update(ms=ms, bound_ms=bound)
+    for mode in k1.MODES:
+        r = result[mode]
+        log(f"[K1] 129^3 p3 f32 {mode}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms (device time), max|d| "
+            f"{r['max_abs_err']:.3e}")
     return result
 
 
@@ -254,6 +325,97 @@ def phase_eft(dev):
         f"dw_mul+dw_add err {err2:.3e}, broadcast two_prod exact")
 
 
+def phase_k5(dev):
+    """K5 against its plain version (bit-equality), the kernel's own EFTs,
+    and its time at 129^3 as the headline step calls it."""
+    result = {}
+    for npts, pads, periodic in K5_SHAPES:
+        terms, (x, b, _) = _k1_operands(npts, pads, torch.float64, dev,
+                                        sum(npts))
+        split = {id(B): split_f64(B) for term in terms for B in term}
+        tdf = [[split[id(B)] for B in term] for term in terms]
+        (xh, xl), (bh, bl) = split_f64(x), split_f64(b)
+        plan = twofloat.build_kron_df_plan(tdf, npts, pads, periodic)
+        zero = torch.zeros_like(xh)
+        for flags, explicit in (((bh, bl, xh, xl), (bh, bl, xh, xl)),
+                                ((None, None, xh, None),
+                                 (zero, zero, xh, zero))):
+            got = twofloat.residual_kron_df(tdf, *flags, pads,
+                                            periodic=periodic, plan=plan)
+            torch.cuda.synchronize()
+            want = twofloat.residual_kron_df_plain(tdf, *explicit, pads,
+                                                   None, periodic)
+            diff = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"K5 is not bit-equal to its plain "
+                                     f"version at {npts}: max|d| {diff}")
+        r64 = b - k1.kron_apply_plain(terms, x, npts, pads, periodic)
+        rel = float((twofloat.merge_f64(*twofloat.residual_kron_df(
+            tdf, bh, bl, xh, xl, pads, periodic=periodic, plan=plan)) - r64)
+            .abs().max() / r64.abs().max())
+        log(f"[K5] {npts} p={pads} periodic={periodic}: bit-equal to plain "
+            f"with b, x_l given and with the zero flags; against the f64 "
+            f"residual {rel:.2e}")
+        assert rel <= 1e-12, rel
+        if npts == (129,) * 3:
+            ph = x.to(torch.float32)
+
+            def kernel():
+                return twofloat.residual_kron_df(tdf, None, None, ph, None,
+                                                 pads, periodic=periodic,
+                                                 plan=plan)
+
+            def plain():
+                return twofloat.residual_kron_df_plain(
+                    tdf, zero, zero, ph, zero, pads, None, periodic)
+
+            n = npts[0]
+            # the kernel's f32 operations per point: 8 contractions of 7
+            # taps, each a dw_mul (9) and all but the first a dw_add (20),
+            # 2 term adds, b - Ax; the fields: p in, two words out
+            ops = (8 * (7 * 9 + 6 * 20) + 3 * 20) * n ** 3
+            result = {"max_abs_err": max(diff), "ms": _device_ms(kernel),
+                      "plain_ms": _device_ms(plain, 2),
+                      "bound_bytes_ms": 3 * n ** 3 * 4 / HBM_BYTES_PER_S * 1e3,
+                      "bound_ms": ops / F32_FLOPS * 1e3}
+            log(f"[K5] 129^3 p3 A.p: device time kernel {result['ms']:.4f} "
+                f"ms, plain {result['plain_ms']:.4f} ms; bounds: bytes "
+                f"{result['bound_bytes_ms']:.4f} ms, operations "
+                f"{result['bound_ms']:.4f} ms ({ops // n ** 3} f32 "
+                f"operations per point at 67 TFLOP/s; none of them can "
+                f"fuse, so at most half that rate: "
+                f"{2 * result['bound_ms']:.4f} ms)")
+    # the kernel's own error-free transformations: the toolbox's bits, and
+    # exact in f64
+    g = torch.Generator(device="cpu").manual_seed(5)
+    a64 = torch.randn(1 << 20, generator=g, dtype=torch.float64).to(dev)
+    b64 = (torch.randn(1 << 20, generator=g, dtype=torch.float64)
+           * 1e-3).to(dev)
+    (ah, al), (bh, bl) = split_f64(a64), split_f64(b64)
+    out = twofloat.eft_on_card(ah, al, bh, bl)
+    torch.cuda.synchronize()
+    refs = [*two_sum(ah, bh), *two_prod(ah, bh), *dw_mul(ah, al, bh, bl),
+            *dw_add(ah, al, bh, bl)]
+    names = ("two_sum", "two_prod", "dw_mul", "dw_add")
+    for k, name in enumerate(names):
+        if not (torch.equal(out[2 * k], refs[2 * k])
+                and torch.equal(out[2 * k + 1], refs[2 * k + 1])):
+            raise AssertionError(f"the kernel's {name} differs from the "
+                                 "toolbox's")
+    assert torch.equal(out[0].double() + out[1].double(),
+                       ah.double() + bh.double())
+    assert torch.equal(out[2].double() + out[3].double(),
+                       ah.double() * bh.double())
+    tru = a64 * b64
+    err = float((out[4].double() + out[5].double() - tru).abs().max()
+                / tru.abs().max())
+    assert err < 1e-13, err
+    log(f"[K5] the kernel's two_sum and two_prod are exact on 2^20 pairs "
+        f"and all four EFTs equal the toolbox's bit for bit; dw_mul err "
+        f"{err:.3e}")
+    return result
+
+
 def _solver(n_el, levels, dev):
     prob = poisson_problem(3, n_el, degree=HEADLINE["degree"],
                            dtype=torch.float64, device=dev, operator="kron")
@@ -265,39 +427,64 @@ def _solver(n_el, levels, dev):
     return prob, pcg
 
 
+def _reset_kron_counts():
+    for mode in k1.MODES:
+        k1.kron_mode.launches[mode] = 0
+    k1.kron_apply.launches = 0
+    twofloat.residual_kron_df.launches = 0
+
+
+def _kron_counts():
+    return dict(k1.kron_mode.launches, K5=twofloat.residual_kron_df.launches)
+
+
 def phase_solve(dev):
     h = HEADLINE
     torch.cuda.synchronize()
-    kron_apply.launches = 0
+    _reset_kron_counts()
     t0 = time.perf_counter()
     prob, pcg = _solver(h["n_el"], h["levels"], dev)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
+    setup = _kron_counts()
     t1 = time.perf_counter()
     res = pcg.solve(tol=h["tol"], maxiter=h["maxiter"])
     torch.cuda.synchronize()
     first = time.perf_counter() - t1
-    launches = kron_apply.launches
+    solve = {k: v - setup[k] for k, v in _kron_counts().items()}
     x = res.x.interior
     assert tuple(x.shape) == prob.space.npts and bool(torch.isfinite(x).all())
     log(f"[solve] 129^3 dw-PCG: {res.iterations} iterations, converged="
         f"{res.converged}, history {['%.3e' % r for r in res.residuals]}")
     assert res.converged, res.residuals
-    true_rn = float(torch.linalg.vector_norm(
-        prob.b.interior - prob.A.dot(res.x).interior))
-    l2 = l2_error_manufactured(prob, res.x)
-    log(f"[solve] final |r| {res.residuals[-1]:.3e}, true f64 |b - Ax| "
-        f"{true_rn:.3e} (K1 f64), L2 error vs manufactured {l2:.3e}")
-    assert true_rn <= 5e-10, true_rn
-    assert launches > 0, "the solve never launched the kron_apply kernel"
+    assert res.iterations <= 8, res.iterations
+    # the counts of the solve, read before the f64 check below applies A
+    assert solve["cheb"] > 0 and solve["residual"] > 0 and solve["K5"] > 0, \
+        f"the solve missed a kernel of its path: {solve}"
+    assert solve["apply"] == 0, \
+        f"the solve applied A and subtracted, outside the kernel: {solve}"
+    assert setup["dinv"] > 0, f"the power iteration missed K1: {setup}"
     t2 = time.perf_counter()
     _, rn, it = pcg.solve_compiled(tol=h["tol"], maxiter=h["maxiter"])
     torch.cuda.synchronize()
     warm = time.perf_counter() - t2
+    after = _kron_counts()
     assert float(rn) <= h["tol"] and it == res.iterations, (float(rn), it)
+    per_it = {k: (after[k] - setup[k] - solve[k]) / it for k in after}
+    # the answer certified in f64: K1's apply mode, the last step of the path
+    true_rn = float(torch.linalg.vector_norm(
+        prob.b.interior - prob.A.dot(res.x).interior))
+    launches = _kron_counts()
+    l2 = l2_error_manufactured(prob, res.x)
+    log(f"[solve] final |r| {res.residuals[-1]:.3e}, true f64 |b - Ax| "
+        f"{true_rn:.3e} (K1 f64), L2 error vs manufactured {l2:.3e}")
+    assert true_rn <= 5e-10, true_rn
     log(f"[solve] cold setup (hierarchy + lambda) {cold:.3f} s; first solve "
         f"{first:.3f} s; warm solve {warm:.3f} s = "
-        f"{warm / it * 1e3:.2f} ms/iteration; K1 launches {launches}")
+        f"{warm / it * 1e3:.2f} ms/iteration over {it} iterations")
+    log(f"[solve] launches: setup {setup}; first solve {solve}; warm solve "
+        f"per iteration (start state included) "
+        f"{ {k: round(v, 2) for k, v in per_it.items()} }")
     return {"launches": launches, "l2": l2}
 
 
@@ -351,11 +538,14 @@ def phase_k4(dev):
     plain_ms = _device_ms(lambda: stream_probe_plain(band, x, False))
     log(f"[K4] device time (profiler, mean of 20): kernel {ms:.4f} ms, "
         f"plain torch.sum {plain_ms:.4f} ms")
+    assert launches > 0, "the ceiling was measured without the K4 kernel"
+    library_ms = _device_ms(
+        lambda: torch.sum(band.reshape(-1, n, n, n), dim=0))
     del band, x, y, want
     torch.cuda.empty_cache()
-    assert launches > 0, "the ceiling was measured without the K4 kernel"
     return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "gbps": ceiling["library"]}
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "gbps": ceiling["library"]}
 
 
 def _k2_operands(npts, pads, periodic, dtype, dev, seed):
@@ -387,6 +577,52 @@ def _engine(name):
                 mode, band, *a, packed=pk, **kw),
             lambda mode, band, pk, *a, **kw: stencil_apply_v2_plain(
                 mode, pk, *a, **kw))
+
+
+def _csr_spmv_ms(band, x_pad, npts, pads):
+    """Device time of ``A @ x`` with A a ``torch.sparse_csr_tensor`` built
+    on the card from the band: a library yardstick the port never calls.
+    Every row keeps all of its (2p+1)^3 entries (out-of-grid offsets carry
+    value 0 at a clamped column), so the row pointer is an arange."""
+    dev = band.device
+    n = math.prod(npts)
+    w = math.prod(2 * p + 1 for p in pads)
+    index = torch.int32 if (n + 1) * w < 2 ** 31 else torch.int64
+    col = torch.empty((n, w), dtype=index, device=dev)
+    val = torch.empty((n, w), dtype=band.dtype, device=dev)
+    idx = [torch.arange(m, device=dev) for m in npts]
+    k = 0
+    for k0 in range(2 * pads[0] + 1):
+        for k1_ in range(2 * pads[1] + 1):
+            for k2 in range(2 * pads[2] + 1):
+                src = [idx[a] + (o - pads[a])
+                       for a, o in enumerate((k0, k1_, k2))]
+                ok = [(c >= 0) & (c < m) for c, m in zip(src, npts)]
+                src = [c.clamp(0, m - 1) for c, m in zip(src, npts)]
+                flat = ((src[0][:, None, None] * npts[1]
+                         + src[1][None, :, None]) * npts[2]
+                        + src[2][None, None, :])
+                inside = (ok[0][:, None, None] & ok[1][None, :, None]
+                          & ok[2][None, None, :])
+                col[:, k] = flat.reshape(-1).to(index)
+                val[:, k] = (band[k0, k1_, k2] * inside).reshape(-1)
+                k += 1
+    crow = torch.arange(0, (n + 1) * w, w, dtype=index, device=dev)
+    A = torch.sparse_csr_tensor(crow, col.reshape(-1), val.reshape(-1),
+                                size=(n, n))
+    del col, val
+    x_int = x_pad[tuple(slice(p, p + m) for m, p in zip(npts, pads))]
+    x = x_int.reshape(-1).contiguous()
+    # the matrix has zero ghosts, whatever x_pad's ghost region holds
+    want = stencil_apply_plain("spmv", band, ghost_pad(
+        x_int, pads, (False,) * 3), npts, pads).reshape(-1)
+    got = A @ x
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 1e-5, f"the CSR yardstick disagrees with the band: {rel}"
+    ms = _device_ms(lambda: A @ x, 5)
+    del A
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase_stencil(dev, k4_gbps, name):
@@ -438,6 +674,12 @@ def phase_stencil(dev, k4_gbps, name):
                     result[mode]["plain_ms"] = _device_ms(plain)
                     result[mode]["events"] = (cuda_event_ms(kernel),
                                               cuda_event_ms(plain))
+                    if mode == "spmv" and name == "K2":
+                        result[mode]["library_ms"] = _csr_spmv_ms(
+                            band, x_pad, npts, pads)
+                        log(f"[{name}] 129^3 p3 f32 spmv as a sparse CSR "
+                            f"product (torch, built on the card from the "
+                            f"band): {result[mode]['library_ms']:.4f} ms")
                 del y, want
             log(f"[{name}] {npts} p={pads} periodic={periodic} {dtype}: rel "
                 "err " + " ".join(
@@ -683,6 +925,25 @@ def phase_probes(dev, k4_gbps, times):
     out = {v: {"launches": launches[v], "max_abs_err": err[v],
                "ms": _device_ms(fns[v]), "plain_ms": _device_ms(plain[v])}
            for v in variants + ("v15",)}
+    csr_ms = _csr_spmv_ms(*args)
+    log(f"[probes] {n}^3 p3 f32 spmv as a sparse CSR product (torch): "
+        f"{csr_ms:.4f} ms")
+    points = n ** 3
+    stream = (343 + 2) * points * 4 / HBM_BYTES_PER_S * 1e3
+    fields = 2 * points * 4 / HBM_BYTES_PER_S * 1e3
+    for v in out:   # bounds: the band stream, or the arithmetic without it
+        if v == "compute":      # band of one tile only: 343 multiply-adds
+            ops = 2 * 343 * points / F32_FLOPS * 1e3
+            out[v].update(bound_ms=max(fields, ops), bound_by="operations",
+                          library_ms=None)
+        elif v == "nomul":      # no band read: 343 adds per point
+            ops = 343 * points / F32_FLOPS * 1e3
+            out[v].update(bound_ms=max(fields, ops), bound_by="operations",
+                          library_ms=None)
+        else:                   # the spmv, or its bytes with other offsets
+            out[v].update(bound_ms=stream, bound_by="bytes",
+                          library_ms=csr_ms if v in ("full", "v15")
+                          else None)
     del band, x_pad, args, fns, plain
     torch.cuda.empty_cache()
     floor = 343 * n ** 3 * 4 / (k4_gbps * 1e9) * 1e3
@@ -735,8 +996,10 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     phase_build()
-    k1 = phase_k1(dev)
+    k1_res = phase_k1(dev)
     phase_eft(dev)
+    k5_res = phase_k5(dev)
+    torch.cuda.empty_cache()
     solve = phase_solve(dev)
     phase_check(dev, solve["l2"])
     torch.cuda.empty_cache()
@@ -754,30 +1017,58 @@ def main():
     times = phase_k3_times(dev, k4["gbps"])
     k3_launches = phase_v2_banded(dev, solve["l2"], k2_iterations)
     probes = phase_probes(dev, k4["gbps"], times)
+    points = 129 ** 3
+
+    def banded_bound(mode):
+        """bytes: the band, x and the result once, b where the mode reads
+        it; 343 multiply-adds per point are far below that"""
+        fields = 343 + 2 + (mode != "spmv")
+        return {"bound_ms": fields * points * 4 / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"}
+
     kernels = [{
-        "name": "kron_apply", "route": "cuda",
+        "name": f"kron_apply.{m}", "route": "cuda",
         "source": "poms_tpu_torch/csrc/kron_apply.cu",
         "replaces": "poms_tpu/ops/pallas/kron.py:157",
-        "launches": solve["launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]
+        "launches": solve["launches"][m],
+        "max_abs_err": k1_res[m]["max_abs_err"], "ms": k1_res[m]["ms"],
+        "plain_ms": k1_res[m]["plain_ms"], "bound_ms": k1_res[m]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None} for m in k1.MODES]
+    kernels.append({
+        "name": "residual_kron_df", "route": "cuda",
+        "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
+        "replaces": "poms_tpu/ops/twofloat.py:197",
+        "launches": solve["launches"]["K5"],
+        "max_abs_err": k5_res["max_abs_err"], "ms": k5_res["ms"],
+        "plain_ms": k5_res["plain_ms"], "bound_ms": k5_res["bound_ms"],
+        "bound_by": "operations", "library_ms": None})
+    csr_ms = k2["spmv"]["library_ms"]
     kernels += [{
         "name": f"stencil_apply.{m}", "route": "cuda",
         "source": "poms_tpu_torch/csrc/stencil_apply.cu",
         "replaces": f"poms_tpu/ops/pallas/spmv.py:{K2_REPLACES[m]}",
         "launches": k2_launches[m], "max_abs_err": k2[m]["max_abs_err"],
-        "ms": k2[m]["ms"], "plain_ms": k2[m]["plain_ms"]} for m in MODES]
+        "ms": k2[m]["ms"], "plain_ms": k2[m]["plain_ms"],
+        **banded_bound(m),
+        "library_ms": csr_ms if m == "spmv" else None} for m in MODES]
+    n4, p4 = K4_SIZE
     kernels.append({
         "name": "stream_probe", "route": "cuda",
         "source": "poms_tpu_torch/csrc/stream_probe.cu",
         "replaces": "poms_tpu/bench/kernel_probe.py:85",
         "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
-        "ms": k4["ms"], "plain_ms": k4["plain_ms"]})
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": ((2 * p4 + 1) ** 3 + 2) * n4 ** 3 * 4
+        / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": k4["library_ms"]})
     kernels += [{
         "name": f"stencil_apply_v2.{m}", "route": "cuda",
         "source": "poms_tpu_torch/csrc/stencil_apply_v2.cu",
         "replaces": f"poms_tpu/ops/pallas/spmv.py:{K3_REPLACES[m]}",
         "launches": k3_launches[m], "max_abs_err": k3[m]["max_abs_err"],
-        "ms": k3[m]["ms"], "plain_ms": k3[m]["plain_ms"]} for m in MODES]
+        "ms": k3[m]["ms"], "plain_ms": k3[m]["plain_ms"],
+        **banded_bound(m),
+        "library_ms": csr_ms if m == "spmv" else None} for m in MODES]
     probe_rows = [("compute", "stencil_apply.cu", 145)]
     probe_rows += [("v15", "probe_v15.cu", 266)]
     probe_rows += [(v, "stencil_apply.cu", 392) for v in kp.ABLATE_VARIANTS]
@@ -786,6 +1077,11 @@ def main():
         "route": "cuda", "source": f"poms_tpu_torch/csrc/{src}",
         "replaces": f"poms_tpu/bench/kernel_probe.py:{line}",
         **probes[v]} for v, src, line in probe_rows]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for row in kernels:
+        assert set(row) == keys, (row["name"], set(row) ^ keys)
+        assert row["launches"] > 0, f"{row['name']} never launched on a path"
     log(f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

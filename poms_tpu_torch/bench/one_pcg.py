@@ -6,8 +6,9 @@ the card.
 
 Prints one ``RESULT {...}`` line with the JAX bench's keys plus ``device``,
 ``power_limit``, ``setup_s`` (cold: kernel build, hierarchy, λ estimates)
-and ``k1_launches`` (kron_apply kernel launches in the timed solve).  Needs
-a CUDA card; there is no CPU fallback.
+``k1_launches`` (K1 launches per mode in the timed solve) and
+``k5_launches`` (the double-word A·p kernel).  Needs a CUDA card; there is
+no CPU fallback.
 """
 import json
 import sys
@@ -30,8 +31,8 @@ def main():
     from poms_tpu_torch.mg.mixed import MGPreconditionedCG
     from poms_tpu_torch.mg.smoother import SmootherConfig
     from poms_tpu_torch.models.poisson import poisson_problem
-    from poms_tpu_torch.ops.kron import kron_apply
-    from poms_tpu_torch.ops.twofloat import split_f64
+    from poms_tpu_torch.ops.kron import MODES, kron_mode
+    from poms_tpu_torch.ops.twofloat import residual_kron_df, split_f64
 
     if not torch.cuda.is_available():
         raise SystemExit("one_pcg measures the card: no CUDA device found")
@@ -58,7 +59,9 @@ def main():
     x, rn, it = pcg.solve_compiled(tol=tol, maxiter=100, **kw)
     torch.cuda.synchronize()
     del x
-    kron_apply.launches = 0
+    for mode in MODES:
+        kron_mode.launches[mode] = 0
+    residual_kron_df.launches = 0
     t0 = time.perf_counter()
     x, rn, it = pcg.solve_compiled(tol=tol, maxiter=100, **kw)
     torch.cuda.synchronize()
@@ -75,7 +78,8 @@ def main():
         "final_residual": float(rn),
         "grid": [n_el] * 3, "levels": num_levels,
         "device": torch.cuda.get_device_name(0), "power_limit": power,
-        "setup_s": setup_s, "k1_launches": kron_apply.launches}), flush=True)
+        "setup_s": setup_s, "k1_launches": dict(kron_mode.launches),
+        "k5_launches": residual_kron_df.launches}), flush=True)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,12 @@
 
 Counterpart of ``poms_tpu.core.kron``.  Each B is a 1D stencil band
 (n_a, 2p_a+1); for Poisson the d terms share their K and M band objects, and
-the plain apply reuses partial products along that sharing.  The apply is K1
-(:func:`poms_tpu_torch.ops.kron.kron_apply`): the CUDA kernel for tensors on
-the card, the plain chain of 1D contractions for tensors on the CPU.
+the plain apply reuses partial products along that sharing.  The apply, the
+residual, the D⁻¹-scaled apply and the Chebyshev update are the modes of K1
+(:func:`poms_tpu_torch.ops.kron.kron_mode`): the CUDA kernel for tensors on
+the card, the plain chain of 1D contractions for tensors on the CPU.  The
+kernel's launch data (stacked bands, sharing plan, tiling) is built once,
+when the operator is made.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch
 from poms_tpu_torch.core.matrix import StencilMatrix
 from poms_tpu_torch.core.space import StencilVectorSpace
 from poms_tpu_torch.core.vector import StencilVector
-from poms_tpu_torch.ops.kron import apply_band_1d_axis, band_labels, kron_apply
+from poms_tpu_torch.ops.kron import (apply_band_1d_axis, band_labels,
+                                     build_kron_plan, kron_mode)
 
 __all__ = ["KroneckerSumOperator", "apply_band_1d_axis", "kron_band_t"]
 
@@ -49,7 +53,7 @@ def kron_band_t(terms) -> torch.Tensor:
 class KroneckerSumOperator:
     """A = Σ_r ⊗_a B_r^(a), each B a 1D stencil band (n_a, 2p_a+1)."""
 
-    __slots__ = ("space", "terms")
+    __slots__ = ("space", "terms", "plan")
 
     def __init__(self, space: StencilVectorSpace,
                  terms: Sequence[Sequence[torch.Tensor]]):
@@ -71,21 +75,38 @@ class KroneckerSumOperator:
                     raise ValueError(
                         f"band {a} has shape {tuple(B.shape)}, expected "
                         f"{(space.npts[a], 2 * space.pads[a] + 1)}")
+        self.plan = build_kron_plan(self.terms, space.npts, space.pads,
+                                    space.periodic)
 
     def _band_labels(self):
         return band_labels(self.terms)
 
+    def _mode(self, mode: str, x_int: torch.Tensor, **kw):
+        return kron_mode(mode, self.plan, x_int, **kw)
+
     def _apply_interior(self, x_int: torch.Tensor) -> torch.Tensor:
-        return kron_apply(self.terms, x_int, self.space.npts, self.space.pads,
-                          self.space.periodic)
+        return self._mode("apply", x_int)
 
     def dot(self, v: StencilVector) -> StencilVector:
         return StencilVector.from_interior(self.space,
                                            self._apply_interior(v.interior))
 
     def residual(self, x: StencilVector, b: StencilVector) -> torch.Tensor:
-        """Interior of b − A x."""
-        return b.interior - self._apply_interior(x.interior)
+        """Interior of b − A x: one K1 pass."""
+        return self._mode("residual", x.interior, b=b.interior)
+
+    def dinv_apply(self, x_int: torch.Tensor) -> torch.Tensor:
+        """(A x) / diag(A) on an interior field: one K1 pass (the power
+        iteration's step)."""
+        return self._mode("dinv", x_int)
+
+    def cheb_update(self, x_int: torch.Tensor, b_int: torch.Tensor, d,
+                    c1: float, c2: float, out=None):
+        """One Chebyshev update in one K1 pass: z = (b − A x)/diag(A),
+        d ← c1·d + c2·z (``d=None``: d = c2·z), returns (x + d, d).  On the
+        card ``d`` is updated in place and ``out`` may name the buffer of
+        the result."""
+        return self._mode("cheb", x_int, b=b_int, d=d, c1=c1, c2=c2, out=out)
 
     def diagonal(self) -> torch.Tensor:
         """diag(Σ ⊗B) = Σ ⊗diag(B) — outer products of 1D diagonals."""

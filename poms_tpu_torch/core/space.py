@@ -8,11 +8,28 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["StencilVectorSpace"]
+__all__ = ["StencilVectorSpace", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    current CUDA card.  Without a card and without an explicit device this
+    raises: the port never falls back to the CPU on its own."""
+    if device is not None:
+        device = torch.device(device)
+        if (device.type == "cuda" and device.index is None
+                and torch.cuda.is_available()):
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: poms_tpu_torch runs on the card by default; "
+            "pass device='cpu' to run the plain versions on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _as_tuple(x, d, name):
@@ -30,14 +47,15 @@ class StencilVectorSpace:
 
     ``npts`` interior points per dimension, ``pads`` ghost width per side,
     ``periodic`` flags (non-periodic ghosts are zero), ``dtype`` a
-    ``torch.dtype`` and ``device`` a ``torch.device`` for field data.
+    ``torch.dtype`` and ``device`` a ``torch.device`` for field data
+    (``None``: the current CUDA card, or an error when there is none).
     """
 
     npts: Tuple[int, ...]
     pads: Tuple[int, ...]
     periodic: Tuple[bool, ...] = None  # type: ignore[assignment]
     dtype: torch.dtype = torch.float64
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None
 
     def __post_init__(self):
         d = len(self.npts)
@@ -45,7 +63,7 @@ class StencilVectorSpace:
         object.__setattr__(self, "pads", _as_tuple(self.pads, d, "pads"))
         per = self.periodic if self.periodic is not None else False
         object.__setattr__(self, "periodic", _as_tuple(per, d, "periodic"))
-        object.__setattr__(self, "device", torch.device(self.device))
+        object.__setattr__(self, "device", resolve_device(self.device))
         if not isinstance(self.dtype, torch.dtype):
             raise TypeError(f"dtype must be a torch.dtype, got {self.dtype!r}")
         for n, p in zip(self.npts, self.pads):

@@ -64,12 +64,16 @@ def update_ghosts_serial(data: torch.Tensor,
 
 
 class StencilVector:
-    """A field over a :class:`StencilVectorSpace`, stored padded with ghosts.
+    """A field over a :class:`StencilVectorSpace`.
 
-    ``data`` has shape ``space.padded_shape``; reductions use the interior.
+    ``data`` has shape ``space.padded_shape`` (ghosts included); reductions
+    use the interior.  A vector made by :meth:`from_interior` keeps the
+    interior alone and pads it (zero ghosts) when ``data`` is first read:
+    the Kronecker-sum kernels read and write unpadded fields, so on that
+    path no padded copy is ever made.
     """
 
-    __slots__ = ("space", "data")
+    __slots__ = ("space", "_data", "_interior")
 
     def __init__(self, space: StencilVectorSpace,
                  data: torch.Tensor | None = None):
@@ -77,7 +81,8 @@ class StencilVector:
         if data is None:
             data = torch.zeros(space.padded_shape, dtype=space.dtype,
                                device=space.device)
-        self.data = data
+        self._data = data
+        self._interior = None
 
     @classmethod
     def from_interior(cls, space: StencilVectorSpace,
@@ -87,16 +92,31 @@ class StencilVector:
         if tuple(interior.shape) != space.shape:
             raise ValueError(
                 f"interior shape {tuple(interior.shape)} != {space.shape}")
-        return cls(space, ghost_pad(interior, space.pads,
-                                    (False,) * space.ndim))
+        v = cls.__new__(cls)
+        v.space = space
+        v._data = None
+        v._interior = interior
+        return v
 
     @classmethod
     def zeros(cls, space: StencilVectorSpace) -> "StencilVector":
         return cls(space)
 
     @property
+    def data(self) -> torch.Tensor:
+        """The padded field; padded here, once, if the vector was made from
+        an interior (after that the interior is a view of it)."""
+        if self._data is None:
+            self._data = ghost_pad(self._interior, self.space.pads,
+                                   (False,) * self.space.ndim)
+            self._interior = None
+        return self._data
+
+    @property
     def interior(self) -> torch.Tensor:
-        return self.data[self.space.interior]
+        if self._data is None:
+            return self._interior
+        return self._data[self.space.interior]
 
     def toarray(self):
         """Flattened interior as a host numpy array (scipy interop)."""

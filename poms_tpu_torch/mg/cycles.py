@@ -3,9 +3,9 @@
 Counterpart of ``poms_tpu.mg.cycles``: the recursion runs eagerly over the
 level list; each smoothing sweep and residual goes through the level
 operator (K2's fused passes on a banded level, K3's under
-``POMS_TPU_SPMV=v2`` with the level's packed band, K1 on a Kronecker-sum level
-on the card), transfers are banded gathers, and the coarsest level is a
-pair of triangular solves.
+``POMS_TPU_SPMV=v2`` with the level's packed band; on a Kronecker-sum level
+one K1 pass per Chebyshev step and per residual), transfers are banded
+gathers, and the coarsest level is a pair of triangular solves.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ def cycle(levels: List[Level], l: int, x: StencilVector, b: StencilVector,
         return _coarse_solve(level, b)
     for _ in range(cfg.nu1):
         x = smooth_step(level.A, x, b, cfg.smoother, lam_max=lam)
-    r_int = level.A.residual(x, b)   # one fused K2/K3 pass if banded
+    r_int = level.A.residual(x, b)   # one fused pass: K2/K3, or K1 (kron)
     sp_c = levels[l + 1].A.space
     b_c = StencilVector.from_interior(sp_c,
                                       apply_transfer(level.restrict, r_int))

@@ -32,9 +32,10 @@ from poms_tpu_torch.mg.solver import SolveResult
 from poms_tpu_torch.models.poisson import PoissonProblem
 from poms_tpu_torch.ops.cholesky import DenseCholesky
 from poms_tpu_torch.ops.transfer import TransferBand
-from poms_tpu_torch.ops.twofloat import (dw_add, dw_dot, dw_dot_stack, dw_mul,
-                                         dw_norm2, merge_f64,
-                                         residual_kron_df, split_f64)
+from poms_tpu_torch.ops.twofloat import (build_kron_df_plan, dw_add, dw_dot,
+                                         dw_dot_stack, dw_mul, dw_norm2,
+                                         merge_f64, residual_kron_df,
+                                         split_f64)
 
 __all__ = ["MGPreconditionedCG", "MixedPrecisionMG"]
 
@@ -128,6 +129,9 @@ class MGPreconditionedCG:
                      for B in term}
             self._terms_df = tuple(tuple(split[id(B)] for B in term)
                                    for term in A64.terms)
+            sp = problem.space
+            self._plan_df = build_kron_df_plan(
+                self._terms_df, sp.npts, sp.pads, sp.periodic, self._labels)
 
     # -- f64 recurrences ----------------------------------------------------
     def _precond(self, r: StencilVector) -> StencilVector:
@@ -154,11 +158,11 @@ class MGPreconditionedCG:
     # -- double-word recurrences ----------------------------------------------
     def _apply_A_dw(self, ph):
         """A·p in double-word from an f32 direction p (the dw residual with
-        b = 0 gives −A·p)."""
-        z = torch.zeros_like(ph)
+        b = 0 and a zero low word gives −A·p): one K5 launch on the card."""
         sp = self.problem.space
-        nh, nl = residual_kron_df(self._terms_df, z, z, ph, z, sp.pads,
-                                  labels=self._labels, periodic=sp.periodic)
+        nh, nl = residual_kron_df(self._terms_df, None, None, ph, None,
+                                  sp.pads, labels=self._labels,
+                                  periodic=sp.periodic, plan=self._plan_df)
         return -nh, -nl
 
     def _precond_dw(self, rh, rl, scale):

@@ -74,12 +74,18 @@ def estimate_dinv_a_lambda_max(A, iters: int = 30, seed: int = 0) -> float:
     generator = torch.Generator().manual_seed(seed)
     x = torch.randn(sp.npts, generator=generator,
                     dtype=torch.float32).to(sp.device)
-    diag = A.diagonal()
+    if _banded(A):
+        diag = A.diagonal()
+
+        def step(x):
+            return A.dot(StencilVector.from_interior(sp, x)).interior / diag
+    else:
+        step = A.dinv_apply     # one K1 pass, the diagonal formed in it
     x = x / torch.linalg.vector_norm(x)
     for _ in range(iters):
-        y = A.dot(StencilVector.from_interior(sp, x)).interior / diag
+        y = step(x)
         x = y / torch.linalg.vector_norm(y)
-    y = A.dot(StencilVector.from_interior(sp, x)).interior / diag
+    y = step(x)
     return float(torch.vdot(x.reshape(-1), y.reshape(-1))
                  / torch.vdot(x.reshape(-1), x.reshape(-1)))
 
@@ -169,11 +175,14 @@ def chebyshev_step(A, x: StencilVector, b: StencilVector,
                    fraction: float = 4.0) -> StencilVector:
     """One degree-k Chebyshev smoothing application on D⁻¹A over
     [λmax/fraction, λmax]: ``degree`` operator applies (fused K2
-    residuals on a banded operator)."""
+    residuals on a banded operator; on a Kronecker-sum operator each step
+    is one K1 pass in its ``cheb`` mode and nothing else)."""
     sp = A.space
     lam_min = lam_max / fraction
     theta = 0.5 * (lam_max + lam_min)
     delta = 0.5 * (lam_max - lam_min)
+    if not _banded(A):
+        return _chebyshev_kron(A, x, b, theta, delta, degree)
     diag = A.diagonal()
     z = A.residual(x, b) / diag
     d = z / theta
@@ -187,6 +196,28 @@ def chebyshev_step(A, x: StencilVector, b: StencilVector,
         x = StencilVector.from_interior(sp, x.interior + d)
         rho = rho_new
     return x
+
+
+def _chebyshev_kron(A, x: StencilVector, b: StencilVector, theta: float,
+                    delta: float, degree: int) -> StencilVector:
+    """The Chebyshev recurrence with its scalars on the host: step k is
+    x ← x + d, d ← c1·d + c2·D⁻¹(b − A x), (c1, c2) = (0, 1/θ) first.  The
+    x iterates alternate between two buffers (a step still reads its
+    input's neighbours); the caller's x is never written."""
+    b_int = b.interior
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    coeffs = [(0.0, 1.0 / theta)]
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        coeffs.append((rho_new * rho, 2.0 * rho_new / delta))
+        rho = rho_new
+    x_int, d, spare = x.interior, None, None
+    for k, (c1, c2) in enumerate(coeffs):
+        x_new, d = A.cheb_update(x_int, b_int, d, c1, c2, out=spare)
+        spare = x_int if k > 0 else None
+        x_int = x_new
+    return StencilVector.from_interior(A.space, x_int)
 
 
 def smooth_step(A, x: StencilVector, b: StencilVector, cfg: SmootherConfig,

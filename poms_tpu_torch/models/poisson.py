@@ -19,7 +19,7 @@ import torch
 
 from poms_tpu_torch.core.kron import KroneckerSumOperator
 from poms_tpu_torch.core.matrix import StencilMatrix
-from poms_tpu_torch.core.space import StencilVectorSpace
+from poms_tpu_torch.core.space import StencilVectorSpace, resolve_device
 from poms_tpu_torch.core.vector import StencilVector
 from poms_tpu_torch.mg.hierarchy import (_kron_operator_from_1d,
                                          _kron_sum_band)
@@ -43,12 +43,15 @@ class PoissonProblem:
 
 def poisson_problem(dim: int, n_el, degree: int = 3,
                     dtype: torch.dtype = torch.float64,
-                    operator: str = "banded", device="cpu") -> PoissonProblem:
+                    operator: str = "banded", device=None) -> PoissonProblem:
     """Assemble the d-D Poisson system (stiffness A, manufactured b).
 
     ``operator="banded"`` materializes the full (2p+1)^d-per-point band on
     ``device``; ``"kron"`` keeps A in the O(n) Kronecker-sum form.
+    ``device=None`` is the current CUDA card (an error when there is none);
+    pass ``device="cpu"`` for the plain versions on the CPU.
     """
+    device = resolve_device(device)
     if operator not in ("banded", "kron"):
         raise ValueError(f"operator={operator!r}: 'banded' or 'kron'")
     if isinstance(n_el, int):

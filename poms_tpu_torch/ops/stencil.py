@@ -26,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from poms_tpu_torch.core.space import resolve_device
 from poms_tpu_torch.ops import _build
 
 __all__ = ["MODES", "diagonal_band_index", "spmv_banded_plain",
@@ -80,11 +81,13 @@ def spmv_offdiag_plain(band_t: torch.Tensor, x_pad: torch.Tensor, npts,
 
 def color_mask(npts: Tuple[int, ...], color: int,
                starts: Optional[Tuple[int, ...]] = None,
-               device="cpu") -> torch.Tensor:
+               device=None) -> torch.Tensor:
     """Boolean mask of grid points with (Σ global index) % 2 == color.
 
     ``starts`` are the global offsets of this block: the colour of a point
-    depends on its global index (distributed red-black)."""
+    depends on its global index (distributed red-black).  ``device=None``
+    is the current CUDA card (an error when there is none)."""
+    device = resolve_device(device)
     total = None
     for a, n in enumerate(npts):
         shape = [1] * len(npts)

@@ -13,6 +13,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from poms_tpu_torch.core.space import resolve_device
+
 __all__ = ["TransferBand", "bands_from_dense", "apply_transfer_axis",
            "apply_transfer"]
 
@@ -38,8 +40,10 @@ class TransferBand:
 
 
 def bands_from_dense(P: np.ndarray, dtype=torch.float64,
-                     device="cpu") -> TransferBand:
-    """Extract the banded form of a dense (n_out, n_in) transfer matrix."""
+                     device=None) -> TransferBand:
+    """Extract the banded form of a dense (n_out, n_in) transfer matrix
+    (``device=None``: the current CUDA card, an error when there is none)."""
+    device = resolve_device(device)
     P = np.asarray(P)
     n_out, n_in = P.shape
     nz = np.abs(P) > 0.0

@@ -51,7 +51,7 @@ def _f64(a):
 @pytest.mark.parametrize("method", ["spgemm", "tensor"])
 def test_banded_hierarchy_matches_jax(dim, n_el, p, levels, method):
     rl = ref_build(ref_problem(dim, n_el, degree=p), levels, method=method)
-    pl = build_hierarchy(poisson_problem(dim, n_el, degree=p), levels,
+    pl = build_hierarchy(poisson_problem(dim, n_el, degree=p, device="cpu"), levels,
                          method=method)
     assert len(pl) == len(rl)
     for plev, rlev in zip(pl, rl):
@@ -99,7 +99,7 @@ def test_banded_cycle_on_carried_levels(kind, bits):
 
 def test_spgemm_and_tensor_agree():
     """The two coarse-operator methods build the same operator."""
-    prob = poisson_problem(2, 16, degree=3)
+    prob = poisson_problem(2, 16, degree=3, device="cpu")
     a = build_hierarchy(prob, 3, method="spgemm")
     b = build_hierarchy(prob, 3, method="tensor")
     for la, lb in zip(a, b):
@@ -141,7 +141,7 @@ def test_multigrid_solver_history_matches_jax(name):
     ref = RefSolver(ref_problem(dim, n_el, degree=p), levels,
                     RefCycle(**cyc, smoother=RefSmoother(**sm)))
     want = ref.solve(**solve_kw)
-    prob = poisson_problem(dim, n_el, degree=p)
+    prob = poisson_problem(dim, n_el, degree=p, device="cpu")
     port = MultigridSolver(prob, levels,
                            CycleConfig(**cyc, smoother=SmootherConfig(**sm)))
     got = port.solve(**solve_kw)
@@ -154,7 +154,7 @@ def test_multigrid_solver_history_matches_jax(name):
 
 
 def test_solve_compiled_matches_solve():
-    prob = poisson_problem(2, 16, degree=3)
+    prob = poisson_problem(2, 16, degree=3, device="cpu")
     mg = MultigridSolver(prob, 3, CycleConfig(smoother=SmootherConfig(
         "jacobi", 0.8)))
     res = mg.solve(tol=1e-10, maxiter=60)
@@ -174,7 +174,7 @@ def test_kron_solver_matches_banded(smoother):
     """tests/test_kron.py:50-60 of the JAX package, in the port: the
     Kronecker-sum and banded solvers give the same history (RB-GS on a
     Kronecker-sum operator takes the generic masked path)."""
-    prob = poisson_problem(2, 32, degree=3)
+    prob = poisson_problem(2, 32, degree=3, device="cpu")
     cfg = CycleConfig(smoother=SmootherConfig(smoother, 0.8))
     res_b = MultigridSolver(prob, 3, cfg, operator="banded").solve(
         tol=1e-10, maxiter=60)
@@ -188,7 +188,7 @@ def test_kron_solver_matches_banded(smoother):
 @pytest.mark.parametrize("operator", ["banded", "kron"])
 @pytest.mark.parametrize("kind", ["rbgs", "gs_lex"])
 def test_resolve_omega_gauss_seidel_is_one(operator, kind):
-    A = poisson_problem(3, 4, degree=3, operator=operator).A
+    A = poisson_problem(3, 4, degree=3, device="cpu", operator=operator).A
     assert resolve_omega(SmootherConfig(kind), A).omega == 1.0
     assert resolve_omega(SmootherConfig(kind, omega=0.7), A).omega == 0.7
 
@@ -208,6 +208,6 @@ def test_estimate_takes_any_operator():
     from poms_tpu_torch.mg.smoother import estimate_dinv_a_lambda_max
 
     lam = {op: estimate_dinv_a_lambda_max(
-        poisson_problem(2, 16, degree=3, operator=op).A)
+        poisson_problem(2, 16, degree=3, device="cpu", operator=op).A)
         for op in ("banded", "kron")}
     assert abs(lam["banded"] - lam["kron"]) <= 1e-4 * lam["kron"]

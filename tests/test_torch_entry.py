@@ -28,6 +28,8 @@ def test_port_imports_no_jax():
         "import poms_tpu_torch.bench.kernel_probe\n"
         "import poms_tpu_torch.bench.profile_banded\n"
         "import poms_tpu_torch.bench.roofline, poms_tpu_torch.ops.stencil_v2\n"
+        "import poms_tpu_torch.bench.k1_compare\n"
+        "import poms_tpu_torch.bench.profile_dw\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'poms_tpu'))\n"
         "assert not bad, bad\n"
@@ -89,3 +91,39 @@ def test_profile_banded_refuses_without_a_card():
     proc = _run(["-m", "poms_tpu_torch.bench.profile_banded", "8", "2", "1"])
     assert proc.returncode != 0
     assert "RESULT" not in proc.stdout
+
+
+def test_default_device_is_the_card_or_an_error():
+    """Without ``device`` the entry points use the current CUDA card; with
+    no card they raise: never a quiet CPU run."""
+    from poms_tpu_torch.core.space import (StencilVectorSpace,
+                                           resolve_device)
+    from poms_tpu_torch.models.poisson import poisson_problem
+    from poms_tpu_torch.ops.stencil import color_mask
+    from poms_tpu_torch.ops.transfer import bands_from_dense
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        card = torch.device("cuda", torch.cuda.current_device())
+        assert resolve_device() == card
+        assert StencilVectorSpace(npts=(4,), pads=1).device == card
+        assert poisson_problem(1, 8, degree=2).space.device == card
+        return
+    import numpy as np
+
+    for call in (resolve_device,
+                 lambda: StencilVectorSpace(npts=(4,), pads=1),
+                 lambda: poisson_problem(1, 8, degree=2),
+                 lambda: poisson_problem(2, 4, degree=2, operator="kron"),
+                 lambda: color_mask((4, 4), 0),
+                 lambda: bands_from_dense(np.eye(3))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert poisson_problem(1, 8, degree=2,
+                           device="cpu").space.device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["k1_compare", "profile_dw"])
+def test_kron_benches_refuse_without_a_card(module):
+    proc = _refuses([f"poms_tpu_torch.bench.{module}"])
+    assert "no CUDA device" in proc.stderr

@@ -57,7 +57,8 @@ def _pair(npts, p, periodic, dtype, seed=0, clip=False):
     ref = RefKron(ref_sp, [[Kj[b] if b == a else Mj[b] for b in range(d)]
                            for a in range(d)])
     sp = StencilVectorSpace(npts=npts, pads=(p,) * d,
-                            periodic=(periodic,) * d, dtype=tdt)
+                            periodic=(periodic,) * d, dtype=tdt,
+                            device="cpu")
     Kt = [torch.as_tensor(K, dtype=tdt) for K in Ks]
     Mt = [torch.as_tensor(M, dtype=tdt) for M in Ms]
     op = KroneckerSumOperator(sp, [[Kt[b] if b == a else Mt[b]

@@ -52,7 +52,7 @@ def ref16():
 def test_hierarchy_bitwise(n_el, levels):
     rp = ref_problem(3, n_el, degree=3, operator="kron")
     rl = ref_build(rp, levels, operator="kron")
-    pp = poisson_problem(3, n_el, degree=3, operator="kron")
+    pp = poisson_problem(3, n_el, degree=3, device="cpu", operator="kron")
     pl = build_hierarchy(pp, levels, operator="kron")
     np.testing.assert_array_equal(pp.b.interior.numpy(), _f64(rp.b.interior))
     assert len(pl) == len(rl)

@@ -38,7 +38,7 @@ def _solve_both(precision):
             precision=precision)
         lams = ref_lams(ref.levels, ref.cfg.smoother)
         rres = ref.solve(tol=TOL, maxiter=30)
-    pp = poisson_problem(3, N_EL, degree=DEGREE, operator="kron")
+    pp = poisson_problem(3, N_EL, degree=DEGREE, device="cpu", operator="kron")
     port = MGPreconditionedCG(pp, LEVELS, CycleConfig(
         nu1=1, nu2=1, smoother=SmootherConfig("chebyshev",
                                               cheb_fraction=16.0)),
@@ -96,7 +96,7 @@ def test_solve_compiled_matches_solve(solved):
 def test_dw_b_pair_and_unported_options():
     from poms_tpu_torch.ops.twofloat import split_f64
 
-    pp = poisson_problem(3, 8, degree=2, operator="kron")
+    pp = poisson_problem(3, 8, degree=2, device="cpu", operator="kron")
     cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
         "chebyshev", cheb_fraction=16.0))
     pcg = MGPreconditionedCG(pp, 2, cfg, operator="kron", precision="dw")
@@ -116,7 +116,7 @@ def test_dw_b_pair_and_unported_options():
                            precision="dw")
     # the double-word apply needs the Kronecker-sum operator, as in the
     # JAX package (poms_tpu/mg/mixed.py:401-404)
-    banded = poisson_problem(3, 8, degree=2)
+    banded = poisson_problem(3, 8, degree=2, device="cpu")
     with pytest.raises(ValueError):
         MGPreconditionedCG(banded, 2, cfg, precision="dw")
     with pytest.raises(ValueError):
@@ -133,7 +133,7 @@ def test_f64_unmixed_matches_jax():
             operator="kron", precision="f64")
         lams = ref_lams(ref.levels, ref.cfg.smoother)
         rres = ref.solve(tol=TOL, maxiter=30)
-    port = MGPreconditionedCG(poisson_problem(3, 8, degree=3,
+    port = MGPreconditionedCG(poisson_problem(3, 8, degree=3, device="cpu",
                                               operator="kron"), 2, CycleConfig(
         **cheb, smoother=SmootherConfig("chebyshev", cheb_fraction=16.0)),
         mixed=False, operator="kron", precision="f64")
@@ -167,7 +167,7 @@ def test_banded_f64_mixed_pcg_matches_jax():
             "chebyshev", cheb_fraction=16.0)), mixed=True, precision="f64")
         lams = ref_lams(ref.levels, ref.cfg.smoother)
         rres = ref.solve(tol=TOL, maxiter=30)
-    pp = poisson_problem(3, N_EL, degree=DEGREE)
+    pp = poisson_problem(3, N_EL, degree=DEGREE, device="cpu")
     port = MGPreconditionedCG(pp, LEVELS, CycleConfig(
         **cyc, smoother=SmootherConfig("chebyshev", cheb_fraction=16.0)),
         mixed=True, precision="f64")

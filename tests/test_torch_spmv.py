@@ -80,7 +80,7 @@ def test_rbgs_color(npts, pads, starts, bits, color):
                                    starts)
     _close(got, want, bits)
     x_int = tx[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
-    other = ~color_mask(npts, color, starts)
+    other = ~color_mask(npts, color, starts, device="cpu")
     assert torch.equal(got[other], x_int[other])
 
 
@@ -98,7 +98,8 @@ def test_offdiag_and_diagonal_index(npts, pads, starts):
 @pytest.mark.parametrize("color", [0, 1])
 def test_color_mask_bitwise(npts, starts, color):
     want = np.asarray(ref_color_mask(npts, color, starts))
-    np.testing.assert_array_equal(color_mask(npts, color, starts).numpy(),
+    np.testing.assert_array_equal(color_mask(npts, color, starts,
+                                             device="cpu").numpy(),
                                   want)
 
 

@@ -205,7 +205,7 @@ def test_stencil_matrix_v2_pack_plumbing(monkeypatch):
     npts, p = (8, 12, 20), 1
     rng = np.random.default_rng(5)
     sp = StencilVectorSpace(npts=npts, pads=(p,) * 3, periodic=(False,) * 3,
-                            dtype=torch.float32)
+                            dtype=torch.float32, device="cpu")
     band_t = torch.as_tensor(rng.standard_normal((3, 3, 3) + npts),
                              dtype=torch.float32)
     A = StencilMatrix(sp, band_t=band_t)
@@ -243,7 +243,7 @@ def test_v2_refuses_a_foreign_pack():
 
 
 def test_hierarchy_packs_every_banded_level(v2):
-    prob = poisson_problem(3, 8, degree=2)
+    prob = poisson_problem(3, 8, degree=2, device="cpu")
     levels = build_hierarchy(prob, 2)
     assert levels[0].A is prob.A
     for lev in levels:
@@ -274,7 +274,7 @@ def test_banded_f64_mixed_pcg_v2_matches_jax(v2, monkeypatch):
             "chebyshev", cheb_fraction=16.0)), mixed=True, precision="f64")
         lams = ref_lams(ref.levels, ref.cfg.smoother)
         rres = ref.solve(tol=1e-10, maxiter=30)
-    pp = poisson_problem(3, 16, degree=3)
+    pp = poisson_problem(3, 16, degree=3, device="cpu")
     port = MGPreconditionedCG(pp, 2, CycleConfig(
         **cyc, smoother=SmootherConfig("chebyshev", cheb_fraction=16.0)),
         mixed=True, precision="f64")

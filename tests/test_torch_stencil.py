@@ -53,7 +53,8 @@ def _pair(npts, pads, periodic, seed=0):
     ref = RefMatrix.from_band(RefSpace(npts=npts, pads=pads,
                                        periodic=periodic), band)
     ours = StencilMatrix.from_band(
-        StencilVectorSpace(npts=npts, pads=pads, periodic=periodic), band)
+        StencilVectorSpace(npts=npts, pads=pads, periodic=periodic,
+                           device="cpu"), band)
     return ref, ours
 
 
@@ -108,7 +109,7 @@ def test_tobsr_bitwise(npts, pads, periodic):
 def test_pads_too_small_and_boundary_checks():
     ref, ours = _pair((9, 11), (2, 1), (False, False), seed=1)
     coo = ref.tocoo()
-    small = StencilVectorSpace(npts=(9, 11), pads=(1, 1))
+    small = StencilVectorSpace(npts=(9, 11), pads=(1, 1), device="cpu")
     with pytest.raises(ValueError):
         StencilMatrix.from_coo(small, coo.row, coo.col, coo.data)
     with pytest.raises(ValueError):
@@ -164,7 +165,7 @@ def test_residual_matches_jax(npts, pads, periodic):
 def test_kron_residual_matches_banded():
     """The Kronecker-sum operator's residual against the banded one's on
     the same Poisson operator: ≤ 1e-12 relative."""
-    pp = poisson_problem(3, 6, degree=3)
+    pp = poisson_problem(3, 6, degree=3, device="cpu")
     kron = _kron_operator_from_1d([(s.K, s.M) for s in pp.splines],
                                   pp.space)
     x = StencilVector.from_interior(pp.space, torch.from_numpy(
@@ -191,7 +192,7 @@ def test_poisson_band_and_to_stencil(dim, n_el, p):
     operator's ``to_stencil``/``tocsr``/``toarray``, against the JAX
     package's banded operator: ≤ 1e-12 relative."""
     rp = ref_problem(dim, n_el, degree=p)
-    pp = poisson_problem(dim, n_el, degree=p)
+    pp = poisson_problem(dim, n_el, degree=p, device="cpu")
     want = _f64(rp.A.band_t)
     scale = np.abs(want).max()
     assert np.abs(pp.A.band_t.numpy() - want).max() <= 1e-12 * scale

@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from poms_tpu.ops import twofloat as ref
+from poms_tpu_torch.ops import kron as kron_ops
 from poms_tpu_torch.ops import twofloat as port
 
 torch.set_num_threads(1)
@@ -149,3 +150,126 @@ def test_eft_exact_with_broadcast():
     tru2 = tru + y64
     err2 = (zh2.double() + zl2.double() - tru2).abs().max()
     assert float(err2) < 1e-13 * float(tru2.abs().max()), float(err2)
+
+
+# -- K5: the double-word Kronecker residual's wrapper ------------------------
+
+def _dw_poisson(dim, n_el, degree):
+    """The port's Poisson operator as double-word band pairs (sharing kept),
+    with x and b as f64 fields."""
+    from poms_tpu_torch.models.poisson import poisson_problem
+
+    pp = poisson_problem(dim, n_el, degree=degree, operator="kron",
+                         device="cpu")
+    seen = {}
+    tdf = [[seen.setdefault(id(B), port.split_f64(B)) for B in term]
+           for term in pp.A.terms]
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(pp.space.npts))
+    return pp, tdf, x
+
+
+@pytest.mark.parametrize("dim,n_el,degree", [(1, 32, 3), (2, 12, 2),
+                                             (3, 6, 2), (3, 8, 3)])
+def test_residual_kron_df_on_cpu_is_the_plain_version(dim, n_el, degree):
+    pp, tdf, x = _dw_poisson(dim, n_el, degree)
+    args = (*port.split_f64(pp.b.interior), *port.split_f64(x),
+            pp.space.pads)
+    before = port.residual_kron_df.launches
+    got = port.residual_kron_df(tdf, *args)
+    assert port.residual_kron_df.launches == before
+    want = port.residual_kron_df_plain(tdf, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dim,n_el,degree", [(1, 32, 3), (2, 12, 2),
+                                             (3, 8, 3)])
+def test_residual_kron_df_zero_flags_give_the_bits_of_zeros(dim, n_el,
+                                                            degree):
+    """``xl=None`` and ``bh=bl=None`` stand for zero fields: the words
+    equal those of explicit zeros (the A·p call of the dw-PCG step)."""
+    pp, tdf, x = _dw_poisson(dim, n_el, degree)
+    xh = x.to(torch.float32)
+    zero = torch.zeros_like(xh)
+    bh, bl = port.split_f64(pp.b.interior)
+    pads = pp.space.pads
+    for flags, explicit in (((None, None, xh, None), (zero, zero, xh, zero)),
+                            ((bh, bl, xh, None), (bh, bl, xh, zero))):
+        got = port.residual_kron_df(tdf, *flags, pads)
+        want = port.residual_kron_df(tdf, *explicit, pads)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        port.residual_kron_df(tdf, bh, None, xh, None, pads)
+
+
+def _two_prod_fma_model(a, b):
+    """numpy model of the kernel's two_prod: p = fl(a·b), e = fl(a·b − p).
+    The product of two f32 is exact in f64, and so is its difference from
+    p, so e is one rounding of the exact error: what an FMA returns."""
+    p = (a * b).astype(np.float32)
+    exact = a.astype(np.float64) * b.astype(np.float64)
+    return p, (exact - p.astype(np.float64)).astype(np.float32)
+
+
+def test_two_prod_fma_form_equals_split_form_bitwise():
+    """On 2²⁰ random pairs over 60 binades and on edge cases the FMA form
+    gives the split form's (p, e) bit for bit.  They differ only where the
+    error term leaves the normal range: |a·b| below 2⁻¹⁰² (e, 24 bits
+    under p, would be subnormal), or where a product overflows."""
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    a = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+         ).astype(np.float32)
+    b = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
+         ).astype(np.float32)
+    edge = np.array([0.0, -0.0, 1.0, -1.0, 2.0, 0.5, 2.0 ** -40, -2.0 ** 40,
+                     1.0 + 2.0 ** -23, 1.0 - 2.0 ** -24, 3.0, 1e-20, -7e15],
+                    np.float32)
+    ea, eb = np.meshgrid(edge, edge)
+    a = np.concatenate([a, ea.ravel()])
+    b = np.concatenate([b, eb.ravel()])
+    p, e = port.two_prod(torch.from_numpy(a), torch.from_numpy(b))
+    mp, me = _two_prod_fma_model(a, b)
+    np.testing.assert_array_equal(p.numpy(), mp)
+    np.testing.assert_array_equal(e.numpy(), me)
+    exact = a.astype(np.float64) * b.astype(np.float64)
+    normal = (np.abs(exact) >= 2.0 ** -102) | (exact == 0.0)
+    assert normal.sum() >= n            # 1e-20 · 1e-20 lies below the range
+    np.testing.assert_array_equal((mp.astype(np.float64) + me)[normal],
+                                  exact[normal])
+    # below the stated range the error term is no longer exact
+    tiny = np.float32(2.0 ** -60) * np.float32(1.0 + 2.0 ** -23)
+    mp, me = _two_prod_fma_model(np.array([tiny]), np.array([tiny]))
+    assert float(mp[0]) + float(me[0]) != float(tiny) * float(tiny)
+
+
+def test_kron_df_plan_layout_and_limits():
+    """K5's launch data: K1's plan of the hi bands, the lo bands stacked by
+    the same labels (a lifted axis: hi 1, lo 0), the sharing plan in the
+    kernel's fixed layout; an operator past the kernel's limits raises."""
+    pp, tdf, _ = _dw_poisson(2, 12, 2)
+    plan = port.build_kron_df_plan(tdf, pp.space.npts, pp.space.pads)
+    assert plan.n3 == (1,) + pp.space.npts and plan.P == 2
+    assert float(plan.bands[0][0, 0, 2]) == 1.0
+    assert not plan.bands_lo[0].any()
+    for hi, lo in zip(plan.bands, plan.bands_lo):
+        assert hi.shape == lo.shape and hi.dtype == lo.dtype == torch.float32
+    lab = plan.labels[2][0]
+    assert torch.equal(plan.bands_lo[2][lab], tdf[0][1][1])
+    T1, T2, _ = plan.tiling
+    assert T1 * T2 <= port.MAX_THREADS_DW
+    # K5 keeps its own cost model: one block an SM, 3 runs of 43 planes
+    assert kron_ops.kron_tiling((129,) * 3, 3, port.MAX_THREADS_DW,
+                                port.k5_step_cost(3)) == (15, 17, 43)
+    geo, ints = port._df_c_args(plan)
+    assert list(ints)[:4] == [2, 2, 2, 2]     # u, v, histories, terms
+    assert len(ints) == 4 + sum(port.CAPS_DW[k] * m
+                                for k, m in zip("uvwt", (1, 2, 2, 1)))
+    assert list(geo)[:3] == [1, *pp.space.npts] and geo[6] == 2
+    rng = np.random.default_rng(13)
+    free = [[port.split_f64(torch.from_numpy(rng.standard_normal((9, 3))))
+             for _ in range(2)] for _ in range(5)]
+    with pytest.raises(RuntimeError):
+        port._df_c_args(port.build_kron_df_plan(free, (9, 9), (1, 1)))

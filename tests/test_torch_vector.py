@@ -21,7 +21,8 @@ CASES = [((7,), 2, (False,)), ((6, 9), 3, (True, False)),
 
 def _spaces(npts, p, periodic):
     return (RefSpace(npts=npts, pads=p, periodic=periodic),
-            StencilVectorSpace(npts=npts, pads=p, periodic=periodic))
+            StencilVectorSpace(npts=npts, pads=p, periodic=periodic,
+                               device="cpu"))
 
 
 @pytest.mark.parametrize("npts,p,periodic", CASES)
