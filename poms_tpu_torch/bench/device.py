@@ -1,33 +1,106 @@
 """The card a measurement names (``nvidia-smi``'s name and power limit) and
-the device time of a call under ``torch.profiler``."""
+the device time of a call: under ``torch.profiler``, or, where the profiler
+records no device event, by CUDA events around a captured graph of the
+calls."""
 from __future__ import annotations
 
 import subprocess
+import sys
 
-__all__ = ["nvidia_smi_name_power", "device_ms"]
+__all__ = ["nvidia_smi_name_power", "device_ms", "profiler_ms",
+           "graph_event_ms", "stream_event_ms"]
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Kernel time per call on the card: the profiler's device time summed
-    over every kernel the call launched, mean of ``reps`` calls after one
-    warm-up call.  A profile that comes back without device events (seen
-    about once in a hundred profiles taken in a row) is taken again."""
+def profiler_ms(fn, reps: int = 20, with_cpu: bool = False):
+    """The profiler's device time summed over every kernel that ``reps``
+    calls launched, per call; None if the profile holds no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    for _ in range(3):
+    activities = [ProfilerActivity.CUDA]
+    if with_cpu:
+        activities.append(ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0)
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / reps
-    raise AssertionError("the profiler recorded no device time")
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def graph_event_ms(fn, reps: int = 20) -> float:
+    """Time per call by CUDA events around one replay of a graph that holds
+    ``reps`` calls: the kernels run back to back with no host in between, so
+    this is the device time plus the graph's gaps between kernel nodes.
+    Raises if a call cannot be captured (it synchronises, say)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def stream_event_ms(fn, reps: int = 20) -> float:
+    """Time per call by CUDA events around ``reps`` calls on the current
+    stream: includes the gaps in which the host is still enqueuing."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Kernel time per call on the card, mean of ``reps`` calls after one
+    warm-up call: the profiler's device time.  A profile can come back
+    without device events, and then the next ones often do too, so after
+    three such profiles the time is taken by CUDA events instead, around a
+    replayed graph of the calls, or around the plain calls where they
+    cannot be captured; a line on the standard error says so."""
+    import torch
+
+    fn()
+    for attempt in range(3):
+        ms = profiler_ms(fn, reps, with_cpu=attempt == 2)
+        if ms is not None:
+            return ms
+    try:
+        ms, how = graph_event_ms(fn, reps), "a replayed graph of the calls"
+    except Exception as exc:                  # the call is not capturable
+        torch.cuda.synchronize()
+        ms = stream_event_ms(fn, reps)
+        how = f"the calls on the stream (no graph: {type(exc).__name__})"
+    print(f"[device_ms] the profiler recorded no device time; {ms:.4f} ms "
+          f"per call is by CUDA events around {how}", file=sys.stderr,
+          flush=True)
+    return ms
 
 
 def nvidia_smi_name_power() -> str:

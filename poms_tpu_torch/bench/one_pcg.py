@@ -6,9 +6,12 @@ the card.
 
 Prints one ``RESULT {...}`` line with the JAX bench's keys plus ``device``,
 ``power_limit``, ``setup_s`` (cold: kernel build, hierarchy, λ estimates)
-``k1_launches`` (K1 launches per mode in the timed solve) and
-``k5_launches`` (the double-word A·p kernel).  Needs a CUDA card; there is
-no CPU fallback.
+``k1_launches`` (K1 launches per mode in the timed solve),
+``k5_launches`` (the double-word A·p kernel) and ``launches`` (every
+wrapper's).  The timed solve is the second ``solve_compiled`` call, which
+replays the step's captured graph; a replay counts the launches its capture
+recorded.  ``precision`` is ``dw``, ``dwrr`` or ``f64``.  Needs a CUDA card;
+there is no CPU fallback.
 """
 import json
 import sys
@@ -31,7 +34,8 @@ def main():
     from poms_tpu_torch.mg.mixed import MGPreconditionedCG
     from poms_tpu_torch.mg.smoother import SmootherConfig
     from poms_tpu_torch.models.poisson import poisson_problem
-    from poms_tpu_torch.ops.kron import MODES, kron_mode
+    from poms_tpu_torch.ops import counters
+    from poms_tpu_torch.ops.kron import kron_mode
     from poms_tpu_torch.ops.twofloat import residual_kron_df, split_f64
 
     if not torch.cuda.is_available():
@@ -53,15 +57,13 @@ def main():
     setup_s = time.perf_counter() - t0
     # big grids: free the f64 RHS and skip the result vector
     kw = {}
-    if n_el >= 384 and precision == "dw":
+    if n_el >= 384 and precision in ("dw", "dwrr"):
         kw = {"b_pair": split_f64(prob.b.interior), "return_x": False}
         prob.b = None
     x, rn, it = pcg.solve_compiled(tol=tol, maxiter=100, **kw)
     torch.cuda.synchronize()
     del x
-    for mode in MODES:
-        kron_mode.launches[mode] = 0
-    residual_kron_df.launches = 0
+    counters.reset()
     t0 = time.perf_counter()
     x, rn, it = pcg.solve_compiled(tol=tol, maxiter=100, **kw)
     torch.cuda.synchronize()
@@ -79,7 +81,9 @@ def main():
         "grid": [n_el] * 3, "levels": num_levels,
         "device": torch.cuda.get_device_name(0), "power_limit": power,
         "setup_s": setup_s, "k1_launches": dict(kron_mode.launches),
-        "k5_launches": residual_kron_df.launches}), flush=True)
+        "k5_launches": residual_kron_df.launches,
+        "launches": {k: v for k, v in counters.snapshot().items() if v}}),
+        flush=True)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ loop makes (one host sync per iteration):
 - ``kernel_ms``, ``kernels``, ``k2_ms`` and ``k3_ms``: device time,
   launches and the banded kernels' share of it per iteration, from the
   same trace (K3 under ``POMS_TPU_SPMV=v2``, which ``engine`` names);
+- ``replayed_step_ms``, ``replayed_busy_ms``, ``replayed_idle_share``,
+  ``replayed_kernels``: the same iterations as replays of the step's
+  captured CUDA graph (the path of ``solve_compiled``);
 - ``ap_ms`` and ``precond_ms``: CUDA events around the f64 A·p (ghost
   refresh included) and the f32 V-cycle alone.
 
@@ -40,18 +43,43 @@ def _merged_us(intervals):
     return total
 
 
+def profiled_run(run, reps):
+    """(CUDA-event ms per step, merged device ms per step, kernel stats)
+    of ``run`` under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = _merged_us([(e.time_range.start, e.time_range.end)
+                          for e in device]) / 1e3 / reps
+    if not busy_ms > 0:
+        raise AssertionError("the profiler recorded no device time")
+    stats = sorted((e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA),
+                   key=lambda e: -e.self_device_time_total)
+    return start.elapsed_time(end) / reps, busy_ms, stats
+
+
 def main():
     n_el = int(sys.argv[1]) if len(sys.argv) > 1 else 128
     levels = int(sys.argv[2]) if len(sys.argv) > 2 else 5
     reps = int(sys.argv[3]) if len(sys.argv) > 3 else 5
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from poms_tpu_torch.bench.device import nvidia_smi_name_power
     from poms_tpu_torch.bench.kernel_probe import cuda_event_ms
+    from poms_tpu_torch.core.vector import StencilVector
     from poms_tpu_torch.mg.cycles import CycleConfig
+    from poms_tpu_torch.mg.graph import GraphedStep
     from poms_tpu_torch.mg.mixed import MGPreconditionedCG
     from poms_tpu_torch.mg.smoother import SmootherConfig
     from poms_tpu_torch.models.poisson import poisson_problem
@@ -68,14 +96,21 @@ def main():
                                               cheb_degree=4))
     pcg = MGPreconditionedCG(prob, num_levels=levels, cfg=cfg, mixed=True,
                              precision="f64")
-    pcg.solve_compiled(tol=1e-10, maxiter=30)
-    state0, step, _ = pcg._start(prob.b)
+    pcg.solve(tol=1e-10, maxiter=30)
+    state0, consts, step = pcg._start(prob.b)[:3]
 
     def run():
         state = state0
         for _ in range(reps):
-            *state, rn = step(*state)
+            *state, rn = step(*state, *consts)
             float(rn)
+
+    graph = GraphedStep(step, state0, consts)
+
+    def replay():
+        graph.load(state0, consts)
+        for _ in range(reps):
+            float(graph.replay())
 
     run()
     torch.cuda.synchronize()
@@ -83,23 +118,7 @@ def main():
     run()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / reps
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-    profiled_ms = start.elapsed_time(end) / reps
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = _merged_us([(e.time_range.start, e.time_range.end)
-                          for e in device]) / 1e3 / reps
-    if not busy_ms > 0:
-        raise AssertionError("the profiler recorded no device time")
-    stats = sorted((e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA),
-                   key=lambda e: -e.self_device_time_total)
+    profiled_ms, busy_ms, stats = profiled_run(run, reps)
     kernel_ms = sum(e.self_device_time_total for e in stats) / 1e3 / reps
 
     def share(kernel):
@@ -109,7 +128,17 @@ def main():
         print(f"{e.self_device_time_total / 1e3 / reps:9.4f} ms "
               f"{e.count / reps:7.1f}x  {e.key[:100]}", flush=True)
 
-    _, r, _, p, _ = state0
+    replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay()
+    torch.cuda.synchronize()
+    replayed_ms = (time.perf_counter() - t0) * 1e3 / reps
+    r_profiled_ms, r_busy_ms, r_stats = profiled_run(replay, reps)
+
+    sp = prob.space
+    _, r, _, p, _ = (StencilVector.from_interior(sp, t) if t.ndim else t
+                     for t in state0)
     ap_ms = cuda_event_ms(lambda: pcg.levels[0].A.dot(p))
     precond_ms = cuda_event_ms(lambda: pcg._precond(r))
     power = nvidia_smi_name_power().rsplit(",", 1)[-1].strip()
@@ -121,7 +150,13 @@ def main():
         "kernels": sum(e.count for e in stats) / reps,
         "k2_ms": share("stencil_apply_kernel"),
         "k3_ms": share("stencil_apply_v2_kernel"),
+        "k7_ms": share("transfer_axis_kernel"),
         "engine": "v2" if dispatch.engine() is stencil_apply_v2 else "v1",
+        "replayed_step_ms": replayed_ms,
+        "replayed_profiled_step_ms": r_profiled_ms,
+        "replayed_busy_ms": r_busy_ms,
+        "replayed_idle_share": 1.0 - r_busy_ms / r_profiled_ms,
+        "replayed_kernels": sum(e.count for e in r_stats) / reps,
         "ap_ms": ap_ms, "precond_ms": precond_ms,
         "device": torch.cuda.get_device_name(0), "power_limit": power}),
         flush=True)

@@ -23,7 +23,8 @@ from poms_tpu_torch.ops.cholesky import DenseCholesky
 from poms_tpu_torch.ops.transfer import TransferBand
 
 __all__ = ["tensor", "space", "kron_operator", "stencil_matrix", "operator",
-           "transfer_band", "cholesky", "levels", "problem", "lams"]
+           "transfer_band", "cholesky", "levels", "problem", "lams",
+           "cycle_config", "mixed_precision_mg"]
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -110,3 +111,54 @@ def problem(ref_prob, device="cpu") -> PoissonProblem:
 def lams(ref_lams):
     """The per-level λmax(D⁻¹A) tuple (None on the Cholesky level)."""
     return tuple(None if lam is None else float(lam) for lam in ref_lams)
+
+
+def cycle_config(ref_cfg):
+    """The port's CycleConfig of a reference one (field by field)."""
+    from poms_tpu_torch.mg.cycles import CycleConfig
+    from poms_tpu_torch.mg.smoother import SmootherConfig
+
+    sm = ref_cfg.smoother
+    return CycleConfig(
+        nu1=ref_cfg.nu1, nu2=ref_cfg.nu2, gamma=ref_cfg.gamma,
+        smoother=SmootherConfig(kind=sm.kind, omega=sm.omega,
+                                cheb_degree=sm.cheb_degree,
+                                cheb_fraction=sm.cheb_fraction))
+
+
+def mixed_precision_mg(ref_mg, ref_lams, device="cpu"):
+    """A reference ``MixedPrecisionMG`` as the port's, with the reference's
+    state instead of a setup of its own: ``levels64``, ``levels32`` (the
+    reference's cast arrays), the split bands ``_terms_df`` of the twofloat
+    mode, and ``ref_lams``, the reference's λmax(D⁻¹A) estimates
+    (``attach_spectral_estimates(ref_mg.levels64, ref_mg.cfg.smoother)``;
+    the reference keeps them in a closure)."""
+    from poms_tpu_torch.mg.mixed import MixedPrecisionMG
+    from poms_tpu_torch.ops.twofloat import build_kron_df_plan
+
+    mg = MixedPrecisionMG.__new__(MixedPrecisionMG)
+    mg.residual_mode = ref_mg.residual_mode
+    mg.inner_cycles = int(ref_mg.inner_cycles)
+    mg.problem = problem(ref_mg.problem, device)
+    mg.levels64 = levels(ref_mg.levels64, device)
+    mg.levels32 = levels(ref_mg.levels32, device)
+    mg.low_dtype = mg.levels32[0].A.space.dtype
+    mg.cfg = cycle_config(ref_mg.cfg)
+    mg.lams = lams(ref_lams)
+    if mg.residual_mode == "twofloat":
+        seen = {}
+        terms_df = []
+        for term in ref_mg._terms_df:
+            row = []
+            for pair in term:
+                if id(pair) not in seen:
+                    seen[id(pair)] = (tensor(pair[0], device),
+                                      tensor(pair[1], device))
+                row.append(seen[id(pair)])
+            terms_df.append(tuple(row))
+        mg._terms_df = tuple(terms_df)
+        mg._labels = mg.levels64[0].A._band_labels()
+        sp = mg.problem.space
+        mg._plan_df = build_kron_df_plan(mg._terms_df, sp.npts, sp.pads,
+                                         sp.periodic, mg._labels)
+    return mg

@@ -22,16 +22,20 @@
 // dw_add(b, -Ax).  Every add and multiply is an intrinsic that the compiler
 // never contracts; two_prod is p = fl(a b), e = fma(a, b, -p), which gives
 // the same pair as the plain version's 12|12-bit split form wherever
-// nothing underflows.  So the words equal the plain version's bit for bit
-// (up to the sign of a zero).  Bands narrower than the compiled half-width
+// nothing underflows (the shared functions of dw_eft.cuh).  So the words equal
+// the plain version's bit for bit (up to the sign of a zero).  With `negate`
+// the pair leaves the kernel negated word by word, which is the negated
+// normalised pair: A p itself for the b = 0 call of the PCG step.  Bands narrower than the compiled half-width
 // are zero-padded: a zero tap adds (0, 0), which leaves a normalised pair
 // unchanged.  A null x_l or b is a field of zeros: it is neither read nor
 // allocated, the arithmetic on its zeros is still done.
 
+#include "dw_eft.cuh"
 #include "kron_march.cuh"
 
 namespace {
 
+using namespace dwf;
 using kron::Geometry;
 
 constexpr int kCU = 2;  // u partials (distinct axis-2 bands)
@@ -39,56 +43,6 @@ constexpr int kCV = 3;  // v partials
 constexpr int kCW = 3;  // distinct full histories
 constexpr int kCT = 4;  // terms
 constexpr int kMaxThreads = 256;
-
-struct dw {
-  float h, l;
-};
-
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-
-// Knuth: s + e == a + b exactly
-__device__ __forceinline__ dw two_sum(float a, float b) {
-  const float s = add(a, b);
-  const float bb = sub(s, a);
-  return {s, add(sub(a, sub(s, bb)), sub(b, bb))};
-}
-
-// Dekker (|a| >= |b|): s + e == a + b exactly
-__device__ __forceinline__ dw fast_two_sum(float a, float b) {
-  const float s = add(a, b);
-  return {s, sub(b, sub(s, a))};
-}
-
-// p + e == a b exactly
-__device__ __forceinline__ dw two_prod(float a, float b) {
-  const float p = mul(a, b);
-  return {p, __fmaf_rn(a, b, -p)};
-}
-
-// AccurateDWPlusDW
-__device__ __forceinline__ dw dw_add(dw x, dw y) {
-  const dw s = two_sum(x.h, y.h);
-  const dw t = two_sum(x.l, y.l);
-  const float c = add(s.l, t.h);
-  const dw v = fast_two_sum(s.h, c);
-  const float w = add(t.l, v.l);
-  return fast_two_sum(v.h, w);
-}
-
-// DWTimesDW
-__device__ __forceinline__ dw dw_mul(dw x, dw y) {
-  const dw p = two_prod(x.h, y.h);
-  const float t = add(mul(x.h, y.l), mul(x.l, y.h));
-  return fast_two_sum(p.h, add(p.l, t));
-}
 
 struct Plan {
   int nu, nv, nw, nt;
@@ -107,6 +61,7 @@ struct Args {
   const float* band_l[3];
   float* rh;
   float* rl;
+  int negate;  // write -(b - A x): A x itself when b = 0
   Geometry g;
   Plan p;
 };
@@ -304,9 +259,9 @@ kron_march_dw_kernel(const Args a) {
       const int64_t idx = ((int64_t)i * g.n1 + gj) * g.n2 + gl;
       const dw b = a.bh != nullptr ? dw{a.bh[idx], a.bl[idx]}
                                    : dw{0.0f, 0.0f};
-      const dw r = dw_add(b, dw{-ax.h, -ax.l});
-      a.rh[idx] = r.h;
-      a.rl[idx] = r.l;
+      const dw r = dw_add(b, dw_neg(ax));
+      a.rh[idx] = a.negate ? -r.h : r.h;
+      a.rl[idx] = a.negate ? -r.l : r.l;
     }
   }
   kron::cp_async_wait<0>();
@@ -359,12 +314,12 @@ int kron_residual_dw(const float* xh, const float* xl, const float* bh,
                      const float* bl, const float* b0h, const float* b0l,
                      const float* b1h, const float* b1l, const float* b2h,
                      const float* b2l, float* rh, float* rl, const int* geo,
-                     const int* plan, void* stream) {
+                     const int* plan, int negate, void* stream) {
   Args a;
   a.xh = xh, a.xl = xl, a.bh = bh, a.bl = bl;
   a.band_h[0] = b0h, a.band_h[1] = b1h, a.band_h[2] = b2h;
   a.band_l[0] = b0l, a.band_l[1] = b1l, a.band_l[2] = b2l;
-  a.rh = rh, a.rl = rl;
+  a.rh = rh, a.rl = rl, a.negate = negate;
   Geometry& g = a.g;
   g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
   g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];

@@ -5,7 +5,8 @@ level list; each smoothing sweep and residual goes through the level
 operator (K2's fused passes on a banded level, K3's under
 ``POMS_TPU_SPMV=v2`` with the level's packed band; on a Kronecker-sum level
 one K1 pass per Chebyshev step and per residual), transfers are banded
-gathers, and the coarsest level is a pair of triangular solves.
+gathers (K7, one pass per axis), and the coarsest level is a pair of
+triangular solves.
 """
 from __future__ import annotations
 
@@ -50,8 +51,10 @@ def cycle(levels: List[Level], l: int, x: StencilVector, b: StencilVector,
     x_c = StencilVector.zeros(sp_c)
     for _ in range(cfg.gamma):
         x_c = cycle(levels, l + 1, x_c, b_c, cfg, lams)
-    corr_int = apply_transfer(level.prolong, x_c.interior)
-    x = StencilVector.from_interior(level.A.space, x.interior + corr_int)
+    # x + P·x_c, the sum formed in the last axis' transfer pass
+    x = StencilVector.from_interior(
+        level.A.space, apply_transfer(level.prolong, x_c.interior,
+                                      add=x.interior))
     for _ in range(cfg.nu2):
         x = smooth_step(level.A, x, b, cfg.smoother, lam_max=lam)
     return x

@@ -2,10 +2,11 @@
 
 Counterpart of ``poms_tpu.mg.solver``: :meth:`MultigridSolver.solve`
 iterates cycles until ‖r‖₂ ≤ tol (absolute, or relative to ‖b‖ with
-``rtol=True``) and records the residual history; ``solve_compiled`` runs
-the same cycles without the history and returns ``(x, rn, it)``.  PyTorch
-runs eagerly, so both are host loops over the same cycle; the history
-costs one host sync per cycle.
+``rtol=True``) and records the residual history (and logs each cycle to a
+``ConvergenceLogger``); ``solve_compiled`` runs the same cycles without the
+history and returns ``(x, rn, it)``: on the card one captured CUDA graph
+replayed per cycle (:mod:`poms_tpu_torch.mg.graph`), on the CPU the eager
+loop.  Either way the host reads ‖r‖ once per cycle.
 """
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ from typing import List, Optional
 
 from poms_tpu_torch.core.vector import StencilVector
 from poms_tpu_torch.mg.cycles import CycleConfig, cycle, fmg
+from poms_tpu_torch.mg.graph import GraphedStep
 from poms_tpu_torch.mg.hierarchy import Level, build_hierarchy
 from poms_tpu_torch.mg.smoother import attach_spectral_estimates, resolve_omega
 
-__all__ = ["MultigridSolver", "SolveResult"]
+__all__ = ["MultigridSolver", "SolveResult", "LamsOwner", "log_rho"]
 
 
 @dataclass
@@ -35,12 +37,33 @@ class SolveResult:
         return [r[i + 1] / r[i] for i in range(len(r) - 1) if r[i] > 0]
 
 
-class MultigridSolver:
-    """Geometric multigrid solver for tensor-product B-spline problems.
-
-    ``lams`` holds the per-level λmax(D⁻¹A) estimates (Chebyshev only); the
+class LamsOwner:
+    """``lams``, the per-level λmax(D⁻¹A) estimates (Chebyshev only): the
     cycles read it at every call, so it may be replaced after construction.
-    """
+    A captured graph has the Chebyshev coefficients baked in, so replacing
+    ``lams`` drops the solver's cached graphs (``_graphs``)."""
+
+    @property
+    def lams(self):
+        return self._lams
+
+    @lams.setter
+    def lams(self, value):
+        self._lams = value
+        self._graphs = {}
+
+
+def log_rho(logger, it: int, residuals: List[float], wall_s: float) -> None:
+    """One ``log_cycle`` record for the newest entry of ``residuals``."""
+    if logger is not None:
+        prev = residuals[-2]
+        logger.log_cycle(cycle=it, residual=residuals[-1],
+                         rho=residuals[-1] / prev if prev else 0.0,
+                         wall_s=wall_s)
+
+
+class MultigridSolver(LamsOwner):
+    """Geometric multigrid solver for tensor-product B-spline problems."""
 
     def __init__(self, problem, num_levels: int,
                  cfg: CycleConfig = CycleConfig(), operator: str = "banded"):
@@ -66,12 +89,9 @@ class MultigridSolver:
         """Iterate cycles to tolerance, recording ‖r‖₂ after each.
 
         ``use_fmg`` starts from a full-multigrid pass, else from ``x0`` (zero
-        by default).  Convergence logging (``logger``) is not ported yet:
-        pass None.
+        by default); ``logger`` (a ``ConvergenceLogger``) gets one record
+        per cycle.
         """
-        if logger is not None:
-            raise NotImplementedError(
-                "logger: utils/logging.py is not ported yet (ROADMAP slice 2)")
         b = b if b is not None else self.problem.b
         space = self.levels[0].A.space
         if use_fmg:
@@ -93,6 +113,7 @@ class MultigridSolver:
             residuals.append(rn)
             it += 1
             converged = rn <= target
+            log_rho(logger, it, residuals, wall[-1])
         return SolveResult(x=x, residuals=residuals, iterations=it,
                            converged=converged, wall_times=wall)
 
@@ -104,10 +125,28 @@ class MultigridSolver:
         device, ``it`` an int.
         """
         b = b if b is not None else self.problem.b
-        x = StencilVector.zeros(self.levels[0].A.space)
+        space = self.levels[0].A.space
+        x = StencilVector.zeros(space)
         rn = self._residual_norm(x, b)
         it = 0
+        if space.device.type != "cuda":
+            while float(rn) > tol and it < maxiter:
+                x, rn = self._step(x, b)
+                it += 1
+            return x, rn, it
+
+        def step(x_int, b_int):
+            x, rn = self._step(StencilVector.from_interior(space, x_int),
+                               StencilVector.from_interior(space, b_int))
+            return x.interior, rn
+
+        if "mg" not in self._graphs:
+            self._graphs["mg"] = GraphedStep(step, [x.interior],
+                                             [b.interior])
+        graph = self._graphs["mg"]
+        graph.load([x.interior], [b.interior])
         while float(rn) > tol and it < maxiter:
-            x, rn = self._step(x, b)
+            rn = graph.replay()
             it += 1
-        return x, rn, it
+        return (StencilVector.from_interior(space, graph.state[0].clone()),
+                rn.clone(), it)

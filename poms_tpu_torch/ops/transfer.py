@@ -4,19 +4,29 @@ Counterpart of ``poms_tpu.ops.transfer``: a tensor-product transfer
 P = ⊗_a P_1^(a) is applied one axis at a time, each 1D application being
 
     y[..., i, ...] = Σ_t  w[i, t] · x[..., c0[i] + t, ...]
+
+K7: for CUDA tensors :func:`apply_transfer` launches the hand-written kernel
+of ``csrc/transfer.cu`` once per axis (or raises); for CPU tensors it runs
+:func:`apply_transfer_plain`.  The kernel adds the taps in the plain
+version's order with multiplies and adds the compiler may not fuse, so its
+result equals the plain version's bit for bit.  ``apply_transfer.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from poms_tpu_torch.core.space import resolve_device
+from poms_tpu_torch.ops import _build
 
 __all__ = ["TransferBand", "bands_from_dense", "apply_transfer_axis",
-           "apply_transfer"]
+           "apply_transfer", "apply_transfer_plain"]
 
 
 @dataclass
@@ -71,9 +81,89 @@ def apply_transfer_axis(tb: TransferBand, x: torch.Tensor,
     return out
 
 
-def apply_transfer(tbs: Tuple[TransferBand, ...],
-                   x: torch.Tensor) -> torch.Tensor:
-    """Apply per-axis banded transfers (tensor-product operator) to x."""
+def apply_transfer_plain(tbs: Tuple[TransferBand, ...], x: torch.Tensor,
+                         add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch K7: the per-axis gathers in axis order, then ``add``."""
     for a, tb in enumerate(tbs):
         x = apply_transfer_axis(tb, x, a)
+    return x if add is None else add + x
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = _build.load("transfer")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.transfer_axis.argtypes = [ptr] * 5 + [i64, i32, i32, i64, i32, i32,
+                                              ptr]
+    lib.transfer_axis.restype = i32
+    lib.transfer_error_string.argtypes = [i32]
+    lib.transfer_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def apply_transfer(tbs: Tuple[TransferBand, ...], x: torch.Tensor,
+                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply per-axis banded transfers (tensor-product operator) to x;
+    ``add`` (the result's shape) is added to the result: the prolongation's
+    x + P·x_c in the last axis' pass.  CPU tensors take the plain version;
+    CUDA tensors launch K7 once per axis or raise."""
+    if x.device.type == "cpu":
+        return apply_transfer_plain(tbs, x, add)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"apply_transfer on {x.device.type} tensors")
+    if len(tbs) != x.ndim:
+        raise ValueError(f"{len(tbs)} transfer bands for a {x.ndim}-D field")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the transfer kernel takes float32/float64, got "
+                        f"{x.dtype}")
+    with torch.cuda.device(x.device):
+        return _launch(tbs, x, add, torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(tbs, x, add, stream):
+    """Check the operands and launch one kernel per axis on ``stream``."""
+    lib = _library()
+    x = x.contiguous()
+    for a, tb in enumerate(tbs):
+        if tb.w.dtype != x.dtype or tb.w.device != x.device \
+                or tb.c0.device != x.device:
+            raise ValueError("transfer weights and x must share device and "
+                             "dtype")
+        if tb.c0.dtype != torch.int64:
+            raise TypeError(f"c0 must be int64, got {tb.c0.dtype}")
+        if x.shape[a] != tb.n_in or tb.c0.shape[0] != tb.n_out:
+            raise ValueError(f"axis {a} has {x.shape[a]} points, the "
+                             f"transfer maps {tb.n_in} to {tb.n_out}")
+        shape = list(x.shape)
+        shape[a] = tb.n_out
+        y = torch.empty(shape, dtype=x.dtype, device=x.device)
+        addend = None
+        if add is not None and a == len(tbs) - 1:
+            if (tuple(add.shape) != tuple(shape) or add.dtype != x.dtype
+                    or add.device != x.device):
+                raise ValueError(f"add has shape {tuple(add.shape)} "
+                                 f"{add.dtype}, expected {tuple(shape)} "
+                                 f"{x.dtype}")
+            addend = add.contiguous()
+        outer = 1
+        for n in x.shape[:a]:
+            outer *= n
+        inner = 1
+        for n in x.shape[a + 1:]:
+            inner *= n
+        err = lib.transfer_axis(
+            x.data_ptr(), tb.w.contiguous().data_ptr(),
+            tb.c0.contiguous().data_ptr(),
+            None if addend is None else addend.data_ptr(), y.data_ptr(),
+            outer, tb.n_in, tb.n_out, inner, tb.width,
+            int(x.dtype == torch.float64), stream)
+        if err != 0:
+            raise RuntimeError("apply_transfer kernel launch failed: "
+                               + lib.transfer_error_string(err).decode())
+        apply_transfer.launches += 1
+        x = y
     return x
+
+
+apply_transfer.launches = 0

@@ -17,6 +17,18 @@ kernel of ``csrc/kron_apply_dw.cu`` (or raises); for CPU tensors it runs
 operations in its order with adds and multiplies the compiler may not fuse,
 so its words equal the plain version's.  ``residual_kron_df.launches``
 counts kernel launches.
+
+K6: the dots and norms (:func:`dw_dot_stack`, :func:`dw_dot`,
+:func:`dw_norm2`, :func:`dw_sum_tree`) launch ``csrc/dw_reduce.cu`` for CUDA
+tensors (K6r: every field read once, a fixed order of double-word
+additions, the f64 result left on the device) and take the pairwise tree of
+the ``*_plain`` functions for CPU tensors; the two orders agree to the
+accuracy of double-word addition, not bitwise.  The elementwise recurrences
+of the solvers (:func:`dw_update`) launch ``csrc/dw_update.cu`` (K6u), whose
+words equal :func:`dw_update_plain`'s.  A ``None`` low word is a field of
+zeros and is never read on the card.  ``dw_dot_stack.launches`` and
+``dw_update.launches`` count launcher calls (a K6r call is its partial pass
+and the one-block pass that adds the partials).
 """
 from __future__ import annotations
 
@@ -37,7 +49,10 @@ __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_mul", "dw_mul_fd", "dw_neg", "residual_kron_df",
            "residual_kron_df_plain", "build_kron_df_plan", "k5_step_cost",
            "eft_on_card",
-           "dw_norm2", "dw_dot", "dw_sum_tree", "dw_dot_stack"]
+           "dw_norm2", "dw_dot", "dw_sum_tree", "dw_dot_stack",
+           "dw_norm2_plain", "dw_dot_plain", "dw_sum_tree_plain",
+           "dw_dot_stack_plain", "dw_update", "dw_update_plain",
+           "UPDATE_MODES"]
 
 # mirrored in csrc/kron_apply_dw.cu (kCU, kCV, kCW, kCT, kMaxThreads and the
 # instantiated half-widths)
@@ -146,10 +161,11 @@ def _apply_band_1d_axis_df(b1h, b1l, xh, xl, axis: int, pad: int,
 
 
 def residual_kron_df_plain(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh,
-                           xl, pads, labels=None, periodic=None):
+                           xl, pads, labels=None, periodic=None,
+                           negate: bool = False):
     """Plain PyTorch K5: r = b − (Σ_r ⊗_a B_r^(a))·x in double-word f32,
     axis passes right to left, partials shared along ``labels``, taps and
-    terms added in order."""
+    terms added in order; ``negate`` returns −r, word by word."""
     d = xh.ndim
     if labels is None:
         labels = band_labels([[B[0] for B in term] for term in terms_df])
@@ -174,7 +190,8 @@ def residual_kron_df_plain(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh,
             axh, axl = ph, plo
         else:
             axh, axl = dw_add(axh, axl, ph, plo)
-    return dw_add(bh, bl, -axh, -axl)
+    rh, rl = dw_add(bh, bl, -axh, -axl)
+    return dw_neg(rh, rl) if negate else (rh, rl)
 
 
 def k5_step_cost(P: int):
@@ -211,7 +228,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("kron_apply_dw")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.kron_residual_dw.argtypes = [ptr] * 15
+    lib.kron_residual_dw.argtypes = [ptr] * 14 + [i32, ptr]
     lib.kron_residual_dw.restype = i32
     lib.kron_dw_eft_test.argtypes = [ptr] * 5 + [i32, ptr]
     lib.kron_dw_eft_test.restype = i32
@@ -259,8 +276,9 @@ def _df_c_args(plan: KronPlan):
 
 def residual_kron_df(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh, xl,
                      pads, labels=None, periodic=None,
-                     plan: Optional[KronPlan] = None):
-    """r = b − (Σ_r ⊗_a B_r^(a))·x in double-word f32.
+                     plan: Optional[KronPlan] = None, negate: bool = False):
+    """r = b − (Σ_r ⊗_a B_r^(a))·x in double-word f32 (``negate``: −r, so
+    that b = 0 gives A·x with its own sign).
 
     ``terms_df``: per term, per axis, (band_hi, band_lo) f32 pairs.  The
     partial products are shared along ``labels`` (default: identity of the
@@ -276,18 +294,18 @@ def residual_kron_df(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh, xl,
         zero = (torch.zeros_like(xh) if xl is None or bh is None else None)
         return residual_kron_df_plain(
             terms_df, zero if bh is None else bh, zero if bl is None else bl,
-            xh, zero if xl is None else xl, pads, labels, periodic)
+            xh, zero if xl is None else xl, pads, labels, periodic, negate)
     if xh.device.type != "cuda":
         raise NotImplementedError(
             f"residual_kron_df on {xh.device.type} tensors")
     if plan is None:
         plan = build_kron_df_plan(terms_df, xh.shape, pads, periodic, labels)
     with torch.cuda.device(xh.device):
-        return _launch_df(plan, bh, bl, xh, xl,
+        return _launch_df(plan, bh, bl, xh, xl, negate,
                           torch.cuda.current_stream().cuda_stream)
 
 
-def _launch_df(plan: KronPlan, bh, bl, xh, xl, stream):
+def _launch_df(plan: KronPlan, bh, bl, xh, xl, negate, stream):
     """Check the operands, allocate the result and launch K5 on ``stream``."""
     fields = [("xh", xh), ("xl", xl), ("bh", bh), ("bl", bl)]
     for name, t in fields:
@@ -308,7 +326,7 @@ def _launch_df(plan: KronPlan, bh, bl, xh, xl, stream):
     err = _library().kron_residual_dw(
         ptr(xh), ptr(xl), ptr(bh), ptr(bl),
         *(ptr(t) for pair in zip(plan.bands, plan.bands_lo) for t in pair),
-        ptr(rh), ptr(rl), geo, ints, stream)
+        ptr(rh), ptr(rl), geo, ints, int(bool(negate)), stream)
     _raise_if(err, "residual_kron_df")
     residual_kron_df.launches += 1
     return rh, rl
@@ -350,34 +368,256 @@ def _dw_sum_tree_last(sh, sl):
     return sh[..., 0].to(torch.float64) + sl[..., 0].to(torch.float64)
 
 
-def dw_sum_tree(sh, sl):
-    """Flat double-word pairwise-tree sum → one f64 scalar."""
-    return _dw_sum_tree_last(sh.reshape(-1), sl.reshape(-1))
+def _flat(hi, lo):
+    """A flattened pair, a ``None`` low word as zeros."""
+    hi = hi.reshape(-1)
+    return hi, torch.zeros_like(hi) if lo is None else lo.reshape(-1)
 
 
-def dw_dot_stack(pairs):
-    """k double-word dots in one batched tree → (k,) f64.
+def dw_sum_tree_plain(sh, sl):
+    """Plain K6r: flat double-word pairwise-tree sum → one f64 scalar."""
+    return _dw_sum_tree_last(*_flat(sh, sl))
 
-    ``pairs``: sequence of (xh, xl, yh, yl) same-shape arrays."""
+
+def dw_dot_stack_plain(pairs):
+    """Plain K6r: k double-word dots in one batched tree → (k,) f64."""
     ph, pl = [], []
     for xh, xl, yh, yl in pairs:
-        h, lo = dw_mul(xh.reshape(-1), xl.reshape(-1),
-                       yh.reshape(-1), yl.reshape(-1))
+        h, lo = dw_mul(*_flat(xh, xl), *_flat(yh, yl))
         ph.append(h)
         pl.append(lo)
     return _dw_sum_tree_last(torch.stack(ph), torch.stack(pl))
 
 
+def dw_dot_plain(xh, xl, yh, yl):
+    """Plain K6r: ⟨x, y⟩ of two double-word arrays as one f64 scalar."""
+    return dw_sum_tree_plain(*dw_mul(*_flat(xh, xl), *_flat(yh, yl)))
+
+
+def dw_norm2_plain(xh, xl):
+    """Plain K6r: ‖x‖₂ of a double-word array."""
+    return torch.sqrt(dw_dot_plain(xh, xl, xh, xl))
+
+
+MAX_DOTS = 4          # kMaxDots of csrc/dw_reduce.cu
+
+
+@functools.cache
+def _reduce_library() -> ctypes.CDLL:
+    lib = _build.load("dw_reduce")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dw_reduce.argtypes = [ptr, i32, i64, ptr, ptr, i32, ptr]
+    lib.dw_reduce.restype = i32
+    lib.dw_reduce_max_blocks.argtypes = []
+    lib.dw_reduce_max_blocks.restype = i32
+    lib.dw_reduce_error_string.argtypes = [i32]
+    lib.dw_reduce_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _flat_f32(name, t, like=None):
+    """A contiguous flat f32 view of an operand (``None`` stays None)."""
+    if t is None:
+        return None
+    if t.dtype != torch.float32:
+        raise TypeError(f"the double-word kernels take float32 words, got "
+                        f"{name} of {t.dtype}")
+    if like is not None and (t.numel() != like.numel()
+                             or t.device != like.device):
+        raise ValueError(f"{name} has {t.numel()} values on {t.device}, "
+                         f"expected {like.numel()} on {like.device}")
+    return t.contiguous().reshape(-1)
+
+
+def _launch_reduce(pairs, sqrt: bool) -> torch.Tensor:
+    """K6r on up to MAX_DOTS (xh, xl, yh, yl) tuples → (k,) f64."""
+    first = pairs[0][0]
+    lib = _reduce_library()
+    keep, ptrs = [], []
+    for xh, xl, yh, yl in pairs:
+        if yh is None and yl is not None:
+            raise ValueError("a low word needs its high word")
+        ops = [_flat_f32(n, t, first)
+               for n, t in zip(("xh", "xl", "yh", "yl"), (xh, xl, yh, yl))]
+        keep.append(ops)
+        ptrs += [None if t is None else t.data_ptr() for t in ops]
+    k = len(pairs)
+    part = torch.empty(2 * k * lib.dw_reduce_max_blocks(),
+                       dtype=torch.float32, device=first.device)
+    out = torch.empty(k, dtype=torch.float64, device=first.device)
+    with torch.cuda.device(first.device):
+        err = lib.dw_reduce((ctypes.c_void_p * len(ptrs))(*ptrs), k,
+                            first.numel(), part.data_ptr(), out.data_ptr(),
+                            int(sqrt),
+                            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("dw_reduce kernel launch failed: "
+                           + lib.dw_reduce_error_string(err).decode())
+    dw_dot_stack.launches += 1
+    return out
+
+
+def _reduce(pairs, plain, sqrt=False):
+    """Dispatch on the first operand's device: plain tree or K6r."""
+    first = pairs[0][0]
+    if first.device.type == "cpu":
+        return plain()
+    if first.device.type != "cuda":
+        raise NotImplementedError(
+            f"double-word reductions on {first.device.type} tensors")
+    outs = [_launch_reduce(pairs[i:i + MAX_DOTS], sqrt)
+            for i in range(0, len(pairs), MAX_DOTS)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def dw_dot_stack(pairs):
+    """k double-word dots in one pass → (k,) f64 on the operands' device.
+
+    ``pairs``: sequence of (xh, xl, yh, yl) same-shape arrays; a low word
+    may be ``None`` (zeros)."""
+    pairs = list(pairs)
+    return _reduce(pairs, lambda: dw_dot_stack_plain(pairs))
+
+
+dw_dot_stack.launches = 0
+
+
+def dw_sum_tree(sh, sl):
+    """Double-word sum of a (hi, lo) array → one f64 scalar."""
+    return _reduce([(sh, sl, None, None)],
+                   lambda: dw_sum_tree_plain(sh, sl)).reshape(())
+
+
 def dw_dot(xh, xl, yh, yl):
     """⟨x, y⟩ of two double-word arrays as one f64 scalar."""
-    sh, sl = dw_mul(xh.reshape(-1), xl.reshape(-1),
-                    yh.reshape(-1), yl.reshape(-1))
-    return dw_sum_tree(sh, sl)
+    return _reduce([(xh, xl, yh, yl)],
+                   lambda: dw_dot_plain(xh, xl, yh, yl)).reshape(())
 
 
 def dw_norm2(xh, xl):
-    """‖x‖₂ of a double-word array, accumulated in double-word."""
-    fh = xh.reshape(-1)
-    fl = xl.reshape(-1)
-    sh, sl = dw_mul(fh, fl, fh, fl)
-    return torch.sqrt(dw_sum_tree(sh, sl))
+    """‖x‖₂ of a double-word array, accumulated in double-word, the square
+    root taken in f64 on the device."""
+    return _reduce([(xh, xl, xh, xl)], lambda: dw_norm2_plain(xh, xl),
+                   sqrt=True).reshape(())
+
+
+# -- K6u: the solvers' elementwise recurrences --------------------------------
+
+# mode → (fields read, device scalars read, fields written); the order of
+# csrc/dw_update.cu's enum
+UPDATE_MODES = {"cg": (7, 2, 6), "direction": (2, 2, 1), "defect": (3, 1, 2),
+                "dwrr": (5, 2, 4), "div": (1, 1, 1), "mul": (1, 1, 1)}
+
+
+def _safe32(scale: torch.Tensor) -> torch.Tensor:
+    return torch.where(scale > 0, scale,
+                       torch.ones_like(scale)).to(torch.float32)
+
+
+def dw_update_plain(mode: str, *ops):
+    """Plain PyTorch K6u (see :func:`dw_update` for the operands)."""
+    if mode == "cg":
+        xh, xl, rh, rl, p, aph, apl, rz, pAp = ops
+        a_h, a_l = split_f64(rz / pAp)
+        xh, xl = dw_add(xh, xl, *dw_mul(a_h, a_l, p, torch.zeros_like(p)))
+        drh, drl = dw_mul(-a_h, -a_l, aph, apl)
+        rh, rl = dw_add(rh, rl, drh, drl)
+        return xh, xl, rh, rl, drh, drl
+    if mode == "direction":
+        z, p, s, rz = ops
+        return z + (s / rz).to(torch.float32) * p
+    if mode == "defect":
+        xh, xl, e, rn = ops
+        return dw_add(xh, xl, *two_prod(e, _safe32(rn)))
+    if mode == "dwrr":
+        xh, xl, p, ap, rf, rz, pAp = ops
+        a_h, a_l = split_f64(rz / pAp)
+        xh, xl = dw_add(xh, xl, *dw_mul(a_h, a_l, p, torch.zeros_like(p)))
+        if ap is None:
+            return xh, xl
+        dr = -a_h * ap
+        return xh, xl, dr, rf + dr
+    if mode == "div":
+        x, s = ops
+        return x / _safe32(s)
+    if mode == "mul":
+        x, s = ops
+        return x * _safe32(s)
+    raise ValueError(f"unknown dw_update mode {mode!r}")
+
+
+@functools.cache
+def _update_library() -> ctypes.CDLL:
+    lib = _build.load("dw_update")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dw_update.argtypes = [i32, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.dw_update.restype = i32
+    lib.dw_update_error_string.argtypes = [i32]
+    lib.dw_update_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def dw_update(mode: str, *ops):
+    """One elementwise recurrence of the double-word solvers in one pass,
+    its scalars 0-dim f64 tensors on the fields' device (never read by the
+    host).  With safe(s) = s if s > 0 else 1:
+
+    - ``"cg"`` (xh, xl, rh, rl, p, aph, apl, rz, pAp): α = rz/pAp split
+      into a pair; x += αp, dr = −α·Ap, r += dr in double-word →
+      (xh, xl, rh, rl, drh, drl);
+    - ``"direction"`` (z, p, s, rz) → z + f32(s/rz)·p;
+    - ``"defect"`` (xh, xl, e, rn) → x + two_prod(e, f32(safe(rn)));
+    - ``"dwrr"`` (xh, xl, p, ap, rf, rz, pAp): x += αp in double-word and,
+      unless ``ap`` and ``rf`` are None, dr = −f32(α)·ap, rf += dr →
+      (xh, xl, dr, rf) or (xh, xl);
+    - ``"div"`` / ``"mul"`` (x, s) → x / f32(safe(s)), x · f32(safe(s)).
+
+    CPU tensors take :func:`dw_update_plain`; CUDA tensors launch K6u or
+    raise."""
+    if mode not in UPDATE_MODES:
+        raise ValueError(f"unknown dw_update mode {mode!r}")
+    n_in, n_s, n_out = UPDATE_MODES[mode]
+    if len(ops) != n_in + n_s:
+        raise ValueError(f"dw_update({mode!r}) takes {n_in} fields and "
+                         f"{n_s} scalars, got {len(ops)} operands")
+    first = ops[0]
+    if first.device.type == "cpu":
+        return dw_update_plain(mode, *ops)
+    if first.device.type != "cuda":
+        raise NotImplementedError(
+            f"dw_update on {first.device.type} tensors")
+    fields, scalars = ops[:n_in], ops[n_in:]
+    if mode == "dwrr":
+        if (fields[3] is None) != (fields[4] is None):
+            raise ValueError("ap and rf are given or omitted together")
+        if fields[3] is None:
+            n_out = 2
+    elif any(t is None for t in fields):
+        raise ValueError(f"dw_update({mode!r}) needs every field")
+    flat = [_flat_f32(f"field {j}", t, first) for j, t in enumerate(fields)]
+    for s in scalars:
+        if s.dtype != torch.float64 or s.numel() != 1 \
+                or s.device != first.device:
+            raise TypeError("the scalars are 0-dim float64 tensors on the "
+                            "fields' device")
+    outs = [torch.empty(first.shape, dtype=torch.float32,
+                        device=first.device) for _ in range(n_out)]
+    ptr = ctypes.c_void_p
+    ins = [None if t is None else t.data_ptr() for t in flat] \
+        + [None] * (7 - len(flat))
+    dst = [t.data_ptr() for t in outs] + [None] * (6 - n_out)
+    lib = _update_library()
+    with torch.cuda.device(first.device):
+        err = lib.dw_update(
+            list(UPDATE_MODES).index(mode), (ptr * 7)(*ins),
+            scalars[0].data_ptr(),
+            scalars[1].data_ptr() if n_s > 1 else None, (ptr * 6)(*dst),
+            first.numel(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dw_update kernel launch failed ({mode}): "
+                           + lib.dw_update_error_string(err).decode())
+    dw_update.launches += 1
+    return outs[0] if n_out == 1 else tuple(outs)
+
+
+dw_update.launches = 0

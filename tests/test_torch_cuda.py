@@ -14,10 +14,13 @@ from poms_tpu_torch.bench.kernel_probe import (make_band, stream_probe,
                                                stream_probe_plain)
 from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.mg.cycles import CycleConfig
-from poms_tpu_torch.mg.mixed import MGPreconditionedCG
+from poms_tpu_torch.mg.mixed import MGPreconditionedCG, MixedPrecisionMG
+from poms_tpu_torch.mg.solver import MultigridSolver
+from poms_tpu_torch.models.bspline import prolongation_interior_1d
 from poms_tpu_torch.mg.smoother import SmootherConfig
 from poms_tpu_torch.models.poisson import poisson_problem
-from poms_tpu_torch.ops import twofloat
+from poms_tpu_torch.ops import counters, twofloat
+from poms_tpu_torch.ops import transfer as k7
 from poms_tpu_torch.ops.kron import (MODES as K1_MODES, build_kron_plan,
                                      kron_apply, kron_apply_plain, kron_mode,
                                      kron_mode_plain)
@@ -474,3 +477,226 @@ def test_probe_kernels_match_plain(dev, n, p, variant):
         assert kp.stencil_probe.launches[variant] == before + 1
         want = kp.stencil_probe_plain(variant, *args)
     assert float((y - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+# -- K6, K7, K5's sign operand and the graph-replayed solves ------------------
+
+@pytest.mark.parametrize("negate", [False, True])
+def test_k5_negate_on_card(dev, negate):
+    terms, (x, b, _) = _mode_operands((17, 33, 65), (3, 3, 3), torch.float64,
+                                      dev, 0, seed=3)
+    split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
+    tdf = [[split[id(B)] for B in t] for t in terms]
+    xh, _ = twofloat.split_f64(x)
+    zero = torch.zeros_like(xh)
+    got = twofloat.residual_kron_df(tdf, None, None, xh, None, (3, 3, 3),
+                                    negate=negate)
+    want = twofloat.residual_kron_df_plain(tdf, zero, zero, xh, zero,
+                                           (3, 3, 3), negate=negate)
+    plain = twofloat.residual_kron_df_plain(tdf, zero, zero, xh, zero,
+                                            (3, 3, 3))
+    sign = -1.0 if negate else 1.0
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w) and torch.equal(g, sign * p)
+
+
+@pytest.mark.parametrize("n", [1, 7, 4913, 2 ** 20 + 1, 129 ** 3])
+def test_k6r_matches_the_plain_tree(dev, n):
+    """|Δ| ≤ 1e-13·Σ|terms| (another order of double-word additions), two
+    runs bit-equal, the result an f64 tensor on the card."""
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=g, dtype=torch.float64).to(dev)
+    y = (torch.randn(n, generator=g, dtype=torch.float64) * 1e-3).to(dev)
+    (xh, xl), (yh, yl) = twofloat.split_f64(x), twofloat.split_f64(y)
+    pairs = [(xh, xl, yh, yl), (xh, None, yh, yl), (yh, yl, yh, yl),
+             (xh, xl, xh, None), (yh, None, xh, None)]
+    before = twofloat.dw_dot_stack.launches
+    got = twofloat.dw_dot_stack(pairs)
+    assert twofloat.dw_dot_stack.launches == before + 2    # 4 dots a pass
+    assert got.device == dev and got.dtype == torch.float64
+    assert torch.equal(got, twofloat.dw_dot_stack(pairs))
+    want = twofloat.dw_dot_stack_plain(pairs)
+    scale = torch.stack([(a.double() * c.double()).abs().sum()
+                         for a, _, c, _ in pairs])
+    assert bool(((got - want).abs() <= 1e-13 * scale).all())
+    assert got[0] == twofloat.dw_dot(xh, xl, yh, yl)
+    nrm = twofloat.dw_norm2(xh, xl)
+    assert nrm.shape == () and nrm == torch.sqrt(
+        twofloat.dw_dot(xh, xl, xh, xl))
+    assert abs(float(nrm) - float(x.norm())) <= 1e-13 * float(x.norm())
+    s = twofloat.dw_sum_tree(xh, xl)
+    assert abs(float(s) - float(twofloat.dw_sum_tree_plain(xh, xl))) \
+        <= 1e-13 * float(x.abs().sum())
+
+
+def test_k6r_refuses_what_it_lacks(dev):
+    x = torch.zeros(8, device=dev)
+    with pytest.raises(TypeError):
+        twofloat.dw_dot(x.double(), None, x, None)
+    with pytest.raises(ValueError):
+        twofloat.dw_dot(x, None, x[:4], None)
+    with pytest.raises(ValueError):
+        twofloat.dw_dot_stack([(x, None, None, x)])
+
+
+@pytest.mark.parametrize("n", [5, 4913, 129 ** 3])
+def test_k6u_is_bit_equal_to_plain(dev, n):
+    g = torch.Generator().manual_seed(n)
+    f = [torch.randn(n, generator=g).to(dev) for _ in range(7)]
+    for k in (1, 3, 6):
+        f[k] *= 1e-8
+    s0 = torch.tensor(0.37, dtype=torch.float64, device=dev)
+    s1 = torch.tensor(-1.91, dtype=torch.float64, device=dev)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    cases = [("cg", (*f, s0, s1)), ("direction", (f[0], f[2], s0, s1)),
+             ("defect", (f[0], f[1], f[2], s0)),
+             ("dwrr", (f[0], f[1], f[2], f[4], f[5], s0, s1)),
+             ("dwrr", (f[0], f[1], f[2], None, None, s0, s1)),
+             ("div", (f[0], s0)), ("mul", (f[0], s0)), ("div", (f[0], zero)),
+             ("mul", (f[0], s1))]          # s1 < 0: safe() gives 1
+    for mode, ops in cases:
+        before = twofloat.dw_update.launches
+        got = twofloat.dw_update(mode, *ops)
+        assert twofloat.dw_update.launches == before + 1
+        want = twofloat.dw_update_plain(mode, *ops)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), mode
+    shaped = twofloat.dw_update("mul", f[0].reshape(1, n), s0)
+    assert shaped.shape == (1, n)
+    with pytest.raises(TypeError):
+        twofloat.dw_update("mul", f[0], s0.float())
+    with pytest.raises(ValueError):
+        twofloat.dw_update("dwrr", f[0], f[1], f[2], f[3], None, s0, s1)
+
+
+@pytest.mark.parametrize("n_el,d", [(128, 3), (16, 3), (512, 2), (64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_is_bit_equal_to_plain(dev, n_el, d, dtype):
+    P = prolongation_interior_1d(n_el // 2, 3)
+    nf, nc = P.shape
+    pro = tuple(k7.bands_from_dense(P, dtype, dev) for _ in range(d))
+    res = tuple(k7.bands_from_dense(P.T, dtype, dev) for _ in range(d))
+    g = torch.Generator().manual_seed(n_el)
+    xf = torch.randn((nf,) * d, generator=g,
+                     dtype=torch.float64).to(dev).to(dtype)
+    xc = torch.randn((nc,) * d, generator=g,
+                     dtype=torch.float64).to(dev).to(dtype)
+    before = k7.apply_transfer.launches
+    got = k7.apply_transfer(res, xf)
+    assert k7.apply_transfer.launches == before + d
+    assert torch.equal(got, k7.apply_transfer_plain(res, xf))
+    assert torch.equal(k7.apply_transfer(pro, xc, add=xf),
+                       k7.apply_transfer_plain(pro, xc, add=xf))
+    # a strided view is made contiguous by the wrapper
+    pad = torch.zeros((nf + 2,) * d, dtype=dtype, device=dev)
+    inner = pad[(slice(1, nf + 1),) * d]
+    inner.copy_(xf)
+    assert torch.equal(k7.apply_transfer(res, inner), got)
+    with pytest.raises(ValueError):
+        k7.apply_transfer(res, xc)
+    with pytest.raises(TypeError):
+        k7.apply_transfer(res, xf.half())
+
+
+def _cheb_cfg(fraction=16.0):
+    return CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=fraction))
+
+
+@pytest.mark.parametrize("solver", ["dw", "dwrr", "f64", "twofloat",
+                                    "mixed-f64", "mg"])
+def test_graph_replay_equals_the_eager_loop(dev, solver):
+    """solve_compiled replays a captured graph: the eager loop's iterates
+    bit for bit, the same count; the graph is captured once per solver and
+    reused by the second call; replays advance the launch counters."""
+    prob = poisson_problem(3, 32, degree=3, device=dev, operator="kron")
+    if solver in ("dw", "dwrr", "f64"):
+        sol = MGPreconditionedCG(prob, 3, _cheb_cfg(), operator="kron",
+                                 precision=solver)
+    elif solver == "mg":
+        sol = MultigridSolver(prob, 3, _cheb_cfg(), operator="kron")
+    else:
+        sol = MixedPrecisionMG(prob, 3, _cheb_cfg(), operator="kron",
+                               residual=solver.replace("mixed-", ""))
+    # the eager loop: the steps solve_compiled would run without a graph
+    if solver == "mg":
+        res = sol.solve(tol=1e-10, maxiter=60)
+        want_x, want_rn, want_it = (res.x.interior, res.residuals[-1],
+                                    res.iterations)
+    else:
+        start = sol._start(prob.b)
+        state, consts, step, rn = start[:4]
+        per = start[4] if len(start) > 4 else 1
+        want_it = 0
+        while float(rn) > 1e-10 and want_it < 60:
+            *state, rn = step(*state, *consts)
+            want_it += per
+        want_x, want_rn = sol._x_interior(state), float(rn)
+    assert sol._graphs == {}
+    x, rn, it = sol.solve_compiled(tol=1e-10, maxiter=60)
+    assert it == want_it and float(rn) == want_rn
+    assert torch.equal(x.interior, want_x)
+    (graph,) = sol._graphs.values()
+    assert graph.replays == it // (3 if solver == "dwrr" else 1)
+    before = counters.snapshot()
+    x2, rn2, it2 = sol.solve_compiled(tol=1e-10, maxiter=60)
+    assert list(sol._graphs.values()) == [graph]          # reused
+    assert it2 == it and torch.equal(x2.interior, x.interior)
+    grown = counters.diff(counters.snapshot(), before)
+    assert grown["kron_mode.cheb"] >= graph.captured["kron_mode.cheb"] \
+        * graph.replays // 2
+    assert grown["transfer"] > 0
+    sol.lams = sol.lams                                   # drops the graphs
+    assert sol._graphs == {}
+
+
+def test_defect_correction_on_card_matches_cpu(dev):
+    """16³ p3, 2 levels, the card's λs on both: equal counts, solutions
+    within 1e-6 of max|x| (K6r sums in another order than the CPU tree)."""
+    out, lams = {}, None
+    for d in (dev, torch.device("cpu")):
+        prob = poisson_problem(3, 16, degree=3, device=d, operator="kron")
+        mg = MixedPrecisionMG(prob, 2, _cheb_cfg(), operator="kron")
+        mg.lams = lams = lams or mg.lams
+        out[d.type] = mg.solve(tol=5e-9, maxiter=60)
+    rc, rh = out["cuda"], out["cpu"]
+    assert rc.converged and rh.converged
+    assert rc.iterations == rh.iterations
+    xc, xh = rc.x.interior.cpu(), rh.x.interior
+    assert float((xc - xh).abs().max() / xh.abs().max()) <= 1e-6
+
+
+def test_device_ms_clocks_agree(dev):
+    """The profiler's device time, the replayed graph's event time and the
+    stream's event time of one 129³ f32 add: the graph within 3 µs + 30% of
+    the profiler, the stream no lower than 0.7 of it."""
+    from poms_tpu_torch.bench import device
+    a = torch.randn(129 ** 3, device=dev)
+    out = torch.empty_like(a)
+    fn = lambda: torch.add(a, a, out=out)
+    fn()
+    prof = device.profiler_ms(fn)
+    graph, stream = device.graph_event_ms(fn), device.stream_event_ms(fn)
+    assert prof is not None and prof > 0
+    assert abs(graph - prof) <= 3e-3 + 0.3 * prof
+    assert stream >= 0.7 * prof
+
+
+def test_device_ms_without_the_profiler(dev, monkeypatch, capsys):
+    """With a profiler that records nothing, device_ms times by events:
+    around a graph, or around the calls where one synchronises (and the
+    card still works after the refused capture)."""
+    from poms_tpu_torch.bench import device
+    monkeypatch.setattr(device, "profiler_ms", lambda *a, **k: None)
+    a = torch.randn(129 ** 3, device=dev)
+    out = torch.empty_like(a)
+    ms = device.device_ms(lambda: torch.add(a, a, out=out))
+    assert 0 < ms < 1.0
+    assert "replayed graph" in capsys.readouterr().err
+    ms = device.device_ms(lambda: float(a.sum()), 3)
+    assert 0 < ms < 5.0
+    assert "no graph" in capsys.readouterr().err
+    assert torch.equal(torch.add(a, a), out)

@@ -30,6 +30,10 @@ def test_port_imports_no_jax():
         "import poms_tpu_torch.bench.roofline, poms_tpu_torch.ops.stencil_v2\n"
         "import poms_tpu_torch.bench.k1_compare\n"
         "import poms_tpu_torch.bench.profile_dw\n"
+        "import poms_tpu_torch.bench.one_solve, poms_tpu_torch.mg.graph\n"
+        "import poms_tpu_torch.ops.counters, poms_tpu_torch.mg.mixed\n"
+        "import poms_tpu_torch.utils.logging\n"
+        "import poms_tpu_torch.utils.checkpoint\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'poms_tpu'))\n"
         "assert not bad, bad\n"
@@ -123,7 +127,86 @@ def test_default_device_is_the_card_or_an_error():
                            device="cpu").space.device.type == "cpu"
 
 
-@pytest.mark.parametrize("module", ["k1_compare", "profile_dw"])
+@pytest.mark.parametrize("module", ["k1_compare", "profile_dw", "one_solve"])
 def test_kron_benches_refuse_without_a_card(module):
     proc = _refuses([f"poms_tpu_torch.bench.{module}"])
     assert "no CUDA device" in proc.stderr
+
+
+def test_no_source_of_the_port_imports_jax():
+    """No module under poms_tpu_torch/, nor chip_smoke.py, names jax or the
+    JAX package in an import statement."""
+    import ast
+    import pathlib
+
+    files = sorted(pathlib.Path(REPO, "poms_tpu_torch").rglob("*.py"))
+    files.append(pathlib.Path(REPO, "chip_smoke.py"))
+    assert len(files) > 40
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            bad = [n for n in names
+                   if n.split(".")[0] in ("jax", "jaxlib", "poms_tpu")]
+            assert not bad, (str(path), bad)
+
+
+def test_launch_counters_snapshot_add_reset():
+    """The registry a graph replay advances: every wrapper is in it."""
+    from poms_tpu_torch.ops import counters
+    from poms_tpu_torch.ops.transfer import apply_transfer
+    from poms_tpu_torch.ops.twofloat import dw_dot_stack, dw_update
+
+    before = counters.snapshot()
+    for key in ("kron_mode.cheb", "kron_mode.apply", "residual_kron_df",
+                "dw_reduce", "dw_update", "transfer", "stencil_apply.spmv",
+                "stencil_apply_v2.rbgs", "kron_apply"):
+        assert key in before
+    counters.add({"dw_reduce": 3, "kron_mode.cheb": 32, "transfer": 24})
+    after = counters.snapshot()
+    assert counters.diff(after, before) == {"dw_reduce": 3,
+                                            "kron_mode.cheb": 32,
+                                            "transfer": 24}
+    assert dw_dot_stack.launches == before["dw_reduce"] + 3
+    assert apply_transfer.launches == before["transfer"] + 24
+    counters.add({k: -v for k, v in counters.diff(after, before).items()})
+    assert counters.snapshot() == before
+    assert dw_update.launches == before["dw_update"]
+
+
+def test_graphed_step_needs_the_card():
+    from poms_tpu_torch.mg.graph import GraphedStep
+
+    with pytest.raises(ValueError, match="CUDA"):
+        GraphedStep(lambda x: (x, x.sum()), [torch.zeros(3)])
+
+
+@pytest.mark.parametrize("capturable", [True, False])
+def test_device_ms_falls_back_to_events(monkeypatch, capsys, capturable):
+    """Three empty profiles (the third with the CPU's activity too), then
+    the graph's event time, then the stream's: the order of the clocks."""
+    from poms_tpu_torch.bench import device
+    asked = []
+
+    def no_profile(fn, reps, with_cpu=False):
+        asked.append(with_cpu)
+
+    def graph(fn, reps):
+        if not capturable:
+            raise RuntimeError("synchronises")
+        return 0.25
+
+    monkeypatch.setattr(device, "profiler_ms", no_profile)
+    monkeypatch.setattr(device, "graph_event_ms", graph)
+    monkeypatch.setattr(device, "stream_event_ms", lambda fn, reps: 0.5)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    ms = device.device_ms(lambda: calls.append(1), 4)
+    assert asked == [False, False, True] and calls == [1]
+    assert ms == (0.25 if capturable else 0.5)
+    err = capsys.readouterr().err
+    assert "no device time" in err
+    assert ("replayed graph" in err) == capturable

@@ -104,13 +104,20 @@ def test_dw_b_pair_and_unported_options():
     x2, rn2, it2 = pcg.solve_compiled(
         tol=TOL, maxiter=30, b_pair=split_f64(pp.b.interior))
     assert it2 == it and torch.equal(x2.interior, x.interior)
-    with pytest.raises(NotImplementedError):
-        MGPreconditionedCG(pp, 2, cfg, operator="kron", precision="dwrr")
-    with pytest.raises(NotImplementedError):
+    # dwrr and the defect-correction solver are ported (their parity tests
+    # are in test_torch_mixed.py); bf16 cycles are the option still open
+    assert MGPreconditionedCG(pp, 2, cfg, operator="kron",
+                              precision="dwrr").replace_every == 3
+    assert MixedPrecisionMG(pp, 2, cfg,
+                            operator="kron").residual_mode == "twofloat"
+    with pytest.raises(NotImplementedError, match="bf16"):
         MGPreconditionedCG(pp, 2, cfg, operator="kron",
                            low_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        MixedPrecisionMG(pp, 2)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        MixedPrecisionMG(pp, 2, cfg, operator="kron",
+                         low_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        MGPreconditionedCG(pp, 2, cfg, operator="kron", precision="dwx")
     with pytest.raises(ValueError):
         MGPreconditionedCG(pp, 2, cfg, operator="kron", mixed=False,
                            precision="dw")

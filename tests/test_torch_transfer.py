@@ -46,3 +46,37 @@ def test_apply_transfer_matches_jax(n_el_c, p, dtype, tol):
         assert got.dtype == pbs[0].w.dtype and got.shape == want.shape
         assert (np.abs(got.numpy() - want).max()
                 <= tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n_el_c,p", CASES)
+@pytest.mark.parametrize("dtype,tol", [(64, 1e-14), (32, 1e-6)])
+def test_prolongation_with_add_matches_jax(n_el_c, p, dtype, tol):
+    """The fused epilogue x + P·x_c (mg/cycles.py) against the reference's
+    two lines, 2D, ≤ tol of max|y| (as the test above);
+    ``apply_transfer_plain`` is what the wrapper runs on the CPU."""
+    jdt = {64: jnp.float64, 32: jnp.float32}[dtype]
+    P = prolongation_interior_1d(n_el_c, p)
+    nf, nc = P.shape
+    rng = np.random.default_rng(3 * n_el_c + p)
+    rbs = tuple(ref.bands_from_dense(P, jdt) for _ in range(2))
+    pbs = tuple(convert.transfer_band(tb) for tb in rbs)
+    xc = rng.standard_normal((nc, nc)).astype(np.dtype(jdt))
+    xf = rng.standard_normal((nf, nf)).astype(np.dtype(jdt))
+    want = np.asarray(jnp.asarray(xf)
+                      + ref.apply_transfer(rbs, jnp.asarray(xc)))
+    got = port.apply_transfer(pbs, torch.from_numpy(xc),
+                              add=torch.from_numpy(xf))
+    assert got.dtype == pbs[0].w.dtype and want.dtype == np.dtype(jdt)
+    assert np.abs(got.numpy() - want).max() <= tol * np.abs(want).max()
+    assert torch.equal(got, port.apply_transfer_plain(
+        pbs, torch.from_numpy(xc), add=torch.from_numpy(xf)))
+    assert torch.equal(port.apply_transfer(pbs, torch.from_numpy(xc)),
+                       port.apply_transfer_plain(pbs, torch.from_numpy(xc)))
+
+
+def test_cpu_transfer_launches_no_kernel():
+    P = prolongation_interior_1d(4, 2)
+    tb = port.bands_from_dense(P, device="cpu")
+    before = port.apply_transfer.launches
+    port.apply_transfer((tb,), torch.ones(P.shape[1], dtype=torch.float64))
+    assert port.apply_transfer.launches == before
