@@ -15,7 +15,9 @@ exception is caught, so any failure exits non-zero:
              against its plain PyTorch version on the card, f32 and f64, at
              the shapes of the headline solve's levels, a few ragged and
              periodic ones, a 2D, a 1D and a mixed-periodic 3D shape with
-             unequal pads, and a 4-term operator that takes two launches
+             unequal pads, a 4-term operator that takes two launches, and
+             the periodic shifted operator of phase 17 on every level of
+             its hierarchy (128³ down to 8³, 4 terms, two launches)
              (max|Δ|/max|y| ≤ 1e-5 and ≤ 1e-12: the summation order differs
              and the kernel uses FMA); the device time (profiler) of each
              mode at 129³, 65³, 33³, 17³ f32 beside its bound (bytes each
@@ -38,8 +40,10 @@ exception is caught, so any failure exits non-zero:
              to their plain versions in every mode; device times at 129³
              beside their byte bounds.
 3d. K7     — restriction and prolongation (with the fused x + P·x_c) at
-             every level pair of the 128³ hierarchy and at 513² → 257², f32
-             and f64: bit-equal to the plain gathers; device time of
+             every level pair of the 128³ hierarchy, at 513² → 257² and at
+             every level pair of phase 17's periodic hierarchy (128³ ↔ 64³
+             down to 16³ ↔ 8³, W = n_in), f32 and f64: bit-equal to the
+             plain gathers; device time of
              129³ ↔ 65³ beside its byte bound.
 4. solve   — 3D Poisson, cubic B-splines, n_el = 128 (129³ unknowns), 5
              levels, Chebyshev(4) over [λmax/16, λmax] with ν1 = ν2 = 1,
@@ -66,7 +70,8 @@ exception is caught, so any failure exits non-zero:
              against its plain version on the card, at the 3D level shapes
              129³, 65³, 33³, 17³ (p3), a ragged 3D shape, 2D 1025² p3, 1D
              2²⁰ p3, a periodic-ghosted 2D case, the 2D level shapes of
-             phase 9 (513², 257², 129², 65², 33² p3), RB-GS with starts 0 and 1
+             phase 9 (513², 257², 129², 65², 33² p3), the wrapped levels of
+             phase 17 (128³, 64³, 32³, 16³ p3), RB-GS with starts 0 and 1
              (max|Δ|/max|y| ≤ 1e-5 f32, ≤ 1e-12 f64; RB-GS points of the
              other colour bit-equal to x); at 129³ p3 f32 the device and
              stream times of kernel and plain, GB/s, Gnnz/s and % of K4.
@@ -98,6 +103,45 @@ exception is caught, so any failure exits non-zero:
              probe_ablate) at 128³ p3, and one table of device times beside
              K4, K2 and K3.
 
+14. bf16 kernels — K2 and K3 in bf16 against their plain versions (f32
+             arithmetic, one rounding) at every K2 shape, every mode: each
+             value within one bf16 unit in the last place (2^-7 of its
+             magnitude) plus the f32 sums' own error (1e-5 of max|y|), the
+             count of points that differ printed; RB-GS other-colour points
+             bit-equal to x; device times at 129³ and 128³ beside the byte
+             bound and K4.  K1 in bf16, four modes (and the first Chebyshev
+             step), at the f32 shapes (mixed-periodic, a two-launch
+             operator and the periodic hierarchy's levels among them), same
+             tolerance; times at 129³.  K7 in bf16 at its level pairs, the
+             periodic ones too: bit-equal to plain; times.  A sparse CSR
+             product in bf16 is tried once (its time, or torch's error).
+15. K5, 4 histories — the periodic shifted 3D operator (σM⊗M⊗M + K⊗M⊗M +
+             M⊗K⊗M + M⊗M⊗K: 2 u, 3 v, 4 histories) at 128³ p3, 32³ p3 and
+             16³ p2: bit-equal to plain with b, x_l given and with the zero
+             flags; device time at 128³.
+16. bf16 solves — at n_el = 128, p = 3, 5 levels, tol 1e-10, each beside its
+             f32 run: MixedPrecisionMG(low_dtype=bfloat16) on kron levels,
+             twofloat, Chebyshev(4) over [λmax/32, λmax], eager and
+             graph-replayed (equal counts, the same bits); the kron dw-PCG
+             with a bf16 preconditioner; the banded defect correction
+             (residual="f64") under K2 and under v2.  Each converges with a
+             true f64 residual ≤ 5e-10, and in each the low hierarchy ran
+             the bf16 instantiations alone (the f32 counts of K1/K2/K3/K7
+             over the solve are 0).  Then three corrections each of a
+             Jacobi- (automatic ω) and an RB-GS-smoothed (ω = 1) bf16
+             banded cycle on the same problem, ν1 = ν2 = 2 (K2's and K3's
+             jacobi and rbgs modes in bf16 on a solver path).
+17. periodic — periodic_problem(3, 128, p = 3, σ = 1), 5 levels (coarsest
+             8³): the kron twofloat defect correction (eager and replayed)
+             and the kron dw-PCG, K5 with 4 histories and K1 with two
+             launches per pass; one banded periodic f64-mixed PCG; true
+             f64 residuals ≤ 5e-10; K7's time on the wide periodic transfers
+             (W = n_in) at 128³ ↔ 64³.
+
+Cut against the earlier version to hold the run time: phase 2 times the
+plain K1 versions with 3 repetitions instead of 5.  Every phase logs what it
+took on a ``[time]`` line.
+
 Prints the card's name and power limit early, one JSON line of per-kernel
 results before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -106,7 +150,8 @@ The launch counts of the JSON line come from the paths, each counted from
 every solve; a graph replay advances the counters by the launches its
 capture recorded, since a replay launches them again), K4 from
 phase 6's ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes
-from phase 13's timing paths; launches made to compare a kernel with its
+from phase 13's timing paths, the bf16 rows from phase 16 and K5's
+4-history row from phase 17; launches made to compare a kernel with its
 plain version are not counted.  Each kernel's ``bound_ms`` is the larger of
 its bytes (every input read once, every output written once) over 3.35 TB/s
 and its operations over 67 TFLOP/s (f32 outside the tensor cores), from
@@ -131,12 +176,17 @@ from poms_tpu_torch.bench import kernel_probe as kp
 from poms_tpu_torch.bench.kernel_probe import (cuda_event_ms, make_band,
                                                probe_stream, stream_probe,
                                                stream_probe_plain)
-from poms_tpu_torch.core.vector import ghost_pad
+from poms_tpu_torch.core.space import StencilVectorSpace
+from poms_tpu_torch.core.vector import StencilVector, ghost_pad
 from poms_tpu_torch.mg.cycles import CycleConfig
 from poms_tpu_torch.mg.mixed import MGPreconditionedCG, MixedPrecisionMG
 from poms_tpu_torch.mg.smoother import SmootherConfig
 from poms_tpu_torch.mg.solver import MultigridSolver
-from poms_tpu_torch.models.bspline import prolongation_interior_1d
+from poms_tpu_torch.models.bspline import (assemble_periodic_1d,
+                                           prolongation_interior_1d,
+                                           prolongation_periodic_1d)
+from poms_tpu_torch.models.periodic import (_coarse_bands_periodic,
+                                            _kron_periodic, periodic_problem)
 from poms_tpu_torch.models.poisson import (l2_error_manufactured,
                                            poisson_problem)
 from poms_tpu_torch.ops import _build, counters
@@ -184,6 +234,10 @@ K2_SHAPES = [((129, 129, 129), (3, 3, 3), (False,) * 3, (1, 0, 0)),
 # the smoothed levels of phase 9's 2D solve (n_el = 512, 6 levels)
 K2_SHAPES += [((n, n), (3, 3), (False, False), (0, 1))
               for n in (513, 257, 129, 65, 33)]
+# the smoothed levels of phase 17's periodic banded solve (wrapped ghosts)
+PERIODIC_LEVELS = (128, 64, 32, 16, 8)   # n_el per level, p = 3; 8^3 is solved
+K2_SHAPES += [((n,) * 3, (3,) * 3, (True,) * 3, (1, 0, 1))
+              for n in PERIODIC_LEVELS[:-1]]
 K2_REPLACES = {"spmv": 343, "residual": 349, "jacobi": 359, "rbgs": 369}
 K3_REPLACES = {"spmv": 795, "residual": 802, "jacobi": 813, "rbgs": 823}
 # banded multigrid: 3D RB-GS cycles and the 2D Jacobi solve (n_el, levels)
@@ -254,6 +308,57 @@ def phase_build():
                     log(f"[build] {name}: {line.strip()}")
 
 
+def _periodic_kron_levels(dev, dtype):
+    """(npts, terms) of every level of phase 17's Kronecker-sum hierarchy:
+    the periodic shifted operator (4 terms: two launches per pass) from the
+    1D circulant bands, coarsened as build_periodic_hierarchy does."""
+    bands = [assemble_periodic_1d(PERIODIC_LEVELS[0], 3)] * 3
+    for n in PERIODIC_LEVELS:
+        space = StencilVectorSpace(npts=(n,) * 3, pads=3, periodic=True,
+                                   dtype=dtype, device=dev)
+        yield (n,) * 3, _kron_periodic(bands, 1.0, space).terms
+        if n // 2 > 6:
+            bands = _coarse_bands_periodic(
+                bands, [prolongation_periodic_1d(n // 2, 3)] * 3)
+
+
+def _k1_fields(npts, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(npts), device=dev).to(dtype)
+            for _ in range(3)]
+
+
+def _k1_against_plain(what, terms, fields, npts, pads, periodic):
+    """Every K1 check of ``_k1_runs`` on one operator, f32 or f64, against
+    the plain version; returns max|d| per label."""
+    x, b, d = fields
+    dtype = x.dtype
+    plan = k1.build_kron_plan(terms, npts, pads, periodic)
+    diag = plan.diagonal()
+    rels, errs = {}, {}
+    for label, mode, kw in _k1_runs(b, d):
+        kw_k = dict(kw)
+        if kw.get("d") is not None:
+            kw_k["d"] = d.clone()     # the kernel updates d in place
+        got = k1.kron_mode(mode, plan, x, **kw_k)
+        torch.cuda.synchronize()
+        want = k1.kron_mode_plain(mode, terms, x, npts, pads, periodic,
+                                  diag=diag, **kw)
+        if mode != "cheb":
+            got, want = (got,), (want,)
+        errs[label] = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+        rels[label] = max(float((g - w).abs().max() / w.abs().max())
+                          for g, w in zip(got, want))
+        if not (math.isfinite(rels[label]) and rels[label] <= K1_TOL[dtype]):
+            raise AssertionError(f"K1 {label} disagrees at {what}{npts} "
+                                 f"{dtype}: {rels[label]}")
+    log(f"[K1] {what}{npts} p={pads} periodic={periodic} terms="
+        f"{len(terms)} launches/apply={len(plan.plans)} {dtype}: "
+        "rel err " + " ".join(f"{k}={v:.2e}" for k, v in rels.items()))
+    return errs
+
+
 def phase_k1(dev):
     result = {m: {} for m in k1.MODES}
     shapes = [(npts, (p,) * 3, (per,) * 3, 0) for npts, p, per in K1_SHAPES]
@@ -263,38 +368,25 @@ def phase_k1(dev):
         for dtype in (torch.float32, torch.float64):
             terms, (x, b, d) = _k1_operands(npts, pads, dtype, dev,
                                             sum(npts) + pads[0], free)
-            plan = k1.build_kron_plan(terms, npts, pads, periodic)
-            diag = plan.diagonal()
-            rels = {}
-            for label, mode, kw in _k1_runs(b, d):
-                kw_k = dict(kw)
-                if kw.get("d") is not None:
-                    kw_k["d"] = d.clone()     # the kernel updates d in place
-                got = k1.kron_mode(mode, plan, x, **kw_k)
-                torch.cuda.synchronize()
-                want = k1.kron_mode_plain(mode, terms, x, npts, pads,
-                                          periodic, diag=diag, **kw)
-                if mode != "cheb":
-                    got, want = (got,), (want,)
-                err = max(float((g - w).abs().max())
-                          for g, w in zip(got, want))
-                rels[label] = max(float((g - w).abs().max() / w.abs().max())
-                                  for g, w in zip(got, want))
-                if not (math.isfinite(rels[label])
-                        and rels[label] <= K1_TOL[dtype]):
-                    raise AssertionError(f"K1 {label} disagrees at {npts} "
-                                         f"{dtype}: {rels[label]}")
-                if (npts == (129, 129, 129) and dtype == torch.float32
-                        and label in k1.MODES):
-                    result[mode]["max_abs_err"] = err
+            errs = _k1_against_plain("", terms, (x, b, d), npts, pads,
+                                     periodic)
+            if npts == (129, 129, 129) and dtype == torch.float32:
+                diag = k1.build_kron_plan(terms, npts, pads,
+                                          periodic).diagonal()
+                for label, mode, kw in _k1_runs(b, d):
+                    if label not in k1.MODES:
+                        continue
+                    result[mode]["max_abs_err"] = errs[label]
                     result[mode]["plain_ms"] = _device_ms(
                         lambda: k1.kron_mode_plain(
                             mode, terms, x, npts, pads, periodic, diag=diag,
-                            **kw), 5)
-            log(f"[K1] {npts} p={pads} periodic={periodic} terms="
-                f"{len(terms)} launches/apply={len(plan.plans)} {dtype}: "
-                "rel err " + " ".join(f"{k}={v:.2e}"
-                                      for k, v in rels.items()))
+                            **kw), 3)
+    # phase 17's operators: every level of the periodic kron hierarchy
+    for dtype in (torch.float32, torch.float64):
+        for npts, terms in _periodic_kron_levels(dev, dtype):
+            _k1_against_plain("periodic shifted operator, level ", terms,
+                              _k1_fields(npts, dtype, dev, npts[0]), npts,
+                              (3,) * 3, (True,) * 3)
     for n in K1_TIMED:
         npts, pads, periodic = (n,) * 3, (3,) * 3, (False,) * 3
         terms, (x, b, d) = _k1_operands(npts, pads, torch.float32, dev, n)
@@ -550,14 +642,25 @@ def phase_k6(dev):
     return rows
 
 
+def _k7_pairs():
+    """(dim, 1D prolongation) of every transfer the paths apply:
+    the level pairs of the 128^3 hierarchy, 513^2 <-> 257^2, and the level
+    pairs of phase 17's periodic hierarchy (wrapped rows: W = n_in)."""
+    pairs = [(3, prolongation_interior_1d(n_el // 2, 3))
+             for n_el in K7_LEVELS]
+    pairs.append((2, prolongation_interior_1d(256, 3)))
+    pairs += [(3, prolongation_periodic_1d(n_el // 2, 3))
+              for n_el in PERIODIC_LEVELS[:-1]]
+    return pairs
+
+
 def phase_k7(dev):
     """K7 against the plain gathers: bit-equal at every level pair of the
-    headline hierarchy and in 2D, both dtypes; times at 129^3 <-> 65^3."""
+    headline hierarchy, in 2D and at every level pair of the periodic
+    hierarchy, both dtypes; times at 129^3 <-> 65^3."""
     g = torch.Generator(device="cpu").manual_seed(7)
     row = {}
-    shapes = [(n_el, 3) for n_el in K7_LEVELS] + [(512, 2)]
-    for n_el, d in shapes:
-        P = prolongation_interior_1d(n_el // 2, 3)
+    for d, P in _k7_pairs():
         nf, nc = P.shape
         for dtype in (torch.float32, torch.float64):
             pro = tuple(k7.bands_from_dense(P, dtype, dev) for _ in range(d))
@@ -580,7 +683,7 @@ def phase_k7(dev):
                     raise AssertionError(
                         f"K7 {label} is not bit-equal to plain at {nf}^{d} "
                         f"{dtype}: {float((got - want).abs().max())}")
-                if n_el == 128 and dtype == torch.float32:
+                if nf == 129 and dtype == torch.float32:
                     ms, pl = _device_ms(kernel), _device_ms(plain, 5)
                     fields = {"restrict": nf ** d + nc ** d,
                               "prolong+add": nc ** d + 2 * nf ** d}[label]
@@ -593,7 +696,8 @@ def phase_k7(dev):
                     if label == "restrict":
                         row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pl,
                                "bound_ms": bound}
-            log(f"[K7] {nf}^{d} <-> {nc}^{d} {dtype}: restriction and "
+            log(f"[K7] {nf}^{d} <-> {nc}^{d} {dtype}, widths "
+                f"{res[0].width}/{pro[0].width}: restriction and "
                 f"prolongation (+ add) bit-equal to plain")
     return row
 
@@ -611,7 +715,8 @@ def _solver(n_el, levels, dev):
 
 def _short(counts):
     """The launch counters without the banded engines' (unused here)."""
-    return {k: v for k, v in counts.items() if not k.startswith("stencil")}
+    return {k: v for k, v in counts.items()
+            if not k.startswith("stencil") and (v or "@" not in k)}
 
 
 NEW_KERNELS = ("dw_reduce", "dw_update", "transfer")
@@ -668,6 +773,7 @@ def phase_solve(dev):
     assert graph.replays == 2 * it, (graph.replays, it)
     assert torch.equal(xg.interior, x), "the replayed solve left the eager one"
     launches = counters.snapshot()
+    alone_ms = _replay_alone_ms(pcg)
     # the answer certified in f64: K1's apply mode, the last step of the path
     true_rn = float(torch.linalg.vector_norm(
         prob.b.interior - prob.A.dot(res.x).interior))
@@ -680,13 +786,15 @@ def phase_solve(dev):
         f"{first:.3f} s; eager {eager_ms:.3f} ms/iteration (median of a "
         f"warm solve, one ||r|| read each); graph-replayed solve "
         f"{replayed * 1e3:.2f} ms = {replayed / it * 1e3:.3f} ms/iteration "
-        f"over {it} iterations (start state included)")
+        f"over {it} iterations (start state included); ten replays alone "
+        f"{alone_ms:.3f} ms each")
     log(f"[solve] launches: setup {_short(setup)}; first solve "
         f"{_short(solve)}; one eager iteration {per_it} = "
         f"{sum(v for k, v in per_it.items() if k != 'kron_apply')} launcher "
         f"calls; one graph replay counts the launches its capture recorded: "
         f"{graph.captured}")
-    return {"launches": launches, "l2": l2}
+    return {"launches": launches, "l2": l2, "iterations": it,
+            "replayed_ms": alone_ms}
 
 
 def phase_defect(dev):
@@ -728,6 +836,7 @@ def phase_defect(dev):
     true_rn = true_residual(xg)
     l2 = l2_error_manufactured(prob, xg)
     assert true_rn <= 5e-10, true_rn
+    f32_run = {"iterations": it, "replayed_ms": _replay_alone_ms(mg)}
     log(f"[defect] solve and solve_compiled: {it} corrections each, the "
         f"same bits; |r| {float(rn):.3e}, true f64 |b - Ax| {true_rn:.3e}, "
         f"L2 error {l2:.3e}; eager {eager_ms:.3f} ms/correction, "
@@ -763,7 +872,7 @@ def phase_defect(dev):
                if not launches[k] > 0]
     assert not missing, f"the defect-correction path missed {missing}"
     log(f"[defect] launches of the phase: {_short(launches)}")
-    return launches
+    return launches, f32_run
 
 
 def phase_check(dev, l2_fine):
@@ -857,7 +966,7 @@ def _engine(name):
                 mode, pk, *a, **kw))
 
 
-def _csr_spmv_ms(band, x_pad, npts, pads):
+def _csr_spmv_ms(band, x_pad, npts, pads, tol=1e-5):
     """Device time of ``A @ x`` with A a ``torch.sparse_csr_tensor`` built
     on the card from the band: a library yardstick the port never calls.
     Every row keeps all of its (2p+1)^3 entries (out-of-grid offsets carry
@@ -896,7 +1005,7 @@ def _csr_spmv_ms(band, x_pad, npts, pads):
         x_int, pads, (False,) * 3), npts, pads).reshape(-1)
     got = A @ x
     rel = float((got - want).abs().max() / want.abs().max())
-    assert rel <= 1e-5, f"the CSR yardstick disagrees with the band: {rel}"
+    assert rel <= tol, f"the CSR yardstick disagrees with the band: {rel}"
     ms = _device_ms(lambda: A @ x, 5)
     del A
     torch.cuda.empty_cache()
@@ -1029,9 +1138,7 @@ _WRAPPERS = {"K2": stencil_apply, "K3": stencil_apply_v2}
 
 
 def _reset_counts():
-    for wrapper in _WRAPPERS.values():
-        for mode in MODES:
-            wrapper.launches[mode] = 0
+    counters.reset()
 
 
 def phase_banded_pcg(dev, l2_kron, name="K2"):
@@ -1265,7 +1372,590 @@ def phase_banded_check(dev):
     assert rel <= 1e-6, rel
 
 
+
+BF16 = torch.bfloat16
+BF16_ULP = 2.0 ** -7          # one bf16 unit in the last place, relative
+F32_SUM_ERR = 1e-5            # of max|y|: the f32 sums differ in order
+BF16_MAXITER = 400            # a bf16 cycle at 128^3 contracts slowly
+PERIODIC_MAXITER = 400        # white-noise b, |b| = 1448; factor 0.85 a cycle
+
+
+def _csr_bf16_ms(band, x_pad, npts, pads):
+    """The CSR product in bf16, if this torch has one: its device time, or
+    None with the error on the log."""
+    try:
+        ms = _csr_spmv_ms(band, x_pad, npts, pads, tol=4 * BF16_ULP)
+    except (RuntimeError, NotImplementedError, AssertionError) as exc:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[K2 bf16] 129^3 p3 spmv as a sparse CSR product in bf16: no "
+            f"usable path in torch {torch.__version__}: "
+            f"{type(exc).__name__}: {' '.join(str(exc).split())[:240]}")
+        return None
+    log(f"[K2 bf16] 129^3 p3 spmv as a sparse CSR product in bf16 (torch): "
+        f"{ms:.4f} ms")
+    return ms
+
+
+def _bf16_check(what, got, want):
+    """A bf16 kernel against its plain version (both f32 arithmetic, one
+    rounding): every value within one bf16 unit of the other plus the f32
+    sums' error; returns (points that differ, max|d|)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    bound = (BF16_ULP * torch.maximum(g.abs(), w.abs())
+             + F32_SUM_ERR * w.abs().max())
+    if got.dtype != BF16 or not bool((d <= bound).all()):
+        raise AssertionError(f"{what}: bf16 kernel and plain version "
+                             f"disagree, max|d| {float(d.max()):.3e}")
+    return int((g != w).sum()), float(d.max())
+
+
+def phase_stencil_bf16(dev, k4_gbps):
+    """K2 and K3 in bf16 against plain at every K2 shape and mode; times at
+    129^3 and 128^3 beside the byte bound and K4."""
+    rows = {}
+    for name in ("K2", "K3"):
+        prepare, kernel_fn, plain_fn = _engine(name)
+        res = {m: {} for m in MODES}
+        for npts, pads, periodic, starts in K2_SHAPES:
+            zero = (0,) * len(npts)
+            runs = [("spmv", 0, zero), ("residual", 0, zero),
+                    ("jacobi", 0, zero), ("rbgs", 0, zero),
+                    ("rbgs", 0, starts), ("rbgs", 1, zero)]
+            band, x_pad, b = _k2_operands(npts, pads, periodic,
+                                          torch.float32, dev, seed=sum(npts))
+            band, x_pad = band.to(BF16), x_pad.to(BF16)
+            inner = tuple(slice(p, p + n) for n, p in zip(npts, pads))
+            b_pad = torch.zeros(x_pad.shape, dtype=BF16, device=dev)
+            b_pad[inner] = b.to(BF16)
+            b = b_pad[inner]    # a strided view, as in the f32 check
+            pk = prepare(band, npts, pads)
+            x_int = x_pad[inner]
+            differ, total = 0, 0
+            for mode, color, st in runs:
+                kw = dict(b=None if mode == "spmv" else b,
+                          omega=0.8 if mode in ("jacobi", "rbgs") else None,
+                          color=color, starts=st)
+                y = kernel_fn(mode, band, pk, x_pad, npts, pads, **kw)
+                torch.cuda.synchronize()
+                want = plain_fn(mode, band, pk, x_pad, npts, pads, **kw)
+                n_diff, err = _bf16_check(f"{name} {mode} at {npts}", y, want)
+                differ, total = differ + n_diff, total + y.numel()
+                if mode == "rbgs":
+                    other = ~color_mask(npts, color, st, device=dev)
+                    if not torch.equal(y[other], x_int[other]):
+                        raise AssertionError(f"{name} bf16 rbgs changed "
+                                             f"points of the other colour")
+                if npts == (129,) * 3 and st == zero and color == 0:
+                    def kernel(mode=mode, kw=kw):
+                        return kernel_fn(mode, band, pk, x_pad, npts, pads,
+                                         **kw)
+
+                    def plain(mode=mode, kw=kw):
+                        return plain_fn(mode, band, pk, x_pad, npts, pads,
+                                        **kw)
+
+                    res[mode] = {"max_abs_err": err,
+                                 "ms": _device_ms(kernel),
+                                 "plain_ms": _device_ms(plain, 3)}
+                    if mode == "spmv" and name == "K2":
+                        res[mode]["library_ms"] = _csr_bf16_ms(
+                            band, x_pad, npts, pads)
+                del y, want
+            log(f"[{name} bf16] {npts} p={pads} periodic={periodic}: within "
+                f"one bf16 unit of plain in every mode; {differ} of {total} "
+                f"values differ ({100 * differ / total:.3f}%)")
+            if differ > total // 50:
+                raise AssertionError(f"{name} bf16: {differ} of {total} "
+                                     f"values differ from plain at {npts}")
+            del band, pk, x_pad, b, b_pad, x_int
+            torch.cuda.empty_cache()
+        points = 129 ** 3
+        for mode in MODES:
+            fields = 343 + 2 + (mode != "spmv")
+            bound = fields * points * 2 / HBM_BYTES_PER_S * 1e3
+            r = res[mode]
+            r["bound_ms"] = bound
+            log(f"[{name} bf16] 129^3 p3 {mode}: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms (bytes, "
+                f"2-byte items): {100 * bound / r['ms']:.1f}% of it")
+        rows[name] = res
+    for n in (128, 129):
+        npts, pads = (n,) * 3, (3,) * 3
+        band, x_pad, _ = _k2_operands(npts, pads, (False,) * 3,
+                                      torch.float32, dev, seed=n)
+        band, x_pad = band.to(BF16), x_pad.to(BF16)
+        pk = pack_band_v2(band, npts, pads)
+        fns = {"K3": lambda: stencil_apply_v2("spmv", band, x_pad, npts,
+                                               pads, packed=pk),
+               "K2": lambda: stencil_apply("spmv", band, x_pad, npts, pads)}
+        nbytes, nnz = 345 * n ** 3 * 2, 343 * n ** 3
+        for who in ("K3", "K2", "K3", "K2"):
+            ms = _device_ms(fns[who])
+            gbps = nbytes / (ms * 1e-3) / 1e9
+            log(f"[bf16] {n}^3 p3 bf16 spmv {who}: device {ms:.4f} ms; "
+                f"{gbps:.1f} GB/s, {nnz / (ms * 1e-3) / 1e9:.2f} Gnnz/s, "
+                f"{100 * gbps / k4_gbps:.1f}% of K4 (tile {pk['tile']}, "
+                f"lanes to {pk['N'][2]})")
+        del band, x_pad, pk
+        torch.cuda.empty_cache()
+    # the residual pass a banded cycle makes, level by level, f32 and bf16
+    for n in (129, 65, 33, 17):
+        npts, pads = (n,) * 3, (3,) * 3
+        band32, x32, b32 = _k2_operands(npts, pads, (False,) * 3,
+                                        torch.float32, dev, seed=n)
+        b32 = b32.contiguous()
+        ms = {}
+        for low in (torch.float32, BF16):
+            band, x_pad, b = band32.to(low), x32.to(low), b32.to(low)
+            pk = pack_band_v2(band, npts, pads)
+            ms["K2", low] = _device_ms(lambda: stencil_apply(
+                "residual", band, x_pad, npts, pads, b=b))
+            ms["K3", low] = _device_ms(lambda: stencil_apply_v2(
+                "residual", band, x_pad, npts, pads, b=b, packed=pk))
+        log(f"[bf16] {n}^3 p3 residual pass, f32 / bf16: K2 "
+            f"{ms['K2', torch.float32]:.4f} / {ms['K2', BF16]:.4f} ms, K3 "
+            f"{ms['K3', torch.float32]:.4f} / {ms['K3', BF16]:.4f} ms")
+        del band32, x32, b32, band, x_pad, b, pk
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _k1_bf16_against_plain(what, terms, fields, npts, pads, periodic):
+    """Every K1 check on one bf16 operator against the bf16 plain version;
+    returns max|d| per label."""
+    x, b, d = fields
+    plan = k1.build_kron_plan(terms, npts, pads, periodic)
+    differ, total, errs = 0, 0, {}
+    for label, mode, kw in _k1_runs(b, d):
+        kw_k = dict(kw)
+        if kw.get("d") is not None:
+            kw_k["d"] = d.clone()     # the kernel updates d in place
+        got = k1.kron_mode(mode, plan, x, **kw_k)
+        torch.cuda.synchronize()
+        want = k1.kron_mode_plain_bf16(
+            mode, plan, x, kw.get("b"), kw.get("d"), kw.get("c1", 0.0),
+            kw.get("c2", 1.0))
+        if mode != "cheb":
+            got, want = (got,), (want,)
+        errs[label] = 0.0
+        for g, w in zip(got, want):
+            n_diff, e = _bf16_check(f"K1 {label} at {what}{npts}", g, w)
+            differ, total = differ + n_diff, total + g.numel()
+            errs[label] = max(errs[label], e)
+    log(f"[K1 bf16] {what}{npts} p={pads} periodic={periodic} terms="
+        f"{len(terms)} launches/apply={len(plan.plans)}: every mode "
+        f"within one bf16 unit of plain; {differ} of {total} values "
+        f"differ ({100 * differ / total:.3f}%)")
+    if differ > total // 50:
+        raise AssertionError(f"K1 bf16: {differ} of {total} values "
+                             f"differ from plain at {what}{npts}")
+    return errs
+
+
+def phase_k1_bf16(dev):
+    """K1 in bf16, every mode, against its plain version at the f32 shapes
+    and on every level of the periodic hierarchy; times at 129^3 beside the
+    byte bounds (2-byte fields)."""
+    result = {m: {} for m in k1.MODES}
+    shapes = [(npts, (p,) * 3, (per,) * 3, 0) for npts, p, per in K1_SHAPES]
+    shapes += [(*case, 0) for case in K1_MORE]
+    shapes.append(((20, 21, 22), (2, 2, 2), (False,) * 3, 4))
+    for npts, pads, periodic, free in shapes:
+        terms, fields = _k1_operands(npts, pads, torch.float32, dev,
+                                     sum(npts) + pads[0], free)
+        cast = {}
+        terms = [[cast.setdefault(id(B), B.to(BF16)) for B in term]
+                 for term in terms]
+        errs = _k1_bf16_against_plain("", terms,
+                                      [f.to(BF16) for f in fields], npts,
+                                      pads, periodic)
+        if npts == (129,) * 3:
+            for mode in k1.MODES:
+                result[mode]["max_abs_err"] = errs[mode]
+    for npts, terms in _periodic_kron_levels(dev, BF16):
+        _k1_bf16_against_plain("periodic shifted operator, level ", terms,
+                               _k1_fields(npts, BF16, dev, npts[0]), npts,
+                               (3,) * 3, (True,) * 3)
+    n = 129
+    npts, pads, periodic = (n,) * 3, (3,) * 3, (False,) * 3
+    terms, fields = _k1_operands(npts, pads, torch.float32, dev, n)
+    cast = {}
+    terms = [[cast.setdefault(id(B), B.to(BF16)) for B in term]
+             for term in terms]
+    x, b, d = (f.to(BF16) for f in fields)
+    plan = k1.build_kron_plan(terms, npts, pads, periodic)
+    terms32, diag32 = plan.operands_f32()
+    out = torch.empty_like(x)
+    for label, mode, kw in _k1_runs(b, d):
+        if label == "cheb0":
+            continue
+        ms = _device_ms(lambda: k1.kron_mode(mode, plan, x, out=out, **kw))
+        kw32 = {k: v.float() if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
+        plain = _device_ms(lambda: k1.kron_mode_plain(
+            mode, terms32, x.float(), npts, pads, periodic, diag=diag32,
+            **kw32), 3)
+        bound = K1_FIELDS[mode] * n ** 3 * 2 / HBM_BYTES_PER_S * 1e3
+        result[mode].update(ms=ms, plain_ms=plain, bound_ms=bound)
+        log(f"[K1 bf16] 129^3 p3 {mode}: kernel {ms * 1e3:.2f} us, plain "
+            f"(its f32 arithmetic, casts not counted) {plain:.4f} ms, bound "
+            f"{bound * 1e3:.2f} us ({K1_FIELDS[mode]} bf16 fields once): "
+            f"{100 * bound / ms:.1f}% of it")
+    return result
+
+
+def phase_k7_bf16(dev):
+    """K7 in bf16: bit-equal to plain at every level pair; times at
+    129^3 <-> 65^3."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    row = {}
+    for d, P in _k7_pairs():
+        nf, nc = P.shape
+        pro = tuple(k7.bands_from_dense(P, BF16, dev) for _ in range(d))
+        res = tuple(k7.bands_from_dense(P.T, BF16, dev) for _ in range(d))
+        xf = torch.randn((nf,) * d, generator=g).to(dev).to(BF16)
+        xc = torch.randn((nc,) * d, generator=g).to(dev).to(BF16)
+        runs = {"restrict": (lambda: k7.apply_transfer(res, xf),
+                             lambda: k7.apply_transfer_plain(res, xf)),
+                "prolong+add": (
+                    lambda: k7.apply_transfer(pro, xc, add=xf),
+                    lambda: k7.apply_transfer_plain(pro, xc, add=xf))}
+        for label, (kernel, plain) in runs.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            if got.dtype != BF16 or not torch.equal(got, plain()):
+                raise AssertionError(f"K7 bf16 {label} is not bit-equal to "
+                                     f"plain at {nf}^{d}")
+            if nf == 129:
+                ms, pl = _device_ms(kernel), _device_ms(plain, 5)
+                fields = {"restrict": nf ** d + nc ** d,
+                          "prolong+add": nc ** d + 2 * nf ** d}[label]
+                bound = fields * 2 / HBM_BYTES_PER_S * 1e3
+                log(f"[K7 bf16] {nf}^3 <-> {nc}^3 {label}: kernel "
+                    f"{ms * 1e3:.2f} us, plain {pl:.4f} ms, bound "
+                    f"{bound * 1e3:.2f} us (bytes): "
+                    f"{100 * bound / ms:.1f}% of it")
+                if label == "restrict":
+                    row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pl,
+                           "bound_ms": bound}
+        log(f"[K7 bf16] {nf}^{d} <-> {nc}^{d}, widths {res[0].width}/"
+            f"{pro[0].width}: restriction and prolongation (+ add) bit-equal "
+            f"to plain")
+    return row
+
+
+def phase_k5_four(dev):
+    """K5's 4-history launch on the periodic shifted 3D operator: bit-equal
+    to plain; device time at 128^3."""
+    result = {}
+    for n_el, p in ((128, 3), (32, 3), (16, 2)):
+        prob = periodic_problem(3, n_el, degree=p, device=dev)
+        A = _kron_periodic(prob.bands_1d, prob.shift, prob.space)
+        split = {id(B): split_f64(B) for term in A.terms for B in term}
+        tdf = [[split[id(B)] for B in term] for term in A.terms]
+        labels = A._band_labels()
+        sp = prob.space
+        plan = twofloat.build_kron_df_plan(tdf, sp.npts, sp.pads, sp.periodic,
+                                           labels)
+        counts = [len(k1.sharing_plan(plan.labels)[k])
+                  for k in ("u_lab", "v_src", "w_src", "term_w")]
+        assert counts == [2, 3, 4, 4], counts
+        g = torch.Generator(device="cpu").manual_seed(n_el)
+        x = torch.randn(sp.npts, generator=g, dtype=torch.float64).to(dev)
+        (xh, xl), (bh, bl) = split_f64(x), split_f64(prob.b.interior)
+        zero = torch.zeros_like(xh)
+        for flags, explicit in (((bh, bl, xh, xl), (bh, bl, xh, xl)),
+                                ((None, None, xh, None),
+                                 (zero, zero, xh, zero))):
+            got = twofloat.residual_kron_df(tdf, *flags, sp.pads, labels,
+                                            sp.periodic, plan=plan)
+            torch.cuda.synchronize()
+            want = twofloat.residual_kron_df_plain(tdf, *explicit, sp.pads,
+                                                   labels, sp.periodic)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K5 (4 histories) is not bit-equal to "
+                                     f"plain at {sp.npts}")
+        r64 = prob.b.interior - prob.A.dot(
+            StencilVector.from_interior(sp, x)).interior
+        rel = float((twofloat.merge_f64(*twofloat.residual_kron_df(
+            tdf, bh, bl, xh, xl, sp.pads, labels, sp.periodic, plan=plan))
+            - r64).abs().max() / r64.abs().max())
+        log(f"[K5 4h] periodic {sp.npts} p{p}, partials {counts}: bit-equal "
+            f"to plain with b, x_l given and with the zero flags; against "
+            f"the f64 banded residual {rel:.2e}")
+        assert rel <= 1e-12, rel
+        if n_el == 128:
+            def kernel():
+                return twofloat.residual_kron_df(
+                    tdf, None, None, xh, None, sp.pads, labels, sp.periodic,
+                    plan=plan)
+
+            def plain():
+                return twofloat.residual_kron_df_plain(
+                    tdf, zero, zero, xh, zero, sp.pads, labels, sp.periodic)
+
+            # 9 contractions of 7 taps (2 u, 3 v, 4 histories), 3 term adds
+            # and b - Ax; p in, two words out
+            ops = (9 * (7 * 9 + 6 * 20) + 4 * 20) * n_el ** 3
+            result = {"max_abs_err": 0.0, "ms": _device_ms(kernel),
+                      "plain_ms": _device_ms(plain, 2),
+                      "bound_ms": ops / F32_FLOPS * 1e3}
+            log(f"[K5 4h] periodic 128^3 p3 A.p: kernel {result['ms']:.4f} "
+                f"ms, plain {result['plain_ms']:.4f} ms; bound (operations, "
+                f"{ops // n_el ** 3} per point) {result['bound_ms']:.4f} ms")
+        del prob, A, tdf, plan
+        torch.cuda.empty_cache()
+    return result
+
+
+def _replay_alone_ms(solver):
+    """The captured step alone: ten more replays of the solver's one graph,
+    one ||r|| read each as in the solve loop (past convergence; the next
+    solve reloads the state)."""
+    (graph,) = solver._graphs.values()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        float(graph.replay())
+    return (time.perf_counter() - t0) / 10 * 1e3
+
+
+def _solve_both_ways(label, solver, true_residual, maxiter=60):
+    """solve, then solve_compiled (captures the step and replays it to the
+    tolerance): converged, equal counts and bits, a true f64 residual <=
+    5e-10; the replayed step is timed alone afterwards; returns (iterations,
+    ms per replayed step, launches of the eager solve)."""
+    tol = HEADLINE["tol"]
+    torch.cuda.synchronize()
+    before = counters.snapshot()
+    res = solver.solve(tol=tol, maxiter=maxiter)
+    torch.cuda.synchronize()
+    grown = counters.diff(counters.snapshot(), before)
+    assert res.converged, (label, res.residuals)
+    x = res.x.interior
+    assert bool(torch.isfinite(x).all())
+    xg, rn, it = solver.solve_compiled(tol=tol, maxiter=maxiter)
+    torch.cuda.synchronize()
+    assert it == res.iterations and float(rn) == res.residuals[-1], \
+        (label, it, res.iterations, float(rn), res.residuals[-1])
+    assert torch.equal(xg.interior, x), f"{label}: replayed left eager"
+    replayed = _replay_alone_ms(solver)
+    true_rn = true_residual(res.x)
+    assert true_rn <= 5e-10, (label, true_rn)
+    eager = float(np.median(res.wall_times[1:])) * 1e3
+    log(f"[{label}] {res.iterations} steps, |r| {res.residuals[-1]:.3e}, "
+        f"true f64 |b - Ax| {true_rn:.3e}; eager {eager:.3f} ms/step, "
+        f"graph-replayed {replayed:.3f} ms/step (ten replays alone), the "
+        f"same bits")
+    return res.iterations, replayed, grown
+
+
+def _low_is_bf16(label, grown, names):
+    """Over a solve the low hierarchy launched the bf16 instantiations of
+    ``names`` and never the f32 ones."""
+    f32 = {k: v for k, v in grown.items() if k.endswith("@f32")
+           and k.split(".")[0].split("@")[0] in names}
+    bf16 = sum(v for k, v in grown.items() if k.endswith("@bf16")
+               and k.split(".")[0].split("@")[0] in names)
+    assert not f32, f"{label}: f32 kernels ran on the bf16 hierarchy: {f32}"
+    assert bf16 > 0, f"{label}: no bf16 kernel launched: {grown}"
+
+
+def phase_bf16_solves(dev, f32_defect, f32_pcg):
+    """The bf16 paths at full width, each beside its f32 run."""
+    h = HEADLINE
+    cfg32 = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=32.0, cheb_degree=4))
+    cfg16 = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=16.0, cheb_degree=4))
+    counters.reset()
+    prob = poisson_problem(3, h["n_el"], degree=h["degree"],
+                           dtype=torch.float64, device=dev, operator="kron")
+
+    def true_kron(x):
+        return float(torch.linalg.vector_norm(
+            prob.b.interior - prob.A.dot(x).interior))
+
+    mg = MixedPrecisionMG(prob, h["levels"], cfg32, operator="kron",
+                          residual="twofloat", low_dtype=BF16)
+    it, ms, grown = _solve_both_ways("bf16 twofloat", mg, true_kron,
+                                     BF16_MAXITER)
+    _low_is_bf16("bf16 twofloat", grown, ("kron_mode", "transfer"))
+    log(f"[bf16 twofloat] kron defect correction, Chebyshev(4) over "
+        f"[lmax/32, lmax]: bf16 {it} corrections at {ms:.3f} ms replayed; "
+        f"f32 {f32_defect['iterations']} at "
+        f"{f32_defect['replayed_ms']:.3f} ms; launches of the eager solve "
+        f"{_short(grown)}")
+    del mg
+    torch.cuda.empty_cache()
+    pcg = MGPreconditionedCG(prob, h["levels"], cfg16, mixed=True,
+                             operator="kron", precision="dw", low_dtype=BF16)
+    it, ms, grown = _solve_both_ways("bf16 dw-PCG", pcg, true_kron,
+                                     BF16_MAXITER)
+    _low_is_bf16("bf16 dw-PCG", grown, ("kron_mode", "transfer"))
+    log(f"[bf16 dw-PCG] kron dw-PCG with a bf16 preconditioner: bf16 {it} "
+        f"iterations at {ms:.3f} ms replayed; f32 {f32_pcg['iterations']} "
+        f"at {f32_pcg['replayed_ms']:.3f} ms")
+    kron_launches = counters.snapshot()
+    del pcg, prob
+    torch.cuda.empty_cache()
+
+    # the banded defect correction, f32 and bf16 cycles, K2 then K3
+    banded = {}
+    before = os.environ.get("POMS_TPU_SPMV")
+    try:
+        for name in ("K2", "K3"):
+            if name == "K3":
+                os.environ["POMS_TPU_SPMV"] = "v2"
+            else:
+                os.environ.pop("POMS_TPU_SPMV", None)
+            prob = poisson_problem(3, h["n_el"], degree=h["degree"],
+                                   dtype=torch.float64, device=dev)
+
+            def true_banded(x):
+                return float(torch.linalg.vector_norm(
+                    prob.b.interior - prob.A.dot(x).interior))
+
+            wrapper = "stencil_apply" if name == "K2" else "stencil_apply_v2"
+            other = "stencil_apply_v2" if name == "K2" else "stencil_apply"
+            runs = {}
+            for low in (torch.float32, BF16):
+                counters.reset()
+                mg = MixedPrecisionMG(prob, h["levels"], cfg32,
+                                      operator="banded", residual="f64",
+                                      low_dtype=low)
+                label = (f"banded {'bf16' if low == BF16 else 'f32'} "
+                         f"{name}")
+                runs[low] = _solve_both_ways(label, mg, true_banded,
+                                             BF16_MAXITER)
+                grown = runs[low][2]
+                assert not any(v for k, v in grown.items()
+                               if k.startswith(other + ".")), grown
+                assert grown[f"{wrapper}.residual@f64"] > 0, grown
+                if low == BF16:
+                    _low_is_bf16(label, grown, (wrapper, "transfer"))
+                    banded[name] = counters.snapshot()
+                del mg
+                torch.cuda.empty_cache()
+            log(f"[bf16 banded {name}] defect correction, residual='f64', "
+                f"Chebyshev(4) over [lmax/32, lmax]: bf16 "
+                f"{runs[BF16][0]} corrections at {runs[BF16][1]:.3f} ms "
+                f"replayed; f32 {runs[torch.float32][0]} at "
+                f"{runs[torch.float32][1]:.3f} ms")
+            # the jacobi and rbgs modes in bf16 on a solver path (the same
+            # problem: above 10^6 points the coarse operators come from the
+            # 1D triple products, below it from a host SpGEMM that takes
+            # half a minute at 65^3)
+            for kind, omega in (("jacobi", None), ("rbgs", 1.0)):
+                mg = MixedPrecisionMG(
+                    prob, h["levels"], CycleConfig(
+                        nu1=2, nu2=2, smoother=SmootherConfig(kind, omega)),
+                    operator="banded", residual="f64", low_dtype=BF16)
+                res = mg.solve(tol=h["tol"], maxiter=3)
+                assert all(b < a for a, b in zip(res.residuals,
+                                                 res.residuals[1:])), \
+                    (kind, res.residuals)
+                log(f"[bf16 banded {name}] 129^3 {kind}-smoothed bf16 "
+                    f"cycles: residuals "
+                    f"{['%.3e' % r for r in res.residuals]}")
+                del mg
+            now = counters.snapshot()
+            for kind in ("jacobi", "rbgs"):
+                assert now[f"{wrapper}.{kind}@bf16"] > 0, now
+                banded[name][f"{wrapper}.{kind}@bf16"] = \
+                    now[f"{wrapper}.{kind}@bf16"]
+            del prob
+            torch.cuda.empty_cache()
+    finally:
+        if before is None:
+            os.environ.pop("POMS_TPU_SPMV", None)
+        else:
+            os.environ["POMS_TPU_SPMV"] = before
+    return {"kron": kron_launches, "K2": banded["K2"], "K3": banded["K3"]}
+
+
+def phase_periodic(dev):
+    """Periodic shifted problem at 128^3 p3, 5 levels: kron twofloat defect
+    correction, kron dw-PCG, one banded f64-mixed PCG; K7 on the wide
+    periodic transfers."""
+    h = HEADLINE
+    cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=16.0, cheb_degree=4))
+    counters.reset()
+    prob = periodic_problem(3, h["n_el"], degree=h["degree"], shift=1.0,
+                            device=dev)
+
+    def true_residual(x):
+        return float(torch.linalg.vector_norm(
+            prob.b.interior - prob.A.dot(x).interior))
+
+    mg = MixedPrecisionMG(prob, h["levels"], cfg, operator="kron",
+                          residual="twofloat")
+    tb = mg.levels64[0].prolong[0]
+    log(f"[periodic] 128^3 p3 shift 1, {h['levels']} levels (coarsest "
+        f"{mg.levels64[-1].A.space.npts}); transfer widths "
+        f"{mg.levels64[0].restrict[0].width}/{tb.width} (W = n_in); K1 "
+        f"launches per pass {len(mg.levels64[0].A.plan.plans)}")
+    it, ms, grown = _solve_both_ways("periodic twofloat", mg, true_residual,
+                                     PERIODIC_MAXITER)
+    assert grown["residual_kron_df"] > 0 and grown["kron_mode.cheb"] > 0
+    log(f"[periodic] kron twofloat defect correction: {it} corrections at "
+        f"{ms:.3f} ms replayed; launches of the eager solve {_short(grown)}")
+    # K7 on the wide transfers of the top level pair
+    lev = mg.levels32[0]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    xf = torch.randn((128,) * 3, generator=g).to(dev)
+    xc = torch.randn((64,) * 3, generator=g).to(dev)
+    wide = {}
+    for label, fn, plain in (
+            ("restrict", lambda: k7.apply_transfer(lev.restrict, xf),
+             lambda: k7.apply_transfer_plain(lev.restrict, xf)),
+            ("prolong+add", lambda: k7.apply_transfer(lev.prolong, xc,
+                                                      add=xf),
+             lambda: k7.apply_transfer_plain(lev.prolong, xc, add=xf))):
+        assert torch.equal(fn(), plain()), f"K7 periodic {label}"
+        wide[label] = _device_ms(fn)
+        log(f"[periodic] K7 128^3 <-> 64^3 {label}, W = "
+            f"{lev.restrict[0].width}/{lev.prolong[0].width} taps: "
+            f"{wide[label]:.4f} ms (bit-equal to plain)")
+    del mg, lev
+    torch.cuda.empty_cache()
+    pcg = MGPreconditionedCG(prob, h["levels"], cfg, mixed=True,
+                             operator="kron", precision="dw")
+    it, ms, grown = _solve_both_ways("periodic dw-PCG", pcg, true_residual,
+                                     PERIODIC_MAXITER)
+    assert grown["residual_kron_df"] > 0
+    log(f"[periodic] kron dw-PCG: {it} iterations at {ms:.3f} ms replayed")
+    launches = counters.snapshot()
+    del pcg
+    torch.cuda.empty_cache()
+    pcg = MGPreconditionedCG(prob, h["levels"], cfg, mixed=True,
+                             operator="banded", precision="f64")
+    it, ms, grown = _solve_both_ways("periodic banded", pcg, true_residual,
+                                     PERIODIC_MAXITER)
+    assert grown["stencil_apply.residual@f32"] > 0, grown
+    assert grown["stencil_apply.spmv@f64"] > 0, grown
+    log(f"[periodic] banded f64-mixed PCG (K2, wrapped ghosts): {it} "
+        f"iterations at {ms:.3f} ms replayed")
+    return launches
+
+
 T_START = time.perf_counter()
+
+
+def _timed_phase(fn, *args):
+    """Run one phase, free the cache, and log what it took."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    now = time.perf_counter()
+    which = "".join(f" {a}" for a in args if isinstance(a, str))
+    log(f"[time] {fn.__name__}{which}: "
+        f"{now - t0:.1f} s, ending {now - T_START:.1f} s after the start")
+    return out
 
 
 def main():
@@ -1279,32 +1969,35 @@ def main():
     log(nvidia_smi_name_power())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    phase_build()
-    k1_res = phase_k1(dev)
-    phase_eft(dev)
-    k5_res = phase_k5(dev)
-    k6_res = phase_k6(dev)
-    k7_res = phase_k7(dev)
-    torch.cuda.empty_cache()
-    solve = phase_solve(dev)
-    torch.cuda.empty_cache()
-    defect = phase_defect(dev)
-    phase_check(dev, solve["l2"])
-    torch.cuda.empty_cache()
-    k4 = phase_k4(dev)
-    k2 = phase_stencil(dev, k4["gbps"], "K2")
+    run = _timed_phase
+    run(phase_build)
+    k1_res = run(phase_k1, dev)
+    run(phase_eft, dev)
+    k5_res = run(phase_k5, dev)
+    k6_res = run(phase_k6, dev)
+    k7_res = run(phase_k7, dev)
+    solve = run(phase_solve, dev)
+    defect, defect_f32 = run(phase_defect, dev)
+    run(phase_check, dev, solve["l2"])
+    k4 = run(phase_k4, dev)
+    k2 = run(phase_stencil, dev, k4["gbps"], "K2")
     torch.cuda.reset_peak_memory_stats()
-    pcg_launches, k2_iterations = phase_banded_pcg(dev, solve["l2"])
-    torch.cuda.empty_cache()
-    mg_launches = phase_banded_mg(dev)
-    phase_banded_check(dev)
+    pcg_launches, k2_iterations = run(phase_banded_pcg, dev, solve["l2"])
+    mg_launches = run(phase_banded_mg, dev)
+    run(phase_banded_check, dev)
     k2_launches = {m: pcg_launches[m] + mg_launches[m] for m in MODES}
     missing = [m for m in MODES if not k2_launches[m] > 0]
     assert not missing, f"the banded paths never launched K2 in {missing}"
-    k3 = phase_stencil(dev, k4["gbps"], "K3")
-    times = phase_k3_times(dev, k4["gbps"])
-    k3_launches = phase_v2_banded(dev, solve["l2"], k2_iterations)
-    probes = phase_probes(dev, k4["gbps"], times)
+    k3 = run(phase_stencil, dev, k4["gbps"], "K3")
+    times = run(phase_k3_times, dev, k4["gbps"])
+    k3_launches = run(phase_v2_banded, dev, solve["l2"], k2_iterations)
+    probes = run(phase_probes, dev, k4["gbps"], times)
+    banded_bf16 = run(phase_stencil_bf16, dev, k4["gbps"])
+    k1_bf16 = run(phase_k1_bf16, dev)
+    k7_bf16 = run(phase_k7_bf16, dev)
+    k5_four = run(phase_k5_four, dev)
+    bf16_paths = run(phase_bf16_solves, dev, defect_f32, solve)
+    periodic = run(phase_periodic, dev)
     points = 129 ** 3
 
     def banded_bound(mode):
@@ -1378,6 +2071,52 @@ def main():
         "route": "cuda", "source": f"poms_tpu_torch/csrc/{src}",
         "replaces": f"poms_tpu/bench/kernel_probe.py:{line}",
         **probes[v]} for v, src, line in probe_rows]
+    # the bf16 instantiations, one row a kernel: the launches of phase 16's
+    # paths in bf16 (the banded engines' residual, jacobi and rbgs; K1's
+    # cheb and residual).  The banded rows carry the spmv mode's time, the
+    # function the CSR product in bf16 beside it computes (the residual
+    # pass of the paths takes within 1% of it, logged in phase 14); K1's
+    # row carries the cheb mode's
+    csr_bf16 = banded_bf16["K2"]["spmv"].get("library_ms")
+    for name, tag, src, line, path in (
+            ("stencil_apply", "K2", "stencil_apply.cu", 314, "K2"),
+            ("stencil_apply_v2", "K3", "stencil_apply_v2.cu", 726, "K3")):
+        r = banded_bf16[tag]["spmv"]
+        kernels.append({
+            "name": f"{name}.bf16", "route": "cuda",
+            "source": f"poms_tpu_torch/csrc/{src}",
+            "replaces": f"poms_tpu/ops/pallas/spmv.py:{line}",
+            "launches": sum(v for k, v in bf16_paths[path].items()
+                            if k.startswith(name + ".")
+                            and k.endswith("@bf16")),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": csr_bf16})
+    r = k1_bf16["cheb"]
+    kernels.append({
+        "name": "kron_apply.bf16", "route": "cuda",
+        "source": "poms_tpu_torch/csrc/kron_apply.cu",
+        "replaces": "poms_tpu/ops/pallas/kron.py:157",
+        "launches": sum(v for k, v in bf16_paths["kron"].items()
+                        if k.startswith("kron_mode.")
+                        and k.endswith("@bf16")),
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": None})
+    kernels.append({
+        "name": "transfer.bf16", "route": "cuda",
+        "source": "poms_tpu_torch/csrc/transfer.cu",
+        "replaces": "poms_tpu/ops/transfer.py:74",
+        "launches": bf16_paths["kron"]["transfer@bf16"]
+        + bf16_paths["K2"]["transfer@bf16"]
+        + bf16_paths["K3"]["transfer@bf16"],
+        **k7_bf16, "bound_by": "bytes", "library_ms": None})
+    kernels.append({
+        "name": "residual_kron_df.4_histories", "route": "cuda",
+        "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
+        "replaces": "poms_tpu/ops/twofloat.py:197",
+        "launches": periodic["residual_kron_df"], **k5_four,
+        "bound_by": "operations", "library_ms": None})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:

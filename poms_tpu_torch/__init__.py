@@ -12,7 +12,9 @@ Ported so far: the headline solve (3D Poisson with cubic B-splines on the
 Kronecker-sum operator, double-word MG-preconditioned CG; kernel K1) and
 the banded path (``StencilMatrix`` operators, their hierarchy, the Jacobi,
 red-black and lexicographic Gauss–Seidel and Chebyshev smoothers,
-``MultigridSolver`` and f64 MG-preconditioned CG; kernels K2 and K4).
+``MultigridSolver`` and f64 MG-preconditioned CG; kernels K2 and K4), the
+defect-correction solver, bf16 cycles (``low_dtype=torch.bfloat16``) and
+periodic problems (``periodic_problem``).
 """
 
 __version__ = "0.1.0"
@@ -24,6 +26,7 @@ from poms_tpu_torch.core.matrix import StencilMatrix
 from poms_tpu_torch.mg.smoother import SmootherConfig
 from poms_tpu_torch.mg.hierarchy import Level, build_hierarchy
 from poms_tpu_torch.mg.cycles import CycleConfig, cycle
-from poms_tpu_torch.mg.mixed import MGPreconditionedCG
+from poms_tpu_torch.mg.mixed import MGPreconditionedCG, MixedPrecisionMG
 from poms_tpu_torch.mg.solver import MultigridSolver, SolveResult
 from poms_tpu_torch.models.poisson import poisson_problem, PoissonProblem
+from poms_tpu_torch.models.periodic import periodic_problem, PeriodicProblem

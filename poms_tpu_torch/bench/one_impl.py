@@ -6,7 +6,8 @@
 ``impl`` is ``k2``, ``k3`` (the CUDA kernels; K3's band packed before
 timing), ``plain`` (the PyTorch version), ``kron`` (K1) or ``streamfloor``
 (K4); ``n`` is a cube edge or an explicit grid ("64x32x128"); ``dtype`` is
-``f32`` (default) or ``f64``.  Timing and byte counts are
+``f32`` (default), ``f64`` or ``bf16`` (2-byte items in the byte counts; the
+kernels compute in f32).  Timing and byte counts are
 :func:`poms_tpu_torch.bench.roofline.bench_spmv`'s.
 
 Prints one ``RESULT {...}`` line with the JAX package's keys (``name``,
@@ -39,7 +40,8 @@ def main():
         raise SystemExit(f"impl {impl!r}: one of {IMPLS}")
     if not torch.cuda.is_available():
         raise SystemExit("one_impl measures the card: no CUDA device found")
-    dtype = {"f32": torch.float32, "f64": torch.float64}[dtype_s]
+    dtype = {"f32": torch.float32, "f64": torch.float64,
+             "bf16": torch.bfloat16}[dtype_s]
     npts = (tuple(int(s) for s in n_s.split("x")) if "x" in n_s
             else (int(n_s),) * d)
     r = bench_spmv(npts, degree=degree, dtype=dtype, iters=iters, impl=impl)

@@ -10,8 +10,9 @@ Prints one ``RESULT {...}`` line with the JAX bench's keys plus ``device``,
 ``k5_launches`` (the double-word A·p kernel) and ``launches`` (every
 wrapper's).  The timed solve is the second ``solve_compiled`` call, which
 replays the step's captured graph; a replay counts the launches its capture
-recorded.  ``precision`` is ``dw``, ``dwrr`` or ``f64``.  Needs a CUDA card;
-there is no CPU fallback.
+recorded.  ``precision`` is ``dw``, ``dwrr`` or ``f64``; ``low`` is ``f32``
+or ``bf16`` (the preconditioner's cycle on a bf16 hierarchy; not with
+``dwrr``).  Needs a CUDA card; there is no CPU fallback.
 """
 import json
 import sys

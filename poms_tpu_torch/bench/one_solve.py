@@ -8,8 +8,9 @@ Counterpart of ``poms_tpu.bench.one_solve`` with its command line: the
 Kronecker-sum operator, Chebyshev-smoothed f32 cycles (ν1 = ν2 = 1) inside
 the defect-correction loop of ``MixedPrecisionMG``; ``residual`` is ``auto``
 (→ twofloat), ``twofloat`` or ``f64``; the Chebyshev window defaults to
-[λmax/32, λmax] at n_el ≥ 128 and [λmax/16, λmax] below; ``low`` = ``bf16``
-is refused (no bf16 kernels yet).
+[λmax/32, λmax] at n_el ≥ 128 and [λmax/16, λmax] below; ``low`` is ``f32``
+or ``bf16`` (the cycle on a bf16 hierarchy, K1 and K7 in bf16), e.g.
+``one_solve 128 3 1e-10 twofloat 1 32 4 bf16``.
 
 Prints one ``RESULT {...}`` line with the JAX bench's keys
 (``per_iter_s``/``wall_to_tol_s``: the second ``solve_compiled`` call, which

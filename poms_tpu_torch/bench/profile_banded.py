@@ -1,12 +1,16 @@
-"""Where one banded PCG iteration spends its time on the card.
+"""Where one banded PCG iteration or defect correction spends its time on
+the card.
 
     python -m poms_tpu_torch.bench.profile_banded [n_el] [levels] [reps]
+        [pcg|defect] [f32|bf16]
 
 Builds the banded f64-mixed PCG of ``chip_smoke.py`` (3D Poisson, p = 3,
 Chebyshev(4) over [λmax/16, λmax], ν1 = ν2 = 1; defaults n_el = 128, 5
-levels), runs one warm-up solve, then runs ``reps`` (default 5) PCG
-iterations from the start state, each ended by the ‖r‖ read that the solve
-loop makes (one host sync per iteration):
+levels) or, with ``defect``, its banded defect correction
+(``MixedPrecisionMG(residual="f64")``, Chebyshev(4) over [λmax/32, λmax]),
+with the cycle in f32 or bf16; runs one warm-up solve, then runs ``reps``
+(default 5) steps from the start state, each ended by the ‖r‖ read that the
+solve loop makes (one host sync per step):
 
 - ``step_ms``: host clock per iteration, no profiler;
 - under ``torch.profiler``, in one run: ``profiled_step_ms`` (CUDA events
@@ -19,8 +23,9 @@ loop makes (one host sync per iteration):
 - ``replayed_step_ms``, ``replayed_busy_ms``, ``replayed_idle_share``,
   ``replayed_kernels``: the same iterations as replays of the step's
   captured CUDA graph (the path of ``solve_compiled``);
-- ``ap_ms`` and ``precond_ms``: CUDA events around the f64 A·p (ghost
-  refresh included) and the f32 V-cycle alone.
+- ``ap_ms`` and ``precond_ms``: CUDA events around the f64 A·p (``defect``:
+  the f64 residual; ghost refresh included) and the low-precision V-cycle
+  alone.
 
 Prints the kernels with the most device time, then one ``RESULT {...}``
 line.  Needs a CUDA card: there is no CPU fallback.
@@ -72,6 +77,10 @@ def main():
     n_el = int(sys.argv[1]) if len(sys.argv) > 1 else 128
     levels = int(sys.argv[2]) if len(sys.argv) > 2 else 5
     reps = int(sys.argv[3]) if len(sys.argv) > 3 else 5
+    which = sys.argv[4] if len(sys.argv) > 4 else "pcg"
+    low_name = sys.argv[5] if len(sys.argv) > 5 else "f32"
+    if which not in ("pcg", "defect") or low_name not in ("f32", "bf16"):
+        raise SystemExit(__doc__)
 
     import torch
 
@@ -80,7 +89,7 @@ def main():
     from poms_tpu_torch.core.vector import StencilVector
     from poms_tpu_torch.mg.cycles import CycleConfig
     from poms_tpu_torch.mg.graph import GraphedStep
-    from poms_tpu_torch.mg.mixed import MGPreconditionedCG
+    from poms_tpu_torch.mg.mixed import MGPreconditionedCG, MixedPrecisionMG
     from poms_tpu_torch.mg.smoother import SmootherConfig
     from poms_tpu_torch.models.poisson import poisson_problem
     from poms_tpu_torch.ops import dispatch
@@ -91,11 +100,16 @@ def main():
                          "found")
     dev = torch.device("cuda", 0)
     prob = poisson_problem(3, n_el, degree=3, dtype=torch.float64, device=dev)
-    cfg = CycleConfig(nu1=1, nu2=1,
-                      smoother=SmootherConfig("chebyshev", cheb_fraction=16.0,
-                                              cheb_degree=4))
-    pcg = MGPreconditionedCG(prob, num_levels=levels, cfg=cfg, mixed=True,
-                             precision="f64")
+    low = torch.bfloat16 if low_name == "bf16" else torch.float32
+    cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=16.0 if which == "pcg" else 32.0,
+        cheb_degree=4))
+    if which == "pcg":
+        pcg = MGPreconditionedCG(prob, num_levels=levels, cfg=cfg, mixed=True,
+                                 precision="f64", low_dtype=low)
+    else:
+        pcg = MixedPrecisionMG(prob, levels, cfg, operator="banded",
+                               residual="f64", low_dtype=low)
     pcg.solve(tol=1e-10, maxiter=30)
     state0, consts, step = pcg._start(prob.b)[:3]
 
@@ -124,7 +138,7 @@ def main():
     def share(kernel):
         return sum(e.self_device_time_total for e in stats
                    if kernel in e.key) / 1e3 / reps
-    for e in stats[:12]:
+    for e in stats[:16]:
         print(f"{e.self_device_time_total / 1e3 / reps:9.4f} ms "
               f"{e.count / reps:7.1f}x  {e.key[:100]}", flush=True)
 
@@ -137,13 +151,21 @@ def main():
     r_profiled_ms, r_busy_ms, r_stats = profiled_run(replay, reps)
 
     sp = prob.space
-    _, r, _, p, _ = (StencilVector.from_interior(sp, t) if t.ndim else t
-                     for t in state0)
-    ap_ms = cuda_event_ms(lambda: pcg.levels[0].A.dot(p))
-    precond_ms = cuda_event_ms(lambda: pcg._precond(r))
+    if which == "pcg":
+        _, r, _, p, _ = (StencilVector.from_interior(sp, t) if t.ndim else t
+                         for t in state0)
+        ap_ms = cuda_event_ms(lambda: pcg.levels[0].A.dot(p))
+        precond_ms = cuda_event_ms(lambda: pcg._precond(r))
+    else:
+        A = pcg.levels64[0].A
+        r_low = StencilVector.from_interior(
+            pcg.levels32[0].A.space,
+            (prob.b.interior / prob.b.norm()).to(low))
+        ap_ms = cuda_event_ms(lambda: A.residual(prob.b, prob.b))
+        precond_ms = cuda_event_ms(lambda: pcg._error_cycles(r_low))
     power = nvidia_smi_name_power().rsplit(",", 1)[-1].strip()
     print("RESULT " + json.dumps({
-        "name": f"banded_pcg3d_n{n_el}_p3_f64mixed_step",
+        "name": f"banded_{which}3d_n{n_el}_p3_f64mixed_{low_name}_step",
         "levels": levels, "reps": reps, "step_ms": step_ms,
         "profiled_step_ms": profiled_ms, "busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / profiled_ms, "kernel_ms": kernel_ms,

@@ -2,12 +2,16 @@
 defect-correction solver, spends its time on the card.
 
     python -m poms_tpu_torch.bench.profile_dw [n_el] [levels] [reps] [solver]
+        [low] [problem]
 
 Builds the headline solver of ``chip_smoke.py`` (3D Poisson, p = 3,
 Kronecker-sum operator, double-word recurrences, Chebyshev(4) over
 [λmax/16, λmax], ν1 = ν2 = 1; defaults n_el = 128, 5 levels) or, with
 ``solver`` = ``defect``, ``MixedPrecisionMG(residual="twofloat")`` over
-[λmax/32, λmax]; runs one warm-up solve, then runs ``reps`` (default 5)
+[λmax/32, λmax]; ``low`` = ``bf16`` runs the cycle on a bf16 hierarchy and
+``problem`` = ``periodic`` takes the periodic shifted problem (σ = 1, over
+[λmax/16, λmax]) instead of Poisson; runs one warm-up solve, then runs
+``reps`` (default 5)
 eager steps from the start state, each ended by the ‖r‖ read that the solve
 loop makes (one host sync per iteration):
 
@@ -41,6 +45,11 @@ def main():
     solver = sys.argv[4] if len(sys.argv) > 4 else "pcg"
     if solver not in ("pcg", "defect"):
         raise SystemExit(f"solver is 'pcg' or 'defect', got {solver!r}")
+    low = sys.argv[5] if len(sys.argv) > 5 else "f32"
+    problem = sys.argv[6] if len(sys.argv) > 6 else "poisson"
+    if low not in ("f32", "bf16") or problem not in ("poisson", "periodic"):
+        raise SystemExit("low is 'f32' or 'bf16', problem 'poisson' or "
+                         f"'periodic', got {low!r} {problem!r}")
 
     import torch
 
@@ -51,6 +60,7 @@ def main():
     from poms_tpu_torch.mg.graph import GraphedStep
     from poms_tpu_torch.mg.mixed import MGPreconditionedCG, MixedPrecisionMG
     from poms_tpu_torch.mg.smoother import SmootherConfig
+    from poms_tpu_torch.models.periodic import periodic_problem
     from poms_tpu_torch.models.poisson import poisson_problem
     from poms_tpu_torch.ops import counters
     from poms_tpu_torch.ops.twofloat import dw_norm2
@@ -58,19 +68,25 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_dw measures the card: no CUDA device found")
     dev = torch.device("cuda", 0)
-    prob = poisson_problem(3, n_el, degree=3, dtype=torch.float64,
-                           device=dev, operator="kron")
-    fraction = 16.0 if solver == "pcg" else 32.0
+    if problem == "periodic":
+        prob = periodic_problem(3, n_el, degree=3, device=dev)
+    else:
+        prob = poisson_problem(3, n_el, degree=3, dtype=torch.float64,
+                               device=dev, operator="kron")
+    fraction = 16.0 if solver == "pcg" or problem == "periodic" else 32.0
+    low_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[low]
     cfg = CycleConfig(nu1=1, nu2=1,
                       smoother=SmootherConfig("chebyshev",
                                               cheb_fraction=fraction,
                                               cheb_degree=4))
     if solver == "pcg":
         sol = MGPreconditionedCG(prob, num_levels=levels, cfg=cfg, mixed=True,
-                                 operator="kron", precision="dw")
+                                 operator="kron", precision="dw",
+                                 low_dtype=low_dtype)
     else:
         sol = MixedPrecisionMG(prob, num_levels=levels, cfg=cfg,
-                               operator="kron", residual="twofloat")
+                               operator="kron", residual="twofloat",
+                               low_dtype=low_dtype)
     sol.solve(tol=1e-10, maxiter=30)
     state0, consts, step = sol._start(prob.b)[:3]
 
@@ -124,7 +140,9 @@ def main():
     power = nvidia_smi_name_power().rsplit(",", 1)[-1].strip()
     print("RESULT " + json.dumps({
         "name": (f"pcg3d_n{n_el}_p3_dw_step" if solver == "pcg"
-                 else f"vcycle3d_n{n_el}_p3_twofloat_step"),
+                 else f"vcycle3d_n{n_el}_p3_twofloat_step")
+        + ("" if low == "f32" else f"_{low}")
+        + ("" if problem == "poisson" else f"_{problem}"),
         "levels": levels, "reps": reps, "step_ms": step_ms,
         "profiled_step_ms": profiled_ms, "busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / profiled_ms, "kernel_ms": kernel_ms,

@@ -5,7 +5,9 @@ Counterpart of part of ``poms_tpu/bench/roofline.py`` (``sol_bandwidth``,
 ``BenchResult``, ``bench_spmv``).  A banded stencil SpMV streams the band
 once, (2p+1)^d coefficients per grid point, reads x and writes y, so
 
-    bytes = (terms + 2) · points · itemsize,   nnz = terms · points.
+    bytes = (terms + 2) · points · itemsize,   nnz = terms · points
+
+(itemsize 4, 8, or 2 for a bf16 band and field).
 
 Times are CUDA-event means over ``iters`` back-to-back applies after a
 warm-up (:func:`poms_tpu_torch.bench.kernel_probe.cuda_event_ms`); the band
@@ -110,13 +112,15 @@ def bench_spmv(npts, degree: int = 3, dtype=torch.float32, iters: int = 20,
         ms, _ = probe_stream(npts[0], degree, contiguous=True, iters=iters,
                              device=dev)
     else:
-        from poms_tpu_torch.ops.stencil import spmv_banded_plain, stencil_apply
+        from poms_tpu_torch.ops.stencil import (stencil_apply,
+                                                stencil_apply_plain)
         from poms_tpu_torch.ops.stencil_v2 import (pack_band_v2,
                                                    stencil_apply_v2)
 
         g = torch.Generator(device=dev).manual_seed(0)
-        band_t = torch.randn((2 * degree + 1,) * d + npts, generator=g,
-                             dtype=dtype, device=dev) / (2.0 * math.sqrt(terms))
+        band_t = (torch.randn((2 * degree + 1,) * d + npts, generator=g,
+                              dtype=dtype, device=dev)
+                  / (2.0 * math.sqrt(terms)))
         x_pad = torch.randn(tuple(n + 2 * degree for n in npts), generator=g,
                             dtype=dtype, device=dev)
         if impl == "k3":
@@ -131,7 +135,7 @@ def bench_spmv(npts, degree: int = 3, dtype=torch.float32, iters: int = 20,
                 return stencil_apply("spmv", band_t, x_pad, npts, pads)
         else:
             def apply():
-                return spmv_banded_plain(band_t, x_pad, npts, pads)
+                return stencil_apply_plain("spmv", band_t, x_pad, npts, pads)
         ms = cuda_event_ms(apply, iters)
     points = math.prod(npts)
     isize = torch.finfo(dtype).bits // 8

@@ -5,7 +5,9 @@ port on the same state.  The functions here take those objects duck-typed,
 read their arrays with ``np.asarray`` (this module never imports jax) and
 build the port's counterparts on ``device``.  Band tensors are converted
 once per distinct source object, so the sharing structure of a
-Kronecker-sum operator (which partial products are reused) is kept.
+Kronecker-sum operator (which partial products are reused) is kept.  A bf16
+hierarchy and a periodic problem or hierarchy are carried across like any
+other.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from poms_tpu_torch.core.space import StencilVectorSpace
 from poms_tpu_torch.core.vector import StencilVector
 from poms_tpu_torch.mg.hierarchy import Level
 from poms_tpu_torch.models.bspline import Spline1D
+from poms_tpu_torch.models.periodic import PeriodicProblem
 from poms_tpu_torch.models.poisson import PoissonProblem
 from poms_tpu_torch.ops.cholesky import DenseCholesky
 from poms_tpu_torch.ops.transfer import TransferBand
@@ -27,13 +30,25 @@ __all__ = ["tensor", "space", "kron_operator", "stencil_matrix", "operator",
            "cycle_config", "mixed_precision_mg"]
 
 
+def _is_bf16(np_dtype) -> bool:
+    return np.dtype(np_dtype).name == "bfloat16"
+
+
 def tensor(a, device="cpu") -> torch.Tensor:
     """A host array (or anything ``np.asarray`` reads) as a torch tensor of
-    the same dtype on ``device``."""
+    the same dtype on ``device``.  numpy has no bfloat16 of its own, so a
+    bf16 array goes through f32 (exact: every bf16 value is an f32 value)
+    and is cast back to ``torch.bfloat16`` (exact again)."""
+    a = np.asarray(a)
+    if _is_bf16(a.dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def _dtype(np_dtype) -> torch.dtype:
+    if _is_bf16(np_dtype):
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, np.dtype(np_dtype))).dtype
 
 
@@ -77,7 +92,11 @@ def transfer_band(tb, device="cpu") -> TransferBand:
 
 
 def cholesky(ch, device="cpu") -> DenseCholesky:
-    return DenseCholesky(L=tensor(ch.L, device))
+    """The factor as it is; a bf16 factor cast up to f32 (exact), since the
+    port's bf16 levels solve in f32 (``ops/cholesky.py``)."""
+    L = tensor(ch.L, device)
+    return DenseCholesky(L=L.to(torch.float32) if L.dtype == torch.bfloat16
+                         else L)
 
 
 def levels(ref_levels, device="cpu"):
@@ -93,9 +112,18 @@ def levels(ref_levels, device="cpu"):
             for lev in ref_levels]
 
 
-def problem(ref_prob, device="cpu") -> PoissonProblem:
-    """The problem's space, operator, padded RHS and 1D splines."""
+def problem(ref_prob, device="cpu"):
+    """The problem's space, operator, padded RHS and 1D splines; a
+    ``PeriodicProblem`` (it has a ``shift``) with its per-dim (K, M) bands."""
     sp = space(ref_prob.space, device)
+    if hasattr(ref_prob, "shift"):
+        return PeriodicProblem(
+            dim=ref_prob.dim, degree=ref_prob.degree,
+            n_el=tuple(ref_prob.n_el), shift=float(ref_prob.shift), space=sp,
+            A=operator(ref_prob.A, device),
+            b=StencilVector(sp, tensor(ref_prob.b.data, device)),
+            bands_1d=[(np.array(K), np.array(M))
+                      for K, M in ref_prob.bands_1d])
     splines = tuple(
         Spline1D(n_el=s.n_el, degree=s.degree, knots=np.asarray(s.knots),
                  nb=s.nb, n=s.n, K=np.asarray(s.K), M=np.asarray(s.M),

@@ -99,3 +99,11 @@ class StencilVectorSpace:
 
     def with_dtype(self, dtype: torch.dtype) -> "StencilVectorSpace":
         return replace(self, dtype=dtype)
+
+    def coarsen(self) -> "StencilVectorSpace":
+        """Not defined on a bare space, as in the JAX package: how npts maps
+        under dyadic knot coarsening needs the spline degree and the
+        boundary kind (the hierarchy modules hold both)."""
+        raise NotImplementedError(
+            "a space does not know its spline degree: the hierarchy modules "
+            "(mg.hierarchy, models.periodic) make the coarse spaces")

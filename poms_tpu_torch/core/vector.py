@@ -133,6 +133,14 @@ class StencilVector:
     def __sub__(self, other: "StencilVector") -> "StencilVector":
         return StencilVector(self.space, self.data - other.data)
 
+    def __mul__(self, scalar) -> "StencilVector":
+        return StencilVector(self.space, self.data * scalar)
+
+    __rmul__ = __mul__
+
+    def __neg__(self) -> "StencilVector":
+        return StencilVector(self.space, -self.data)
+
     def axpy(self, alpha, other: "StencilVector") -> "StencilVector":
         return StencilVector(self.space, self.data + alpha * other.data)
 

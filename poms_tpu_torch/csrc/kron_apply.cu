@@ -52,11 +52,25 @@
 // is formed in the kernel from the bands' centre columns,
 // sum_r (c0[r,i] * c1[r,j]) * c2[r,l], with no fused multiply-add, so it has
 // the bits of the operator's diagonal() and no diagonal array is read.
+//
+// Types: f32 and f64 compute in their own type.  bf16 is an instantiation of
+// this carrier, not a port: the TPU kernel is f32 only and the JAX package's
+// bf16 cycle runs its Kronecker apply through XLA.  There the fields (x, b,
+// d, the outputs) and the bands are __nv_bfloat16 (IO) and everything on chip
+// is f32 (T): the window takes converted values by plain loads
+// (kron_march.cuh::fill_element: no cp.async for 2-byte elements), the bands
+// are converted as they are read into registers and shared memory, the
+// arithmetic is the f32 kernel's, and the epilogue rounds once on the store
+// (cheb: x + d is formed from the unrounded d).  Where an operator takes
+// several launches the sum between them (acc, out_hi) stays f32.  Half-widths
+// 1, 2 and 3 only, to hold the build time.
 
 #include "kron_march.cuh"
 
 namespace {
 
+using io::store;
+using io::up;
 using kron::Geometry;
 
 constexpr int kCU = 2;  // u partials per launch (distinct axis-2 bands)
@@ -76,16 +90,19 @@ struct Plan {
   int g_mult[kCG][kCV];
 };
 
-template <typename T>
+// T: the arithmetic type; IO: the fields' and bands' storage type (T itself,
+// or __nv_bfloat16 with T = float)
+template <typename T, typename IO>
 struct Args {
-  const T* x;
-  const T* band[3];  // per axis (labels, n_a, 2P+1)
-  const T* col[3];   // per axis (R, n_a): centre columns of every term
-  const T* acc;      // A x of the terms of earlier launches, or null
-  const T* b;
-  const T* d_in;     // null on the first Chebyshev step
-  T* d_out;
-  T* out;
+  const IO* x;
+  const IO* band[3];  // per axis (labels, n_a, 2P+1)
+  const IO* col[3];   // per axis (R, n_a): centre columns of every term
+  const T* acc;       // A x of the terms of earlier launches, or null
+  const IO* b;
+  const IO* d_in;     // null on the first Chebyshev step
+  IO* d_out;
+  IO* out;
+  T* out_hi;          // apply only: the result unrounded, instead of out
   T c1, c2;
   int mode;
   Geometry g;
@@ -145,9 +162,9 @@ __host__ __device__ inline size_t smem_bytes(const Geometry& g, size_t elem) {
              elem;
 }
 
-template <typename T, int P, int MODE>
+template <typename T, int P, int MODE, typename IO>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks<T, P>())
-kron_march_kernel(const Args<T> a) {
+kron_march_kernel(const Args<T, IO> a) {
   constexpr int W = 2 * P + 1;
   constexpr int C = columns<T, P>();
   constexpr int S = kron::kStages;
@@ -188,9 +205,10 @@ kron_march_kernel(const Args<T> a) {
     const int gi = e / (crows * W);
     const int rem = e - gi * crows * W;
     const int i = i_begin - 2 * P + rem / W;
-    c0s[e] = (gi < ng && i >= 0 && i < g.n0)
-                 ? a.band[0][((int64_t)pl.g_lab[gi] * g.n0 + i) * W + rem % W]
-                 : T(0);
+    c0s[e] =
+        (gi < ng && i >= 0 && i < g.n0)
+            ? up(a.band[0][((int64_t)pl.g_lab[gi] * g.n0 + i) * W + rem % W])
+            : T(0);
   }
   // this thread's band rows: axis 2 at its columns, axis 1 at row gj; an
   // absent partial has zero rows, so the arithmetic below needs no branches
@@ -203,15 +221,16 @@ kron_march_kernel(const Args<T> a) {
       for (int t = 0; t < W; ++t)
         c2r[k][c][t] =
             (k < nu && in_tile && gl + c < g.n2)
-                ? a.band[2][((int64_t)pl.u_lab[k] * g.n2 + gl + c) * W + t]
+                ? up(a.band[2][((int64_t)pl.u_lab[k] * g.n2 + gl + c) * W + t])
                 : T(0);
 #pragma unroll
   for (int k = 0; k < kCV; ++k)
 #pragma unroll
     for (int t = 0; t < W; ++t)
-      c1r[k][t] = (k < nv && row_ok)
-                      ? a.band[1][((int64_t)pl.v_lab[k] * g.n1 + gj) * W + t]
-                      : T(0);
+      c1r[k][t] =
+          (k < nv && row_ok)
+              ? up(a.band[1][((int64_t)pl.v_lab[k] * g.n1 + gj) * W + t])
+              : T(0);
   T gm[kCG][kCV];
 #pragma unroll
   for (int gi = 0; gi < kCG; ++gi)
@@ -229,10 +248,11 @@ kron_march_kernel(const Args<T> a) {
   if (need_dg) {
 #pragma unroll
     for (int r = 0; r < kRD; ++r) {
-      d1[r] = (r < g.R && row_ok) ? a.col[1][r * g.n1 + gj] : T(0);
+      d1[r] = (r < g.R && row_ok) ? up(a.col[1][r * g.n1 + gj]) : T(0);
 #pragma unroll
       for (int c = 0; c < C; ++c)
-        d2[r][c] = (r < g.R && owns[c]) ? a.col[2][r * g.n2 + gl + c] : T(0);
+        d2[r][c] =
+            (r < g.R && owns[c]) ? up(a.col[2][r * g.n2 + gl + c]) : T(0);
     }
   }
 
@@ -270,13 +290,12 @@ kron_march_kernel(const Args<T> a) {
   auto issue = [&](int q, int sb) {
     const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -1;
     if (gq >= 0) {
-      const T* src = a.x + gq * g.s0;
+      const IO* src = a.x + gq * g.s0;
       T* dst = win + sb * NW + tid;
 #pragma unroll
       for (int k = 0; k < kNL; ++k)
         if (loff[k] >= 0)
-          kron::cp_async_zfill<sizeof(T)>(dst + k * nthreads, src + loff[k],
-                                          true);
+          kron::fill_element(dst + k * nthreads, src + loff[k]);
       if (tail)
         kron::load_window(win + sb * NW, a.x, soff, NW, gq * g.s0,
                           kNL * nthreads);
@@ -303,23 +322,23 @@ kron_march_kernel(const Args<T> a) {
       acc_v[c] = b_v[c] = d_v[c] = x_v[c] = dg[c] = T(0);
       if (emits && owns[c]) {
         if (has_acc) acc_v[c] = a.acc[idx + c];
-        if (need_b) b_v[c] = a.b[idx + c];
+        if (need_b) b_v[c] = up(a.b[idx + c]);
         if (MODE == kCheb) {
-          if (has_d) d_v[c] = a.d_in[idx + c];
-          x_v[c] = a.x[i * g.s0 + xbase + c * g.s2];
+          if (has_d) d_v[c] = up(a.d_in[idx + c]);
+          x_v[c] = up(a.x[i * g.s0 + xbase + c * g.s2]);
         }
         if (need_dg) {
 #pragma unroll
           for (int r = 0; r < kRD; ++r)
             if (r < g.R)
-              dg[c] = add_rn(dg[c], mul_rn(mul_rn(a.col[0][r * g.n0 + i],
+              dg[c] = add_rn(dg[c], mul_rn(mul_rn(up(a.col[0][r * g.n0 + i]),
                                                   d1[r]),
                                            d2[r][c]));
           for (int r = kRD; r < g.R; ++r)
             dg[c] = add_rn(dg[c],
-                           mul_rn(mul_rn(a.col[0][r * g.n0 + i],
-                                         a.col[1][r * g.n1 + gj]),
-                                  a.col[2][r * g.n2 + gl + c]));
+                           mul_rn(mul_rn(up(a.col[0][r * g.n0 + i]),
+                                         up(a.col[1][r * g.n1 + gj])),
+                                  up(a.col[2][r * g.n2 + gl + c])));
         }
       }
     }
@@ -406,10 +425,12 @@ kron_march_kernel(const Args<T> a) {
         if (MODE == kCheb) {
           T d = a.c2 * r;
           if (has_d) d += a.c1 * d_v[c];
-          a.d_out[idx + c] = d;
-          a.out[idx + c] = x_v[c] + d;
+          store(a.d_out + idx + c, d);
+          store(a.out + idx + c, x_v[c] + d);
+        } else if (MODE == kApply && a.out_hi != nullptr) {
+          a.out_hi[idx + c] = r;
         } else {
-          a.out[idx + c] = r;
+          store(a.out + idx + c, r);
         }
       }
     }
@@ -426,8 +447,8 @@ kron_march_kernel(const Args<T> a) {
   kron::cp_async_wait<0>();
 }
 
-template <typename T, int P, int MODE>
-int launch_pm(const Args<T>& a, cudaStream_t stream) {
+template <typename T, int P, int MODE, typename IO>
+int launch_pm(const Args<T, IO>& a, cudaStream_t stream) {
   const Geometry& g = a.g;
   constexpr int C = columns<T, P>();
   if (g.threads > kMaxThreads || g.T2 % C != 0 ||
@@ -439,7 +460,7 @@ int launch_pm(const Args<T>& a, cudaStream_t stream) {
   const size_t bytes = smem_bytes<P>(g, sizeof(T));
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kron_march_kernel<T, P, MODE>,
+        kron_march_kernel<T, P, MODE, IO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, or the next launch reports it
@@ -448,41 +469,43 @@ int launch_pm(const Args<T>& a, cudaStream_t stream) {
   }
   const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
                   (g.n0 + g.chunk - 1) / g.chunk);
-  kron_march_kernel<T, P, MODE><<<grid, g.threads, bytes, stream>>>(a);
+  kron_march_kernel<T, P, MODE, IO><<<grid, g.threads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int P>
-int launch_p(const Args<T>& a, cudaStream_t stream) {
+template <typename T, int P, typename IO>
+int launch_p(const Args<T, IO>& a, cudaStream_t stream) {
   switch (a.mode) {
-    case kApply: return launch_pm<T, P, kApply>(a, stream);
-    case kResidual: return launch_pm<T, P, kResidual>(a, stream);
-    case kDinv: return launch_pm<T, P, kDinv>(a, stream);
-    default: return launch_pm<T, P, kCheb>(a, stream);
+    case kApply: return launch_pm<T, P, kApply, IO>(a, stream);
+    case kResidual: return launch_pm<T, P, kResidual, IO>(a, stream);
+    case kDinv: return launch_pm<T, P, kDinv, IO>(a, stream);
+    default: return launch_pm<T, P, kCheb, IO>(a, stream);
   }
 }
 
 // geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
 // plan: nu nv ng u_lab[kCU] v_src[kCV] v_lab[kCV] g_lab[kCG] g_mult[kCG][kCV]
-template <typename T>
+template <typename T, typename IO>
 int launch(const void* x, const void* b0, const void* b1, const void* b2,
            const void* c0, const void* c1, const void* c2, const void* acc,
            const void* b, const void* d_in, void* d_out, void* out,
-           double s1, double s2, int mode, const int64_t* xstrides,
-           const int* geo, const int* plan, void* stream) {
-  Args<T> a;
-  a.x = (const T*)x;
-  a.band[0] = (const T*)b0;
-  a.band[1] = (const T*)b1;
-  a.band[2] = (const T*)b2;
-  a.col[0] = (const T*)c0;
-  a.col[1] = (const T*)c1;
-  a.col[2] = (const T*)c2;
+           void* out_hi, double s1, double s2, int mode,
+           const int64_t* xstrides, const int* geo, const int* plan,
+           void* stream) {
+  Args<T, IO> a;
+  a.x = (const IO*)x;
+  a.band[0] = (const IO*)b0;
+  a.band[1] = (const IO*)b1;
+  a.band[2] = (const IO*)b2;
+  a.col[0] = (const IO*)c0;
+  a.col[1] = (const IO*)c1;
+  a.col[2] = (const IO*)c2;
   a.acc = (const T*)acc;
-  a.b = (const T*)b;
-  a.d_in = (const T*)d_in;
-  a.d_out = (T*)d_out;
-  a.out = (T*)out;
+  a.b = (const IO*)b;
+  a.d_in = (const IO*)d_in;
+  a.d_out = (IO*)d_out;
+  a.out = (IO*)out;
+  a.out_hi = (T*)out_hi;
   a.c1 = (T)s1;
   a.c2 = (T)s2;
   a.mode = mode;
@@ -508,15 +531,23 @@ int launch(const void* x, const void* b0, const void* b1, const void* b2,
     return (int)cudaErrorInvalidValue;
   if ((mode == kResidual || mode == kCheb) && b == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (out_hi != nullptr ? mode != kApply : out == nullptr)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (P) {  // the instantiated half-widths; ops/kron.py pads bands to one
-    case 1: return launch_p<T, 1>(a, st);
-    case 2: return launch_p<T, 2>(a, st);
-    case 3: return launch_p<T, 3>(a, st);
-    case 5: return launch_p<T, 5>(a, st);
-    case 8: return launch_p<T, 8>(a, st);
-    default: return (int)cudaErrorInvalidValue;  // refused: no such kernel
+    case 1: return launch_p<T, 1, IO>(a, st);
+    case 2: return launch_p<T, 2, IO>(a, st);
+    case 3: return launch_p<T, 3, IO>(a, st);
+    default: break;
   }
+  if constexpr (sizeof(IO) == sizeof(T)) {  // bf16 stops at half-width 3
+    switch (P) {
+      case 5: return launch_p<T, 5, IO>(a, st);
+      case 8: return launch_p<T, 8, IO>(a, st);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;  // refused: no such kernel
 }
 
 }  // namespace
@@ -526,21 +557,36 @@ extern "C" {
 int kron_apply_f32(const void* x, const void* b0, const void* b1,
                    const void* b2, const void* c0, const void* c1,
                    const void* c2, const void* acc, const void* b,
-                   const void* d_in, void* d_out, void* out, double s1,
-                   double s2, int mode, const int64_t* xstrides,
+                   const void* d_in, void* d_out, void* out, void* out_hi,
+                   double s1, double s2, int mode, const int64_t* xstrides,
                    const int* geo, const int* plan, void* stream) {
-  return launch<float>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in, d_out, out,
-                       s1, s2, mode, xstrides, geo, plan, stream);
+  return launch<float, float>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in, d_out,
+                              out, out_hi, s1, s2, mode, xstrides, geo, plan,
+                              stream);
+}
+
+// fields and bands bfloat16; acc and out_hi (the sum between the launches of
+// one operator) float
+int kron_apply_bf16(const void* x, const void* b0, const void* b1,
+                    const void* b2, const void* c0, const void* c1,
+                    const void* c2, const void* acc, const void* b,
+                    const void* d_in, void* d_out, void* out, void* out_hi,
+                    double s1, double s2, int mode, const int64_t* xstrides,
+                    const int* geo, const int* plan, void* stream) {
+  return launch<float, __nv_bfloat16>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
+                                      d_out, out, out_hi, s1, s2, mode,
+                                      xstrides, geo, plan, stream);
 }
 
 int kron_apply_f64(const void* x, const void* b0, const void* b1,
                    const void* b2, const void* c0, const void* c1,
                    const void* c2, const void* acc, const void* b,
-                   const void* d_in, void* d_out, void* out, double s1,
-                   double s2, int mode, const int64_t* xstrides,
+                   const void* d_in, void* d_out, void* out, void* out_hi,
+                   double s1, double s2, int mode, const int64_t* xstrides,
                    const int* geo, const int* plan, void* stream) {
-  return launch<double>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in, d_out, out,
-                        s1, s2, mode, xstrides, geo, plan, stream);
+  return launch<double, double>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
+                                d_out, out, out_hi, s1, s2, mode, xstrides,
+                                geo, plan, stream);
 }
 
 const char* kron_apply_error_string(int err) {

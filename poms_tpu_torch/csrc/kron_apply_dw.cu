@@ -29,6 +29,13 @@
 // are zero-padded: a zero tap adds (0, 0), which leaves a normalised pair
 // unchanged.  A null x_l or b is a field of zeros: it is neither read nor
 // allocated, the arithmetic on its zeros is still done.
+//
+// The number of distinct histories a launch holds is a template parameter
+// (CW): an operator with up to 3 (Poisson: 3) runs the 3-history
+// instantiation, whose registers (221 at P = 3) a fourth ring of 2P+1 pairs
+// would push past the limit of 255; one with 4 (the periodic shifted 3D
+// operator: sigma M M M, K M M, M K M, M M K) runs the 4-history one, which
+// may spill and is slower, and is bit-equal all the same.
 
 #include "dw_eft.cuh"
 #include "kron_march.cuh"
@@ -40,7 +47,7 @@ using kron::Geometry;
 
 constexpr int kCU = 2;  // u partials (distinct axis-2 bands)
 constexpr int kCV = 3;  // v partials
-constexpr int kCW = 3;  // distinct full histories
+constexpr int kCW = 4;  // distinct full histories, at most (CW = 3 or 4)
 constexpr int kCT = 4;  // terms
 constexpr int kMaxThreads = 256;
 
@@ -66,16 +73,16 @@ struct Args {
   Plan p;
 };
 
-template <int P>
+template <int P, int CW>
 __host__ __device__ inline size_t smem_bytes(const Geometry& g) {
   const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
   return WR * WC * sizeof(int64_t) +
          (2 * kron::kStages * WR * WC + 2 * kCU * WR * g.T2 +
-          2 * kCW * g.chunk * W) *
+          2 * CW * g.chunk * W) *
              sizeof(float);
 }
 
-template <int P>
+template <int P, int CW>
 __global__ void __launch_bounds__(kMaxThreads)
 kron_march_dw_kernel(const Args a) {
   constexpr int W = 2 * P + 1;
@@ -93,7 +100,7 @@ kron_march_dw_kernel(const Args a) {
   float* u_h = win_l + S * NW;
   float* u_l = u_h + kCU * WR * T2;
   float* c0h = u_l + kCU * WR * T2;
-  float* c0l = c0h + kCW * g.chunk * W;
+  float* c0l = c0h + CW * g.chunk * W;
 
   const int tid = threadIdx.x;
   const int tj = tid / T2, tl = tid - tj * T2;
@@ -138,9 +145,9 @@ kron_march_dw_kernel(const Args a) {
                      : dw{0.0f, 0.0f};
     }
 
-  dw ring[kCW][W];
+  dw ring[CW][W];
 #pragma unroll
-  for (int k = 0; k < kCW; ++k)
+  for (int k = 0; k < CW; ++k)
 #pragma unroll
     for (int t = 0; t < W; ++t) ring[k][t] = dw{0.0f, 0.0f};
 
@@ -219,7 +226,7 @@ kron_march_dw_kernel(const Args a) {
     }
     // ring[k] holds the planes q - 2P .. q of the v that history k contracts
 #pragma unroll
-    for (int k = 0; k < kCW; ++k) {
+    for (int k = 0; k < CW; ++k) {
       dw in = dw{0.0f, 0.0f};
 #pragma unroll
       for (int kk = 0; kk < kCV; ++kk)
@@ -231,9 +238,9 @@ kron_march_dw_kernel(const Args a) {
 
     const int i = q - P;
     if (i >= i_begin && owns) {
-      dw y[kCW];
+      dw y[CW];
 #pragma unroll
-      for (int k = 0; k < kCW; ++k) {
+      for (int k = 0; k < CW; ++k) {
         y[k] = dw{0.0f, 0.0f};
         if (k < pl.nw) {
           const int base = (k * g.chunk + (i - i_begin)) * W;
@@ -251,7 +258,7 @@ kron_march_dw_kernel(const Args a) {
         if (r < pl.nt) {
           dw term = y[0];
 #pragma unroll
-          for (int k = 1; k < kCW; ++k)
+          for (int k = 1; k < CW; ++k)
             if (pl.term_w[r] == k) term = y[k];
           ax = r == 0 ? term : dw_add(ax, term);
         }
@@ -267,17 +274,17 @@ kron_march_dw_kernel(const Args a) {
   kron::cp_async_wait<0>();
 }
 
-template <int P>
-int launch_p(const Args& a, cudaStream_t stream) {
+template <int P, int CW>
+int launch_pw(const Args& a, cudaStream_t stream) {
   const Geometry& g = a.g;
   if (g.threads > kMaxThreads || g.threads < g.T1 * g.T2 ||
       g.threads % 32 != 0)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t bytes = smem_bytes<P>(g);
+  const size_t bytes = smem_bytes<P, CW>(g);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kron_march_dw_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        kron_march_dw_kernel<P, CW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, or the next launch reports it
       return (int)err;
@@ -285,8 +292,13 @@ int launch_p(const Args& a, cudaStream_t stream) {
   }
   const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
                   (g.n0 + g.chunk - 1) / g.chunk);
-  kron_march_dw_kernel<P><<<grid, g.threads, bytes, stream>>>(a);
+  kron_march_dw_kernel<P, CW><<<grid, g.threads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_p(const Args& a, cudaStream_t stream) {
+  return a.p.nw <= 3 ? launch_pw<P, 3>(a, stream) : launch_pw<P, 4>(a, stream);
 }
 
 // the error-free transformations on their own, for the exactness check:

@@ -13,11 +13,20 @@
 // Threads are numbered row-major over the tile, so any T2 gives contiguous
 // shared-memory rows and the host may pick tiles that divide a 2^k+1 grid
 // evenly.
+//
+// A bf16 field cannot take this route: cp.async copies 4, 8 or 16 bytes,
+// never 2, and the rows of a 2^k+1 field in bf16 are only 2-byte aligned, so
+// pairs cannot be copied either.  fill_element() then loads the value with a
+// plain load, converts it and stores f32 into the same window; the ring keeps
+// its order (a window is still written a barrier after its last read), only
+// the overlap of the copy with the arithmetic is lost.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 namespace kron {
 
@@ -62,6 +71,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// one window element from a field stored as IO into a window of T: the
+// asynchronous copy where the two types are the same, else load, convert,
+// store
+template <typename T, typename IO>
+__device__ __forceinline__ void fill_element(T* smem_dst,
+                                             const IO* gmem_src) {
+  if constexpr (sizeof(IO) == sizeof(T)) {
+    cp_async_zfill<sizeof(T)>(smem_dst, gmem_src, true);
+  } else {
+    *smem_dst = io::up(*gmem_src);
+  }
+}
+
 // soff[e], e = rr * WC + cc: element offset within a plane of x of window
 // element (rr, cc) of the tile at (j0, l0), or -1 where the index rule gives
 // a zero
@@ -79,15 +101,19 @@ __device__ __forceinline__ void build_window_offsets(int64_t* soff,
 
 // start the copy of plane gq (>= 0) of x into win, from window element
 // `first` on
-template <typename T>
-__device__ __forceinline__ void load_window(T* win, const T* __restrict__ x,
+template <typename T, typename IO>
+__device__ __forceinline__ void load_window(T* win, const IO* __restrict__ x,
                                             const int64_t* soff, int count,
                                             int64_t plane_base,
                                             int first = 0) {
   for (int e = first + threadIdx.x; e < count; e += blockDim.x) {
     const int64_t o = soff[e];
-    cp_async_zfill<sizeof(T)>(win + e, x + (o < 0 ? 0 : plane_base + o),
-                              o >= 0);
+    if constexpr (sizeof(IO) == sizeof(T)) {
+      cp_async_zfill<sizeof(T)>(win + e, x + (o < 0 ? 0 : plane_base + o),
+                                o >= 0);
+    } else {
+      win[e] = o >= 0 ? io::up(x[plane_base + o]) : T(0);
+    }
   }
 }
 

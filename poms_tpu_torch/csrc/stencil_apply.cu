@@ -37,6 +37,18 @@
 // Later work: compile-time p for full unrolling, TMA/cp.async staging of
 // the band planes, fusion of the ghost refresh.
 //
+// Types: f32 and f64 compute in their own type.  In bf16 (the TPU engine's
+// second type) the band, x_pad, b and the output are __nv_bfloat16 and the
+// (2p+1)^d sum and the epilogue are f32, rounded once on the store: the
+// storage type T and the arithmetic type Acc<T> are separate.  The x window
+// in shared memory holds the arithmetic type: a value is converted once at
+// the fill and read (2p+1)^3 times, so converting per tap would put 343
+// conversions per point into a loop that has 343 multiply-adds; the window
+// of a 4 x 8 x 32 tile at p = 3 is 21 KB in f32, which still leaves ten
+// blocks an SM.  The TPU kernel sums in its operand type (its accumulator has
+// the band's dtype), so in bf16 it rounds after every multiply-add; this
+// kernel's f32 sum is at least as exact and is not bitwise with it.
+//
 // The same template, with one part of the inner loop changed at compile
 // time, is the kernel-limit probes K4c and K4a (stencil_probe_f32, spmv
 // mode, f32, 3D):
@@ -51,7 +63,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "storage.cuh"
+
 namespace {
+
+using io::Acc;
+using io::store;
+using io::up;
 
 enum Mode { kSpmv = 0, kResidual = 1, kJacobi = 2, kRbgs = 3 };
 // K2 itself, and the probes' changes to its inner loop
@@ -68,10 +86,11 @@ struct Geometry {
 template <typename T, int T0, int T1, int T2, int V>
 __global__ void __launch_bounds__(T1 * T2)
 stencil_apply_kernel(const T* __restrict__ band, const T* __restrict__ xp,
-                     const T* __restrict__ b, T* __restrict__ out, T omega,
-                     Geometry g) {
+                     const T* __restrict__ b, T* __restrict__ out,
+                     typename Acc<T>::type omega, Geometry g) {
+  using A = typename Acc<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xw = reinterpret_cast<T*>(smem_raw);
+  A* xw = reinterpret_cast<A*>(smem_raw);
 
   const int w0 = 2 * g.p0 + 1, w1 = 2 * g.p1 + 1, w2 = 2 * g.p2 + 1;
   const int W1 = T1 + 2 * g.p1, W2 = T2 + 2 * g.p2;
@@ -88,8 +107,8 @@ stencil_apply_kernel(const T* __restrict__ band, const T* __restrict__ xp,
     const int ll = rem - jj * W2;
     const int gq = i0 + q, gj = j0 + jj, gl = l0 + ll;
     xw[e] = (gq < P0 && gj < P1 && gl < P2)
-                ? xp[((int64_t)gq * P1 + gj) * P2 + gl]
-                : T(0);
+                ? up(xp[((int64_t)gq * P1 + gj) * P2 + gl])
+                : A(0);
   }
   __syncthreads();
 
@@ -102,16 +121,16 @@ stencil_apply_kernel(const T* __restrict__ band, const T* __restrict__ xp,
   const int64_t pt0 = ((int64_t)i0 * g.n1 + gj) * g.n2 + gl;
   const int xstep = W1 * W2;
 
-  T acc[T0];
+  A acc[T0];
 #pragma unroll
-  for (int i = 0; i < T0; ++i) acc[i] = T(0);
+  for (int i = 0; i < T0; ++i) acc[i] = A(0);
 
   // the compute probe reads the band at the same point of tile (0, 0, 0)
   const T* bk = band + (V == kPinBand ? (int64_t)tj * g.n2 + tl : pt0);
   for (int k0 = 0; k0 < w0; ++k0) {
     for (int k1 = 0; k1 < w1; ++k1) {
       const int s1 = V == kNoShift ? 0 : k1;
-      const T* xrow = xw + (k0 * W1 + tj + s1) * W2 + tl;
+      const A* xrow = xw + (k0 * W1 + tj + s1) * W2 + tl;
       for (int k2 = 0; k2 < w2; ++k2) {
         const int s2 = V == kNoLane ? 0 : k2;
 #pragma unroll
@@ -120,7 +139,7 @@ stencil_apply_kernel(const T* __restrict__ band, const T* __restrict__ xp,
             if (V == kNoMul)
               acc[i] += xrow[i * xstep + s2];
             else
-              acc[i] += bk[i * plane_i] * xrow[i * xstep + s2];
+              acc[i] += up(bk[i * plane_i]) * xrow[i * xstep + s2];
           }
         }
         bk += N;
@@ -133,33 +152,34 @@ stencil_apply_kernel(const T* __restrict__ band, const T* __restrict__ xp,
   for (int i = 0; i < T0; ++i) {
     if (i >= rows) break;
     const int64_t pt = pt0 + i * plane_i;
-    T y = acc[i];
+    A y = acc[i];
     if (g.mode != kSpmv) {
       const int gi = i0 + i;
-      const T bv = b[gi * g.bs0 + gj * g.bs1 + gl * g.bs2];
+      const A bv = up(b[gi * g.bs0 + gj * g.bs1 + gl * g.bs2]);
       if (g.mode == kResidual) {
         y = bv - y;
       } else {
-        const T xc = xw[((i + g.p0) * W1 + tj + g.p1) * W2 + tl + g.p2];
-        const T d = band[centre * N + pt];
+        const A xc = xw[((i + g.p0) * W1 + tj + g.p1) * W2 + tl + g.p2];
+        const A d = up(band[centre * N + pt]);
         if (g.mode == kJacobi) {
           y = xc + omega * (bv - y) / d;
         } else {
           const bool on = ((g.pbase + gi + gj + gl) & 1) == g.color;
-          y = on ? (T(1) - omega) * xc + omega * ((bv - (y - d * xc)) / d)
+          y = on ? (A(1) - omega) * xc + omega * ((bv - (y - d * xc)) / d)
                  : xc;
         }
       }
     }
-    out[pt] = y;
+    store(out + pt, y);
   }
 }
 
 template <typename T, int T0, int T1, int T2, int V = kFull>
-int launch_tiles(const T* band, const T* xp, const T* b, T* out, T omega,
-                 const Geometry& g, void* stream) {
+int launch_tiles(const T* band, const T* xp, const T* b, T* out,
+                 typename Acc<T>::type omega, const Geometry& g,
+                 void* stream) {
   const size_t bytes = (size_t)(T0 + 2 * g.p0) * (T1 + 2 * g.p1) *
-                       (T2 + 2 * g.p2) * sizeof(T);
+                       (T2 + 2 * g.p2) * sizeof(typename Acc<T>::type);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         stencil_apply_kernel<T, T0, T1, T2, V>,
@@ -180,9 +200,10 @@ int launch_tiles(const T* band, const T* xp, const T* b, T* out, T omega,
 }
 
 template <typename T>
-int launch(const T* band, const T* xp, const T* b, T* out, T omega, int n0,
-           int n1, int n2, int p0, int p1, int p2, int64_t bs0, int64_t bs1,
-           int64_t bs2, int mode, int color, int64_t pbase, void* stream) {
+int launch(const T* band, const T* xp, const T* b, T* out,
+           typename Acc<T>::type omega, int n0, int n1, int n2, int p0,
+           int p1, int p2, int64_t bs0, int64_t bs1, int64_t bs2, int mode,
+           int color, int64_t pbase, void* stream) {
   if (mode < kSpmv || mode > kRbgs || n0 < 1 || n1 < 1 || n2 < 1 ||
       p0 < 0 || p1 < 0 || p2 < 0)
     return (int)cudaErrorInvalidValue;
@@ -215,6 +236,17 @@ int stencil_apply_f64(const double* band, const double* xp, const double* b,
                       void* stream) {
   return launch<double>(band, xp, b, out, omega, n0, n1, n2, p0, p1, p2, bs0,
                         bs1, bs2, mode, color, pbase, stream);
+}
+
+// band, xp, b and out are bfloat16 arrays; the arithmetic is f32
+int stencil_apply_bf16(const void* band, const void* xp, const void* b,
+                       void* out, float omega, int n0, int n1, int n2, int p0,
+                       int p1, int p2, int64_t bs0, int64_t bs1, int64_t bs2,
+                       int mode, int color, int64_t pbase, void* stream) {
+  return launch<__nv_bfloat16>(
+      (const __nv_bfloat16*)band, (const __nv_bfloat16*)xp,
+      (const __nv_bfloat16*)b, (__nv_bfloat16*)out, omega, n0, n1, n2, p0, p1,
+      p2, bs0, bs1, bs2, mode, color, pbase, stream);
 }
 
 // the probes: spmv mode, f32, 3D, K2's 3D tile; variant is a Variant

@@ -34,11 +34,29 @@
 // block as in K2, each thread owns T0 points along axis 0, and each point
 // sums its terms in the plain version's offset order.  Indices and plane
 // strides are 64-bit.
+//
+// Types: f32, f64, and bf16 (the TPU engine's second type).  In bf16 the
+// pack, diag, x_pad, b and the output are __nv_bfloat16; the ring holds the
+// slabs as they are (a bulk copy moves bytes, so a stage is half an f32
+// one's size), each coefficient is converted as it is read, the x window
+// holds f32 (converted once at the fill) and the sum and the epilogue are
+// f32, rounded once on the store.  Every bulk copy still has a size and two
+// addresses that are multiples of 16 bytes: the lane pitch r2 and n2p are
+// multiples of 16 / sizeof(T) = 8 values, the tile offset is a sum of
+// multiples of n2p and of l0 (a multiple of 32), and a ring stage is
+// w2 T0 T1 T2 values (a multiple of 512 bytes).  The TPU kernel sums in its
+// operand type; this f32 sum is at least as exact and not bitwise with it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "storage.cuh"
+
 namespace {
+
+using io::Acc;
+using io::store;
+using io::up;
 
 enum Mode { kSpmv = 0, kResidual = 1, kJacobi = 2, kRbgs = 3 };
 constexpr int kDepth = 3;
@@ -95,7 +113,9 @@ template <typename T, int T0, int T1, int T2>
 __global__ void __launch_bounds__(T1 * T2)
 stencil_apply_v2_kernel(const T* __restrict__ blk, const T* __restrict__ diag,
                         const T* __restrict__ xp, const T* __restrict__ b,
-                        T* __restrict__ out, T omega, Geometry g) {
+                        T* __restrict__ out, typename Acc<T>::type omega,
+                        Geometry g) {
+  using A = typename Acc<T>::type;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kDepth];
 
@@ -114,7 +134,7 @@ stencil_apply_v2_kernel(const T* __restrict__ blk, const T* __restrict__ diag,
                      (int64_t)e0 * ((int64_t)j0 * g.n2p + (int64_t)e1 * l0));
   const int pitch = w2 * T0 * T1 * T2;         // ring stage, in elements
   T* ring = reinterpret_cast<T*>(smem_raw);
-  T* xw = ring + kDepth * pitch;
+  A* xw = reinterpret_cast<A*>(ring + kDepth * pitch);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDepth; ++s) mbar_init(&full[s]);
@@ -141,8 +161,8 @@ stencil_apply_v2_kernel(const T* __restrict__ blk, const T* __restrict__ diag,
     const int ll = rem - jj * W2;
     const int gq = i0 + q, gj = j0 + jj, gl = l0 + ll;
     xw[e] = (gq < P0 && gj < P1 && gl < P2)
-                ? xp[((int64_t)gq * P1 + gj) * P2 + gl]
-                : T(0);
+                ? up(xp[((int64_t)gq * P1 + gj) * P2 + gl])
+                : A(0);
   }
   __syncthreads();
 
@@ -152,9 +172,9 @@ stencil_apply_v2_kernel(const T* __restrict__ blk, const T* __restrict__ diag,
   const int kstep = e0 * e1 * r2;          // one k2 in a slab
   const int istep = e1 * r2;               // one plane in a slab
 
-  T acc[T0];
+  A acc[T0];
 #pragma unroll
-  for (int i = 0; i < T0; ++i) acc[i] = T(0);
+  for (int i = 0; i < T0; ++i) acc[i] = A(0);
 
   for (int s = 0; s < steps; ++s) {
     const int stage = s % kDepth;
@@ -162,11 +182,12 @@ stencil_apply_v2_kernel(const T* __restrict__ blk, const T* __restrict__ diag,
     if (live) {
       const int k0 = s / w1, k1 = s - k0 * w1;
       const T* sl = ring + stage * pitch + tj * r2 + tl;
-      const T* xrow = xw + (k0 * W1 + tj + k1) * W2 + tl;
+      const A* xrow = xw + (k0 * W1 + tj + k1) * W2 + tl;
       for (int k2 = 0; k2 < w2; ++k2) {
 #pragma unroll
         for (int i = 0; i < T0; ++i) {
-          if (i < e0) acc[i] += sl[k2 * kstep + i * istep] * xrow[i * xstep + k2];
+          if (i < e0)
+            acc[i] += up(sl[k2 * kstep + i * istep]) * xrow[i * xstep + k2];
         }
       }
     }
@@ -186,35 +207,37 @@ stencil_apply_v2_kernel(const T* __restrict__ blk, const T* __restrict__ diag,
   for (int i = 0; i < T0; ++i) {
     if (i >= e0) break;
     const int64_t pt = pt0 + i * plane_i;
-    T y = acc[i];
+    A y = acc[i];
     if (g.mode != kSpmv) {
       const int gi = i0 + i;
-      const T bv = b[gi * g.bs0 + gj * g.bs1 + gl * g.bs2];
+      const A bv = up(b[gi * g.bs0 + gj * g.bs1 + gl * g.bs2]);
       if (g.mode == kResidual) {
         y = bv - y;
       } else {
-        const T xc = xw[((i + g.p0) * W1 + tj + g.p1) * W2 + tl + g.p2];
-        const T d = diag[pt];
+        const A xc = xw[((i + g.p0) * W1 + tj + g.p1) * W2 + tl + g.p2];
+        const A d = up(diag[pt]);
         if (g.mode == kJacobi) {
           y = xc + omega * (bv - y) / d;
         } else {
           const bool on = ((g.pbase + gi + gj + gl) & 1) == g.color;
-          y = on ? (T(1) - omega) * xc + omega * ((bv - (y - d * xc)) / d)
+          y = on ? (A(1) - omega) * xc + omega * ((bv - (y - d * xc)) / d)
                  : xc;
         }
       }
     }
-    out[pt] = y;
+    store(out + pt, y);
   }
 }
 
 template <typename T, int T0, int T1, int T2>
 int launch_tiles(const T* blk, const T* diag, const T* xp, const T* b, T* out,
-                 T omega, const Geometry& g, void* stream) {
+                 typename Acc<T>::type omega, const Geometry& g,
+                 void* stream) {
   const size_t ring = (size_t)kDepth * (2 * g.p2 + 1) * T0 * T1 * T2;
   const size_t window =
       (size_t)(T0 + 2 * g.p0) * (T1 + 2 * g.p1) * (T2 + 2 * g.p2);
-  const size_t bytes = (ring + window) * sizeof(T);
+  const size_t bytes =
+      ring * sizeof(T) + window * sizeof(typename Acc<T>::type);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         stencil_apply_v2_kernel<T, T0, T1, T2>,
@@ -237,7 +260,8 @@ int launch_tiles(const T* blk, const T* diag, const T* xp, const T* b, T* out,
 
 template <typename T>
 int launch(const T* blk, const T* diag, const T* xp, const T* b, T* out,
-           T omega, int n0, int n1, int n2, int p0, int p1, int p2, int t0,
+           typename Acc<T>::type omega, int n0, int n1, int n2, int p0,
+           int p1, int p2, int t0,
            int t1, int t2, int64_t bs0, int64_t bs1, int64_t bs2, int mode,
            int color, int64_t pbase, void* stream) {
   if (mode < kSpmv || mode > kRbgs || n0 < 1 || n1 < 1 || n2 < 1 ||
@@ -282,6 +306,19 @@ int stencil_apply_v2_f64(const double* blk, const double* diag,
   return launch<double>(blk, diag, xp, b, out, omega, n0, n1, n2, p0, p1, p2,
                         t0, t1, t2, bs0, bs1, bs2, mode, color, pbase,
                         stream);
+}
+
+// blk, diag, xp, b and out are bfloat16 arrays; the arithmetic is f32
+int stencil_apply_v2_bf16(const void* blk, const void* diag, const void* xp,
+                          const void* b, void* out, float omega, int n0,
+                          int n1, int n2, int p0, int p1, int p2, int t0,
+                          int t1, int t2, int64_t bs0, int64_t bs1,
+                          int64_t bs2, int mode, int color, int64_t pbase,
+                          void* stream) {
+  using B = __nv_bfloat16;
+  return launch<B>((const B*)blk, (const B*)diag, (const B*)xp, (const B*)b,
+                   (B*)out, omega, n0, n1, n2, p0, p1, p2, t0, t1, t2, bs0,
+                   bs1, bs2, mode, color, pbase, stream);
 }
 
 const char* stencil_apply_v2_error_string(int err) {

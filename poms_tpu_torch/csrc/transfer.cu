@@ -19,11 +19,23 @@
 // adds that the compiler may not contract, so the result equals
 // ops/transfer.py::apply_transfer_axis bit for bit.  The optional addend is
 // the prolongation's epilogue x + P x_c, added last.
+//
+// Types: f32, f64 and bf16.  In bf16 the weights, the field, the addend and
+// the result are __nv_bfloat16; each product and the W-tap sum are f32 in the
+// same order and uncontracted, the addend is added in f32, and the value is
+// rounded once on the store.  The field between two axes' launches is bf16.
+// The plain version does the same, so the bits agree in bf16 as well.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "storage.cuh"
+
 namespace {
+
+using io::Acc;
+using io::store;
+using io::up;
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
@@ -57,9 +69,10 @@ transfer_axis_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const long long o = oi / n_out;
     const T* src = x + (o * n_in + c0[i]) * inner + j;
     const T* wi = w + (long long)i * W;
-    T acc = mul(wi[0], src[0]);
-    for (int t = 1; t < W; ++t) acc = add(acc, mul(wi[t], src[t * inner]));
-    y[e] = addend != nullptr ? add(addend[e], acc) : acc;
+    typename Acc<T>::type acc = mul(up(wi[0]), up(src[0]));
+    for (int t = 1; t < W; ++t)
+      acc = add(acc, mul(up(wi[t]), up(src[t * inner])));
+    store(y + e, addend != nullptr ? add(up(addend[e]), acc) : acc);
   }
 }
 
@@ -81,19 +94,29 @@ int launch(const void* x, const void* w, const int64_t* c0, const void* addend,
 extern "C" {
 
 // x: (outer, n_in, inner) contiguous; w: (n_out, W); c0: (n_out,) int64 with
-// c0[i] + W <= n_in; addend (or null) and y: (outer, n_out, inner).
+// c0[i] + W <= n_in; addend (or null) and y: (outer, n_out, inner);
+// dtype_code: 0 float, 1 double, 2 bfloat16 (x, w, addend and y alike).
 int transfer_axis(const void* x, const void* w, const int64_t* c0,
                   const void* addend, void* y, long long outer, int n_in,
-                  int n_out, long long inner, int W, int is_double,
+                  int n_out, long long inner, int W, int dtype_code,
                   void* stream) {
   if (x == nullptr || w == nullptr || c0 == nullptr || y == nullptr ||
       outer < 1 || n_in < 1 || n_out < 1 || inner < 1 || W < 1 || W > n_in)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return is_double ? launch<double>(x, w, c0, addend, y, outer, n_in, n_out,
-                                    inner, W, st)
-                   : launch<float>(x, w, c0, addend, y, outer, n_in, n_out,
+  switch (dtype_code) {  // ops/transfer.py::_DTYPE_CODES
+    case 0:
+      return launch<float>(x, w, c0, addend, y, outer, n_in, n_out, inner, W,
+                           st);
+    case 1:
+      return launch<double>(x, w, c0, addend, y, outer, n_in, n_out, inner, W,
+                            st);
+    case 2:
+      return launch<__nv_bfloat16>(x, w, c0, addend, y, outer, n_in, n_out,
                                    inner, W, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* transfer_error_string(int err) {

@@ -3,6 +3,10 @@
 Counterpart of ``poms_tpu.mg.mixed``.  The tolerance target ‖r‖ ≤ 1e-10 is
 f64 territory while the fast cycles are f32; both solvers keep the f32 cycle
 on a residual scaled to O(1) and carry the iterate in higher precision.
+``low_dtype=torch.bfloat16`` runs the cycle on a bf16 hierarchy instead
+(bf16 instantiations of K1, K2/K3 and K7, an f32 coarse factor); the outer
+recurrences stay what they are: f64, or f32 pairs.  Both solvers take a
+``PoissonProblem`` or a ``PeriodicProblem``.
 
 :class:`MixedPrecisionMG`, defect correction x ← x + E(b − A x) with E one
 (or ``inner_cycles``) f32 cycle(s):
@@ -20,8 +24,9 @@ cycle as the preconditioner:
   double-word Kronecker apply (K5), directions and the V-cycle are f32, and
   α, β, ρ are f64 scalars on the device.  Needs ``mixed=True`` and
   ``operator="kron"``.
-- ``precision="dwrr"``: the working residual and A·p in plain f32 (K1), x a
-  double-word pair; every ``replace_every`` iterations the true residual is
+- ``precision="dwrr"``: the working residual in plain f32 and A·p through
+  the low-precision operator (K1; on a bf16 hierarchy the direction is
+  rounded to bf16 for that pass), x a double-word pair; every ``replace_every`` iterations the true residual is
   recomputed from x in double-word (K5) and the search restarts from it, and
   only that residual is tested against the tolerance.  The reference
   measured it slower than ``dw``; it is opt-in.
@@ -48,9 +53,10 @@ from poms_tpu_torch.core.matrix import StencilMatrix
 from poms_tpu_torch.core.vector import StencilVector
 from poms_tpu_torch.mg.cycles import CycleConfig, cycle
 from poms_tpu_torch.mg.graph import GraphedStep
-from poms_tpu_torch.mg.hierarchy import Level, build_hierarchy
+from poms_tpu_torch.mg.hierarchy import Level
 from poms_tpu_torch.mg.smoother import attach_spectral_estimates, resolve_omega
-from poms_tpu_torch.mg.solver import LamsOwner, SolveResult, log_rho
+from poms_tpu_torch.mg.solver import (LamsOwner, SolveResult, build_levels,
+                                      log_rho)
 from poms_tpu_torch.models.poisson import PoissonProblem
 from poms_tpu_torch.ops.cholesky import DenseCholesky
 from poms_tpu_torch.ops.transfer import TransferBand
@@ -61,15 +67,13 @@ from poms_tpu_torch.ops.twofloat import (build_kron_df_plan, dw_dot,
 
 __all__ = ["MGPreconditionedCG", "MixedPrecisionMG"]
 
-BF16_ITEM = ("low_dtype=bfloat16 cycles need bf16 instantiations of K1, K2 "
-             "and K3: ROADMAP, next slices, item 1 (bf16)")
-
-
 def _cast_levels(levels, dtype: torch.dtype):
     """Cast a hierarchy's bands, transfer weights and Cholesky factor.
 
     Each distinct tensor is cast once (keyed by identity), so the terms of
-    a cast Kronecker-sum operator share band objects as the originals did."""
+    a cast Kronecker-sum operator share band objects as the originals did.
+    A bf16 hierarchy keeps its coarse factor in f32 (``ops/cholesky.py``)."""
+    factor_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
     cast = {}
 
     def c(t):
@@ -89,7 +93,8 @@ def _cast_levels(levels, dtype: torch.dtype):
         else:
             A = KroneckerSumOperator(
                 sp, [[c(B) for B in term] for term in lev.A.terms])
-        chol = None if lev.chol is None else DenseCholesky(L=c(lev.chol.L))
+        chol = None if lev.chol is None else DenseCholesky(
+            L=lev.chol.L.to(factor_dtype))
         out.append(Level(A=A, restrict=tbands(lev.restrict),
                          prolong=tbands(lev.prolong), chol=chol))
     return out
@@ -106,10 +111,8 @@ def _norm(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_low_dtype(low_dtype):
-    if low_dtype == torch.bfloat16:
-        raise NotImplementedError(BF16_ITEM)
-    if low_dtype != torch.float32:
-        raise ValueError(f"low_dtype={low_dtype}: float32 only")
+    if low_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"low_dtype={low_dtype}: float32 or bfloat16")
 
 
 class _DoubleWordOperator:
@@ -176,14 +179,10 @@ class MixedPrecisionMG(LamsOwner, _DoubleWordOperator):
             raise ValueError("residual='twofloat' needs the Kronecker-sum "
                              "operator (structure the dw residual exploits)")
         _check_low_dtype(low_dtype)
-        if hasattr(problem, "shift"):
-            raise NotImplementedError(
-                "periodic problems are ROADMAP Queue 2, slice 4")
         self.residual_mode = residual
         self.inner_cycles = max(1, int(inner_cycles))
         self.problem = problem
-        self.levels64 = build_hierarchy(problem, num_levels,
-                                        operator=operator)
+        self.levels64 = build_levels(problem, num_levels, operator)
         self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
                                                        self.levels64[0].A))
         self.lams = attach_spectral_estimates(self.levels64,
@@ -194,8 +193,8 @@ class MixedPrecisionMG(LamsOwner, _DoubleWordOperator):
             self._split_operator(self.levels64[0].A, problem.space)
 
     def _error_cycles(self, r32: StencilVector) -> StencilVector:
-        """``inner_cycles`` f32 cycles on the error equation, chained
-        through its f32 residual (one low-precision operator pass per extra
+        """``inner_cycles`` low-precision cycles on the error equation, chained
+        through its low-precision residual (one operator pass per extra
         cycle; the outer residual and norm are not recomputed between)."""
         sp32 = self.levels32[0].A.space
         e32 = cycle(self.levels32, 0, StencilVector.zeros(sp32), r32,
@@ -229,7 +228,9 @@ class MixedPrecisionMG(LamsOwner, _DoubleWordOperator):
         sp32 = self.levels32[0].A.space
         e32 = self._error_cycles(StencilVector.from_interior(
             sp32, dw_update("div", rh, rn_prev)))
-        xh, xl = dw_update("defect", xh, xl, e32.interior, rn_prev)
+        # the pair bookkeeping stays f32, whatever the cycle's dtype
+        xh, xl = dw_update("defect", xh, xl, e32.interior.to(torch.float32),
+                           rn_prev)
         rh, rl = self._residual_dw(bh, bl, xh, xl)
         rn = dw_norm2(rh, rl)
         return xh, xl, rh, rl, rn, rn
@@ -319,13 +320,10 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
                              "Kronecker-sum operator (the double-word apply "
                              "exploits it)")
         _check_low_dtype(low_dtype)
-        if hasattr(problem, "shift"):
-            raise NotImplementedError(
-                "periodic problems are ROADMAP Queue 2, slice 4")
         self.precision = precision
         self.replace_every = 3
         self.problem = problem
-        self.levels = build_hierarchy(problem, num_levels, operator=operator)
+        self.levels = build_levels(problem, num_levels, operator)
         self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
                                                        self.levels[0].A))
         self.lams = attach_spectral_estimates(self.levels, self.cfg.smoother)
@@ -384,7 +382,7 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
                                             dw_update("div", rh, scale))
         z_hat = cycle(self.levels_pre, 0, StencilVector.zeros(sp_pre), r_hat,
                       self.cfg, self.lams)
-        return dw_update("mul", z_hat.interior, scale)
+        return dw_update("mul", z_hat.interior.to(torch.float32), scale)
 
     def _step_dw(self, xh, xl, rh, rl, z, p, rz):
         aph, apl = self._apply_A_dw(p)
@@ -400,10 +398,17 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
         p = dw_update("direction", z_new, p, s, rz)
         return xh, xl, rh, rl, z_new, p, rz_new, rn
 
+    def _apply_low(self, p):
+        """A·p through the low-precision operator (K1's apply mode) for the
+        f32 direction p: on a bf16 hierarchy p is rounded to bf16 for the
+        pass and the product cast back up."""
+        A = self.levels_pre[0].A
+        return A._apply_interior(p.to(A.space.dtype)).to(torch.float32)
+
     def _step_dwrr(self, xh, xl, rf, z, p, rz):
         """One residual-replacement iteration: f32 working residual ``rf``
-        and f32 A·p (K1), x a double-word pair."""
-        ap = self.levels_pre[0].A._apply_interior(p)
+        and low-precision A·p (K1), x a double-word pair."""
+        ap = self._apply_low(p)
         xh, xl, dr, rf = dw_update("dwrr", xh, xl, p, ap, rf, rz,
                                    dw_dot(p, None, ap, None))
         z_new = self._precond_dw(rf, None, dw_norm2(rf, None))
@@ -420,7 +425,7 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
         conjugacy)."""
         for _ in range(self.replace_every - 1):
             xh, xl, rf, z, p, rz = self._step_dwrr(xh, xl, rf, z, p, rz)
-        ap = self.levels_pre[0].A._apply_interior(p)
+        ap = self._apply_low(p)
         xh, xl = dw_update("dwrr", xh, xl, p, None, None, rz,
                            dw_dot(p, None, ap, None))
         rh, rl = self._residual_dw(bh, bl, xh, xl)

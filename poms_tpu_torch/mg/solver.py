@@ -19,8 +19,18 @@ from poms_tpu_torch.mg.cycles import CycleConfig, cycle, fmg
 from poms_tpu_torch.mg.graph import GraphedStep
 from poms_tpu_torch.mg.hierarchy import Level, build_hierarchy
 from poms_tpu_torch.mg.smoother import attach_spectral_estimates, resolve_omega
+from poms_tpu_torch.models.periodic import build_periodic_hierarchy
 
-__all__ = ["MultigridSolver", "SolveResult", "LamsOwner", "log_rho"]
+__all__ = ["MultigridSolver", "SolveResult", "LamsOwner", "log_rho",
+           "build_levels"]
+
+
+def build_levels(problem, num_levels: int, operator: str) -> List[Level]:
+    """The problem's hierarchy: a ``PeriodicProblem`` (it has a ``shift``)
+    builds its own, as the JAX package's mixed-precision solvers do."""
+    build = (build_periodic_hierarchy if hasattr(problem, "shift")
+             else build_hierarchy)
+    return build(problem, num_levels, operator=operator)
 
 
 @dataclass
@@ -63,13 +73,13 @@ def log_rho(logger, it: int, residuals: List[float], wall_s: float) -> None:
 
 
 class MultigridSolver(LamsOwner):
-    """Geometric multigrid solver for tensor-product B-spline problems."""
+    """Geometric multigrid solver for tensor-product B-spline problems (a
+    ``PoissonProblem`` or a ``PeriodicProblem``)."""
 
     def __init__(self, problem, num_levels: int,
                  cfg: CycleConfig = CycleConfig(), operator: str = "banded"):
         self.problem = problem
-        self.levels: List[Level] = build_hierarchy(problem, num_levels,
-                                                   operator=operator)
+        self.levels: List[Level] = build_levels(problem, num_levels, operator)
         self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
                                                        self.levels[0].A))
         self.lams = attach_spectral_estimates(self.levels, self.cfg.smoother)

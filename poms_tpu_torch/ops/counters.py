@@ -4,6 +4,11 @@ Each wrapper counts where it launches its kernel.  A captured CUDA graph
 launches the same kernels again at every replay without passing through the
 wrappers, so the code that replays a graph adds the launches it captured
 (:func:`diff` of two :func:`snapshot` s) with :func:`add`.
+
+Keys: ``name`` or ``name.mode`` for a wrapper's count over every dtype, and
+``name@dtype`` or ``name.mode@dtype`` (dtype one of f32, f64, bf16) for one
+instantiation of a wrapper that takes several
+(:mod:`poms_tpu_torch.ops._count`).
 """
 from __future__ import annotations
 
@@ -27,10 +32,14 @@ _BY_MODE = {"kron_mode": kron_mode, "stencil_apply": stencil_apply,
 
 
 def snapshot() -> Dict[str, int]:
-    """Every counter, the per-mode ones as ``name.mode``."""
+    """Every counter (see the module docstring for the keys)."""
     out = {name: fn.launches for name, fn in _PLAIN.items()}
     for name, fn in _BY_MODE.items():
         out.update({f"{name}.{m}": n for m, n in fn.launches.items()})
+        for dt, per_mode in fn.launches_by_dtype.items():
+            out.update({f"{name}.{m}@{dt}": n for m, n in per_mode.items()})
+    out.update({f"transfer@{dt}": n
+                for dt, n in apply_transfer.launches_by_dtype.items()})
     return out
 
 
@@ -41,11 +50,16 @@ def diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
 def add(delta: Dict[str, int]) -> None:
     """Advance the counters by ``delta`` (keys as :func:`snapshot`'s)."""
     for key, n in delta.items():
+        key, _, dt = key.partition("@")
         name, _, mode = key.partition(".")
+        fn = _BY_MODE[name] if mode else _PLAIN[name]
+        counts = fn.launches_by_dtype if dt else fn
         if mode:
-            _BY_MODE[name].launches[mode] += n
+            (counts[dt] if dt else counts.launches)[mode] += n
+        elif dt:
+            counts[dt] += n
         else:
-            _PLAIN[name].launches += n
+            fn.launches += n
 
 
 def reset() -> None:

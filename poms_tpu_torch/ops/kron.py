@@ -10,11 +10,19 @@ Counterpart of ``poms_tpu/ops/pallas/kron.py::kron_apply_pallas``.
 - ``cheb``:     z = (b − A x) / diag(A); d ← c1·d + c2·z; x_new = x + d
 
 For a CUDA tensor it launches the hand-written kernel of
-``csrc/kron_apply.cu`` (f32 or f64; 1D and 2D lifted to 3D) or raises; for a
-CPU tensor it runs :func:`kron_mode_plain`, built on the shared-partial chain
-of 1D axis contractions of ``poms_tpu/core/kron.py::_apply_interior``
+``csrc/kron_apply.cu`` (f32, f64 or bf16; 1D and 2D lifted to 3D) or raises;
+for a CPU tensor it runs :func:`kron_mode_plain`, built on the shared-partial
+chain of 1D axis contractions of ``poms_tpu/core/kron.py::_apply_interior``
 (:func:`kron_apply_plain`).  ``kron_mode.launches[mode]`` counts kernel
-launches per mode and ``kron_apply.launches`` those of ``apply``.
+launches per mode (``launches_by_dtype[name][mode]`` those of one
+instantiation) and ``kron_apply.launches`` those of ``apply``.
+
+A bf16 operator (bf16 bands and fields; half-widths up to 3 on the card) is
+computed in f32 and rounded once per output value, by the kernel and by the
+plain version alike (:func:`kron_mode` casts the operands up, runs the f32
+expressions and rounds); the JAX package's Pallas kernel is f32 only and its
+bf16 cycle goes through XLA in bf16, so the port's is at least as exact and
+not bitwise with it.
 
 What the kernel needs beyond the field is built once per operator by
 :func:`build_kron_plan`: the distinct bands of each axis stacked and
@@ -35,28 +43,39 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from poms_tpu_torch.core.vector import ghost_pad
-from poms_tpu_torch.ops import _build
+from poms_tpu_torch.ops import _build, _count
 
 __all__ = ["MODES", "kron_apply", "kron_apply_plain", "kron_mode",
-           "kron_mode_plain", "apply_band_1d_axis", "band_labels",
+           "kron_mode_plain", "kron_mode_plain_bf16", "apply_band_1d_axis",
+           "band_labels",
            "sharing_plan", "chunk_terms", "build_kron_plan", "plan_apply",
            "diagonal_from_columns", "kron_tiling", "k1_step_cost", "KronPlan",
            "stack_bands"]
 
 MODES = ("apply", "residual", "dinv", "cheb")
-_KERNELS = {torch.float32: "kron_apply_f32", torch.float64: "kron_apply_f64"}
+_KERNELS = {torch.float32: "kron_apply_f32", torch.float64: "kron_apply_f64",
+            torch.bfloat16: "kron_apply_bf16"}
 # mirrored in csrc/kron_apply.cu (kCU, kCV, kCG, the instantiated half-widths,
 # kMaxThreads, columns and min_blocks): partials one launch may hold per axis,
 # compiled P
 CAPS = {"u": 2, "v": 3, "g": 2}
 COMPILED_P = (1, 2, 3, 5, 8)
+COMPILED_P_BF16 = (1, 2, 3)     # the bf16 instantiations (build time)
 SM_COUNT = 132   # H100 SXM: the tiling's cost model where no card is asked
 MAX_THREADS = 256         # block size limit
 
 
+def arithmetic_itemsize(dtype: torch.dtype) -> int:
+    """Bytes of the type K1 computes in: a bf16 operator is computed in f32,
+    so its instantiation, tile and cost model are the f32 kernel's."""
+    return 4 if dtype == torch.bfloat16 else torch.empty(
+        (), dtype=dtype).element_size()
+
+
 def columns_per_thread(itemsize: int, P: int) -> int:
-    """Tile columns one thread owns in K1's instantiation: two where the
-    registers allow it (f32, P ≤ 3), so T2 is even there."""
+    """Tile columns one thread owns in K1's instantiation (``itemsize`` of
+    the arithmetic type): two where the registers allow it (f32, P ≤ 3), so
+    T2 is even there."""
     return 2 if itemsize == 4 and P <= 3 else 1
 
 
@@ -280,6 +299,7 @@ class KronPlan:
     bands_lo: Optional[List[torch.Tensor]] = None   # K5: the lo words
     _cargs: list = field(default_factory=list)
     _diag: Optional[torch.Tensor] = None
+    _f32: Optional[tuple] = None
 
     @property
     def n_terms(self) -> int:
@@ -291,6 +311,20 @@ class KronPlan:
             self._diag = diagonal_from_columns(
                 self.cols[3 - self.ndim:]).reshape(self.npts)
         return self._diag
+
+    def operands_f32(self):
+        """(terms, diag) of a bf16 operator cast to f32, each distinct band
+        once, the diagonal by the kernel's rule from the cast centre columns
+        (cached: what the bf16 plain version computes with)."""
+        if self._f32 is None:
+            cast = {}
+            terms = tuple(tuple(cast.setdefault(id(B), B.to(torch.float32))
+                                for B in term) for term in self.terms)
+            diag = diagonal_from_columns(
+                [c.to(torch.float32) for c in self.cols[3 - self.ndim:]]
+            ).reshape(self.npts)
+            self._f32 = (terms, diag)
+        return self._f32
 
 
 def _compiled_half_width(pads) -> int:
@@ -356,10 +390,11 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     cols += [torch.stack([term[a][:, pads[a]] for term in terms]).contiguous()
              for a in range(d)]
     chunks = chunk_terms(labels)
+    itemsize = arithmetic_itemsize(first.dtype)
     if tcols is None:
-        tcols = columns_per_thread(first.element_size(), P)
+        tcols = columns_per_thread(itemsize, P)
     if cost is None:
-        cost = k1_step_cost(first.element_size(), P)
+        cost = k1_step_cost(itemsize, P)
     sms = (torch.cuda.get_device_properties(first.device).multi_processor_count
            if first.device.type == "cuda" else SM_COUNT)
     return KronPlan(
@@ -435,7 +470,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in _KERNELS.values():
         f = getattr(lib, fn)
-        f.argtypes = [ptr] * 12 + [f64, f64, i32, ptr, ptr, ptr, ptr]
+        f.argtypes = [ptr] * 13 + [f64, f64, i32, ptr, ptr, ptr, ptr]
         f.restype = i32
     lib.kron_apply_error_string.argtypes = [i32]
     lib.kron_apply_error_string.restype = ctypes.c_char_p
@@ -476,8 +511,12 @@ def _c_args(plan: KronPlan):
 
 def _check(plan: KronPlan, x_int, others):
     if x_int.dtype not in _KERNELS:
-        raise TypeError(f"the kron_apply kernel takes float32/float64, "
-                        f"got {x_int.dtype}")
+        raise TypeError(f"the kron_apply kernel takes float32, float64 or "
+                        f"bfloat16, got {x_int.dtype}")
+    if x_int.dtype == torch.bfloat16 and plan.P not in COMPILED_P_BF16:
+        raise NotImplementedError(
+            f"the bf16 kron_apply kernel is built for half-widths "
+            f"{COMPILED_P_BF16}; this operator needs {plan.P}")
     if tuple(x_int.shape) != plan.npts:
         raise ValueError(f"x has shape {tuple(x_int.shape)}, expected "
                          f"{plan.npts}")
@@ -518,6 +557,8 @@ def kron_mode(mode: str, plan: KronPlan, x_int: torch.Tensor,
         raise ValueError(f"mode {mode!r} {'needs' if b is None else 'takes no'}"
                          " b")
     if x_int.device.type == "cpu":
+        if x_int.dtype == torch.bfloat16:
+            return kron_mode_plain_bf16(mode, plan, x_int, b, d, c1, c2)
         diag = plan.diagonal() if mode in ("dinv", "cheb") else None
         return kron_mode_plain(mode, plan.terms, x_int, plan.npts, plan.pads,
                                plan.periodic, b, diag, d, c1, c2)
@@ -526,6 +567,20 @@ def kron_mode(mode: str, plan: KronPlan, x_int: torch.Tensor,
     with torch.cuda.device(x_int.device):
         return _launch(mode, plan, x_int, b, d, c1, c2, out, tiling,
                        torch.cuda.current_stream().cuda_stream)
+
+
+def kron_mode_plain_bf16(mode, plan: KronPlan, x_int, b, d, c1, c2):
+    """The bf16 kernel's plain version: every operand cast to f32, the f32
+    expressions of :func:`kron_mode_plain`, each result rounded once."""
+    def hi(t):
+        return None if t is None else t.to(torch.float32)
+
+    terms, diag = plan.operands_f32()
+    res = kron_mode_plain(mode, terms, hi(x_int), plan.npts, plan.pads,
+                          plan.periodic, hi(b), diag, hi(d), c1, c2)
+    if mode == "cheb":
+        return tuple(t.to(torch.bfloat16) for t in res)
+    return res.to(torch.bfloat16)
 
 
 def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
@@ -553,23 +608,31 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
     fn = getattr(lib, _KERNELS[x_int.dtype])
     bands = [t.data_ptr() for t in plan.bands]
     cols = [t.data_ptr() for t in plan.cols]
+    # a bf16 operator's sum between launches stays f32 (``out_hi``)
+    wide = x_int.dtype == torch.bfloat16
     acc = None
     for k, run in enumerate(runs):
         last = k == len(runs) - 1
         # every run but the last adds its terms' A·x to ``acc``; the last
         # one applies the mode's epilogue to the whole sum
         run_mode = mode if last else "apply"
-        target = out if last else torch.empty_like(out)
+        if last:
+            target = out
+        else:
+            target = torch.empty(plan.npts, device=out.device,
+                                 dtype=torch.float32 if wide else out.dtype)
+        as_hi = wide and not last
         err = fn(x3.data_ptr(), *bands, *cols, _ptr(acc),
                  _ptr(b) if last else None, _ptr(d) if last else None,
                  _ptr(d_out) if last and mode == "cheb" else None,
-                 target.data_ptr(), float(c1), float(c2),
+                 None if as_hi else target.data_ptr(),
+                 target.data_ptr() if as_hi else None, float(c1), float(c2),
                  MODES.index(run_mode), strides, geo, run, stream)
         if err != 0:
             raise RuntimeError(
                 f"kron_apply kernel launch failed ({run_mode}): "
                 + lib.kron_apply_error_string(err).decode())
-        kron_mode.launches[run_mode] += 1
+        _count.count(kron_mode, x_int.dtype, run_mode)
         if run_mode == "apply":
             kron_apply.launches += 1
         acc = target
@@ -578,7 +641,7 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
     return out
 
 
-kron_mode.launches = dict.fromkeys(MODES, 0)
+_count.attach(kron_mode, MODES)
 
 
 def kron_apply(terms: Sequence[Sequence[torch.Tensor]], x_int: torch.Tensor,
@@ -592,6 +655,12 @@ def kron_apply(terms: Sequence[Sequence[torch.Tensor]], x_int: torch.Tensor,
     """
     npts, pads, periodic = tuple(npts), tuple(pads), tuple(periodic)
     if x_int.device.type == "cpu":
+        if x_int.dtype == torch.bfloat16:   # in f32, rounded once
+            cast = {}
+            hi = [[cast.setdefault(id(B), B.to(torch.float32)) for B in term]
+                  for term in terms]
+            return kron_apply_plain(hi, x_int.to(torch.float32), npts, pads,
+                                    periodic).to(torch.bfloat16)
         return kron_apply_plain(terms, x_int, npts, pads, periodic)
     if x_int.device.type != "cuda":
         raise NotImplementedError(f"kron_apply on {x_int.device.type} tensors")
@@ -602,8 +671,8 @@ def kron_apply(terms: Sequence[Sequence[torch.Tensor]], x_int: torch.Tensor,
 
 def _check_terms(terms, x_int: torch.Tensor, npts, pads):
     if x_int.dtype not in _KERNELS:
-        raise TypeError(f"the kron_apply kernel takes float32/float64, "
-                        f"got {x_int.dtype}")
+        raise TypeError(f"the kron_apply kernel takes float32, float64 or "
+                        f"bfloat16, got {x_int.dtype}")
     if tuple(x_int.shape) != tuple(npts):
         raise ValueError(f"x has shape {tuple(x_int.shape)}, expected "
                          f"{tuple(npts)}")

@@ -12,10 +12,17 @@ multiply-adds over the ghost-padded input:
 :func:`stencil_apply` runs one of the modes ``spmv``, ``residual``
 (b − Ax), ``jacobi`` (x + ω(b − Ax)/diag) or ``rbgs`` (one red-black
 Gauss–Seidel colour phase).  For a CUDA tensor it launches the hand-written
-kernel of ``csrc/stencil_apply.cu`` (f32 or f64; 1D and 2D lifted to 3D) or
-raises; for a CPU tensor it runs :func:`stencil_apply_plain`, the JAX
+kernel of ``csrc/stencil_apply.cu`` (f32, f64 or bf16; 1D and 2D lifted to
+3D) or raises; for a CPU tensor it runs :func:`stencil_apply_plain`, the JAX
 package's jnp expressions (``poms_tpu/ops/dispatch.py``) in PyTorch.
-``stencil_apply.launches[mode]`` counts kernel launches per mode.
+``stencil_apply.launches[mode]`` counts kernel launches per mode and
+``stencil_apply.launches_by_dtype[name][mode]`` those of one instantiation.
+
+In bf16 the kernel reads and writes bf16 and computes in f32 (one rounding,
+on the store), and the plain version does the same: operands cast to f32, the
+f32 expressions, the result rounded once.  The two then differ by one bf16
+unit in the last place at the few points where their f32 sums, added in
+another order, fall on either side of a rounding boundary.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from poms_tpu_torch.core.space import resolve_device
-from poms_tpu_torch.ops import _build
+from poms_tpu_torch.ops import _build, _count
 
 __all__ = ["MODES", "diagonal_band_index", "spmv_banded_plain",
            "spmv_offdiag_plain", "color_mask", "stencil_apply_plain",
@@ -35,7 +42,8 @@ __all__ = ["MODES", "diagonal_band_index", "spmv_banded_plain",
 
 MODES = ("spmv", "residual", "jacobi", "rbgs")
 _KERNELS = {torch.float32: ("stencil_apply_f32", ctypes.c_float),
-            torch.float64: ("stencil_apply_f64", ctypes.c_double)}
+            torch.float64: ("stencil_apply_f64", ctypes.c_double),
+            torch.bfloat16: ("stencil_apply_bf16", ctypes.c_float)}
 
 
 def diagonal_band_index(pads: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -107,8 +115,15 @@ def stencil_apply_plain(mode: str, band_t: torch.Tensor, x_pad: torch.Tensor,
                         npts, pads, b: Optional[torch.Tensor] = None,
                         omega: Optional[float] = None, color: int = 0,
                         starts=None) -> torch.Tensor:
-    """Plain PyTorch K2: the jnp branch of ``poms_tpu/ops/dispatch.py``."""
+    """Plain PyTorch K2: the jnp branch of ``poms_tpu/ops/dispatch.py``
+    (bf16 operands: computed in f32 and rounded once, as the kernel does)."""
     npts, pads = tuple(npts), tuple(pads)
+    if x_pad.dtype == torch.bfloat16:
+        f32 = torch.float32
+        return stencil_apply_plain(
+            mode, band_t.to(f32), x_pad.to(f32), npts, pads,
+            None if b is None else b.to(f32), omega, color,
+            starts).to(torch.bfloat16)
     if mode == "spmv":
         return spmv_banded_plain(band_t, x_pad, npts, pads)
     if mode == "residual":
@@ -150,8 +165,8 @@ def _lift(npts: Sequence[int], pads: Sequence[int]):
 
 def _check(band_t, x_pad, b, npts, pads):
     if x_pad.dtype not in _KERNELS:
-        raise TypeError(f"stencil_apply kernel takes float32/float64, "
-                        f"got {x_pad.dtype}")
+        raise TypeError(f"stencil_apply kernel takes float32, float64 or "
+                        f"bfloat16, got {x_pad.dtype}")
     if not 1 <= len(npts) <= 3 or len(pads) != len(npts):
         raise NotImplementedError(
             f"stencil_apply covers 1D/2D/3D fields, got npts={npts}")
@@ -224,8 +239,8 @@ def stencil_apply(mode: str, band_t: torch.Tensor, x_pad: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"stencil_apply kernel launch failed ({mode}): "
                            + lib.stencil_apply_error_string(err).decode())
-    stencil_apply.launches[mode] += 1
+    _count.count(stencil_apply, x_pad.dtype, mode)
     return out
 
 
-stencil_apply.launches = dict.fromkeys(MODES, 0)
+_count.attach(stencil_apply, MODES)

@@ -17,7 +17,11 @@ Counterpart of the JAX package's v2 Pallas engine
   idea: every pipeline step of the kernel reads one contiguous slab.
 - :func:`stencil_apply_v2` launches ``csrc/stencil_apply_v2.cu`` for CUDA
   tensors (or raises) and runs :func:`stencil_apply_v2_plain` for CPU
-  tensors; ``stencil_apply_v2.launches[mode]`` counts kernel launches.
+  tensors; ``stencil_apply_v2.launches[mode]`` counts kernel launches
+  (``launches_by_dtype[name][mode]`` those of one instantiation).  f32, f64
+  and bf16: a bf16 pack holds bf16 slabs (8 values per 16 bytes), and the
+  kernel and the plain version compute in f32 and round once, as K2's do.
+  A pack of another dtype than ``x_pad``'s is refused.
   Called without a pack it packs inline, as the JAX engine does; loops
   pass the operator's pack (``StencilMatrix.ensure_packed_v2``).
 """
@@ -30,26 +34,34 @@ from typing import Optional
 
 import torch
 
-from poms_tpu_torch.ops import _build
+from poms_tpu_torch.ops import _build, _count
 from poms_tpu_torch.ops.stencil import MODES, _lift, stencil_apply_plain
 
 __all__ = ["tile_v2", "pack_band_v2", "unpack_band_v2",
            "stencil_apply_v2_plain", "stencil_apply_v2"]
 
 _KERNELS = {torch.float32: ("stencil_apply_v2_f32", ctypes.c_float),
-            torch.float64: ("stencil_apply_v2_f64", ctypes.c_double)}
+            torch.float64: ("stencil_apply_v2_f64", ctypes.c_double),
+            torch.bfloat16: ("stencil_apply_v2_bf16", ctypes.c_float)}
+# the 3D tile per dtype: a ring of 3 (k0, k1) slabs plus the x window in
+# 227 KB of shared memory.  At p = 3 a slab is 28 KB in f32 (4×8×32) and in
+# f64 (2×8×32): two blocks an SM; in bf16 (4×8×32) it is 14 KB and the window
+# (f32) 21 KB: three blocks an SM, 129 KB of slabs in flight there
+_TILE_3D = {torch.float32: (4, 8, 32), torch.float64: (2, 8, 32),
+            torch.bfloat16: (4, 8, 32)}
 
 
 def tile_v2(npts3, dtype: torch.dtype):
     """The kernel's (T0, T1, T2) tile for a lifted 3D grid: 256 threads of
-    T0 points each; in 3D the kernel's ring of 3 (k0, k1) slabs of 28 KB
-    at p = 3 (f32 4×8×32, f64 2×8×32) plus the x window fits 227 KB of
-    shared memory."""
+    T0 points each (``_TILE_3D`` in 3D)."""
     if npts3[0] == 1 and npts3[1] == 1:
         return (1, 1, 256)
     if npts3[0] == 1:
         return (1, 8, 32)
-    return (4, 8, 32) if dtype == torch.float32 else (2, 8, 32)
+    if dtype not in _TILE_3D:
+        raise TypeError(f"the v2 engine packs float32, float64 or bfloat16 "
+                        f"bands, got {dtype}")
+    return _TILE_3D[dtype]
 
 
 def _lane_align(dtype: torch.dtype) -> int:
@@ -148,7 +160,8 @@ def stencil_apply_v2_plain(mode: str, packed: dict, x_pad: torch.Tensor,
                            npts, pads, b: Optional[torch.Tensor] = None,
                            omega: Optional[float] = None, color: int = 0,
                            starts=None) -> torch.Tensor:
-    """Plain PyTorch K3: the band unpacked, then K2's plain modes."""
+    """Plain PyTorch K3: the band unpacked, then K2's plain modes (bf16:
+    in f32, rounded once)."""
     return stencil_apply_plain(mode, unpack_band_v2(packed), x_pad, npts,
                                pads, b, omega, color, starts)
 
@@ -171,8 +184,8 @@ def _library() -> ctypes.CDLL:
 def _check(packed, x_pad, b, npts, pads):
     blk, diag = packed["blk"], packed["diag"]
     if x_pad.dtype not in _KERNELS:
-        raise TypeError(f"stencil_apply_v2 kernel takes float32/float64, "
-                        f"got {x_pad.dtype}")
+        raise TypeError(f"stencil_apply_v2 kernel takes float32, float64 or "
+                        f"bfloat16, got {x_pad.dtype}")
     for t in (blk, diag, b):
         if t is not None and (t.device != x_pad.device
                               or t.dtype != x_pad.dtype):
@@ -224,6 +237,10 @@ def stencil_apply_v2(mode: str, band_t: Optional[torch.Tensor],
         raise ValueError(
             f"packed band was built for npts={packed['npts']} "
             f"pads={packed['pads']}, called with npts={npts} pads={pads}")
+    if packed["blk"].dtype != x_pad.dtype:
+        raise ValueError(f"the pack holds {packed['blk'].dtype} slabs, x_pad "
+                         f"is {x_pad.dtype}: pack the band in the field's "
+                         "dtype")
     if x_pad.device.type == "cpu":
         return stencil_apply_v2_plain(mode, packed, x_pad, npts, pads, b,
                                       omega, color, starts)
@@ -254,8 +271,8 @@ def stencil_apply_v2(mode: str, band_t: Optional[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"stencil_apply_v2 kernel launch failed ({mode}): "
                            + lib.stencil_apply_v2_error_string(err).decode())
-    stencil_apply_v2.launches[mode] += 1
+    _count.count(stencil_apply_v2, x_pad.dtype, mode)
     return out
 
 
-stencil_apply_v2.launches = dict.fromkeys(MODES, 0)
+_count.attach(stencil_apply_v2, MODES)

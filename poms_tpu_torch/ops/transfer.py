@@ -10,7 +10,10 @@ of ``csrc/transfer.cu`` once per axis (or raises); for CPU tensors it runs
 :func:`apply_transfer_plain`.  The kernel adds the taps in the plain
 version's order with multiplies and adds the compiler may not fuse, so its
 result equals the plain version's bit for bit.  ``apply_transfer.launches``
-counts kernel launches.
+counts kernel launches (``launches_by_dtype[name]`` those of one
+instantiation).  f32, f64 and bf16: in bf16 weights and fields are bf16,
+each axis' taps are multiplied and added in f32 (with the addend, in the
+last axis) and rounded once, in the kernel and in the plain version alike.
 """
 from __future__ import annotations
 
@@ -23,10 +26,13 @@ import numpy as np
 import torch
 
 from poms_tpu_torch.core.space import resolve_device
-from poms_tpu_torch.ops import _build
+from poms_tpu_torch.ops import _build, _count
 
 __all__ = ["TransferBand", "bands_from_dense", "apply_transfer_axis",
            "apply_transfer", "apply_transfer_plain"]
+
+# the kernel's dtype codes (csrc/transfer.cu::transfer_axis)
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 @dataclass
@@ -83,7 +89,18 @@ def apply_transfer_axis(tb: TransferBand, x: torch.Tensor,
 
 def apply_transfer_plain(tbs: Tuple[TransferBand, ...], x: torch.Tensor,
                          add: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch K7: the per-axis gathers in axis order, then ``add``."""
+    """Plain PyTorch K7: the per-axis gathers in axis order, then ``add``
+    (bf16: each axis in f32 and rounded once, ``add`` inside the last)."""
+    if x.dtype == torch.bfloat16:
+        f32 = torch.float32
+        for a, tb in enumerate(tbs):
+            y = apply_transfer_axis(
+                TransferBand(w=tb.w.to(f32), c0=tb.c0, n_in=tb.n_in),
+                x.to(f32), a)
+            if add is not None and a == len(tbs) - 1:
+                y = add.to(f32) + y
+            x = y.to(torch.bfloat16)
+        return x
     for a, tb in enumerate(tbs):
         x = apply_transfer_axis(tb, x, a)
     return x if add is None else add + x
@@ -114,9 +131,9 @@ def apply_transfer(tbs: Tuple[TransferBand, ...], x: torch.Tensor,
         raise NotImplementedError(f"apply_transfer on {x.device.type} tensors")
     if len(tbs) != x.ndim:
         raise ValueError(f"{len(tbs)} transfer bands for a {x.ndim}-D field")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the transfer kernel takes float32/float64, got "
-                        f"{x.dtype}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the transfer kernel takes float32, float64 or "
+                        f"bfloat16, got {x.dtype}")
     with torch.cuda.device(x.device):
         return _launch(tbs, x, add, torch.cuda.current_stream().cuda_stream)
 
@@ -157,13 +174,13 @@ def _launch(tbs, x, add, stream):
             tb.c0.contiguous().data_ptr(),
             None if addend is None else addend.data_ptr(), y.data_ptr(),
             outer, tb.n_in, tb.n_out, inner, tb.width,
-            int(x.dtype == torch.float64), stream)
+            _DTYPE_CODES[x.dtype], stream)
         if err != 0:
             raise RuntimeError("apply_transfer kernel launch failed: "
                                + lib.transfer_error_string(err).decode())
-        apply_transfer.launches += 1
+        _count.count(apply_transfer, x.dtype)
         x = y
     return x
 
 
-apply_transfer.launches = 0
+_count.attach(apply_transfer)

@@ -56,7 +56,7 @@ __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
 
 # mirrored in csrc/kron_apply_dw.cu (kCU, kCV, kCW, kCT, kMaxThreads and the
 # instantiated half-widths)
-CAPS_DW = {"u": 2, "v": 3, "w": 3, "t": 4}
+CAPS_DW = {"u": 2, "v": 3, "w": 4, "t": 4}
 COMPILED_P_DW = (1, 2, 3, 5)
 MAX_THREADS_DW = 256
 

@@ -18,6 +18,7 @@ from poms_tpu_torch.mg.mixed import MGPreconditionedCG, MixedPrecisionMG
 from poms_tpu_torch.mg.solver import MultigridSolver
 from poms_tpu_torch.models.bspline import prolongation_interior_1d
 from poms_tpu_torch.mg.smoother import SmootherConfig
+from poms_tpu_torch.models.periodic import periodic_problem
 from poms_tpu_torch.models.poisson import poisson_problem
 from poms_tpu_torch.ops import counters, twofloat
 from poms_tpu_torch.ops import transfer as k7
@@ -599,6 +600,8 @@ def test_k7_is_bit_equal_to_plain(dev, n_el, d, dtype):
         k7.apply_transfer(res, xc)
     with pytest.raises(TypeError):
         k7.apply_transfer(res, xf.half())
+    with pytest.raises(ValueError):      # weights and field of one dtype
+        k7.apply_transfer(res, xf.to(torch.bfloat16))
 
 
 def _cheb_cfg(fraction=16.0):
@@ -607,19 +610,31 @@ def _cheb_cfg(fraction=16.0):
 
 
 @pytest.mark.parametrize("solver", ["dw", "dwrr", "f64", "twofloat",
-                                    "mixed-f64", "mg"])
+                                    "mixed-f64", "mg", "dw-bf16",
+                                    "twofloat-bf16", "mixed-f64-bf16",
+                                    "dwrr-bf16", "periodic-dw",
+                                    "periodic-twofloat"])
 def test_graph_replay_equals_the_eager_loop(dev, solver):
     """solve_compiled replays a captured graph: the eager loop's iterates
     bit for bit, the same count; the graph is captured once per solver and
-    reused by the second call; replays advance the launch counters."""
-    prob = poisson_problem(3, 32, degree=3, device=dev, operator="kron")
+    reused by the second call; replays advance the launch counters.  The
+    bf16 cycles' casts and the periodic operators capture like the rest."""
+    low = torch.bfloat16 if solver.endswith("-bf16") else torch.float32
+    periodic = solver.startswith("periodic-")
+    solver = solver.replace("-bf16", "").replace("periodic-", "")
+    if periodic:
+        prob = periodic_problem(3, 32, degree=3, device=dev)
+    else:
+        prob = poisson_problem(3, 32, degree=3, device=dev, operator="kron")
     if solver in ("dw", "dwrr", "f64"):
-        sol = MGPreconditionedCG(prob, 3, _cheb_cfg(), operator="kron",
-                                 precision=solver)
+        sol = MGPreconditionedCG(prob, 3 - periodic, _cheb_cfg(),
+                                 operator="kron", precision=solver,
+                                 low_dtype=low)
     elif solver == "mg":
         sol = MultigridSolver(prob, 3, _cheb_cfg(), operator="kron")
     else:
-        sol = MixedPrecisionMG(prob, 3, _cheb_cfg(), operator="kron",
+        sol = MixedPrecisionMG(prob, 3 - periodic, _cheb_cfg(),
+                               operator="kron", low_dtype=low,
                                residual=solver.replace("mixed-", ""))
     # the eager loop: the steps solve_compiled would run without a graph
     if solver == "mg":
@@ -649,6 +664,9 @@ def test_graph_replay_equals_the_eager_loop(dev, solver):
     assert grown["kron_mode.cheb"] >= graph.captured["kron_mode.cheb"] \
         * graph.replays // 2
     assert grown["transfer"] > 0
+    if low == torch.bfloat16:     # the cycle's kernels are the bf16 ones
+        assert grown["kron_mode.cheb@bf16"] == grown["kron_mode.cheb"]
+        assert grown["transfer@bf16"] == grown["transfer"]
     sol.lams = sol.lams                                   # drops the graphs
     assert sol._graphs == {}
 
@@ -700,3 +718,218 @@ def test_device_ms_without_the_profiler(dev, monkeypatch, capsys):
     assert 0 < ms < 5.0
     assert "no graph" in capsys.readouterr().err
     assert torch.equal(torch.add(a, a), out)
+
+
+# -- bf16 instantiations, K5's four histories, periodic problems -------------
+
+BF16 = torch.bfloat16
+
+
+def _bf16_differing(got, want):
+    """Both bf16, from f32 sums taken in another order: every value within
+    one bf16 unit in the last place (2⁻⁷ of its magnitude) plus the f32
+    sums' own error (1e-5 of max|want|); returns how many points differ."""
+    g, w = got.float(), want.float()
+    bound = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5 * w.abs().max()
+    assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
+    return int((g != w).sum())
+
+
+# ragged tiles and odd row lengths (2-byte alignment), 1D-3D, wrapped ghosts
+BF16_K2_SHAPES = [((17, 33, 65), (3, 3, 3), (False,) * 3),
+                  ((5, 7, 9), (3, 2, 1), (False, True, False)),
+                  ((20, 45, 71), (1, 2, 3), (False,) * 3),
+                  ((33, 131), (2, 2), (True, False)),
+                  ((1001,), (3,), (False,)), ((7,), (1,), (True,))]
+
+
+@pytest.mark.parametrize("npts,pads,periodic", BF16_K2_SHAPES)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("engine", ["K2", "K3"])
+def test_banded_bf16_kernels_match_plain(dev, npts, pads, periodic, mode,
+                                         engine):
+    band, x_pad, b = _k2_operands(npts, pads, periodic, torch.float32, dev,
+                                  seed=sum(npts))
+    band, x_pad, b = band.to(BF16), x_pad.to(BF16).contiguous(), b.to(BF16)
+    kw = dict(b=None if mode == "spmv" else b,
+              omega=0.8 if mode in ("jacobi", "rbgs") else None, color=1,
+              starts=(1,) + (0,) * (len(npts) - 1))
+    wrapper = stencil_apply if engine == "K2" else stencil_apply_v2
+    before = wrapper.launches_by_dtype["bf16"][mode]
+    if engine == "K2":
+        got = stencil_apply(mode, band, x_pad, npts, pads, **kw)
+        want = stencil_apply_plain(mode, band, x_pad, npts, pads, **kw)
+    else:
+        pk = pack_band_v2(band, npts, pads)
+        assert pk["blk"].dtype == BF16 and pk["blk"].data_ptr() % 16 == 0
+        got = stencil_apply_v2(mode, None, x_pad, npts, pads, packed=pk, **kw)
+        want = stencil_apply_v2_plain(mode, pk, x_pad, npts, pads, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_dtype["bf16"][mode] == before + 1
+    assert got.dtype == BF16 and got.shape == want.shape
+    assert _bf16_differing(got, want) <= max(2, got.numel() // 50)
+    if mode == "rbgs":
+        other = ~color_mask(npts, 1, kw["starts"], device=dev)
+        x_int = x_pad[tuple(slice(p, p + n) for n, p in zip(npts, pads))]
+        assert torch.equal(got[other], x_int[other])
+
+
+def test_k3_refuses_a_pack_of_another_dtype(dev):
+    npts, pads = (8, 12, 20), (1, 1, 1)
+    band, x_pad, _ = _k2_operands(npts, pads, (False,) * 3, torch.float32,
+                                  dev)
+    pk = pack_band_v2(band, npts, pads)
+    with pytest.raises(ValueError, match="slabs"):
+        stencil_apply_v2("spmv", None, x_pad.to(BF16), npts, pads, packed=pk)
+    with pytest.raises(ValueError, match="slabs"):
+        stencil_apply_v2("spmv", None, x_pad, npts, pads,
+                         packed=pack_band_v2(band.to(BF16), npts, pads))
+
+
+BF16_K1_SHAPES = [((17, 17, 17), (3, 3, 3), (False,) * 3, 0),
+                  ((9, 13, 31), (2, 2, 2), (False,) * 3, 0),
+                  ((12, 20, 41), (2, 3, 1), (True, False, True), 0),
+                  ((30, 257), (3, 3), (False, False), 0),
+                  ((4099,), (3,), (True,), 0),
+                  ((20, 21, 23), (2, 2, 2), (False,) * 3, 4)]
+
+
+@pytest.mark.parametrize("npts,pads,periodic,free", BF16_K1_SHAPES)
+@pytest.mark.parametrize("mode", K1_MODES + ("cheb0",))
+def test_k1_bf16_modes_match_plain(dev, npts, pads, periodic, free, mode):
+    """K1's bf16 instantiation against its plain version (f32 arithmetic,
+    one rounding), odd row lengths and a two-launch operator (whose sum
+    between the launches stays f32) among the shapes."""
+    terms, (x, b, d) = _mode_operands(npts, pads, torch.float32, dev, free,
+                                      seed=sum(npts))
+    cast = {}
+    terms = [[cast.setdefault(id(B), B.to(BF16)) for B in t] for t in terms]
+    x, b, d = x.to(BF16), b.to(BF16), d.to(BF16)
+    plan = build_kron_plan(terms, npts, pads, periodic)
+    kw = {}
+    real = mode.replace("0", "")
+    if real in ("residual", "cheb"):
+        kw["b"] = b
+    if real == "cheb":
+        kw.update(c1=0.3, c2=0.7, d=None if mode == "cheb0" else d)
+    cpu_plan = build_kron_plan([[B.cpu() for B in t] for t in terms], npts,
+                               pads, periodic)
+    want = kron_mode(real, cpu_plan, x.cpu(), **{
+        k: v.cpu() if isinstance(v, torch.Tensor) else v
+        for k, v in kw.items()})
+    if kw.get("d") is not None:
+        kw["d"] = d.clone()
+    before = kron_mode.launches_by_dtype["bf16"][real]
+    got = kron_mode(real, plan, x, **kw)
+    torch.cuda.synchronize()
+    runs = len(plan.plans)
+    assert kron_mode.launches_by_dtype["bf16"][real] - before \
+        == (runs if real == "apply" else 1)
+    if real != "cheb":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == BF16
+        assert _bf16_differing(g.cpu(), w) <= max(2, g.numel() // 50)
+
+
+def test_k1_bf16_stops_at_half_width_3(dev):
+    terms, (x, _, _) = _mode_operands((16, 16, 16), (5, 5, 5), torch.float32,
+                                      dev, 0)
+    terms = [[B.to(BF16) for B in t] for t in terms]
+    with pytest.raises(NotImplementedError, match="half-widths"):
+        kron_apply(terms, x.to(BF16), (16,) * 3, (5,) * 3, (False,) * 3)
+
+
+@pytest.mark.parametrize("n_el,d", [(32, 3), (16, 3), (128, 2), (64, 1)])
+def test_k7_bf16_is_bit_equal_to_plain(dev, n_el, d):
+    """The f32 tap sums are taken in the plain version's order with
+    uncontracted operations, so the bf16 results agree bit for bit."""
+    P = prolongation_interior_1d(n_el // 2, 3)
+    nf, nc = P.shape
+    pro = tuple(k7.bands_from_dense(P, BF16, dev) for _ in range(d))
+    res = tuple(k7.bands_from_dense(P.T, BF16, dev) for _ in range(d))
+    g = torch.Generator().manual_seed(n_el)
+    xf = torch.randn((nf,) * d, generator=g).to(dev).to(BF16)
+    xc = torch.randn((nc,) * d, generator=g).to(dev).to(BF16)
+    before = k7.apply_transfer.launches_by_dtype["bf16"]
+    got = k7.apply_transfer(res, xf)
+    assert k7.apply_transfer.launches_by_dtype["bf16"] == before + d
+    assert got.dtype == BF16
+    assert torch.equal(got, k7.apply_transfer_plain(res, xf))
+    assert torch.equal(k7.apply_transfer(pro, xc, add=xf),
+                       k7.apply_transfer_plain(pro, xc, add=xf))
+
+
+def _periodic_df_terms(npts, pads, dev, seed):
+    """[S, M, M], [K, M, M], [M, K, M], [M, M, K] with distinct S, K, M per
+    axis, split into pairs: 2 u, 3 v, 4 histories, 4 terms."""
+    rng = np.random.default_rng(seed)
+
+    def band(n, p):
+        B = torch.as_tensor(rng.standard_normal((n, 2 * p + 1)) / 4
+                            + 2.0 * (np.arange(2 * p + 1) == p), device=dev)
+        return twofloat.split_f64(B)
+
+    Ks = [band(n, p) for n, p in zip(npts, pads)]
+    Ms = [band(n, p) for n, p in zip(npts, pads)]
+    S = band(npts[0], pads[0])
+    return ([[S, Ms[1], Ms[2]]]
+            + [[Ks[b] if b == a else Ms[b] for b in range(3)]
+               for a in range(3)])
+
+
+@pytest.mark.parametrize("npts,pads,periodic", [
+    ((16, 16, 16), (2, 2, 2), (True,) * 3),
+    ((9, 13, 31), (3, 2, 1), (False, True, False)),
+    ((33, 33, 33), (3, 3, 3), (True,) * 3)])
+@pytest.mark.parametrize("flags", ["full", "zero"])
+def test_k5_four_histories_are_bit_equal_to_plain(dev, npts, pads, periodic,
+                                                  flags):
+    tdf = _periodic_df_terms(npts, pads, dev, seed=sum(npts))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(npts, generator=g, dtype=torch.float64).to(dev)
+    b = torch.randn(npts, generator=g, dtype=torch.float64).to(dev)
+    (xh, xl), (bh, bl) = twofloat.split_f64(x), twofloat.split_f64(b)
+    zero = torch.zeros_like(xh)
+    given, explicit = {"full": ((bh, bl, xh, xl), (bh, bl, xh, xl)),
+                       "zero": ((None, None, xh, None),
+                                (zero, zero, xh, zero))}[flags]
+    before = twofloat.residual_kron_df.launches
+    got = twofloat.residual_kron_df(tdf, *given, pads, periodic=periodic)
+    torch.cuda.synchronize()
+    assert twofloat.residual_kron_df.launches == before + 1
+    want = twofloat.residual_kron_df_plain(tdf, *explicit, pads, None,
+                                           periodic)
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+
+
+@pytest.mark.parametrize("case", ["twofloat-bf16", "dw-bf16", "banded-bf16",
+                                  "periodic-twofloat", "periodic-dw",
+                                  "periodic-banded"])
+def test_bf16_and_periodic_solves_on_card_match_cpu(dev, case):
+    """16³, 2 levels, the card's λs on both: equal counts (bf16: within one,
+    since kernel and plain version round a few points differently), the
+    solutions within 1e-6 of max|x|."""
+    kind, low = case.replace("periodic-", "").replace("-bf16", ""), (
+        BF16 if case.endswith("-bf16") else torch.float32)
+    out, lams = {}, None
+    for d in (dev, torch.device("cpu")):
+        op = "banded" if kind == "banded" else "kron"
+        if case.startswith("periodic-"):
+            prob = periodic_problem(3, 16, degree=2, device=d)
+        else:
+            prob = poisson_problem(3, 16, degree=2, device=d, operator=op)
+        if kind == "dw":
+            sol = MGPreconditionedCG(prob, 2, _cheb_cfg(), operator="kron",
+                                     precision="dw", low_dtype=low)
+        else:
+            sol = MixedPrecisionMG(prob, 2, _cheb_cfg(), operator=op,
+                                   low_dtype=low)
+        sol.lams = lams = lams or sol.lams
+        out[d.type] = sol.solve(tol=1e-10, maxiter=60)
+    rc, rh = out["cuda"], out["cpu"]
+    assert rc.converged and rh.converged
+    assert abs(rc.iterations - rh.iterations) <= (low == BF16)
+    xc, xh = rc.x.interior.cpu(), rh.x.interior
+    assert float((xc - xh).abs().max() / xh.abs().max()) <= 1e-6

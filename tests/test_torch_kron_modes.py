@@ -319,3 +319,34 @@ def test_vector_from_interior_pads_on_demand():
     assert torch.equal(v.data, ghost_pad(x, sp.pads, (False, False)))
     assert v._interior is None and torch.equal(v.interior, x)
     assert v.interior.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.parametrize("npts,pads,periodic", CASES)
+def test_bf16_modes_are_the_f32_modes_rounded_once(npts, pads, periodic):
+    """K1's bf16 instantiation computes in f32 and rounds on the store, and
+    so does its plain version: every mode of a bf16 operator equals the f32
+    operator of the same (bf16-valued) bands on the cast fields, rounded."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    _, op32, _, fields = _pair(npts, pads, periodic, 32, seed=3)
+    cast = {}
+    terms = [[cast.setdefault(id(B), B.to(bf16)) for B in term]
+             for term in op32.terms]
+    low = KroneckerSumOperator(op32.space.with_dtype(bf16), terms)
+    hi = KroneckerSumOperator(op32.space, [[B.to(f32) for B in term]
+                                           for term in low.terms])
+    x, b, d = (f.to(bf16) for f in fields)
+    x32, b32, d32 = (f.to(f32) for f in (x, b, d))
+    assert torch.equal(low._apply_interior(x),
+                       hi._apply_interior(x32).to(bf16))
+    assert torch.equal(low.dinv_apply(x), hi.dinv_apply(x32).to(bf16))
+    sp, sp32 = low.space, hi.space
+    assert torch.equal(
+        low.residual(StencilVector.from_interior(sp, x),
+                     StencilVector.from_interior(sp, b)),
+        hi.residual(StencilVector.from_interior(sp32, x32),
+                    StencilVector.from_interior(sp32, b32)).to(bf16))
+    for dd, dd32 in ((None, None), (d, d32)):
+        got = low.cheb_update(x, b, dd, 0.3, 0.7)
+        want = hi.cheb_update(x32, b32, dd32, 0.3, 0.7)
+        assert all(torch.equal(g, w.to(bf16)) for g, w in zip(got, want))
+    assert low.plan.tcols == hi.plan.tcols      # the f32 kernel's tile

@@ -160,8 +160,14 @@ def test_auto_and_guards():
     with pytest.raises(ValueError):       # the problem must be f64
         MixedPrecisionMG(poisson_problem(1, 16, degree=2, device="cpu",
                                          dtype=torch.float32), 2)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        MixedPrecisionMG(kron, 2, operator="kron", low_dtype=torch.bfloat16)
+    # bf16 cycles are an option like any other (parity: test_torch_bf16.py)
+    low = MixedPrecisionMG(kron, 2, operator="kron",
+                           low_dtype=torch.bfloat16)
+    assert low.levels32[0].A.space.dtype == torch.bfloat16
+    res = low.solve(tol=TOL, maxiter=60)
+    assert res.converged and res.x.interior.dtype == torch.float64
+    with pytest.raises(ValueError, match="low_dtype"):
+        MixedPrecisionMG(kron, 2, operator="kron", low_dtype=torch.float16)
     assert MixedPrecisionMG(kron, 2, operator="kron",
                             inner_cycles=0).inner_cycles == 1
     # the reference's guards are the same

@@ -105,17 +105,20 @@ def test_dw_b_pair_and_unported_options():
         tol=TOL, maxiter=30, b_pair=split_f64(pp.b.interior))
     assert it2 == it and torch.equal(x2.interior, x.interior)
     # dwrr and the defect-correction solver are ported (their parity tests
-    # are in test_torch_mixed.py); bf16 cycles are the option still open
+    # are in test_torch_mixed.py), and so are bf16 cycles (test_torch_bf16.py)
     assert MGPreconditionedCG(pp, 2, cfg, operator="kron",
                               precision="dwrr").replace_every == 3
     assert MixedPrecisionMG(pp, 2, cfg,
                             operator="kron").residual_mode == "twofloat"
-    with pytest.raises(NotImplementedError, match="bf16"):
-        MGPreconditionedCG(pp, 2, cfg, operator="kron",
-                           low_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        MixedPrecisionMG(pp, 2, cfg, operator="kron",
-                         low_dtype=torch.bfloat16)
+    low = MGPreconditionedCG(pp, 2, cfg, operator="kron", precision="dw",
+                             low_dtype=torch.bfloat16)
+    assert low.levels_pre[0].A.space.dtype == torch.bfloat16
+    res = low.solve(tol=TOL, maxiter=30)
+    assert res.converged and res.iterations <= 2 * it
+    res = MixedPrecisionMG(pp, 2, cfg, operator="kron",
+                           low_dtype=torch.bfloat16).solve(tol=TOL,
+                                                           maxiter=30)
+    assert res.converged and res.residuals[-1] <= TOL
     with pytest.raises(ValueError):
         MGPreconditionedCG(pp, 2, cfg, operator="kron", precision="dwx")
     with pytest.raises(ValueError):

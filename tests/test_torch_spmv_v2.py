@@ -130,7 +130,8 @@ def test_rbgs_color_matches_jax_v2(v2, npts, p, starts_off, color):
     ((8, 12, 20), (1, 1, 1)), ((10, 9, 130), (2, 2, 2)),
     ((9, 17, 33), (3, 3, 3)), ((5, 8, 70), (1, 2, 0)), ((16, 24), (2, 2)),
     ((40, 140), (3, 1)), ((600,), (2,)), ((5,), (1,))])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
 def test_unpack_pack_round_trip_is_bitwise(npts, pads, dtype):
     rng = np.random.default_rng(len(npts))
     band = torch.as_tensor(rng.standard_normal(
@@ -149,7 +150,10 @@ def test_unpack_pack_round_trip_is_bitwise(npts, pads, dtype):
 def _slabs(packed, band6):
     """Read every (tile, k0, k1) slab at the offsets the CUDA kernel
     computes (csrc/stencil_apply_v2.cu) and check it against the band."""
-    blk = packed["blk"].numpy()
+    blk = packed["blk"]
+    if blk.dtype == torch.bfloat16:      # numpy has no bf16: compare the bits
+        blk = blk.view(torch.int16)
+    blk = blk.numpy()
     n0, n1, n2p = packed["N"]
     n2 = band6.shape[5]
     T0, T1, T2 = packed["tile"]
@@ -174,7 +178,9 @@ def _slabs(packed, band6):
 @pytest.mark.parametrize("npts,pads,dtype", [
     ((9, 17, 33), (3, 3, 3), torch.float32),
     ((5, 10, 70), (1, 2, 1), torch.float64),
-    ((20, 37), (2, 3), torch.float32), ((300,), (3,), torch.float64)])
+    ((20, 37), (2, 3), torch.float32), ((300,), (3,), torch.float64),
+    ((9, 17, 33), (3, 3, 3), torch.bfloat16),
+    ((20, 37), (2, 3), torch.bfloat16), ((300,), (3,), torch.bfloat16)])
 def test_pack_layout_is_the_kernels(npts, pads, dtype):
     """The kernel finds each slab by a closed-form offset; the pack must
     put the band there, 16-byte aligned, ragged tiles compact."""
@@ -183,7 +189,8 @@ def test_pack_layout_is_the_kernels(npts, pads, dtype):
         tuple(2 * p + 1 for p in pads) + npts), dtype=dtype)
     packed = pack_band_v2(band, npts, pads)
     lead = (1,) * (3 - len(npts))
-    band6 = band.numpy().reshape(lead + band.shape[:len(npts)] + lead
+    bits = band.view(torch.int16) if dtype == torch.bfloat16 else band
+    band6 = bits.numpy().reshape(lead + band.shape[:len(npts)] + lead
                                  + band.shape[len(npts):])
     _slabs(packed, band6)
 
@@ -240,6 +247,10 @@ def test_v2_refuses_a_foreign_pack():
         stencil_apply_v2("spmv", None, x_pad[1:], (7, 12, 20), pads)
     with pytest.raises(ValueError, match="band_t has shape"):
         pack_band_v2(band, (8, 12, 21), pads)
+    # a pack of another dtype than the field's is foreign too
+    with pytest.raises(ValueError, match="slabs"):
+        stencil_apply_v2("spmv", None, torch.zeros(
+            (10, 14, 22), dtype=torch.bfloat16), npts, pads, packed=pk)
 
 
 def test_hierarchy_packs_every_banded_level(v2):

@@ -222,3 +222,39 @@ def test_convert_stencil_matrix():
     np.testing.assert_array_equal(prob.b.interior.numpy(),
                                   _f64(rp.b.interior))
     assert jnp.asarray(rp.A.band_t).dtype == jnp.float64
+
+
+@pytest.mark.parametrize("engine", ["v1", "v2"])
+@pytest.mark.parametrize("npts,pads,periodic", CASES[2:])
+def test_bf16_matrix_dot_and_residual(monkeypatch, engine, npts, pads,
+                                      periodic):
+    """A bf16 ``StencilMatrix`` (the low hierarchy of a bf16 cycle): ``dot``
+    and ``residual`` through either engine's plain version agree with f64
+    on the same bf16 values to one rounding, 2⁻⁸·(|A||x| + |b|); under v2
+    ``ensure_packed_v2`` packs bf16 slabs."""
+    monkeypatch.setenv("POMS_TPU_SPMV", engine)
+    bf16 = torch.bfloat16
+    _, ours = _pair(npts, pads, periodic, seed=11)
+    low = StencilMatrix(ours.space.with_dtype(bf16),
+                        band_t=ours.band_t.to(bf16)).ensure_packed_v2()
+    assert (low.packed_v2 is not None) == (engine == "v2")
+    if engine == "v2":
+        assert low.packed_v2["blk"].dtype == bf16
+    hi = StencilMatrix(ours.space, band_t=low.band_t.to(torch.float64))
+    mag = StencilMatrix(ours.space, band_t=low.band_t.to(torch.float64).abs())
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(npts)).to(bf16)
+    b = torch.from_numpy(rng.standard_normal(npts)).to(bf16)
+    xl, bl = (StencilVector.from_interior(low.space, t) for t in (x, b))
+    x64, b64 = (StencilVector.from_interior(hi.space, t.to(torch.float64))
+                for t in (x, b))
+    S = mag.dot(StencilVector.from_interior(
+        hi.space, x.to(torch.float64).abs())).interior
+    got = low.dot(xl).interior
+    assert got.dtype == bf16
+    assert ((got.to(torch.float64) - hi.dot(x64).interior).abs()
+            <= 2.0 ** -8 * S).all()
+    r = low.residual(xl, bl)
+    assert r.dtype == bf16
+    assert ((r.to(torch.float64) - hi.residual(x64, b64)).abs()
+            <= 2.0 ** -8 * (S + b64.interior.abs())).all()

@@ -80,3 +80,29 @@ def test_cpu_transfer_launches_no_kernel():
     before = port.apply_transfer.launches
     port.apply_transfer((tb,), torch.ones(P.shape[1], dtype=torch.float64))
     assert port.apply_transfer.launches == before
+
+
+@pytest.mark.parametrize("n_el_c,p", CASES[1:3])
+def test_bf16_transfer_rounds_once_per_axis(n_el_c, p):
+    """K7's bf16 plain version: each axis' taps multiplied and added in f32
+    on the bf16 weights and field, the addend inside the last axis' sum, one
+    rounding per axis; a bf16 field stays bf16 and counts no launch."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    P = prolongation_interior_1d(n_el_c, p)
+    nf, nc = P.shape
+    rng = np.random.default_rng(n_el_c)
+    tbs = tuple(port.bands_from_dense(P, bf16, "cpu") for _ in range(2))
+    hi = tuple(port.TransferBand(w=tb.w.to(f32), c0=tb.c0, n_in=tb.n_in)
+               for tb in tbs)
+    x = torch.from_numpy(rng.standard_normal((nc, nc))).to(bf16)
+    add = torch.from_numpy(rng.standard_normal((nf, nf))).to(bf16)
+    before = port.apply_transfer.launches
+    got = port.apply_transfer(tbs, x, add=add)
+    assert got.dtype == bf16 and port.apply_transfer.launches == before
+    mid = port.apply_transfer_axis(hi[0], x.to(f32), 0).to(bf16)
+    want = (add.to(f32) + port.apply_transfer_axis(hi[1], mid.to(f32), 1)
+            ).to(bf16)
+    assert torch.equal(got, want)
+    assert torch.equal(port.apply_transfer(tbs[:1], x[:, 0]),
+                       port.apply_transfer_axis(hi[0], x[:, 0].to(f32),
+                                                0).to(bf16))

@@ -273,3 +273,16 @@ def test_kron_df_plan_layout_and_limits():
              for _ in range(2)] for _ in range(5)]
     with pytest.raises(RuntimeError):
         port._df_c_args(port.build_kron_df_plan(free, (9, 9), (1, 1)))
+    # the limits: 2 u, 3 v, 4 histories, 4 terms.  Four terms with four
+    # histories fit (the periodic shifted 3D operator's shape: the first
+    # axis' band differs in every term but two); a third axis-2 band does not
+    assert port.CAPS_DW == {"u": 2, "v": 3, "w": 4, "t": 4}
+    K, M, S = (port.split_f64(torch.from_numpy(rng.standard_normal((9, 3))))
+               for _ in range(3))
+    four = [[S, M, M], [K, M, M], [M, K, M], [M, M, K]]
+    _, ints = port._df_c_args(port.build_kron_df_plan(four, (9,) * 3,
+                                                      (1,) * 3))
+    assert list(ints)[:4] == [2, 3, 4, 4]
+    three_u = [[M, M, M], [M, M, K], [M, M, S]]
+    with pytest.raises(RuntimeError, match="at most"):
+        port._df_c_args(port.build_kron_df_plan(three_u, (9,) * 3, (1,) * 3))

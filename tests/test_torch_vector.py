@@ -56,3 +56,24 @@ def test_vector_algebra_matches_jax(npts, p, periodic):
     assert z.data.shape == ps.padded_shape and not z.data.any()
     with pytest.raises(ValueError):
         StencilVector.from_interior(ps, torch.zeros(npts[:-1] + (1,)))
+
+
+@pytest.mark.parametrize("npts,p,periodic", CASES)
+def test_scalar_multiple_and_negation_match_jax(npts, p, periodic):
+    rs, ps = _spaces(npts, p, periodic)
+    x = np.random.default_rng(2).standard_normal(npts)
+    rx = RefVec.from_interior(rs, x)
+    px = StencilVector.from_interior(ps, torch.from_numpy(x))
+    for got, want in ((px * 0.3, rx * 0.3), (0.3 * px, 0.3 * rx),
+                      (-px, -rx)):
+        assert isinstance(got, StencilVector) and got.space is ps
+        np.testing.assert_array_equal(got.data.numpy(),
+                                      np.asarray(want.data))
+
+
+def test_space_coarsen_is_refused_as_in_jax():
+    rs, ps = _spaces((6, 9), 3, (True, False))
+    with pytest.raises(NotImplementedError):
+        rs.coarsen()
+    with pytest.raises(NotImplementedError):
+        ps.coarsen()
