@@ -42,9 +42,11 @@ exception is caught, so any failure exits non-zero:
 3d. K7     — restriction and prolongation (with the fused x + P·x_c) at
              every level pair of the 128³ hierarchy, at 513² → 257² and at
              every level pair of phase 17's periodic hierarchy (128³ ↔ 64³
-             down to 16³ ↔ 8³, W = n_in), f32 and f64: bit-equal to the
-             plain gathers; device time of
-             129³ ↔ 65³ beside its byte bound.
+             down to 16³ ↔ 8³, wrapped bands of 5 and 3 taps), f32 and
+             f64: one launch per transfer, bit-equal to the plain gathers;
+             device times of 129³ ↔ 65³ and of the periodic 128³ ↔ 64³
+             beside the byte bound and the library yardstick (one
+             torch.matmul per axis with the dense 1D transfer, no TF32).
 4. solve   — 3D Poisson, cubic B-splines, n_el = 128 (129³ unknowns), 5
              levels, Chebyshev(4) over [λmax/16, λmax] with ν1 = ν2 = 1,
              dw-precision MG-preconditioned CG to ‖r‖₂ ≤ 1e-10: it converges
@@ -135,8 +137,8 @@ exception is caught, so any failure exits non-zero:
              8³): the kron twofloat defect correction (eager and replayed)
              and the kron dw-PCG, K5 with 4 histories and K1 with two
              launches per pass; one banded periodic f64-mixed PCG; true
-             f64 residuals ≤ 5e-10; K7's time on the wide periodic transfers
-             (W = n_in) at 128³ ↔ 64³.
+             f64 residuals ≤ 5e-10; K7's time on the periodic transfers of
+             the solver's own levels at 128³ ↔ 64³.
 
 Cut against the earlier version to hold the run time: phase 2 times the
 plain K1 versions with 3 repetitions instead of 5.  Every phase logs what it
@@ -154,11 +156,14 @@ from phase 13's timing paths, the bf16 rows from phase 16 and K5's
 4-history row from phase 17; launches made to compare a kernel with its
 plain version are not counted.  Each kernel's ``bound_ms`` is the larger of
 its bytes (every input read once, every output written once) over 3.35 TB/s
-and its operations over 67 TFLOP/s (f32 outside the tensor cores), from
-this run's shapes; ``library_ms`` times one PyTorch call of the same
-function where there is one (``torch.sum`` for K4; a sparse CSR product,
-built on the card from the band, for the kernels that compute a banded
-spmv), which the port itself never calls.
+and its operations over the f32 rate outside the tensor cores (K5's
+adds and multiplies may not fuse: 33.5 T a second, half the published 67
+TFLOP/s, which counts an FMA as two), from this run's shapes;
+``library_ms`` times PyTorch's own calls for the same function where there
+are such (``torch.sum`` for K4; a sparse CSR product, built on the card
+from the band, for the kernels that compute a banded spmv; one
+``torch.matmul`` per axis with the dense 1D transfer, and the add, for
+K7), which the port itself never calls.
 """
 import json
 import math
@@ -217,6 +222,10 @@ K5_SHAPES += [((17, 33, 65), (3, 3, 3), (False,) * 3),
               ((300, 257), (3, 3), (False, False)), ((5000,), (2,), (True,))]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOPS = 67e12             # f32 outside the tensor cores, published
+# the same pipe in operations that do not fuse (an FMA counts two in 67 T):
+# 132 SMs x 128 f32 lanes x 1.98 GHz; the double-word kernels' adds and
+# multiplies may not contract, so this is their rate
+F32_OPS = F32_FLOPS / 2
 HEADLINE = dict(n_el=128, degree=3, levels=5, tol=1e-10, maxiter=30)
 K6_SIZES = (129 ** 3, 65 ** 3, 17 ** 3, 2 ** 20 + 1, 12345)
 K6_TOL = 1e-13                # of the sum of |terms|: the orders differ
@@ -478,6 +487,13 @@ def phase_k5(dev):
             f"residual {rel:.2e}")
         assert rel <= 1e-12, rel
         if npts == (129,) * 3:
+            res = twofloat.k5_resources(plan)
+            log(f"[K5] 129^3 p3 launch: tiles {plan.tiling} (T1, T2, planes "
+                f"a run), {res['threads']} threads a block; "
+                f"{res['registers']} registers a thread, "
+                f"{res['local_bytes']} bytes of local memory (spills), "
+                f"{res['smem_bytes']} bytes of shared memory a block, "
+                f"{res['blocks_per_sm']} blocks an SM")
             ph = x.to(torch.float32)
 
             def kernel():
@@ -497,14 +513,14 @@ def phase_k5(dev):
             result = {"max_abs_err": max(diff), "ms": _device_ms(kernel),
                       "plain_ms": _device_ms(plain, 2),
                       "bound_bytes_ms": 3 * n ** 3 * 4 / HBM_BYTES_PER_S * 1e3,
-                      "bound_ms": ops / F32_FLOPS * 1e3}
+                      "bound_ms": ops / F32_OPS * 1e3}
             log(f"[K5] 129^3 p3 A.p: device time kernel {result['ms']:.4f} "
                 f"ms, plain {result['plain_ms']:.4f} ms; bounds: bytes "
                 f"{result['bound_bytes_ms']:.4f} ms, operations "
                 f"{result['bound_ms']:.4f} ms ({ops // n ** 3} f32 "
-                f"operations per point at 67 TFLOP/s; none of them can "
-                f"fuse, so at most half that rate: "
-                f"{2 * result['bound_ms']:.4f} ms)")
+                f"operations per point, none of which may fuse, at "
+                f"{F32_OPS / 1e12:.1f} T a second): "
+                f"{100 * result['bound_ms'] / result['ms']:.1f}% of it")
     # the kernel's own error-free transformations: the toolbox's bits, and
     # exact in f64
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -645,7 +661,7 @@ def phase_k6(dev):
 def _k7_pairs():
     """(dim, 1D prolongation) of every transfer the paths apply:
     the level pairs of the 128^3 hierarchy, 513^2 <-> 257^2, and the level
-    pairs of phase 17's periodic hierarchy (wrapped rows: W = n_in)."""
+    pairs of phase 17's periodic hierarchy (wrapped rows)."""
     pairs = [(3, prolongation_interior_1d(n_el // 2, 3))
              for n_el in K7_LEVELS]
     pairs.append((2, prolongation_interior_1d(256, 3)))
@@ -654,10 +670,65 @@ def _k7_pairs():
     return pairs
 
 
+def _matmul_transfer(Ps, x, add=None):
+    """The library yardstick of K7: the tensor-product transfer by one
+    torch.matmul per axis with the dense 1D transfer (and one add)."""
+    for a, P in enumerate(Ps):
+        shape = list(x.shape)
+        if a == x.ndim - 1:
+            x = torch.matmul(x, P.T)
+        else:
+            lead = math.prod(shape[:a])
+            x = torch.matmul(P, x.reshape(lead, shape[a], -1)).reshape(
+                shape[:a] + [P.shape[0]] + shape[a + 1:])
+    return x if add is None else x + add
+
+
+def _k7_times(label, P, res, pro, xf, xc, dtype):
+    """Device times of K7, its plain version and the matmul yardstick for
+    one level pair, with the byte bound; the yardstick within 1e-5 of the
+    kernel's largest value (f32, no TF32) or 2^-6 (bf16: other roundings)."""
+    d = xf.ndim
+    dense = {"restrict": torch.as_tensor(np.ascontiguousarray(P.T),
+                                         device=xf.device).to(dtype),
+             "prolong+add": torch.as_tensor(P, device=xf.device).to(dtype)}
+    runs = {"restrict": (lambda: k7.apply_transfer(res, xf),
+                         lambda: k7.apply_transfer_plain(res, xf),
+                         lambda: _matmul_transfer((dense["restrict"],) * d,
+                                                  xf)),
+            "prolong+add": (
+                lambda: k7.apply_transfer(pro, xc, add=xf),
+                lambda: k7.apply_transfer_plain(pro, xc, add=xf),
+                lambda: _matmul_transfer((dense["prolong+add"],) * d, xc,
+                                         add=xf))}
+    size = xf.element_size()
+    rows = {}
+    for kind, (kernel, plain, library) in runs.items():
+        got, lib = kernel().float(), library().float()
+        rel = float((got - lib).abs().max() / got.abs().max())
+        assert rel <= (2.0 ** -6 if dtype == BF16 else 1e-5), (label, kind,
+                                                                rel)
+        ms, pl, lm = (_device_ms(kernel), _device_ms(plain, 5),
+                      _device_ms(library))
+        fields = {"restrict": xf.numel() + res[0].n_out ** d,
+                  "prolong+add": xc.numel() + 2 * xf.numel()}[kind]
+        bound = fields * size / HBM_BYTES_PER_S * 1e3
+        log(f"[K7{'' if dtype != BF16 else ' bf16'}] {label} {kind} (one "
+            f"launch, widths {res[0].width}/{pro[0].width}): kernel "
+            f"{ms * 1e3:.2f} us, plain {pl:.4f} ms, {d} torch.matmul"
+            f"{' + add' if kind != 'restrict' else ''} {lm * 1e3:.2f} us, "
+            f"bound {bound * 1e3:.2f} us (bytes): {100 * bound / ms:.1f}% "
+            f"of it")
+        rows[kind] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pl,
+                      "bound_ms": bound, "library_ms": lm}
+    return rows
+
+
 def phase_k7(dev):
     """K7 against the plain gathers: bit-equal at every level pair of the
     headline hierarchy, in 2D and at every level pair of the periodic
-    hierarchy, both dtypes; times at 129^3 <-> 65^3."""
+    hierarchy, both dtypes, one launch per transfer; times beside the
+    matmul yardstick at 129^3 <-> 65^3 and at the periodic 128^3 <-> 64^3."""
     g = torch.Generator(device="cpu").manual_seed(7)
     row = {}
     for d, P in _k7_pairs():
@@ -676,29 +747,24 @@ def phase_k7(dev):
                         lambda: k7.apply_transfer(pro, xc, add=xf),
                         lambda: k7.apply_transfer_plain(pro, xc, add=xf))}
             for label, (kernel, plain) in runs.items():
+                before = k7.apply_transfer.launches
                 got = kernel()
                 torch.cuda.synchronize()
+                assert k7.apply_transfer.launches == before + 1, label
                 want = plain()
                 if not torch.equal(got, want):
                     raise AssertionError(
                         f"K7 {label} is not bit-equal to plain at {nf}^{d} "
                         f"{dtype}: {float((got - want).abs().max())}")
-                if nf == 129 and dtype == torch.float32:
-                    ms, pl = _device_ms(kernel), _device_ms(plain, 5)
-                    fields = {"restrict": nf ** d + nc ** d,
-                              "prolong+add": nc ** d + 2 * nf ** d}[label]
-                    bound = fields * 4 / HBM_BYTES_PER_S * 1e3
-                    log(f"[K7] {nf}^3 <-> {nc}^3 f32 {label} ({d} launches, "
-                        f"widths {res[0].width}/{pro[0].width}): kernel "
-                        f"{ms * 1e3:.2f} us, plain {pl:.4f} ms, bound "
-                        f"{bound * 1e3:.2f} us (bytes): "
-                        f"{100 * bound / ms:.1f}% of it")
-                    if label == "restrict":
-                        row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pl,
-                               "bound_ms": bound}
             log(f"[K7] {nf}^{d} <-> {nc}^{d} {dtype}, widths "
-                f"{res[0].width}/{pro[0].width}: restriction and "
-                f"prolongation (+ add) bit-equal to plain")
+                f"{res[0].width}/{pro[0].width}"
+                f"{' (wrapped)' if res[0].wrap else ''}: restriction and "
+                f"prolongation (+ add) bit-equal to plain, one launch each")
+            if nf in (129, 128) and d == 3 and dtype == torch.float32:
+                rows = _k7_times(f"{nf}^3 <-> {nc}^3 f32", P, res, pro, xf,
+                                 xc, dtype)
+                if nf == 129:
+                    row = rows["restrict"]
     return row
 
 
@@ -1628,18 +1694,9 @@ def phase_k7_bf16(dev):
             if got.dtype != BF16 or not torch.equal(got, plain()):
                 raise AssertionError(f"K7 bf16 {label} is not bit-equal to "
                                      f"plain at {nf}^{d}")
-            if nf == 129:
-                ms, pl = _device_ms(kernel), _device_ms(plain, 5)
-                fields = {"restrict": nf ** d + nc ** d,
-                          "prolong+add": nc ** d + 2 * nf ** d}[label]
-                bound = fields * 2 / HBM_BYTES_PER_S * 1e3
-                log(f"[K7 bf16] {nf}^3 <-> {nc}^3 {label}: kernel "
-                    f"{ms * 1e3:.2f} us, plain {pl:.4f} ms, bound "
-                    f"{bound * 1e3:.2f} us (bytes): "
-                    f"{100 * bound / ms:.1f}% of it")
-                if label == "restrict":
-                    row = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pl,
-                           "bound_ms": bound}
+        if nf == 129:
+            row = _k7_times(f"{nf}^3 <-> {nc}^3", P, res, pro, xf, xc,
+                            BF16)["restrict"]
         log(f"[K7 bf16] {nf}^{d} <-> {nc}^{d}, widths {res[0].width}/"
             f"{pro[0].width}: restriction and prolongation (+ add) bit-equal "
             f"to plain")
@@ -1701,10 +1758,16 @@ def phase_k5_four(dev):
             ops = (9 * (7 * 9 + 6 * 20) + 4 * 20) * n_el ** 3
             result = {"max_abs_err": 0.0, "ms": _device_ms(kernel),
                       "plain_ms": _device_ms(plain, 2),
-                      "bound_ms": ops / F32_FLOPS * 1e3}
+                      "bound_ms": ops / F32_OPS * 1e3}
+            res = twofloat.k5_resources(plan)
             log(f"[K5 4h] periodic 128^3 p3 A.p: kernel {result['ms']:.4f} "
                 f"ms, plain {result['plain_ms']:.4f} ms; bound (operations, "
-                f"{ops // n_el ** 3} per point) {result['bound_ms']:.4f} ms")
+                f"{ops // n_el ** 3} per point at {F32_OPS / 1e12:.1f} T a "
+                f"second) {result['bound_ms']:.4f} ms: "
+                f"{100 * result['bound_ms'] / result['ms']:.1f}% of it; "
+                f"tiles {plan.tiling}, {res['registers']} registers, "
+                f"{res['local_bytes']} bytes spilled, {res['blocks_per_sm']} "
+                f"blocks an SM")
         del prob, A, tdf, plan
         torch.cuda.empty_cache()
     return result
@@ -1896,14 +1959,15 @@ def phase_periodic(dev):
     tb = mg.levels64[0].prolong[0]
     log(f"[periodic] 128^3 p3 shift 1, {h['levels']} levels (coarsest "
         f"{mg.levels64[-1].A.space.npts}); transfer widths "
-        f"{mg.levels64[0].restrict[0].width}/{tb.width} (W = n_in); K1 "
+        f"{mg.levels64[0].restrict[0].width}/{tb.width} (wrapped: "
+        f"{tb.wrap}); K1 "
         f"launches per pass {len(mg.levels64[0].A.plan.plans)}")
     it, ms, grown = _solve_both_ways("periodic twofloat", mg, true_residual,
                                      PERIODIC_MAXITER)
     assert grown["residual_kron_df"] > 0 and grown["kron_mode.cheb"] > 0
     log(f"[periodic] kron twofloat defect correction: {it} corrections at "
         f"{ms:.3f} ms replayed; launches of the eager solve {_short(grown)}")
-    # K7 on the wide transfers of the top level pair
+    # K7 on the periodic transfers of the top level pair
     lev = mg.levels32[0]
     g = torch.Generator(device="cpu").manual_seed(9)
     xf = torch.randn((128,) * 3, generator=g).to(dev)
@@ -2028,13 +2092,13 @@ def main():
     new_rows = [
         ("dw_reduce", "dw_reduce.cu", "poms_tpu/ops/twofloat.py:282", k6_res),
         ("dw_update", "dw_update.cu", "poms_tpu/mg/mixed.py:507", k6_res),
-        ("transfer", "transfer.cu", "poms_tpu/ops/transfer.py:74",
+        ("transfer", "transfer.cu", "poms_tpu/ops/transfer.py:88",
          {"transfer": k7_res})]
     kernels += [{
         "name": name, "route": "cuda",
         "source": f"poms_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": solve["launches"][name] + defect[name],
-        **res[name], "bound_by": "bytes", "library_ms": None}
+        "bound_by": "bytes", "library_ms": None, **res[name]}
         for name, src, replaces, res in new_rows]
     csr_ms = k2["spmv"]["library_ms"]
     kernels += [{
@@ -2106,11 +2170,11 @@ def main():
     kernels.append({
         "name": "transfer.bf16", "route": "cuda",
         "source": "poms_tpu_torch/csrc/transfer.cu",
-        "replaces": "poms_tpu/ops/transfer.py:74",
+        "replaces": "poms_tpu/ops/transfer.py:88",
         "launches": bf16_paths["kron"]["transfer@bf16"]
         + bf16_paths["K2"]["transfer@bf16"]
         + bf16_paths["K3"]["transfer@bf16"],
-        **k7_bf16, "bound_by": "bytes", "library_ms": None})
+        "bound_by": "bytes", **k7_bf16})
     kernels.append({
         "name": "residual_kron_df.4_histories", "route": "cuda",
         "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",

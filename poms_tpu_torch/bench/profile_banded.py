@@ -172,7 +172,7 @@ def main():
         "kernels": sum(e.count for e in stats) / reps,
         "k2_ms": share("stencil_apply_kernel"),
         "k3_ms": share("stencil_apply_v2_kernel"),
-        "k7_ms": share("transfer_axis_kernel"),
+        "k7_ms": share("transfer_kernel"),
         "engine": "v2" if dispatch.engine() is stencil_apply_v2 else "v1",
         "replayed_step_ms": replayed_ms,
         "replayed_profiled_step_ms": r_profiled_ms,

@@ -151,7 +151,7 @@ def main():
         "k5_ms": share("kron_march_dw_kernel"),
         "k6r_ms": share("dw_partial_kernel") + share("dw_final_kernel"),
         "k6u_ms": share("dw_update_kernel"),
-        "k7_ms": share("transfer_axis_kernel"),
+        "k7_ms": share("transfer_kernel"),
         "launches": launches,
         "replayed_step_ms": replayed_ms,
         "replayed_profiled_step_ms": r_profiled_ms,

@@ -23,7 +23,7 @@ from poms_tpu_torch.models.bspline import Spline1D
 from poms_tpu_torch.models.periodic import PeriodicProblem
 from poms_tpu_torch.models.poisson import PoissonProblem
 from poms_tpu_torch.ops.cholesky import DenseCholesky
-from poms_tpu_torch.ops.transfer import TransferBand
+from poms_tpu_torch.ops.transfer import TransferBand, bands_from_dense
 
 __all__ = ["tensor", "space", "kron_operator", "stencil_matrix", "operator",
            "transfer_band", "cholesky", "levels", "problem", "lams",
@@ -86,9 +86,19 @@ def operator(ref_A, device="cpu"):
 
 
 def transfer_band(tb, device="cpu") -> TransferBand:
-    return TransferBand(w=tensor(tb.w, device),
-                        c0=tensor(tb.c0, device).to(torch.int64),
-                        n_in=int(tb.n_in))
+    """The band as it is, or, where its rows wrap around the end of the axis
+    (the JAX package bands a periodic transfer as wide as the axis), the
+    port's narrower wrapped band of the same matrix."""
+    w, c0, n_in = tensor(tb.w, device), np.asarray(tb.c0), int(tb.n_in)
+    dense = np.zeros((w.shape[0], n_in))
+    cols = (c0[:, None] + np.arange(w.shape[1])) % n_in
+    dense[np.arange(w.shape[0])[:, None], cols] = \
+        w.to(torch.float64).cpu().numpy()
+    wrapped = bands_from_dense(dense, w.dtype, device)
+    if wrapped.wrap:
+        return wrapped
+    return TransferBand(w=w, c0=tensor(c0, device).to(torch.int64),
+                        n_in=n_in)
 
 
 def cholesky(ch, device="cpu") -> DenseCholesky:

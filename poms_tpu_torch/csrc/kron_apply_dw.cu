@@ -36,6 +36,17 @@
 // would push past the limit of 255; one with 4 (the periodic shifted 3D
 // operator: sigma M M M, K M M, M K M, M M K) runs the 4-history one, which
 // may spill and is slower, and is bit-equal all the same.
+//
+// Redesigns that were measured and not kept (129^3, p = 3, NVIDIA H100 80GB
+// HBM3 at 700 W; ops/twofloat.py::k5_resources reads the registers): the
+// band rows and the axis-0 ring in shared memory, two columns a thread, no
+// branch on the plan, two blocks of 128 threads an SM (72-79 registers, no
+// spill): 0.335-0.355 ms; the same with the ring back in registers, three
+// blocks an SM (145 registers): 0.343 ms; against 0.327-0.332 ms for this
+// design.  Clock counters in the first showed its arithmetic passes
+// issuing about 2.3 f32 instructions a cycle per SM with 8 warps, the rate
+// this design's time implies too; runs of fewer planes (more blocks) lost
+// more to the blocks' uneven spread over the SMs than they gained.
 
 #include "dw_eft.cuh"
 #include "kron_march.cuh"
@@ -252,17 +263,16 @@ kron_march_dw_kernel(const Args a) {
           y[k] = s;
         }
       }
+      // the terms in order, each its history's y: the choice is a branch
+      // around the add, so y is never indexed by a value (which would put it
+      // in local memory)
       dw ax = dw{0.0f, 0.0f};
 #pragma unroll
-      for (int r = 0; r < kCT; ++r) {
-        if (r < pl.nt) {
-          dw term = y[0];
+      for (int r = 0; r < kCT; ++r)
 #pragma unroll
-          for (int k = 1; k < CW; ++k)
-            if (pl.term_w[r] == k) term = y[k];
-          ax = r == 0 ? term : dw_add(ax, term);
-        }
-      }
+        for (int k = 0; k < CW; ++k)
+          if (r < pl.nt && pl.term_w[r] == k)
+            ax = r == 0 ? y[k] : dw_add(ax, y[k]);
       const int64_t idx = ((int64_t)i * g.n1 + gj) * g.n2 + gl;
       const dw b = a.bh != nullptr ? dw{a.bh[idx], a.bl[idx]}
                                    : dw{0.0f, 0.0f};
@@ -301,6 +311,62 @@ int launch_p(const Args& a, cudaStream_t stream) {
   return a.p.nw <= 3 ? launch_pw<P, 3>(a, stream) : launch_pw<P, 4>(a, stream);
 }
 
+// what the launch of `a` gets: registers and local memory (spills) a
+// thread, shared memory a block, blocks an SM holds
+template <int P, int CW>
+int resources_pw(const Args& a, int* out) {
+  const auto fn = kron_march_dw_kernel<P, CW>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  const size_t bytes = smem_bytes<P, CW>(a.g);
+  if (err == cudaSuccess && bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                        a.g.threads, bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)bytes;
+  out[3] = blocks;
+  return 0;
+}
+
+template <int P>
+int resources_p(const Args& a, int* out) {
+  return a.p.nw <= 3 ? resources_pw<P, 3>(a, out) : resources_pw<P, 4>(a, out);
+}
+
+// geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
+// plan: nu nv nw nt u_lab[kCU] v_src[kCV] v_lab[kCV] w_src[kCW] w_lab[kCW]
+//       term_w[kCT]
+bool parse(const int* geo, const int* plan, Args& a, int& P) {
+  Geometry& g = a.g;
+  g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
+  g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];
+  P = geo[6];
+  g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
+  g.R = geo[11];
+  g.s0 = (int64_t)g.n1 * g.n2, g.s1 = g.n2, g.s2 = 1;  // contiguous fields
+  Plan& p = a.p;
+  const int* q = plan;
+  p.nu = *q++, p.nv = *q++, p.nw = *q++, p.nt = *q++;
+  for (int k = 0; k < kCU; ++k) p.u_lab[k] = *q++;
+  for (int k = 0; k < kCV; ++k) p.v_src[k] = *q++;
+  for (int k = 0; k < kCV; ++k) p.v_lab[k] = *q++;
+  for (int k = 0; k < kCW; ++k) p.w_src[k] = *q++;
+  for (int k = 0; k < kCW; ++k) p.w_lab[k] = *q++;
+  for (int k = 0; k < kCT; ++k) p.term_w[k] = *q++;
+  return !(p.nu < 1 || p.nu > kCU || p.nv < 1 || p.nv > kCV || p.nw < 1 ||
+           p.nw > kCW || p.nt < 1 || p.nt > kCT || g.T1 < 1 || g.T2 < 1 ||
+           g.chunk < 1);
+}
+
 // the error-free transformations on their own, for the exactness check:
 // out is (8, n): two_sum(ah, bh), two_prod(ah, bh), dw_mul(a, b), dw_add(a, b)
 __global__ void eft_test_kernel(const float* ah, const float* al,
@@ -319,9 +385,7 @@ __global__ void eft_test_kernel(const float* ah, const float* al,
 
 extern "C" {
 
-// geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
-// plan: nu nv nw nt u_lab[kCU] v_src[kCV] v_lab[kCV] w_src[kCW] w_lab[kCW]
-//       term_w[kCT]
+// geo and plan: as parse() reads them (ops/twofloat.py::_df_c_args)
 int kron_residual_dw(const float* xh, const float* xl, const float* bh,
                      const float* bl, const float* b0h, const float* b0l,
                      const float* b1h, const float* b1l, const float* b2h,
@@ -332,25 +396,8 @@ int kron_residual_dw(const float* xh, const float* xl, const float* bh,
   a.band_h[0] = b0h, a.band_h[1] = b1h, a.band_h[2] = b2h;
   a.band_l[0] = b0l, a.band_l[1] = b1l, a.band_l[2] = b2l;
   a.rh = rh, a.rl = rl, a.negate = negate;
-  Geometry& g = a.g;
-  g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
-  g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];
-  const int P = geo[6];
-  g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
-  g.R = geo[11];
-  g.s0 = (int64_t)g.n1 * g.n2, g.s1 = g.n2, g.s2 = 1;  // contiguous fields
-  Plan& p = a.p;
-  const int* q = plan;
-  p.nu = *q++, p.nv = *q++, p.nw = *q++, p.nt = *q++;
-  for (int k = 0; k < kCU; ++k) p.u_lab[k] = *q++;
-  for (int k = 0; k < kCV; ++k) p.v_src[k] = *q++;
-  for (int k = 0; k < kCV; ++k) p.v_lab[k] = *q++;
-  for (int k = 0; k < kCW; ++k) p.w_src[k] = *q++;
-  for (int k = 0; k < kCW; ++k) p.w_lab[k] = *q++;
-  for (int k = 0; k < kCT; ++k) p.term_w[k] = *q++;
-  if (p.nu < 1 || p.nu > kCU || p.nv < 1 || p.nv > kCV || p.nw < 1 ||
-      p.nw > kCW || p.nt < 1 || p.nt > kCT || g.T1 < 1 || g.T2 < 1 ||
-      g.chunk < 1 || (bh == nullptr) != (bl == nullptr))
+  int P;
+  if (!parse(geo, plan, a, P) || (bh == nullptr) != (bl == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (P) {  // the instantiated half-widths
@@ -359,6 +406,21 @@ int kron_residual_dw(const float* xh, const float* xl, const float* bh,
     case 3: return launch_p<3>(a, st);
     case 5: return launch_p<5>(a, st);
     default: return (int)cudaErrorInvalidValue;  // refused: no such kernel
+  }
+}
+
+// out: registers a thread, local memory a thread in bytes (spills), shared
+// memory a block in bytes, blocks an SM holds, for the launch of geo and plan
+int kron_residual_dw_resources(const int* geo, const int* plan, int* out) {
+  Args a;
+  int P;
+  if (!parse(geo, plan, a, P)) return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 1: return resources_p<1>(a, out);
+    case 2: return resources_p<2>(a, out);
+    case 3: return resources_p<3>(a, out);
+    case 5: return resources_p<5>(a, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

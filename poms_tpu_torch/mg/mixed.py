@@ -59,7 +59,6 @@ from poms_tpu_torch.mg.solver import (LamsOwner, SolveResult, build_levels,
                                       log_rho)
 from poms_tpu_torch.models.poisson import PoissonProblem
 from poms_tpu_torch.ops.cholesky import DenseCholesky
-from poms_tpu_torch.ops.transfer import TransferBand
 from poms_tpu_torch.ops.twofloat import (build_kron_df_plan, dw_dot,
                                          dw_dot_stack, dw_norm2, dw_update,
                                          merge_f64, residual_kron_df,
@@ -83,7 +82,7 @@ def _cast_levels(levels, dtype: torch.dtype):
 
     def tbands(tbs):
         return None if tbs is None else tuple(
-            TransferBand(w=c(tb.w), c0=tb.c0, n_in=tb.n_in) for tb in tbs)
+            replace(tb, w=c(tb.w)) for tb in tbs)
 
     out = []
     for lev in levels:

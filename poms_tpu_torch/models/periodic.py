@@ -13,9 +13,11 @@ hierarchy, and returns the Level list the cycles consume.  The 1D bands, the
 coarse 1D triple products and the right-hand side are host numpy, as in the
 JAX package, so both packages hold the same numbers.
 
-A periodic prolongation has wrapped rows, so its banded form is as wide as
-the coarse axis (``ops/transfer.py::bands_from_dense`` returns W = n_in, in
-both packages) and K7 then does n_in taps per point.
+A periodic prolongation has rows that wrap around the end of the axis.  The
+JAX package bands them as wide as the axis (W = n_in); the port's
+``ops/transfer.py::bands_from_dense`` returns the narrowest cyclic band
+(``wrap=True``: ⌈(p+2)/2⌉ taps for the prolongation, p + 2 for the
+restriction), whose taps add up to the same bits.
 """
 from __future__ import annotations
 

@@ -48,6 +48,7 @@ from poms_tpu_torch.ops.kron import (KronPlan, band_labels, build_kron_plan,
 __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_mul", "dw_mul_fd", "dw_neg", "residual_kron_df",
            "residual_kron_df_plain", "build_kron_df_plan", "k5_step_cost",
+           "k5_resources",
            "eft_on_card",
            "dw_norm2", "dw_dot", "dw_sum_tree", "dw_dot_stack",
            "dw_norm2_plain", "dw_dot_plain", "dw_sum_tree_plain",
@@ -230,6 +231,8 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.kron_residual_dw.argtypes = [ptr] * 14 + [i32, ptr]
     lib.kron_residual_dw.restype = i32
+    lib.kron_residual_dw_resources.argtypes = [ptr] * 3
+    lib.kron_residual_dw_resources.restype = i32
     lib.kron_dw_eft_test.argtypes = [ptr] * 5 + [i32, ptr]
     lib.kron_dw_eft_test.restype = i32
     lib.kron_apply_dw_error_string.argtypes = [i32]
@@ -333,6 +336,19 @@ def _launch_df(plan: KronPlan, bh, bl, xh, xl, negate, stream):
 
 
 residual_kron_df.launches = 0
+
+
+def k5_resources(plan: KronPlan) -> dict:
+    """What K5's launch of ``plan`` gets on the card: registers and local
+    memory (spilled registers) a thread, shared memory a block, blocks an
+    SM holds at once, threads a block."""
+    geo, ints = _df_c_args(plan)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(plan.device):
+        _raise_if(_library().kron_residual_dw_resources(geo, ints, out),
+                  "k5_resources")
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
+            "blocks_per_sm": out[3], "threads": geo[10]}
 
 
 def eft_on_card(ah, al, bh, bl):

@@ -16,7 +16,8 @@ from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.mg.cycles import CycleConfig
 from poms_tpu_torch.mg.mixed import MGPreconditionedCG, MixedPrecisionMG
 from poms_tpu_torch.mg.solver import MultigridSolver
-from poms_tpu_torch.models.bspline import prolongation_interior_1d
+from poms_tpu_torch.models.bspline import (prolongation_interior_1d,
+                                           prolongation_periodic_1d)
 from poms_tpu_torch.mg.smoother import SmootherConfig
 from poms_tpu_torch.models.periodic import periodic_problem
 from poms_tpu_torch.models.poisson import poisson_problem
@@ -203,6 +204,24 @@ def test_k5_kernel_is_bit_equal_to_plain(dev, npts, pads, periodic, flags):
                                            periodic)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("four", [False, True])
+def test_k5_spills_nothing(dev, four):
+    """At half-width 3 the compiled K5 keeps its values in registers (no
+    local memory) and its 129^3 launch fits an SM, with four histories as
+    well."""
+    npts, pads = (129,) * 3, (3,) * 3
+    if four:
+        tdf = _periodic_df_terms(npts, pads, dev, seed=5)
+    else:
+        terms, _ = _mode_operands(npts, pads, torch.float64, dev, 0, seed=5)
+        split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
+        tdf = [[split[id(B)] for B in t] for t in terms]
+    plan = twofloat.build_kron_df_plan(tdf, npts, pads)
+    res = twofloat.k5_resources(plan)
+    assert res["local_bytes"] == 0, res
+    assert 0 < res["registers"] <= 255 and res["blocks_per_sm"] >= 1, res
 
 
 def test_k5_refuses_what_it_lacks(dev):
@@ -573,13 +592,32 @@ def test_k6u_is_bit_equal_to_plain(dev, n):
         twofloat.dw_update("dwrr", f[0], f[1], f[2], f[3], None, s0, s1)
 
 
-@pytest.mark.parametrize("n_el,d", [(128, 3), (16, 3), (512, 2), (64, 1)])
+def _k7_case(kind, n_el):
+    """The 1D prolongation of a level pair: open-knot (the Poisson
+    hierarchies) or periodic (wrapped rows)."""
+    if kind == "periodic":
+        return prolongation_periodic_1d(n_el // 2, 3)
+    return prolongation_interior_1d(n_el // 2, 3)
+
+
+# every level pair of the 128^3 hierarchies (open-knot and periodic), the
+# 2D 513^2 <-> 257^2 pair and a 1D one
+K7_CASES = [(kind, n_el, 3) for kind in ("open", "periodic")
+            for n_el in (128, 64, 32, 16)] + [("open", 512, 2),
+                                              ("open", 64, 1)]
+
+
+@pytest.mark.parametrize("kind,n_el,d", K7_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k7_is_bit_equal_to_plain(dev, n_el, d, dtype):
-    P = prolongation_interior_1d(n_el // 2, 3)
+def test_k7_is_bit_equal_to_plain(dev, kind, n_el, d, dtype):
+    """One launch per transfer, every axis in it; the bits of the plain
+    gathers (periodic: wrapped bands of p + 2 and 2 taps, and the bits of
+    the W = n_in evaluation, up to the sign of a zero)."""
+    P = _k7_case(kind, n_el)
     nf, nc = P.shape
     pro = tuple(k7.bands_from_dense(P, dtype, dev) for _ in range(d))
     res = tuple(k7.bands_from_dense(P.T, dtype, dev) for _ in range(d))
+    assert res[0].wrap == pro[0].wrap == (kind == "periodic")
     g = torch.Generator().manual_seed(n_el)
     xf = torch.randn((nf,) * d, generator=g,
                      dtype=torch.float64).to(dev).to(dtype)
@@ -587,10 +625,20 @@ def test_k7_is_bit_equal_to_plain(dev, n_el, d, dtype):
                      dtype=torch.float64).to(dev).to(dtype)
     before = k7.apply_transfer.launches
     got = k7.apply_transfer(res, xf)
-    assert k7.apply_transfer.launches == before + d
+    assert k7.apply_transfer.launches == before + 1
     assert torch.equal(got, k7.apply_transfer_plain(res, xf))
-    assert torch.equal(k7.apply_transfer(pro, xc, add=xf),
-                       k7.apply_transfer_plain(pro, xc, add=xf))
+    up = k7.apply_transfer(pro, xc, add=xf)
+    assert k7.apply_transfer.launches == before + 2
+    assert torch.equal(up, k7.apply_transfer_plain(pro, xc, add=xf))
+    if kind == "periodic":      # the JAX package's W = n_in bands
+        full = [k7.TransferBand(w=torch.as_tensor(M, dtype=dtype, device=dev),
+                                c0=torch.zeros(M.shape[0], dtype=torch.int64,
+                                               device=dev), n_in=M.shape[1])
+                for M in (P.T, P)]
+        assert torch.equal(got + 0.0, k7.apply_transfer_plain(
+            (full[0],) * d, xf) + 0.0)
+        assert torch.equal(up + 0.0, k7.apply_transfer_plain(
+            (full[1],) * d, xc, add=xf) + 0.0)
     # a strided view is made contiguous by the wrapper
     pad = torch.zeros((nf + 2,) * d, dtype=dtype, device=dev)
     inner = pad[(slice(1, nf + 1),) * d]
@@ -840,11 +888,13 @@ def test_k1_bf16_stops_at_half_width_3(dev):
         kron_apply(terms, x.to(BF16), (16,) * 3, (5,) * 3, (False,) * 3)
 
 
-@pytest.mark.parametrize("n_el,d", [(32, 3), (16, 3), (128, 2), (64, 1)])
-def test_k7_bf16_is_bit_equal_to_plain(dev, n_el, d):
+@pytest.mark.parametrize("kind,n_el,d", K7_CASES)
+def test_k7_bf16_is_bit_equal_to_plain(dev, kind, n_el, d):
     """The f32 tap sums are taken in the plain version's order with
-    uncontracted operations, so the bf16 results agree bit for bit."""
-    P = prolongation_interior_1d(n_el // 2, 3)
+    uncontracted operations and rounded to bf16 between the axes, as the
+    plain version rounds its field, so the bf16 results agree bit for bit;
+    one launch per transfer."""
+    P = _k7_case(kind, n_el)
     nf, nc = P.shape
     pro = tuple(k7.bands_from_dense(P, BF16, dev) for _ in range(d))
     res = tuple(k7.bands_from_dense(P.T, BF16, dev) for _ in range(d))
@@ -853,7 +903,7 @@ def test_k7_bf16_is_bit_equal_to_plain(dev, n_el, d):
     xc = torch.randn((nc,) * d, generator=g).to(dev).to(BF16)
     before = k7.apply_transfer.launches_by_dtype["bf16"]
     got = k7.apply_transfer(res, xf)
-    assert k7.apply_transfer.launches_by_dtype["bf16"] == before + d
+    assert k7.apply_transfer.launches_by_dtype["bf16"] == before + 1
     assert got.dtype == BF16
     assert torch.equal(got, k7.apply_transfer_plain(res, xf))
     assert torch.equal(k7.apply_transfer(pro, xc, add=xf),

@@ -79,6 +79,15 @@ def test_periodic_prolongation_two_scale():
     np.testing.assert_allclose(P.T @ dense(Kf) @ P, dense(Kc), atol=1e-10)
 
 
+def _dense(tb):
+    """The (n_out, n_in) matrix of a transfer band of either package."""
+    w, c0 = np.asarray(tb.w), np.asarray(tb.c0)
+    out = np.zeros((w.shape[0], tb.n_in))
+    cols = (c0[:, None] + np.arange(w.shape[1])) % tb.n_in
+    np.add.at(out, (np.arange(w.shape[0])[:, None], cols), w)
+    return out
+
+
 @pytest.mark.parametrize("dim,n_el,p,seed", [(1, 64, 2, 0), (2, 32, 3, 5),
                                              (3, 16, 2, 1)])
 def test_host_parts_are_bitwise(dim, n_el, p, seed):
@@ -120,12 +129,20 @@ def test_host_parts_are_bitwise(dim, n_el, p, seed):
             for tbs, rtbs in ((lev.prolong, rlev.prolong),
                               (lev.restrict, rlev.restrict)):
                 for tb, rtb in zip(tbs or (), rtbs or ()):
+                    # the same matrix; the reference's W = n_in band is the
+                    # port's wrapped one once carried across
+                    np.testing.assert_array_equal(_dense(tb), _dense(rtb))
+                    ctb = convert.transfer_band(rtb)
+                    assert tb.wrap and ctb.wrap
                     np.testing.assert_array_equal(tb.w.numpy(),
-                                                  np.asarray(rtb.w))
+                                                  ctb.w.numpy())
                     np.testing.assert_array_equal(tb.c0.numpy(),
-                                                  np.asarray(rtb.c0))
-        # the wrapped rows make the banded form as wide as the coarse axis
-        assert levels[0].prolong[0].width == n_el // 2
+                                                  ctb.c0.numpy())
+        # the wrapped rows: the narrowest cyclic bands, p + 2 taps a
+        # restricted point, ceil((p + 2) / 2) a prolongated one
+        assert levels[0].prolong[0].width == (p + 3) // 2
+        assert levels[0].restrict[0].width == p + 2
+        assert rlevels[0].prolong[0].width == n_el // 2
         np.testing.assert_allclose(levels[-1].chol.L.numpy(),
                                    np.asarray(rlevels[-1].chol.L),
                                    rtol=1e-10, atol=1e-12)
