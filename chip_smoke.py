@@ -36,16 +36,19 @@ exception is caught, so any failure exits non-zero:
              tree at 129³, 65³, 17³, 2²⁰+1 and 12,345 points, as a norm
              (k = 1) and as the step's stacked pair (k = 2, absent low
              words): |Δ| ≤ 1e-13·Σ|terms| (the orders of addition differ),
-             two runs bit-equal; the elementwise recurrences (K6u) bit-equal
-             to their plain versions in every mode; device times at 129³
-             beside their byte bounds.
+             two runs bit-equal, one launch a call; the elementwise
+             recurrences (K6u) bit-equal to their plain versions in every
+             mode; device times at 129³ beside their byte bounds and, for
+             K6r's three calls, beside a yardstick that reads the same
+             bytes (torch.dot of two f64 vectors, torch.linalg.vector_norm
+             of one).
 3d. K7     — restriction and prolongation (with the fused x + P·x_c) at
              every level pair of the 128³ hierarchy, at 513² → 257² and at
              every level pair of phase 17's periodic hierarchy (128³ ↔ 64³
              down to 16³ ↔ 8³, wrapped bands of 5 and 3 taps), f32 and
              f64: one launch per transfer, bit-equal to the plain gathers;
-             device times of 129³ ↔ 65³ and of the periodic 128³ ↔ 64³
-             beside the byte bound and the library yardstick (one
+             device times of 129³ ↔ 65³ (f32 and f64) and of the periodic
+             128³ ↔ 64³ beside the byte bound and the library yardstick (one
              torch.matmul per axis with the dense 1D transfer, no TF32).
 4. solve   — 3D Poisson, cubic B-splines, n_el = 128 (129³ unknowns), 5
              levels, Chebyshev(4) over [λmax/16, λmax] with ν1 = ν2 = 1,
@@ -76,12 +79,14 @@ exception is caught, so any failure exits non-zero:
              phase 17 (128³, 64³, 32³, 16³ p3), RB-GS with starts 0 and 1
              (max|Δ|/max|y| ≤ 1e-5 f32, ≤ 1e-12 f64; RB-GS points of the
              other colour bit-equal to x); at 129³ p3 f32 the device and
-             stream times of kernel and plain, GB/s, Gnnz/s and % of K4.
+             stream times of kernel and plain, GB/s, Gnnz/s and % of K4;
+             K2's device time in every mode at 129³, 65³, 33³, 17³ and 128³
+             p3, f32 and f64, beside each dtype's byte bound.
 8. banded PCG — 3D Poisson p3, n_el = 128, 5 levels, banded operator,
              f64-mixed MG-preconditioned CG, Chebyshev(4) over
              [λmax/16, λmax], ν1 = ν2 = 1, to 1e-10: converges, the true
              f64 residual through K2's f64 spmv is ≤ 5e-10, K2's spmv and
-             residual launched.
+             residual launched; the graph-replayed step alone, timed.
 9. banded MG — MultigridSolver(operator="banded"), f64: 3D p3 n_el = 128,
              5 levels, RB-GS ω = 1, ν1 = ν2 = 2, 3 cycles (the residual
              falls every cycle); 2D p3 n_el = 512, 6 levels, Jacobi
@@ -93,7 +98,8 @@ exception is caught, so any failure exits non-zero:
              plain version (from the same pack) at every K2 shape, with K2's
              tolerances and the RB-GS other-colour bit-equality; device and
              stream times of K3, K2 and plain at 129³ and 128³ p3 f32, with
-             GB/s, Gnnz/s and % of K4.
+             GB/s, Gnnz/s and % of K4; K3 and K2 in f64 at 129³ and 128³
+             beside the f64 byte bound.
 12. v2 banded — POMS_TPU_SPMV=v2 set in-process (restored after): phases 8
              and 9 again through K3 (every banded level packed once at
              setup): the PCG in phase 8's iteration count with a true f64
@@ -111,7 +117,8 @@ exception is caught, so any failure exits non-zero:
              magnitude) plus the f32 sums' own error (1e-5 of max|y|), the
              count of points that differ printed; RB-GS other-colour points
              bit-equal to x; device times at 129³ and 128³ beside the byte
-             bound and K4.  K1 in bf16, four modes (and the first Chebyshev
+             bound and K4, and K2's per-mode table at the five level
+             shapes in bf16.  K1 in bf16, four modes (and the first Chebyshev
              step), at the f32 shapes (mixed-periodic, a two-launch
              operator and the periodic hierarchy's levels among them), same
              tolerance; times at 129³.  K7 in bf16 at its level pairs, the
@@ -567,9 +574,12 @@ def phase_k6(dev):
         (xh, xl), (yh, yl) = split_f64(x), split_f64(y)
         z = torch.randn(n, generator=g).to(dev)
         pair = [(z, None, xh, xl), (z, None, yh, yl)]
+        before = twofloat.dw_dot_stack.launches
         got, again = twofloat.dw_dot_stack(pair), twofloat.dw_dot_stack(pair)
         nrm, nrm2 = twofloat.dw_norm2(xh, xl), twofloat.dw_norm2(xh, xl)
         torch.cuda.synchronize()
+        if twofloat.dw_dot_stack.launches != before + 4:
+            raise AssertionError("K6r took more than one launch a call")
         if not (torch.equal(got, again) and torch.equal(nrm, nrm2)):
             raise AssertionError(f"K6r is not repeatable at n={n}")
         want = twofloat.dw_dot_stack_plain(pair)
@@ -633,9 +643,20 @@ def phase_k6(dev):
                 log(f"[K6r] 129^3 {label}: kernel {ms * 1e3:.2f} us, plain "
                     f"tree {plain:.4f} ms, bound {bound * 1e3:.2f} us "
                     f"(bytes): {100 * bound / ms:.1f}% of it")
+            # a yardstick that reads the same bytes, which the port never
+            # calls: an f64 dot of two vectors (16 n bytes beside the pair's
+            # 20 n and p.Ap's 12 n) and the f64 norm of one (8 n, as the
+            # norm's)
+            v1, v2 = x, y.contiguous()
+            yard = {"dot": _device_ms(lambda: torch.dot(v1, v2)),
+                    "norm": _device_ms(lambda: torch.linalg.vector_norm(v1))}
+            log(f"[K6r] 129^3 yardstick (torch, f64): torch.dot "
+                f"{yard['dot'] * 1e3:.2f} us, torch.linalg.vector_norm "
+                f"{yard['norm'] * 1e3:.2f} us; one launch per K6r call")
             ms, plain, bound = times["stacked pair"]
             rows["dw_reduce"] = {"max_abs_err": float(err.max()), "ms": ms,
-                                 "plain_ms": plain, "bound_ms": bound}
+                                 "plain_ms": plain, "bound_ms": bound,
+                                 "library_ms": yard["dot"]}
             for label, ops in cases.items():
                 mode = label.split(",")[0]
                 if label != mode and mode != "dwrr":
@@ -760,10 +781,12 @@ def phase_k7(dev):
                 f"{res[0].width}/{pro[0].width}"
                 f"{' (wrapped)' if res[0].wrap else ''}: restriction and "
                 f"prolongation (+ add) bit-equal to plain, one launch each")
-            if nf in (129, 128) and d == 3 and dtype == torch.float32:
-                rows = _k7_times(f"{nf}^3 <-> {nc}^3 f32", P, res, pro, xf,
-                                 xc, dtype)
-                if nf == 129:
+            if nf in (129, 128) and d == 3 and (
+                    dtype == torch.float32 or nf == 129):
+                name = "f32" if dtype == torch.float32 else "f64"
+                rows = _k7_times(f"{nf}^3 <-> {nc}^3 {name}", P, res, pro,
+                                 xf, xc, dtype)
+                if nf == 129 and dtype == torch.float32:
                     row = rows["restrict"]
     return row
 
@@ -1148,6 +1171,9 @@ def phase_stencil(dev, k4_gbps, name):
             f"20) kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
             f"stream time (CUDA events, host overhead included) kernel "
             f"{r['events'][0]:.4f} ms, plain {r['events'][1]:.4f} ms")
+    if name == "K2":
+        result["levels"] = _k2_level_times(dev, (torch.float32,
+                                                 torch.float64))
     r = result["spmv"]
     for who, ms in (("kernel", r["ms"]), ("plain", r["plain_ms"])):
         gbps = nbytes / (ms * 1e-3) / 1e9
@@ -1156,6 +1182,42 @@ def phase_stencil(dev, k4_gbps, name):
             f"(terms + 2) * points * 4 bytes), {100 * gbps / k4_gbps:.1f}% "
             f"of K4's {k4_gbps:.1f} GB/s")
     return result
+
+
+K2_LEVELS = (129, 65, 33, 17, 128)   # n^3, p = 3: the banded solvers' levels
+
+
+def _k2_level_times(dev, dtypes):
+    """K2's device time in every mode at every K2_LEVELS shape and each of
+    ``dtypes``, beside the byte bound of the dtype (the band, x, the output
+    and b once); logs one line a level and dtype."""
+    out = {}
+    for dtype in dtypes:
+        item = torch.empty((), dtype=dtype).element_size()
+        name = {torch.float32: "f32", torch.float64: "f64", BF16: "bf16"}[
+            dtype]
+        for n in K2_LEVELS:
+            npts, pads = (n,) * 3, (3,) * 3
+            work = torch.float64 if dtype == torch.float64 else torch.float32
+            band, x_pad, b = _k2_operands(npts, pads, (False,) * 3, work,
+                                          dev, seed=n)
+            band, x_pad = band.to(dtype), x_pad.to(dtype)
+            b = b.to(dtype).contiguous()
+            cells = []
+            for mode in MODES:
+                kw = dict(b=None if mode == "spmv" else b,
+                          omega=0.8 if mode in ("jacobi", "rbgs") else None)
+                ms = _device_ms(lambda: stencil_apply(  # noqa: B023
+                    mode, band, x_pad, npts, pads, **kw), 10)
+                fields = 343 + 2 + (mode != "spmv")
+                bound = fields * n ** 3 * item / HBM_BYTES_PER_S * 1e3
+                out[name, n, mode] = (ms, bound)
+                cells.append(f"{mode} {ms:.4f} ({100 * bound / ms:.0f}%)")
+            log(f"[K2 levels] {name} {n}^3 p3, ms (share of the byte bound "
+                f"{out[name, n, 'spmv'][1]:.4f} ms): " + ", ".join(cells))
+            del band, x_pad, b
+            torch.cuda.empty_cache()
+    return out
 
 
 def phase_k3_times(dev, k4_gbps):
@@ -1184,6 +1246,23 @@ def phase_k3_times(dev, k4_gbps):
                 f"{ev:.4f} ms; {gbps:.1f} GB/s, "
                 f"{nnz / (ms * 1e-3) / 1e9:.2f} Gnnz/s, "
                 f"{100 * gbps / k4_gbps:.1f}% of K4")
+        del band, x_pad, pk
+        torch.cuda.empty_cache()
+    # f64 (the PCG's true-residual pass): K3 and K2 beside the f64 bytes
+    for n in (129, 128):
+        npts, pads = (n,) * 3, (3,) * 3
+        band, x_pad, _ = _k2_operands(npts, pads, (False,) * 3,
+                                      torch.float64, dev, seed=n)
+        pk = pack_band_v2(band, npts, pads)
+        bound = 345 * n ** 3 * 8 / HBM_BYTES_PER_S * 1e3
+        for who, fn in (("K3", lambda: stencil_apply_v2(
+                "spmv", band, x_pad, npts, pads, packed=pk)),
+                        ("K2", lambda: stencil_apply(
+                            "spmv", band, x_pad, npts, pads))):
+            ms = _device_ms(fn)
+            out[(n, who, "f64")] = ms
+            log(f"[K3] {n}^3 p3 f64 spmv {who}: device {ms:.4f} ms, bound "
+                f"{bound:.4f} ms (bytes): {100 * bound / ms:.1f}% of it")
         del band, x_pad, pk
         torch.cuda.empty_cache()
     return out
@@ -1246,6 +1325,9 @@ def phase_banded_pcg(dev, l2_kron, name="K2"):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t2
     assert float(rn) <= h["tol"] and it == res.iterations, (float(rn), it)
+    step = _replay_alone_ms(pcg)
+    log(f"[banded PCG {name}] replayed step alone (ten replays): "
+        f"{step:.3f} ms")
     log(f"[banded PCG {name}] cold setup (band, hierarchy, lambda"
         f"{', packs' if name == 'K3' else ''}) {cold:.3f} s; first solve "
         f"{first:.3f} s, eager {eager_ms:.2f} ms/iteration (median); "
@@ -1566,6 +1648,7 @@ def phase_stencil_bf16(dev, k4_gbps):
                 f"lanes to {pk['N'][2]})")
         del band, x_pad, pk
         torch.cuda.empty_cache()
+    rows["levels"] = _k2_level_times(dev, (BF16,))
     # the residual pass a banded cycle makes, level by level, f32 and bf16
     for n in (129, 65, 33, 17):
         npts, pads = (n,) * 3, (3,) * 3

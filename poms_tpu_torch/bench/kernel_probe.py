@@ -11,11 +11,13 @@ and a timing function that prints one ``RESULT`` row with the card's name:
   (w, n, w, w, n, n): the device-memory ceiling, in GB/s with the
   reference's byte count (w³ + 2)·n³·4.  :func:`stream_probe`.
 - ``compute`` (K4c) and ``ablate`` (K4a): K2's own kernel template
-  (``csrc/stencil_apply.cu``, spmv, f32, 3D) with one part of its inner
-  loop changed at compile time (:func:`stencil_probe`): ``compute`` reads
-  the band of tile (0, 0, 0) in every block (no band stream); ``noshift``
-  holds the axis-1 x offset at 0, ``nolane`` the axis-2 offset, ``nomul``
-  reads no band (acc += x), ``full`` is K2.  Only ``full`` is the SpMV.
+  (``csrc/stencil_apply.cu``, spmv, f32, 3D, K2's launch plan
+  :func:`~poms_tpu_torch.ops.stencil.k2_plan`) with one part of its inner
+  loop changed at compile time (:func:`stencil_probe`): ``compute`` copies
+  the band runs of block (0, 0) in every block (no band stream from device
+  memory; :func:`k2_pinned`); ``noshift`` holds the axis-1 x offset at 0,
+  ``nolane`` the axis-2 offset, ``nomul`` copies and reads no band
+  (acc += x), ``full`` is K2.  Only ``full`` is the SpMV.
 - ``v15`` (K4v, ``csrc/probe_v15.cu``): a real SpMV in which each x value
   read from shared memory serves every output plane it reaches
   (:func:`v15_apply`).
@@ -36,17 +38,20 @@ import sys
 import torch
 
 from poms_tpu_torch.ops import _build
-from poms_tpu_torch.ops.stencil import (_band_offsets, _shifted,
+from poms_tpu_torch.ops.stencil import (_band_offsets, _plan_args, _shifted,
+                                        k2_plan, k2_runs,
                                         spmv_banded_plain)
 
 __all__ = ["stream_probe", "stream_probe_plain", "make_band", "probe_stream",
-           "cuda_event_ms", "K2_TILE", "PROBE_VARIANTS", "stencil_probe",
+           "cuda_event_ms", "K2_PROBE_T0", "k2_pinned", "PROBE_VARIANTS",
+           "stencil_probe",
            "stream_edge",
            "stencil_probe_plain", "v15_apply", "probe_operands",
            "probe_compute", "probe_v15", "probe_ablate", "PROBES"]
 
-# K2's 3D tile (csrc/stencil_apply.cu), which the compute probe pins
-K2_TILE = (4, 8, 32)
+# the axis-0 planes of K2's f32 3D blocks (ops/stencil.py::k2_plan), which
+# the probes need: the compute probe pins block (0, 0)
+K2_PROBE_T0 = 4
 # stencil_probe's variants, in the order of csrc/stencil_apply.cu's Variant
 PROBE_VARIANTS = ("full", "compute", "noshift", "nolane", "nomul")
 ABLATE_VARIANTS = ("full", "noshift", "nolane", "nomul")
@@ -158,20 +163,41 @@ def probe_stream(n: int, p: int, contiguous: bool, iters: int = 20,
 
 # -- K4c and K4a: K2's template with one part changed ----------------------
 
+def _probe_plan(npts):
+    """K2's f32 plan at ``npts`` over its first axis-0 block only (the runs
+    do not depend on the pads)."""
+    return dict(k2_plan(tuple(npts), (0, 0, 0), torch.float32,
+                        t0=K2_PROBE_T0), grid=(0, 1))
+
+
+def k2_pinned(npts):
+    """Where the compute probe reads the band for each point of an
+    (n0, n1, n2) grid: (axis-0 index per i0, raveled (i1, i2) index per
+    raveled q), i.e. the same place in block (0, 0) of K2's plan as the
+    point has in its own block: i0 mod T0 and its position in its run."""
+    n0 = npts[0]
+    i0 = torch.arange(n0) % K2_PROBE_T0
+    pos = torch.empty(npts[1] * npts[2], dtype=torch.long)
+    for _, _, q0, length in k2_runs(npts, _probe_plan(npts)):
+        pos[q0:q0 + length] = torch.arange(length)
+    return i0, pos
+
+
 def stencil_probe_plain(variant: str, band_t: torch.Tensor,
                         x_pad: torch.Tensor, npts, pads) -> torch.Tensor:
     """Plain K4c/K4a: ``full`` is the SpMV; ``compute`` is
-    out[i] = Σ_k band_t[k, i mod K2_TILE]·x_pad[i + k]; ``noshift``,
+    out[i] = Σ_k band_t[k, pinned(i)]·x_pad[i + k] (:func:`k2_pinned`);
+    ``noshift``,
     ``nolane`` and ``nomul`` sum band_t[k, i]·x_pad[i + k] with k1 := 0,
     with k2 := 0, or without the band."""
     npts, pads = tuple(npts), tuple(pads)
     if variant not in PROBE_VARIANTS:
         raise ValueError(f"unknown probe variant {variant!r}")
     if variant == "compute":
-        reps = tuple(-(-n // t) for n, t in zip(npts, K2_TILE))
-        tile = band_t[(Ellipsis,) + tuple(slice(0, t) for t in K2_TILE)]
-        band_t = tile.repeat((1, 1, 1) + reps)[
-            (Ellipsis,) + tuple(slice(0, n) for n in npts)]
+        i0, q = k2_pinned(npts)
+        w3 = band_t.shape[:3]
+        flat = band_t.reshape(w3 + (npts[0], npts[1] * npts[2]))
+        band_t = flat[:, :, :, i0][..., q].reshape(band_t.shape)
     if variant in ("full", "compute"):
         return spmv_banded_plain(band_t, x_pad, npts, pads)
     out = None
@@ -191,7 +217,7 @@ def stencil_probe_plain(variant: str, band_t: torch.Tensor,
 def _probe_library() -> ctypes.CDLL:
     lib = _build.load("stencil_apply")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.stencil_probe_f32.argtypes = [i32] + [ptr] * 3 + [i32] * 6 + [ptr]
+    lib.stencil_probe_f32.argtypes = [i32] + [ptr] * 6
     lib.stencil_probe_f32.restype = i32
     lib.stencil_apply_error_string.argtypes = [i32]
     lib.stencil_apply_error_string.restype = ctypes.c_char_p
@@ -231,7 +257,8 @@ def stencil_probe(variant: str, band_t: torch.Tensor, x_pad: torch.Tensor,
                   npts, pads) -> torch.Tensor:
     """One pass of K2's template in ``variant`` (see
     :func:`stencil_probe_plain`): the kernel for CUDA tensors (f32, 3D,
-    every axis at least one K2 tile), the plain version for CPU tensors."""
+    n0 at least K2's 4 planes a block), the plain version for CPU
+    tensors."""
     npts, pads = tuple(npts), tuple(pads)
     if variant not in PROBE_VARIANTS:
         raise ValueError(f"unknown probe variant {variant!r}")
@@ -240,14 +267,19 @@ def stencil_probe(variant: str, band_t: torch.Tensor, x_pad: torch.Tensor,
     if x_pad.device.type != "cuda":
         raise NotImplementedError(f"stencil_probe on {x_pad.device.type} "
                                   "tensors")
-    _check_probe(band_t, x_pad, npts, pads, least=K2_TILE)
+    _check_probe(band_t, x_pad, npts, pads, least=(K2_PROBE_T0, 1, 1))
+    plan = k2_plan(npts, pads, torch.float32, t0=K2_PROBE_T0)
+    if plan["t0"] != K2_PROBE_T0:
+        raise ValueError(f"the probes need K2's {K2_PROBE_T0}-plane blocks; "
+                         f"at {npts} p={pads} K2 takes {plan['t0']}")
     out = torch.empty(npts, dtype=x_pad.dtype, device=x_pad.device)
     lib = _probe_library()
+    dims, plan_c = _plan_args(npts, pads, plan)
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.stencil_probe_f32(PROBE_VARIANTS.index(variant),
                                     band_t.data_ptr(), x_pad.data_ptr(),
-                                    out.data_ptr(), *npts, *pads, stream)
+                                    out.data_ptr(), dims, plan_c, stream)
     if err != 0:
         raise RuntimeError(f"stencil_probe kernel launch failed ({variant}): "
                            + lib.stencil_apply_error_string(err).decode())
@@ -361,19 +393,20 @@ def probe_v15(n: int, p: int, t0: int = 8, t2: int = 8, iters: int = 20,
 def probe_ablate(n: int, p: int, variant: str, t2: int = 0,
                  iters: int = 20, device="cuda") -> dict:
     """Time K4a ``variant`` (``full``, ``noshift``, ``nolane``, ``nomul``)
-    at n³, p.  ``t2`` is the tile's axis-1 extent: 0 or K2's 8 (the
-    template is instantiated at K2's tile only)."""
+    at n³, p, in K2's launch plan (:func:`~poms_tpu_torch.ops.stencil.
+    k2_plan`).  ``t2`` is kept for the command line: 0 only, since the
+    template runs at K2's plan alone."""
     if variant not in ABLATE_VARIANTS:
         raise ValueError(f"ablate variant {variant!r}: one of "
                          f"{ABLATE_VARIANTS}")
-    if t2 not in (0, K2_TILE[1]):
-        raise ValueError(f"t2={t2}: the ablations run at K2's tile "
-                         f"(t2 = {K2_TILE[1]})")
+    if t2 != 0:
+        raise ValueError(f"t2={t2}: the ablations run at K2's launch plan "
+                         f"only (t2 = 0)")
     device = _card(device)
     band, x_pad = probe_operands(n, p, device)
     args = (band, x_pad, (n,) * 3, (p,) * 3)
     ms = cuda_event_ms(lambda: stencil_probe(variant, *args), iters)
-    print(f"RESULT ablate[{variant},t2={K2_TILE[1]}]: {ms:.4f} ms "
+    print(f"RESULT ablate[{variant}]: {ms:.4f} ms "
           f"({torch.cuda.get_device_name(device)})", flush=True)
     return {"ms": ms}
 

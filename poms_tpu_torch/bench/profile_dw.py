@@ -149,7 +149,7 @@ def main():
         "kernels": sum(e.count for e in stats) / reps,
         "k1_ms": share("kron_march_kernel"),
         "k5_ms": share("kron_march_dw_kernel"),
-        "k6r_ms": share("dw_partial_kernel") + share("dw_final_kernel"),
+        "k6r_ms": share("dw_reduce_kernel"),
         "k6u_ms": share("dw_update_kernel"),
         "k7_ms": share("transfer_kernel"),
         "launches": launches,

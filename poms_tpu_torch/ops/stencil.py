@@ -17,6 +17,9 @@ kernel of ``csrc/stencil_apply.cu`` (f32, f64 or bf16; 1D and 2D lifted to
 package's jnp expressions (``poms_tpu/ops/dispatch.py``) in PyTorch.
 ``stencil_apply.launches[mode]`` counts kernel launches per mode and
 ``stencil_apply.launches_by_dtype[name][mode]`` those of one instantiation.
+The kernel's launch geometry (the 3D lift, the runs of points a block owns,
+its x window and ring of band copies) is computed here, by :func:`k2_lift`
+and :func:`k2_plan`, and passed to it.
 
 In bf16 the kernel reads and writes bf16 and computes in f32 (one rounding,
 on the store), and the plain version does the same: operands cast to f32, the
@@ -36,9 +39,9 @@ import torch
 from poms_tpu_torch.core.space import resolve_device
 from poms_tpu_torch.ops import _build, _count
 
-__all__ = ["MODES", "diagonal_band_index", "spmv_banded_plain",
+__all__ = ["MODES", "K2_THREADS", "diagonal_band_index", "spmv_banded_plain",
            "spmv_offdiag_plain", "color_mask", "stencil_apply_plain",
-           "stencil_apply"]
+           "k2_lift", "k2_plan", "k2_runs", "stencil_apply"]
 
 MODES = ("spmv", "residual", "jacobi", "rbgs")
 _KERNELS = {torch.float32: ("stencil_apply_f32", ctypes.c_float),
@@ -148,8 +151,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     for fn, scalar in _KERNELS.values():
         f = getattr(lib, fn)
-        f.argtypes = ([ptr] * 4 + [scalar] + [i32] * 6 + [i64] * 3
-                      + [i32, i32, i64, ptr])
+        f.argtypes = [ptr] * 4 + [scalar] + [ptr] * 3 + [i32, i32, i64, ptr]
         f.restype = i32
     lib.stencil_apply_error_string.argtypes = [i32]
     lib.stencil_apply_error_string.restype = ctypes.c_char_p
@@ -161,6 +163,124 @@ def _lift(npts: Sequence[int], pads: Sequence[int]):
     lifted axes (a lifted axis has index 0, so the parity is unchanged)."""
     lead = 3 - len(npts)
     return (1,) * lead + tuple(npts), (0,) * lead + tuple(pads)
+
+
+# -- K2's launch plan (csrc/stencil_apply.cu computes none of it) ------------
+
+K2_THREADS = 256          # kThreads: points of a run, one a thread
+K2_SMEM = 232448          # shared memory a block may have on an H100
+# below this many four-plane blocks, one-plane blocks are faster (65^3 p3:
+# 289 blocks; bench/k2_compare.py --plans on an H100)
+K2_FEW_BLOCKS = 600
+# (T0 planes a block, ring stages) to try in order, per dtype: the first
+# whose shared memory fits a block
+_K2_CHOICES = {torch.float32: ((4, 2), (1, 4), (1, 2), (1, 1)),
+               torch.bfloat16: ((4, 3), (1, 4), (1, 2), (1, 1)),
+               torch.float64: ((1, 3), (1, 2), (1, 1))}
+
+
+def k2_lift(npts: Sequence[int], pads: Sequence[int]):
+    """K2's 3D view of a 1D/2D/3D field: (npts3, pads3, axes), ``axes[a]``
+    the field axis behind lifted axis ``a`` (None: a lifted axis of extent
+    1 and pad 0).  1D is (1, 1, n).  A 2D field whose rows are at least a
+    block long is (n1, 1, n2), so a block owns T0 rows and a run along
+    them; shorter rows are (1, n1, n2), runs crossing rows.  The band,
+    x_pad and the parity read the same either way."""
+    npts, pads = tuple(npts), tuple(pads)
+    if len(npts) == 1:
+        return (1, 1) + npts, (0, 0) + pads, (None, None, 0)
+    if len(npts) == 2:
+        if npts[1] >= K2_THREADS:
+            return ((npts[0], 1, npts[1]), (pads[0], 0, pads[1]),
+                    (0, None, 1))
+        return (1,) + npts, (0,) + pads, (None, 0, 1)
+    return npts, pads, (0, 1, 2)
+
+
+def k2_plan(npts3, pads3, dtype: torch.dtype, t0: Optional[int] = None,
+            depth: Optional[int] = None) -> dict:
+    """K2's launch plan for a lifted grid.
+
+    A block owns ``t0`` axis-0 planes and in each one run of at most ``rl``
+    points of the raveled (i1, i2) index: each row cut into ``m2`` runs, or
+    (``m2 = 0``) the plane's n1·n2 points cut into ``runs`` runs crossing
+    rows; the runs of a row or plane differ in length by one at most.  It
+    has ``threads``: ``groups`` of computing warps (two, of two planes each,
+    at ``t0 = 4``), each the whole warps of ``rl``, and one copying warp.
+    Its x window is ``t0 + 2p0`` planes of ``wj`` rows of ``wc`` values
+    (arithmetic type); its ring ``depth`` stages of ``(2p2+1)·t0`` slots of
+    ``rp`` values, the kernel's fixed pitch: a run's 16-byte-aligned
+    superset at any offset.  ``grid`` is (runs, axis-0 blocks), ``smem`` the
+    bytes of shared memory a block takes.  ``t0`` fixes the planes a block
+    (the probes take K2's 4), ``depth`` the stages (a bench's choice)."""
+    n0, n1, n2 = npts3
+    p0, p1, p2 = pads3
+    if dtype not in _K2_CHOICES:
+        raise TypeError(f"stencil_apply kernel takes float32, float64 or "
+                        f"bfloat16, got {dtype}")
+    item = torch.empty((), dtype=dtype).element_size()
+    arith = 4 if dtype == torch.bfloat16 else item
+    vec = 16 // item
+    if n2 >= K2_THREADS:     # runs along rows
+        m2 = -(-n2 // K2_THREADS)
+        rl = -(-n2 // m2)
+        runs = n1 * m2
+        wj, wc = 1 + 2 * p1, rl + 2 * p2
+    else:                    # runs cross rows
+        m2 = 0
+        runs = -(-(n1 * n2) // K2_THREADS)
+        rl = -(-(n1 * n2) // runs)
+        span = min(n1, (n2 - 1 + rl - 1) // n2 + 1)
+        wj, wc = span + 2 * p1, n2 + 2 * p2
+    # a slot holds a run of up to K2_THREADS at any offset in its granule
+    rp = -(-(vec - 1 + K2_THREADS) // vec) * vec
+    # few blocks (65^3 and coarser): one plane a block, four times as many
+    few = runs * -(-n0 // 4) < K2_FEW_BLOCKS
+    choices = [(t, d) for t, d in _K2_CHOICES[dtype]
+               if (t == t0 if t0 is not None
+                   else t == 1 or not (t > n0 or few))]
+    if depth is not None:
+        choices = [(t, depth) for t in dict(choices)]
+    if not choices:
+        raise ValueError(f"K2 has no {t0}-plane blocks in {dtype}")
+    for t0, depth in choices:
+        ring = depth * (2 * p2 + 1) * t0 * rp * item
+        window = (t0 + 2 * p0) * wj * wc * arith
+        if ring + window <= K2_SMEM:
+            break
+    return dict(t0=t0, depth=depth, rl=rl, m2=m2, runs=runs, wj=wj, wc=wc,
+                rp=rp, vec=vec, ring=ring, window=window, smem=ring + window,
+                groups=2 if t0 == 4 else 1,
+                threads=(2 if t0 == 4 else 1) * (-(-rl // 32) * 32) + 32,
+                grid=(runs, -(-n0 // t0)))
+
+
+def _split(total: int, parts: int, r: int):
+    """(start, length) of part ``r`` of ``total`` cut into ``parts`` runs
+    whose lengths differ by at most one, the longer first."""
+    base, rem = divmod(total, parts)
+    return r * base + min(r, rem), base + (r < rem)
+
+
+def k2_runs(npts3, plan: dict):
+    """Every block's (axis-0 start, planes, raveled start q0, length)."""
+    n0, n1, n2 = npts3
+    for by in range(plan["grid"][1]):
+        i0 = by * plan["t0"]
+        rows = min(plan["t0"], n0 - i0)
+        for r in range(plan["runs"]):
+            if plan["m2"] == 0:
+                yield (i0, rows) + _split(n1 * n2, plan["runs"], r)
+            else:
+                j, c = divmod(r, plan["m2"])
+                start, length = _split(n2, plan["m2"], c)
+                yield i0, rows, j * n2 + start, length
+
+
+def _plan_args(n3, p3, plan):
+    dims = (ctypes.c_int * 6)(*n3, *p3)
+    order = ("t0", "rl", "m2", "wj", "wc", "rp", "depth")
+    return dims, (ctypes.c_int * 7)(*(plan[k] for k in order))
 
 
 def _check(band_t, x_pad, b, npts, pads):
@@ -217,14 +337,22 @@ def stencil_apply(mode: str, band_t: torch.Tensor, x_pad: torch.Tensor,
         raise NotImplementedError(
             f"stencil_apply on {x_pad.device.type} tensors")
     _check(band_t, x_pad, b, npts, pads)
-    x_pad = x_pad.contiguous()
-    n3, p3 = _lift(npts, pads)
-    b3 = None
-    if b is not None:
-        b3 = b
-        while b3.ndim < 3:
-            b3 = b3.unsqueeze(0)
-    strides = b3.stride() if b3 is not None else (0, 0, 0)
+    out = _launch(mode, band_t, x_pad.contiguous(), npts, pads, b, omega,
+                  color, starts)
+    _count.count(stencil_apply, x_pad.dtype, mode)
+    return out
+
+
+def _launch(mode, band_t, x_pad, npts, pads, b, omega, color, starts,
+            plan=None):
+    """One K2 launch (checked operands, contiguous x_pad) in ``plan``, by
+    default :func:`k2_plan`'s."""
+    n3, p3, axes = k2_lift(npts, pads)
+    if plan is None:
+        plan = k2_plan(n3, p3, x_pad.dtype)
+    dims, plan_c = _plan_args(n3, p3, plan)
+    strides = (ctypes.c_int64 * 3)(*(
+        0 if b is None or a is None else b.stride(a) for a in axes))
     out = torch.empty(npts, dtype=x_pad.dtype, device=x_pad.device)
     pbase = sum(starts) if starts is not None else 0
     fn, scalar = _KERNELS[x_pad.dtype]
@@ -233,13 +361,12 @@ def stencil_apply(mode: str, band_t: torch.Tensor, x_pad: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn)(
             band_t.data_ptr(), x_pad.data_ptr(),
-            None if b3 is None else b3.data_ptr(), out.data_ptr(),
-            scalar(0.0 if omega is None else float(omega)), *n3, *p3,
-            *strides, MODES.index(mode), int(color), int(pbase), stream)
+            None if b is None else b.data_ptr(), out.data_ptr(),
+            scalar(0.0 if omega is None else float(omega)), dims, plan_c,
+            strides, MODES.index(mode), int(color), int(pbase), stream)
     if err != 0:
         raise RuntimeError(f"stencil_apply kernel launch failed ({mode}): "
                            + lib.stencil_apply_error_string(err).decode())
-    _count.count(stencil_apply, x_pad.dtype, mode)
     return out
 
 

@@ -27,8 +27,10 @@ accuracy of double-word addition, not bitwise.  The elementwise recurrences
 of the solvers (:func:`dw_update`) launch ``csrc/dw_update.cu`` (K6u), whose
 words equal :func:`dw_update_plain`'s.  A ``None`` low word is a field of
 zeros and is never read on the card.  ``dw_dot_stack.launches`` and
-``dw_update.launches`` count launcher calls (a K6r call is its partial pass
-and the one-block pass that adds the partials).
+``dw_update.launches`` count kernel launches: one a K6r call of up to
+``MAX_DOTS`` dots, whose last block adds every block's partial pair (the
+partials and the arrival counter live in :func:`reduce_scratch`'s
+per-device buffers).
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "eft_on_card",
            "dw_norm2", "dw_dot", "dw_sum_tree", "dw_dot_stack",
            "dw_norm2_plain", "dw_dot_plain", "dw_sum_tree_plain",
+           "reduce_scratch",
            "dw_dot_stack_plain", "dw_update", "dw_update_plain",
            "UPDATE_MODES"]
 
@@ -416,19 +419,32 @@ def dw_norm2_plain(xh, xl):
 
 
 MAX_DOTS = 4          # kMaxDots of csrc/dw_reduce.cu
+REDUCE_MAX_BLOCKS = 264   # kMaxBlocks of csrc/dw_reduce.cu
 
 
 @functools.cache
 def _reduce_library() -> ctypes.CDLL:
     lib = _build.load("dw_reduce")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dw_reduce.argtypes = [ptr, i32, i64, ptr, ptr, i32, ptr]
+    lib.dw_reduce.argtypes = [ptr, i32, i64, ptr, i64, ptr, ptr, i32, ptr]
     lib.dw_reduce.restype = i32
     lib.dw_reduce_max_blocks.argtypes = []
     lib.dw_reduce_max_blocks.restype = i32
     lib.dw_reduce_error_string.argtypes = [i32]
     lib.dw_reduce_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def reduce_scratch(device: torch.device):
+    """K6r's per-device buffers, made (and zeroed) once and reused by every
+    call on the device, graph replays included: the blocks' partial pairs
+    (2·MAX_DOTS·REDUCE_MAX_BLOCKS f32) and the arrival counter (one int32,
+    0 between calls: the kernel's last block resets it)."""
+    part = torch.empty(2 * MAX_DOTS * REDUCE_MAX_BLOCKS, dtype=torch.float32,
+                       device=device)
+    counter = torch.zeros(1, dtype=torch.int32, device=device)
+    return part, counter
 
 
 def _flat_f32(name, t, like=None):
@@ -446,9 +462,13 @@ def _flat_f32(name, t, like=None):
 
 
 def _launch_reduce(pairs, sqrt: bool) -> torch.Tensor:
-    """K6r on up to MAX_DOTS (xh, xl, yh, yl) tuples → (k,) f64."""
+    """K6r on up to MAX_DOTS (xh, xl, yh, yl) tuples → (k,) f64, one
+    launch."""
     first = pairs[0][0]
     lib = _reduce_library()
+    if lib.dw_reduce_max_blocks() != REDUCE_MAX_BLOCKS:
+        raise RuntimeError("csrc/dw_reduce.cu's kMaxBlocks is not "
+                           "REDUCE_MAX_BLOCKS")
     keep, ptrs = [], []
     for xh, xl, yh, yl in pairs:
         if yh is None and yl is not None:
@@ -458,13 +478,12 @@ def _launch_reduce(pairs, sqrt: bool) -> torch.Tensor:
         keep.append(ops)
         ptrs += [None if t is None else t.data_ptr() for t in ops]
     k = len(pairs)
-    part = torch.empty(2 * k * lib.dw_reduce_max_blocks(),
-                       dtype=torch.float32, device=first.device)
+    part, counter = reduce_scratch(first.device)
     out = torch.empty(k, dtype=torch.float64, device=first.device)
     with torch.cuda.device(first.device):
         err = lib.dw_reduce((ctypes.c_void_p * len(ptrs))(*ptrs), k,
-                            first.numel(), part.data_ptr(), out.data_ptr(),
-                            int(sqrt),
+                            first.numel(), part.data_ptr(), part.numel(),
+                            counter.data_ptr(), out.data_ptr(), int(sqrt),
                             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("dw_reduce kernel launch failed: "

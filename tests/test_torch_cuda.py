@@ -983,3 +983,146 @@ def test_bf16_and_periodic_solves_on_card_match_cpu(dev, case):
     assert abs(rc.iterations - rh.iterations) <= (low == BF16)
     xc, xh = rc.x.interior.cpu(), rh.x.interior
     assert float((xc - xh).abs().max() / xh.abs().max()) <= 1e-6
+
+
+# -- K2 at the level shapes, every dtype; K6r in one launch ------------------
+
+@pytest.mark.parametrize("n", [129, 128, 65, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16],
+                         ids=["f32", "f64", "bf16"])
+def test_k2_level_shapes_match_plain(dev, n, dtype):
+    """Every mode, one launch a pass; f32 1e-5 and f64 1e-12 of max|y|,
+    bf16 within one unit in the last place plus the f32 sums' 1e-5 (the
+    same terms in the same order, contracted into FMAs)."""
+    npts, pads = (n,) * 3, (3,) * 3
+    g = torch.Generator(device=dev).manual_seed(n)
+    work = torch.float64 if dtype == torch.float64 else torch.float32
+    band = torch.randn((7,) * 3 + npts, generator=g, dtype=work,
+                       device=dev).div_(8)
+    band[3, 3, 3] += 4.0
+    x = torch.randn(npts, generator=g, dtype=work, device=dev)
+    b = torch.randn(npts, generator=g, dtype=work, device=dev)
+    band, x, b = band.to(dtype), x.to(dtype), b.to(dtype)
+    x_pad = ghost_pad(x, pads, (False,) * 3).contiguous()
+    name = {torch.float32: "f32", torch.float64: "f64", BF16: "bf16"}[dtype]
+    for mode in MODES:
+        kw = dict(b=None if mode == "spmv" else b,
+                  omega=0.8 if mode in ("jacobi", "rbgs") else None,
+                  color=n % 2, starts=(0, 1, 0))
+        before = stencil_apply.launches_by_dtype[name][mode]
+        y = stencil_apply(mode, band, x_pad, npts, pads, **kw)
+        torch.cuda.synchronize()
+        assert stencil_apply.launches_by_dtype[name][mode] == before + 1
+        want = stencil_apply_plain(mode, band, x_pad, npts, pads, **kw)
+        if dtype == BF16:
+            assert _bf16_differing(y, want) <= y.numel() // 50
+        else:
+            rel = float((y - want).abs().max() / want.abs().max())
+            assert rel <= K2_TOL[dtype], (mode, rel)
+        if mode == "rbgs":
+            other = ~color_mask(npts, n % 2, (0, 1, 0), device=dev)
+            assert torch.equal(y[other], x[other])
+        del y, want
+    del band
+
+
+def _k6r_fields(n, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g, dtype=torch.float64).to(dev)
+    y = (torch.randn(n, generator=g, dtype=torch.float64) * 1e-3).to(dev)
+    z = torch.randn(n, generator=g).to(dev)
+    return x, y, z
+
+
+def test_k6r_one_launch_a_call_and_the_same_bits(dev):
+    x, y, z = _k6r_fields(129 ** 3, dev)
+    (xh, xl), (yh, yl) = twofloat.split_f64(x), twofloat.split_f64(y)
+    pair = [(z, None, xh, xl), (z, None, yh, yl)]
+    for call in (lambda: twofloat.dw_dot_stack(pair),
+                 lambda: twofloat.dw_norm2(xh, xl),
+                 lambda: twofloat.dw_dot(z, None, xh, xl)):
+        before = twofloat.dw_dot_stack.launches
+        first = call()
+        assert twofloat.dw_dot_stack.launches == before + 1
+        assert torch.equal(first, call())
+    part, counter = twofloat.reduce_scratch(dev)
+    assert twofloat.reduce_scratch(dev)[0] is part
+    torch.cuda.synchronize()
+    assert int(counter) == 0
+
+
+def test_k6r_graph_replays_give_the_same_bits(dev):
+    x, y, z = _k6r_fields(2 ** 20 + 1, dev, seed=1)
+    (xh, xl), (yh, yl) = twofloat.split_f64(x), twofloat.split_f64(y)
+    pair = [(z, None, xh, xl), (z, None, yh, yl)]
+    eager = twofloat.dw_dot_stack(pair)
+    nrm = twofloat.dw_norm2(xh, xl)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        twofloat.dw_dot_stack(pair)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = twofloat.dw_dot_stack(pair)
+        got_n = twofloat.dw_norm2(xh, xl)
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager) and torch.equal(got_n, nrm)
+
+
+def test_k6r_thousand_calls_keep_the_bits(dev):
+    """The arrival counter is reset by each call's last block."""
+    x, y, z = _k6r_fields(65 ** 3, dev, seed=2)
+    (xh, xl), (yh, yl) = twofloat.split_f64(x), twofloat.split_f64(y)
+    pair = [(z, None, xh, xl), (z, None, yh, yl)]
+    first = twofloat.dw_dot_stack(pair)
+    outs = [twofloat.dw_dot_stack(pair) for _ in range(1000)]
+    assert all(torch.equal(o, first) for o in outs)
+
+
+@pytest.mark.parametrize("n", [12345, 2 ** 20 + 1])
+def test_k6r_sizes_and_an_unaligned_view(dev, n):
+    """Within K6_TOL (1e-13 of Σ|terms|, another order of double-word adds)
+    of the plain tree; a view that starts 4 bytes past a 16-byte boundary
+    gives the same bits as an aligned copy (the order depends on n alone)."""
+    x, y, z = _k6r_fields(n, dev, seed=n)
+    (xh, xl), (yh, yl) = twofloat.split_f64(x), twofloat.split_f64(y)
+    pairs = [(z, None, xh, xl), (z, None, yh, yl), (xh, xl, xh, xl)]
+    got = twofloat.dw_dot_stack(pairs)
+    want = twofloat.dw_dot_stack_plain(pairs)
+    scale = torch.stack([(a.double() * c.double()).abs().sum()
+                         for a, _, c, _ in pairs])
+    assert bool(((got - want).abs() <= 1e-13 * scale).all())
+    shifted = []
+    for t in (z, xh, xl, yh, yl):
+        buf = torch.empty(n + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t
+        view = buf[1:]
+        assert view.data_ptr() % 16 != 0
+        shifted.append(view)
+    zs, xhs, xls, yhs, yls = shifted
+    spairs = [(zs, None, xhs, xls), (zs, None, yhs, yls), (xhs, xls, xhs, xls)]
+    assert torch.equal(twofloat.dw_dot_stack(spairs), got)
+    assert torch.equal(twofloat.dw_norm2(xhs, xls),
+                       twofloat.dw_norm2(xh, xl))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16],
+                         ids=["f32", "f64", "bf16"])
+def test_k2_band_view_off_a_granule(dev, dtype):
+    """A band that starts 1 element past a 16-byte boundary: the copies
+    take the granules around it, the result is the aligned band's bits."""
+    npts, pads = (17, 19, 23), (3, 3, 3)
+    band, x_pad, b = _k2_operands(npts, pads, (False,) * 3, torch.float64,
+                                  dev, seed=5)
+    band, x_pad = band.to(dtype), x_pad.to(dtype).contiguous()
+    buf = torch.empty(band.numel() + 1, dtype=dtype, device=dev)
+    buf[1:] = band.reshape(-1)
+    view = buf[1:].view(band.shape)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    got = stencil_apply("spmv", view, x_pad, npts, pads)
+    assert torch.equal(got, stencil_apply("spmv", band, x_pad, npts, pads))

@@ -37,7 +37,7 @@ def _operands(npts, p, seed=0):
 def _numpy_probe(variant, band, x_pad, npts, p):
     """Point by point: out[i] = Σ_k c(k, i)·x_pad[i + s(k)] in float64."""
     w = 2 * p + 1
-    T = kp.K2_TILE
+    pin0, pinq = kp.k2_pinned(npts)
     out = np.zeros(npts)
     for i in itertools.product(*map(range, npts)):
         acc = 0.0
@@ -51,8 +51,11 @@ def _numpy_probe(variant, band, x_pad, npts, p):
             if variant == "nomul":
                 acc += xv
                 continue
-            bi = tuple(a % t for a, t in zip(i, T)) if variant == "compute" \
-                else i
+            if variant == "compute":   # the same place in block (0, 0)
+                q = int(pinq[i[1] * npts[2] + i[2]])
+                bi = (int(pin0[i[0]]),) + divmod(q, npts[2])
+            else:
+                bi = i
             acc += float(band[k + bi]) * xv
         out[i] = acc
     return out
