@@ -35,18 +35,26 @@ SWEEP_RUNS = {129: (3, 4, 5, 6, 8, 11), 65: (2, 3, 4, 6, 8, 11),
               33: (3, 6, 11, 17, 33), 17: (3, 6, 9, 17)}   # runs of planes
 
 
+def build_old(source, name):
+    """An earlier kernel source built by ``nvcc`` into the build directory
+    as ``lib{name}_old.so`` (the package's headers on its include path)."""
+    from poms_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / f"lib{name}_old.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(out), source], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(str(out))
+
+
 def _old_kernel(source):
     """The earlier K1 built from ``source``, behind the wrapper it had."""
     import torch
 
     from poms_tpu_torch.core.vector import ghost_pad
-    from poms_tpu_torch.ops import _build
 
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "libkron_apply_old.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                    source], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    lib = build_old(source, "kron_apply")
     lib.kron_apply_f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                                    + [ctypes.c_void_p])
     lib.kron_apply_f32.restype = ctypes.c_int

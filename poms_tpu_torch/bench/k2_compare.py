@@ -2,8 +2,7 @@
 beside their bounds and (optionally) the sources they had before.
 
     python -m poms_tpu_torch.bench.k2_compare [--old-k2 SRC.cu]
-        [--alt-k2 SRC.cu] [--old-k6r SRC.cu] [--sizes 129,65,33,17,128]
-        [--dtypes f32,bf16,f64] [--plans T0:DEPTH,...]
+        [--old-k6r SRC.cu] [--sizes 129,65,33,17,128] [--dtypes f32,bf16,f64]
 
 For each n in ``--sizes`` (n³ points, p = 3) and dtype it prints K2's device
 time (``torch.profiler``, mean of 20) in ``spmv`` and ``residual`` mode
@@ -11,45 +10,28 @@ beside the byte bound (the band, x, the output and b once, over the card's
 published bandwidth).  ``--old-k2`` also builds that source (K2 before its
 redesign: one block per 4 × 8 × 32 tile, band loads from each thread) behind
 the signature it had and times its ``spmv`` in turns with the new one: old,
-new, new, old, after checking the two agree.  ``--alt-k2`` does the same
-for other K2 sources with today's interface (comma-separated; their launch
-plan from ``ops/stencil.py``), e.g. variants of ``csrc/stencil_apply.cu``
-(``--unchecked``: timing variants that compute something else on purpose,
-with a stage compiled out).  K6r is
-timed at 129³ in the three calls of a dw-PCG iteration (the stacked pair, the norm, p·Ap) beside
+new, new, old, after checking the two agree.  K6r is timed at 129³ in the three calls of a dw-PCG iteration (the stacked pair, the norm, p·Ap) beside
 its byte bound and a yardstick that reads the same bytes (``torch.dot`` of
 two f64 vectors of the same n; ``torch.linalg.vector_norm`` of one), which
 the port never calls; ``--old-k6r`` times the earlier two-launch source in
-turns the same way.  ``--plans 4:2,1:4`` also times K2's ``spmv`` in each
-of those launch plans (planes a block, ring stages) where they fit.  One
-``RESULT {...}`` line per measurement.  Needs a
+turns the same way.  One ``RESULT {...}`` line per measurement.  Needs a
 CUDA card.
 """
 import ctypes
 import json
-import subprocess
 import sys
+
+from poms_tpu_torch.bench.k1_compare import build_old
 
 SIZES = (129, 65, 33, 17, 128)
 DTYPES = ("f32", "bf16", "f64")
-
-
-def _build_old(source, name):
-    from poms_tpu_torch.ops import _build
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"lib{name}_old.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                    str(_build.CSRC), "-o", str(out), source], check=True,
-                   capture_output=True)
-    return ctypes.CDLL(str(out))
 
 
 def _old_k2(source):
     """The earlier K2 (spmv mode) built from ``source``."""
     import torch
 
-    lib = _build_old(source, "stencil_apply")
+    lib = build_old(source, "stencil_apply")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     names = {torch.float32: ("stencil_apply_f32", ctypes.c_float),
              torch.float64: ("stencil_apply_f64", ctypes.c_double),
@@ -74,41 +56,11 @@ def _old_k2(source):
     return spmv
 
 
-def _alt_k2(source, index=0):
-    """Another K2 source with today's interface (spmv mode)."""
-    import torch
-
-    from poms_tpu_torch.ops.stencil import (_KERNELS, _plan_args, k2_lift,
-                                            k2_plan)
-
-    lib = _build_old(source, f"stencil_apply_alt{index}")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for fn, scalar in _KERNELS.values():
-        f = getattr(lib, fn)
-        f.argtypes = [ptr] * 4 + [scalar] + [ptr] * 3 + [i32, i32, i64, ptr]
-        f.restype = i32
-
-    def spmv(band, x_pad, npts, pads):
-        n3, p3, _ = k2_lift(npts, pads)
-        dims, plan = _plan_args(n3, p3, k2_plan(n3, p3, x_pad.dtype))
-        out = torch.empty(npts, dtype=x_pad.dtype, device=x_pad.device)
-        fn, scalar = _KERNELS[x_pad.dtype]
-        err = getattr(lib, fn)(band.data_ptr(), x_pad.data_ptr(), None,
-                               out.data_ptr(), scalar(0.0), dims, plan,
-                               (ctypes.c_int64 * 3)(0, 0, 0), 0, 0, 0,
-                               torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"the other K2 refused the launch: {err}")
-        return out
-
-    return spmv
-
-
 def _old_k6r(source):
     """The earlier two-launch K6r built from ``source``, on flat fields."""
     import torch
 
-    lib = _build_old(source, "dw_reduce")
+    lib = build_old(source, "dw_reduce")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dw_reduce.argtypes = [ptr, i32, i64, ptr, ptr, i32, ptr]
     lib.dw_reduce.restype = i32
@@ -140,9 +92,6 @@ def _arg(args, flag, default=None):
 def main(argv=None):
     args = sys.argv[1:] if argv is None else argv
     old_k2, old_k6r = _arg(args, "--old-k2"), _arg(args, "--old-k6r")
-    alt_k2 = _arg(args, "--alt-k2")
-    plans = [tuple(int(v) for v in p.split(":"))
-             for p in _arg(args, "--plans", "").split(",") if p]
     sizes = tuple(int(n) for n in _arg(args, "--sizes", ",".join(
         map(str, SIZES))).split(","))
     dtypes = tuple(_arg(args, "--dtypes", ",".join(DTYPES)).split(","))
@@ -153,7 +102,6 @@ def main(argv=None):
     from poms_tpu_torch.bench.roofline import sol_bandwidth
     from poms_tpu_torch.core.vector import ghost_pad
     from poms_tpu_torch.ops import twofloat
-    from poms_tpu_torch.ops import stencil as k2
     from poms_tpu_torch.ops.stencil import stencil_apply, stencil_apply_plain
 
     if not torch.cuda.is_available():
@@ -168,11 +116,7 @@ def main(argv=None):
     def result(**kw):
         print("RESULT " + json.dumps({**kw, "card": card}), flush=True)
 
-    others = {}
-    if old_k2:
-        others["old"] = _old_k2(old_k2)
-    for i, src in enumerate(alt_k2.split(",") if alt_k2 else ()):
-        others[f"alt{i}"] = _alt_k2(src, i)
+    old = _old_k2(old_k2) if old_k2 else None
     for name in dtypes:
         dtype = types[name]
         item = torch.empty((), dtype=dtype).element_size()
@@ -195,39 +139,22 @@ def main(argv=None):
                                                      pads, **kw))
                 result(kernel=f"K2.{mode}", dtype=name, n=n, ms=ms,
                        bound_ms=bound, share_of_bound=bound / ms)
-            new = lambda: stencil_apply("spmv", band, x_pad,  # noqa: E731
-                                        npts, pads)
-            if others:
+            if old is not None:
+                new = lambda: stencil_apply("spmv", band, x_pad,  # noqa: E731
+                                            npts, pads)
+                before = lambda: old(band, x_pad, npts, pads)  # noqa: E731
                 want = stencil_apply_plain("spmv", band, x_pad, npts, pads)
                 scale = want.float().abs().max()
-            for tag, other in others.items():
-                before = (lambda other=other:  # noqa: E731
-                          other(band, x_pad, npts, pads))
-                for who, fn in ((tag, before), ("new", new)):
-                    if who != "new" and "--unchecked" in args:
-                        continue
-                    d = (fn().float() - want.float()).abs().max()
-                    rel = float(d / scale)
+                for who, fn in (("old", before), ("new", new)):
+                    rel = float((fn().float() - want.float()).abs().max()
+                                / scale)
                     assert rel <= (2e-2 if name == "bf16" else 1e-5), \
                         (who, rel)
-                for who, fn in ((tag, before), ("new", new), ("new", new),
-                                (tag, before)):
+                del want
+                for who, fn in (("old", before), ("new", new), ("new", new),
+                                ("old", before)):
                     result(kernel="K2.spmv", turn=who, dtype=name, n=n,
                            ms=device_ms(fn))
-            if others:
-                del want
-            for t0, depth in plans:
-                try:
-                    plan = k2.k2_plan(npts, pads, dtype, t0=t0, depth=depth)
-                except ValueError:      # no such blocks in this dtype
-                    continue
-                if plan["smem"] > k2.K2_SMEM:
-                    continue
-                ms = device_ms(lambda: k2._launch(  # noqa: B023
-                    "spmv", band, x_pad, npts, pads, None, None, 0, None,
-                    plan))
-                result(kernel="K2.spmv", plan=f"{t0}:{depth}", dtype=name,
-                       n=n, ms=ms, smem=plan["smem"])
             del band, x, b, x_pad
             torch.cuda.empty_cache()
 

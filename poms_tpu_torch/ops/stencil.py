@@ -170,7 +170,7 @@ def _lift(npts: Sequence[int], pads: Sequence[int]):
 K2_THREADS = 256          # kThreads: points of a run, one a thread
 K2_SMEM = 232448          # shared memory a block may have on an H100
 # below this many four-plane blocks, one-plane blocks are faster (65^3 p3:
-# 289 blocks; bench/k2_compare.py --plans on an H100)
+# 289 blocks; measured on an H100, PERF.md section 6)
 K2_FEW_BLOCKS = 600
 # (T0 planes a block, ring stages) to try in order, per dtype: the first
 # whose shared memory fits a block
@@ -197,8 +197,8 @@ def k2_lift(npts: Sequence[int], pads: Sequence[int]):
     return npts, pads, (0, 1, 2)
 
 
-def k2_plan(npts3, pads3, dtype: torch.dtype, t0: Optional[int] = None,
-            depth: Optional[int] = None) -> dict:
+def k2_plan(npts3, pads3, dtype: torch.dtype,
+            t0: Optional[int] = None) -> dict:
     """K2's launch plan for a lifted grid.
 
     A block owns ``t0`` axis-0 planes and in each one run of at most ``rl``
@@ -212,7 +212,7 @@ def k2_plan(npts3, pads3, dtype: torch.dtype, t0: Optional[int] = None,
     ``rp`` values, the kernel's fixed pitch: a run's 16-byte-aligned
     superset at any offset.  ``grid`` is (runs, axis-0 blocks), ``smem`` the
     bytes of shared memory a block takes.  ``t0`` fixes the planes a block
-    (the probes take K2's 4), ``depth`` the stages (a bench's choice)."""
+    (the probes take K2's 4)."""
     n0, n1, n2 = npts3
     p0, p1, p2 = pads3
     if dtype not in _K2_CHOICES:
@@ -239,8 +239,6 @@ def k2_plan(npts3, pads3, dtype: torch.dtype, t0: Optional[int] = None,
     choices = [(t, d) for t, d in _K2_CHOICES[dtype]
                if (t == t0 if t0 is not None
                    else t == 1 or not (t > n0 or few))]
-    if depth is not None:
-        choices = [(t, depth) for t in dict(choices)]
     if not choices:
         raise ValueError(f"K2 has no {t0}-plane blocks in {dtype}")
     for t0, depth in choices:

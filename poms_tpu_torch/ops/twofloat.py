@@ -432,6 +432,9 @@ def _reduce_library() -> ctypes.CDLL:
     lib.dw_reduce_max_blocks.restype = i32
     lib.dw_reduce_error_string.argtypes = [i32]
     lib.dw_reduce_error_string.restype = ctypes.c_char_p
+    if lib.dw_reduce_max_blocks() != REDUCE_MAX_BLOCKS:
+        raise RuntimeError("csrc/dw_reduce.cu's kMaxBlocks is not "
+                           "REDUCE_MAX_BLOCKS")
     return lib
 
 
@@ -440,7 +443,13 @@ def reduce_scratch(device: torch.device):
     """K6r's per-device buffers, made (and zeroed) once and reused by every
     call on the device, graph replays included: the blocks' partial pairs
     (2·MAX_DOTS·REDUCE_MAX_BLOCKS f32) and the arrival counter (one int32,
-    0 between calls: the kernel's last block resets it)."""
+    0 between calls: the kernel's last block resets it).
+
+    One set per device, not per stream: two K6r calls on one device must
+    not run at the same time (on two streams, or in two graphs replayed
+    concurrently), or their partials mix and the counter is left non-zero
+    for every later call.  The solvers and benches run their reductions
+    on one stream, or on streams ordered one after the other."""
     part = torch.empty(2 * MAX_DOTS * REDUCE_MAX_BLOCKS, dtype=torch.float32,
                        device=device)
     counter = torch.zeros(1, dtype=torch.int32, device=device)
@@ -466,9 +475,6 @@ def _launch_reduce(pairs, sqrt: bool) -> torch.Tensor:
     launch."""
     first = pairs[0][0]
     lib = _reduce_library()
-    if lib.dw_reduce_max_blocks() != REDUCE_MAX_BLOCKS:
-        raise RuntimeError("csrc/dw_reduce.cu's kMaxBlocks is not "
-                           "REDUCE_MAX_BLOCKS")
     keep, ptrs = [], []
     for xh, xl, yh, yl in pairs:
         if yh is None and yl is not None:
