@@ -160,8 +160,9 @@ every solve; a graph replay advances the counters by the launches its
 capture recorded, since a replay launches them again), K4 from
 phase 6's ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes
 from phase 13's timing paths, the bf16 rows from phase 16 and K5's
-4-history row from phase 17; launches made to compare a kernel with its
-plain version are not counted.  Each kernel's ``bound_ms`` is the larger of
+4-history row from phase 17, and to each row the launches of every rank of
+phase 18 (its solves and timed cycles); launches made to compare a kernel
+with its plain version are not counted.  Each kernel's ``bound_ms`` is the larger of
 its bytes (every input read once, every output written once) over 3.35 TB/s
 and its operations over the f32 rate outside the tensor cores (K5's
 adds and multiplies may not fuse: 33.5 T a second, half the published 67
@@ -172,6 +173,7 @@ from the band, for the kernels that compute a banded spmv; one
 ``torch.matmul`` per axis with the dense 1D transfer, and the add, for
 K7), which the port itself never calls.
 """
+import gc
 import json
 import math
 import os
@@ -181,10 +183,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from poms_tpu_torch.bench.device import device_ms as _device_ms
 from poms_tpu_torch.bench.device import nvidia_smi_name_power
 from poms_tpu_torch.bench import kernel_probe as kp
+from poms_tpu_torch.bench import one_dist
 from poms_tpu_torch.bench.kernel_probe import (cuda_event_ms, make_band,
                                                probe_stream, stream_probe,
                                                stream_probe_plain)
@@ -211,6 +215,8 @@ from poms_tpu_torch.ops.stencil_v2 import (pack_band_v2, stencil_apply_v2,
                                            stencil_apply_v2_plain)
 from poms_tpu_torch.ops.twofloat import (dw_add, dw_mul, split_f64,
                                          two_prod, two_sum)
+from poms_tpu_torch.parallel.dist import DistributedMG
+from poms_tpu_torch.parallel.launch import spawn
 
 K1_SHAPES = [((9, 9, 9), 3, False), ((17, 17, 17), 3, False),
              ((33, 33, 33), 3, False), ((65, 65, 65), 3, False),
@@ -260,6 +266,15 @@ K3_REPLACES = {"spmv": 795, "residual": 802, "jacobi": 813, "rbgs": 823}
 BANDED_MG = dict(rbgs=(128, 5), jacobi=(512, 6))
 K4_SIZE = (128, 3)   # the stream probe's (n, p): a 129^3 p3 band's size
 PROBE_SIZES = (32, 128)   # p = 3, f32; the probes are timed at 128^3
+# phase 18: DistributedMG at the headline's size, p = 3, 5 levels
+DIST = dict(dim=3, n_el=128, degree=3, levels=5, tol=1e-10, device="cuda",
+            return_x=False, maxiter=600)
+DIST_CYCLES = {   # RB-GS: the multichip record's cycle (on 3D p3 it
+    # contracts by ~0.95 a cycle); Chebyshev(4): the headline's cycle
+    "rbgs": dict(kind="rbgs", omega=1.0, nu1=2, nu2=2),
+    "chebyshev": dict(kind="chebyshev", cheb_fraction=16.0, cheb_degree=4,
+                      nu1=1, nu2=1)}
+DIST_GLOO_MESH = (2, 1, 1)   # 2 gloo ranks sharing the card
 
 
 def log(msg):
@@ -2089,6 +2104,154 @@ def phase_periodic(dev):
     return launches
 
 
+def _dist_ranks(specs):
+    """What every rank of phase 18 runs: each spec's solve
+    (``bench/one_dist.py::solve_case``), the cache freed between them; on
+    gloo ranks then the refusal of ``solve_compiled`` on CUDA tensors."""
+    out = []
+    for spec in specs:
+        out.append(one_dist.solve_case(spec))
+        gc.collect()
+        torch.cuda.empty_cache()
+    refused = None
+    if tdist.get_backend() == "gloo":
+        prob = poisson_problem(2, 16, degree=2, operator="kron",
+                               device="cuda")
+        mg = DistributedMG(prob, 2, (tdist.get_world_size(), 1),
+                           CycleConfig(smoother=SmootherConfig("jacobi",
+                                                               0.8)),
+                           operator="kron")
+        try:
+            mg.solve_compiled()
+        except RuntimeError as err:
+            refused = str(err)
+    return out, refused
+
+
+def _dist_serial(dev, specs):
+    """The serial port's MixedPrecisionMG at each spec's configuration on
+    this card: (iterations, history, λ estimates) per spec."""
+    out = {}
+    for name, spec in specs.items():
+        os.environ.pop("POMS_TPU_SPMV", None)
+        if spec.get("engine") == "v2":
+            os.environ["POMS_TPU_SPMV"] = "v2"
+        try:
+            prob = poisson_problem(3, spec["n_el"], degree=spec["degree"],
+                                   operator=spec["operator"], device=dev)
+            mg = MixedPrecisionMG(prob, spec["levels"], one_dist.make_cycle(
+                spec["cfg"]), operator=spec["operator"],
+                residual=spec["options"]["mixed_residual"])
+            res = mg.solve(tol=spec["tol"], maxiter=spec["maxiter"])
+            out[name] = (res.iterations, res.residuals, list(mg.lams))
+        finally:
+            os.environ.pop("POMS_TPU_SPMV", None)
+        del prob, mg
+        torch.cuda.empty_cache()
+    return out
+
+
+def _deciding_entry(label, dist_res, serial_res, tol):
+    """Fail with the history entries that decide two different counts."""
+    n = min(len(dist_res), len(serial_res))
+    k = next((i for i in range(n)
+              if (dist_res[i] <= tol) != (serial_res[i] <= tol)), n - 1)
+    raise AssertionError(
+        f"[dist] {label}: {len(dist_res) - 1} cycles distributed, "
+        f"{len(serial_res) - 1} serial; entry {k}: distributed "
+        f"{dist_res[k]:.6e}, serial {serial_res[k]:.6e} (tol {tol:g})")
+
+
+def phase_distributed(dev):
+    """2 gloo ranks on the card (mesh (2, 1, 1)) and 1 NCCL rank: the
+    distributed solves at 128^3 p3 beside the serial port's counts."""
+    specs = {
+        "kron twofloat RB-GS": dict(DIST, operator="kron",
+                                    cfg=DIST_CYCLES["rbgs"]),
+        "kron twofloat Chebyshev(4)": dict(DIST, operator="kron",
+                                           cfg=DIST_CYCLES["chebyshev"]),
+        "banded f64 RB-GS, K2": dict(DIST, operator="banded",
+                                     cfg=DIST_CYCLES["rbgs"], time_cycles=3),
+        "banded f64 RB-GS, v2 (K3)": dict(DIST, operator="banded",
+                                          cfg=DIST_CYCLES["rbgs"],
+                                          engine="v2", time_cycles=3)}
+    for name, spec in specs.items():
+        spec["options"] = dict(mixed=True, mixed_residual="twofloat"
+                               if spec["operator"] == "kron" else "f64")
+    serial = _dist_serial(dev, specs)
+    for name, spec in specs.items():   # the same λ on both sides
+        spec["lams"] = serial[name][2]
+    gloo_specs = [dict(spec, mesh=DIST_GLOO_MESH) for spec in specs.values()]
+    nccl_spec = dict(specs["kron twofloat RB-GS"], mesh=(1, 1, 1),
+                     compiled=True)
+    t0 = time.perf_counter()
+    gloo = spawn(_dist_ranks, math.prod(DIST_GLOO_MESH),
+                 args=(gloo_specs,), backend="gloo", timeout=900)
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = spawn(_dist_ranks, 1, args=([nccl_spec],), backend="nccl",
+                    timeout=900)
+    nccl_s = time.perf_counter() - t0
+    log(f"[dist] 2 gloo ranks: {gloo_s:.1f} s (spawn, setup, 4 solves); "
+        f"1 NCCL rank: {nccl_s:.1f} s (spawn, setup, solve, "
+        "solve_compiled)")
+    runs = [(f"{name} [gloo x2]", name, [ranks[0][i] for ranks in gloo])
+            for i, name in enumerate(specs)]
+    runs.append(("kron twofloat RB-GS [nccl x1]", "kron twofloat RB-GS",
+                 nccl[0]))
+    tol = DIST["tol"]
+    launches = {}
+    for label, name, per_rank in runs:
+        r = per_rank[0]
+        assert all(q["residuals"] == r["residuals"] for q in per_rank), \
+            f"{label}: the ranks' histories differ"
+        assert r["converged"], (label, r["residuals"][-5:])
+        assert r["true_residual"] <= 5e-10, (label, r["true_residual"])
+        it_s, res_s, _ = serial[name]
+        if r["iterations"] != it_s:
+            _deciding_entry(label, r["residuals"], res_s, tol)
+        grown = {}
+        for q in per_rank:
+            for k, v in q["launches"].items():
+                grown[k] = grown.get(k, 0) + v
+        banded = "banded" in name
+        engine = ("stencil_apply_v2" if "v2" in name else "stencil_apply")
+        need = (["transfer", "dw_reduce", "dw_update"] if not banded else
+                ["transfer", f"{engine}.spmv", f"{engine}.rbgs"])
+        missing = [k for k in need if not grown.get(k)]
+        assert not missing, f"{label}: never launched {missing}: {grown}"
+        if banded:
+            other = ("stencil_apply" if "v2" in name else "stencil_apply_v2")
+            assert not any(k.startswith(other + ".") and v
+                           for k, v in grown.items()), (label, grown)
+        for k, v in grown.items():
+            launches[k] = launches.get(k, 0) + v
+        staged = [q["staged_bytes_per_cycle"] for q in per_rank]
+        log(f"[dist] {label}: L_dist {r['L_dist']}, grid {r['N']}, "
+            f"{r['iterations']} cycles (serial port {it_s}), |r| "
+            f"{r['residuals'][-1]:.3e} (last two {r['residuals'][-2]:.4e}, "
+            f"{r['residuals'][-1]:.4e}; the serial port's {res_s[-2]:.4e}, "
+            f"{res_s[-1]:.4e}), true f64 |b - Ax| "
+            f"{r['true_residual']:.3e}; {r['ms_per_cycle']:.2f} ms a cycle "
+            f"(setup {r['setup_s']:.1f} s); halo bytes staged through the "
+            f"host per cycle per rank {[round(b) for b in staged]}; launches "
+            f"{_short(grown) if not banded else grown}")
+        if "timed" in r:
+            log(f"[dist] {label}: ms a cycle, overlap form "
+                f"{r['timed']['overlap']:.2f}, plain "
+                f"{r['timed']['plain']:.2f} (3 cycles each, rank 0)")
+    c = nccl[0][0]["compiled"]
+    assert c["iterations"] == nccl[0][0]["iterations"] and c["same_bits"], c
+    log(f"[dist] NCCL rank: solve_compiled (one captured graph a cycle) "
+        f"{c['iterations']} cycles, the same bits as solve; "
+        f"{c['ms_per_cycle']:.2f} ms a cycle replayed (eager "
+        f"{nccl[0][0]['ms_per_cycle']:.2f})")
+    for ranks in gloo:
+        assert ranks[1] is not None and "gloo" in ranks[1], ranks[1]
+    log(f"[dist] gloo on CUDA tensors: solve_compiled raised: {gloo[0][1]}")
+    return launches
+
+
 T_START = time.perf_counter()
 
 
@@ -2145,6 +2308,7 @@ def main():
     k5_four = run(phase_k5_four, dev)
     bf16_paths = run(phase_bf16_solves, dev, defect_f32, solve)
     periodic = run(phase_periodic, dev)
+    dist = run(phase_distributed, dev)
     points = 129 ** 3
 
     def banded_bound(mode):
@@ -2159,7 +2323,7 @@ def main():
         "source": "poms_tpu_torch/csrc/kron_apply.cu",
         "replaces": "poms_tpu/ops/pallas/kron.py:157",
         "launches": solve["launches"][f"kron_mode.{m}"]
-        + defect[f"kron_mode.{m}"],
+        + defect[f"kron_mode.{m}"] + dist.get(f"kron_mode.{m}", 0),
         "max_abs_err": k1_res[m]["max_abs_err"], "ms": k1_res[m]["ms"],
         "plain_ms": k1_res[m]["plain_ms"], "bound_ms": k1_res[m]["bound_ms"],
         "bound_by": "bytes", "library_ms": None} for m in k1.MODES]
@@ -2168,7 +2332,7 @@ def main():
         "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
         "replaces": "poms_tpu/ops/twofloat.py:197",
         "launches": solve["launches"]["residual_kron_df"]
-        + defect["residual_kron_df"],
+        + defect["residual_kron_df"] + dist.get("residual_kron_df", 0),
         "max_abs_err": k5_res["max_abs_err"], "ms": k5_res["ms"],
         "plain_ms": k5_res["plain_ms"], "bound_ms": k5_res["bound_ms"],
         "bound_by": "operations", "library_ms": None})
@@ -2180,7 +2344,8 @@ def main():
     kernels += [{
         "name": name, "route": "cuda",
         "source": f"poms_tpu_torch/csrc/{src}", "replaces": replaces,
-        "launches": solve["launches"][name] + defect[name],
+        "launches": solve["launches"][name] + defect[name]
+        + dist.get(name, 0),
         "bound_by": "bytes", "library_ms": None, **res[name]}
         for name, src, replaces, res in new_rows]
     csr_ms = k2["spmv"]["library_ms"]
@@ -2188,7 +2353,8 @@ def main():
         "name": f"stencil_apply.{m}", "route": "cuda",
         "source": "poms_tpu_torch/csrc/stencil_apply.cu",
         "replaces": f"poms_tpu/ops/pallas/spmv.py:{K2_REPLACES[m]}",
-        "launches": k2_launches[m], "max_abs_err": k2[m]["max_abs_err"],
+        "launches": k2_launches[m] + dist.get(f"stencil_apply.{m}", 0),
+        "max_abs_err": k2[m]["max_abs_err"],
         "ms": k2[m]["ms"], "plain_ms": k2[m]["plain_ms"],
         **banded_bound(m),
         "library_ms": csr_ms if m == "spmv" else None} for m in MODES]
@@ -2206,7 +2372,8 @@ def main():
         "name": f"stencil_apply_v2.{m}", "route": "cuda",
         "source": "poms_tpu_torch/csrc/stencil_apply_v2.cu",
         "replaces": f"poms_tpu/ops/pallas/spmv.py:{K3_REPLACES[m]}",
-        "launches": k3_launches[m], "max_abs_err": k3[m]["max_abs_err"],
+        "launches": k3_launches[m] + dist.get(f"stencil_apply_v2.{m}", 0),
+        "max_abs_err": k3[m]["max_abs_err"],
         "ms": k3[m]["ms"], "plain_ms": k3[m]["plain_ms"],
         **banded_bound(m),
         "library_ms": csr_ms if m == "spmv" else None} for m in MODES]

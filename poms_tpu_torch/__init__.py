@@ -13,8 +13,9 @@ Kronecker-sum operator, double-word MG-preconditioned CG; kernel K1) and
 the banded path (``StencilMatrix`` operators, their hierarchy, the Jacobi,
 red-black and lexicographic Gauss–Seidel and Chebyshev smoothers,
 ``MultigridSolver`` and f64 MG-preconditioned CG; kernels K2 and K4), the
-defect-correction solver, bf16 cycles (``low_dtype=torch.bfloat16``) and
-periodic problems (``periodic_problem``).
+defect-correction solver, bf16 cycles (``low_dtype=torch.bfloat16``),
+periodic problems (``periodic_problem``) and distribution over
+``torch.distributed`` (``parallel/``: ``DistributedMG``).
 """
 
 __version__ = "0.1.0"

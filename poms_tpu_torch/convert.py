@@ -7,7 +7,9 @@ build the port's counterparts on ``device``.  Band tensors are converted
 once per distinct source object, so the sharing structure of a
 Kronecker-sum operator (which partial products are reused) is kept.  A bf16
 hierarchy and a periodic problem or hierarchy are carried across like any
-other.
+other.  For the distributed solver: a reference ``DistributedMG``'s λ
+estimates, depth and cycle (:func:`dist_state`), and a rank's block of a
+global field (:func:`local_block`).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from poms_tpu_torch.ops.transfer import TransferBand, bands_from_dense
 
 __all__ = ["tensor", "space", "kron_operator", "stencil_matrix", "operator",
            "transfer_band", "cholesky", "levels", "problem", "lams",
-           "cycle_config", "mixed_precision_mg"]
+           "cycle_config", "mixed_precision_mg", "dist_state", "local_block"]
 
 
 def _is_bf16(np_dtype) -> bool:
@@ -200,3 +202,22 @@ def mixed_precision_mg(ref_mg, ref_lams, device="cpu"):
         mg._plan_df = build_kron_df_plan(mg._terms_df, sp.npts, sp.pads,
                                          sp.periodic, mg._labels)
     return mg
+
+
+def dist_state(ref_dist) -> dict:
+    """What a reference ``DistributedMG`` decided at setup, as plain data
+    for the port's ranks: ``lams`` (its λmax(D⁻¹A) estimates, drawn with
+    ``jax.random``), ``L_dist`` and ``cfg`` (the cycle, ω resolved)."""
+    return {"lams": lams(ref_dist.lams), "L_dist": int(ref_dist.L_dist),
+            "cfg": cycle_config(ref_dist.cfg)}
+
+
+def local_block(a, mesh_shape, coords, N, device="cpu") -> torch.Tensor:
+    """The block at ``coords`` of a global field (numpy-readable, interior
+    shaped) zero-padded to the grid ``N`` and cut over ``mesh_shape``."""
+    a = np.asarray(a)
+    full = np.zeros(tuple(N), a.dtype)
+    full[tuple(slice(0, n) for n in a.shape)] = a
+    n_loc = [n // m for n, m in zip(N, mesh_shape)]
+    return tensor(full[tuple(slice(c * n, (c + 1) * n)
+                             for c, n in zip(coords, n_loc))], device)
