@@ -268,13 +268,20 @@ K4_SIZE = (128, 3)   # the stream probe's (n, p): a 129^3 p3 band's size
 PROBE_SIZES = (32, 128)   # p = 3, f32; the probes are timed at 128^3
 # phase 18: DistributedMG at the headline's size, p = 3, 5 levels
 DIST = dict(dim=3, n_el=128, degree=3, levels=5, tol=1e-10, device="cuda",
-            return_x=False, maxiter=600)
+            maxiter=600)
 DIST_CYCLES = {   # RB-GS: the multichip record's cycle (on 3D p3 it
     # contracts by ~0.95 a cycle); Chebyshev(4): the headline's cycle
     "rbgs": dict(kind="rbgs", omega=1.0, nu1=2, nu2=2),
     "chebyshev": dict(kind="chebyshev", cheb_fraction=16.0, cheb_degree=4,
                       nu1=1, nu2=1)}
 DIST_GLOO_MESH = (2, 1, 1)   # 2 gloo ranks sharing the card
+# each entry of a distributed history against the serial port's, relative:
+# the two differ by the f32 cycles' rounding (plain contractions against K1
+# on kron levels; blocks, faces and all_reduce sums against one grid), which
+# each correction adds to the next entry.  RB-GS (ρ ≈ 0.95 a cycle) carries
+# little of it; the Chebyshev cycle (ρ ≈ 0.2) carries more: its last
+# entries differed by 5% in an earlier run
+DIST_HISTORY_RTOL = {"rbgs": 1e-3, "chebyshev": 0.1}
 
 
 def log(msg):
@@ -2104,13 +2111,135 @@ def phase_periodic(dev):
     return launches
 
 
+def _dist_check(what, got, want, tol, scale=None):
+    """One rank-side check: the relative error of ``got`` against ``want``
+    (of ``scale``, else of max|want|) within ``tol`` (0: the same bits)."""
+    err = float((got - want).abs().max())
+    ref = float(want.abs().max() if scale is None else scale)
+    rel = err / ref if ref else err
+    if tol == 0.0 and not torch.equal(got, want):
+        raise AssertionError(f"{what} is not bit-equal to plain: {err}")
+    if not (math.isfinite(rel) and rel <= tol):
+        raise AssertionError(f"{what} disagrees with plain: {rel} > {tol}")
+    return rel
+
+
+def _dist_kernel_checks(mg):
+    """On this rank, after its solve: every kernel of the distributed path
+    against its plain version on this rank's operands, at the shapes the
+    path gives it.  K2 (or K3 under v2) spmv and both RB-GS colours with the
+    rank's global starts on every distributed level's block, in each dtype
+    the solver holds (the other colour bit-equal to x); each face band of
+    the overlap form on its window of the exchanged block; K7 on every
+    distributed level pair (restriction, prolongation + add) over the
+    exchanged block, and on the agglomerated tail's pair; with the twofloat
+    residual, K6r's norm and K6u's div and defect on the finest block.
+    Fields are seeded per rank.  The exchanges are collectives, so every
+    rank runs this.  Returns {what: relative error} (0.0: bit-equal)."""
+    from poms_tpu_torch.ops import dispatch
+    from poms_tpu_torch.parallel.halo import local_starts, pad_and_exchange
+    from poms_tpu_torch.parallel.transfers import rank_transfer_operands
+
+    name = "K3" if dispatch.engine() is stencil_apply_v2 else "K2"
+    _, kernel_fn, plain_fn = _engine(name)
+    dev = mg.b.interior.device
+    g = torch.Generator(device=dev).manual_seed(18 + mg.grid.rank)
+    out = {}
+
+    def field(shape, dtype):
+        return torch.randn(tuple(shape), generator=g, dtype=torch.float64,
+                           device=dev).to(dtype)
+
+    hs = [mg._h] + ([mg._h_lo] if mg._h_lo is not mg._h else [])
+    for h in hs:
+        for l, lv in enumerate(h.levels):
+            spec, dtype = lv.spec, lv.diag.dtype
+            n_loc, pads = spec.n_loc, spec.pads
+            tag = f"{tuple(n_loc)} {str(dtype)[6:]}"
+            x = field(n_loc, dtype)
+            if lv.labels is None:
+                tol = K1_TOL[dtype]
+                x_pad = pad_and_exchange(x, spec)
+                b = field(n_loc, dtype)
+                starts = local_starts(spec)
+                y = kernel_fn("spmv", lv.band, lv.packed, x_pad, n_loc, pads)
+                out[f"{name} spmv {tag}"] = _dist_check(
+                    f"{name} spmv {tag}", y, plain_fn(
+                        "spmv", lv.band, lv.packed, x_pad, n_loc, pads), tol)
+                for color in (0, 1):
+                    kw = dict(b=b, omega=mg.cfg.smoother.omega or 1.0,
+                              color=color, starts=starts)
+                    what = f"{name} rbgs c{color} starts {starts} {tag}"
+                    y = kernel_fn("rbgs", lv.band, lv.packed, x_pad, n_loc,
+                                  pads, **kw)
+                    out[what] = _dist_check(what, y, plain_fn(
+                        "rbgs", lv.band, lv.packed, x_pad, n_loc, pads,
+                        **kw), tol)
+                    other = ~color_mask(n_loc, color, starts, device=dev)
+                    if not torch.equal(y[other], x[other]):
+                        raise AssertionError(f"{what} changed points of the "
+                                             "other colour")
+                x_ghost = x_pad.clone()
+                x_ghost[tuple(slice(p, p + n) for p, n in
+                              zip(pads, n_loc))] = 0
+                for rows, band, pk in lv.faces or ():
+                    shape = tuple(r.stop - r.start for r in rows)
+                    xw = x_ghost[tuple(slice(r.start, r.stop + 2 * p)
+                                       for r, p in zip(rows, pads))]
+                    what = f"{name} spmv face {shape} {str(dtype)[6:]}"
+                    err = _dist_check(
+                        what, kernel_fn("spmv", band, pk, xw, shape, pads),
+                        plain_fn("spmv", band, pk, xw, shape, pads), tol)
+                    out[what] = max(out.get(what, 0.0), err)
+            if l + 1 < len(h.levels):
+                meta, coarse = mg.dist[l], h.levels[l + 1].spec
+                xc = field(coarse.n_loc, dtype)
+                for what, tbs, src, axes, add in (
+                        ("restrict", meta.restrict, x, spec.axes, None),
+                        ("prolong+add", meta.prolong, xc, coarse.axes, x)):
+                    bands, src_pad = rank_transfer_operands(tbs, src, axes,
+                                                            mg.grid)
+                    what = f"K7 {what} {tuple(src.shape)} {str(dtype)[6:]}"
+                    out[what] = _dist_check(
+                        what, k7.apply_transfer(bands, src_pad, add=add),
+                        k7.apply_transfer_plain(bands, src_pad, add=add), 0.0)
+        last = mg.dist[-1].npts
+        r_int = field(last, h.levels[0].diag.dtype)
+        what = f"K7 tail restrict {tuple(last)} {str(r_int.dtype)[6:]}"
+        out[what] = _dist_check(
+            what, k7.apply_transfer(h.tail_restrict, r_int),
+            k7.apply_transfer_plain(h.tail_restrict, r_int), 0.0)
+    if mg.twofloat:
+        n0 = mg.dist[0].spec.n_loc
+        rh, rl = split_f64(field(n0, torch.float64))
+        tag = f"{tuple(n0)}"
+        want = twofloat.dw_dot_plain(rh, rl, rh, rl)
+        scale = (rh.double() * rh.double()).sum()
+        out[f"K6r norm^2 {tag}"] = _dist_check(
+            f"K6r norm^2 {tag}", twofloat.dw_dot(rh, rl, rh, rl), want,
+            K6_TOL, scale)
+        rn = torch.sqrt(want)
+        e = field(n0, torch.float32)
+        for mode, ops in (("div", (rh, rn)), ("defect", (rh, rl, e, rn))):
+            got, ref = (twofloat.dw_update(mode, *ops),
+                        twofloat.dw_update_plain(mode, *ops))
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            out[f"K6u {mode} {tag}"] = max(
+                _dist_check(f"K6u {mode} {tag}", a, b, 0.0)
+                for a, b in zip(got, ref))
+    return out
+
+
 def _dist_ranks(specs):
     """What every rank of phase 18 runs: each spec's solve
-    (``bench/one_dist.py::solve_case``), the cache freed between them; on
-    gloo ranks then the refusal of ``solve_compiled`` on CUDA tensors."""
+    (``bench/one_dist.py::solve_case``) and then the rank-side kernel
+    checks (:func:`_dist_kernel_checks`, after the solve's launches are
+    read), the cache freed between them; on gloo ranks then the refusal of
+    ``solve_compiled`` on CUDA tensors."""
     out = []
     for spec in specs:
-        out.append(one_dist.solve_case(spec))
+        out.append(one_dist.solve_case(spec, check=_dist_kernel_checks))
         gc.collect()
         torch.cuda.empty_cache()
     refused = None
@@ -2149,6 +2278,19 @@ def _dist_serial(dev, specs):
         del prob, mg
         torch.cuda.empty_cache()
     return out
+
+
+def _serial_true_residual(problems, operator, x, dev):
+    """‖b − A x‖₂ of a gathered distributed iterate through the serial
+    problem's own operator (K1 or K2 in f64), the problem built once per
+    operator."""
+    if operator not in problems:
+        problems[operator] = poisson_problem(
+            3, DIST["n_el"], degree=DIST["degree"], operator=operator,
+            device=dev)
+    prob = problems[operator]
+    xv = StencilVector.from_interior(prob.space, torch.as_tensor(x).to(dev))
+    return float((prob.b - prob.A.dot(xv)).norm())
 
 
 def _deciding_entry(label, dist_res, serial_res, tol):
@@ -2201,15 +2343,53 @@ def phase_distributed(dev):
                  nccl[0]))
     tol = DIST["tol"]
     launches = {}
+    problems = {}
     for label, name, per_rank in runs:
         r = per_rank[0]
         assert all(q["residuals"] == r["residuals"] for q in per_rank), \
             f"{label}: the ranks' histories differ"
         assert r["converged"], (label, r["residuals"][-5:])
         assert r["true_residual"] <= 5e-10, (label, r["true_residual"])
+        true_s = _serial_true_residual(problems, specs[name]["operator"],
+                                       per_rank[0].pop("x"), dev)
+        for q in per_rank:
+            q.pop("x", None)
+        assert true_s <= 5e-10, (label, true_s)
         it_s, res_s, _ = serial[name]
         if r["iterations"] != it_s:
             _deciding_entry(label, r["residuals"], res_s, tol)
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["residuals"], res_s)]
+        k = max(range(len(rel)), key=rel.__getitem__)
+        h_tol = DIST_HISTORY_RTOL[specs[name]["cfg"]["kind"]]
+        log(f"[dist] {label}: history against the serial port's, entry by "
+            f"entry: largest relative difference {rel[k]:.3e} at entry {k} "
+            f"({r['residuals'][k]:.6e} against {res_s[k]:.6e}; stated "
+            f"tolerance {h_tol:g})")
+        assert rel[k] <= h_tol, (label, k, rel[k])
+        checks, shapes = {}, {}
+        for q in per_rank:
+            for what, err in q["check"].items():
+                fam = " ".join(what.split()[:2])
+                checks[fam] = max(checks.get(fam, 0.0), err)
+                shapes.setdefault(fam, set()).add(
+                    what[len(fam):].rsplit(" float", 1)[0].strip())
+        log(f"[dist] {label}: rank-side kernel checks at the path's shapes "
+            f"({sum(len(q['check']) for q in per_rank)} over the ranks, each "
+            f"against its plain version on the rank's operands; K2/K3 to "
+            f"{K1_TOL[torch.float32]:g} (f32) / {K1_TOL[torch.float64]:g} "
+            f"(f64) of max|plain|, K7 and K6u bit-equal, K6r to {K6_TOL:g} "
+            f"of sum|terms|): worst relative error per kernel and mode "
+            + ", ".join(f"{f} {e:.2e}" for f, e in sorted(checks.items()))
+            + "; shapes (f32 and f64 each): " + "; ".join(
+                f"{f} " + ", ".join(sorted(v)) for f, v in
+                sorted(shapes.items())))
+        log(f"[dist] {label}: true f64 |b - Ax| of the gathered iterate "
+            f"through the serial operator {true_s:.3e}; device memory per "
+            f"rank (GiB): peak in setup "
+            f"{[round(q['peak_setup_bytes'] / 2**30, 2) for q in per_rank]}, "
+            f"held by the solver "
+            f"{[round(q['held_bytes'] / 2**30, 2) for q in per_rank]}, peak "
+            f"{[round(q['peak_bytes'] / 2**30, 2) for q in per_rank]}")
         grown = {}
         for q in per_rank:
             for k, v in q["launches"].items():

@@ -5,8 +5,9 @@ spec (``parallel/launch.py`` spawns them): the tests on the CPU
 (``device="cpu"``) and ``chip_smoke.py`` phase 18 on the card.  It returns
 the count, the history, the true f64 residual, ms a cycle (with and without
 the overlap form on request), the halo bytes staged through host memory a
-cycle and the rank's kernel launches.
+cycle, the rank's kernel launches and, on the card, its device memory.
 """
+import gc
 import os
 import time
 
@@ -42,26 +43,22 @@ def make_cycle(c: dict):
                        gamma=c.get("gamma", 1), smoother=sm)
 
 
-def _true_residual(problem, x_int) -> float:
-    """‖b − A x‖₂ of the global f64 iterate through the problem's own
-    operator (K1 or K2/K3 in f64 on the card)."""
-    from poms_tpu_torch.core.vector import StencilVector
-
-    x = StencilVector.from_interior(problem.space, x_int)
-    return float((problem.b - problem.A.dot(x)).norm())
-
-
-def solve_case(spec: dict) -> dict:
-    """Build the spec's problem and ``DistributedMG`` on this rank, solve,
-    and report (the same on every rank but ``launches``, ``staged_bytes``
-    which are the rank's own).
+def solve_case(spec: dict, check=None) -> dict:
+    """Build the spec's problem and ``DistributedMG`` on this rank, drop
+    the problem (the solver keeps the rank's blocks), solve, and report (the
+    same on every rank but ``launches``, ``staged_bytes``, the memory and
+    ``check``, which are the rank's own).  ``true_residual`` is
+    :meth:`DistributedMG.residual_norm` of the iterate; ``check``, a
+    function of the solved ``DistributedMG`` called after the launches are
+    read (its launches are not reported), gives ``out["check"]``.
 
     Keys of ``spec``: the problem's (:func:`make_problem`), ``levels``,
     ``mesh``, ``cfg`` (``kind``, ``omega``, ``nu1``, ``nu2``, ``gamma``,
     ``cheb_degree``, ``cheb_fraction``), ``options`` (DistributedMG's
     keywords), ``lams`` (λ estimates to use instead of the rank's own),
-    ``tol``, ``maxiter``, ``use_fmg``, ``device`` (``"cpu"``, or ``"cuda"``:
-    this process's current card), ``engine`` (``"v2"``: K3), ``compiled``
+    ``tol``, ``maxiter``, ``use_fmg``, ``device`` (default ``"cuda"``:
+    this process's current card; ``"cpu"``), ``engine`` (``"v2"``: K3),
+    ``compiled``
     (also run ``solve_compiled``, twice: the second is timed),
     ``return_x`` (the global iterate),
     ``time_cycles`` (time that many more cycles with and without
@@ -73,10 +70,15 @@ def solve_case(spec: dict) -> dict:
         os.environ["POMS_TPU_SPMV"] = "v2"
     else:
         os.environ.pop("POMS_TPU_SPMV", None)
-    device = torch.device(spec.get("device", "cpu"))
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(spec.get("device", "cuda"))
     cuda = device.type == "cuda"
+    if cuda:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: solve_case runs on the card "
+                               "unless the spec says device='cpu'")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     prob = make_problem(spec, device)
     mg = DistributedMG(prob, spec["levels"], spec["mesh"],
@@ -85,12 +87,16 @@ def solve_case(spec: dict) -> dict:
                        **spec.get("options", {}))
     if spec.get("lams") is not None:
         mg.lams = tuple(spec["lams"])
+    b_norm = float(prob.b.norm())
+    del prob
+    gc.collect()
+    out = {"L_dist": mg.L_dist, "N": list(mg.N), "lams": list(mg.lams),
+           "b_norm": b_norm, "omega": mg.cfg.smoother.omega}
     if cuda:
         torch.cuda.synchronize()
-    out = {"L_dist": mg.L_dist, "N": list(mg.N), "lams": list(mg.lams),
-           "b_norm": float(prob.b.norm()),
-           "omega": mg.cfg.smoother.omega,
-           "setup_s": time.perf_counter() - t0}
+        out["peak_setup_bytes"] = torch.cuda.max_memory_allocated(device)
+        out["held_bytes"] = torch.cuda.memory_allocated(device)
+    out["setup_s"] = time.perf_counter() - t0
     counters.reset()
     mg.grid.staged_bytes = 0
     t0 = time.perf_counter()
@@ -117,20 +123,23 @@ def solve_case(spec: dict) -> dict:
         out["compiled"]["ms_per_cycle"] = \
             1e3 * (time.perf_counter() - t0) / max(it_c, 1)
     if spec.get("time_cycles"):
-        out["timed"] = _time_cycles(mg, prob, spec["time_cycles"], cuda)
-    # the launches of the solves and timed cycles, not of the check below
+        out["timed"] = _time_cycles(mg, spec["time_cycles"], cuda)
+    # the launches of the solves and timed cycles, not of the checks below
     out["launches"] = {k: v for k, v in counters.snapshot().items() if v}
-    x_int = mg.gather(res.x)
-    out["true_residual"] = _true_residual(prob, x_int)
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["true_residual"] = mg.residual_norm(res.x)
+    if check is not None:
+        out["check"] = check(mg)
     if spec.get("return_x", True):
-        out["x"] = x_int.cpu().numpy()
+        out["x"] = mg.gather(res.x).cpu().numpy()
     return out
 
 
-def _time_cycles(mg, prob, n: int, cuda: bool) -> dict:
+def _time_cycles(mg, n: int, cuda: bool) -> dict:
     """ms per cycle over ``n`` cycles from x = 0, with ``overlap`` as built
     and flipped (the flag is read at every apply)."""
-    state, consts, step, _ = mg._start(prob.b)
+    state, consts, step, _ = mg._start(mg.b)
     times = {}
     for overlap in (mg.overlap, not mg.overlap):
         mg.overlap = overlap

@@ -191,6 +191,13 @@ class DistributedMG(LamsOwner):
     caller chose).  Fields in and out of :meth:`step` and :meth:`solve` are
     the rank's blocks of the padded global grid; :meth:`local` cuts one from
     a global interior field and :meth:`gather` assembles one.
+
+    Once built, the solver holds the rank's blocks of the distributed
+    levels, the agglomerated tail's levels and the global right-hand side
+    (``b``), not the global operators of the distributed levels: a caller
+    that drops the problem frees them.  Setup itself builds the global
+    hierarchy on every rank (the λ estimates and the tail need it), so the
+    peak of a rank's memory is the serial solver's.
     """
 
     def __init__(self, problem, num_levels: int,
@@ -254,18 +261,18 @@ class DistributedMG(LamsOwner):
             raise ValueError("backend 'nccl' moves CUDA tensors: build the "
                              "problem on the rank's card")
 
-        self.problem = problem
+        self.b = problem.b
         self.operator = operator
         self.overlap = overlap
         self.mixed = mixed
         self.mesh_shape = mesh_shape
         self.names = _AXIS_NAMES[:d]
-        self.levels = build_levels(problem, num_levels, operator)
-        if [lev.A.space.npts for lev in self.levels] != npts_l:
+        levels = build_levels(problem, num_levels, operator)
+        if [lev.A.space.npts for lev in levels] != npts_l:
             raise RuntimeError("the hierarchy's sizes are not the plan's")
         cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
-                                                  self.levels[0].A))
-        lams = attach_spectral_estimates(self.levels, cfg.smoother)
+                                                  levels[0].A))
+        lams = attach_spectral_estimates(levels, cfg.smoother)
         # every rank smooths with rank 0's ω and λ estimates
         shared = [cfg.smoother.omega, lams]
         dist.broadcast_object_list(shared, src=grid.global_rank(0),
@@ -277,7 +284,7 @@ class DistributedMG(LamsOwner):
 
         self.dist: List[_DistLevel] = []
         for l in range(self.L_dist):
-            lev = self.levels[l]
+            lev = levels[l]
             sp = lev.A.space
             N = Ns[l]
             n_loc = tuple(N[a] // mesh_shape[a] for a in range(d))
@@ -318,7 +325,7 @@ class DistributedMG(LamsOwner):
         # exact in f32, so the pair stays a double word)
         self._bands_df0 = None
         if mixed and self.mixed_residual == "twofloat":
-            A0, N0 = self.levels[0].A, self.dist[0].N
+            A0, N0 = levels[0].A, self.dist[0].N
             labels0 = self.dist[0].labels
             by_axis = []
             for a in range(d):
@@ -336,8 +343,8 @@ class DistributedMG(LamsOwner):
         self.npts = npts_l[0]
         self.N = Ns[0]
         rbgs = self.cfg.smoother.kind == "rbgs"
-        tail = self.levels[self.L_dist:]
-        t_lev = self.levels[self.L_dist - 1]
+        tail = levels[self.L_dist:]
+        t_lev = levels[self.L_dist - 1]
         self._h = _Ops([_LevelOps(lv, dtype, overlap, rbgs)
                         for lv in self.dist], tail, t_lev.restrict,
                        t_lev.prolong)
@@ -471,6 +478,16 @@ class DistributedMG(LamsOwner):
         lv = self._h.levels[0]
         return dist_norm2(b - self._apply(lv, x), lv.spec)
 
+    def residual_norm(self, x_loc: torch.Tensor,
+                      b: Optional[StencilVector] = None) -> float:
+        """‖b − A x‖₂ of the padded global system in the problem's dtype
+        (f64 under ``mixed``), from the rank's block of ``x`` through the
+        distributed operator (the interior residual while the padded
+        entries of x are zero, as the solver keeps them)."""
+        b = b if b is not None else self.b
+        x = x_loc.to(self._h.levels[0].diag.dtype)
+        return float(self._residual_norm(x, self.local(b.interior)))
+
     def _step(self, x, b):
         """One cycle (or, with ``mixed``, one correction with an f64
         residual) → (x, ‖b − A x‖)."""
@@ -556,7 +573,7 @@ class DistributedMG(LamsOwner):
               maxiter: int = 50, use_fmg: bool = False) -> SolveResult:
         """Host loop; every rank gets the same history.  ``x`` of the
         result is this rank's block (:meth:`gather` assembles it)."""
-        b = b if b is not None else self.problem.b
+        b = b if b is not None else self.b
         if use_fmg and self.twofloat:
             raise ValueError("use_fmg is not available for the mixed "
                              "twofloat solve")
@@ -586,7 +603,7 @@ class DistributedMG(LamsOwner):
         one step captured as a CUDA graph (``mg/graph.py``) and replayed per
         cycle; under gloo on CUDA tensors it raises: gloo's collectives
         cannot be captured, and nothing runs eager in their place."""
-        b = b if b is not None else self.problem.b
+        b = b if b is not None else self.b
         state, consts, step, rn = self._start(b)
         dev = state[0].device
         if dev.type == "cuda":

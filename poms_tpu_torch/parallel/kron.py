@@ -122,7 +122,9 @@ def dist_kron_apply(bands_by_axis: Sequence[Sequence[torch.Tensor]],
     every dim up front, the earlier axes contracted over the later dims'
     halo rows (a halo row of dim b is the neighbour's interior, which
     shares this rank's range on the other dims); ``fused=False``: one
-    exchange per distinct partial per axis.  Both give the same bits."""
+    exchange per distinct partial per axis, the JAX package's form, which
+    no solver path takes: it is kept as the reference the tests hold the
+    fused form to (the same bits)."""
     starts = local_starts(spec)
     n_loc = spec.n_loc
 
@@ -152,7 +154,8 @@ def dist_kron_residual_df(bands_df_by_axis, labels, bh, bl, xh, xl,
     words are exchanged separately (a message is exact).
 
     ``bands_df_by_axis[a]``: (hi, lo) f32 pairs of the distinct padded
-    global 1D bands of axis a."""
+    global 1D bands of axis a; ``fused`` as in :func:`dist_kron_apply`
+    (``False``: the per-axis reference form of the tests)."""
     starts = local_starts(spec)
     n_loc = spec.n_loc
 

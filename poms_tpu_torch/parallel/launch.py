@@ -1,7 +1,7 @@
 """Spawn the ranks of a job on this host and collect what each returns.
 
-    results = spawn(fn, 4, args=(spec,), backend="gloo")
-    job = start(fn, 4, args=(spec,)); ...; results = job.results()
+    results = spawn(fn, 4, "gloo", args=(spec,))
+    job = start(fn, 4, "gloo", args=(spec,)); ...; results = job.results()
 
 starts ``world_size`` processes (start method ``spawn``), each of which
 joins the process group (:func:`poms_tpu_torch.parallel.bootstrap.initialize`
@@ -105,15 +105,16 @@ class Job:
         return out
 
 
-def start(fn, world_size: int, args=(), backend: str = "gloo",
+def start(fn, world_size: int, backend: str, args=(),
           timeout: float = 900.0) -> Job:
     """Start ``fn(*args)`` on ``world_size`` ranks and return at once.
+    ``backend``: ``"gloo"`` or ``"nccl"``, the caller's choice;
     ``timeout``: seconds to wait for the next rank's result."""
     return Job(fn, world_size, args, backend, timeout)
 
 
-def spawn(fn, world_size: int, args=(), backend: str = "gloo",
+def spawn(fn, world_size: int, backend: str, args=(),
           timeout: float = 900.0) -> list:
     """Run ``fn(*args)`` on ``world_size`` ranks; their results in rank
     order."""
-    return start(fn, world_size, args, backend, timeout).results()
+    return start(fn, world_size, backend, args, timeout).results()

@@ -30,7 +30,8 @@ from poms_tpu_torch.ops.transfer import TransferBand, apply_transfer
 from poms_tpu_torch.parallel.halo import (AxisSpec, HaloSpec, RankGrid,
                                           pad_and_exchange)
 
-__all__ = ["DistTransfer1D", "build_dist_transfer", "dist_apply_transfer"]
+__all__ = ["DistTransfer1D", "build_dist_transfer", "dist_apply_transfer",
+           "rank_transfer_operands"]
 
 
 @dataclass(eq=False)
@@ -144,6 +145,16 @@ def dist_apply_transfer(tbs: Sequence[DistTransfer1D], x_loc: torch.Tensor,
 
     ``src_spec_axes``: the HaloSpec axes of the source level (names, sizes
     and periodic flags; extents and pads are the transfer's)."""
+    bands, x_pad = rank_transfer_operands(tbs, x_loc, src_spec_axes, grid)
+    return apply_transfer(bands, x_pad, add=add)
+
+
+def rank_transfer_operands(tbs: Sequence[DistTransfer1D], x_loc: torch.Tensor,
+                           src_spec_axes: Tuple[AxisSpec, ...],
+                           grid: RankGrid):
+    """(the rank's TransferBands, the source block exchanged to their
+    widths): what :func:`dist_apply_transfer` hands K7 (an exchange, so
+    every rank of the grid calls it)."""
     axes = tuple(AxisSpec(name=ax.name, size=ax.size, n_loc=x_loc.shape[a],
                           pad=tb.halo, periodic=ax.periodic)
                  for a, (ax, tb) in enumerate(zip(src_spec_axes, tbs)))
@@ -152,4 +163,4 @@ def dist_apply_transfer(tbs: Sequence[DistTransfer1D], x_loc: torch.Tensor,
     bands = tuple(tb.local_band(0 if ax.name is None else coords[a],
                                 x_loc.dtype, x_loc.device)
                   for a, (ax, tb) in enumerate(zip(axes, tbs)))
-    return apply_transfer(bands, x_pad, add=add)
+    return bands, x_pad

@@ -243,7 +243,7 @@ def run():
         cases.append((f"transfer-{name}", "_transfer", kw))
     cases.append(("info", "_info", {}))
     cases.append(("subgroup", "_subgroup", {}))
-    job = start(_worker, WORLD, args=(cases,), timeout=600)
+    job = start(_worker, WORLD, "gloo", args=(cases,), timeout=600)
     return job.results(), ref
 
 
@@ -374,3 +374,5 @@ def test_gloo_backend_is_named():
             bootstrap.initialize("file:///nonexistent", 1, 0, backend)
     with pytest.raises(ValueError, match="gloo"):
         launch.start(_info, 1, backend="auto")
+    with pytest.raises(TypeError, match="backend"):
+        launch.spawn(_info, 1)

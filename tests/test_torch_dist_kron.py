@@ -6,7 +6,8 @@ double-word residual and norm) and ``DistributedMG(operator="kron")``, on
 The ranks are spawned once for the module; each test asserts one case.
 The distributed solves hold the tolerances of ``tests/test_torch_dist_mg.py``
 (f64 cycles: 1e-9 of each entry plus 1e-14·‖b‖; f32 cycles, ``mixed``: the
-count and 10%, the f32 cycle's rounding noise).  This module's top level
+count and, per case, a tolerance just above the difference read, the f32
+cycles' rounding: :data:`MIXED_RTOL`).  This module's top level
 imports no JAX: the spawned ranks import it to find their worker.
 """
 import numpy as np
@@ -45,6 +46,12 @@ CASES = {
     "compiled": dict(KRON, cfg=dict(kind="jacobi", omega=0.8), tol=1e-10,
                      maxiter=60, compiled=True),
 }
+
+
+# f32 cycles: the largest relative difference of an entry from the
+# reference's, read in a 4-rank run on the CPU: mixed-f64 5.0e-6, twofloat
+# 1.42e-4, twofloat-inner2 6.15e-3 (two f32 cycles a correction)
+MIXED_RTOL = {"mixed-f64": 1e-5, "twofloat": 3e-4, "twofloat-inner2": 1e-2}
 
 
 # -- the ranks' side (no JAX) ------------------------------------------------
@@ -262,14 +269,14 @@ def test_pad_band_1d_identity_matches_jax():
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_dist_kron_history_matches_jax(run, name):
-    from tests.test_torch_dist_mg import (F64_FLOOR, F64_RTOL, MIXED_RTOL,
+    from tests.test_torch_dist_mg import (F64_FLOOR, F64_RTOL,
                                           check_history)
 
     results, ref, states = run
     got = results[0][name]
     assert got["L_dist"] == states[name]["L_dist"]
     if CASES[name].get("options", {}).get("mixed", False):
-        check_history(got, ref[name], MIXED_RTOL)
+        check_history(got, ref[name], MIXED_RTOL[name])
     else:
         check_history(got, ref[name], F64_RTOL, F64_FLOOR)
     for r in range(1, WORLD):

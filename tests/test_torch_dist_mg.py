@@ -120,14 +120,15 @@ def run_cases(cases, worker, twins=None, extra=()):
         prob, mg, state = jax_setup(spec)
         states[name] = state
         jax_side[name] = (prob, mg)
-        port = dict(spec, lams=state["lams"])
+        port = dict(spec, lams=state["lams"], device="cpu")
         port["cfg"] = dict(spec["cfg"], omega=state["cfg"].smoother.omega)
         port_cases.append((name, "solve", port))
         if twins and name in twins:
             port_cases.append((name + "-twin", "solve", dict(
                 port, options=dict(port.get("options", {}),
                                    **twins[name]))))
-    job = start(worker, WORLD, args=(port_cases,), timeout=900)
+    job = start(worker, WORLD, "gloo", args=(port_cases,),
+                timeout=900)
     ref = {name: jax_solve(prob, mg, cases[name])
            for name, (prob, mg) in jax_side.items()}
     return job.results(), ref, states
@@ -153,10 +154,16 @@ def check_history(got, want, rtol, floor=0.0):
 # differ by ~1e-16·‖b‖; an entry near 1e-10 carries that as an
 # absolute error of its own, far above 1e-9 of it
 F64_RTOL, F64_FLOOR = 1e-9, 1e-14
-# f32 cycles (mixed=True): after the first correction the f64 history sits
-# on the f32 cycle's rounding noise, which XLA and PyTorch (and the overlap
-# and plain forms) make differently: same count, entries within 10%
-MIXED_RTOL = 0.1
+# f32 cycles (mixed=True): past the first correction each f64 entry carries
+# the f32 cycles' rounding, which XLA and PyTorch (and the overlap and plain
+# forms) make differently, and which every correction adds to the next
+# entry.  Per case: the same count and each entry within a tolerance just
+# above the largest relative difference read here (a 4-rank run on the CPU):
+# mixed-jacobi 6.27e-2 (it grows by ~0.8% a correction from 7.6e-3 at entry
+# 2 to entry 8, the last), its overlap twin against the plain form 1.05e-2,
+# mixed-rbgs-3d 4.1e-7
+MIXED_RTOL = {"mixed-jacobi": 0.08, "mixed-jacobi-twin": 0.02,
+              "mixed-rbgs-3d": 1e-6}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -168,7 +175,7 @@ def test_dist_history_matches_jax(run, name):
     assert got["L_dist"] == states[name]["L_dist"]
     mixed = CASES[name].get("options", {}).get("mixed", False)
     if mixed:
-        check_history(got, ref[name], MIXED_RTOL)
+        check_history(got, ref[name], MIXED_RTOL[name])
     else:
         check_history(got, ref[name], F64_RTOL, F64_FLOOR)
     for r in range(1, WORLD):
@@ -198,7 +205,7 @@ def test_overlap_form_matches_plain(run, name):
     a, b = results[0][name], results[0][name + "-twin"]
     mixed = CASES[name].get("options", {}).get("mixed", False)
     if mixed:
-        check_history(b, a, MIXED_RTOL)
+        check_history(b, a, MIXED_RTOL[name + "-twin"])
     else:
         check_history(b, a, F64_RTOL, F64_FLOOR)
 
@@ -365,7 +372,9 @@ def test_dryrun_multichip_on_8_ranks(name):
 
     spec = DRYRUN_CASES[name]
     prob, mg, state = jax_setup(spec)
-    job = start(_worker, 8, args=([(name, "solve", spec)],), timeout=1800)
+    job = start(_worker, 8, "gloo",
+                args=([(name, "solve", dict(spec, device="cpu"))],),
+                timeout=1800)
     ref = jax_solve(prob, mg, spec)
     results = job.results()
     got = results[0][name]
