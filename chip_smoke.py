@@ -147,6 +147,36 @@ exception is caught, so any failure exits non-zero:
              f64 residuals ≤ 5e-10; K7's time on the periodic transfers of
              the solver's own levels at 128³ ↔ 64³.
 
+18. distributed — DistributedMG at 128^3 p3 on 2 gloo ranks sharing the
+             card and on 1 NCCL rank, the two jobs at once (see
+             phase_distributed).
+19. headline — the port's headline example
+             (poms_tpu_torch/examples/headline_solve.py, main) at n_el = 64,
+             128, 256 and 512 for pcg and dc: converged, true f64 residual
+             <= 5e-10, the counts of phases 4 and 4b at 128^3 (8, 11), every
+             other count logged beside the JAX package's record; iterations,
+             replayed ms per iteration, cold setup, peak memory and L2 error
+             logged.  At 512^3 every kernel of the solve against its plain
+             version on the solve's own operands: K1 (every mode) on the
+             513^3 and 257^3 cycle levels, K5 (residual and A.p), K6r (the
+             stacked pair, the norm) and K6u cg on 513^3 fields, K7 on the
+             513^3 <-> 257^3 bands (K1 1e-5 of max|y|, K6r 1e-13 of
+             sum|terms|, K5, K6u and K7 bit-equal).
+20. benches — bench/attr_iter.py at 128^3 (pcg, dc); the dense-matmul
+             Kronecker apply (POMS_TPU_KRON=matmul) against K1's apply at
+             129^3 p3 f32 (1e-5 of max|y|) and timed beside it (K1's library
+             column), with TF32 once; bench_vcycle(3, 128, 3, 5) under K2
+             and under K3; the plain-PyTorch stream yardsticks xlastream and
+             xlastreamrw at 128^3 p3 beside K4.
+21. dist examples — distributed_2d, multihost_2d and multihost_3d (every
+             leg) on 2 gloo ranks sharing the card, multihost_3d on 1 NCCL
+             rank, and the census of one twofloat kron step on 2 gloo
+             ranks, the five jobs at once; then alone overlap_trace's A/B
+             pair at 128^3 p3 on 2 gloo ranks (overlap fraction, device
+             idle share, staged copies' share); the scaling model's
+             prediction for 8 ranks at 128^3 a rank (one card shows the
+             wiring, not scaling).
+
 Cut against the earlier version to hold the run time: phase 2 times the
 plain K1 versions with 3 repetitions instead of 5.  Every phase logs what it
 took on a ``[time]`` line.
@@ -161,14 +191,17 @@ capture recorded, since a replay launches them again), K4 from
 phase 6's ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes
 from phase 13's timing paths, the bf16 rows from phase 16 and K5's
 4-history row from phase 17, and to each row the launches of every rank of
-phase 18 (its solves and timed cycles); launches made to compare a kernel
-with its plain version are not counted.  Each kernel's ``bound_ms`` is the larger of
+phase 18 (its solves and timed cycles), and those of phases 19 (the
+headline runs), 20 (the benches) and 21 (every rank of the distributed
+examples); launches made to compare a kernel with its plain version are
+not counted.  Each kernel's ``bound_ms`` is the larger of
 its bytes (every input read once, every output written once) over 3.35 TB/s
 and its operations over the f32 rate outside the tensor cores (K5's
 adds and multiplies may not fuse: 33.5 T a second, half the published 67
 TFLOP/s, which counts an FMA as two), from this run's shapes;
 ``library_ms`` times PyTorch's own calls for the same function where there
-are such (``torch.sum`` for K4; a sparse CSR product, built on the card
+are such (the dense per-axis ``torch.tensordot`` apply for K1's apply mode;
+``torch.sum`` for K4; a sparse CSR product, built on the card
 from the band, for the kernels that compute a banded spmv; one
 ``torch.matmul`` per axis with the dense 1D transfer, and the add, for
 K7), which the port itself never calls.
@@ -216,7 +249,7 @@ from poms_tpu_torch.ops.stencil_v2 import (pack_band_v2, stencil_apply_v2,
 from poms_tpu_torch.ops.twofloat import (dw_add, dw_mul, split_f64,
                                          two_prod, two_sum)
 from poms_tpu_torch.parallel.dist import DistributedMG
-from poms_tpu_torch.parallel.launch import spawn
+from poms_tpu_torch.parallel.launch import start
 
 K1_SHAPES = [((9, 9, 9), 3, False), ((17, 17, 17), 3, False),
              ((33, 33, 33), 3, False), ((65, 65, 65), 3, False),
@@ -2326,17 +2359,21 @@ def phase_distributed(dev):
     gloo_specs = [dict(spec, mesh=DIST_GLOO_MESH) for spec in specs.values()]
     nccl_spec = dict(specs["kron twofloat RB-GS"], mesh=(1, 1, 1),
                      compiled=True)
+    # the gloo job and the NCCL job run at once, to hold the script's time;
+    # the NCCL rank's ms a cycle are read beside the gloo ranks' host-bound
+    # cycles
     t0 = time.perf_counter()
-    gloo = spawn(_dist_ranks, math.prod(DIST_GLOO_MESH),
-                 args=(gloo_specs,), backend="gloo", timeout=900)
-    gloo_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    (nccl,) = spawn(_dist_ranks, 1, args=([nccl_spec],), backend="nccl",
-                    timeout=900)
+    gloo_job = start(_dist_ranks, math.prod(DIST_GLOO_MESH),
+                     args=(gloo_specs,), backend="gloo", timeout=900)
+    nccl_job = start(_dist_ranks, 1, args=([nccl_spec],), backend="nccl",
+                     timeout=900)
+    (nccl,) = nccl_job.results()
     nccl_s = time.perf_counter() - t0
-    log(f"[dist] 2 gloo ranks: {gloo_s:.1f} s (spawn, setup, 4 solves); "
-        f"1 NCCL rank: {nccl_s:.1f} s (spawn, setup, solve, "
-        "solve_compiled)")
+    gloo = gloo_job.results()
+    gloo_s = time.perf_counter() - t0
+    log(f"[dist] 2 gloo ranks and 1 NCCL rank at once: the gloo job "
+        f"{gloo_s:.1f} s (spawn, setup, 4 solves), the NCCL job {nccl_s:.1f}"
+        f" s (spawn, setup, solve, solve_compiled)")
     runs = [(f"{name} [gloo x2]", name, [ranks[0][i] for ranks in gloo])
             for i, name in enumerate(specs)]
     runs.append(("kron twofloat RB-GS [nccl x1]", "kron twofloat RB-GS",
@@ -2432,6 +2469,316 @@ def phase_distributed(dev):
     return launches
 
 
+# phase 19: the headline example at the sizes its users run
+HEADLINE_SIZES = (64, 128, 256, 512)
+# the JAX package's record (BENCH_r05): iterations to 1e-10 per size
+HEADLINE_RECORD = {"pcg": {64: 9, 128: 9, 256: 9, 512: 9},
+                   "dc": {64: 12, 128: 12, 256: 14}}
+# the counts phases 4 and 4b assert at 128^3
+HEADLINE_128 = {"pcg": 8, "dc": 11}
+
+
+def _headline_kernel_checks(prob, mg, x):
+    """Called by the 512^3 PCG run once its numbers are read: every kernel
+    the solve launched against its plain version on operands of the solve's
+    own sizes (513^3 and 257^3), each field freed after its check; returns
+    the launches of the run (read first: the checks' are not counted) and
+    max|d| per kernel."""
+    launches = counters.snapshot()
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = prob.space.device
+    g = torch.Generator(device=dev).manual_seed(19)
+    errs = {}
+    for l in (0, 1):   # K1 on the cycle's f32 levels
+        A = mg.levels_pre[l].A
+        sp = A.space
+        fields = [torch.randn(sp.npts, generator=g, device=dev)
+                  for _ in range(3)]
+        e = _k1_against_plain(f"headline 512^3 level {l}, ", A.terms,
+                              fields, sp.npts, sp.pads, sp.periodic)
+        errs[f"K1 {sp.npts[0]}^3"] = max(e.values())
+        del fields
+        torch.cuda.empty_cache()
+    # K5: the double-word A·p and the full residual on the finest level
+    sp = prob.space
+    x64 = torch.randn(sp.npts, generator=g, dtype=torch.float64, device=dev)
+    (xh, xl), (bh, bl) = split_f64(x64), split_f64(prob.b.interior)
+    del x64
+    zero = torch.zeros_like(xh)
+    for flags, explicit in (((bh, bl, xh, xl), (bh, bl, xh, xl)),
+                            ((None, None, xh, None), (zero, zero, xh, zero))):
+        got = twofloat.residual_kron_df(mg._terms_df, *flags, sp.pads,
+                                        labels=mg._labels,
+                                        periodic=sp.periodic,
+                                        plan=mg._plan_df)
+        torch.cuda.synchronize()
+        want = twofloat.residual_kron_df_plain(mg._terms_df, *explicit,
+                                               sp.pads, mg._labels,
+                                               sp.periodic)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("K5 is not bit-equal to its plain version "
+                                 "at 513^3")
+        del got, want
+        torch.cuda.empty_cache()
+    errs["K5 513^3"] = 0.0
+    # K6r: the stacked pair and the norm; K6u cg
+    z = torch.randn(sp.npts, generator=g, device=dev)
+    pair = [(z, None, xh, xl), (z, None, bh, bl)]
+    got = twofloat.dw_dot_stack(pair)
+    want = twofloat.dw_dot_stack_plain(pair)
+    scale = torch.stack([(z.double() * (xh.double() + xl.double())).abs()
+                         .sum(), (z.double() * (bh.double() + bl.double()))
+                         .abs().sum()])
+    err = (got - want).abs()
+    assert bool((err <= K6_TOL * scale).all()), (err, scale)
+    nrm, n_want = twofloat.dw_norm2(xh, xl), twofloat.dw_norm2_plain(xh, xl)
+    n_rel = float((nrm * nrm - n_want * n_want).abs() / (n_want * n_want))
+    assert n_rel <= K6_TOL, n_rel
+    errs["K6r 513^3"] = float((err / scale).max())
+    s0 = torch.tensor(0.37, dtype=torch.float64, device=dev)
+    s1 = torch.tensor(1.91, dtype=torch.float64, device=dev)
+    ops = (xh, xl, bh, bl, z, xh * 1e-3, xl, s0, s1)
+    got = twofloat.dw_update("cg", *ops)
+    want = twofloat.dw_update_plain("cg", *ops)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("K6u cg is not bit-equal to plain at 513^3")
+    errs["K6u 513^3"] = 0.0
+    del z, pair, got, want, ops, xh, xl, bh, bl, zero
+    torch.cuda.empty_cache()
+    # K7 on the solver's own bands: 513^3 -> 257^3 and back (+ add)
+    lev = mg.levels_pre[0]
+    xf = torch.randn(lev.A.space.npts, generator=g, device=dev)
+    xc = torch.randn(mg.levels_pre[1].A.space.npts, generator=g, device=dev)
+    for label, kernel, plain in (
+            ("restrict", lambda: k7.apply_transfer(lev.restrict, xf),
+             lambda: k7.apply_transfer_plain(lev.restrict, xf)),
+            ("prolong+add",
+             lambda: k7.apply_transfer(lev.prolong, xc, add=xf),
+             lambda: k7.apply_transfer_plain(lev.prolong, xc, add=xf))):
+        got = kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain()):
+            raise AssertionError(f"K7 {label} is not bit-equal to plain at "
+                                 "513^3 <-> 257^3")
+    errs["K7 513^3 <-> 257^3"] = 0.0
+    del xf, xc
+    torch.cuda.empty_cache()
+    log(f"[headline] 512^3 kernels against their plain versions on the "
+        f"solve's operands (K1 rel 1e-5, K5/K6u/K7 bit-equal, K6r "
+        f"{K6_TOL:g} of sum|terms|): max|d| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return {"launches": launches, "errors": errs}
+
+
+def phase_headline(dev):
+    """The port's headline example at 64^3 .. 512^3, PCG and defect
+    correction: converged, true f64 residual <= 5e-10, the counts of phases
+    4 and 4b at 128^3; at 512^3 the kernels held against plain."""
+    from poms_tpu_torch.examples import headline_solve
+
+    launches, rows = {}, {}
+    for n in HEADLINE_SIZES:
+        for solver in ("pcg", "dc"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            counters.reset()
+            check = (_headline_kernel_checks if (n, solver) == (512, "pcg")
+                     else lambda prob, mg, x: {
+                         "launches": counters.snapshot()})
+            t0 = time.perf_counter()
+            res = headline_solve.main(n, 3, solver, device=dev,
+                                      out=lambda m: log(f"[headline] {m}"),
+                                      check=check)
+            res["run_s"] = time.perf_counter() - t0
+            for k, v in res["check"].pop("launches").items():
+                launches[k] = launches.get(k, 0) + v
+            rec = HEADLINE_RECORD[solver].get(n)
+            log(f"[headline] {n}^3 {solver}: {res['iterations']} "
+                f"iterations (JAX record {rec if rec else 'none'}), true f64 "
+                f"|b - Ax| {res['true_residual']:.3e}, L2 error "
+                f"{res['l2_error']:.3e}, replayed {res['ms_per_iter']:.3f} "
+                f"ms/iteration, setup {res['setup_s']:.3f} s, first solve "
+                f"(warm-up + capture) {res['cold_solve_s']:.3f} s, peak "
+                f"{res['peak_bytes'] / 2 ** 30:.2f} GiB, {res['run_s']:.1f} "
+                f"s in all")
+            assert res["converged"] and res["true_residual"] <= 5e-10, res
+            if n == 128:
+                assert res["iterations"] == HEADLINE_128[solver], \
+                    (solver, res["iterations"])
+            limit = 10 if solver == "pcg" else (rec + 2 if rec else None)
+            if limit is not None and res["iterations"] > limit:
+                log(f"[headline] FINDING: {n}^3 {solver} took "
+                    f"{res['iterations']} iterations, above {limit}")
+            rows[f"{n} {solver}"] = res
+    missing = [k for k in ("kron_mode.cheb", "kron_mode.residual",
+                           "kron_mode.dinv", "residual_kron_df",
+                           *NEW_KERNELS) if not launches.get(k, 0) > 0]
+    assert not missing, f"the headline runs missed {missing}"
+    log(f"[headline] launches of the runs (the 512^3 checks not counted): "
+        f"{_short(launches)}")
+    log("[headline] RESULT " + json.dumps(rows))
+    return launches, rows
+
+
+def phase_benches(dev, k4):
+    """attr_iter at 128^3 (pcg, dc); the dense-matmul Kronecker apply
+    against K1's apply at 129^3 p3 f32 and timed (K1's library column);
+    bench_vcycle(3, 128, 3, 5) under K2 and K3; the plain-PyTorch stream
+    yardsticks at 128^3 p3 beside K4.  Returns the launches of the benches
+    (not of the matmul comparison) and the matmul time."""
+    from poms_tpu_torch.bench import attr_iter
+    from poms_tpu_torch.bench.roofline import bench_spmv, bench_vcycle
+    from poms_tpu_torch.core.kron import KroneckerSumOperator
+
+    counters.reset()
+    attr = {}
+    for what in ("pcg", "dc"):
+        out = attr_iter.run(128, 3, what, device=dev)
+        attr[what] = out
+        log(f"[attr_iter] RESULT {json.dumps(out)}")
+        log(f"[attr_iter] 128^3 {what}: step {out['step_s'] * 1e3:.4f} ms "
+            f"against {out['parts_ms']:.4f} ms for its parts "
+            f"({out['step_over_parts']:.3f})")
+        torch.cuda.empty_cache()
+    bench_launches = counters.snapshot()
+    # the dense-matmul apply (POMS_TPU_KRON=matmul), TF32 off
+    npts, pads, periodic = (129,) * 3, (3,) * 3, (False,) * 3
+    terms, (x, _, _) = _k1_operands(npts, pads, torch.float32, dev, 20)
+    space = StencilVectorSpace(npts=npts, pads=pads, periodic=periodic,
+                               dtype=torch.float32, device=dev)
+    op = KroneckerSumOperator(space, terms)
+    got, want = op._apply_interior_matmul(x), op._mode("apply", x)
+    mm_err = float((got - want).abs().max())
+    assert mm_err <= 1e-5 * float(want.abs().max()), mm_err
+    mm_ms = _device_ms(lambda: op._apply_interior_matmul(x))
+    k1_ms = _device_ms(lambda: op._mode("apply", x))
+    os.environ["POMS_TPU_KRON_PREC"] = "default"
+    tf32_ms = _device_ms(lambda: op._apply_interior_matmul(x))
+    tf32_err = float((op._apply_interior_matmul(x) - want).abs().max()
+                     / want.abs().max())
+    del os.environ["POMS_TPU_KRON_PREC"]
+    log(f"[matmul] 129^3 p3 f32 Kronecker apply by dense per-axis "
+        f"torch.tensordot (POMS_TPU_KRON=matmul, no TF32): {mm_ms:.4f} ms "
+        f"against K1's apply {k1_ms:.4f} ms (device time), max|d| "
+        f"{mm_err:.3e} of max|y| {float(want.abs().max()):.3e}; with TF32 "
+        f"(POMS_TPU_KRON_PREC=default) {tf32_ms:.4f} ms, rel err "
+        f"{tf32_err:.2e}")
+    del got, want, op, terms, x
+    torch.cuda.empty_cache()
+    counters.reset()
+    vcyc = {}
+    for engine in ("K2", "K3"):
+        if engine == "K3":
+            os.environ["POMS_TPU_SPMV"] = "v2"
+        try:
+            sec, _ = bench_vcycle(3, 128, 3, 5, device=dev)
+        finally:
+            os.environ.pop("POMS_TPU_SPMV", None)
+        vcyc[engine] = sec
+        log(f"[vcycle] bench_vcycle(3, 128, 3, 5) under {engine}: "
+            f"{sec * 1e3:.3f} ms per V-cycle (Jacobi 0.8, nu 2/2, banded "
+            f"f32, five chained cycles by CUDA events)")
+        torch.cuda.empty_cache()
+    streams = {}
+    for impl in ("xlastream", "xlastreamrw"):
+        r = bench_spmv((128,) * 3, 3, torch.float32, iters=20, impl=impl)
+        streams[impl] = r
+        log(f"[stream] {impl} 128^3 p3 f32 (plain PyTorch): "
+            f"{r.wall_s * 1e3:.4f} ms, {r.gbytes_per_s:.1f} GB/s "
+            f"({r.pct_sol:.1f}% of the published 3.35 TB/s, "
+            f"{100 * r.gbytes_per_s / k4['gbps']:.1f}% of K4's "
+            f"{k4['gbps']:.1f} GB/s)")
+        torch.cuda.empty_cache()
+    for k, v in counters.snapshot().items():
+        bench_launches[k] = bench_launches.get(k, 0) + v
+    log(f"[benches] launches of attr_iter, bench_vcycle and the streams: "
+        f"{ {k: v for k, v in bench_launches.items() if v} }")
+    return {"launches": bench_launches, "matmul_ms": mm_ms,
+            "k1_apply_ms": k1_ms, "attr": attr, "vcycle": vcyc}
+
+
+def phase_dist_examples(dev, t_comp_ms):
+    """The distributed examples on 2 gloo ranks sharing the card at the JAX
+    examples' default sizes, multihost_3d also on 1 NCCL rank, and the
+    census of one production step on 2 gloo ranks, the five jobs at once
+    (their ranks share the card; each job's lines are logged together);
+    then, alone, overlap_trace's A/B pair at 128^3 p3 on 2 gloo ranks; the
+    scaling model's prediction for 8 ranks at 128^3 a rank (one card shows
+    the wiring, not scaling)."""
+    from poms_tpu_torch.bench import overlap_trace, scaling_model
+    from poms_tpu_torch.examples import (distributed_2d, multihost_2d,
+                                         multihost_3d)
+
+    jobs = {
+        "distributed_2d": lambda out: distributed_2d.main(
+            backend="gloo", ranks=2, out=out),
+        "multihost_2d": lambda out: multihost_2d.main(
+            backend="gloo", ranks=2, out=out),
+        "multihost_3d gloo": lambda out: multihost_3d.main(
+            True, True, backend="gloo", ranks=2, out=out),
+        "multihost_3d nccl": lambda out: multihost_3d.main(
+            True, True, backend="nccl", ranks=1, out=out),
+        "census": lambda out: scaling_model.census(
+            (2, 1, 1), backend="gloo", device=None)}
+
+    def run(name):
+        lines = []
+        t0 = time.perf_counter()
+        res = jobs[name](lines.append)
+        return res, lines, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = dict(zip(jobs, pool.map(run, jobs)))
+    launches = {}
+    for name, (res, lines, secs) in done.items():
+        for line in lines:
+            log(f"[dist-examples] {name}: {line}")
+        log(f"[dist-examples] {name}: {secs:.1f} s (five jobs at once)")
+        for k, v in res.get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"[dist-examples] launches over the examples' ranks: {launches}")
+    res = done["distributed_2d"][0]
+    assert res["converged"] and res["drift"] <= 1e-12, res["drift"]
+    assert done["multihost_2d"][0]["ok"]
+    for backend in ("gloo", "nccl"):
+        assert done[f"multihost_3d {backend}"][0]["all_ok"], backend
+    doc = done["census"][0]
+    log(f"[census] one twofloat kron step (8 elements a rank, p3, 3 levels) "
+        f"on 2 gloo ranks, mesh (2, 1, 1): message directions a rank "
+        f"{doc['messages_per_rank']}, bytes sent a rank "
+        f"{doc['bytes_sent_per_rank']}, slabs {json.dumps(doc['slabs'])}, "
+        f"collectives {json.dumps(doc['collectives'])}")
+    pred = scaling_model.predict(scaling_model.classify(doc), 128, 3,
+                                 t_comp_ms * 1e-3)
+    log(f"[census] model for 8 ranks at 128^3 a rank (NVLink 4 spec 450 "
+        f"GB/s a direction, assumed {scaling_model.T_MSG_S:g} s a message, "
+        f"T_comp {t_comp_ms:.3f} ms = this run's 128^3 defect correction "
+        f"per iteration): {json.dumps(pred)}; one card shows the wiring, "
+        f"not scaling")
+    t0 = time.perf_counter()
+    ab = overlap_trace.run_overlap_ab(None, n_el=128, backend="gloo",
+                                      ranks=2, dim=3, degree=3, levels=5)
+    per_rank = ab.pop("per_rank")
+    for arm in ("overlap_true", "overlap_false"):
+        r = ab[arm]
+        log(f"[overlap] 128^3 p3 f32, 2 gloo ranks on one card, "
+            f"{arm}: overlap fraction {r['overlap_fraction']}, step "
+            f"{r['step_wall_us'] / 1e3:.2f} ms, device busy "
+            f"{r['device_busy_us'] / 1e3:.2f} ms (idle share "
+            f"{r['device_idle_share']}), card<->host copies "
+            f"{r['copy_us'] / 1e3:.2f} ms (share {r['copy_share']}), "
+            f"{r['n_comm_events']} comm / {r['n_compute_events']} compute "
+            f"events; rank 1: idle share "
+            f"{per_rank[1][arm]['device_idle_share']}, copies "
+            f"{per_rank[1][arm]['copy_share']}")
+    log(f"[overlap] RESULT {json.dumps(ab)} ({time.perf_counter() - t0:.1f}"
+        " s)")
+    return launches, ab, pred
+
+
 T_START = time.perf_counter()
 
 
@@ -2489,6 +2836,16 @@ def main():
     bf16_paths = run(phase_bf16_solves, dev, defect_f32, solve)
     periodic = run(phase_periodic, dev)
     dist = run(phase_distributed, dev)
+    headline, headline_rows = run(phase_headline, dev)
+    benches = run(phase_benches, dev, k4)
+    dist_examples, _, _ = run(phase_dist_examples, dev,
+                              headline_rows["128 dc"]["ms_per_iter"])
+    later = (headline, benches["launches"], dist_examples)
+
+    def more(key):
+        """The launches of phases 19-21 under one counter's key."""
+        return sum(c.get(key, 0) for c in later)
+
     points = 129 ** 3
 
     def banded_bound(mode):
@@ -2503,16 +2860,20 @@ def main():
         "source": "poms_tpu_torch/csrc/kron_apply.cu",
         "replaces": "poms_tpu/ops/pallas/kron.py:157",
         "launches": solve["launches"][f"kron_mode.{m}"]
-        + defect[f"kron_mode.{m}"] + dist.get(f"kron_mode.{m}", 0),
+        + defect[f"kron_mode.{m}"] + dist.get(f"kron_mode.{m}", 0)
+        + more(f"kron_mode.{m}"),
         "max_abs_err": k1_res[m]["max_abs_err"], "ms": k1_res[m]["ms"],
         "plain_ms": k1_res[m]["plain_ms"], "bound_ms": k1_res[m]["bound_ms"],
-        "bound_by": "bytes", "library_ms": None} for m in k1.MODES]
+        "bound_by": "bytes",
+        "library_ms": benches["matmul_ms"] if m == "apply" else None}
+        for m in k1.MODES]
     kernels.append({
         "name": "residual_kron_df", "route": "cuda",
         "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
         "replaces": "poms_tpu/ops/twofloat.py:197",
         "launches": solve["launches"]["residual_kron_df"]
-        + defect["residual_kron_df"] + dist.get("residual_kron_df", 0),
+        + defect["residual_kron_df"] + dist.get("residual_kron_df", 0)
+        + more("residual_kron_df"),
         "max_abs_err": k5_res["max_abs_err"], "ms": k5_res["ms"],
         "plain_ms": k5_res["plain_ms"], "bound_ms": k5_res["bound_ms"],
         "bound_by": "operations", "library_ms": None})
@@ -2525,7 +2886,7 @@ def main():
         "name": name, "route": "cuda",
         "source": f"poms_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": solve["launches"][name] + defect[name]
-        + dist.get(name, 0),
+        + dist.get(name, 0) + more(name),
         "bound_by": "bytes", "library_ms": None, **res[name]}
         for name, src, replaces, res in new_rows]
     csr_ms = k2["spmv"]["library_ms"]
@@ -2533,7 +2894,8 @@ def main():
         "name": f"stencil_apply.{m}", "route": "cuda",
         "source": "poms_tpu_torch/csrc/stencil_apply.cu",
         "replaces": f"poms_tpu/ops/pallas/spmv.py:{K2_REPLACES[m]}",
-        "launches": k2_launches[m] + dist.get(f"stencil_apply.{m}", 0),
+        "launches": k2_launches[m] + dist.get(f"stencil_apply.{m}", 0)
+        + more(f"stencil_apply.{m}"),
         "max_abs_err": k2[m]["max_abs_err"],
         "ms": k2[m]["ms"], "plain_ms": k2[m]["plain_ms"],
         **banded_bound(m),
@@ -2552,7 +2914,8 @@ def main():
         "name": f"stencil_apply_v2.{m}", "route": "cuda",
         "source": "poms_tpu_torch/csrc/stencil_apply_v2.cu",
         "replaces": f"poms_tpu/ops/pallas/spmv.py:{K3_REPLACES[m]}",
-        "launches": k3_launches[m] + dist.get(f"stencil_apply_v2.{m}", 0),
+        "launches": k3_launches[m] + dist.get(f"stencil_apply_v2.{m}", 0)
+        + more(f"stencil_apply_v2.{m}"),
         "max_abs_err": k3[m]["max_abs_err"],
         "ms": k3[m]["ms"], "plain_ms": k3[m]["plain_ms"],
         **banded_bound(m),

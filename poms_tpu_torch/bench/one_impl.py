@@ -4,10 +4,12 @@
         [dtype]
 
 ``impl`` is ``k2``, ``k3`` (the CUDA kernels; K3's band packed before
-timing), ``plain`` (the PyTorch version), ``kron`` (K1) or ``streamfloor``
-(K4); ``n`` is a cube edge or an explicit grid ("64x32x128"); ``dtype`` is
-``f32`` (default), ``f64`` or ``bf16`` (2-byte items in the byte counts; the
-kernels compute in f32).  Timing and byte counts are
+timing), ``plain`` (the PyTorch version), ``kron`` (K1), ``streamfloor``
+(K4), or the plain-PyTorch stream yardsticks ``xlastream`` and
+``xlastreamrw`` (:mod:`~poms_tpu_torch.bench.roofline`); ``n`` is a cube
+edge or an explicit grid ("64x32x128"); ``dtype`` is ``f32`` (default),
+``f64`` or ``bf16`` (2-byte items in the byte counts; the kernels compute
+in f32).  Timing and byte counts are
 :func:`poms_tpu_torch.bench.roofline.bench_spmv`'s.
 
 Prints one ``RESULT {...}`` line with the JAX package's keys (``name``,

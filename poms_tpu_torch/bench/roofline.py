@@ -1,9 +1,10 @@
 """Roofline bench of the banded SpMV on the card: achieved GB/s and Gnnz/s
 against the card's device-memory bandwidth.
 
-Counterpart of part of ``poms_tpu/bench/roofline.py`` (``sol_bandwidth``,
-``BenchResult``, ``bench_spmv``).  A banded stencil SpMV streams the band
-once, (2p+1)^d coefficients per grid point, reads x and writes y, so
+Counterpart of ``poms_tpu/bench/roofline.py`` (``sol_bandwidth``,
+``BenchResult``, ``bench_spmv``, ``bench_vcycle``).  A banded stencil SpMV
+streams the band once, (2p+1)^d coefficients per grid point, reads x and
+writes y, so
 
     bytes = (terms + 2) · points · itemsize,   nnz = terms · points
 
@@ -13,7 +14,15 @@ Times are CUDA-event means over ``iters`` back-to-back applies after a
 warm-up (:func:`poms_tpu_torch.bench.kernel_probe.cuda_event_ms`); the band
 (2.9 GB at 128³ p3 f32) is far larger than the 50 MB L2, so every apply
 reads it from device memory.  Operands are drawn on the card from a seed.
-Needs a CUDA card.
+``bench_spmv`` needs a CUDA card; ``bench_vcycle`` also runs on the CPU
+(``device="cpu"``, the host clock).
+
+Two plain-PyTorch stream yardsticks keep the JAX package's impl names: the
+band-sized multiply-accumulate stream ``xlastream`` (y = tanh(x·Σ_t band[t]),
+the band read once, x read and y written: the SpMV's byte count) and the
+read + write stream ``xlastreamrw`` (x' = 0.9999·x + 1e-7 over a band-sized
+array, 2·terms·points·itemsize bytes); each call reads its operands afresh,
+nothing is hoisted.
 """
 from __future__ import annotations
 
@@ -23,13 +32,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["sol_bandwidth", "BenchResult", "bench_spmv", "IMPLS"]
+__all__ = ["sol_bandwidth", "BenchResult", "bench_spmv", "bench_vcycle",
+           "IMPLS"]
 
 # published device-memory bandwidth (GB/s) by the card's name; the first
 # key the (lower-cased) name contains wins (NVIDIA's data sheets)
 _HBM_GBPS = (("h100 pcie", 2000.0), ("h100 80gb hbm3", 3350.0),
              ("h100 sxm", 3350.0))
-IMPLS = ("plain", "k2", "k3", "kron", "streamfloor")
+IMPLS = ("plain", "k2", "k3", "kron", "streamfloor", "xlastream",
+         "xlastreamrw")
 
 
 def sol_bandwidth(name: str | None = None) -> float:
@@ -90,8 +101,9 @@ def bench_spmv(npts, degree: int = 3, dtype=torch.float32, iters: int = 20,
 
     ``impl``: ``plain`` (PyTorch shifted multiply-adds), ``k2``, ``k3``
     (the band packed before timing, as an operator packs it at setup),
-    ``kron`` (K1) or ``streamfloor`` (K4's contiguous band stream; cubic
-    f32 grids only)."""
+    ``kron`` (K1), ``streamfloor`` (K4's contiguous band stream; cubic
+    f32 grids only), ``xlastream`` or ``xlastreamrw`` (the plain-PyTorch
+    stream yardsticks of the module's docstring)."""
     from poms_tpu_torch.bench.kernel_probe import cuda_event_ms, probe_stream
 
     if impl not in IMPLS:
@@ -111,6 +123,42 @@ def bench_spmv(npts, degree: int = 3, dtype=torch.float32, iters: int = 20,
                              f"got npts={npts} dtype={dtype}")
         ms, _ = probe_stream(npts[0], degree, contiguous=True, iters=iters,
                              device=dev)
+    elif impl in ("xlastream", "xlastreamrw"):
+        points = math.prod(npts)
+        g = torch.Generator(device=dev).manual_seed(0)
+        if impl == "xlastreamrw":
+            bufs = [torch.full((terms * points,), 0.5, dtype=dtype,
+                               device=dev) for _ in range(2)]
+            scale = torch.tensor(0.9999, dtype=dtype, device=dev)
+            shift = torch.tensor(1e-7, dtype=dtype, device=dev)
+            state = {"i": 0}
+
+            def stream():
+                i = state["i"]
+                state["i"] = 1 - i
+                # one elementwise pass: read one buffer, write the other
+                return torch.addcmul(shift, bufs[i], scale, out=bufs[1 - i])
+        else:
+            band_flat = (torch.randn((terms, points), generator=g,
+                                     dtype=dtype, device=dev)
+                         / (2.0 * math.sqrt(terms)))
+            x = torch.full((points,), 1e-3, dtype=dtype, device=dev)
+
+            def stream():
+                return torch.tanh(band_flat.sum(0) * x)
+        ms = cuda_event_ms(stream, iters)
+        wall = ms * 1e-3
+        isize = torch.finfo(dtype).bits // 8
+        nbytes = (2 * terms if impl == "xlastreamrw" else terms + 2) \
+            * points * isize
+        gbps = nbytes / wall / 1e9
+        return BenchResult(
+            name=f"spmv_banded_{impl}_{d}d_p{degree}",
+            dtype=str(dtype).replace("torch.", ""), grid=npts, wall_s=wall,
+            gbytes_per_s=gbps,
+            gnnz_per_s=0.0 if impl == "xlastreamrw"
+            else terms * points / wall / 1e9,
+            pct_sol=100.0 * gbps / sol_bandwidth())
     else:
         from poms_tpu_torch.ops.stencil import (stencil_apply,
                                                 stencil_apply_plain)
@@ -146,3 +194,39 @@ def bench_spmv(npts, degree: int = 3, dtype=torch.float32, iters: int = 20,
         dtype=str(dtype).replace("torch.", ""), grid=npts, wall_s=wall,
         gbytes_per_s=gbps, gnnz_per_s=terms * points / wall / 1e9,
         pct_sol=100.0 * gbps / sol_bandwidth())
+
+
+def bench_vcycle(dim: int, n_el: int, degree: int, num_levels: int,
+                 dtype=torch.float32, iters: int = 5, device=None):
+    """Seconds per V-cycle of the banded hierarchy (Jacobi ω = 0.8, ν1 = ν2
+    = 2), ``iters`` cycles chained from x = 0 after one warm-up cycle: CUDA
+    events on the card (K2, or K3 under ``POMS_TPU_SPMV=v2``, and K7), the
+    host clock on the CPU.  Returns (seconds, problem)."""
+    import time
+
+    from poms_tpu_torch.core.vector import StencilVector
+    from poms_tpu_torch.mg.cycles import CycleConfig, cycle
+    from poms_tpu_torch.mg.hierarchy import build_hierarchy
+    from poms_tpu_torch.mg.smoother import SmootherConfig
+    from poms_tpu_torch.models.poisson import poisson_problem
+
+    prob = poisson_problem(dim, n_el, degree=degree, dtype=dtype,
+                           device=device)
+    cfg = CycleConfig(smoother=SmootherConfig("jacobi", 0.8))
+    levels = build_hierarchy(prob, num_levels)
+    b = prob.b
+    x = cycle(levels, 0, StencilVector.zeros(prob.space), b, cfg)
+    if prob.space.device.type == "cuda":
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            x = cycle(levels, 0, x, b, cfg)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) * 1e-3 / iters, prob
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        x = cycle(levels, 0, x, b, cfg)
+    return (time.perf_counter() - t0) / iters, prob

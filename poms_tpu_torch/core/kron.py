@@ -8,9 +8,17 @@ residual, the D⁻¹-scaled apply and the Chebyshev update are the modes of K1
 the card, the plain chain of 1D contractions for tensors on the CPU.  The
 kernel's launch data (stacked bands, sharing plan, tiling) is built once,
 when the operator is made.
+
+``POMS_TPU_KRON=matmul`` (read at every apply, non-periodic operators only)
+routes :meth:`KroneckerSumOperator._apply_interior` to the dense per-axis
+products of the JAX package's opt-in MXU apply
+(:meth:`KroneckerSumOperator._apply_interior_matmul`); K1's fused modes
+(residual, D⁻¹-scaled apply, Chebyshev update) do not read it.
 """
 from __future__ import annotations
 
+import os
+from contextlib import contextmanager
 from typing import Sequence
 
 import numpy as np
@@ -50,6 +58,17 @@ def kron_band_t(terms) -> torch.Tensor:
     return total
 
 
+@contextmanager
+def _allow_tf32(on: bool):
+    """PyTorch's TF32 switch for f32 matrix products, restored after."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
 class KroneckerSumOperator:
     """A = Σ_r ⊗_a B_r^(a), each B a 1D stencil band (n_a, 2p_a+1)."""
 
@@ -84,7 +103,68 @@ class KroneckerSumOperator:
     def _mode(self, mode: str, x_int: torch.Tensor, **kw):
         return kron_mode(mode, self.plan, x_int, **kw)
 
+    def _band_to_dense(self, B: torch.Tensor, pad: int) -> torch.Tensor:
+        """Dense (n, n) matrix of a 1D band (Dirichlet: clipped
+        diagonals)."""
+        n = B.shape[0]
+        D = None
+        for t in range(B.shape[1]):
+            k = t - pad
+            v = B[: n - k, t] if k >= 0 else B[-k:, t]
+            term = torch.diag(v, k)
+            D = term if D is None else D + term
+        return D
+
+    def _apply_interior_matmul(self, x_int: torch.Tensor) -> torch.Tensor:
+        """Σ_r ⊗B by dense per-axis products (``torch.tensordot``, cuBLAS on
+        the card), partials shared by band-label history as the JAX
+        package's ``_apply_interior_matmul`` shares them; non-periodic only.
+
+        The JAX package computes these products with XLA's dot on the MXU,
+        outside any Pallas kernel; here they are PyTorch's own matrix
+        products, the library's computation of K1's function, kept as its
+        yardstick.  ``POMS_TPU_KRON_PREC``: ``default`` lets f32 products
+        use TF32 (PyTorch's counterpart of ``Precision.DEFAULT``); anything
+        else, or unset, keeps full f32 products (``Precision.HIGHEST``;
+        ``high``, XLA's three-pass bf16, has no PyTorch counterpart and is
+        taken as that)."""
+        if any(self.space.periodic):
+            raise ValueError("the dense-matmul apply is non-periodic only")
+        d = self.space.ndim
+        pads = self.space.pads
+        labels = self._band_labels()
+        dense = []
+        for a in range(d):
+            row = {}
+            for r, term in enumerate(self.terms):
+                lb = labels[a][r]
+                if lb not in row:
+                    row[lb] = self._band_to_dense(term[a], pads[a])
+            dense.append(row)
+        partials = {r: x_int for r in range(len(self.terms))}
+        hist = {r: () for r in range(len(self.terms))}
+        tf32 = os.environ.get("POMS_TPU_KRON_PREC", "") == "default"
+        with _allow_tf32(tf32):
+            for a in range(d - 1, -1, -1):
+                cache = {}
+                for r in range(len(self.terms)):
+                    key = hist[r] + (labels[a][r],)
+                    if key not in cache:
+                        y = torch.tensordot(partials[r],
+                                            dense[a][labels[a][r]],
+                                            dims=([a], [1]))
+                        cache[key] = torch.movedim(y, -1, a)
+                    partials[r] = cache[key]
+                    hist[r] = key
+        out = None
+        for r in partials:
+            out = partials[r] if out is None else out + partials[r]
+        return out
+
     def _apply_interior(self, x_int: torch.Tensor) -> torch.Tensor:
+        if (os.environ.get("POMS_TPU_KRON") == "matmul"
+                and not any(self.space.periodic)):
+            return self._apply_interior_matmul(x_int)
         return self._mode("apply", x_int)
 
     def dot(self, v: StencilVector) -> StencilVector:

@@ -50,12 +50,26 @@ class RankGrid:
     """The ranks of ``group`` as a row-major Cartesian ``mesh_shape``.
 
     ``staged_bytes`` counts the halo bytes copied between a card and host
-    memory (both ways) under gloo."""
+    memory (both ways) under gloo.  ``census``, when a list, receives one
+    record per message direction posted (``kind="p2p"``: the dim, ``fwd``
+    or ``bwd``, the slab's shape, dtype and bytes, and whether this rank
+    has a peer that way) and per collective (``all_reduce``,
+    ``all_gather``): what ``bench/scaling_model.py`` counts."""
     mesh_shape: Tuple[int, ...]
     rank: int
     backend: str
     group: Optional[object] = None
     staged_bytes: int = 0
+    census: Optional[list] = None
+
+    def record(self, kind: str, shape, dtype: torch.dtype,
+               **extra) -> None:
+        """Add one record to ``census`` (when counting)."""
+        if self.census is not None:
+            self.census.append({
+                "kind": kind, "shape": list(shape),
+                "dtype": str(dtype).replace("torch.", ""),
+                "bytes": math.prod(shape) * dtype.itemsize, **extra})
 
     @classmethod
     def current(cls, mesh_shape, group=None) -> "RankGrid":
@@ -195,6 +209,9 @@ def _post(x_pad: torch.Tensor, a: int, ax: AxisSpec,
                               grid.group, tag))
     shape = list(x_pad.shape)
     shape[a] = p
+    for direction, peer in (("fwd", hi), ("bwd", lo)):
+        grid.record("p2p", shape, x_pad.dtype, dim=a, direction=direction,
+                    sent=peer is not None)
     for peer, lo_side, tag in ((lo, True, fwd), (hi, False, bwd)):
         if peer is None:
             continue
@@ -324,6 +341,7 @@ def dist_spmv_offdiag(band_loc: torch.Tensor, x_loc: torch.Tensor,
 def all_reduce_sum(t: torch.Tensor, grid: RankGrid) -> torch.Tensor:
     """Sum of a (small) tensor over the grid's ranks, on t's device; under
     gloo a CUDA tensor goes through host memory."""
+    grid.record("all_reduce", t.shape, t.dtype)
     if grid.stages(t):
         host = t.cpu()
         dist.all_reduce(host, group=grid.group)
@@ -354,6 +372,7 @@ def gather_blocks(x_loc: torch.Tensor, grid: RankGrid) -> torch.Tensor:
     """Every rank's block assembled into the global (padded) field on every
     rank: one ``all_gather`` (the JAX package's tiled ``all_gather``)."""
     world = math.prod(grid.mesh_shape)
+    grid.record("all_gather", x_loc.shape, x_loc.dtype)
     src = x_loc.contiguous()
     if grid.backend == "gloo":
         parts = [torch.empty_like(src, device="cpu") for _ in range(world)]

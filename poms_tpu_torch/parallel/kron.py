@@ -121,10 +121,12 @@ def dist_kron_apply(bands_by_axis: Sequence[Sequence[torch.Tensor]],
     ``labels[a][r]`` picks term r's.  ``fused=True``: one exchange of x on
     every dim up front, the earlier axes contracted over the later dims'
     halo rows (a halo row of dim b is the neighbour's interior, which
-    shares this rank's range on the other dims); ``fused=False``: one
-    exchange per distinct partial per axis, the JAX package's form, which
-    no solver path takes: it is kept as the reference the tests hold the
-    fused form to (the same bits)."""
+    shares this rank's range on the other dims), the form
+    ``DistributedMG`` runs and ``bench/scaling_model.py``'s census counts;
+    ``fused=False``: one exchange per distinct partial per axis, the JAX
+    package's form.  The per-axis form exists only as a test reference: no
+    solver path takes it, and the tests hold the fused form to it (the same
+    bits) and count its exchanges against the JAX package's."""
     starts = local_starts(spec)
     n_loc = spec.n_loc
 
@@ -154,8 +156,9 @@ def dist_kron_residual_df(bands_df_by_axis, labels, bh, bl, xh, xl,
     words are exchanged separately (a message is exact).
 
     ``bands_df_by_axis[a]``: (hi, lo) f32 pairs of the distinct padded
-    global 1D bands of axis a; ``fused`` as in :func:`dist_kron_apply`
-    (``False``: the per-axis reference form of the tests)."""
+    global 1D bands of axis a; ``fused`` as in :func:`dist_kron_apply`:
+    ``True`` is what ``DistributedMG``'s twofloat residual runs, and
+    ``False``, the per-axis form, exists only as a test reference."""
     starts = local_starts(spec)
     n_loc = spec.n_loc
 

@@ -184,6 +184,35 @@ def test_graphed_step_needs_the_card():
         GraphedStep(lambda x: (x, x.sum()), [torch.zeros(3)])
 
 
+@pytest.mark.parametrize("prof,stream,graph,want,told", [
+    (0.040, 0.050, None, 0.040, False),   # agrees with the events: kept
+    (0.004, 0.050, 0.040, 0.040, True),   # lost events: the graph's time
+    (0.004, 0.050, 0.006, 0.004, False),  # host gaps only: kept
+    (0.004, 0.050, "raise", 0.004, False),  # not capturable: kept
+])
+def test_device_ms_checks_the_profile_against_events(monkeypatch, capsys,
+                                                     prof, stream, graph,
+                                                     want, told):
+    """A profile under a third of the stream's event time is held against
+    a replayed graph's; only under a third of that too is it replaced."""
+    from poms_tpu_torch.bench import device
+
+    def graph_ms(fn, reps):
+        if graph is None:
+            raise AssertionError("the graph was not needed")
+        if graph == "raise":
+            raise RuntimeError("synchronises")
+        return graph
+
+    monkeypatch.setattr(device, "profiler_ms",
+                        lambda fn, reps, with_cpu=False: prof)
+    monkeypatch.setattr(device, "stream_event_ms", lambda fn, reps: stream)
+    monkeypatch.setattr(device, "graph_event_ms", graph_ms)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert device.device_ms(lambda: None, 4) == want
+    assert ("lost device events" in capsys.readouterr().err) == told
+
+
 @pytest.mark.parametrize("capturable", [True, False])
 def test_device_ms_falls_back_to_events(monkeypatch, capsys, capturable):
     """Three empty profiles (the third with the CPU's activity too), then
