@@ -161,7 +161,11 @@ exception is caught, so any failure exits non-zero:
              513^3 and 257^3 cycle levels, K5 (residual and A.p), K6r (the
              stacked pair, the norm) and K6u cg on 513^3 fields, K7 on the
              513^3 <-> 257^3 bands (K1 1e-5 of max|y|, K6r 1e-13 of
-             sum|terms|, K5, K6u and K7 bit-equal).
+             sum|terms|, K5, K6u and K7 bit-equal).  Then the banded
+             examples at the JAX examples' default sizes: poisson_1d in 6
+             cycles, poisson_2d in 18, poisson_3d's RB-GS cycles stalling
+             (60 cycles, median rho 0.9-0.97) and its dw MG-PCG in 13
+             iterations (K2 jacobi, rbgs and residual, K1, K5, K7).
 20. benches — bench/attr_iter.py at 128^3 (pcg, dc); the dense-matmul
              Kronecker apply (POMS_TPU_KRON=matmul) against K1's apply at
              129^3 p3 f32 (1e-5 of max|y|) and timed beside it (K1's library
@@ -192,8 +196,8 @@ phase 6's ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes
 from phase 13's timing paths, the bf16 rows from phase 16 and K5's
 4-history row from phase 17, and to each row the launches of every rank of
 phase 18 (its solves and timed cycles), and those of phases 19 (the
-headline runs), 20 (the benches) and 21 (every rank of the distributed
-examples); launches made to compare a kernel with its plain version are
+headline runs and the banded examples), 20 (the benches) and 21 (every
+rank of the distributed examples); launches made to compare a kernel with its plain version are
 not counted.  Each kernel's ``bound_ms`` is the larger of
 its bytes (every input read once, every output written once) over 3.35 TB/s
 and its operations over the f32 rate outside the tensor cores (K5's
@@ -2623,6 +2627,49 @@ def phase_headline(dev):
     return launches, rows
 
 
+# the JAX package's record of its banded examples at their default sizes
+POISSON_COUNTS = {"poisson_1d": 6, "poisson_2d": 18, "poisson_3d_pcg": 13}
+
+
+def phase_poisson_examples(dev):
+    """The banded examples at the JAX examples' default sizes on the card:
+    1D (p3, 2 levels, Jacobi 2/3) in 6 cycles, 2D (64², p3, 4 levels,
+    Jacobi 0.8) in 18, 3D (16³, p3, 3 levels): RB-GS V(2,2)-cycles stall
+    (60 cycles, median rho 0.9-0.97, above 1e-6), then the dw MG-PCG
+    converges in 13 iterations; returns the launches."""
+    import io
+
+    from poms_tpu_torch.examples import poisson_1d, poisson_2d, poisson_3d
+
+    counters.reset()
+
+    def out(m):
+        log(f"[examples] {m}")
+
+    for name, mod in (("poisson_1d", poisson_1d), ("poisson_2d", poisson_2d)):
+        res = mod.main(device=dev, out=out)
+        assert res["converged"] and \
+            res["iterations"] == POISSON_COUNTS[name], (name, res)
+    res = poisson_3d.main(device=dev, log_stream=io.StringIO(), out=out)
+    rb = res["rbgs"]
+    log(f"[examples] poisson_3d: RB-GS {rb['iterations']} cycles to "
+        f"{rb['residuals'][-1]:.3e}, median rho {rb['rho_median']:.3f}; "
+        f"dw MG-PCG {res['pcg_iterations']} iterations to "
+        f"{res['pcg_rn']:.3e}")
+    assert rb["iterations"] == 60 and rb["residuals"][-1] > 1e-6, rb
+    assert 0.9 < rb["rho_median"] < 0.97, rb["rho_median"]
+    assert res["converged"] and \
+        res["pcg_iterations"] == POISSON_COUNTS["poisson_3d_pcg"], res
+    launches = {k: v for k, v in counters.snapshot().items() if v}
+    missing = [k for k in ("stencil_apply.jacobi", "stencil_apply.rbgs",
+                           "stencil_apply.residual", "kron_mode.cheb",
+                           "residual_kron_df", "transfer")
+               if not launches.get(k, 0) > 0]
+    assert not missing, f"the banded examples missed {missing}"
+    log(f"[examples] launches of the three examples: {launches}")
+    return launches
+
+
 def phase_benches(dev, k4):
     """attr_iter at 128^3 (pcg, dc); the dense-matmul Kronecker apply
     against K1's apply at 129^3 p3 f32 and timed (K1's library column);
@@ -2837,10 +2884,11 @@ def main():
     periodic = run(phase_periodic, dev)
     dist = run(phase_distributed, dev)
     headline, headline_rows = run(phase_headline, dev)
+    poisson = run(phase_poisson_examples, dev)
     benches = run(phase_benches, dev, k4)
     dist_examples, _, _ = run(phase_dist_examples, dev,
                               headline_rows["128 dc"]["ms_per_iter"])
-    later = (headline, benches["launches"], dist_examples)
+    later = (headline, poisson, benches["launches"], dist_examples)
 
     def more(key):
         """The launches of phases 19-21 under one counter's key."""
