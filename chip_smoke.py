@@ -148,8 +148,8 @@ exception is caught, so any failure exits non-zero:
              the solver's own levels at 128³ ↔ 64³.
 
 18. distributed — DistributedMG at 128^3 p3 on 2 gloo ranks sharing the
-             card and on 1 NCCL rank, the two jobs at once (see
-             phase_distributed).
+             card and on 1 NCCL rank, the two jobs at once, so no time a
+             cycle is logged (see phase_distributed).
 19. headline — the port's headline example
              (poms_tpu_torch/examples/headline_solve.py, main) at n_el = 64,
              128, 256 and 512 for pcg and dc: converged, true f64 residual
@@ -167,15 +167,17 @@ exception is caught, so any failure exits non-zero:
              (60 cycles, median rho 0.9-0.97) and its dw MG-PCG in 13
              iterations (K2 jacobi, rbgs and residual, K1, K5, K7).
 20. benches — bench/attr_iter.py at 128^3 (pcg, dc); the dense-matmul
-             Kronecker apply (POMS_TPU_KRON=matmul) against K1's apply at
+             Kronecker apply (core/kron.py::_apply_interior_matmul, the
+             JAX package's POMS_TPU_KRON=matmul) against K1's apply at
              129^3 p3 f32 (1e-5 of max|y|) and timed beside it (K1's library
              column), with TF32 once; bench_vcycle(3, 128, 3, 5) under K2
              and under K3; the plain-PyTorch stream yardsticks xlastream and
              xlastreamrw at 128^3 p3 beside K4.
 21. dist examples — distributed_2d, multihost_2d and multihost_3d (every
              leg) on 2 gloo ranks sharing the card, multihost_3d on 1 NCCL
-             rank, and the census of one twofloat kron step on 2 gloo
-             ranks, the five jobs at once; then alone overlap_trace's A/B
+             rank, the census of one twofloat kron step on 2 gloo ranks,
+             and multihost_2d in f32 on 2 gloo ranks (logged, not gated),
+             the six jobs at once; then alone overlap_trace's A/B
              pair at 128^3 p3 on 2 gloo ranks (overlap fraction, device
              idle share, staged copies' share); the scaling model's
              prediction for 8 ranks at 128^3 a rank (one card shows the
@@ -195,7 +197,7 @@ capture recorded, since a replay launches them again), K4 from
 phase 6's ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes
 from phase 13's timing paths, the bf16 rows from phase 16 and K5's
 4-history row from phase 17, and to each row the launches of every rank of
-phase 18 (its solves and timed cycles), and those of phases 19 (the
+phase 18 (its solves), and those of phases 19 (the
 headline runs and the banded examples), 20 (the benches) and 21 (every
 rank of the distributed examples); launches made to compare a kernel with its plain version are
 not counted.  Each kernel's ``bound_ms`` is the larger of
@@ -2343,17 +2345,19 @@ def _deciding_entry(label, dist_res, serial_res, tol):
 
 def phase_distributed(dev):
     """2 gloo ranks on the card (mesh (2, 1, 1)) and 1 NCCL rank: the
-    distributed solves at 128^3 p3 beside the serial port's counts."""
+    distributed solves at 128^3 p3 beside the serial port's counts.  The
+    two jobs run at once, so this phase checks counts, histories, true
+    residuals, kernels and memory, and logs no time a cycle."""
     specs = {
         "kron twofloat RB-GS": dict(DIST, operator="kron",
                                     cfg=DIST_CYCLES["rbgs"]),
         "kron twofloat Chebyshev(4)": dict(DIST, operator="kron",
                                            cfg=DIST_CYCLES["chebyshev"]),
         "banded f64 RB-GS, K2": dict(DIST, operator="banded",
-                                     cfg=DIST_CYCLES["rbgs"], time_cycles=3),
+                                     cfg=DIST_CYCLES["rbgs"]),
         "banded f64 RB-GS, v2 (K3)": dict(DIST, operator="banded",
                                           cfg=DIST_CYCLES["rbgs"],
-                                          engine="v2", time_cycles=3)}
+                                          engine="v2")}
     for name, spec in specs.items():
         spec["options"] = dict(mixed=True, mixed_residual="twofloat"
                                if spec["operator"] == "kron" else "f64")
@@ -2364,8 +2368,8 @@ def phase_distributed(dev):
     nccl_spec = dict(specs["kron twofloat RB-GS"], mesh=(1, 1, 1),
                      compiled=True)
     # the gloo job and the NCCL job run at once, to hold the script's time;
-    # the NCCL rank's ms a cycle are read beside the gloo ranks' host-bound
-    # cycles
+    # so no time a cycle is logged here: each job's would be read beside
+    # the other's (bench/one_dist.py times a path alone)
     t0 = time.perf_counter()
     gloo_job = start(_dist_ranks, math.prod(DIST_GLOO_MESH),
                      args=(gloo_specs,), backend="gloo", timeout=900)
@@ -2453,20 +2457,13 @@ def phase_distributed(dev):
             f"{r['residuals'][-1]:.3e} (last two {r['residuals'][-2]:.4e}, "
             f"{r['residuals'][-1]:.4e}; the serial port's {res_s[-2]:.4e}, "
             f"{res_s[-1]:.4e}), true f64 |b - Ax| "
-            f"{r['true_residual']:.3e}; {r['ms_per_cycle']:.2f} ms a cycle "
-            f"(setup {r['setup_s']:.1f} s); halo bytes staged through the "
+            f"{r['true_residual']:.3e}; halo bytes staged through the "
             f"host per cycle per rank {[round(b) for b in staged]}; launches "
             f"{_short(grown) if not banded else grown}")
-        if "timed" in r:
-            log(f"[dist] {label}: ms a cycle, overlap form "
-                f"{r['timed']['overlap']:.2f}, plain "
-                f"{r['timed']['plain']:.2f} (3 cycles each, rank 0)")
     c = nccl[0][0]["compiled"]
     assert c["iterations"] == nccl[0][0]["iterations"] and c["same_bits"], c
     log(f"[dist] NCCL rank: solve_compiled (one captured graph a cycle) "
-        f"{c['iterations']} cycles, the same bits as solve; "
-        f"{c['ms_per_cycle']:.2f} ms a cycle replayed (eager "
-        f"{nccl[0][0]['ms_per_cycle']:.2f})")
+        f"{c['iterations']} cycles, the same bits as solve")
     for ranks in gloo:
         assert ranks[1] is not None and "gloo" in ranks[1], ranks[1]
     log(f"[dist] gloo on CUDA tensors: solve_compiled raised: {gloo[0][1]}")
@@ -2691,7 +2688,8 @@ def phase_benches(dev, k4):
             f"({out['step_over_parts']:.3f})")
         torch.cuda.empty_cache()
     bench_launches = counters.snapshot()
-    # the dense-matmul apply (POMS_TPU_KRON=matmul), TF32 off
+    # the dense-matmul apply (the JAX package's POMS_TPU_KRON=matmul),
+    # TF32 off
     npts, pads, periodic = (129,) * 3, (3,) * 3, (False,) * 3
     terms, (x, _, _) = _k1_operands(npts, pads, torch.float32, dev, 20)
     space = StencilVectorSpace(npts=npts, pads=pads, periodic=periodic,
@@ -2702,17 +2700,14 @@ def phase_benches(dev, k4):
     assert mm_err <= 1e-5 * float(want.abs().max()), mm_err
     mm_ms = _device_ms(lambda: op._apply_interior_matmul(x))
     k1_ms = _device_ms(lambda: op._mode("apply", x))
-    os.environ["POMS_TPU_KRON_PREC"] = "default"
-    tf32_ms = _device_ms(lambda: op._apply_interior_matmul(x))
-    tf32_err = float((op._apply_interior_matmul(x) - want).abs().max()
-                     / want.abs().max())
-    del os.environ["POMS_TPU_KRON_PREC"]
+    tf32_ms = _device_ms(lambda: op._apply_interior_matmul(x, tf32=True))
+    tf32_err = float((op._apply_interior_matmul(x, tf32=True) - want)
+                     .abs().max() / want.abs().max())
     log(f"[matmul] 129^3 p3 f32 Kronecker apply by dense per-axis "
-        f"torch.tensordot (POMS_TPU_KRON=matmul, no TF32): {mm_ms:.4f} ms "
+        f"torch.tensordot (no TF32): {mm_ms:.4f} ms "
         f"against K1's apply {k1_ms:.4f} ms (device time), max|d| "
         f"{mm_err:.3e} of max|y| {float(want.abs().max()):.3e}; with TF32 "
-        f"(POMS_TPU_KRON_PREC=default) {tf32_ms:.4f} ms, rel err "
-        f"{tf32_err:.2e}")
+        f"{tf32_ms:.4f} ms, rel err {tf32_err:.2e}")
     del got, want, op, terms, x
     torch.cuda.empty_cache()
     counters.reset()
@@ -2750,8 +2745,9 @@ def phase_benches(dev, k4):
 def phase_dist_examples(dev, t_comp_ms):
     """The distributed examples on 2 gloo ranks sharing the card at the JAX
     examples' default sizes, multihost_3d also on 1 NCCL rank, and the
-    census of one production step on 2 gloo ranks, the five jobs at once
-    (their ranks share the card; each job's lines are logged together);
+    census of one production step on 2 gloo ranks, and multihost_2d in f32
+    (logged, not gated), the six jobs at once (their ranks share the card;
+    each job's lines are logged together);
     then, alone, overlap_trace's A/B pair at 128^3 p3 on 2 gloo ranks; the
     scaling model's prediction for 8 ranks at 128^3 a rank (one card shows
     the wiring, not scaling)."""
@@ -2764,6 +2760,8 @@ def phase_dist_examples(dev, t_comp_ms):
             backend="gloo", ranks=2, out=out),
         "multihost_2d": lambda out: multihost_2d.main(
             backend="gloo", ranks=2, out=out),
+        "multihost_2d f32": lambda out: multihost_2d.main(
+            backend="gloo", ranks=2, dtype=torch.float32, out=out),
         "multihost_3d gloo": lambda out: multihost_3d.main(
             True, True, backend="gloo", ranks=2, out=out),
         "multihost_3d nccl": lambda out: multihost_3d.main(
@@ -2783,13 +2781,20 @@ def phase_dist_examples(dev, t_comp_ms):
     for name, (res, lines, secs) in done.items():
         for line in lines:
             log(f"[dist-examples] {name}: {line}")
-        log(f"[dist-examples] {name}: {secs:.1f} s (five jobs at once)")
+        log(f"[dist-examples] {name}: {secs:.1f} s wall, the six jobs at "
+            f"once")
         for k, v in res.get("launches", {}).items():
             launches[k] = launches.get(k, 0) + v
     log(f"[dist-examples] launches over the examples' ranks: {launches}")
     res = done["distributed_2d"][0]
     assert res["converged"] and res["drift"] <= 1e-12, res["drift"]
     assert done["multihost_2d"][0]["ok"]
+    f32 = done["multihost_2d f32"][0]
+    log(f"[dist-examples] multihost_2d f32 (the JAX example's precision on "
+        f"an accelerator; logged, not gated: the JAX example stalls near "
+        f"1.3e-6 in f32 too, tests/test_torch_examples_dist.py): "
+        f"{'OK' if f32['ok'] else 'not converged'}, last |r| "
+        f"{f32['residuals'][-1]:.3e}")
     for backend in ("gloo", "nccl"):
         assert done[f"multihost_3d {backend}"][0]["all_ok"], backend
     doc = done["census"][0]

@@ -221,7 +221,7 @@ def _spawn(spec, backend, ranks):
 
 
 def run_overlap_check(out_json: str | None = None, n_el: int = 32,
-                      overlap: bool = True, backend: str = "gloo",
+                      overlap: bool = True, *, backend: str,
                       ranks: int = 2, device=None, **spec) -> Dict:
     """Capture and analyse one distributed step on ``ranks`` ranks; rank
     0's report (``per_rank``: every rank's)."""
@@ -237,7 +237,7 @@ def run_overlap_check(out_json: str | None = None, n_el: int = 32,
 
 
 def run_overlap_ab(out_json: str | None = None, n_el: int = 32,
-                   backend: str = "gloo", ranks: int = 2, device=None,
+                   *, backend: str, ranks: int = 2, device=None,
                    **spec) -> Dict:
     """The same step captured with ``overlap=True`` and ``False`` (one
     solver, the flag flipped between the captures); both fractions and

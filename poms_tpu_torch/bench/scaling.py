@@ -92,7 +92,7 @@ def _point(spec, backend):
 
 def run_weak_scaling(dim: int = 3, n_el_local: int = 16, degree: int = 2,
                      num_levels: int = 2, max_ranks: int = 2,
-                     smoother: str = "chebyshev", backend: str = "gloo",
+                     smoother: str = "chebyshev", *, backend: str,
                      device=None, iters: int = 5, verbose: bool = True):
     points: List[ScalingPoint] = []
     t1 = None
@@ -114,7 +114,7 @@ def run_weak_scaling(dim: int = 3, n_el_local: int = 16, degree: int = 2,
 
 def run_strong_scaling(dim: int = 2, n_el: int = 64, degree: int = 2,
                        num_levels: int = 3, max_ranks: int = 2,
-                       smoother: str = "chebyshev", backend: str = "gloo",
+                       smoother: str = "chebyshev", *, backend: str,
                        device=None, iters: int = 5, verbose: bool = True):
     points: List[ScalingPoint] = []
     t1 = None

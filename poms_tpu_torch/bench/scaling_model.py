@@ -89,7 +89,7 @@ def _aggregate(records):
 
 
 def census(mesh_shape=(2, 1, 1), n_el_per_rank: int = 8, degree: int = 3,
-           levels: int = 3, backend: str = "gloo", device=None) -> dict:
+           levels: int = 3, *, backend: str, device=None) -> dict:
     """One production outer step on ``prod(mesh_shape)`` ranks, counted.
 
     ``slabs``: the ``p2p`` message directions of rank 0 aggregated by shape,

@@ -9,15 +9,13 @@ the card, the plain chain of 1D contractions for tensors on the CPU.  The
 kernel's launch data (stacked bands, sharing plan, tiling) is built once,
 when the operator is made.
 
-``POMS_TPU_KRON=matmul`` (read at every apply, non-periodic operators only)
-routes :meth:`KroneckerSumOperator._apply_interior` to the dense per-axis
-products of the JAX package's opt-in MXU apply
-(:meth:`KroneckerSumOperator._apply_interior_matmul`); K1's fused modes
-(residual, D⁻¹-scaled apply, Chebyshev update) do not read it.
+The JAX package's opt-in MXU apply (dense per-axis products, chosen there
+by ``POMS_TPU_KRON=matmul``) is kept as
+:meth:`KroneckerSumOperator._apply_interior_matmul`, a yardstick that is
+called by name: no switch routes the operator's apply to it.
 """
 from __future__ import annotations
 
-import os
 from contextlib import contextmanager
 from typing import Sequence
 
@@ -115,7 +113,8 @@ class KroneckerSumOperator:
             D = term if D is None else D + term
         return D
 
-    def _apply_interior_matmul(self, x_int: torch.Tensor) -> torch.Tensor:
+    def _apply_interior_matmul(self, x_int: torch.Tensor,
+                               tf32: bool = False) -> torch.Tensor:
         """Σ_r ⊗B by dense per-axis products (``torch.tensordot``, cuBLAS on
         the card), partials shared by band-label history as the JAX
         package's ``_apply_interior_matmul`` shares them; non-periodic only.
@@ -123,11 +122,9 @@ class KroneckerSumOperator:
         The JAX package computes these products with XLA's dot on the MXU,
         outside any Pallas kernel; here they are PyTorch's own matrix
         products, the library's computation of K1's function, kept as its
-        yardstick.  ``POMS_TPU_KRON_PREC``: ``default`` lets f32 products
-        use TF32 (PyTorch's counterpart of ``Precision.DEFAULT``); anything
-        else, or unset, keeps full f32 products (``Precision.HIGHEST``;
-        ``high``, XLA's three-pass bf16, has no PyTorch counterpart and is
-        taken as that)."""
+        yardstick.  ``tf32`` lets f32 products use TF32 (PyTorch's
+        counterpart of ``Precision.DEFAULT``); off, they are full f32
+        products (``Precision.HIGHEST``); the flag is restored after."""
         if any(self.space.periodic):
             raise ValueError("the dense-matmul apply is non-periodic only")
         d = self.space.ndim
@@ -143,7 +140,6 @@ class KroneckerSumOperator:
             dense.append(row)
         partials = {r: x_int for r in range(len(self.terms))}
         hist = {r: () for r in range(len(self.terms))}
-        tf32 = os.environ.get("POMS_TPU_KRON_PREC", "") == "default"
         with _allow_tf32(tf32):
             for a in range(d - 1, -1, -1):
                 cache = {}
@@ -162,9 +158,6 @@ class KroneckerSumOperator:
         return out
 
     def _apply_interior(self, x_int: torch.Tensor) -> torch.Tensor:
-        if (os.environ.get("POMS_TPU_KRON") == "matmul"
-                and not any(self.space.periodic)):
-            return self._apply_interior_matmul(x_int)
         return self._mode("apply", x_int)
 
     def dot(self, v: StencilVector) -> StencilVector:

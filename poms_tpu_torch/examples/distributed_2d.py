@@ -48,8 +48,9 @@ def rank_solve(spec: dict) -> dict:
             "converged": res.converged, "launches": launches()}
 
 
-def main(n_el: int = 32, m1=None, m2=None, backend: str = "gloo",
+def main(n_el: int = 32, m1=None, m2=None, *, backend: str,
          ranks: int = 2, device=None, out=print) -> dict:
+    """``backend``: ``"gloo"`` or ``"nccl"``, named by the caller."""
     from poms_tpu_torch.parallel.launch import spawn
 
     m1, m2 = mesh_of(ranks, m1, m2)

@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``examples/multihost_3d.py``: one process a
 rank (started by :mod:`poms_tpu_torch.parallel.launch`), 3D Poisson, p = 2,
 three levels, Chebyshev(4) over [λmax/16, λmax], ν1 = ν2 = 1, 8 elements a
 rank along each mesh axis, in f64 on every device as ``multihost_2d``
-(whose docstring says why).  The default leg runs 10 V-cycles; ``--wcycle`` adds 8 W-cycles (γ = 2), ``--fmg`` a
-full-multigrid start followed by 6 V-cycles.  Every leg builds its own
+(whose docstring says why).  The default leg runs 10 V-cycles;
+``--wcycle`` adds 8 W-cycles (γ = 2), ``--fmg`` a full-multigrid start
+followed by 6 V-cycles.  Every leg builds its own
 ``DistributedMG`` (distributed transfers and the agglomerated tail).
 
 Run:  python -m poms_tpu_torch.examples.multihost_3d [--wcycle] [--fmg]
@@ -82,9 +83,10 @@ def rank_legs(spec: dict) -> dict:
     return {"legs": out, "launches": launches()}
 
 
-def main(wcycle: bool = False, fmg: bool = False, backend: str = "gloo",
+def main(wcycle: bool = False, fmg: bool = False, *, backend: str,
          ranks: int = 2, device=None, lams=None, out=print) -> dict:
-    """``lams``: {leg tag: λ estimates} for the legs' cycles."""
+    """``backend``: ``"gloo"`` or ``"nccl"``, named by the caller;
+    ``lams``: {leg tag: λ estimates} for the legs' cycles."""
     from poms_tpu_torch.parallel.launch import spawn
 
     mesh = mesh_of(ranks)

@@ -1,10 +1,11 @@
-"""The dense-matmul Kronecker-sum apply (``POMS_TPU_KRON=matmul``) against
-the JAX package's and against the port's plain apply, 16³ p3.
+"""The dense-matmul Kronecker-sum apply (the JAX package's
+``POMS_TPU_KRON=matmul``, the port's K1 yardstick) against the JAX
+package's and against the port's plain apply, 16³ p3.
 
 Tolerances, of max|y|: f64 1e-12 (the same products summed in another
 order), f32 1e-5 (as K1's f32 checks: another order of the sums).  The JAX
 apply runs at its default ``Precision.HIGHEST``; the port's keeps TF32 off
-unless ``POMS_TPU_KRON_PREC=default``.
+unless called with ``tf32=True``.
 """
 import numpy as np
 import pytest
@@ -26,6 +27,12 @@ def _pair(dtype, periodic=False):
     from test_torch_kron import _pair as pair
 
     return pair(NPTS, P, periodic, dtype, seed=5)
+
+
+def _vector(op, x_int):
+    from poms_tpu_torch.core.vector import StencilVector
+
+    return StencilVector.from_interior(op.space, x_int)
 
 
 def _rel(out, ref):
@@ -52,21 +59,26 @@ def test_band_to_dense_matches_jax(bits):
                                                                     P)))
 
 
-def test_switch_routes_apply_and_keeps_periodic_on_k1(monkeypatch):
-    """The same switch as the JAX package's: the apply reads it at every
-    call; periodic operators stay on K1's apply; the matmul apply refuses
-    them when called directly; the TF32 flag is restored after a call."""
+def test_apply_stays_on_k1_whatever_the_environment(monkeypatch):
+    """The JAX package's ``POMS_TPU_KRON=matmul`` switch is not ported: the
+    operator's apply is K1's apply (its plain version here) with the
+    variable set; the matmul apply is reached only by name."""
     _, op, _, xt = _pair(64)
     monkeypatch.setenv("POMS_TPU_KRON", "matmul")
-    before = kron_apply.launches
-    assert torch.equal(op._apply_interior(xt),
-                       op._apply_interior_matmul(xt))
-    assert kron_apply.launches == before
+    assert torch.equal(op._apply_interior(xt), op._mode("apply", xt))
+    assert torch.equal(op.dot(_vector(op, xt)).interior,
+                       op._mode("apply", xt))
+
+
+def test_matmul_apply_refuses_periodic_and_restores_tf32():
+    """Non-periodic only, as in the JAX package; ``tf32=True`` changes
+    PyTorch's TF32 flag for the products and restores it after."""
     _, per, _, xp = _pair(64, periodic=True)
-    assert torch.equal(per._apply_interior(xp), per._mode("apply", xp))
     with pytest.raises(ValueError):
         per._apply_interior_matmul(xp)
+    _, op, _, xt = _pair(32)
     flag = torch.backends.cuda.matmul.allow_tf32
-    monkeypatch.setenv("POMS_TPU_KRON_PREC", "default")
-    op._apply_interior_matmul(xt)
+    # on the CPU TF32 never applies: the same products either way
+    assert torch.equal(op._apply_interior_matmul(xt, tf32=True),
+                       op._apply_interior_matmul(xt))
     assert torch.backends.cuda.matmul.allow_tf32 == flag

@@ -206,8 +206,9 @@ def test_weak_scaling_points_on_gloo_ranks():
 
     assert _mesh_shapes(3, 8) == [(1, 1, 1), (2, 1, 1), (2, 2, 1),
                                   (2, 2, 2)]
-    pts = run_weak_scaling(dim=2, n_el_local=8, max_ranks=2, device="cpu",
-                           iters=2, verbose=False)
+    pts = run_weak_scaling(dim=2, n_el_local=8, max_ranks=2,
+                           backend="gloo", device="cpu", iters=2,
+                           verbose=False)
     assert [p.n_devices for p in pts] == [1, 2]
     assert pts[1].n_el == (16, 8) and pts[0].efficiency == 1.0
     assert all(p.seconds_per_cycle > 0 for p in pts)
