@@ -77,29 +77,36 @@ def stream_event_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+# a profile reading under this share of the events' time lost device
+# events: the graph's gaps between kernel nodes are a microsecond or two,
+# far from doubling any call's time, while a profile that lost events read
+# 0.1 and 0.36 of it on an H100
+LOST = 0.5
+
+
 def _checked(fn, ms: float, reps: int) -> float:
     """The profiler's ``ms``, unless it lost device events: a profile can
-    come back with some of the calls' kernels missing (read on an H100:
-    K1's apply at 4.1 µs, under its 5.1 µs byte bound, later in a process
-    that had profiled many times).  A profile that reads under a third of
-    the time by CUDA events around a quarter as many calls is checked
-    against the events around a replayed graph of ``reps`` calls (no host
-    gaps); under a third of that too, the graph's time is returned and a
-    line on the standard error says so."""
+    come back with some of the calls' kernels missing (read on an H100,
+    later in a process that had profiled many times: K1's apply at 4.1 µs
+    and at 14.5 µs, where it takes 41 µs).  A profile that reads under
+    :data:`LOST` of the time by CUDA events around a quarter as many calls
+    is checked against the events around a replayed graph of ``reps``
+    calls (no host gaps); under :data:`LOST` of that too, the graph's time
+    is returned and a line on the standard error says so."""
     import torch
 
-    if ms >= stream_event_ms(fn, max(1, reps // 4)) / 3:
+    if ms >= stream_event_ms(fn, max(1, reps // 4)) * LOST:
         return ms
     try:
         ev = graph_event_ms(fn, reps)
     except Exception:                         # the call is not capturable
         torch.cuda.synchronize()
         return ms
-    if ms >= ev / 3:
+    if ms >= ev * LOST:
         return ms
-    print(f"[device_ms] the profiler read {ms:.4f} ms per call, under a "
-          f"third of {ev:.4f} ms by CUDA events around a replayed graph of "
-          f"the calls: it lost device events; the graph's time is used",
+    print(f"[device_ms] the profiler read {ms:.4f} ms per call, under "
+          f"{LOST:g} of {ev:.4f} ms by CUDA events around a replayed graph "
+          f"of the calls: it lost device events; the graph's time is used",
           file=sys.stderr, flush=True)
     return ev
 

@@ -187,14 +187,15 @@ def test_graphed_step_needs_the_card():
 @pytest.mark.parametrize("prof,stream,graph,want,told", [
     (0.040, 0.050, None, 0.040, False),   # agrees with the events: kept
     (0.004, 0.050, 0.040, 0.040, True),   # lost events: the graph's time
+    (0.0145, 0.045, 0.041, 0.041, True),  # lost two thirds of them
     (0.004, 0.050, 0.006, 0.004, False),  # host gaps only: kept
     (0.004, 0.050, "raise", 0.004, False),  # not capturable: kept
 ])
 def test_device_ms_checks_the_profile_against_events(monkeypatch, capsys,
                                                      prof, stream, graph,
                                                      want, told):
-    """A profile under a third of the stream's event time is held against
-    a replayed graph's; only under a third of that too is it replaced."""
+    """A profile under half the stream's event time is held against a
+    replayed graph's; only under half of that too is it replaced."""
     from poms_tpu_torch.bench import device
 
     def graph_ms(fn, reps):
