@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Imports torch, numpy and ``poms_tpu_torch`` only.  Phases, in order; no
-exception is caught, so any failure exits non-zero:
+exception is caught (phase 22 catches the refusal of degree 9 it expects,
+and fails where it does not come), so any failure exits non-zero:
 
 1. build   — nvcc the kernels of poms_tpu_torch/csrc (K1 kron_apply, K5
              kron_apply_dw, K2 stencil_apply, K3 stencil_apply_v2, K4
@@ -182,6 +183,26 @@ exception is caught, so any failure exits non-zero:
              idle share, staged copies' share); the scaling model's
              prediction for 8 ranks at 128^3 a rank (one card shows the
              wiring, not scaling).
+22. degrees — every spline degree 1-8 at 128^3 elements through the headline
+             example (pcg and dc, f32 cycles) and the dwrr PCG: each converges
+             to 1e-10 with a true f64 residual <= 5e-10, degree 3 in phases 4
+             and 4b's counts; every plan at the compiled half-width of its
+             degree (K1: 1, 2, 3, 5, 5, 8, 8, 8; K5: the degree) and K5, K1 and
+             K7 launched; on each pcg run's own operands K5 (the residual and
+             A.p) bit-equal to plain, K1 in every mode on the first two cycle
+             levels (1e-5 of max|y|), K7 between them (bit-equal), K5's
+             resources and the device times of K5's A.p and K1's cheb pass.
+             bf16 cycles (defect correction, dw-PCG) at degrees 4, 5 and 8 at
+             64^3 (counts logged, not gated; only bf16 K1/K7 on the low
+             hierarchy), K1 bf16 in every mode against plain on their first two
+             levels, its cheb and apply times at half-widths 5 and 8 beside the
+             dense bf16 products, and the same solves at 8^3 on the card and
+             the CPU; the periodic dw-PCG at degree 8 (48^3, K5 with 4
+             histories at P = 8; logged); a 6-term operator whose K5 residual
+             takes three chained launches, bit-equal to the single pass; K2 and
+             K3 in every mode at degrees 5 to 8 (33^3, rows K2 cuts into
+             shorter runs, K3's smaller tiles, 513^2); degree 9 refused on the
+             card, naming the compiled half-widths.
 
 Cut against the earlier version to hold the run time: phase 2 times the
 plain K1 versions with 3 repetitions instead of 5.  Every phase logs what it
@@ -190,32 +211,34 @@ took on a ``[time]`` line.
 Prints the card's name and power limit early, one JSON line of per-kernel
 results before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-The launch counts of the JSON line come from the paths, each counted from
-0 just before it: K1, K5, K6r, K6u and K7 from phases 4 and 4b (setup and
+The launch counts of the JSON line come from the paths, each counted from 0
+just before it: K1, K5, K6r, K6u and K7 from phases 4 and 4b (setup and
 every solve; a graph replay advances the counters by the launches its
-capture recorded, since a replay launches them again), K4 from
-phase 6's ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes
-from phase 13's timing paths, the bf16 rows from phase 16 and K5's
-4-history row from phase 17, and to each row the launches of every rank of
-phase 18 (its solves), and those of phases 19 (the
-headline runs and the banded examples), 20 (the benches) and 21 (every
-rank of the distributed examples); launches made to compare a kernel with its plain version are
-not counted.  Each kernel's ``bound_ms`` is the larger of
-its bytes (every input read once, every output written once) over 3.35 TB/s
-and its operations over the f32 rate outside the tensor cores (K5's
-adds and multiplies may not fuse: 33.5 T a second, half the published 67
-TFLOP/s, which counts an FMA as two), from this run's shapes;
-``library_ms`` times PyTorch's own calls for the same function where there
-are such (the dense per-axis ``torch.tensordot`` apply for K1's apply mode;
-``torch.sum`` for K4; a sparse CSR product, built on the card
-from the band, for the kernels that compute a banded spmv; one
-``torch.matmul`` per axis with the dense 1D transfer, and the add, for
-K7), which the port itself never calls.
+capture recorded, since a replay launches them again), K4 from phase 6's
+ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes from phase
+13's timing paths, the bf16 rows from phase 16 and K5's 4-history row from
+phase 17, and to each row the launches of every rank of phase 18 (its
+solves), and those of phases 19 (the headline runs and the banded
+examples), 20 (the benches), 21 (every rank of the distributed examples)
+and 22 (its solves); the rows of phase 22's instantiations (K5 at
+half-widths 4, 6, 7 and 8, K1 in bf16 at 5 and 8) count its solves at those
+half-widths only; launches made to compare a kernel with its plain version
+are not counted. Each kernel's ``bound_ms`` is the larger of its bytes
+(every input read once, every output written once) over 3.35 TB/s and its
+operations over the f32 rate outside the tensor cores (K5's adds and
+multiplies may not fuse: 33.5 T a second, half the published 67 TFLOP/s,
+which counts an FMA as two), from this run's shapes; ``library_ms`` times
+PyTorch's own calls for the same function where there are such (the dense
+per-axis ``torch.tensordot`` apply for K1's apply mode; ``torch.sum`` for
+K4; a sparse CSR product, built on the card from the band, for the kernels
+that compute a banded spmv; one ``torch.matmul`` per axis with the dense 1D
+transfer, and the add, for K7), which the port itself never calls.
 """
 import gc
 import json
 import math
 import os
+import re
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -231,6 +254,7 @@ from poms_tpu_torch.bench import one_dist
 from poms_tpu_torch.bench.kernel_probe import (cuda_event_ms, make_band,
                                                probe_stream, stream_probe,
                                                stream_probe_plain)
+from poms_tpu_torch.core.kron import KroneckerSumOperator
 from poms_tpu_torch.core.space import StencilVectorSpace
 from poms_tpu_torch.core.vector import StencilVector, ghost_pad
 from poms_tpu_torch.mg.cycles import CycleConfig
@@ -248,8 +272,8 @@ from poms_tpu_torch.ops import _build, counters
 from poms_tpu_torch.ops import transfer as k7
 from poms_tpu_torch.ops import kron as k1
 from poms_tpu_torch.ops import twofloat
-from poms_tpu_torch.ops.stencil import (MODES, color_mask, stencil_apply,
-                                        stencil_apply_plain)
+from poms_tpu_torch.ops.stencil import (MODES, color_mask, k2_lift, k2_plan,
+                                        stencil_apply, stencil_apply_plain)
 from poms_tpu_torch.ops.stencil_v2 import (pack_band_v2, stencil_apply_v2,
                                            stencil_apply_v2_plain)
 from poms_tpu_torch.ops.twofloat import (dw_add, dw_mul, split_f64,
@@ -1813,6 +1837,16 @@ def phase_k1_bf16(dev):
             f"(its f32 arithmetic, casts not counted) {plain:.4f} ms, bound "
             f"{bound * 1e3:.2f} us ({K1_FIELDS[mode]} bf16 fields once): "
             f"{100 * bound / ms:.1f}% of it")
+    # the library's computation of the apply on the same bf16 operands:
+    # dense per-axis bf16 products (the yardstick of the bf16 row)
+    op = KroneckerSumOperator(StencilVectorSpace(
+        npts=npts, pads=pads, periodic=periodic, dtype=BF16, device=dev),
+        terms)
+    result["library_ms"] = _device_ms(lambda: op._apply_interior_matmul(x),
+                                      5)
+    log(f"[K1 bf16] 129^3 p3 apply as dense bf16 per-axis products "
+        f"(_apply_interior_matmul, torch.tensordot): "
+        f"{result['library_ms']:.4f} ms")
     return result
 
 
@@ -2479,6 +2513,53 @@ HEADLINE_RECORD = {"pcg": {64: 9, 128: 9, 256: 9, 512: 9},
 HEADLINE_128 = {"pcg": 8, "dc": 11}
 
 
+def _k6_against_plain(what, xh, xl, bh, bl, g):
+    """K6r (the stacked pair z.x, z.b and the norm of x, to K6_TOL of the
+    sum of |terms|) and K6u in every mode (bit-equal) against their plain
+    versions on a solve's own fields (x and b as double-word pairs) and a
+    random f32 z drawn from ``g``; returns K6r's largest |d| / sum|terms|."""
+    z = torch.randn(xh.shape, generator=g, device=xh.device)
+    pair = [(z, None, xh, xl), (z, None, bh, bl)]
+    got = twofloat.dw_dot_stack(pair)
+    want = twofloat.dw_dot_stack_plain(pair)
+    scale = torch.stack([(z.double() * (h.double() + lo.double())).abs()
+                         .sum() for h, lo in ((xh, xl), (bh, bl))])
+    err = (got - want).abs() / scale
+    nrm, n_want = twofloat.dw_norm2(xh, xl), twofloat.dw_norm2_plain(xh, xl)
+    n_rel = float((nrm * nrm - n_want * n_want).abs() / (n_want * n_want))
+    worst = max(float(err.max()), n_rel)
+    if not worst <= K6_TOL:
+        raise AssertionError(f"K6r disagrees with the plain tree at {what} "
+                             f"{tuple(xh.shape)}: {err}, norm {n_rel}")
+    s0 = torch.tensor(0.37, dtype=torch.float64, device=xh.device)
+    s1 = torch.tensor(1.91, dtype=torch.float64, device=xh.device)
+    ap = xh * 1e-3
+    cases = {"cg": (xh, xl, bh, bl, z, ap, xl, s0, s1),
+             "direction": (z, xh, s0, s1), "defect": (xh, xl, z, s0),
+             "dwrr": (xh, xl, z, ap, bh, s0, s1),
+             "dwrr, x only": (xh, xl, z, None, None, s0, s1),
+             "div": (z, s0), "mul": (z, s1)}
+    for label, ops in cases.items():
+        mode = label.split(",")[0]
+        out = twofloat.dw_update(mode, *ops)
+        torch.cuda.synchronize()
+        ref = twofloat.dw_update_plain(mode, *ops)
+        if isinstance(out, torch.Tensor):
+            out, ref = (out,), (ref,)
+        if len(out) != len(ref) or not all(
+                torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"K6u {label} is not bit-equal to its "
+                                 f"plain version at {what} "
+                                 f"{tuple(xh.shape)}")
+        del out, ref
+    log(f"[K6] {what} {tuple(xh.shape)}: K6r stacked pair and norm "
+        f"{worst:.2e} of sum|terms| from the plain tree, K6u {len(cases)} "
+        f"cases bit-equal to plain")
+    del z, pair, ap, cases
+    torch.cuda.empty_cache()
+    return worst
+
+
 def _headline_kernel_checks(prob, mg, x):
     """Called by the 512^3 PCG run once its numbers are read: every kernel
     the solve launched against its plain version on operands of the solve's
@@ -2524,29 +2605,10 @@ def _headline_kernel_checks(prob, mg, x):
         del got, want
         torch.cuda.empty_cache()
     errs["K5 513^3"] = 0.0
-    # K6r: the stacked pair and the norm; K6u cg
-    z = torch.randn(sp.npts, generator=g, device=dev)
-    pair = [(z, None, xh, xl), (z, None, bh, bl)]
-    got = twofloat.dw_dot_stack(pair)
-    want = twofloat.dw_dot_stack_plain(pair)
-    scale = torch.stack([(z.double() * (xh.double() + xl.double())).abs()
-                         .sum(), (z.double() * (bh.double() + bl.double()))
-                         .abs().sum()])
-    err = (got - want).abs()
-    assert bool((err <= K6_TOL * scale).all()), (err, scale)
-    nrm, n_want = twofloat.dw_norm2(xh, xl), twofloat.dw_norm2_plain(xh, xl)
-    n_rel = float((nrm * nrm - n_want * n_want).abs() / (n_want * n_want))
-    assert n_rel <= K6_TOL, n_rel
-    errs["K6r 513^3"] = float((err / scale).max())
-    s0 = torch.tensor(0.37, dtype=torch.float64, device=dev)
-    s1 = torch.tensor(1.91, dtype=torch.float64, device=dev)
-    ops = (xh, xl, bh, bl, z, xh * 1e-3, xl, s0, s1)
-    got = twofloat.dw_update("cg", *ops)
-    want = twofloat.dw_update_plain("cg", *ops)
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError("K6u cg is not bit-equal to plain at 513^3")
+    errs["K6r 513^3"] = _k6_against_plain("headline 512^3", xh, xl, bh, bl,
+                                          g)
     errs["K6u 513^3"] = 0.0
-    del z, pair, got, want, ops, xh, xl, bh, bl, zero
+    del xh, xl, bh, bl, zero
     torch.cuda.empty_cache()
     # K7 on the solver's own bands: 513^3 -> 257^3 and back (+ add)
     lev = mg.levels_pre[0]
@@ -2567,7 +2629,8 @@ def _headline_kernel_checks(prob, mg, x):
     del xf, xc
     torch.cuda.empty_cache()
     log(f"[headline] 512^3 kernels against their plain versions on the "
-        f"solve's operands (K1 rel 1e-5, K5/K6u/K7 bit-equal, K6r "
+        f"solve's operands (K1 rel 1e-5, K5/K7 bit-equal, K6u bit-equal in "
+        f"every mode, K6r "
         f"{K6_TOL:g} of sum|terms|): max|d| "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     return {"launches": launches, "errors": errs}
@@ -2831,6 +2894,572 @@ def phase_dist_examples(dev, t_comp_ms):
     return launches, ab, pred
 
 
+# phase 22: every spline degree the JAX package takes, on the card
+DEGREES = tuple(range(1, 9))
+DEGREE_N = 128          # elements a side: the headline's 128^3
+DEGREE_NEW_K5 = (4, 6, 7, 8)   # K5's half-widths new with this phase
+# the residual-replacement PCG's iterations grow with the degree (135 at
+# degree 8; the headline example allows pcg and dc its 100)
+DWRR_MAXITER = 300
+DEGREE_BF16 = (4, 5, 8)   # bf16 cycles at 64^3 elements, counts logged
+# K1 bf16's new half-widths, timed on the 128^3 runs' finest level cast to
+# bf16 (the degree equals the half-width), where f32 K1 is timed
+DEGREE_BF16_TIMED = (5, 8)
+DEGREE_BF16_N = 64
+DEGREE_BF16_SMALL = 8      # the same solves on the card and the CPU
+# a bf16 cycle stalls from three levels on (PR 6): the counts are logged,
+# the solves cut here
+DEGREE_BF16_MAXITER = 100
+# coarsest 24^3; the cycle does not converge there, in the JAX package
+# either (the same history at 34^3 on the CPU): logged, cut at maxiter
+DEGREE_PERIODIC = dict(degree=8, n_el=48, levels=2, maxiter=200)
+DEGREE_CHAIN_TERMS = 6     # a free operator K5 takes in several launches
+DEGREE_CHAIN_SHAPES = (((70, 70, 70), 8), ((40, 41, 42), 3))
+# banded operands at degrees 5 and 8: 3D at small n (K3 on its smaller
+# tiles at p = 8), rows whose window K2 must cut into shorter runs (129 at
+# p = 8 in f64, 256 at p = 7), and the 2D headline level of phase 9
+DEGREE_BANDED = [((33, 33, 33), 5), ((33, 33, 33), 8), ((9, 12, 129), 8),
+                 ((8, 8, 256), 7), ((513, 513), 5), ((513, 513), 8)]
+
+
+def _half_width(degree, compiled=k1.COMPILED_P):
+    """The compiled half-width K1 (or, given K5's, K5) runs a degree-p
+    operator at."""
+    return next(P for P in compiled if P >= degree)
+
+
+def _low_levels(mg):
+    return mg.levels_pre if hasattr(mg, "levels_pre") else mg.levels32
+
+
+def _k5_ops(P, npts):
+    """K5's f32 operations for one residual of the 3D Poisson operator at
+    half-width P: 8 contractions (2 u, 3 v, 3 histories) of 2P+1 taps, each
+    a dw_mul (9) and all but the first a dw_add (20), 2 term adds, b - Ax."""
+    W = 2 * P + 1
+    return (8 * (W * 9 + (W - 1) * 20) + 3 * 20) * math.prod(npts)
+
+
+def _degree_check(degree, timed):
+    """The ``check`` of one headline run: the launches (read first), the
+    compiled half-width of every plan; where ``timed``, K5 (the residual
+    and A.p) bit-equal to plain on the solver's own operands, K6r and K6u
+    against plain on its finest fields, K1 in every mode on the first two
+    cycle levels and K7 between them against plain, K5's resources and the
+    device time of K5's A.p and of K1's cheb pass on the finest cycle
+    level; at the degrees of the bf16 rows (5 and 8), that level cast to
+    bf16: K1 bf16 against plain and timed there (``_k1_bf16_times``)."""
+    P, P_dw = _half_width(degree), _half_width(degree, twofloat.COMPILED_P_DW)
+
+    def check(prob, mg, x):
+        launches = counters.snapshot()
+        low = _low_levels(mg)
+        assert mg._plan_df.P == P_dw, (degree, mg._plan_df.P)
+        assert all(lev.A.plan.P == P for lev in low), degree
+        missing = [k for k in ("residual_kron_df", "kron_mode.cheb",
+                               "transfer") if not launches.get(k, 0)]
+        assert not missing, f"degree {degree}: never launched {missing}"
+        out = {"launches": launches}
+        if not timed:
+            return out
+        del x
+        dev = prob.space.device
+        sp = prob.space
+        g = torch.Generator(device=dev).manual_seed(22 + degree)
+        x64 = torch.randn(sp.npts, generator=g, dtype=torch.float64,
+                          device=dev)
+        (xh, xl), (bh, bl) = split_f64(x64), split_f64(prob.b.interior)
+        zero = torch.zeros_like(xh)
+        for flags, explicit, neg in (
+                ((bh, bl, xh, xl), (bh, bl, xh, xl), False),
+                ((None, None, xh, None), (zero, zero, xh, zero), True)):
+            got = twofloat.residual_kron_df(
+                mg._terms_df, *flags, sp.pads, labels=mg._labels,
+                periodic=sp.periodic, plan=mg._plan_df, negate=neg)
+            torch.cuda.synchronize()
+            want = twofloat.residual_kron_df_plain(
+                mg._terms_df, *explicit, sp.pads, mg._labels, sp.periodic,
+                neg)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K5 at degree {degree} (P = {P_dw}) is "
+                                     f"not bit-equal to plain at {sp.npts}")
+            del got, want
+        out["k5_resources"] = twofloat.k5_resources(mg._plan_df)
+        out["k5_ms"] = _device_ms(lambda: twofloat.residual_kron_df(
+            mg._terms_df, None, None, xh, None, sp.pads, labels=mg._labels,
+            periodic=sp.periodic, plan=mg._plan_df, negate=True))
+        out["k5_bound_ms"] = _k5_ops(P_dw, sp.npts) / F32_OPS * 1e3
+        if P_dw in DEGREE_NEW_K5:
+            out["k5_plain_ms"] = _device_ms(
+                lambda: twofloat.residual_kron_df_plain(
+                    mg._terms_df, zero, zero, xh, zero, sp.pads, mg._labels,
+                    sp.periodic, True), 2)
+        out["k6r_err"] = _k6_against_plain(f"degree {degree}", xh, xl, bh, bl,
+                                           g)
+        del x64, xh, xl, bh, bl, zero
+        errs = {}
+        for l in (0, 1):
+            A = low[l].A
+            lsp = A.space
+            fields = [torch.randn(lsp.npts, generator=g, device=dev)
+                      for _ in range(3)]
+            e = _k1_against_plain(f"degree {degree} level {l}, ", A.terms,
+                                  fields, lsp.npts, lsp.pads, lsp.periodic)
+            errs[l] = max(e.values())
+            if l == 0:
+                xf, b, d = fields
+                out["k1_ms"] = _device_ms(lambda: k1.kron_mode(
+                    "cheb", A.plan, xf, b=b, d=d, c1=0.3, c2=0.7))
+                out["k1_bound_ms"] = (K1_FIELDS["cheb"] * math.prod(lsp.npts)
+                                      * 4 / HBM_BYTES_PER_S * 1e3)
+                if degree in DEGREE_BF16_TIMED:
+                    out["bf16"] = _k1_bf16_level(A, degree,
+                                                 out["k1_ms"])
+            del fields
+        out["k1_err"] = max(errs.values())
+        lev = low[0]
+        xf = torch.randn(lev.A.space.npts, generator=g, device=dev)
+        xc = torch.randn(low[1].A.space.npts, generator=g, device=dev)
+        if not (torch.equal(k7.apply_transfer(lev.restrict, xf),
+                            k7.apply_transfer_plain(lev.restrict, xf))
+                and torch.equal(
+                    k7.apply_transfer(lev.prolong, xc, add=xf),
+                    k7.apply_transfer_plain(lev.prolong, xc, add=xf))):
+            raise AssertionError(f"K7 is not bit-equal to plain at degree "
+                                 f"{degree}")
+        res = out["k5_resources"]
+        log(f"[degrees] p={degree} (K1 P = {P}, K5 P = {P_dw}) on the "
+            f"solve's operands: K5 "
+            f"bit-equal (residual, A.p), K6r {out['k6r_err']:.2e} of "
+            f"sum|terms|, K6u every mode bit-equal, K1 every mode on levels "
+            f"0-1 max|d| {out['k1_err']:.2e}, K7 0<->1 bit-equal; K5 tiles "
+            f"{mg._plan_df.tiling}, {res['threads']} threads, "
+            f"{res['registers']} registers, {res['local_bytes']} bytes of "
+            f"local memory, {res['smem_bytes']} bytes of shared memory, "
+            f"{res['blocks_per_sm']} blocks an SM; K5 A.p "
+            f"{out['k5_ms']:.4f} ms (operation bound "
+            f"{out['k5_bound_ms']:.4f} ms), K1 cheb at {lev.A.space.npts} "
+            f"{out['k1_ms']:.4f} ms (byte bound {out['k1_bound_ms']:.4f} ms)")
+        return out
+
+    return check
+
+
+def _dwrr_run(degree, dev):
+    """The residual-replacement PCG at the headline's width and degree."""
+    from poms_tpu_torch.examples import headline_solve
+
+    prob = poisson_problem(3, DEGREE_N, degree=degree, dtype=torch.float64,
+                           device=dev, operator="kron")
+    cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=16.0))
+    before = counters.snapshot()
+    rr = MGPreconditionedCG(prob, headline_solve.num_levels(DEGREE_N), cfg,
+                            mixed=True, operator="kron", precision="dwrr")
+    x, rn, it = rr.solve_compiled(tol=1e-10, maxiter=DWRR_MAXITER)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, rn, it = rr.solve_compiled(tol=1e-10, maxiter=DWRR_MAXITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    true = float(torch.linalg.vector_norm(prob.A.residual(x, prob.b)))
+    grown = counters.diff(counters.snapshot(), before)
+    del rr, x, prob
+    return {"iterations": int(it), "rn": float(rn), "true_residual": true,
+            "converged": float(rn) <= 1e-10,
+            "ms_per_iter": wall / max(int(it), 1) * 1e3, "launches": grown}
+
+
+def _degree_bf16(degree, dev):
+    """bf16 cycles at ``degree``: the defect correction and the dw-PCG at
+    64^3 elements (counts logged, not gated; the low hierarchy runs K1 and
+    K7 in bf16 only), K1 bf16 against plain in every mode on the solve's
+    own first two levels, and the same solves at 8^3 on the card and on
+    the CPU (counts beside each other); returns the rows, the launches on
+    the card and K1 bf16's largest |d| from plain."""
+    from poms_tpu_torch.examples.headline_solve import num_levels
+
+    rows, launches, errs = {}, {}, []
+    for n in (DEGREE_BF16_N, DEGREE_BF16_SMALL):
+        for where in ((dev, "cpu") if n == DEGREE_BF16_SMALL else (dev,)):
+            prob = poisson_problem(3, n, degree=degree, dtype=torch.float64,
+                                   device=where, operator="kron")
+            for solver in ("dc", "pcg"):
+                cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+                    "chebyshev",
+                    cheb_fraction=32.0 if solver == "dc" else 16.0))
+                if solver == "dc":
+                    mg = MixedPrecisionMG(prob, num_levels(n), cfg,
+                                          operator="kron",
+                                          residual="twofloat", low_dtype=BF16)
+                else:
+                    mg = MGPreconditionedCG(prob, num_levels(n), cfg,
+                                            mixed=True, operator="kron",
+                                            precision="dw", low_dtype=BF16)
+                before = counters.snapshot()
+                t0 = time.perf_counter()
+                _, rn, it = mg.solve_compiled(tol=1e-10,
+                                              maxiter=DEGREE_BF16_MAXITER)
+                wall = time.perf_counter() - t0
+                grown = counters.diff(counters.snapshot(), before)
+                key = f"{n} {solver} {'cpu' if where == 'cpu' else 'card'}"
+                rows[key] = {"iterations": int(it), "rn": float(rn),
+                             "s": wall}
+                if where != "cpu":
+                    _low_is_bf16(f"bf16 degree {degree} {key}", grown,
+                                 ("kron_mode", "transfer"))
+                    for k, v in grown.items():
+                        launches[k] = launches.get(k, 0) + v
+                if n == DEGREE_BF16_N and solver == "pcg":
+                    low = _low_levels(mg)
+                    assert all(lev.A.plan.P == _half_width(degree)
+                               for lev in low)
+                    for l in (0, 1):
+                        A = low[l].A
+                        lsp = A.space
+                        errs.append(max(_k1_bf16_against_plain(
+                            f"bf16 degree {degree} level {l}, ", A.terms,
+                            _k1_fields(lsp.npts, BF16, dev, degree + l),
+                            lsp.npts, lsp.pads, lsp.periodic).values()))
+                del mg
+            del prob
+            torch.cuda.empty_cache()
+    log(f"[degrees bf16] p={degree} (P = {_half_width(degree)}): "
+        + ", ".join(f"{k}: {v['iterations']} (|r| {v['rn']:.2e}, "
+                    f"{v['s']:.1f} s)" for k, v in rows.items()))
+    return rows, launches, max(errs)
+
+
+def _k1_bf16_level(A, degree, f32_ms):
+    """The f32 level ``A`` of a 128^3 cycle cast to bf16 (one cast a
+    distinct band): K1 bf16 in every mode against its plain version and
+    timed there (``_k1_bf16_times``), beside the f32 cheb pass's
+    ``f32_ms`` on the same level."""
+    sp = A.space
+    A16 = KroneckerSumOperator(sp.with_dtype(BF16), A.terms)
+    errs = _k1_bf16_against_plain(
+        f"degree {degree} level 0 cast to bf16, ", A16.terms,
+        _k1_fields(sp.npts, BF16, sp.device, degree), sp.npts, sp.pads,
+        sp.periodic)
+    r = _k1_bf16_times(A16, degree)
+    r["max_abs_err"] = max(errs.values())
+    r["f32_ms"] = f32_ms
+    log(f"[degrees bf16] K1 cheb at {sp.npts} p={degree}: bf16 "
+        f"{r['ms']:.4f} ms, f32 {f32_ms:.4f} ms, bf16/f32 "
+        f"{r['ms'] / f32_ms:.3f}")
+    del A16
+    return r
+
+
+def _k1_bf16_times(A, degree):
+    """K1's bf16 cheb pass and apply on the bf16 operator ``A`` beside
+    its plain version, its byte bound and the dense bf16 per-axis products
+    of ``_apply_interior_matmul`` (the library's computation of the apply,
+    never called by the port)."""
+    sp = A.space
+    x, b, d = _k1_fields(sp.npts, BF16, sp.device, degree)
+    terms32, diag32 = A.plan.operands_f32()
+    f32 = [f.float() for f in (x, b, d)]
+    out = torch.empty_like(x)
+    got = k1.kron_mode("apply", A.plan, x)
+    lib = A._apply_interior_matmul(x)
+    rel = float((got.float() - lib.float()).abs().max()
+                / lib.float().abs().max())
+    assert rel <= 2 ** -5, rel   # the products round to bf16 per axis
+    r = {"ms": _device_ms(lambda: k1.kron_mode("cheb", A.plan, x, b=b, d=d,
+                                               c1=0.3, c2=0.7, out=out)),
+         "plain_ms": _device_ms(lambda: k1.kron_mode_plain(
+             "cheb", terms32, f32[0], sp.npts, sp.pads, sp.periodic,
+             b=f32[1], diag=diag32, d=f32[2], c1=0.3, c2=0.7), 3),
+         "apply_ms": _device_ms(lambda: k1.kron_mode("apply", A.plan, x,
+                                                     out=out)),
+         "library_ms": _device_ms(lambda: A._apply_interior_matmul(x), 5),
+         "bound_ms": K1_FIELDS["cheb"] * math.prod(sp.npts) * 2
+         / HBM_BYTES_PER_S * 1e3,
+         "npts": sp.npts}
+    log(f"[degrees bf16] K1 bf16 at {sp.npts} p={degree} (P = "
+        f"{A.plan.P}): cheb {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+        f"byte bound {r['bound_ms']:.4f} ms); apply {r['apply_ms']:.4f} ms "
+        f"beside the dense bf16 per-axis products {r['library_ms']:.4f} ms "
+        f"(rel {rel:.2e} apart)")
+    return r
+
+
+def _degree_periodic(dev):
+    """The periodic dw-PCG at degree 8: K5 with 4 histories at P = 8 (and
+    K1 with two launches a pass); counts logged."""
+    from poms_tpu_torch.mg.cycles import CycleConfig as _Cycle
+
+    c = DEGREE_PERIODIC
+    before = counters.snapshot()
+    prob = periodic_problem(3, c["n_el"], degree=c["degree"], device=dev)
+    pcg = MGPreconditionedCG(prob, c["levels"], _Cycle(
+        nu1=1, nu2=1, smoother=SmootherConfig("chebyshev",
+                                              cheb_fraction=16.0)),
+        mixed=True, operator="kron", precision="dw")
+    sp_ = k1.sharing_plan(pcg._plan_df.labels)
+    assert len(sp_["w_src"]) == 4, sp_
+    assert pcg._plan_df.P == _half_width(c["degree"],
+                                         twofloat.COMPILED_P_DW)
+    _, rn, it = pcg.solve_compiled(tol=1e-10, maxiter=c["maxiter"])
+    grown = counters.diff(counters.snapshot(), before)
+    g = torch.Generator(device=dev).manual_seed(8)
+    sp = prob.space
+    (xh, xl), (bh, bl) = (split_f64(torch.randn(
+        sp.npts, generator=g, dtype=torch.float64, device=dev))
+        for _ in range(2))
+    got = twofloat.residual_kron_df(pcg._terms_df, bh, bl, xh, xl, sp.pads,
+                                    labels=pcg._labels, periodic=sp.periodic,
+                                    plan=pcg._plan_df, negate=True)
+    want = twofloat.residual_kron_df_plain(pcg._terms_df, bh, bl, xh, xl,
+                                           sp.pads, pcg._labels, sp.periodic,
+                                           True)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("K5 with 4 histories at P = 8 is not bit-equal "
+                             "to plain")
+    res = twofloat.k5_resources(pcg._plan_df)
+    log(f"[degrees periodic] {c['n_el']}^3 p={c['degree']} sigma=1, "
+        f"{c['levels']} levels: dw-PCG {int(it)} iterations, |r| "
+        f"{float(rn):.3e}; K5 with 4 histories at P = {pcg._plan_df.P} "
+        f"bit-equal to plain "
+        f"(negated, b and x_l given), {res['registers']} registers, "
+        f"{res['local_bytes']} bytes of local memory, {res['smem_bytes']} "
+        f"bytes of shared memory, {res['blocks_per_sm']} blocks an SM; "
+        f"launches {_short(grown)}")
+    del pcg, prob, got, want
+    torch.cuda.empty_cache()
+    return grown
+
+
+def _degree_chain(dev):
+    """A 6-term operator with nothing shared (runs of terms: three K5
+    launches a call) at P = 8 and P = 3: bit-equal to the single-pass plain
+    version, with b given and as A.p; the launches counted per call."""
+    for npts, p in DEGREE_CHAIN_SHAPES:
+        terms, (x, b, _) = _k1_operands(npts, (p,) * 3, torch.float64, dev,
+                                        p, DEGREE_CHAIN_TERMS)
+        split = {id(B): split_f64(B) for t in terms for B in t}
+        tdf = [[split[id(B)] for B in t] for t in terms]
+        plan = twofloat.build_kron_df_plan(tdf, npts, (p,) * 3)
+        (xh, xl), (bh, bl) = split_f64(x), split_f64(b)
+        zero = torch.zeros_like(xh)
+        for flags, explicit, neg in (
+                ((bh, bl, xh, xl), (bh, bl, xh, xl), False),
+                ((None, None, xh, None), (zero, zero, xh, zero), True)):
+            before = twofloat.residual_kron_df.launches
+            got = twofloat.residual_kron_df(tdf, *flags, (p,) * 3, plan=plan,
+                                            negate=neg)
+            torch.cuda.synchronize()
+            launched = twofloat.residual_kron_df.launches - before
+            assert launched == len(plan.chunks) > 1, (launched, plan.chunks)
+            want = twofloat.residual_kron_df_plain(tdf, *explicit, (p,) * 3,
+                                                   None, None, neg)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K5's chained launches at {npts} p={p} "
+                                     "are not bit-equal to the single pass")
+        log(f"[degrees chain] {DEGREE_CHAIN_TERMS} free terms at {npts} "
+            f"p={p} (P = {plan.P}): runs {plan.chunks}, {launched} K5 "
+            f"launches a call, bit-equal to the single pass (b given; A.p)")
+        del terms, x, b, tdf, split, xh, xl, bh, bl, zero, got, want
+
+
+def _degree_banded(dev):
+    """K2 and K3 in every mode, f32 and f64, against their plain versions
+    on degree-5 to degree-8 operands, with K2's runs and K3's tile."""
+    for npts, p in DEGREE_BANDED:
+        pads = (p,) * len(npts)
+        periodic = (False,) * len(npts)
+        zero = (0,) * len(npts)
+        for name in ("K2", "K3"):
+            prepare, kernel_fn, plain_fn = _engine(name)
+            for dtype in (torch.float32, torch.float64):
+                band, x_pad, b = _k2_operands(npts, pads, periodic, dtype,
+                                              dev, seed=p)
+                pk = prepare(band, npts, pads)
+                if name == "K3":
+                    how = f"tile {pk['tile']}"
+                else:
+                    plan = k2_plan(*k2_lift(npts, pads)[:2], dtype)
+                    how = (f"runs of {plan['rl']} ({plan['m2']} a row), "
+                           f"{plan['smem']} bytes")
+                rels = []
+                for mode in MODES:
+                    kw = dict(b=None if mode == "spmv" else b,
+                              omega=0.8 if mode in ("jacobi", "rbgs")
+                              else None, color=0, starts=zero)
+                    y = kernel_fn(mode, band, pk, x_pad, npts, pads, **kw)
+                    torch.cuda.synchronize()
+                    want = plain_fn(mode, band, pk, x_pad, npts, pads, **kw)
+                    rel = float((y - want).abs().max() / want.abs().max())
+                    if not (math.isfinite(rel) and rel <= K1_TOL[dtype]):
+                        raise AssertionError(f"{name} {mode} disagrees at "
+                                             f"{npts} p={p} {dtype}: {rel}")
+                    rels.append(f"{mode}={rel:.2e}")
+                log(f"[degrees banded] {name} {npts} p={p} {dtype} ({how}): "
+                    + " ".join(rels))
+                del band, x_pad, b, pk
+                torch.cuda.empty_cache()
+
+
+def _ptxas_entries(name, pattern):
+    """(kernel, registers, spill store bytes, stack frame bytes) of every
+    entry of ``csrc/<name>.cu`` whose mangled name matches ``pattern``,
+    from the ``-Xptxas -v`` report beside its library."""
+    out, entry = [], None
+    report = _build.BUILD_DIR / f"{name}.log"
+    for line in report.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if re.search(pattern, m.group(1)) else None
+            frame = spills = 0
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            frame, spills = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((entry, int(m.group(1)), spills, frame))
+            entry = None
+    return out
+
+
+def _degree_registers():
+    """ptxas's registers and spills of this phase's new instantiations: K5
+    at half-widths 4 (the register ring) and 6-8 (the wide kernel), 3 and
+    4 histories each, and K1 in bf16 at 5 and 8 (every mode)."""
+    rows = {"K5 P=4": _ptxas_entries("kron_apply_dw",
+                                     r"kron_march_dw_kernelILi4E"),
+            **{f"K5 P={P}": _ptxas_entries(
+                "kron_apply_dw", rf"kron_march_dw_wide_kernelILi{P}E")
+               for P in (6, 7, 8)},
+            "K1 bf16 P=5": _ptxas_entries(
+                "kron_apply", r"kron_march_kernelIfLi5ELi\dE13__nv_bfloat16"),
+            "K1 bf16 P=8": _ptxas_entries(
+                "kron_apply", r"kron_march_kernelIfLi8ELi\dE13__nv_bfloat16")}
+    for label, entries in rows.items():
+        log(f"[degrees] {label} (ptxas): " + ("; ".join(
+            f"{regs} registers, {spills} bytes spilled, {frame} bytes stack"
+            for _, regs, spills, frame in entries) or "no report found"))
+    return rows
+
+
+def _degree_refusal(dev):
+    """Degree 9 on the card: the kernels refuse, naming their half-widths."""
+    try:
+        poisson_problem(3, 16, degree=9, dtype=torch.float64, device=dev,
+                        operator="kron")
+    except RuntimeError as exc:
+        assert str(k1.COMPILED_P) in str(exc) and "9" in str(exc), exc
+        log(f"[degrees] degree 9 refused on the card: {exc}")
+        return
+    raise AssertionError("a degree-9 Kronecker-sum operator was built on the "
+                         "card")
+
+
+def phase_degrees(dev):
+    """Every spline degree 1-8 on the card: the headline at 128^3 (pcg and
+    dc through examples/headline_solve.main, and the dwrr PCG), converged
+    with a true f64 residual <= 5e-10, the kernels on the solves' own
+    operands against plain, K5 and K1 at the compiled half-width of each
+    degree; bf16 cycles at degrees 4, 5 and 8; the periodic dw-PCG at
+    degree 8; a 6-term K5 chain; K2/K3 at degrees 5 and 8; degree 9
+    refused.  Returns the launches of its solves, the per-degree rows and
+    the new kernel rows' numbers.
+
+    The launches go to the rows whose kernel they ran: K5 at half-widths
+    4, 6, 7, 8 and bf16 K1 at 5 and 8 to rows of their own; the generic K5
+    and f32 K1 rows (timed at P = 3) take only the launches at P = 3; K5 at
+    1, 2, 5 and f32 K1 at 1, 2, 5, 8 are logged per degree and counted in
+    no row.  Every other counter (K6r, K6u, K7) is taken whole."""
+    from poms_tpu_torch.examples import headline_solve
+
+    launches, rows = {}, {}
+    k5_by_p, bf16_p = {}, {}
+
+    def add(grown, degree):
+        P = _half_width(degree)
+        P_dw = _half_width(degree, twofloat.COMPILED_P_DW)
+        for k, v in grown.items():
+            if k == "residual_kron_df":
+                if P_dw in DEGREE_NEW_K5:
+                    k5_by_p[P_dw] = k5_by_p.get(P_dw, 0) + v
+                if P_dw != 3:
+                    continue
+            elif k.startswith("kron_mode."):
+                if k.endswith("@bf16") and P in DEGREE_BF16_TIMED:
+                    bf16_p[P] = bf16_p.get(P, 0) + v
+                if P != 3:
+                    continue
+            launches[k] = launches.get(k, 0) + v
+
+    for degree in DEGREES:
+        P = _half_width(degree)
+        P_dw = _half_width(degree, twofloat.COMPILED_P_DW)
+        for solver in ("pcg", "dc"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            counters.reset()
+            t0 = time.perf_counter()
+            res = headline_solve.main(
+                DEGREE_N, degree, solver, device=dev, out=lambda m: None,
+                check=_degree_check(degree, timed=solver == "pcg"))
+            res["run_s"] = time.perf_counter() - t0
+            chk = res.pop("check")
+            add(chk.pop("launches"), degree)
+            res.update(chk)
+            log(f"[degrees] {DEGREE_N}^3 p={degree} (K1 P = {P}, K5 P = "
+                f"{P_dw}) {solver}: "
+                f"{res['iterations']} iterations, |r| {res['rn']:.3e}, true "
+                f"f64 |b - Ax| {res['true_residual']:.3e}, L2 error "
+                f"{res['l2_error']:.3e}, replayed {res['ms_per_iter']:.3f} "
+                f"ms/iteration, setup {res['setup_s']:.3f} s, first solve "
+                f"{res['cold_solve_s']:.3f} s, peak "
+                f"{res['peak_bytes'] / 2 ** 30:.2f} GiB, {res['run_s']:.1f} s "
+                f"in all")
+            assert res["converged"] and res["true_residual"] <= 5e-10, res
+            if (degree, DEGREE_N) == (HEADLINE["degree"], HEADLINE["n_el"]):
+                assert res["iterations"] == HEADLINE_128[solver], res
+            rows[f"{degree} {solver}"] = res
+        counters.reset()
+        rr = _dwrr_run(degree, dev)
+        add(rr.pop("launches"), degree)
+        log(f"[degrees] {DEGREE_N}^3 p={degree} dwrr: {rr['iterations']} "
+            f"iterations, |r| {rr['rn']:.3e}, true f64 "
+            f"{rr['true_residual']:.3e}, replayed {rr['ms_per_iter']:.3f} "
+            f"ms/iteration")
+        assert rr["converged"] and rr["true_residual"] <= 5e-10, rr
+        if (degree, DEGREE_N) == (HEADLINE["degree"], HEADLINE["n_el"]):
+            assert rr["iterations"] == REFERENCE_COUNTS["dwrr"], rr
+        rows[f"{degree} dwrr"] = rr
+    counters.reset()
+    bf16_err = {}
+    for degree in DEGREE_BF16:
+        bf16_rows, grown, err = _degree_bf16(degree, dev)
+        add(grown, degree)
+        rows[f"{degree} bf16"] = bf16_rows
+        P = _half_width(degree)
+        bf16_err[P] = max(bf16_err.get(P, 0.0), err)
+    bf16_times = {}
+    for P in DEGREE_BF16_TIMED:
+        r = rows[f"{P} pcg"].pop("bf16")
+        r["max_abs_err"] = max(r["max_abs_err"], bf16_err[P])
+        bf16_times[P] = r
+    registers = _degree_registers()
+    counters.reset()
+    add(_degree_periodic(dev), DEGREE_PERIODIC["degree"])
+    _degree_chain(dev)
+    _degree_banded(dev)
+    _degree_refusal(dev)
+    log("[degrees] RESULT " + json.dumps(rows))
+    return {"launches": launches, "rows": rows, "k5_by_p": k5_by_p,
+            "bf16_launches": bf16_p, "bf16_times": bf16_times,
+            "registers": registers}
+
+
 T_START = time.perf_counter()
 
 
@@ -2893,10 +3522,13 @@ def main():
     benches = run(phase_benches, dev, k4)
     dist_examples, _, _ = run(phase_dist_examples, dev,
                               headline_rows["128 dc"]["ms_per_iter"])
-    later = (headline, poisson, benches["launches"], dist_examples)
+    degrees = run(phase_degrees, dev)
+    later = (headline, poisson, benches["launches"], dist_examples,
+             degrees["launches"])
 
     def more(key):
-        """The launches of phases 19-21 under one counter's key."""
+        """The launches of phases 19-22 under one counter's key (phase 22's
+        K5 and f32 K1 at half-width 3 only: ``phase_degrees``)."""
         return sum(c.get(key, 0) for c in later)
 
     points = 129 ** 3
@@ -3012,7 +3644,7 @@ def main():
                         and k.endswith("@bf16")),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": "bytes", "library_ms": None})
+        "bound_by": "bytes", "library_ms": k1_bf16["library_ms"]})
     kernels.append({
         "name": "transfer.bf16", "route": "cuda",
         "source": "poms_tpu_torch/csrc/transfer.cu",
@@ -3027,6 +3659,30 @@ def main():
         "replaces": "poms_tpu/ops/twofloat.py:197",
         "launches": periodic["residual_kron_df"], **k5_four,
         "bound_by": "operations", "library_ms": None})
+    # the instantiations of phase 22: K5 at half-widths 4, 6, 7 and 8 (the
+    # last three the wide design; a row's numbers: A.p at 128^3 at the
+    # degree equal to P) and K1 in bf16 at 5 and 8 (the cheb pass on the
+    # 128^3 runs' finest level cast to bf16, where f32 K1 is timed; the
+    # max|d| also over the 64^3 bf16 cycles' first two levels)
+    for P in DEGREE_NEW_K5:
+        r = degrees["rows"][f"{P} pcg"]
+        kernels.append({
+            "name": f"residual_kron_df.P{P}", "route": "cuda",
+            "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
+            "replaces": "poms_tpu/ops/twofloat.py:197",
+            "launches": degrees["k5_by_p"][P], "max_abs_err": 0.0,
+            "ms": r["k5_ms"], "plain_ms": r["k5_plain_ms"],
+            "bound_ms": r["k5_bound_ms"], "bound_by": "operations",
+            "library_ms": None})
+    for P, r in sorted(degrees["bf16_times"].items()):
+        kernels.append({
+            "name": f"kron_apply.bf16.P{P}", "route": "cuda",
+            "source": "poms_tpu_torch/csrc/kron_apply.cu",
+            "replaces": "poms_tpu/ops/pallas/kron.py:157",
+            "launches": degrees["bf16_launches"][P],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": r["library_ms"]})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:

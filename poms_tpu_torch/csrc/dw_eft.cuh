@@ -6,8 +6,8 @@
 // multiply is an intrinsic that the compiler never contracts into an FMA, so
 // each function here has one answer: the one the plain PyTorch toolbox
 // (ops/twofloat.py) computes elementwise.  two_prod is p = fl(a b),
-// e = fma(a, b, -p), which gives the same pair as the toolbox's 12|12-bit
-// split form wherever nothing underflows.
+// e = fma(a, b, -p): the toolbox rounds the same pair from the exact f64
+// product.
 
 #pragma once
 

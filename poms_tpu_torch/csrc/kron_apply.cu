@@ -62,8 +62,8 @@
 // are converted as they are read into registers and shared memory, the
 // arithmetic is the f32 kernel's, and the epilogue rounds once on the store
 // (cheb: x + d is formed from the unrounded d).  Where an operator takes
-// several launches the sum between them (acc, out_hi) stays f32.  Half-widths
-// 1, 2 and 3 only, to hold the build time.
+// several launches the sum between them (acc, out_hi) stays f32.  Every
+// dtype has every half-width (1, 2, 3, 5, 8: spline degrees 1 to 8).
 
 #include "kron_march.cuh"
 
@@ -538,16 +538,10 @@ int launch(const void* x, const void* b0, const void* b1, const void* b2,
     case 1: return launch_p<T, 1, IO>(a, st);
     case 2: return launch_p<T, 2, IO>(a, st);
     case 3: return launch_p<T, 3, IO>(a, st);
-    default: break;
+    case 5: return launch_p<T, 5, IO>(a, st);
+    case 8: return launch_p<T, 8, IO>(a, st);
+    default: return (int)cudaErrorInvalidValue;  // refused: no such kernel
   }
-  if constexpr (sizeof(IO) == sizeof(T)) {  // bf16 stops at half-width 3
-    switch (P) {
-      case 5: return launch_p<T, 5, IO>(a, st);
-      case 8: return launch_p<T, 8, IO>(a, st);
-      default: break;
-    }
-  }
-  return (int)cudaErrorInvalidValue;  // refused: no such kernel
 }
 
 }  // namespace

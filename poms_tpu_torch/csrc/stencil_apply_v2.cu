@@ -280,6 +280,8 @@ int launch(const T* blk, const T* diag, const T* xp, const T* b, T* out,
     return launch_tiles<T, 2, 8, 32>(blk, diag, xp, b, out, omega, g, stream);
   if (t0 == 4 && t1 == 8 && t2 == 32)
     return launch_tiles<T, 4, 8, 32>(blk, diag, xp, b, out, omega, g, stream);
+  if (t0 == 1 && t1 == 4 && t2 == 32)  // wide bands (f64 at p = 8)
+    return launch_tiles<T, 1, 4, 32>(blk, diag, xp, b, out, omega, g, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,6 +13,7 @@ Counterpart of the JAX package's ``examples/headline_solve.py``:
 Run:  python -m poms_tpu_torch.examples.headline_solve [n_el] [degree]
           [solver] [--cpu]
       solver ∈ {dc, pcg}   (defect correction | dw-precision MG-PCG)
+      degree 1-8 on the card (K1 and K5 refuse wider bands)
 
 ``main`` also returns the cold setup (problem, hierarchy, λ estimates and
 K1's launch data: ``setup_s``; the first ``solve_compiled``, which warms the

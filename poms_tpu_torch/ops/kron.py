@@ -17,12 +17,12 @@ chain of 1D axis contractions of ``poms_tpu/core/kron.py::_apply_interior``
 launches per mode (``launches_by_dtype[name][mode]`` those of one
 instantiation) and ``kron_apply.launches`` those of ``apply``.
 
-A bf16 operator (bf16 bands and fields; half-widths up to 3 on the card) is
-computed in f32 and rounded once per output value, by the kernel and by the
-plain version alike (:func:`kron_mode` casts the operands up, runs the f32
-expressions and rounds); the JAX package's Pallas kernel is f32 only and its
-bf16 cycle goes through XLA in bf16, so the port's is at least as exact and
-not bitwise with it.
+A bf16 operator (bf16 bands and fields) is computed in f32 and rounded once
+per output value, by the kernel and by the plain version alike
+(:func:`kron_mode` casts the operands up, runs the f32 expressions and
+rounds); the JAX package's Pallas kernel is f32 only and its bf16 cycle goes
+through XLA in bf16, so the port's is at least as exact and not bitwise with
+it.
 
 What the kernel needs beyond the field is built once per operator by
 :func:`build_kron_plan`: the distinct bands of each axis stacked and
@@ -50,17 +50,17 @@ __all__ = ["MODES", "kron_apply", "kron_apply_plain", "kron_mode",
            "band_labels",
            "sharing_plan", "chunk_terms", "build_kron_plan", "plan_apply",
            "diagonal_from_columns", "kron_tiling", "k1_step_cost", "KronPlan",
-           "stack_bands"]
+           "stack_bands", "refuse_half_width", "COMPILED_P"]
 
 MODES = ("apply", "residual", "dinv", "cheb")
 _KERNELS = {torch.float32: "kron_apply_f32", torch.float64: "kron_apply_f64",
             torch.bfloat16: "kron_apply_bf16"}
 # mirrored in csrc/kron_apply.cu (kCU, kCV, kCG, the instantiated half-widths,
 # kMaxThreads, columns and min_blocks): partials one launch may hold per axis,
-# compiled P
+# compiled P (every dtype: spline degrees 1-8 run on the card, 4 on 5, 6 and
+# 7 on 8; K5 has its own, ops/twofloat.py::COMPILED_P_DW)
 CAPS = {"u": 2, "v": 3, "g": 2}
 COMPILED_P = (1, 2, 3, 5, 8)
-COMPILED_P_BF16 = (1, 2, 3)     # the bf16 instantiations (build time)
 SM_COUNT = 132   # H100 SXM: the tiling's cost model where no card is asked
 MAX_THREADS = 256         # block size limit
 
@@ -220,14 +220,19 @@ def sharing_plan(labels, rows: Optional[Sequence[int]] = None) -> dict:
             "g_mult": g_mult}
 
 
+# the sharing plan's list that each cap of a launch bounds
+_CAPPED = {"u": "u_lab", "v": "v_src", "g": "g_lab", "w": "w_src",
+           "t": "term_w"}
+
+
 def _fits(plan: dict, caps: dict) -> bool:
-    return (len(plan["u_lab"]) <= caps["u"] and len(plan["v_src"]) <= caps["v"]
-            and len(plan["g_lab"]) <= caps["g"])
+    return all(len(plan[_CAPPED[k]]) <= c for k, c in caps.items())
 
 
 def chunk_terms(labels, caps: dict = CAPS) -> List[List[int]]:
     """Split the terms, in order, into runs whose plan fits one launch
-    (``caps``); a single term always fits."""
+    (``caps``: at most so many u, v, pre-summed (g) or history (w) partials
+    and terms (t)); a single term always fits."""
     chunks, cur = [], []
     for r in range(len(labels[0])):
         if cur and not _fits(sharing_plan(labels, cur + [r]), caps):
@@ -248,8 +253,9 @@ def kron_tiling(n3, P: int, threads_max: int, cost, sms: int = SM_COUNT,
     tile).  Among tile widths of 16 to 64 columns, three block sizes and up
     to 64 runs of planes, the one with the least modelled time is taken:
     ``cost(T1, T2, threads, chunk, blocks, sms)`` is the kernel's own model
-    (K1's: :func:`k1_step_cost`).  Splitting axis 0 adds 2P halo planes per
-    run but fills the SMs at small grids.
+    (K1's: :func:`k1_step_cost`), infinite for a block that does not fit.
+    Splitting axis 0 adds 2P halo planes per run but fills the SMs at small
+    grids.
     """
     n0, n1, n2 = n3
     best = None
@@ -272,6 +278,8 @@ def kron_tiling(n3, P: int, threads_max: int, cost, sms: int = SM_COUNT,
                 c = cost(T1, T2, threads, chunk, k1 * k2 * nchunks, sms)
                 if best is None or c < best[0]:
                     best = (c, T1, T2, chunk)
+    if best is None or math.isinf(best[0]):
+        raise ValueError(f"no tiling of {n3} at half-width {P} fits a block")
     return best[1:]
 
 
@@ -327,12 +335,26 @@ class KronPlan:
         return self._f32
 
 
-def _compiled_half_width(pads) -> int:
+def _compiled_half_width(pads, half_widths=COMPILED_P) -> int:
     p = max(max(pads), 1)
-    for P in COMPILED_P:
+    for P in half_widths:
         if P >= p:
             return P
-    return p   # no instantiation: the launcher refuses it
+    return p   # no instantiation: a plan on the card is refused
+
+
+def refuse_half_width(pads, device: torch.device):
+    """On the card, raise for bands wider than every compiled half-width
+    (a spline degree above 8): no kernel takes them, and none falls back
+    to the plain version."""
+    p = max(pads)
+    if device.type == "cuda" and p > COMPILED_P[-1]:
+        raise RuntimeError(
+            f"the Kronecker-sum kernels take half-widths up to "
+            f"{COMPILED_P[-1]} (spline degrees 1-{COMPILED_P[-1]}: K1 is "
+            f"compiled for half-widths {COMPILED_P}, K5 for each of 1-"
+            f"{COMPILED_P[-1]}); this operator has bands of half-width {p} "
+            f"(degree {p})")
 
 
 def stack_bands(terms, labels, n3, pads3, P: int, centre: float = 1.0):
@@ -363,12 +385,16 @@ def stack_bands(terms, labels, n3, pads3, P: int, centre: float = 1.0):
 
 def build_kron_plan(terms, npts, pads, periodic, labels=None,
                     threads_max: int = MAX_THREADS,
-                    tcols: Optional[int] = None, cost=None) -> KronPlan:
+                    tcols: Optional[int] = None, cost=None,
+                    caps: dict = CAPS,
+                    half_widths: Sequence[int] = COMPILED_P) -> KronPlan:
     """Everything a launch needs besides the fields, once per operator.
     ``labels[a][r]`` (default: identity of the band tensors) names the
     sharing; ``threads_max``, ``tcols`` (default: K1's columns per thread
     for the dtype and half-width) and ``cost`` (default: K1's model) shape
-    the tile."""
+    the tile; ``caps`` bound a launch's partials (:func:`chunk_terms`);
+    the bands are padded to the first of ``half_widths`` that holds them.
+    On the card, bands above the widest compiled half-width raise."""
     npts, pads = tuple(int(n) for n in npts), tuple(int(p) for p in pads)
     periodic = tuple(bool(q) for q in periodic)
     d = len(npts)
@@ -379,17 +405,18 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
         if len(term) != d:
             raise ValueError("each term needs one 1D band per dim")
     first = terms[0][0]
+    refuse_half_width(pads, first.device)
     lead = 3 - d
     n3 = (1,) * lead + npts
     pads3 = (0,) * lead + pads
     per3 = (False,) * lead + periodic
-    P = _compiled_half_width(pads)
+    P = _compiled_half_width(pads, half_widths)
     labels = _lift_labels(band_labels(terms) if labels is None else labels)
     cols = [torch.ones((len(terms), 1), dtype=first.dtype,
                        device=first.device) for _ in range(lead)]
     cols += [torch.stack([term[a][:, pads[a]] for term in terms]).contiguous()
              for a in range(d)]
-    chunks = chunk_terms(labels)
+    chunks = chunk_terms(labels, caps)
     itemsize = arithmetic_itemsize(first.dtype)
     if tcols is None:
         tcols = columns_per_thread(itemsize, P)
@@ -513,10 +540,6 @@ def _check(plan: KronPlan, x_int, others):
     if x_int.dtype not in _KERNELS:
         raise TypeError(f"the kron_apply kernel takes float32, float64 or "
                         f"bfloat16, got {x_int.dtype}")
-    if x_int.dtype == torch.bfloat16 and plan.P not in COMPILED_P_BF16:
-        raise NotImplementedError(
-            f"the bf16 kron_apply kernel is built for half-widths "
-            f"{COMPILED_P_BF16}; this operator needs {plan.P}")
     if tuple(x_int.shape) != plan.npts:
         raise ValueError(f"x has shape {tuple(x_int.shape)}, expected "
                          f"{plan.npts}")

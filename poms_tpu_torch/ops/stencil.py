@@ -212,7 +212,9 @@ def k2_plan(npts3, pads3, dtype: torch.dtype,
     ``rp`` values, the kernel's fixed pitch: a run's 16-byte-aligned
     superset at any offset.  ``grid`` is (runs, axis-0 blocks), ``smem`` the
     bytes of shared memory a block takes.  ``t0`` fixes the planes a block
-    (the probes take K2's 4)."""
+    (the probes take K2's 4).  Where no block fits the card's shared
+    memory, runs along rows are cut shorter until one does (a wide band on
+    3D grids); raises where even a one-point run does not fit."""
     n0, n1, n2 = npts3
     p0, p1, p2 = pads3
     if dtype not in _K2_CHOICES:
@@ -241,11 +243,31 @@ def k2_plan(npts3, pads3, dtype: torch.dtype,
                    else t == 1 or not (t > n0 or few))]
     if not choices:
         raise ValueError(f"K2 has no {t0}-plane blocks in {dtype}")
-    for t0, depth in choices:
-        ring = depth * (2 * p2 + 1) * t0 * rp * item
-        window = (t0 + 2 * p0) * wj * wc * arith
+
+    def fit(wj, wc):
+        """(t0, depth, ring, window): the first choice whose block fits, or
+        the last (the smallest)."""
+        for t0, depth in choices:
+            ring = depth * (2 * p2 + 1) * t0 * rp * item
+            window = (t0 + 2 * p0) * wj * wc * arith
+            if ring + window <= K2_SMEM:
+                break
+        return t0, depth, ring, window
+
+    t0, depth, ring, window = fit(wj, wc)
+    # a band too wide for that window: runs along rows (a window of 1 + 2p1
+    # rows), cut shorter until the block fits
+    for cut in range(max(m2, 1), n2 + 1):
         if ring + window <= K2_SMEM:
             break
+        m2, rl, runs = cut, -(-n2 // cut), n1 * cut
+        wj, wc = 1 + 2 * p1, rl + 2 * p2
+        t0, depth, ring, window = fit(wj, wc)
+    if ring + window > K2_SMEM:
+        raise RuntimeError(
+            f"K2 cannot stage a block of {npts3} at pads {pads3} in {dtype}: "
+            f"its x window and band ring take {ring + window} bytes of shared "
+            f"memory at the least, and a block may have {K2_SMEM}")
     return dict(t0=t0, depth=depth, rl=rl, m2=m2, runs=runs, wj=wj, wc=wc,
                 rp=rp, vec=vec, ring=ring, window=window, smem=ring + window,
                 groups=2 if t0 == 4 else 1,

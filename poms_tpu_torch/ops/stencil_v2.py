@@ -35,33 +35,55 @@ from typing import Optional
 import torch
 
 from poms_tpu_torch.ops import _build, _count
-from poms_tpu_torch.ops.stencil import MODES, _lift, stencil_apply_plain
+from poms_tpu_torch.ops.stencil import (K2_SMEM, MODES, _lift,
+                                        stencil_apply_plain)
 
-__all__ = ["tile_v2", "pack_band_v2", "unpack_band_v2",
+__all__ = ["tile_v2", "k3_smem_bytes", "pack_band_v2", "unpack_band_v2",
            "stencil_apply_v2_plain", "stencil_apply_v2"]
 
 _KERNELS = {torch.float32: ("stencil_apply_v2_f32", ctypes.c_float),
             torch.float64: ("stencil_apply_v2_f64", ctypes.c_double),
             torch.bfloat16: ("stencil_apply_v2_bf16", ctypes.c_float)}
-# the 3D tile per dtype: a ring of 3 (k0, k1) slabs plus the x window in
-# 227 KB of shared memory.  At p = 3 a slab is 28 KB in f32 (4×8×32) and in
-# f64 (2×8×32): two blocks an SM; in bf16 (4×8×32) it is 14 KB and the window
-# (f32) 21 KB: three blocks an SM, 129 KB of slabs in flight there
-_TILE_3D = {torch.float32: (4, 8, 32), torch.float64: (2, 8, 32),
-            torch.bfloat16: (4, 8, 32)}
+# the 3D tiles per dtype, in order: a ring of 3 (k0, k1) slabs plus the x
+# window in 227 KB of shared memory.  At p = 3 a slab is 28 KB in f32
+# (4×8×32) and in f64 (2×8×32): two blocks an SM; in bf16 (4×8×32) it is 14
+# KB and the window (f32) 21 KB: three blocks an SM, 129 KB of slabs in
+# flight there.  Wider bands take the first smaller tile that fits (f32
+# from p = 7, f64 from p = 6)
+_TILES_3D = {torch.float32: ((4, 8, 32), (2, 8, 32), (1, 8, 32), (1, 4, 32)),
+             torch.float64: ((2, 8, 32), (1, 8, 32), (1, 4, 32)),
+             torch.bfloat16: ((4, 8, 32), (2, 8, 32), (1, 8, 32),
+                              (1, 4, 32))}
 
 
-def tile_v2(npts3, dtype: torch.dtype):
-    """The kernel's (T0, T1, T2) tile for a lifted 3D grid: 256 threads of
-    T0 points each (``_TILE_3D`` in 3D)."""
+def tile_v2(npts3, dtype: torch.dtype, pads3):
+    """The kernel's (T0, T1, T2) tile for a lifted 3D grid and its pads:
+    T1·T2 threads of T0 points each; in 3D the first of ``_TILES_3D`` whose
+    block fits the card's shared memory (else the last: the wrapper then
+    refuses it)."""
     if npts3[0] == 1 and npts3[1] == 1:
         return (1, 1, 256)
     if npts3[0] == 1:
         return (1, 8, 32)
-    if dtype not in _TILE_3D:
+    if dtype not in _TILES_3D:
         raise TypeError(f"the v2 engine packs float32, float64 or bfloat16 "
                         f"bands, got {dtype}")
-    return _TILE_3D[dtype]
+    for tile in _TILES_3D[dtype]:
+        if k3_smem_bytes(tile, pads3, dtype) <= K2_SMEM:
+            break
+    return tile
+
+
+def k3_smem_bytes(tile, pads3, dtype: torch.dtype) -> int:
+    """Shared memory of a K3 block (``csrc/stencil_apply_v2.cu::
+    launch_tiles``): the ring of 3 slabs and the x window (arithmetic
+    type)."""
+    T0, T1, T2 = tile
+    item = torch.empty((), dtype=dtype).element_size()
+    arith = 4 if dtype == torch.bfloat16 else item
+    return (3 * (2 * pads3[2] + 1) * T0 * T1 * T2 * item
+            + (T0 + 2 * pads3[0]) * (T1 + 2 * pads3[1])
+            * (T2 + 2 * pads3[2]) * arith)
 
 
 def _lane_align(dtype: torch.dtype) -> int:
@@ -129,8 +151,8 @@ def pack_band_v2(band_t: torch.Tensor, npts, pads) -> dict:
     if tuple(band_t.shape) != want:
         raise ValueError(f"band_t has shape {tuple(band_t.shape)}, expected "
                          f"{want}")
-    n3, _ = _lift(npts, pads)
-    tile = tile_v2(n3, band_t.dtype)
+    n3, p3 = _lift(npts, pads)
+    tile = tile_v2(n3, band_t.dtype, p3)
     align = _lane_align(band_t.dtype)
     n2p = -(-n3[2] // align) * align
     terms = math.prod(want[:nd])
@@ -191,10 +213,10 @@ def _check(packed, x_pad, b, npts, pads):
                               or t.dtype != x_pad.dtype):
             raise ValueError("the pack, x_pad and b must share device and "
                              "dtype")
-    n3, _ = _lift(npts, pads)
-    if packed["tile"] != tile_v2(n3, blk.dtype):
+    n3, p3 = _lift(npts, pads)
+    if packed["tile"] != tile_v2(n3, blk.dtype, p3):
         raise ValueError(f"pack tile {packed['tile']} is not the kernel's "
-                         f"{tile_v2(n3, blk.dtype)}")
+                         f"{tile_v2(n3, blk.dtype, p3)}")
     terms = math.prod(2 * p + 1 for p in pads)
     if (not blk.is_contiguous() or blk.numel() != terms * math.prod(
             packed["N"]) or blk.data_ptr() % 16):
@@ -207,6 +229,12 @@ def _check(packed, x_pad, b, npts, pads):
                          f"{want_x}")
     if b is not None and tuple(b.shape) != tuple(npts):
         raise ValueError(f"b has shape {tuple(b.shape)}, expected {npts}")
+    smem = k3_smem_bytes(packed["tile"], p3, blk.dtype)
+    if smem > K2_SMEM:
+        raise RuntimeError(
+            f"K3 cannot stage a {packed['tile']} tile at pads {pads} in "
+            f"{blk.dtype}: its slab ring and x window take {smem} bytes of "
+            f"shared memory, and a block may have {K2_SMEM}")
 
 
 def stencil_apply_v2(mode: str, band_t: Optional[torch.Tensor],

@@ -7,16 +7,18 @@ mantissa bits, plus the double-word Kronecker residual and the dots and
 norms of the dw-PCG recurrences.
 
 Eager PyTorch runs each elementwise operation as its own kernel, so no
-multiply is contracted with an add into an FMA across these lines.  The
-toolbox keeps the JAX package's contraction-immune form anyway (every
-product in two_prod is exact).
+multiply is contracted with an add into an FMA across these lines.
+two_prod takes its pair from the exact f64 product: the FMA's pair, which
+the kernels compute.
 
 K5: for CUDA tensors :func:`residual_kron_df` launches the hand-written
 kernel of ``csrc/kron_apply_dw.cu`` (or raises); for CPU tensors it runs
 :func:`residual_kron_df_plain`.  The kernel performs the plain version's
 operations in its order with adds and multiplies the compiler may not fuse,
-so its words equal the plain version's.  ``residual_kron_df.launches``
-counts kernel launches.
+so its words equal the plain version's.  An operator with more partials or
+terms than one launch holds (``CAPS_DW``) takes several launches, chained
+through the double-word sum of the terms done so far.
+``residual_kron_df.launches`` counts kernel launches.
 
 K6: the dots and norms (:func:`dw_dot_stack`, :func:`dw_dot`,
 :func:`dw_norm2`, :func:`dw_sum_tree`) launch ``csrc/dw_reduce.cu`` for CUDA
@@ -44,13 +46,16 @@ import torch.nn.functional as F
 
 from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.ops import _build
-from poms_tpu_torch.ops.kron import (KronPlan, band_labels, build_kron_plan,
+from poms_tpu_torch.ops.kron import (KronPlan, _compiled_half_width,
+                                     _lift_labels, band_labels,
+                                     build_kron_plan, chunk_terms,
                                      sharing_plan, stack_bands)
+from poms_tpu_torch.ops.stencil import K2_SMEM
 
 __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_mul", "dw_mul_fd", "dw_neg", "residual_kron_df",
-           "residual_kron_df_plain", "build_kron_df_plan", "k5_step_cost",
-           "k5_resources",
+           "residual_kron_df_plain", "build_kron_df_plan",
+           "COMPILED_P_DW", "k5_step_cost", "k5_smem_bytes", "k5_resources",
            "eft_on_card",
            "dw_norm2", "dw_dot", "dw_sum_tree", "dw_dot_stack",
            "dw_norm2_plain", "dw_dot_plain", "dw_sum_tree_plain",
@@ -58,13 +63,14 @@ __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_dot_stack_plain", "dw_update", "dw_update_plain",
            "UPDATE_MODES"]
 
-# mirrored in csrc/kron_apply_dw.cu (kCU, kCV, kCW, kCT, kMaxThreads and the
-# instantiated half-widths)
+# mirrored in csrc/kron_apply_dw.cu (kCU, kCV, kCW, kCT, kMaxThreads,
+# kRegisterP, kron::kStages and the instantiated half-widths): what one
+# launch holds, and the widest half-width of the register ring
 CAPS_DW = {"u": 2, "v": 3, "w": 4, "t": 4}
-COMPILED_P_DW = (1, 2, 3, 5)
+COMPILED_P_DW = (1, 2, 3, 4, 5, 6, 7, 8)
 MAX_THREADS_DW = 256
-
-_HI12 = -4096   # int32 mask 0xFFFFF000: sign, exponent, top 11+1 mantissa bits
+REGISTER_P_DW = 5
+_STAGES = 4
 
 
 def split_f64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -93,25 +99,17 @@ def _fast_two_sum(a, b):
     return s, e
 
 
-def _split_bits(a):
-    """Exact 12|12-bit split of f32 by masking the low mantissa bits."""
-    ah = (a.view(torch.int32) & _HI12).view(torch.float32)
-    return ah, a - ah
-
-
 def two_prod(a, b):
-    """p + e == a·b exactly, from the four exact partial products of the
-    12|12-bit splits summed by an error-free two_sum cascade."""
-    ah, al = _split_bits(a)
-    bh, bl = _split_bits(b)
-    hh = ah * bh
-    hl = ah * bl
-    lh = al * bh
-    ll = al * bl
-    s1, e1 = two_sum(hl, lh)
-    s2, e2 = two_sum(hh, s1)
-    s3, e3 = two_sum(s2, ll)
-    return _fast_two_sum(s3, (e1 + e2) + e3)
+    """p + e == a·b exactly: p = f32(a·b) rounded from the exact f64
+    product of two f32 values, e = f32(a·b − p) (exact unless it
+    underflows), the pair an FMA gives (``csrc/dw_eft.cuh``).  The JAX
+    package's form sums the four partial products of 12|12-bit splits by a
+    two_sum cascade, whose error sum rounds in rare cases (6.4295678 ×
+    −0.0012753165: its e is 5.6e-17 off); elsewhere in the normal range the
+    two agree."""
+    ex = a.to(torch.float64) * b.to(torch.float64)
+    p = ex.to(torch.float32)
+    return p, (ex - p.to(torch.float64)).to(torch.float32)
 
 
 def dw_add(xh, xl, yh, yl):
@@ -198,11 +196,28 @@ def residual_kron_df_plain(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh,
     return dw_neg(rh, rl) if negate else (rh, rl)
 
 
-def k5_step_cost(P: int):
+def k5_smem_bytes(P: int, histories: int, T1: int, T2: int,
+                  chunk: int) -> int:
+    """Shared memory of a K5 block (``kron_apply_dw.cu::smem_bytes``, and
+    ``smem_bytes_wide`` above ``REGISTER_P_DW``); ``histories``: the
+    instantiation's (3 or 4)."""
+    WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
+    words = (_STAGES * WR * WC + CAPS_DW["u"] * WR * T2
+             + histories * chunk * W)
+    if P > REGISTER_P_DW:
+        words += (CAPS_DW["u"] * W * T2 + CAPS_DW["v"] * W * T1
+                  + histories * W * T1 * T2)
+    return 8 * WR * WC + 2 * 4 * words
+
+
+def k5_step_cost(P: int, histories: int = 3):
     """K5's cost model for :func:`poms_tpu_torch.ops.kron.kron_tiling`: one
     block an SM, a plane step costing its warps' contractions (the axis-2
-    pass over T1 + 2P rows, the two others over T1) and the window load."""
+    pass over T1 + 2P rows, the two others over T1) and the window load;
+    infinite for a block whose shared memory exceeds the card's limit."""
     def cost(T1, T2, threads, chunk, blocks, sms):
+        if k5_smem_bytes(P, histories, T1, T2, chunk) > K2_SMEM:
+            return math.inf
         rows = T1 + 2 * P
         step = (threads / 32 * (3.0 * rows / T1 + 5.0)
                 + rows * (T2 + 2 * P) / 64.0)
@@ -214,14 +229,20 @@ def k5_step_cost(P: int):
 def build_kron_df_plan(terms_df, npts, pads, periodic=None,
                        labels=None) -> KronPlan:
     """K5's launch data, once per operator: K1's plan of the hi bands (the
-    lifted geometry, the sharing plan) with the lo bands stacked beside them
-    and a tiling for K5's block size."""
+    lifted geometry, the sharing plan cut into runs of terms that one K5
+    launch holds) with the lo bands stacked beside them and a tiling for
+    K5's block size and shared memory."""
     periodic = (False,) * len(npts) if periodic is None else periodic
     hi = [[B[0] for B in term] for term in terms_df]
     lo = [[B[1] for B in term] for term in terms_df]
+    lab3 = _lift_labels(band_labels(hi) if labels is None else labels)
+    histories = max(len(sharing_plan(lab3, run)["w_src"])
+                    for run in chunk_terms(lab3, CAPS_DW))
+    P = _compiled_half_width(pads, COMPILED_P_DW)
     plan = build_kron_plan(hi, npts, pads, periodic, labels=labels,
                            threads_max=MAX_THREADS_DW, tcols=1,
-                           cost=k5_step_cost(max(max(pads), 1)))
+                           cost=k5_step_cost(P, 3 if histories <= 3 else 4),
+                           caps=CAPS_DW, half_widths=COMPILED_P_DW)
     plan.bands_lo = stack_bands(lo, plan.labels, plan.n3, plan.pads3, plan.P,
                                 centre=0.0)
     return plan
@@ -232,7 +253,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("kron_apply_dw")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.kron_residual_dw.argtypes = [ptr] * 14 + [i32, ptr]
+    lib.kron_residual_dw.argtypes = [ptr] * 16 + [i32, i32, ptr]
     lib.kron_residual_dw.restype = i32
     lib.kron_residual_dw_resources.argtypes = [ptr] * 3
     lib.kron_residual_dw_resources.restype = i32
@@ -251,32 +272,28 @@ def _raise_if(err: int, what: str):
 
 
 def _df_c_args(plan: KronPlan):
-    """ctypes int arrays of the geometry and the whole operator's sharing
-    plan in the kernel's layout (kept on the plan)."""
+    """ctypes int arrays of the geometry and of each run's sharing plan in
+    the kernel's layout (kept on the plan): ``[geo, run_0, run_1, ...]``."""
     if not plan._cargs:
-        sp = sharing_plan(plan.labels)
-
         def padded(xs, n):
             return list(xs) + [0] * (n - len(xs))
 
-        counts = [len(sp["u_lab"]), len(sp["v_src"]), len(sp["w_src"]),
-                  len(sp["term_w"])]
         caps = [CAPS_DW[k] for k in "uvwt"]
-        if any(n > c for n, c in zip(counts, caps)) \
-                or plan.P not in COMPILED_P_DW:
-            raise RuntimeError(
-                f"the double-word Kronecker kernel holds at most {CAPS_DW} "
-                f"partials/terms at half-widths {COMPILED_P_DW}; this "
-                f"operator needs {counts} at half-width {plan.P}")
-        ints = (counts + padded(sp["u_lab"], caps[0])
-                + padded(sp["v_src"], caps[1]) + padded(sp["v_lab"], caps[1])
-                + padded(sp["w_src"], caps[2]) + padded(sp["w_lab"], caps[2])
-                + padded(sp["term_w"], caps[3]))
+        runs = []
+        for sp in plan.plans:
+            counts = [len(sp["u_lab"]), len(sp["v_src"]), len(sp["w_src"]),
+                      len(sp["term_w"])]
+            ints = (counts + padded(sp["u_lab"], caps[0])
+                    + padded(sp["v_src"], caps[1])
+                    + padded(sp["v_lab"], caps[1])
+                    + padded(sp["w_src"], caps[2])
+                    + padded(sp["w_lab"], caps[2])
+                    + padded(sp["term_w"], caps[3]))
+            runs.append((ctypes.c_int * len(ints))(*ints))
         T1, T2, chunk = plan.tiling
         geo = [*plan.n3, *(int(q) for q in plan.per3), plan.P, T1, T2, chunk,
                32 * math.ceil(T1 * T2 / 32), plan.n_terms]
-        plan._cargs = [(ctypes.c_int * len(geo))(*geo),
-                       (ctypes.c_int * len(ints))(*ints)]
+        plan._cargs = [(ctypes.c_int * len(geo))(*geo)] + runs
     return plan._cargs
 
 
@@ -326,15 +343,21 @@ def _launch_df(plan: KronPlan, bh, bl, xh, xl, negate, stream):
                              f"{plan.device}")
     xh, xl, bh, bl = (None if t is None else t.contiguous()
                       for _, t in fields)
-    geo, ints = _df_c_args(plan)
-    rh, rl = torch.empty_like(xh), torch.empty_like(xh)
+    geo, *runs = _df_c_args(plan)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
-    err = _library().kron_residual_dw(
-        ptr(xh), ptr(xl), ptr(bh), ptr(bl),
-        *(ptr(t) for pair in zip(plan.bands, plan.bands_lo) for t in pair),
-        ptr(rh), ptr(rl), geo, ints, int(bool(negate)), stream)
-    _raise_if(err, "residual_kron_df")
-    residual_kron_df.launches += 1
+    bands = [ptr(t) for pair in zip(plan.bands, plan.bands_lo) for t in pair]
+    acc = (None, None)
+    for k, run in enumerate(runs):
+        # every run but the last writes the sum of the terms so far
+        last = k == len(runs) - 1
+        rh, rl = torch.empty_like(xh), torch.empty_like(xh)
+        err = _library().kron_residual_dw(
+            ptr(xh), ptr(xl), ptr(bh) if last else None,
+            ptr(bl) if last else None, *map(ptr, acc), *bands, ptr(rh),
+            ptr(rl), geo, run, int(bool(negate)), int(last), stream)
+        _raise_if(err, "residual_kron_df")
+        residual_kron_df.launches += 1
+        acc = (rh, rl)
     return rh, rl
 
 
@@ -342,10 +365,10 @@ residual_kron_df.launches = 0
 
 
 def k5_resources(plan: KronPlan) -> dict:
-    """What K5's launch of ``plan`` gets on the card: registers and local
-    memory (spilled registers) a thread, shared memory a block, blocks an
-    SM holds at once, threads a block."""
-    geo, ints = _df_c_args(plan)
+    """What K5's (first) launch of ``plan`` gets on the card: registers and
+    local memory (spilled registers) a thread, shared memory a block, blocks
+    an SM holds at once, threads a block."""
+    geo, ints = _df_c_args(plan)[:2]
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(plan.device):
         _raise_if(_library().kron_residual_dw_resources(geo, ints, out),

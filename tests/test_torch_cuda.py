@@ -225,16 +225,125 @@ def test_k5_spills_nothing(dev, four):
 
 
 def test_k5_refuses_what_it_lacks(dev):
+    """Five sharing-free terms exceed one launch (2 u partials): they run in
+    three launches chained through the sum so far, bit-equal to the single
+    pass; a float64 field and a degree-9 operator are refused."""
     rng = np.random.default_rng(0)
     free = [[twofloat.split_f64(torch.as_tensor(
         rng.standard_normal((9, 3)), device=dev)) for _ in range(2)]
         for _ in range(5)]
-    xh = torch.zeros((9, 9), device=dev)
-    with pytest.raises(RuntimeError):     # five sharing-free terms
-        twofloat.residual_kron_df(free, None, None, xh, None, (1, 1))
+    xh = torch.as_tensor(rng.standard_normal((9, 9)), dtype=torch.float32,
+                         device=dev)
+    before = twofloat.residual_kron_df.launches
+    got = twofloat.residual_kron_df(free, None, None, xh, None, (1, 1))
+    torch.cuda.synchronize()
+    assert twofloat.residual_kron_df.launches == before + 3
+    zero = torch.zeros_like(xh)
+    want = twofloat.residual_kron_df_plain(free, zero, zero, xh, zero, (1, 1))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     with pytest.raises(TypeError):
         twofloat.residual_kron_df(free[:1], None, None, xh.double(), None,
                                   (1, 1))
+    wide = [[twofloat.split_f64(torch.as_tensor(
+        rng.standard_normal((20, 19)), device=dev)) for _ in range(2)]]
+    with pytest.raises(RuntimeError, match=r"\(1, 2, 3, 5, 8\)"):
+        twofloat.residual_kron_df(wide, None, None,
+                                  torch.zeros((20, 20), device=dev), None,
+                                  (9, 9))
+
+
+# K5's new half-widths 6-8 (the shared-memory design) and 4: Poisson-shaped
+# operators (3 histories) and the periodic shape (4 histories)
+K5_WIDE = [((20, 22, 40), (8, 8, 8), (False,) * 3, False),
+           ((19, 21, 34), (6, 6, 6), (False,) * 3, False),
+           ((23, 18, 40), (7, 7, 7), (True,) * 3, False),
+           ((40, 41), (8, 8), (False, False), False),
+           ((18, 20, 36), (8, 8, 8), (True,) * 3, True),
+           ((14, 13, 30), (4, 4, 4), (False,) * 3, True),
+           ((11, 12, 25), (4, 4, 4), (False,) * 3, False),
+           ((16, 17, 30), (6, 6, 6), (True,) * 3, True),
+           ((15, 18, 32), (7, 7, 7), (False,) * 3, True)]
+
+
+@pytest.mark.parametrize("npts,pads,periodic,four", K5_WIDE)
+@pytest.mark.parametrize("negate", [False, True])
+def test_k5_wide_half_widths_are_bit_equal_to_plain(dev, npts, pads,
+                                                    periodic, four, negate):
+    """K5 at half-widths 4, 6, 7 and 8 with 3 and 4 histories: the words
+    equal the plain version's, b and x_l given, negated or not."""
+    if four:
+        tdf = _periodic_df_terms(npts, pads, dev, seed=sum(npts))
+    else:
+        terms, _ = _mode_operands(npts, pads, torch.float64, dev, 0,
+                                  seed=sum(npts))
+        split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
+        tdf = [[split[id(B)] for B in t] for t in terms]
+    rng = np.random.default_rng(len(npts))
+    (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
+        rng.standard_normal(npts), device=dev)) for _ in range(2))
+    plan = twofloat.build_kron_df_plan(tdf, npts, pads, periodic)
+    before = twofloat.residual_kron_df.launches
+    got = twofloat.residual_kron_df(tdf, bh, bl, xh, xl, pads,
+                                    periodic=periodic, plan=plan,
+                                    negate=negate)
+    torch.cuda.synchronize()
+    assert twofloat.residual_kron_df.launches == before + 1
+    want = twofloat.residual_kron_df_plain(tdf, bh, bl, xh, xl, pads, None,
+                                           periodic, negate)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    res = twofloat.k5_resources(plan)
+    assert res["registers"] <= 255 and res["blocks_per_sm"] >= 1, res
+
+
+@pytest.mark.parametrize("nterms,p", [(5, 8), (6, 8), (5, 3), (6, 2)])
+def test_k5_chained_launches_are_bit_equal_to_the_single_pass(dev, nterms,
+                                                              p):
+    """Operators of 5 and 6 sharing-free terms: one launch per run of terms,
+    each adding onto the sum of the runs before it, the last forming
+    b - sum; the words equal the single pass's, also as A.p."""
+    npts = (p + 12, p + 13, 2 * p + 20)
+    terms, (x, b, _) = _mode_operands(npts, (p,) * 3, torch.float64, dev,
+                                      nterms, seed=nterms + p)
+    tdf = [[twofloat.split_f64(B) for B in t] for t in terms]
+    (xh, xl), (bh, bl) = twofloat.split_f64(x), twofloat.split_f64(b)
+    zero = torch.zeros_like(xh)
+    plan = twofloat.build_kron_df_plan(tdf, npts, (p,) * 3)
+    for given, explicit, negate in (((bh, bl, xh, xl), (bh, bl, xh, xl),
+                                     False),
+                                    ((None, None, xh, None),
+                                     (zero, zero, xh, zero), True)):
+        before = twofloat.residual_kron_df.launches
+        got = twofloat.residual_kron_df(tdf, *given, (p,) * 3, plan=plan,
+                                        negate=negate)
+        torch.cuda.synchronize()
+        assert twofloat.residual_kron_df.launches - before \
+            == len(plan.chunks) == 3
+        want = twofloat.residual_kron_df_plain(tdf, *explicit, (p,) * 3,
+                                               negate=negate)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_degree_6_dw_pcg_on_card_matches_cpu(dev):
+    """3D Poisson at degree 6, 16^3 elements, 2 levels (K1 at half-width
+    8, K5 at 6): the card takes the CPU port's iterations with the same
+    λs, solutions within 1e-6 of max|x|."""
+    cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=16.0))
+    runs, lams = {}, None
+    for d in (dev, torch.device("cpu")):
+        pcg = MGPreconditionedCG(
+            poisson_problem(3, 16, degree=6, device=d, operator="kron"), 2,
+            cfg, mixed=True, operator="kron", precision="dw")
+        assert pcg._plan_df.P == 6
+        pcg.lams = lams = lams or pcg.lams
+        runs[d.type] = pcg.solve(tol=1e-10, maxiter=200)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu.converged and gpu.iterations == cpu.iterations
+    xg, xc = gpu.x.interior.cpu(), cpu.x.interior
+    assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-6
 
 
 def test_k5_eft_entry_is_exact(dev):
@@ -822,6 +931,42 @@ def test_banded_bf16_kernels_match_plain(dev, npts, pads, periodic, mode,
         assert torch.equal(got[other], x_int[other])
 
 
+# wide bands on 3D grids: K2 cuts its rows into shorter runs (129 at p = 8
+# in f64, 256 at p = 7), K3 takes a smaller tile (2 x 8 x 32 in f32 from
+# p = 7, 1 x 8 x 32 and 1 x 4 x 32 in f64 from p = 6)
+WIDE_BANDS = [((9, 12, 129), 8), ((8, 8, 256), 7), ((6, 9, 40), 8),
+              ((5, 7, 33), 6)]
+
+
+@pytest.mark.parametrize("npts,p", WIDE_BANDS)
+@pytest.mark.parametrize("engine", ["K2", "K3"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_wide_bands_match_plain(dev, npts, p, engine, dtype, tol):
+    """Every mode at p = 6-8 on 3D grids whose default block would not fit
+    a block's shared memory: within K2's tolerances of the plain version,
+    RB-GS leaving the other colour as it was."""
+    pads = (p,) * 3
+    band, x_pad, b = _k2_operands(npts, pads, (False,) * 3, dtype, dev,
+                                  seed=p)
+    x_int = x_pad[tuple(slice(q, q + n) for n, q in zip(npts, pads))]
+    packed = pack_band_v2(band, npts, pads) if engine == "K3" else None
+    for mode in MODES:
+        kw = dict(b=None if mode == "spmv" else b,
+                  omega=0.8 if mode in ("jacobi", "rbgs") else None)
+        if engine == "K2":
+            got = stencil_apply(mode, band, x_pad, npts, pads, **kw)
+        else:
+            got = stencil_apply_v2(mode, None, x_pad, npts, pads,
+                                   packed=packed, **kw)
+        torch.cuda.synchronize()
+        want = stencil_apply_plain(mode, band, x_pad, npts, pads, **kw)
+        assert float((got - want).abs().max() / want.abs().max()) <= tol
+        if mode == "rbgs":
+            other = ~color_mask(npts, 0, device=dev)
+            assert torch.equal(got[other], x_int[other])
+
+
 def test_k3_refuses_a_pack_of_another_dtype(dev):
     npts, pads = (8, 12, 20), (1, 1, 1)
     band, x_pad, _ = _k2_operands(npts, pads, (False,) * 3, torch.float32,
@@ -839,7 +984,13 @@ BF16_K1_SHAPES = [((17, 17, 17), (3, 3, 3), (False,) * 3, 0),
                   ((12, 20, 41), (2, 3, 1), (True, False, True), 0),
                   ((30, 257), (3, 3), (False, False), 0),
                   ((4099,), (3,), (True,), 0),
-                  ((20, 21, 23), (2, 2, 2), (False,) * 3, 4)]
+                  ((20, 21, 23), (2, 2, 2), (False,) * 3, 4),
+                  # half-widths 5 and 8 (degrees 4-8)
+                  ((14, 19, 40), (5, 5, 5), (False,) * 3, 0),
+                  ((13, 16, 33), (4, 4, 4), (True,) * 3, 0),
+                  ((18, 20, 41), (8, 8, 8), (False,) * 3, 0),
+                  ((40, 67), (7, 7), (False, True), 0),
+                  ((20, 21, 40), (8, 8, 8), (False,) * 3, 4)]
 
 
 @pytest.mark.parametrize("npts,pads,periodic,free", BF16_K1_SHAPES)
@@ -881,11 +1032,20 @@ def test_k1_bf16_modes_match_plain(dev, npts, pads, periodic, free, mode):
 
 
 def test_k1_bf16_stops_at_half_width_3(dev):
-    terms, (x, _, _) = _mode_operands((16, 16, 16), (5, 5, 5), torch.float32,
+    """bf16 has every compiled half-width (1, 2, 3, 5, 8: degrees 1-8);
+    above 8 the plan is refused on the card, naming the half-widths."""
+    for p in (5, 8):
+        terms, (x, _, _) = _mode_operands((16, 17, 18), (p,) * 3,
+                                          torch.float32, dev, 0)
+        terms = [[B.to(BF16) for B in t] for t in terms]
+        y = kron_apply(terms, x.to(BF16), (16, 17, 18), (p,) * 3,
+                       (False,) * 3)
+        assert y.dtype == BF16 and bool(torch.isfinite(y.float()).all())
+    terms, (x, _, _) = _mode_operands((20, 20, 20), (9, 9, 9), torch.float32,
                                       dev, 0)
     terms = [[B.to(BF16) for B in t] for t in terms]
-    with pytest.raises(NotImplementedError, match="half-widths"):
-        kron_apply(terms, x.to(BF16), (16,) * 3, (5,) * 3, (False,) * 3)
+    with pytest.raises(RuntimeError, match=r"half-widths \(1, 2, 3, 5, 8\)"):
+        kron_apply(terms, x.to(BF16), (20,) * 3, (9,) * 3, (False,) * 3)
 
 
 @pytest.mark.parametrize("kind,n_el,d", K7_CASES)

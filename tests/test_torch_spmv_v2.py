@@ -129,7 +129,9 @@ def test_rbgs_color_matches_jax_v2(v2, npts, p, starts_off, color):
 @pytest.mark.parametrize("npts,pads", [
     ((8, 12, 20), (1, 1, 1)), ((10, 9, 130), (2, 2, 2)),
     ((9, 17, 33), (3, 3, 3)), ((5, 8, 70), (1, 2, 0)), ((16, 24), (2, 2)),
-    ((40, 140), (3, 1)), ((600,), (2,)), ((5,), (1,))])
+    ((40, 140), (3, 1)), ((600,), (2,)), ((5,), (1,)),
+    # wide bands: the smaller 3D tiles (2 x 8 x 32, 1 x 8 x 32, 1 x 4 x 32)
+    ((6, 9, 40), (7, 7, 7)), ((5, 6, 34), (8, 8, 8))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.bfloat16])
 def test_unpack_pack_round_trip_is_bitwise(npts, pads, dtype):
@@ -144,7 +146,8 @@ def test_unpack_pack_round_trip_is_bitwise(npts, pads, dtype):
     lift = (1,) * (3 - len(npts)) + npts
     assert packed["N"][:2] == lift[:2]
     assert packed["N"][2] - lift[2] < 16 // band.element_size()
-    assert packed["tile"] == tile_v2(lift, dtype)
+    assert packed["tile"] == tile_v2(lift, dtype, (0,) * (3 - len(npts))
+                                     + tuple(pads))
 
 
 def _slabs(packed, band6):

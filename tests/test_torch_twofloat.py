@@ -214,10 +214,12 @@ def _two_prod_fma_model(a, b):
 
 
 def test_two_prod_fma_form_equals_split_form_bitwise():
-    """On 2²⁰ random pairs over 60 binades and on edge cases the FMA form
-    gives the split form's (p, e) bit for bit.  They differ only where the
-    error term leaves the normal range: |a·b| below 2⁻¹⁰² (e, 24 bits
-    under p, would be subnormal), or where a product overflows."""
+    """On 2²⁰ random pairs over 60 binades and on edge cases the port's
+    two_prod gives the FMA form's (p, e) bit for bit (the JAX package's
+    12|12-bit split form does too, except where the error term leaves the
+    normal range and at rare pairs whose error sum it rounds, tested
+    below).  The pair is exact down to |a·b| of 2⁻¹⁰² (e, 24 bits under p,
+    would be subnormal)."""
     rng = np.random.default_rng(12)
     n = 1 << 20
     a = (rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n)
@@ -271,11 +273,17 @@ def test_kron_df_plan_layout_and_limits():
     rng = np.random.default_rng(13)
     free = [[port.split_f64(torch.from_numpy(rng.standard_normal((9, 3))))
              for _ in range(2)] for _ in range(5)]
-    with pytest.raises(RuntimeError):
-        port._df_c_args(port.build_kron_df_plan(free, (9, 9), (1, 1)))
-    # the limits: 2 u, 3 v, 4 histories, 4 terms.  Four terms with four
-    # histories fit (the periodic shifted 3D operator's shape: the first
-    # axis' band differs in every term but two); a third axis-2 band does not
+    # five sharing-free terms (each its own u, v and history) pass the caps:
+    # they take runs of terms, one launch each (2 + 2 + 1 u partials)
+    five = port.build_kron_df_plan(free, (9, 9), (1, 1))
+    assert five.chunks == [[0, 1], [2, 3], [4]]
+    geo, *runs = port._df_c_args(five)
+    assert [list(r)[:4] for r in runs] == [[2, 2, 2, 2], [2, 2, 2, 2],
+                                           [1, 1, 1, 1]]
+    # the limits of one launch: 2 u, 3 v, 4 histories, 4 terms.  Four terms
+    # with four histories fit (the periodic shifted 3D operator's shape: the
+    # first axis' band differs in every term but two); a third axis-2 band
+    # opens a second run
     assert port.CAPS_DW == {"u": 2, "v": 3, "w": 4, "t": 4}
     K, M, S = (port.split_f64(torch.from_numpy(rng.standard_normal((9, 3))))
                for _ in range(3))
@@ -284,5 +292,7 @@ def test_kron_df_plan_layout_and_limits():
                                                       (1,) * 3))
     assert list(ints)[:4] == [2, 3, 4, 4]
     three_u = [[M, M, M], [M, M, K], [M, M, S]]
-    with pytest.raises(RuntimeError, match="at most"):
-        port._df_c_args(port.build_kron_df_plan(three_u, (9,) * 3, (1,) * 3))
+    plan = port.build_kron_df_plan(three_u, (9,) * 3, (1,) * 3)
+    assert plan.chunks == [[0, 1], [2]]
+    assert [list(r)[:4] for r in port._df_c_args(plan)[1:]] == [
+        [2, 2, 2, 2], [1, 1, 1, 1]]
