@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Imports torch, numpy and ``poms_tpu_torch`` only.  Phases, in order; no
-exception is caught (phase 22 catches the refusal of degree 9 it expects,
-and fails where it does not come), so any failure exits non-zero:
+exception is caught (phase 23 catches the refusals one half-width past the
+widest it expects, and fails where they do not come, and a failed f32
+coarse factorization of a run it only logs), so any failure exits
+non-zero:
 
 1. build   — nvcc the kernels of poms_tpu_torch/csrc (K1 kron_apply, K5
              kron_apply_dw, K2 stencil_apply, K3 stencil_apply_v2, K4
@@ -183,10 +185,12 @@ and fails where it does not come), so any failure exits non-zero:
              idle share, staged copies' share); the scaling model's
              prediction for 8 ranks at 128^3 a rank (one card shows the
              wiring, not scaling).
-22. degrees — every spline degree 1-8 at 128^3 elements through the headline
+22. degrees — every spline degree 1-8 at 64^3 elements (PERF.md section 5
+             keeps their 128^3 record; phase 23 runs the headline's 128^3
+             at degrees 9-12) through the headline
              example (pcg and dc, f32 cycles) and the dwrr PCG: each converges
-             to 1e-10 with a true f64 residual <= 5e-10, degree 3 in phases 4
-             and 4b's counts; every plan at the compiled half-width of its
+             to 1e-10 with a true f64 residual <= 5e-10; every plan at the
+             compiled half-width of its
              degree (K1: 1, 2, 3, 5, 5, 8, 8, 8; K5: the degree) and K5, K1 and
              K7 launched; on each pcg run's own operands K5 (the residual and
              A.p) bit-equal to plain, K1 in every mode on the first two cycle
@@ -201,8 +205,23 @@ and fails where it does not come), so any failure exits non-zero:
              histories at P = 8; logged); a 6-term operator whose K5 residual
              takes three chained launches, bit-equal to the single pass; K2 and
              K3 in every mode at degrees 5 to 8 (33^3, rows K2 cuts into
-             shorter runs, K3's smaller tiles, 513^2); degree 9 refused on the
-             card, naming the compiled half-widths.
+             shorter runs, K3's smaller tiles, 513^2).
+23. wide degrees — spline degrees above 8 on the run-time kernels K1r and
+             K5r: the headline at 128^3 at degrees 9, 10 and 12 (pcg and dc
+             through the headline example, and the dwrr PCG, up to 400
+             iterations): pcg and dc at 9 and 10 and dwrr at 9 converge to
+             1e-10 with a true f64 residual <= 5e-10, dwrr at 10 and all three
+             at 12 are logged; every plan at the degree's own half-width, K1r
+             and K5r launched; on each pcg run's own operands phase 22's
+             checks (K5r bit-equal, K1r in every mode on levels 0-1, K7, K6r,
+             K6u).  K1r in every mode (1e-5 of max|y|) and K5r (bit-equal)
+             against plain at P = 9, 10, 12, 16 on the 128^3-element grids,
+             timed beside their bounds, the plain versions and (K1r's apply)
+             the dense per-axis products; at P = 3 and 8 against the compiled
+             kernels (equal values, bit-equal words) and K1r at 4, 6 and 7
+             beside compiled K1 at 5 and 8; each kernel's widest half-width
+             (K1r 37 in f32, 27 in f64; K5r 36) on a 5 x 6 x 9 grid, and one
+             past it refused with the bytes.
 
 Cut against the earlier version to hold the run time: phase 2 times the
 plain K1 versions with 3 repetitions instead of 5.  Every phase logs what it
@@ -219,11 +238,12 @@ ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes from phase
 13's timing paths, the bf16 rows from phase 16 and K5's 4-history row from
 phase 17, and to each row the launches of every rank of phase 18 (its
 solves), and those of phases 19 (the headline runs and the banded
-examples), 20 (the benches), 21 (every rank of the distributed examples)
-and 22 (its solves); the rows of phase 22's instantiations (K5 at
+examples), 20 (the benches), 21 (every rank of the distributed examples),
+22 and 23 (their solves); the rows of phase 22's instantiations (K5 at
 half-widths 4, 6, 7 and 8, K1 in bf16 at 5 and 8) count its solves at those
-half-widths only; launches made to compare a kernel with its plain version
-are not counted. Each kernel's ``bound_ms`` is the larger of its bytes
+half-widths only, and the rows of K1r (one a mode its solves ran) and K5r
+count phase 23's solves; launches made to compare a kernel with its plain
+version are not counted. Each kernel's ``bound_ms`` is the larger of its bytes
 (every input read once, every output written once) over 3.35 TB/s and its
 operations over the f32 rate outside the tensor cores (K5's adds and
 multiplies may not fuse: 33.5 T a second, half the published 67 TFLOP/s,
@@ -1041,6 +1061,7 @@ def phase_defect(dev):
         f"package recorded {REFERENCE_COUNTS['dwrr']}), |r| "
         f"{res.residuals[-1]:.3e}, true f64 {true_rn:.3e}")
     assert res.converged and true_rn <= 5e-10, (res.residuals, true_rn)
+    assert res.iterations == REFERENCE_COUNTS["dwrr"], res.iterations
     launches = counters.snapshot()
     missing = [k for k in NEW_KERNELS + ("residual_kron_df",)
                if not launches[k] > 0]
@@ -2896,13 +2917,18 @@ def phase_dist_examples(dev, t_comp_ms):
 
 # phase 22: every spline degree the JAX package takes, on the card
 DEGREES = tuple(range(1, 9))
-DEGREE_N = 128          # elements a side: the headline's 128^3
+# elements a side: phase 22 at 64^3 since phase 23 runs the headline's 128^3
+# (PERF.md section 5 keeps the degrees 1-8 at 128^3)
+DEGREE_N = 64
 DEGREE_NEW_K5 = (4, 6, 7, 8)   # K5's half-widths new with this phase
 # the residual-replacement PCG's iterations grow with the degree (135 at
 # degree 8; the headline example allows pcg and dc its 100)
 DWRR_MAXITER = 300
 DEGREE_BF16 = (4, 5, 8)   # bf16 cycles at 64^3 elements, counts logged
-# K1 bf16's new half-widths, timed on the 128^3 runs' finest level cast to
+# pcg and dc may take up to this many (the headline example's default is
+# 100; at 64^3, 4 levels, the degree-8 dc takes more)
+DEGREE_MAXITER = 400
+# K1 bf16's new half-widths, timed on the 64^3 runs' finest level cast to
 # bf16 (the degree equals the half-width), where f32 K1 is timed
 DEGREE_BF16_TIMED = (5, 8)
 DEGREE_BF16_N = 64
@@ -2923,9 +2949,9 @@ DEGREE_BANDED = [((33, 33, 33), 5), ((33, 33, 33), 8), ((9, 12, 129), 8),
 
 
 def _half_width(degree, compiled=k1.COMPILED_P):
-    """The compiled half-width K1 (or, given K5's, K5) runs a degree-p
-    operator at."""
-    return next(P for P in compiled if P >= degree)
+    """The half-width K1 (or, given K5's, K5) runs a degree-p operator at:
+    the first compiled one that holds it, else its own (K1r, K5r)."""
+    return next((P for P in compiled if P >= degree), degree)
 
 
 def _low_levels(mg):
@@ -3045,21 +3071,21 @@ def _degree_check(degree, timed):
     return check
 
 
-def _dwrr_run(degree, dev):
-    """The residual-replacement PCG at the headline's width and degree."""
+def _dwrr_run(degree, dev, n_el, maxiter=DWRR_MAXITER):
+    """The residual-replacement PCG at n_el^3 elements and ``degree``."""
     from poms_tpu_torch.examples import headline_solve
 
-    prob = poisson_problem(3, DEGREE_N, degree=degree, dtype=torch.float64,
+    prob = poisson_problem(3, n_el, degree=degree, dtype=torch.float64,
                            device=dev, operator="kron")
     cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
         "chebyshev", cheb_fraction=16.0))
     before = counters.snapshot()
-    rr = MGPreconditionedCG(prob, headline_solve.num_levels(DEGREE_N), cfg,
+    rr = MGPreconditionedCG(prob, headline_solve.num_levels(n_el), cfg,
                             mixed=True, operator="kron", precision="dwrr")
-    x, rn, it = rr.solve_compiled(tol=1e-10, maxiter=DWRR_MAXITER)
+    x, rn, it = rr.solve_compiled(tol=1e-10, maxiter=maxiter)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x, rn, it = rr.solve_compiled(tol=1e-10, maxiter=DWRR_MAXITER)
+    x, rn, it = rr.solve_compiled(tol=1e-10, maxiter=maxiter)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     true = float(torch.linalg.vector_norm(prob.A.residual(x, prob.b)))
@@ -3131,7 +3157,7 @@ def _degree_bf16(degree, dev):
 
 
 def _k1_bf16_level(A, degree, f32_ms):
-    """The f32 level ``A`` of a 128^3 cycle cast to bf16 (one cast a
+    """The f32 level ``A`` of a 64^3 cycle cast to bf16 (one cast a
     distinct band): K1 bf16 in every mode against its plain version and
     timed there (``_k1_bf16_times``), beside the f32 cheb pass's
     ``f32_ms`` on the same level."""
@@ -3346,28 +3372,15 @@ def _degree_registers():
     return rows
 
 
-def _degree_refusal(dev):
-    """Degree 9 on the card: the kernels refuse, naming their half-widths."""
-    try:
-        poisson_problem(3, 16, degree=9, dtype=torch.float64, device=dev,
-                        operator="kron")
-    except RuntimeError as exc:
-        assert str(k1.COMPILED_P) in str(exc) and "9" in str(exc), exc
-        log(f"[degrees] degree 9 refused on the card: {exc}")
-        return
-    raise AssertionError("a degree-9 Kronecker-sum operator was built on the "
-                         "card")
-
-
 def phase_degrees(dev):
-    """Every spline degree 1-8 on the card: the headline at 128^3 (pcg and
+    """Every spline degree 1-8 on the card: the headline at 64^3 (pcg and
     dc through examples/headline_solve.main, and the dwrr PCG), converged
     with a true f64 residual <= 5e-10, the kernels on the solves' own
     operands against plain, K5 and K1 at the compiled half-width of each
     degree; bf16 cycles at degrees 4, 5 and 8; the periodic dw-PCG at
-    degree 8; a 6-term K5 chain; K2/K3 at degrees 5 and 8; degree 9
-    refused.  Returns the launches of its solves, the per-degree rows and
-    the new kernel rows' numbers.
+    degree 8; a 6-term K5 chain; K2/K3 at degrees 5 and 8.  Returns the
+    launches of its solves, the per-degree rows and the new kernel rows'
+    numbers.
 
     The launches go to the rows whose kernel they ran: K5 at half-widths
     4, 6, 7, 8 and bf16 K1 at 5 and 8 to rows of their own; the generic K5
@@ -3406,7 +3419,8 @@ def phase_degrees(dev):
             t0 = time.perf_counter()
             res = headline_solve.main(
                 DEGREE_N, degree, solver, device=dev, out=lambda m: None,
-                check=_degree_check(degree, timed=solver == "pcg"))
+                check=_degree_check(degree, timed=solver == "pcg"),
+                maxiter=DEGREE_MAXITER)
             res["run_s"] = time.perf_counter() - t0
             chk = res.pop("check")
             add(chk.pop("launches"), degree)
@@ -3421,19 +3435,15 @@ def phase_degrees(dev):
                 f"{res['peak_bytes'] / 2 ** 30:.2f} GiB, {res['run_s']:.1f} s "
                 f"in all")
             assert res["converged"] and res["true_residual"] <= 5e-10, res
-            if (degree, DEGREE_N) == (HEADLINE["degree"], HEADLINE["n_el"]):
-                assert res["iterations"] == HEADLINE_128[solver], res
             rows[f"{degree} {solver}"] = res
         counters.reset()
-        rr = _dwrr_run(degree, dev)
+        rr = _dwrr_run(degree, dev, DEGREE_N)
         add(rr.pop("launches"), degree)
         log(f"[degrees] {DEGREE_N}^3 p={degree} dwrr: {rr['iterations']} "
             f"iterations, |r| {rr['rn']:.3e}, true f64 "
             f"{rr['true_residual']:.3e}, replayed {rr['ms_per_iter']:.3f} "
             f"ms/iteration")
         assert rr["converged"] and rr["true_residual"] <= 5e-10, rr
-        if (degree, DEGREE_N) == (HEADLINE["degree"], HEADLINE["n_el"]):
-            assert rr["iterations"] == REFERENCE_COUNTS["dwrr"], rr
         rows[f"{degree} dwrr"] = rr
     counters.reset()
     bf16_err = {}
@@ -3453,11 +3463,356 @@ def phase_degrees(dev):
     add(_degree_periodic(dev), DEGREE_PERIODIC["degree"])
     _degree_chain(dev)
     _degree_banded(dev)
-    _degree_refusal(dev)
     log("[degrees] RESULT " + json.dumps(rows))
     return {"launches": launches, "rows": rows, "k5_by_p": k5_by_p,
             "bf16_launches": bf16_p, "bf16_times": bf16_times,
             "registers": registers}
+
+
+# phase 23: spline degrees above 8 on the run-time kernels K1r and K5r
+WIDE_DEGREES = (9, 10, 12)
+WIDE_N = 128            # elements a side: the headline's 128^3
+# the solves gated on 1e-10 and a true f64 residual <= 5e-10; the others
+# (dwrr at 10, every solver at 12) are logged with the residual they reach
+WIDE_GATED = {"pcg": (9, 10), "dc": (9, 10), "dwrr": (9,)}
+# K1r and K5r timed at the 128^3-element grid of these half-widths,
+# (128 + P - 2)^3 points, on Poisson-shaped random bands
+WIDE_TIMED_P = (9, 10, 12, 16)
+WIDE_COMPILED_P = (3, 8)       # K1r and K5r held to the compiled kernels
+WIDE_PADDED = {4: 5, 6: 8, 7: 8}   # K1r at P against compiled K1 at its pad
+WIDE_SMALL = (5, 6, 9)         # the widest half-widths run on this grid
+
+
+def _wide_grid(P):
+    n = WIDE_N + P - 2
+    return (n,) * 3, (P,) * 3, (False,) * 3
+
+
+def _wide_operands(P, dev, seed):
+    """Poisson-shaped f64 bands and fields at the half-width-P grid, the f32
+    cast of the bands (one cast a distinct band) and their double-word
+    split."""
+    npts, pads, _ = _wide_grid(P)
+    terms64, fields = _k1_operands(npts, pads, torch.float64, dev, seed)
+    cast = {id(B): B.float() for t in terms64 for B in t}
+    split = {id(B): split_f64(B) for t in terms64 for B in t}
+    return (terms64, [[cast[id(B)] for B in t] for t in terms64],
+            [[split[id(B)] for B in t] for t in terms64], fields)
+
+
+def _k1r_times(P, terms, fields, compiled=None):
+    """K1r in every mode against plain at the grid of P (f32), and its
+    device times; beside them the dense per-axis products (the library
+    call of the apply) and, given ``compiled`` half-widths, the compiled
+    kernel at the first of them that holds P (equal values where that is
+    P itself)."""
+    npts, pads, per = _wide_grid(P)
+    dev = fields[0].device
+    x, b, d = (f.float() for f in fields)
+    plan = k1.build_kron_plan(terms, npts, pads, per, half_widths=())
+    errs = _k1_against_plain(f"K1r P={P} ", terms, (x, b, d), npts, pads,
+                             per)
+    out = torch.empty_like(x)
+    r = {"tiling": plan.tiling, "resources": k1.k1_resources(plan, "cheb"),
+         "max_abs_err": errs, "ms": {}, "bound_ms": {}}
+    for label, mode, kw in _k1_runs(b, d):
+        if label == "cheb0":
+            continue
+        r["ms"][mode] = _device_ms(lambda: k1.kron_mode(mode, plan, x,
+                                                        out=out, **kw))
+        r["bound_ms"][mode] = (K1_FIELDS[mode] * math.prod(npts) * 4
+                               / HBM_BYTES_PER_S * 1e3)
+    diag = plan.diagonal()
+    r["plain_ms"] = {mode: _device_ms(lambda: k1.kron_mode_plain(
+        mode, terms, x, npts, pads, per, diag=diag, **kw), 2)
+        for label, mode, kw in _k1_runs(b, d) if label != "cheb0"}
+    op = KroneckerSumOperator(StencilVectorSpace(
+        npts=npts, pads=pads, periodic=False, dtype=torch.float32,
+        device=dev), terms)
+    lib = op._apply_interior_matmul(x, tf32=False)
+    rel = float((k1.kron_mode("apply", plan, x) - lib).abs().max()
+                / lib.abs().max())
+    assert rel <= K1_TOL[torch.float32], rel
+    r["library_ms"] = _device_ms(lambda: op._apply_interior_matmul(
+        x, tf32=False), 5)
+    del op, lib
+    if compiled:
+        cplan = k1.build_kron_plan(terms, npts, pads, per,
+                                   half_widths=compiled)
+        equal = cplan.P == P
+        for label, mode, kw in _k1_runs(b, d):
+            kw_r, kw_c = dict(kw), dict(kw)
+            if kw.get("d") is not None:
+                kw_r["d"], kw_c["d"] = d.clone(), d.clone()
+            got = k1.kron_mode(mode, plan, x, **kw_r)
+            want = k1.kron_mode(mode, cplan, x, **kw_c)
+            torch.cuda.synchronize()
+            if mode != "cheb":
+                got, want = (got,), (want,)
+            for g_, w in zip(got, want):
+                if equal and not torch.equal(g_, w):
+                    raise AssertionError(f"K1r at P = {P} differs from the "
+                                         f"compiled kernel ({label})")
+                rel = float((g_ - w).abs().max() / w.abs().max())
+                assert rel <= K1_TOL[torch.float32], (P, label, rel)
+        r["compiled_P"] = cplan.P
+        r["compiled_ms"] = {m: _device_ms(lambda: k1.kron_mode(
+            m, cplan, x, out=out, **kw)) for label, m, kw in _k1_runs(b, d)
+            if label in ("apply", "cheb")}
+    log(f"[wide] K1r P={P} at {npts} f32, tiles {plan.tiling}, "
+        f"{r['resources']['registers']} registers, "
+        f"{r['resources']['local_bytes']} bytes local, "
+        f"{r['resources']['smem_bytes']} bytes shared, "
+        f"{r['resources']['blocks_per_sm']} blocks an SM: "
+        + ", ".join(f"{m} {ms:.4f} ms ({100 * r['bound_ms'][m] / ms:.1f}% "
+                    f"of {r['bound_ms'][m]:.4f})"
+                    for m, ms in r["ms"].items())
+        + f"; plain cheb {r['plain_ms']['cheb']:.4f} ms; dense per-axis "
+        f"products {r['library_ms']:.4f} ms (apply/products "
+        f"{r['ms']['apply'] / r['library_ms']:.3f})"
+        + (f"; compiled P = {r['compiled_P']}"
+           f"{' (equal values)' if r['compiled_P'] == P else ''}: "
+           + ", ".join(f"{m} {ms:.4f} ms"
+                       for m, ms in r["compiled_ms"].items())
+           if compiled else ""))
+    return r
+
+
+def _k5r_times(P, tdf, fields, compiled=False):
+    """K5r against plain (bit-equal: b and x_l given, and A.p) at the grid
+    of P, its A.p device time beside its operation bound and the plain
+    version; with ``compiled``, the compiled K5 of P (bit-equal) and its
+    time."""
+    npts, pads, _ = _wide_grid(P)
+    (xh, xl), (bh, bl) = split_f64(fields[0]), split_f64(fields[1])
+    zero = torch.zeros_like(xh)
+    plans = {"rt": twofloat.build_kron_df_plan(tdf, npts, pads,
+                                               half_widths=())}
+    if compiled:
+        plans["compiled"] = twofloat.build_kron_df_plan(tdf, npts, pads)
+    r = {"ms": {}}
+    for name, plan in plans.items():
+        for given, explicit, neg in (
+                ((bh, bl, xh, xl), (bh, bl, xh, xl), False),
+                ((None, None, xh, None), (zero, zero, xh, zero), True)):
+            got = twofloat.residual_kron_df(tdf, *given, pads, plan=plan,
+                                            negate=neg)
+            torch.cuda.synchronize()
+            want = twofloat.residual_kron_df_plain(tdf, *explicit, pads,
+                                                   None, None, neg)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K5 ({name}) at P = {P} is not "
+                                     f"bit-equal to plain")
+            del got, want
+        r["ms"][name] = _device_ms(lambda: twofloat.residual_kron_df(
+            tdf, None, None, xh, None, pads, plan=plan, negate=True))
+    plan = plans["rt"]
+    r["tiling"], r["resources"] = plan.tiling, twofloat.k5_resources(plan)
+    r["bound_ms"] = _k5_ops(P, npts) / F32_OPS * 1e3
+    r["plain_ms"] = _device_ms(lambda: twofloat.residual_kron_df_plain(
+        tdf, zero, zero, xh, zero, pads, None, None, True), 2)
+    res = r["resources"]
+    log(f"[wide] K5r P={P} at {npts}: bit-equal to plain (b and x_l given; "
+        f"A.p), tiles {plan.tiling}, {res['registers']} registers, "
+        f"{res['local_bytes']} bytes local, {res['smem_bytes']} bytes "
+        f"shared, {res['blocks_per_sm']} blocks an SM; A.p "
+        f"{r['ms']['rt']:.4f} ms, operation bound {r['bound_ms']:.4f} ms "
+        f"({100 * r['bound_ms'] / r['ms']['rt']:.1f}%), plain "
+        f"{r['plain_ms']:.4f} ms"
+        + (f"; compiled K5 bit-equal, {r['ms']['compiled']:.4f} ms"
+           if compiled else ""))
+    return r
+
+
+def _wide_kernels(dev):
+    """K1r and K5r at the 128^3-element grids of WIDE_TIMED_P, at the
+    compiled half-widths 3 and 8 beside the compiled kernels (equal
+    values, bit-equal words), and K1r at 4, 6 and 7 beside compiled K1 at
+    the half-width it pads them to."""
+    rows = {}
+    for P in WIDE_COMPILED_P + WIDE_TIMED_P:
+        terms64, terms, tdf, fields = _wide_operands(P, dev, 23 + P)
+        compiled = P in WIDE_COMPILED_P
+        rows[P] = {"K1r": _k1r_times(P, terms, fields,
+                                     k1.COMPILED_P if compiled else None),
+                   "K5r": _k5r_times(P, tdf, fields, compiled)}
+        del terms64, terms, tdf, fields
+        torch.cuda.empty_cache()
+    for P, padded in WIDE_PADDED.items():
+        _, terms, _, fields = _wide_operands(P, dev, 23 + P)
+        rows[P] = {"K1r": _k1r_times(P, terms, fields, (padded,))}
+        del terms, fields
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _wide_limits(dev):
+    """The widest half-width of each run-time kernel on a small grid (K1r
+    f32 and f64 in the cheb mode within K1's tolerance of plain, K5r with
+    3 and 4 histories bit-equal), its time and resources there; one past
+    it refused with the bytes."""
+    npts, per = WIDE_SMALL, (False,) * 3
+    out = {}
+    for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
+        P = k1.widest_half_width(k1.k1r_smem(itemsize))
+        pads = (P,) * 3
+        terms, (x, b, d) = _k1_operands(npts, pads, dtype, dev, P)
+        plan = k1.build_kron_plan(terms, npts, pads, per)
+        got = k1.kron_mode("cheb", plan, x, b=b, d=d.clone(), c1=0.3, c2=0.7)
+        torch.cuda.synchronize()
+        want = k1.kron_mode_plain("cheb", terms, x, npts, pads, per, b=b,
+                                  diag=plan.diagonal(), d=d, c1=0.3, c2=0.7)
+        rel = max(float((g_ - w).abs().max() / w.abs().max())
+                  for g_, w in zip(got, want))
+        assert rel <= K1_TOL[dtype], (P, dtype, rel)
+        ms = _device_ms(lambda: k1.kron_mode("cheb", plan, x, b=b, d=d,
+                                             c1=0.3, c2=0.7), 3)
+        res = k1.k1_resources(plan, "cheb")
+        wide, _ = _k1_operands(npts, (P + 1,) * 3, dtype, dev, P)
+        try:
+            k1.build_kron_plan(wide, npts, (P + 1,) * 3, per)
+        except RuntimeError as exc:
+            assert "bytes of shared memory" in str(exc), exc
+            refusal = str(exc)
+        else:
+            raise AssertionError(f"K1r built a plan at P = {P + 1}")
+        out[f"K1r {dtype}"] = {"P": P, "ms": ms, "rel": rel, **res}
+        log(f"[wide] K1r {dtype} widest P = {P} at {npts}: tiles "
+            f"{plan.tiling}, cheb {ms:.4f} ms, {rel:.2e} of max|y| from "
+            f"plain, {res['registers']} registers, {res['smem_bytes']} "
+            f"bytes shared, {res['blocks_per_sm']} blocks an SM; P = "
+            f"{P + 1} refused: {refusal}")
+    for histories in (3, 4):
+        P = k1.widest_half_width(twofloat.k5r_smem(histories))
+        pads = (P,) * 3
+        if histories == 4:
+            tdf = _periodic_df_pairs(npts, P, dev)
+        else:
+            terms, _ = _k1_operands(npts, pads, torch.float64, dev, P)
+            split = {id(B): split_f64(B) for t in terms for B in t}
+            tdf = [[split[id(B)] for B in t] for t in terms]
+        g = torch.Generator(device=dev).manual_seed(P)
+        (xh, xl), (bh, bl) = (split_f64(torch.randn(
+            npts, generator=g, dtype=torch.float64, device=dev))
+            for _ in range(2))
+        plan = twofloat.build_kron_df_plan(tdf, npts, pads)
+        got = twofloat.residual_kron_df(tdf, bh, bl, xh, xl, pads, plan=plan)
+        torch.cuda.synchronize()
+        want = twofloat.residual_kron_df_plain(tdf, bh, bl, xh, xl, pads)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, want)), P
+        ms = _device_ms(lambda: twofloat.residual_kron_df(
+            tdf, None, None, xh, None, pads, plan=plan, negate=True), 3)
+        res = twofloat.k5_resources(plan)
+        if histories == 4:
+            wide = _periodic_df_pairs(npts, P + 1, dev)
+        else:
+            wt, _ = _k1_operands(npts, (P + 1,) * 3, torch.float64, dev, P)
+            wide = [[split_f64(B) for B in t] for t in wt]
+        try:
+            twofloat.build_kron_df_plan(wide, npts, (P + 1,) * 3)
+        except RuntimeError as exc:
+            assert "bytes of shared memory" in str(exc), exc
+            refusal = str(exc)
+        else:
+            raise AssertionError(f"K5r built a plan at P = {P + 1}")
+        out[f"K5r {histories}"] = {"P": P, "ms": ms, **res}
+        log(f"[wide] K5r {histories} histories widest P = {P} at {npts}: "
+            f"tiles {plan.tiling}, bit-equal to plain, A.p {ms:.4f} ms, "
+            f"{res['registers']} registers, {res['smem_bytes']} bytes "
+            f"shared, {res['blocks_per_sm']} blocks an SM; P = {P + 1} "
+            f"refused: {refusal}")
+    return out
+
+
+def _periodic_df_pairs(npts, p, dev):
+    """The periodic shifted shape's double-word terms (S M M, K M M, M K M,
+    M M K: 4 histories) from random bands of half-width p."""
+    terms, _ = _k1_operands(npts, (p,) * 3, torch.float64, dev, p)
+    Ms = [terms[1][0], terms[0][1], terms[0][2]]
+    four = [[0.5 * Ms[0], Ms[1], Ms[2]]] + terms
+    split = {}
+    return [[split.setdefault(id(B), split_f64(B)) for B in t] for t in four]
+
+
+def phase_wide_degrees(dev):
+    """Spline degrees above 8 on the run-time kernels: the headline at
+    128^3 at degrees 9, 10 and 12 (pcg and dc through
+    examples/headline_solve.main, and the dwrr PCG; gated as WIDE_GATED
+    says, the others logged), every plan at the degree's own half-width
+    and K1r and K5r launched; on each pcg run's own operands the checks of
+    phase 22 (K5r bit-equal, K1r in every mode on levels 0-1, K7, K6r,
+    K6u); K1r and K5r timed at P = 9, 10, 12, 16, against the compiled
+    kernels at 3 and 8 and K1r at 4, 6, 7; the widest half-widths and the
+    refusal one past them.  Returns the launches of its solves (K1r's and
+    K5r's apart), the rows of each run and the kernels' numbers."""
+    from poms_tpu_torch.examples import headline_solve
+
+    launches, rt, rows = {}, {}, {}
+
+    def add(grown):
+        for k, v in grown.items():
+            if k.startswith(("kron_mode_rt", "residual_kron_df_rt")):
+                rt[k] = rt.get(k, 0) + v
+            elif not k.startswith(("kron_mode", "residual_kron_df",
+                                   "kron_apply")):
+                launches[k] = launches.get(k, 0) + v
+
+    for degree in WIDE_DEGREES:
+        for solver in ("pcg", "dc", "dwrr"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            counters.reset()
+            t0 = time.perf_counter()
+            gated = degree in WIDE_GATED[solver]
+            try:
+                if solver == "dwrr":
+                    res = _dwrr_run(degree, dev, WIDE_N, DEGREE_MAXITER)
+                    grown = res.pop("launches")
+                else:
+                    res = headline_solve.main(
+                        WIDE_N, degree, solver, device=dev,
+                        out=lambda m: None,
+                        check=_degree_check(degree, timed=solver == "pcg"),
+                        maxiter=DEGREE_MAXITER)
+                    chk = res.pop("check")
+                    grown = chk.pop("launches")
+                    res.update(chk)
+            except torch.linalg.LinAlgError as exc:
+                # a logged run whose f32 coarse Cholesky fails (the method's
+                # limit at high degree, ROADMAP's "Not a fault") is logged
+                if gated:
+                    raise
+                log(f"[wide] {WIDE_N}^3 p={degree} {solver} (logged): "
+                    f"the setup failed: {exc}")
+                rows[f"{degree} {solver}"] = {"error": str(exc)}
+                continue
+            res["run_s"] = time.perf_counter() - t0
+            for key in ("residual_kron_df_rt", "kron_mode_rt.cheb"):
+                assert grown.get(key, 0) > 0, (degree, solver, key, grown)
+            add(grown)
+            log(f"[wide] {WIDE_N}^3 p={degree} {solver} "
+                f"({'gated' if gated else 'logged'}): "
+                f"{res['iterations']} iterations, |r| {res['rn']:.3e}, true "
+                f"f64 |b - Ax| {res['true_residual']:.3e}, replayed "
+                f"{res['ms_per_iter']:.3f} ms/iteration"
+                + (f", setup {res['setup_s']:.3f} s, first solve "
+                   f"{res['cold_solve_s']:.3f} s, peak "
+                   f"{res['peak_bytes'] / 2 ** 30:.2f} GiB, L2 error "
+                   f"{res['l2_error']:.3e}" if solver != "dwrr" else "")
+                + f", {res['run_s']:.1f} s in all")
+            if gated:
+                assert res["converged"] and res["true_residual"] <= 5e-10, \
+                    res
+            rows[f"{degree} {solver}"] = res
+    kernels = _wide_kernels(dev)
+    limits = _wide_limits(dev)
+    log("[wide] RESULT " + json.dumps(
+        {P: {k: {n: r[n] for n in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms") if n in r}
+             for k, r in row.items()} for P, row in kernels.items()}))
+    return {"launches": launches, "rt": rt, "rows": rows,
+            "kernels": kernels, "limits": limits}
 
 
 T_START = time.perf_counter()
@@ -3523,12 +3878,14 @@ def main():
     dist_examples, _, _ = run(phase_dist_examples, dev,
                               headline_rows["128 dc"]["ms_per_iter"])
     degrees = run(phase_degrees, dev)
+    wide = run(phase_wide_degrees, dev)
     later = (headline, poisson, benches["launches"], dist_examples,
-             degrees["launches"])
+             degrees["launches"], wide["launches"])
 
     def more(key):
-        """The launches of phases 19-22 under one counter's key (phase 22's
-        K5 and f32 K1 at half-width 3 only: ``phase_degrees``)."""
+        """The launches of phases 19-23 under one counter's key (phase 22's
+        K5 and f32 K1 at half-width 3 only: ``phase_degrees``; phase 23's
+        K1r and K5r in their own rows)."""
         return sum(c.get(key, 0) for c in later)
 
     points = 129 ** 3
@@ -3660,9 +4017,9 @@ def main():
         "launches": periodic["residual_kron_df"], **k5_four,
         "bound_by": "operations", "library_ms": None})
     # the instantiations of phase 22: K5 at half-widths 4, 6, 7 and 8 (the
-    # last three the wide design; a row's numbers: A.p at 128^3 at the
+    # last three the wide design; a row's numbers: A.p at 64^3 at the
     # degree equal to P) and K1 in bf16 at 5 and 8 (the cheb pass on the
-    # 128^3 runs' finest level cast to bf16, where f32 K1 is timed; the
+    # 64^3 runs' finest level cast to bf16, where f32 K1 is timed; the
     # max|d| also over the 64^3 bf16 cycles' first two levels)
     for P in DEGREE_NEW_K5:
         r = degrees["rows"][f"{P} pcg"]
@@ -3683,6 +4040,30 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"]})
+    # phase 23's run-time kernels, launched by its solves at degrees 9, 10
+    # and 12: K1r in each mode they ran (the numbers: f32 at P = 9, 135^3)
+    # and K5r (A.p at P = 9)
+    k1r = wide["kernels"][9]["K1r"]
+    for m in k1.MODES:
+        n = wide["rt"].get(f"kron_mode_rt.{m}", 0)
+        if n:
+            kernels.append({
+                "name": f"kron_apply_rt.{m}", "route": "cuda",
+                "source": "poms_tpu_torch/csrc/kron_apply.cu",
+                "replaces": "poms_tpu/ops/pallas/kron.py:157",
+                "launches": n, "max_abs_err": k1r["max_abs_err"][m],
+                "ms": k1r["ms"][m], "plain_ms": k1r["plain_ms"][m],
+                "bound_ms": k1r["bound_ms"][m], "bound_by": "bytes",
+                "library_ms": k1r["library_ms"] if m == "apply" else None})
+    k5r = wide["kernels"][9]["K5r"]
+    kernels.append({
+        "name": "residual_kron_df_rt", "route": "cuda",
+        "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
+        "replaces": "poms_tpu/ops/twofloat.py:197",
+        "launches": wide["rt"]["residual_kron_df_rt"], "max_abs_err": 0.0,
+        "ms": k5r["ms"]["rt"], "plain_ms": k5r["plain_ms"],
+        "bound_ms": k5r["bound_ms"], "bound_by": "operations",
+        "library_ms": None})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:

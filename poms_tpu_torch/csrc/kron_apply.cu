@@ -64,6 +64,22 @@
 // (cheb: x + d is formed from the unrounded d).  Where an operator takes
 // several launches the sum between them (acc, out_hi) stays f32.  Every
 // dtype has every half-width (1, 2, 3, 5, 8: spline degrees 1 to 8).
+//
+// K1r (kron_march_rt_kernel, entries kron_apply_rt_*): bands wider than 8
+// (spline degrees above 8), the half-width a launch argument.  What grows
+// with P in the compiled kernel is what it keeps in registers: the axis-2
+// band rows and the 2P+1 output planes of axis 0.  K1r keeps them in shared
+// memory, as K5's wide kernel does: the band rows of axes 2 and 1 of the
+// tile, and each thread's ring of 2P+1 output planes (its own slots, so the
+// ring needs no barrier); the taps are loops, the shared memory is sized at
+// launch (smem_bytes_rt, ops/kron.py::k1r_smem).  One column a thread.  The
+// plan data, the epilogues and the arithmetic order are the compiled
+// kernel's: taps in order, the first assigned and the others multiply-added,
+// the v's summed in order before the axis-0 pass, each output plane taking
+// its taps in order and, per tap, the pre-summed partials in order.  Its
+// smallest block (one row, one column, one plane) fits the card's shared
+// memory up to P = 37 in f32 and bf16 and P = 27 in f64; wider bands are
+// refused by the host (ops/kron.py::refuse_half_width).
 
 #include "kron_march.cuh"
 
@@ -447,6 +463,263 @@ kron_march_kernel(const Args<T, IO> a) {
   kron::cp_async_wait<0>();
 }
 
+// shared memory of K1r, in T units after the offset table: the ring of
+// windows, the u partials, the axis-0 band rows of the run, the axis-2 and
+// axis-1 band rows of the tile, and each thread's ring of W output planes
+__host__ __device__ inline size_t smem_bytes_rt(const Geometry& g, int P,
+                                                size_t elem) {
+  const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
+  return WR * WC * sizeof(int64_t) +
+         (kron::kStages * WR * WC + kCU * WR * g.T2 +
+          kCG * (g.chunk + 4 * P) * W + kCU * W * g.T2 + kCV * W * g.T1 +
+          W * g.T1 * g.T2) *
+             elem;
+}
+
+// K1r: kron_march_kernel with the half-width P a launch argument and one
+// column a thread (see the note at the top).  Thread (tj, tl) of the tile
+// reads column tl of the axis-2 rows (k, t, column), row tj of the axis-1
+// rows (k, t, row) and its own ring slots (slot, thread).
+template <typename T, int MODE, typename IO>
+__global__ void __launch_bounds__(kMaxThreads)
+kron_march_rt_kernel(const Args<T, IO> a, const int P) {
+  const int W = 2 * P + 1;
+  constexpr int S = kron::kStages;
+  constexpr bool need_b = MODE == kResidual || MODE == kCheb;
+  constexpr bool need_dg = MODE == kDinv || MODE == kCheb;
+  const Geometry& g = a.g;
+  const Plan& pl = a.p;
+  const int T1 = g.T1, T2 = g.T2, NT = T1 * T2;
+  const int WR = T1 + 2 * P, WC = T2 + 2 * P, NW = WR * WC;
+  const int nthreads = blockDim.x;
+  const int crows = g.chunk + 4 * P;  // rows of the axis-0 coefficient table
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int64_t* soff = reinterpret_cast<int64_t*>(smem_raw);
+  T* win = reinterpret_cast<T*>(soff + NW);
+  T* u = win + S * NW;
+  T* c0s = u + kCU * WR * T2;
+  T* c2s = c0s + kCG * crows * W;
+  T* c1s = c2s + kCU * W * T2;
+  T* ring = c1s + kCV * W * T1;
+
+  const int tid = threadIdx.x;
+  const int tj = tid / T2, tl = tid - tj * T2;
+  const bool in_tile = tid < NT;
+  const int j0 = blockIdx.y * T1, l0 = blockIdx.x * T2;
+  const int gj = j0 + tj, gl = l0 + tl;
+  const bool row_ok = in_tile && gj < g.n1;
+  const bool owns = row_ok && gl < g.n2;
+  const int i_begin = blockIdx.z * g.chunk;
+  const int i_end = min(i_begin + g.chunk, g.n0);
+  const int nu = pl.nu, nv = pl.nv, ng = pl.ng;
+  const bool has_acc = a.acc != nullptr, has_d = a.d_in != nullptr;
+
+  kron::build_window_offsets(soff, g, P, j0, l0);
+  // axis-0 band rows of output planes [i_begin - 2P, i_begin + chunk + 2P),
+  // per pre-summed partial: zero outside the grid and for absent partials
+  for (int e = tid; e < kCG * crows * W; e += nthreads) {
+    const int gi = e / (crows * W);
+    const int rem = e - gi * crows * W;
+    const int i = i_begin - 2 * P + rem / W;
+    c0s[e] =
+        (gi < ng && i >= 0 && i < g.n0)
+            ? up(a.band[0][((int64_t)pl.g_lab[gi] * g.n0 + i) * W + rem % W])
+            : T(0);
+  }
+  // the tile's band rows, axis 2 per column and axis 1 per row: zero for
+  // absent partials and outside the grid, so the arithmetic below needs no
+  // branches
+  for (int e = tid; e < kCU * W * T2; e += nthreads) {
+    const int k = e / (W * T2), t = e / T2 - k * W, c = e - (e / T2) * T2;
+    c2s[e] = (k < nu && l0 + c < g.n2)
+                 ? up(a.band[2][((int64_t)pl.u_lab[k] * g.n2 + l0 + c) * W + t])
+                 : T(0);
+  }
+  for (int e = tid; e < kCV * W * T1; e += nthreads) {
+    const int k = e / (W * T1), t = e / T1 - k * W, r = e - (e / T1) * T1;
+    c1s[e] = (k < nv && j0 + r < g.n1)
+                 ? up(a.band[1][((int64_t)pl.v_lab[k] * g.n1 + j0 + r) * W + t])
+                 : T(0);
+  }
+  T gm[kCG][kCV];
+#pragma unroll
+  for (int gi = 0; gi < kCG; ++gi)
+#pragma unroll
+    for (int k = 0; k < kCV; ++k)
+      gm[gi][k] = (gi < ng && k < nv) ? T(pl.g_mult[gi][k]) : T(0);
+  int uoff[kCV];  // where each v reads its u column
+#pragma unroll
+  for (int k = 0; k < kCV; ++k)
+    uoff[k] = ((k < nv ? pl.v_src[k] : 0) * WR + tj) * T2 + tl;
+
+  // the diagonal's centre columns along axes 1 and 2 do not change on the
+  // march: the first kRD terms' stay in registers
+  T d1[kRD], d2[kRD];
+  if (need_dg) {
+#pragma unroll
+    for (int r = 0; r < kRD; ++r) {
+      d1[r] = (r < g.R && row_ok) ? up(a.col[1][r * g.n1 + gj]) : T(0);
+      d2[r] = (r < g.R && owns) ? up(a.col[2][r * g.n2 + gl]) : T(0);
+    }
+  }
+
+  // ring[s * NT + tid]: the sum so far of one output plane; slot `base`
+  // holds plane q - P, slot base + s (mod W) plane q - P + s
+  if (in_tile)
+    for (int s = 0; s < W; ++s) ring[s * NT + tid] = T(0);
+
+  __syncthreads();  // the offset table is complete
+
+  // the window elements this thread copies, as in kron_march_kernel
+  int loff[kNL];
+#pragma unroll
+  for (int k = 0; k < kNL; ++k) {
+    const int e = tid + k * nthreads;
+    const int64_t o = e < NW ? soff[e] : -1;
+    loff[k] = (int)o;
+    if (e < NW && o < 0)
+      for (int sb = 0; sb < S; ++sb) win[sb * NW + e] = T(0);
+  }
+  const bool tail = NW > kNL * nthreads;
+
+  const int q_begin = i_begin - P, q_end = i_end + P;
+  int buf = 0;
+  auto issue = [&](int q, int sb) {
+    const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -1;
+    if (gq >= 0) {
+      const IO* src = a.x + gq * g.s0;
+      T* dst = win + sb * NW + tid;
+#pragma unroll
+      for (int k = 0; k < kNL; ++k)
+        if (loff[k] >= 0)
+          kron::fill_element(dst + k * nthreads, src + loff[k]);
+      if (tail)
+        kron::load_window(win + sb * NW, a.x, soff, NW, gq * g.s0,
+                          kNL * nthreads);
+    }
+    kron::cp_async_commit();
+  };
+  for (int k = 0; k < S - 1; ++k) issue(q_begin + k, k);
+
+  const int64_t plane = (int64_t)g.n1 * g.n2;
+  const int64_t base_idx = (int64_t)gj * g.n2 + gl;
+  const int64_t xbase = gj * g.s1 + gl * g.s2;
+  int base = 0;
+  for (int q = q_begin; q < q_end; ++q) {
+    const int gq = kron::resolve(q, g.n0, g.per0);
+    issue(q + S - 1, buf == 0 ? S - 1 : buf - 1);
+
+    // the epilogue's operands of the plane this step completes
+    const int i = q - P;
+    const bool emits = i >= i_begin && owns;
+    const int64_t idx = base_idx + i * plane;
+    T acc_v = T(0), b_v = T(0), d_v = T(0), x_v = T(0), dg = T(0);
+    if (emits) {
+      if (has_acc) acc_v = a.acc[idx];
+      if (need_b) b_v = up(a.b[idx]);
+      if (MODE == kCheb) {
+        if (has_d) d_v = up(a.d_in[idx]);
+        x_v = up(a.x[i * g.s0 + xbase]);
+      }
+      if (need_dg) {
+#pragma unroll
+        for (int r = 0; r < kRD; ++r)
+          if (r < g.R)
+            dg = add_rn(dg, mul_rn(mul_rn(up(a.col[0][r * g.n0 + i]), d1[r]),
+                                   d2[r]));
+        for (int r = kRD; r < g.R; ++r)
+          dg = add_rn(dg, mul_rn(mul_rn(up(a.col[0][r * g.n0 + i]),
+                                        up(a.col[1][r * g.n1 + gj])),
+                                 up(a.col[2][r * g.n2 + gl])));
+      }
+    }
+
+    kron::cp_async_wait<S - 1>();  // all but the newest S - 1: plane q is in
+    __syncthreads();
+
+    if (gq >= 0) {  // a zero ghost plane adds nothing (uniform branch)
+      const T* wq = win + buf * NW;
+      // axis 2: u[k][rr][tl] = sum_t c2[k][t][tl] * window[rr][tl + t]
+      if (in_tile) {
+        for (int rr = tj; rr < WR; rr += T1) {
+          const T* xrow = wq + rr * WC + tl;
+          // taps 0 and 1 as one expression, as the compiled kernel's
+          // unrolled chain presents them: the compiler fuses the first
+          // product into the add (fma(c0, x0, c1 x1)), so these bits match
+          T s[kCU];
+#pragma unroll
+          for (int k = 0; k < kCU; ++k) {
+            s[k] = c2s[k * W * T2 + tl] * xrow[0];
+            s[k] += c2s[(k * W + 1) * T2 + tl] * xrow[1];
+          }
+          for (int t = 2; t < W; ++t) {
+            const T xv = xrow[t];
+#pragma unroll
+            for (int k = 0; k < kCU; ++k)
+              s[k] += c2s[(k * W + t) * T2 + tl] * xv;
+          }
+#pragma unroll
+          for (int k = 0; k < kCU; ++k) u[(k * WR + rr) * T2 + tl] = s[k];
+        }
+      }
+      __syncthreads();
+      // axis 1: v[k] = sum_t c1[k][t][tj] * u[v_src[k]][tj + t][tl], then
+      // the sums that share an axis-0 band
+      if (in_tile) {
+        T v[kCV];
+#pragma unroll
+        for (int k = 0; k < kCV; ++k) v[k] = T(0);
+        for (int t = 0; t < W; ++t)
+#pragma unroll
+          for (int k = 0; k < kCV; ++k)
+            v[k] += c1s[(k * W + t) * T1 + tj] * u[uoff[k] + t * T2];
+        T wsum[kCG];
+#pragma unroll
+        for (int gi = 0; gi < kCG; ++gi) {
+          wsum[gi] = gm[gi][0] * v[0];
+#pragma unroll
+          for (int k = 1; k < kCV; ++k) wsum[gi] += gm[gi][k] * v[k];
+        }
+        // axis 0: output plane q - P + s takes tap 2P - s of plane q
+        const T* cq = c0s + (q - i_begin + P) * W + 2 * P;
+        int sl = base;
+        for (int s = 0; s < W; ++s) {
+          T o = ring[sl * NT + tid];
+#pragma unroll
+          for (int gi = 0; gi < kCG; ++gi)
+            o += cq[gi * crows * W + s * (W - 1)] * wsum[gi];
+          ring[sl * NT + tid] = o;
+          sl = sl + 1 == W ? 0 : sl + 1;
+        }
+      }
+    }
+
+    if (emits) {  // output plane i: its last input has arrived
+      const T ax = acc_v + ring[base * NT + tid];
+      T r = ax;
+      if (need_b) r = b_v - ax;
+      if (need_dg) r = r / dg;
+      if (MODE == kCheb) {
+        T d = a.c2 * r;
+        if (has_d) d += a.c1 * d_v;
+        store(a.d_out + idx, d);
+        store(a.out + idx, x_v + d);
+      } else if (MODE == kApply && a.out_hi != nullptr) {
+        a.out_hi[idx] = r;
+      } else {
+        store(a.out + idx, r);
+      }
+    }
+    if (in_tile) ring[base * NT + tid] = T(0);  // from now plane q + P + 1's
+    base = base + 1 == W ? 0 : base + 1;
+    buf = buf + 1 == S ? 0 : buf + 1;
+    // the next step's barrier orders these reads of u before its writes; a
+    // window is refilled S - 1 steps after its last read
+  }
+  kron::cp_async_wait<0>();
+}
+
 template <typename T, int P, int MODE, typename IO>
 int launch_pm(const Args<T, IO>& a, cudaStream_t stream) {
   const Geometry& g = a.g;
@@ -483,15 +756,51 @@ int launch_p(const Args<T, IO>& a, cudaStream_t stream) {
   }
 }
 
+template <typename T, int MODE, typename IO>
+int launch_rt_m(const Args<T, IO>& a, int P, cudaStream_t stream) {
+  const Geometry& g = a.g;
+  if (P < 1 || g.threads > kMaxThreads || g.threads < g.T1 * g.T2 ||
+      g.threads % 32 != 0)
+    return (int)cudaErrorInvalidConfiguration;
+  // the copy offsets a thread keeps are 32-bit: the last in-plane offset
+  if ((g.n1 - 1) * g.s1 + (g.n2 - 1) * g.s2 > (int64_t)INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes_rt(g, P, sizeof(T));
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kron_march_rt_kernel<T, MODE, IO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch reports it
+      return (int)err;
+    }
+  }
+  const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
+                  (g.n0 + g.chunk - 1) / g.chunk);
+  kron_march_rt_kernel<T, MODE, IO><<<grid, g.threads, bytes, stream>>>(a, P);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename IO>
+int launch_rt(const Args<T, IO>& a, int P, cudaStream_t stream) {
+  switch (a.mode) {
+    case kApply: return launch_rt_m<T, kApply, IO>(a, P, stream);
+    case kResidual: return launch_rt_m<T, kResidual, IO>(a, P, stream);
+    case kDinv: return launch_rt_m<T, kDinv, IO>(a, P, stream);
+    default: return launch_rt_m<T, kCheb, IO>(a, P, stream);
+  }
+}
+
 // geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
 // plan: nu nv ng u_lab[kCU] v_src[kCV] v_lab[kCV] g_lab[kCG] g_mult[kCG][kCV]
+// runtime: K1r at half-width P, else the compiled kernel of P
 template <typename T, typename IO>
 int launch(const void* x, const void* b0, const void* b1, const void* b2,
            const void* c0, const void* c1, const void* c2, const void* acc,
            const void* b, const void* d_in, void* d_out, void* out,
            void* out_hi, double s1, double s2, int mode,
            const int64_t* xstrides, const int* geo, const int* plan,
-           void* stream) {
+           void* stream, bool runtime) {
   Args<T, IO> a;
   a.x = (const IO*)x;
   a.band[0] = (const IO*)b0;
@@ -534,13 +843,46 @@ int launch(const void* x, const void* b0, const void* b1, const void* b2,
   if (out_hi != nullptr ? mode != kApply : out == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (runtime) return launch_rt<T, IO>(a, P, st);
   switch (P) {  // the instantiated half-widths; ops/kron.py pads bands to one
     case 1: return launch_p<T, 1, IO>(a, st);
     case 2: return launch_p<T, 2, IO>(a, st);
     case 3: return launch_p<T, 3, IO>(a, st);
     case 5: return launch_p<T, 5, IO>(a, st);
     case 8: return launch_p<T, 8, IO>(a, st);
-    default: return (int)cudaErrorInvalidValue;  // refused: no such kernel
+    default: return (int)cudaErrorInvalidValue;  // no such kernel: K1r's
+  }
+}
+
+template <typename T, int P, int MODE, typename IO>
+int resources_pm(const Geometry& g, int* out) {
+  return kron::resources_of(kron_march_kernel<T, P, MODE, IO>, g.threads,
+                      smem_bytes<P>(g, sizeof(T)), out);
+}
+
+template <typename T, int MODE, typename IO>
+int resources_m(const Geometry& g, int P, int runtime, int* out) {
+  if (runtime)
+    return kron::resources_of(kron_march_rt_kernel<T, MODE, IO>, g.threads,
+                        smem_bytes_rt(g, P, sizeof(T)), out);
+  switch (P) {
+    case 1: return resources_pm<T, 1, MODE, IO>(g, out);
+    case 2: return resources_pm<T, 2, MODE, IO>(g, out);
+    case 3: return resources_pm<T, 3, MODE, IO>(g, out);
+    case 5: return resources_pm<T, 5, MODE, IO>(g, out);
+    case 8: return resources_pm<T, 8, MODE, IO>(g, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename IO>
+int resources_t(int mode, const Geometry& g, int P, int runtime, int* out) {
+  switch (mode) {
+    case kApply: return resources_m<T, kApply, IO>(g, P, runtime, out);
+    case kResidual: return resources_m<T, kResidual, IO>(g, P, runtime, out);
+    case kDinv: return resources_m<T, kDinv, IO>(g, P, runtime, out);
+    case kCheb: return resources_m<T, kCheb, IO>(g, P, runtime, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -556,7 +898,7 @@ int kron_apply_f32(const void* x, const void* b0, const void* b1,
                    const int* geo, const int* plan, void* stream) {
   return launch<float, float>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in, d_out,
                               out, out_hi, s1, s2, mode, xstrides, geo, plan,
-                              stream);
+                              stream, false);
 }
 
 // fields and bands bfloat16; acc and out_hi (the sum between the launches of
@@ -569,7 +911,7 @@ int kron_apply_bf16(const void* x, const void* b0, const void* b1,
                     const int* geo, const int* plan, void* stream) {
   return launch<float, __nv_bfloat16>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
                                       d_out, out, out_hi, s1, s2, mode,
-                                      xstrides, geo, plan, stream);
+                                      xstrides, geo, plan, stream, false);
 }
 
 int kron_apply_f64(const void* x, const void* b0, const void* b1,
@@ -580,7 +922,63 @@ int kron_apply_f64(const void* x, const void* b0, const void* b1,
                    const int* geo, const int* plan, void* stream) {
   return launch<double, double>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
                                 d_out, out, out_hi, s1, s2, mode, xstrides,
-                                geo, plan, stream);
+                                geo, plan, stream, false);
+}
+
+// K1r, the half-width geo[6] taken at run time: the same arguments
+int kron_apply_rt_f32(const void* x, const void* b0, const void* b1,
+                      const void* b2, const void* c0, const void* c1,
+                      const void* c2, const void* acc, const void* b,
+                      const void* d_in, void* d_out, void* out, void* out_hi,
+                      double s1, double s2, int mode, const int64_t* xstrides,
+                      const int* geo, const int* plan, void* stream) {
+  return launch<float, float>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in, d_out,
+                              out, out_hi, s1, s2, mode, xstrides, geo, plan,
+                              stream, true);
+}
+
+int kron_apply_rt_bf16(const void* x, const void* b0, const void* b1,
+                       const void* b2, const void* c0, const void* c1,
+                       const void* c2, const void* acc, const void* b,
+                       const void* d_in, void* d_out, void* out, void* out_hi,
+                       double s1, double s2, int mode,
+                       const int64_t* xstrides, const int* geo,
+                       const int* plan, void* stream) {
+  return launch<float, __nv_bfloat16>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
+                                      d_out, out, out_hi, s1, s2, mode,
+                                      xstrides, geo, plan, stream, true);
+}
+
+int kron_apply_rt_f64(const void* x, const void* b0, const void* b1,
+                      const void* b2, const void* c0, const void* c1,
+                      const void* c2, const void* acc, const void* b,
+                      const void* d_in, void* d_out, void* out, void* out_hi,
+                      double s1, double s2, int mode, const int64_t* xstrides,
+                      const int* geo, const int* plan, void* stream) {
+  return launch<double, double>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
+                                d_out, out, out_hi, s1, s2, mode, xstrides,
+                                geo, plan, stream, true);
+}
+
+// out: registers a thread, local memory a thread in bytes (spills), shared
+// memory a block in bytes, blocks an SM holds, for a launch of geo in `mode`
+// (dtype 0 f32, 1 f64, 2 bf16; runtime: K1r's)
+int kron_apply_resources(int dtype, int mode, int runtime, const int* geo,
+                         int* out) {
+  Geometry g;
+  g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
+  g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];
+  const int P = geo[6];
+  g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
+  g.R = geo[11];
+  g.s0 = (int64_t)g.n1 * g.n2, g.s1 = g.n2, g.s2 = 1;
+  switch (dtype) {
+    case 0: return resources_t<float, float>(mode, g, P, runtime, out);
+    case 1: return resources_t<double, double>(mode, g, P, runtime, out);
+    case 2:
+      return resources_t<float, __nv_bfloat16>(mode, g, P, runtime, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* kron_apply_error_string(int err) {

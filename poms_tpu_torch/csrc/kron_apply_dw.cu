@@ -48,6 +48,15 @@
 // (ops/twofloat.py::k5_smem_bytes mirrors smem_bytes_wide).  It performs
 // the same operations in the same order.
 //
+// K5r: bands wider than 8 (spline degrees above 8) run on the same body with
+// the half-width a launch argument (kron_march_dw_rt_kernel, entry
+// kron_residual_dw_rt): the shared memory is sized at launch, the taps are
+// loops, and the window row is read from shared memory tap by tap.  The
+// operations and their order are the wide kernel's, so its words too equal
+// the plain version's.  Its smallest block (one row, one column, one plane)
+// fits the card's shared memory up to P = 36 with 3 or 4 histories; wider
+// bands are refused by the host (ops/kron.py::refuse_half_width).
+//
 // More terms than one launch holds (kCU u, kCV v, kCW histories, kCT terms):
 // the host splits the terms, in order, into runs that fit, one launch each.
 // Every launch but the last writes the double-word sum of its terms added
@@ -322,8 +331,8 @@ kron_march_dw_kernel(const Args a) {
 // shared memory of the wide kernel: the offset table, the windows, the u
 // partials, the axis-0 band rows of the run, the axis-2 and axis-1 band rows
 // of the tile, and each thread's ring of W planes per history, hi and lo
-template <int P, int CW>
-__host__ __device__ inline size_t smem_bytes_wide(const Geometry& g) {
+__host__ __device__ inline size_t smem_bytes_wide(const Geometry& g, int P,
+                                                  int CW) {
   const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
   return WR * WC * sizeof(int64_t) +
          2 * (kron::kStages * WR * WC + kCU * WR * g.T2 + CW * g.chunk * W +
@@ -336,11 +345,13 @@ __host__ __device__ inline size_t smem_bytes_wide(const Geometry& g) {
 // note at the top).  Thread (tj, tl) of the tile reads column tl of the
 // axis-2 rows (k, t, column: neighbouring threads, neighbouring words), row
 // tj of the axis-1 rows (a broadcast) and its own ring slots (k, slot,
-// thread).
-template <int P, int CW>
-__global__ void __launch_bounds__(kMaxThreads)
-kron_march_dw_wide_kernel(const Args a) {
-  constexpr int W = 2 * P + 1;
+// thread).  PC: the compiled half-width, or 0 for K5r, whose half-width is
+// P_rt (the loops over taps then run, not unrolled, and the window row is
+// read from shared memory where the compiled kernel holds it in registers).
+template <int PC, int CW>
+__device__ __forceinline__ void march_wide(const Args& a, const int P_rt) {
+  const int P = PC > 0 ? PC : P_rt;
+  const int W = 2 * P + 1;
   constexpr int S = kron::kStages;
   const Geometry& g = a.g;
   const Plan& pl = a.p;
@@ -440,19 +451,29 @@ kron_march_dw_wide_kernel(const Args a) {
       const float* wl = win_l + buf * NW;
       if (in_tile) {
         for (int rr = tj; rr < WR; rr += T1) {
-          dw xv[W];
+          // tap t's window value: from registers (compiled P) or from
+          // shared memory (K5r)
+          dw xv[PC > 0 ? 2 * PC + 1 : 1];
+          if constexpr (PC > 0) {
 #pragma unroll
-          for (int t = 0; t < W; ++t)
-            xv[t] = dw{wh[rr * WC + tl + t], wl[rr * WC + tl + t]};
+            for (int t = 0; t < W; ++t)
+              xv[t] = dw{wh[rr * WC + tl + t], wl[rr * WC + tl + t]};
+          }
+          const auto x_at = [&](int t) -> dw {
+            if constexpr (PC > 0)
+              return xv[t];
+            else
+              return dw{wh[rr * WC + tl + t], wl[rr * WC + tl + t]};
+          };
 #pragma unroll
           for (int k = 0; k < kCU; ++k) {
             if (k < pl.nu) {
               const int cb = k * W * T2 + tl;
-              dw s = dw_mul(dw{c2h[cb], c2l[cb]}, xv[0]);
+              dw s = dw_mul(dw{c2h[cb], c2l[cb]}, x_at(0));
 #pragma unroll
               for (int t = 1; t < W; ++t)
                 s = dw_add(s, dw_mul(dw{c2h[cb + t * T2], c2l[cb + t * T2]},
-                                     xv[t]));
+                                     x_at(t)));
               u_h[(k * WR + rr) * T2 + tl] = s.h;
               u_l[(k * WR + rr) * T2 + tl] = s.l;
             }
@@ -521,6 +542,19 @@ kron_march_dw_wide_kernel(const Args a) {
   kron::cp_async_wait<0>();
 }
 
+template <int P, int CW>
+__global__ void __launch_bounds__(kMaxThreads)
+kron_march_dw_wide_kernel(const Args a) {
+  march_wide<P, CW>(a, P);
+}
+
+// K5r: the half-width P a launch argument
+template <int CW>
+__global__ void __launch_bounds__(kMaxThreads)
+kron_march_dw_rt_kernel(const Args a, const int P) {
+  march_wide<0, CW>(a, P);
+}
+
 // the kernel and the shared memory of half-width P with CW histories
 template <int P, int CW>
 inline auto kernel_of() {
@@ -533,7 +567,7 @@ inline auto kernel_of() {
 template <int P, int CW>
 size_t smem_of(const Geometry& g) {
   if constexpr (P > kRegisterP)
-    return smem_bytes_wide<P, CW>(g);
+    return smem_bytes_wide(g, P, CW);
   else
     return smem_bytes<P, CW>(g);
 }
@@ -568,35 +602,50 @@ int launch_p(const Args& a, cudaStream_t stream) {
   return a.p.nw <= 3 ? launch_pw<P, 3>(a, stream) : launch_pw<P, 4>(a, stream);
 }
 
-// what the launch of `a` gets: registers and local memory (spills) a
-// thread, shared memory a block, blocks an SM holds
-template <int P, int CW>
-int resources_pw(const Args& a, int* out) {
-  const auto fn = kernel_of<P, CW>();
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  const size_t bytes = smem_of<P, CW>(a.g);
-  if (err == cudaSuccess && bytes > 48 * 1024)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
-                                                        a.g.threads, bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
+// K5r: the shared memory of the half-width P, sized at launch
+template <int CW>
+int launch_rt_w(const Args& a, int P, cudaStream_t stream) {
+  const Geometry& g = a.g;
+  if (P < 1 || g.threads > kMaxThreads || g.threads < g.T1 * g.T2 ||
+      g.threads % 32 != 0)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t bytes = smem_bytes_wide(g, P, CW);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kron_march_dw_rt_kernel<CW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch reports it
+      return (int)err;
+    }
   }
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)bytes;
-  out[3] = blocks;
-  return 0;
+  const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
+                  (g.n0 + g.chunk - 1) / g.chunk);
+  kron_march_dw_rt_kernel<CW><<<grid, g.threads, bytes, stream>>>(a, P);
+  return (int)cudaGetLastError();
+}
+
+int launch_rt(const Args& a, int P, cudaStream_t stream) {
+  return a.p.nw <= 3 ? launch_rt_w<3>(a, P, stream)
+                     : launch_rt_w<4>(a, P, stream);
 }
 
 template <int P>
 int resources_p(const Args& a, int* out) {
-  return a.p.nw <= 3 ? resources_pw<P, 3>(a, out) : resources_pw<P, 4>(a, out);
+  const Geometry& g = a.g;
+  return a.p.nw <= 3 ? kron::resources_of(kernel_of<P, 3>(), g.threads,
+                                          smem_of<P, 3>(g), out)
+                     : kron::resources_of(kernel_of<P, 4>(), g.threads,
+                                          smem_of<P, 4>(g), out);
+}
+
+int resources_rt(const Args& a, int P, int* out) {
+  const Geometry& g = a.g;
+  return a.p.nw <= 3
+             ? kron::resources_of(kron_march_dw_rt_kernel<3>, g.threads,
+                                  smem_bytes_wide(g, P, 3), out)
+             : kron::resources_of(kron_march_dw_rt_kernel<4>, g.threads,
+                                  smem_bytes_wide(g, P, 4), out);
 }
 
 // geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
@@ -622,6 +671,23 @@ bool parse(const int* geo, const int* plan, Args& a, int& P) {
   return !(p.nu < 1 || p.nu > kCU || p.nv < 1 || p.nv > kCV || p.nw < 1 ||
            p.nw > kCW || p.nt < 1 || p.nt > kCT || g.T1 < 1 || g.T2 < 1 ||
            g.chunk < 1);
+}
+
+// the arguments of one launch, checked: false for an invalid plan or
+// operands that must come in pairs
+bool pack(const float* xh, const float* xl, const float* bh, const float* bl,
+          const float* acc_h, const float* acc_l, const float* b0h,
+          const float* b0l, const float* b1h, const float* b1l,
+          const float* b2h, const float* b2l, float* rh, float* rl,
+          const int* geo, const int* plan, int negate, int last, Args& a,
+          int& P) {
+  a.xh = xh, a.xl = xl, a.bh = bh, a.bl = bl;
+  a.acc_h = acc_h, a.acc_l = acc_l, a.last = last;
+  a.band_h[0] = b0h, a.band_h[1] = b1h, a.band_h[2] = b2h;
+  a.band_l[0] = b0l, a.band_l[1] = b1l, a.band_l[2] = b2l;
+  a.rh = rh, a.rl = rl, a.negate = negate;
+  return parse(geo, plan, a, P) && (bh == nullptr) == (bl == nullptr) &&
+         (acc_h == nullptr) == (acc_l == nullptr);
 }
 
 // the error-free transformations on their own, for the exactness check:
@@ -652,14 +718,9 @@ int kron_residual_dw(const float* xh, const float* xl, const float* bh,
                      float* rh, float* rl, const int* geo, const int* plan,
                      int negate, int last, void* stream) {
   Args a;
-  a.xh = xh, a.xl = xl, a.bh = bh, a.bl = bl;
-  a.acc_h = acc_h, a.acc_l = acc_l, a.last = last;
-  a.band_h[0] = b0h, a.band_h[1] = b1h, a.band_h[2] = b2h;
-  a.band_l[0] = b0l, a.band_l[1] = b1l, a.band_l[2] = b2l;
-  a.rh = rh, a.rl = rl, a.negate = negate;
   int P;
-  if (!parse(geo, plan, a, P) || (bh == nullptr) != (bl == nullptr) ||
-      (acc_h == nullptr) != (acc_l == nullptr))
+  if (!pack(xh, xl, bh, bl, acc_h, acc_l, b0h, b0l, b1h, b1l, b2h, b2l, rh,
+            rl, geo, plan, negate, last, a, P))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (P) {  // the instantiated half-widths
@@ -671,16 +732,35 @@ int kron_residual_dw(const float* xh, const float* xl, const float* bh,
     case 6: return launch_p<6>(a, st);
     case 7: return launch_p<7>(a, st);
     case 8: return launch_p<8>(a, st);
-    default: return (int)cudaErrorInvalidValue;  // refused: no such kernel
+    default: return (int)cudaErrorInvalidValue;  // no such kernel: K5r's
   }
+}
+
+// K5r, the half-width geo[6] taken at run time: the same arguments
+int kron_residual_dw_rt(const float* xh, const float* xl, const float* bh,
+                        const float* bl, const float* acc_h,
+                        const float* acc_l, const float* b0h,
+                        const float* b0l, const float* b1h, const float* b1l,
+                        const float* b2h, const float* b2l, float* rh,
+                        float* rl, const int* geo, const int* plan,
+                        int negate, int last, void* stream) {
+  Args a;
+  int P;
+  if (!pack(xh, xl, bh, bl, acc_h, acc_l, b0h, b0l, b1h, b1l, b2h, b2l, rh,
+            rl, geo, plan, negate, last, a, P))
+    return (int)cudaErrorInvalidValue;
+  return launch_rt(a, P, (cudaStream_t)stream);
 }
 
 // out: registers a thread, local memory a thread in bytes (spills), shared
 // memory a block in bytes, blocks an SM holds, for the launch of geo and plan
-int kron_residual_dw_resources(const int* geo, const int* plan, int* out) {
+// (runtime: K5r's)
+int kron_residual_dw_resources(const int* geo, const int* plan, int* out,
+                               int runtime) {
   Args a;
   int P;
   if (!parse(geo, plan, a, P)) return (int)cudaErrorInvalidValue;
+  if (runtime) return resources_rt(a, P, out);
   switch (P) {
     case 1: return resources_p<1>(a, out);
     case 2: return resources_p<2>(a, out);

@@ -117,4 +117,29 @@ __device__ __forceinline__ void load_window(T* win, const IO* __restrict__ x,
   }
 }
 
+// what a launch of kernel `fn` with `threads` and `bytes` of shared memory
+// gets, for the hosts' resource queries: registers and local memory
+// (spills) a thread, shared memory a block, blocks an SM holds
+template <typename K>
+int resources_of(K fn, int threads, size_t bytes, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess && bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                        bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch reports it
+    return (int)err;
+  }
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)bytes;
+  out[3] = blocks;
+  return 0;
+}
+
 }  // namespace kron

@@ -13,7 +13,10 @@ Counterpart of the JAX package's ``examples/headline_solve.py``:
 Run:  python -m poms_tpu_torch.examples.headline_solve [n_el] [degree]
           [solver] [--cpu]
       solver ∈ {dc, pcg}   (defect correction | dw-precision MG-PCG)
-      degree 1-8 on the card (K1 and K5 refuse wider bands)
+      degree 1-8 on the compiled K1 and K5; above 8 on K1r and K5r, which
+      take the half-width at run time, up to half-width 36
+      (``ops/kron.py::widest_half_width``; wider bands are refused on the
+      card)
 
 ``main`` also returns the cold setup (problem, hierarchy, λ estimates and
 K1's launch data: ``setup_s``; the first ``solve_compiled``, which warms the
@@ -66,11 +69,11 @@ def _sync(dev):
 
 
 def main(n_el: int = 64, degree: int = 3, solver: str = "dc", device=None,
-         lams=None, out=print, check=None) -> dict:
+         lams=None, out=print, check=None, maxiter: int = 100) -> dict:
     """Solve, print the JAX example's lines through ``out`` and return the
     numbers.  ``lams``: λ estimates to use instead of the solver's own (set
     before the first solve); ``check(problem, solver, x)``, called last,
-    gives ``out["check"]``."""
+    gives ``out["check"]``; ``maxiter``: iterations a solve may take."""
     levels = num_levels(n_el)
     out(f"3D Poisson n_el={n_el}^3 degree={degree} levels={levels} "
         f"solver={solver}")
@@ -82,12 +85,12 @@ def main(n_el: int = 64, degree: int = 3, solver: str = "dc", device=None,
     _sync(dev)
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    x, rn, it = mg.solve_compiled(tol=1e-10, maxiter=100)   # build + warm
+    x, rn, it = mg.solve_compiled(tol=1e-10, maxiter=maxiter)  # build, warm
     _sync(dev)
     cold_solve_s = time.perf_counter() - t0
     del x
     t0 = time.perf_counter()
-    x, rn, it = mg.solve_compiled(tol=1e-10, maxiter=100)
+    x, rn, it = mg.solve_compiled(tol=1e-10, maxiter=maxiter)
     _sync(dev)
     wall = time.perf_counter() - t0
     true = float(torch.linalg.vector_norm(prob.A.residual(x, prob.b)))

@@ -8,7 +8,9 @@ wrappers, so the code that replays a graph adds the launches it captured
 Keys: ``name`` or ``name.mode`` for a wrapper's count over every dtype, and
 ``name@dtype`` or ``name.mode@dtype`` (dtype one of f32, f64, bf16) for one
 instantiation of a wrapper that takes several
-(:mod:`poms_tpu_torch.ops._count`).
+(:mod:`poms_tpu_torch.ops._count`); ``kron_mode_rt`` and
+``residual_kron_df_rt`` count the run-time kernels K1r and K5r, whose
+launches ``kron_mode`` and ``residual_kron_df`` count as well.
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ __all__ = ["snapshot", "diff", "add", "reset"]
 
 # wrappers whose ``launches`` is one integer, and those counting per mode
 _PLAIN = {"kron_apply": kron_apply, "residual_kron_df": residual_kron_df,
+          "residual_kron_df_rt": residual_kron_df.runtime,
           "dw_reduce": dw_dot_stack, "dw_update": dw_update,
           "transfer": apply_transfer}
-_BY_MODE = {"kron_mode": kron_mode, "stencil_apply": stencil_apply,
+_BY_MODE = {"kron_mode": kron_mode, "kron_mode_rt": kron_mode.runtime,
+            "stencil_apply": stencil_apply,
             "stencil_apply_v2": stencil_apply_v2}
 
 

@@ -10,12 +10,15 @@ Counterpart of ``poms_tpu/ops/pallas/kron.py::kron_apply_pallas``.
 - ``cheb``:     z = (b − A x) / diag(A); d ← c1·d + c2·z; x_new = x + d
 
 For a CUDA tensor it launches the hand-written kernel of
-``csrc/kron_apply.cu`` (f32, f64 or bf16; 1D and 2D lifted to 3D) or raises;
+``csrc/kron_apply.cu`` (f32, f64 or bf16; 1D and 2D lifted to 3D) or raises:
+K1, compiled at the half-widths ``COMPILED_P``, or K1r, which takes the
+half-width at run time (bands wider than 8, spline degrees above 8);
 for a CPU tensor it runs :func:`kron_mode_plain`, built on the shared-partial
 chain of 1D axis contractions of ``poms_tpu/core/kron.py::_apply_interior``
 (:func:`kron_apply_plain`).  ``kron_mode.launches[mode]`` counts kernel
 launches per mode (``launches_by_dtype[name][mode]`` those of one
-instantiation) and ``kron_apply.launches`` those of ``apply``.
+instantiation), ``kron_mode.runtime.launches[mode]`` those of K1r among
+them, and ``kron_apply.launches`` those of ``apply``.
 
 A bf16 operator (bf16 bands and fields) is computed in f32 and rounded once
 per output value, by the kernel and by the plain version alike
@@ -26,10 +29,10 @@ it.
 
 What the kernel needs beyond the field is built once per operator by
 :func:`build_kron_plan`: the distinct bands of each axis stacked and
-zero-padded to one compiled half-width, the centre columns for the in-kernel
-diagonal, the **sharing plan** (which (partial, band) pairs each axis
-contracts, and which partials are summed before the last contraction) as
-small integer arrays, and the tiling.  :func:`plan_apply` executes the same
+zero-padded to one compiled half-width (or, for K1r, at their own), the
+centre columns for the in-kernel diagonal, the **sharing plan** (which
+(partial, band) pairs each axis contracts, and which partials are summed
+before the last contraction) as small integer arrays, and the tiling.  :func:`plan_apply` executes the same
 control data in plain PyTorch, so it is tested where no card is.
 """
 from __future__ import annotations
@@ -38,31 +41,44 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.ops import _build, _count
+from poms_tpu_torch.ops.stencil import K2_SMEM
 
 __all__ = ["MODES", "kron_apply", "kron_apply_plain", "kron_mode",
            "kron_mode_plain", "kron_mode_plain_bf16", "apply_band_1d_axis",
            "band_labels",
            "sharing_plan", "chunk_terms", "build_kron_plan", "plan_apply",
            "diagonal_from_columns", "kron_tiling", "k1_step_cost", "KronPlan",
-           "stack_bands", "refuse_half_width", "COMPILED_P"]
+           "stack_bands", "refuse_half_width", "COMPILED_P", "k1r_smem",
+           "k1r_step_cost", "widest_half_width", "SMALLEST_BLOCK",
+           "k1_resources"]
 
 MODES = ("apply", "residual", "dinv", "cheb")
 _KERNELS = {torch.float32: "kron_apply_f32", torch.float64: "kron_apply_f64",
             torch.bfloat16: "kron_apply_bf16"}
+_KERNELS_RT = {dt: name.replace("apply_", "apply_rt_")
+               for dt, name in _KERNELS.items()}
 # mirrored in csrc/kron_apply.cu (kCU, kCV, kCG, the instantiated half-widths,
 # kMaxThreads, columns and min_blocks): partials one launch may hold per axis,
 # compiled P (every dtype: spline degrees 1-8 run on the card, 4 on 5, 6 and
-# 7 on 8; K5 has its own, ops/twofloat.py::COMPILED_P_DW)
+# 7 on 8; wider bands run on K1r at their own half-width; K5 has its own,
+# ops/twofloat.py::COMPILED_P_DW)
 CAPS = {"u": 2, "v": 3, "g": 2}
 COMPILED_P = (1, 2, 3, 5, 8)
 SM_COUNT = 132   # H100 SXM: the tiling's cost model where no card is asked
 MAX_THREADS = 256         # block size limit
+STAGES = 4                # kron::kStages: window buffers in the ring
+SM_SMEM = 233472          # shared memory of an SM, 1 KB of it kept per block
+# the smallest block of a run-time kernel (K1r, K5r): one row and one column
+# of the tile, one output plane; a half-width whose smallest block exceeds
+# the shared memory a block may have is refused on the card
+SMALLEST_BLOCK = (1, 1, 1)
 
 
 def arithmetic_itemsize(dtype: torch.dtype) -> int:
@@ -95,6 +111,60 @@ def k1_step_cost(itemsize: int, P: int):
         rounds = math.ceil((T1 + 2 * P) / T1)
         step = 1.0 + (0.0015 * threads * resident * (1 + 0.6 * (rounds - 1))
                       * (2 * P + 1) / 7)
+        return waves * (2.0 + (chunk + 2 * P) * step)
+
+    return cost
+
+
+def k1r_smem(itemsize: int):
+    """Shared memory of a K1r block, ``smem(P, T1, T2, chunk)`` in bytes
+    (``csrc/kron_apply.cu::smem_bytes_rt``; ``itemsize`` of the arithmetic
+    type): the offset table, the ring of windows, the u partials, the
+    axis-0 band rows of the run, the axis-2 and axis-1 band rows of the
+    tile, and each thread's ring of 2P+1 output planes."""
+    def smem(P, T1, T2, chunk):
+        WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
+        words = (STAGES * WR * WC + CAPS["u"] * WR * T2
+                 + CAPS["g"] * (chunk + 4 * P) * W + CAPS["u"] * W * T2
+                 + CAPS["v"] * W * T1 + W * T1 * T2)
+        return 8 * WR * WC + itemsize * words
+
+    return smem
+
+
+def widest_half_width(smem) -> int:
+    """The widest half-width whose smallest block (``SMALLEST_BLOCK``)
+    takes no more than the shared memory a block may have, for a run-time
+    kernel's ``smem(P, T1, T2, chunk)``."""
+    P = 1
+    while smem(P + 1, *SMALLEST_BLOCK) <= K2_SMEM:
+        P += 1
+    return P
+
+
+def k1r_step_cost(itemsize: int, P: int):
+    """K1r's cost model for :func:`kron_tiling`, in µs, K1's
+    (:func:`k1_step_cost`) with the run-time kernel's work: a thread's
+    multiply-adds and shared-memory reads of a plane step (the axis-2 pass
+    over its rows of the window, axis 1, the axis-0 taps into its ring of
+    output planes) and its share of the window's copy; as many blocks an
+    SM as its shared memory and 2048 threads allow; infinite for a block
+    over the card's limit."""
+    W = 2 * P + 1
+    smem = k1r_smem(itemsize)
+
+    def cost(T1, T2, threads, chunk, blocks, sms):
+        need = smem(P, T1, T2, chunk)
+        if need > K2_SMEM:
+            return math.inf
+        per_sm = max(1, min(2048 // threads, SM_SMEM // (need + 1024)))
+        waves = math.ceil(blocks / (sms * per_sm))
+        resident = min(per_sm, math.ceil(blocks / waves / sms))
+        rows = T1 + 2 * P
+        work = (W * (1.5 * CAPS["u"] * math.ceil(rows / T1)
+                     + 1.5 * CAPS["v"] + CAPS["g"] + 2)
+                + 2 * rows * (T2 + 2 * P) / threads)
+        step = 1.0 + 0.0015 * threads * resident * work / 49
         return waves * (2.0 + (chunk + 2 * P) * step)
 
     return cost
@@ -243,22 +313,17 @@ def chunk_terms(labels, caps: dict = CAPS) -> List[List[int]]:
     return chunks
 
 
-def kron_tiling(n3, P: int, threads_max: int, cost, sms: int = SM_COUNT,
-                cols: int = 1):
-    """(T1, T2, chunk): a block owns a T1 × T2 column of the (axis 1,
-    axis 2) grid and marches over ``chunk`` output planes of axis 0; a
-    thread owns ``cols`` neighbouring columns (T2 is a multiple of it).
+def _even_spans(n: int, most: int):
+    """Every size ⌈n/k⌉ ≤ ``most`` of k even parts of n, largest first."""
+    return sorted({math.ceil(n / k) for k in range(1, n + 1)
+                   if math.ceil(n / k) <= most}, reverse=True)
 
-    Tiles divide each axis evenly (a 2^k+1 grid gets no nearly empty last
-    tile).  Among tile widths of 16 to 64 columns, three block sizes and up
-    to 64 runs of planes, the one with the least modelled time is taken:
-    ``cost(T1, T2, threads, chunk, blocks, sms)`` is the kernel's own model
-    (K1's: :func:`k1_step_cost`), infinite for a block that does not fit.
-    Splitting axis 0 adds 2P halo planes per run but fills the SMs at small
-    grids.
-    """
+
+def _tiles(n3, threads_max: int, cols: int):
+    """The compiled kernels' candidate (T1, T2, chunk, blocks): tile widths
+    of 16 to 64 columns, the tallest tile for three block sizes, up to 64
+    runs of planes."""
     n0, n1, n2 = n3
-    best = None
     t2_cap = threads_max * cols if n1 == 1 else 64
     k2_min = math.ceil(n2 / t2_cap)
     for k2 in range(k2_min, min(n2, k2_min + 63) + 1):
@@ -270,14 +335,54 @@ def kron_tiling(n3, P: int, threads_max: int, cost, sms: int = SM_COUNT,
                 continue
             k1 = math.ceil(n1 / (budget // (T2 // cols)))
             T1 = math.ceil(n1 / k1)
-            threads = 32 * math.ceil(T1 * (T2 // cols) / 32)
             for nchunks in range(1, min(n0, 64) + 1):
                 chunk = math.ceil(n0 / nchunks)
-                if math.ceil(n0 / chunk) != nchunks:
-                    continue
-                c = cost(T1, T2, threads, chunk, k1 * k2 * nchunks, sms)
-                if best is None or c < best[0]:
-                    best = (c, T1, T2, chunk)
+                if math.ceil(n0 / chunk) == nchunks:
+                    yield T1, T2, chunk, k1 * k2 * nchunks
+
+
+def _narrow_tiles(n3, threads_max: int):
+    """The run-time kernels' candidates: every even split of each axis, so
+    tiles narrower than 16 columns (down to one row, one column and one
+    plane, ``SMALLEST_BLOCK``), which are all that fit a block at large
+    half-widths."""
+    n0, n1, n2 = n3
+    for T2 in _even_spans(n2, threads_max if n1 == 1 else 64):
+        for T1 in _even_spans(n1, threads_max // T2):
+            for chunk in _even_spans(n0, n0):
+                blocks = (math.ceil(n0 / chunk) * math.ceil(n1 / T1)
+                          * math.ceil(n2 / T2))
+                yield T1, T2, chunk, blocks
+
+
+def kron_tiling(n3, P: int, threads_max: int, cost, sms: int = SM_COUNT,
+                cols: int = 1, narrow: bool = False):
+    """(T1, T2, chunk): a block owns a T1 × T2 column of the (axis 1,
+    axis 2) grid and marches over ``chunk`` output planes of axis 0; a
+    thread owns ``cols`` neighbouring columns (T2 is a multiple of it).
+
+    Tiles divide each axis evenly (a 2^k+1 grid gets no nearly empty last
+    tile).  Among tile widths of 16 to 64 columns, three block sizes and up
+    to 64 runs of planes the one with the least modelled time is taken
+    (``narrow``, the run-time kernels: where none of them fits, as at large
+    half-widths, every even split of each axis, down to tiles of one row
+    and one column and runs of one plane):
+    ``cost(T1, T2, threads, chunk, blocks, sms)`` is the kernel's own model
+    (K1's: :func:`k1_step_cost`), infinite for a block that does not fit.
+    Splitting axis 0 adds 2P halo planes per run but fills the SMs at small
+    grids.
+    """
+    def least(tiles, best=None):
+        for T1, T2, chunk, blocks in tiles:
+            threads = 32 * math.ceil(T1 * (T2 // cols) / 32)
+            c = cost(T1, T2, threads, chunk, blocks, sms)
+            if best is None or c < best[0]:
+                best = (c, T1, T2, chunk)
+        return best
+
+    best = least(_tiles(n3, threads_max, cols))
+    if narrow and (best is None or math.isinf(best[0])):
+        best = least(_narrow_tiles(n3, threads_max))
     if best is None or math.isinf(best[0]):
         raise ValueError(f"no tiling of {n3} at half-width {P} fits a block")
     return best[1:]
@@ -300,10 +405,11 @@ class KronPlan:
     cols: List[torch.Tensor]      # per axis (R, n_a): centre columns
     chunks: List[List[int]]       # runs of terms, one launch each
     plans: List[dict]             # sharing plan of each run
-    tiling: Tuple[int, int, int]
+    tiling: Optional[Tuple[int, int, int]]   # None: no block fits (CPU)
     tcols: int                    # tile columns per thread
     dtype: torch.dtype
     device: torch.device
+    runtime: bool = False         # P is no compiled half-width: K1r / K5r
     bands_lo: Optional[List[torch.Tensor]] = None   # K5: the lo words
     _cargs: list = field(default_factory=list)
     _diag: Optional[torch.Tensor] = None
@@ -336,25 +442,30 @@ class KronPlan:
 
 
 def _compiled_half_width(pads, half_widths=COMPILED_P) -> int:
+    """The first of ``half_widths`` that holds the bands, or else their own
+    half-width (the run-time kernels')."""
     p = max(max(pads), 1)
     for P in half_widths:
         if P >= p:
             return P
-    return p   # no instantiation: a plan on the card is refused
+    return p
 
 
-def refuse_half_width(pads, device: torch.device):
-    """On the card, raise for bands wider than every compiled half-width
-    (a spline degree above 8): no kernel takes them, and none falls back
-    to the plain version."""
-    p = max(pads)
-    if device.type == "cuda" and p > COMPILED_P[-1]:
+def refuse_half_width(pads, device: torch.device, smem, what: str):
+    """On the card, raise where not even the smallest block of the run-time
+    kernel ``what`` (``SMALLEST_BLOCK``: one row, one column, one plane)
+    fits the shared memory a block may have; ``smem(P, T1, T2, chunk)`` is
+    its bytes (:func:`k1r_smem`, ``twofloat.k5r_smem``).  The plain
+    versions on the CPU take any half-width."""
+    p = max(max(pads), 1)
+    need = smem(p, *SMALLEST_BLOCK)
+    if device.type == "cuda" and need > K2_SMEM:
         raise RuntimeError(
-            f"the Kronecker-sum kernels take half-widths up to "
-            f"{COMPILED_P[-1]} (spline degrees 1-{COMPILED_P[-1]}: K1 is "
-            f"compiled for half-widths {COMPILED_P}, K5 for each of 1-"
-            f"{COMPILED_P[-1]}); this operator has bands of half-width {p} "
-            f"(degree {p})")
+            f"{what} cannot stage a block at half-width {p} (spline degree "
+            f"{p}): its smallest block (one row, one column, one plane) "
+            f"takes {need} bytes of shared memory, and a block may have "
+            f"{K2_SMEM}; it takes half-widths up to "
+            f"{widest_half_width(smem)}")
 
 
 def stack_bands(terms, labels, n3, pads3, P: int, centre: float = 1.0):
@@ -387,14 +498,19 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
                     threads_max: int = MAX_THREADS,
                     tcols: Optional[int] = None, cost=None,
                     caps: dict = CAPS,
-                    half_widths: Sequence[int] = COMPILED_P) -> KronPlan:
+                    half_widths: Sequence[int] = COMPILED_P,
+                    smem=None, what: str = "K1r") -> KronPlan:
     """Everything a launch needs besides the fields, once per operator.
     ``labels[a][r]`` (default: identity of the band tensors) names the
     sharing; ``threads_max``, ``tcols`` (default: K1's columns per thread
-    for the dtype and half-width) and ``cost`` (default: K1's model) shape
-    the tile; ``caps`` bound a launch's partials (:func:`chunk_terms`);
-    the bands are padded to the first of ``half_widths`` that holds them.
-    On the card, bands above the widest compiled half-width raise."""
+    for the dtype and half-width) and ``cost`` (default: K1's model, or
+    K1r's) shape the tile; ``caps`` bound a launch's partials
+    (:func:`chunk_terms`); the bands are padded to the first of
+    ``half_widths`` that holds them, else the plan is the run-time
+    kernel's (``runtime``), at the bands' own half-width, and ``smem``
+    (default: K1r's, :func:`k1r_smem`) and ``what`` name its block: on the
+    card a half-width no block of it fits raises (:func:`refuse_half_width`;
+    on the CPU such a plan has no tiling)."""
     npts, pads = tuple(int(n) for n in npts), tuple(int(p) for p in pads)
     periodic = tuple(bool(q) for q in periodic)
     d = len(npts)
@@ -405,33 +521,41 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
         if len(term) != d:
             raise ValueError("each term needs one 1D band per dim")
     first = terms[0][0]
-    refuse_half_width(pads, first.device)
     lead = 3 - d
     n3 = (1,) * lead + npts
     pads3 = (0,) * lead + pads
     per3 = (False,) * lead + periodic
     P = _compiled_half_width(pads, half_widths)
+    runtime = P not in half_widths
+    itemsize = arithmetic_itemsize(first.dtype)
+    if smem is None:
+        smem = k1r_smem(itemsize)
+    if runtime:
+        refuse_half_width(pads, first.device, smem, what)
     labels = _lift_labels(band_labels(terms) if labels is None else labels)
     cols = [torch.ones((len(terms), 1), dtype=first.dtype,
                        device=first.device) for _ in range(lead)]
     cols += [torch.stack([term[a][:, pads[a]] for term in terms]).contiguous()
              for a in range(d)]
     chunks = chunk_terms(labels, caps)
-    itemsize = arithmetic_itemsize(first.dtype)
     if tcols is None:
-        tcols = columns_per_thread(itemsize, P)
+        tcols = 1 if runtime else columns_per_thread(itemsize, P)
     if cost is None:
-        cost = k1_step_cost(itemsize, P)
+        cost = (k1r_step_cost if runtime else k1_step_cost)(itemsize, P)
     sms = (torch.cuda.get_device_properties(first.device).multi_processor_count
            if first.device.type == "cuda" else SM_COUNT)
+    tiling = None
+    if not runtime or smem(P, *SMALLEST_BLOCK) <= K2_SMEM:
+        tiling = kron_tiling(n3, P, threads_max, cost, sms, tcols,
+                             narrow=runtime)
     return KronPlan(
         terms=tuple(tuple(term) for term in terms), ndim=d, npts=npts,
         pads=pads, periodic=periodic, n3=n3, per3=per3,
         pads3=pads3, P=P, labels=labels,
         bands=stack_bands(terms, labels, n3, pads3, P), cols=cols,
         chunks=chunks, plans=[sharing_plan(labels, c) for c in chunks],
-        tiling=kron_tiling(n3, P, threads_max, cost, sms, tcols), tcols=tcols,
-        dtype=first.dtype, device=first.device)
+        tiling=tiling, tcols=tcols, dtype=first.dtype, device=first.device,
+        runtime=runtime)
 
 
 def plan_apply(plan: KronPlan, x_int: torch.Tensor,
@@ -495,10 +619,12 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("kron_apply")
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for fn in _KERNELS.values():
+    for fn in (*_KERNELS.values(), *_KERNELS_RT.values()):
         f = getattr(lib, fn)
         f.argtypes = [ptr] * 13 + [f64, f64, i32, ptr, ptr, ptr, ptr]
         f.restype = i32
+    lib.kron_apply_resources.argtypes = [i32, i32, i32, ptr, ptr]
+    lib.kron_apply_resources.restype = i32
     lib.kron_apply_error_string.argtypes = [i32]
     lib.kron_apply_error_string.restype = ctypes.c_char_p
     return lib
@@ -628,7 +754,7 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
         ints = _geometry_ints(plan, tiling)
         geo = (ctypes.c_int * len(ints))(*ints)
     lib = _library()
-    fn = getattr(lib, _KERNELS[x_int.dtype])
+    fn = getattr(lib, (_KERNELS_RT if plan.runtime else _KERNELS)[x_int.dtype])
     bands = [t.data_ptr() for t in plan.bands]
     cols = [t.data_ptr() for t in plan.cols]
     # a bf16 operator's sum between launches stays f32 (``out_hi``)
@@ -656,6 +782,8 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
                 f"kron_apply kernel launch failed ({run_mode}): "
                 + lib.kron_apply_error_string(err).decode())
         _count.count(kron_mode, x_int.dtype, run_mode)
+        if plan.runtime:
+            _count.count(kron_mode.runtime, x_int.dtype, run_mode)
         if run_mode == "apply":
             kron_apply.launches += 1
         acc = target
@@ -665,6 +793,26 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
 
 
 _count.attach(kron_mode, MODES)
+kron_mode.runtime = SimpleNamespace()   # K1r's launches among them
+_count.attach(kron_mode.runtime, MODES)
+
+
+def k1_resources(plan: KronPlan, mode: str = "cheb") -> dict:
+    """What K1's (or K1r's) launch of ``plan`` in ``mode`` gets on the
+    card: registers and local memory (spilled registers) a thread, shared
+    memory a block, blocks an SM holds at once, threads a block."""
+    geo = _c_args(plan)[0]
+    out = (ctypes.c_int * 4)()
+    lib = _library()
+    with torch.cuda.device(plan.device):
+        err = lib.kron_apply_resources(
+            list(_KERNELS).index(plan.dtype), MODES.index(mode),
+            int(plan.runtime), geo, out)
+    if err != 0:
+        raise RuntimeError("k1_resources: "
+                           + lib.kron_apply_error_string(err).decode())
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
+            "blocks_per_sm": out[3], "threads": geo[10]}
 
 
 def kron_apply(terms: Sequence[Sequence[torch.Tensor]], x_int: torch.Tensor,

@@ -12,13 +12,15 @@ two_prod takes its pair from the exact f64 product: the FMA's pair, which
 the kernels compute.
 
 K5: for CUDA tensors :func:`residual_kron_df` launches the hand-written
-kernel of ``csrc/kron_apply_dw.cu`` (or raises); for CPU tensors it runs
-:func:`residual_kron_df_plain`.  The kernel performs the plain version's
-operations in its order with adds and multiplies the compiler may not fuse,
-so its words equal the plain version's.  An operator with more partials or
+kernel of ``csrc/kron_apply_dw.cu`` (or raises): K5 at the compiled
+half-widths 1-8, K5r (the half-width taken at run time) above them; for
+CPU tensors it runs :func:`residual_kron_df_plain`.  The kernel performs
+the plain version's operations in its order with adds and multiplies the
+compiler may not fuse, so its words equal the plain version's.  An operator with more partials or
 terms than one launch holds (``CAPS_DW``) takes several launches, chained
 through the double-word sum of the terms done so far.
-``residual_kron_df.launches`` counts kernel launches.
+``residual_kron_df.launches`` counts kernel launches,
+``residual_kron_df.runtime.launches`` those of K5r among them.
 
 K6: the dots and norms (:func:`dw_dot_stack`, :func:`dw_dot`,
 :func:`dw_norm2`, :func:`dw_sum_tree`) launch ``csrc/dw_reduce.cu`` for CUDA
@@ -39,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from types import SimpleNamespace
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -46,16 +49,18 @@ import torch.nn.functional as F
 
 from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.ops import _build
-from poms_tpu_torch.ops.kron import (KronPlan, _compiled_half_width,
+from poms_tpu_torch.ops.kron import (STAGES, KronPlan, _compiled_half_width,
                                      _lift_labels, band_labels,
                                      build_kron_plan, chunk_terms,
-                                     sharing_plan, stack_bands)
+                                     refuse_half_width, sharing_plan,
+                                     stack_bands)
 from poms_tpu_torch.ops.stencil import K2_SMEM
 
 __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_mul", "dw_mul_fd", "dw_neg", "residual_kron_df",
            "residual_kron_df_plain", "build_kron_df_plan",
-           "COMPILED_P_DW", "k5_step_cost", "k5_smem_bytes", "k5_resources",
+           "COMPILED_P_DW", "k5_step_cost", "k5_smem_bytes", "k5r_smem",
+           "k5_resources",
            "eft_on_card",
            "dw_norm2", "dw_dot", "dw_sum_tree", "dw_dot_stack",
            "dw_norm2_plain", "dw_dot_plain", "dw_sum_tree_plain",
@@ -65,12 +70,12 @@ __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
 
 # mirrored in csrc/kron_apply_dw.cu (kCU, kCV, kCW, kCT, kMaxThreads,
 # kRegisterP, kron::kStages and the instantiated half-widths): what one
-# launch holds, and the widest half-width of the register ring
+# launch holds, and the widest half-width of the register ring; wider bands
+# than the compiled ones run on K5r at their own half-width
 CAPS_DW = {"u": 2, "v": 3, "w": 4, "t": 4}
 COMPILED_P_DW = (1, 2, 3, 4, 5, 6, 7, 8)
 MAX_THREADS_DW = 256
 REGISTER_P_DW = 5
-_STAGES = 4
 
 
 def split_f64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -197,26 +202,34 @@ def residual_kron_df_plain(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh,
 
 
 def k5_smem_bytes(P: int, histories: int, T1: int, T2: int,
-                  chunk: int) -> int:
+                  chunk: int, runtime: bool = False) -> int:
     """Shared memory of a K5 block (``kron_apply_dw.cu::smem_bytes``, and
-    ``smem_bytes_wide`` above ``REGISTER_P_DW``); ``histories``: the
-    instantiation's (3 or 4)."""
+    ``smem_bytes_wide`` above ``REGISTER_P_DW`` and for K5r, ``runtime``);
+    ``histories``: the instantiation's (3 or 4)."""
     WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
-    words = (_STAGES * WR * WC + CAPS_DW["u"] * WR * T2
+    words = (STAGES * WR * WC + CAPS_DW["u"] * WR * T2
              + histories * chunk * W)
-    if P > REGISTER_P_DW:
+    if runtime or P > REGISTER_P_DW:
         words += (CAPS_DW["u"] * W * T2 + CAPS_DW["v"] * W * T1
                   + histories * W * T1 * T2)
     return 8 * WR * WC + 2 * 4 * words
 
 
-def k5_step_cost(P: int, histories: int = 3):
+def k5r_smem(histories: int):
+    """K5r's shared memory, ``smem(P, T1, T2, chunk)`` in bytes, for the
+    instantiation of ``histories`` (3 or 4): the wide layout."""
+    return lambda P, T1, T2, chunk: k5_smem_bytes(P, histories, T1, T2,
+                                                  chunk, runtime=True)
+
+
+def k5_step_cost(P: int, histories: int = 3, runtime: bool = False):
     """K5's cost model for :func:`poms_tpu_torch.ops.kron.kron_tiling`: one
     block an SM, a plane step costing its warps' contractions (the axis-2
     pass over T1 + 2P rows, the two others over T1) and the window load;
-    infinite for a block whose shared memory exceeds the card's limit."""
+    infinite for a block whose shared memory exceeds the card's limit
+    (``runtime``: K5r's layout)."""
     def cost(T1, T2, threads, chunk, blocks, sms):
-        if k5_smem_bytes(P, histories, T1, T2, chunk) > K2_SMEM:
+        if k5_smem_bytes(P, histories, T1, T2, chunk, runtime) > K2_SMEM:
             return math.inf
         rows = T1 + 2 * P
         step = (threads / 32 * (3.0 * rows / T1 + 5.0)
@@ -227,22 +240,27 @@ def k5_step_cost(P: int, histories: int = 3):
 
 
 def build_kron_df_plan(terms_df, npts, pads, periodic=None,
-                       labels=None) -> KronPlan:
+                       labels=None, half_widths=COMPILED_P_DW) -> KronPlan:
     """K5's launch data, once per operator: K1's plan of the hi bands (the
     lifted geometry, the sharing plan cut into runs of terms that one K5
     launch holds) with the lo bands stacked beside them and a tiling for
-    K5's block size and shared memory."""
+    K5's block size and shared memory.  Bands wider than every one of
+    ``half_widths`` (default: the compiled ones) take K5r at their own
+    half-width; on the card a half-width no block of K5r fits raises."""
     periodic = (False,) * len(npts) if periodic is None else periodic
     hi = [[B[0] for B in term] for term in terms_df]
     lo = [[B[1] for B in term] for term in terms_df]
     lab3 = _lift_labels(band_labels(hi) if labels is None else labels)
-    histories = max(len(sharing_plan(lab3, run)["w_src"])
-                    for run in chunk_terms(lab3, CAPS_DW))
-    P = _compiled_half_width(pads, COMPILED_P_DW)
+    histories = 3 if max(len(sharing_plan(lab3, run)["w_src"])
+                         for run in chunk_terms(lab3, CAPS_DW)) <= 3 else 4
+    P = _compiled_half_width(pads, half_widths)
+    runtime = P not in half_widths
     plan = build_kron_plan(hi, npts, pads, periodic, labels=labels,
                            threads_max=MAX_THREADS_DW, tcols=1,
-                           cost=k5_step_cost(P, 3 if histories <= 3 else 4),
-                           caps=CAPS_DW, half_widths=COMPILED_P_DW)
+                           cost=k5_step_cost(P, histories, runtime),
+                           caps=CAPS_DW, half_widths=half_widths,
+                           smem=k5r_smem(histories),
+                           what=f"K5r ({histories} histories)")
     plan.bands_lo = stack_bands(lo, plan.labels, plan.n3, plan.pads3, plan.P,
                                 centre=0.0)
     return plan
@@ -253,9 +271,10 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("kron_apply_dw")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.kron_residual_dw.argtypes = [ptr] * 16 + [i32, i32, ptr]
-    lib.kron_residual_dw.restype = i32
-    lib.kron_residual_dw_resources.argtypes = [ptr] * 3
+    for fn in ("kron_residual_dw", "kron_residual_dw_rt"):
+        getattr(lib, fn).argtypes = [ptr] * 16 + [i32, i32, ptr]
+        getattr(lib, fn).restype = i32
+    lib.kron_residual_dw_resources.argtypes = [ptr] * 3 + [i32]
     lib.kron_residual_dw_resources.restype = i32
     lib.kron_dw_eft_test.argtypes = [ptr] * 5 + [i32, ptr]
     lib.kron_dw_eft_test.restype = i32
@@ -346,33 +365,37 @@ def _launch_df(plan: KronPlan, bh, bl, xh, xl, negate, stream):
     geo, *runs = _df_c_args(plan)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     bands = [ptr(t) for pair in zip(plan.bands, plan.bands_lo) for t in pair]
+    lib = _library()
+    fn = lib.kron_residual_dw_rt if plan.runtime else lib.kron_residual_dw
     acc = (None, None)
     for k, run in enumerate(runs):
         # every run but the last writes the sum of the terms so far
         last = k == len(runs) - 1
         rh, rl = torch.empty_like(xh), torch.empty_like(xh)
-        err = _library().kron_residual_dw(
-            ptr(xh), ptr(xl), ptr(bh) if last else None,
-            ptr(bl) if last else None, *map(ptr, acc), *bands, ptr(rh),
-            ptr(rl), geo, run, int(bool(negate)), int(last), stream)
+        err = fn(ptr(xh), ptr(xl), ptr(bh) if last else None,
+                 ptr(bl) if last else None, *map(ptr, acc), *bands, ptr(rh),
+                 ptr(rl), geo, run, int(bool(negate)), int(last), stream)
         _raise_if(err, "residual_kron_df")
         residual_kron_df.launches += 1
+        if plan.runtime:
+            residual_kron_df.runtime.launches += 1
         acc = (rh, rl)
     return rh, rl
 
 
 residual_kron_df.launches = 0
+residual_kron_df.runtime = SimpleNamespace(launches=0)   # K5r's among them
 
 
 def k5_resources(plan: KronPlan) -> dict:
-    """What K5's (first) launch of ``plan`` gets on the card: registers and
-    local memory (spilled registers) a thread, shared memory a block, blocks
-    an SM holds at once, threads a block."""
+    """What K5's (or K5r's) first launch of ``plan`` gets on the card:
+    registers and local memory (spilled registers) a thread, shared memory
+    a block, blocks an SM holds at once, threads a block."""
     geo, ints = _df_c_args(plan)[:2]
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(plan.device):
-        _raise_if(_library().kron_residual_dw_resources(geo, ints, out),
-                  "k5_resources")
+        _raise_if(_library().kron_residual_dw_resources(
+            geo, ints, out, int(plan.runtime)), "k5_resources")
     return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
             "blocks_per_sm": out[3], "threads": geo[10]}
 

@@ -90,12 +90,13 @@ def test_k1_kernel_refuses_what_it_lacks(dev):
 
 
 def test_k1_refused_launch_raises(dev):
-    """p = 20: no kernel is compiled for that half-width, the launcher
-    refuses, the wrapper raises, and the next launch runs."""
-    terms, x = _operands((4, 5, 6), 20, torch.float32, dev)
+    """p = 38: not even K1r's smallest block fits a block's shared memory
+    in f32, the plan is refused, the wrapper raises, and the next launch
+    runs."""
+    terms, x = _operands((4, 5, 6), 38, torch.float32, dev)
     before = dict(kron_mode.launches)
-    with pytest.raises(RuntimeError):
-        kron_apply(terms, x, (4, 5, 6), (20,) * 3, (False,) * 3)
+    with pytest.raises(RuntimeError, match="bytes of shared memory"):
+        kron_apply(terms, x, (4, 5, 6), (38,) * 3, (False,) * 3)
     assert kron_mode.launches == before
     terms, x = _operands((6, 7, 8), 1, torch.float32, dev)
     y = kron_apply(terms, x, (6, 7, 8), (1,) * 3, (False,) * 3)
@@ -227,7 +228,8 @@ def test_k5_spills_nothing(dev, four):
 def test_k5_refuses_what_it_lacks(dev):
     """Five sharing-free terms exceed one launch (2 u partials): they run in
     three launches chained through the sum so far, bit-equal to the single
-    pass; a float64 field and a degree-9 operator are refused."""
+    pass; a float64 field and a half-width past K5r's widest (36) are
+    refused."""
     rng = np.random.default_rng(0)
     free = [[twofloat.split_f64(torch.as_tensor(
         rng.standard_normal((9, 3)), device=dev)) for _ in range(2)]
@@ -246,11 +248,11 @@ def test_k5_refuses_what_it_lacks(dev):
         twofloat.residual_kron_df(free[:1], None, None, xh.double(), None,
                                   (1, 1))
     wide = [[twofloat.split_f64(torch.as_tensor(
-        rng.standard_normal((20, 19)), device=dev)) for _ in range(2)]]
-    with pytest.raises(RuntimeError, match=r"\(1, 2, 3, 5, 8\)"):
+        rng.standard_normal((20, 75)), device=dev)) for _ in range(2)]]
+    with pytest.raises(RuntimeError, match="bytes of shared memory"):
         twofloat.residual_kron_df(wide, None, None,
                                   torch.zeros((20, 20), device=dev), None,
-                                  (9, 9))
+                                  (37, 37))
 
 
 # K5's new half-widths 6-8 (the shared-memory design) and 4: Poisson-shaped
@@ -1032,8 +1034,9 @@ def test_k1_bf16_modes_match_plain(dev, npts, pads, periodic, free, mode):
 
 
 def test_k1_bf16_stops_at_half_width_3(dev):
-    """bf16 has every compiled half-width (1, 2, 3, 5, 8: degrees 1-8);
-    above 8 the plan is refused on the card, naming the half-widths."""
+    """bf16 has every compiled half-width (1, 2, 3, 5, 8: degrees 1-8) and
+    K1r above them; past K1r's widest (37) the plan is refused on the card,
+    naming the bytes."""
     for p in (5, 8):
         terms, (x, _, _) = _mode_operands((16, 17, 18), (p,) * 3,
                                           torch.float32, dev, 0)
@@ -1041,11 +1044,11 @@ def test_k1_bf16_stops_at_half_width_3(dev):
         y = kron_apply(terms, x.to(BF16), (16, 17, 18), (p,) * 3,
                        (False,) * 3)
         assert y.dtype == BF16 and bool(torch.isfinite(y.float()).all())
-    terms, (x, _, _) = _mode_operands((20, 20, 20), (9, 9, 9), torch.float32,
+    terms, (x, _, _) = _mode_operands((4, 5, 6), (38, 38, 38), torch.float32,
                                       dev, 0)
     terms = [[B.to(BF16) for B in t] for t in terms]
-    with pytest.raises(RuntimeError, match=r"half-widths \(1, 2, 3, 5, 8\)"):
-        kron_apply(terms, x.to(BF16), (20,) * 3, (9,) * 3, (False,) * 3)
+    with pytest.raises(RuntimeError, match="bytes of shared memory"):
+        kron_apply(terms, x.to(BF16), (4, 5, 6), (38,) * 3, (False,) * 3)
 
 
 @pytest.mark.parametrize("kind,n_el,d", K7_CASES)
@@ -1286,3 +1289,274 @@ def test_k2_band_view_off_a_granule(dev, dtype):
     assert view.data_ptr() % 16 != 0 and view.is_contiguous()
     got = stencil_apply("spmv", view, x_pad, npts, pads)
     assert torch.equal(got, stencil_apply("spmv", band, x_pad, npts, pads))
+
+
+# -- K1r and K5r: the half-width taken at run time (spline degrees above 8) --
+
+# npts, pads, periodic, sharing-free terms (0: Poisson-shaped); a periodic
+# axis holds its band (n > 2p)
+K1R_SHAPES = [((20, 22, 40), (9, 9, 9), (False,) * 3, 0),
+              ((23, 26, 31), (9, 9, 9), (True,) * 3, 0),
+              ((27, 30, 52), (12, 12, 12), (False,) * 3, 0),
+              ((26, 28, 33), (12, 12, 12), (True, False, True), 0),
+              ((40, 61), (12, 12), (False, True), 0),
+              ((300,), (9,), (True,), 0),
+              ((20, 21, 30), (9, 9, 9), (False,) * 3, 4)]
+
+
+def _k1_case(npts, pads, dtype, dev, free, mode):
+    """Operands of one K1 check in ``dtype`` (bf16: cast from f32, one cast
+    a distinct band) and the kwargs of ``mode`` (``cheb0``: the first
+    Chebyshev step)."""
+    work = torch.float32 if dtype == BF16 else dtype
+    terms, (x, b, d) = _mode_operands(npts, pads, work, dev, free,
+                                      seed=sum(npts) + sum(pads))
+    cast = {}
+    terms = [[cast.setdefault(id(B), B.to(dtype)) for B in t] for t in terms]
+    x, b, d = x.to(dtype), b.to(dtype), d.to(dtype)
+    real = mode.replace("0", "")
+    kw = {}
+    if real in ("residual", "cheb"):
+        kw["b"] = b
+    if real == "cheb":
+        kw.update(c1=0.3, c2=0.7, d=None if mode == "cheb0" else d)
+    return terms, x, real, kw
+
+
+def _on_card(real, plan, x, kw):
+    """One K1 pass (``d`` cloned: the kernel updates it in place)."""
+    kw = dict(kw)
+    if kw.get("d") is not None:
+        kw["d"] = kw["d"].clone()
+    got = kron_mode(real, plan, x, **kw)
+    torch.cuda.synchronize()
+    return got if real == "cheb" else (got,)
+
+
+@pytest.mark.parametrize("npts,pads,periodic,free", K1R_SHAPES)
+@pytest.mark.parametrize("mode", K1_MODES + ("cheb0",))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16],
+                         ids=["f32", "f64", "bf16"])
+def test_k1r_modes_match_plain(dev, npts, pads, periodic, free, mode, dtype):
+    """K1r in every mode and dtype at half-widths 9 and 12, periodic or
+    not, 1D-3D and a two-launch operator: within the compiled K1's
+    tolerances of the plain version (max|Δ|/max|y| ≤ 1e-5 in f32, 1e-12 in
+    f64; bf16 one unit in the last place plus the f32 sums' error)."""
+    terms, x, real, kw = _k1_case(npts, pads, dtype, dev, free, mode)
+    plan = build_kron_plan(terms, npts, pads, periodic)
+    assert plan.runtime and plan.P == max(pads) and plan.tcols == 1
+    cpu_plan = build_kron_plan([[B.cpu() for B in t] for t in terms], npts,
+                               pads, periodic)
+    want = kron_mode(real, cpu_plan, x.cpu(), **{
+        k: v.cpu() if isinstance(v, torch.Tensor) else v
+        for k, v in kw.items()})
+    before = sum(kron_mode.runtime.launches.values())
+    got = _on_card(real, plan, x, kw)
+    assert sum(kron_mode.runtime.launches.values()) - before \
+        == len(plan.plans)
+    if real != "cheb":
+        want = (want,)
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == BF16:
+            assert _bf16_differing(g, w) <= max(2, g.numel() // 50)
+        else:
+            tol = 1e-5 if dtype == torch.float32 else 1e-12
+            assert float((g - w).abs().max() / w.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("npts,pads,periodic,free", [
+    ((33, 35, 70), (3, 3, 3), (False,) * 3, 0),
+    ((20, 22, 41), (8, 8, 8), (True,) * 3, 0),
+    ((18, 19, 37), (8, 8, 8), (False,) * 3, 4),
+    ((40, 300), (3, 3), (False, True), 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16],
+                         ids=["f32", "f64", "bf16"])
+def test_k1r_equals_the_compiled_kernel(dev, npts, pads, periodic, free,
+                                        dtype):
+    """At half-widths 3 and 8 K1r (a plan with no compiled half-width)
+    gives the compiled kernel's values in every mode: the same operations
+    in the same order."""
+    for mode in K1_MODES + ("cheb0",):
+        terms, x, real, kw = _k1_case(npts, pads, dtype, dev, free, mode)
+        compiled = build_kron_plan(terms, npts, pads, periodic)
+        runtime = build_kron_plan(terms, npts, pads, periodic,
+                                  half_widths=())
+        assert not compiled.runtime and runtime.runtime
+        assert compiled.P == runtime.P == max(pads)
+        for g, w in zip(_on_card(real, runtime, x, kw),
+                        _on_card(real, compiled, x, kw)):
+            assert torch.equal(g, w), (mode, float((g - w).abs().max()))
+
+
+def _k5_terms(npts, pads, dev, four, free=0):
+    """Double-word terms: Poisson-shaped (3 histories), the periodic
+    shifted shape (4) or ``free`` sharing-free terms."""
+    if four:
+        return _periodic_df_terms(npts, pads, dev, seed=sum(npts))
+    terms, _ = _mode_operands(npts, pads, torch.float64, dev, free,
+                              seed=sum(npts))
+    split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
+    return [[split[id(B)] for B in t] for t in terms]
+
+
+K5R_SHAPES = [((20, 22, 40), (9, 9, 9), (False,) * 3, False),
+              ((23, 26, 31), (9, 9, 9), (True,) * 3, True),
+              ((27, 28, 52), (12, 12, 12), (False,) * 3, False),
+              ((26, 28, 33), (12, 12, 12), (True, False, True), True),
+              ((36, 37, 40), (16, 16, 16), (False,) * 3, False),
+              ((34, 35, 40), (16, 16, 16), (True,) * 3, True),
+              ((40, 61), (12, 12), (False, True), False)]
+
+
+@pytest.mark.parametrize("npts,pads,periodic,four", K5R_SHAPES)
+@pytest.mark.parametrize("negate", [False, True])
+def test_k5r_is_bit_equal_to_plain(dev, npts, pads, periodic, four, negate):
+    """K5r at half-widths 9, 12 and 16 with 3 and 4 histories: the words
+    equal the plain version's, b and x_l given and as A.p (the zero
+    flags), negated or not; registers within the limit."""
+    tdf = _k5_terms(npts, pads, dev, four)
+    rng = np.random.default_rng(len(npts))
+    (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
+        rng.standard_normal(npts), device=dev)) for _ in range(2))
+    zero = torch.zeros_like(xh)
+    plan = twofloat.build_kron_df_plan(tdf, npts, pads, periodic)
+    assert plan.runtime and plan.P == max(pads)
+    for given, explicit in (((bh, bl, xh, xl), (bh, bl, xh, xl)),
+                            ((None, None, xh, None), (zero, zero, xh, zero))):
+        before = twofloat.residual_kron_df.runtime.launches
+        got = twofloat.residual_kron_df(tdf, *given, pads, periodic=periodic,
+                                        plan=plan, negate=negate)
+        torch.cuda.synchronize()
+        assert twofloat.residual_kron_df.runtime.launches == before + 1
+        want = twofloat.residual_kron_df_plain(tdf, *explicit, pads, None,
+                                               periodic, negate)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    res = twofloat.k5_resources(plan)
+    assert res["registers"] <= 255 and res["blocks_per_sm"] >= 1, res
+
+
+@pytest.mark.parametrize("p", [9, 12, 16])
+def test_k5r_chained_launches_are_bit_equal_to_the_single_pass(dev, p):
+    """A 6-term operator sharing nothing (three K5r launches a call, each
+    adding onto the sum of the runs before it): the single pass's words,
+    with b given and as A.p."""
+    npts = (p + 12, p + 13, 2 * p + 20)
+    tdf = _k5_terms(npts, (p,) * 3, dev, False, free=6)
+    rng = np.random.default_rng(p)
+    (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
+        rng.standard_normal(npts), device=dev)) for _ in range(2))
+    zero = torch.zeros_like(xh)
+    plan = twofloat.build_kron_df_plan(tdf, npts, (p,) * 3)
+    assert plan.runtime and len(plan.chunks) == 3
+    for given, explicit, negate in (((bh, bl, xh, xl), (bh, bl, xh, xl),
+                                     False),
+                                    ((None, None, xh, None),
+                                     (zero, zero, xh, zero), True)):
+        before = twofloat.residual_kron_df.runtime.launches
+        got = twofloat.residual_kron_df(tdf, *given, (p,) * 3, plan=plan,
+                                        negate=negate)
+        torch.cuda.synchronize()
+        assert twofloat.residual_kron_df.runtime.launches - before == 3
+        want = twofloat.residual_kron_df_plain(tdf, *explicit, (p,) * 3,
+                                               negate=negate)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("npts,p,four", [((33, 35, 70), 3, False),
+                                         ((20, 22, 41), 8, False),
+                                         ((19, 21, 38), 8, True)])
+def test_k5r_equals_the_compiled_kernel(dev, npts, p, four):
+    """At half-widths 3 and 8 K5r (a plan with no compiled half-width)
+    gives the compiled kernel's words."""
+    pads = (p,) * 3
+    tdf = _k5_terms(npts, pads, dev, four)
+    rng = np.random.default_rng(p)
+    (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
+        rng.standard_normal(npts), device=dev)) for _ in range(2))
+    runtime = twofloat.build_kron_df_plan(tdf, npts, pads, half_widths=())
+    compiled = twofloat.build_kron_df_plan(tdf, npts, pads)
+    assert runtime.runtime and not compiled.runtime
+    for plan_args in ((bh, bl, xh, xl), (None, None, xh, None)):
+        got = twofloat.residual_kron_df(tdf, *plan_args, pads, plan=runtime)
+        want = twofloat.residual_kron_df(tdf, *plan_args, pads, plan=compiled)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_the_widest_half_widths_run_and_the_next_is_refused(dev):
+    """At the widest half-width each run-time kernel takes (K1r 37 in f32
+    and bf16, 27 in f64; K5r 36) a small operator runs on the card against
+    its plain version; one past it the plan is refused, naming the bytes."""
+    from poms_tpu_torch.ops import kron as k1
+    npts = (5, 6, 9)
+    for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
+        P = k1.widest_half_width(k1.k1r_smem(itemsize))
+        assert P == {4: 37, 8: 27}[itemsize]
+        terms, x, real, kw = _k1_case(npts, (P,) * 3, dtype, dev, 0, "cheb")
+        plan = build_kron_plan(terms, npts, (P,) * 3, (False,) * 3)
+        want = kron_mode_plain(real, terms, x, npts, (P,) * 3, (False,) * 3,
+                               diag=plan.diagonal(), **kw)
+        for g, w in zip(_on_card(real, plan, x, kw), want):
+            tol = 1e-5 if dtype == torch.float32 else 1e-12
+            assert float((g - w).abs().max() / w.abs().max()) <= tol
+        terms, _, _, _ = _k1_case(npts, (P + 1,) * 3, dtype, dev, 0, "apply")
+        with pytest.raises(RuntimeError, match="bytes of shared memory"):
+            build_kron_plan(terms, npts, (P + 1,) * 3, (False,) * 3)
+    for four in (False, True):
+        P = k1.widest_half_width(twofloat.k5r_smem(4 if four else 3))
+        assert P == 36
+        tdf = _k5_terms(npts, (P,) * 3, dev, four)
+        (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
+            np.random.default_rng(P).standard_normal(npts), device=dev))
+            for _ in range(2))
+        got = twofloat.residual_kron_df(tdf, bh, bl, xh, xl, (P,) * 3)
+        torch.cuda.synchronize()
+        want = twofloat.residual_kron_df_plain(tdf, bh, bl, xh, xl, (P,) * 3)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        wide = _k5_terms(npts, (P + 1,) * 3, dev, four)
+        with pytest.raises(RuntimeError, match="bytes of shared memory"):
+            twofloat.build_kron_df_plan(wide, npts, (P + 1,) * 3)
+
+
+@pytest.mark.parametrize("dim,n_el,degree", [(3, 16, 9), (2, 32, 12)])
+@pytest.mark.parametrize("mixed", [True, False], ids=["dw", "f64"])
+def test_high_degree_pcg_on_card_matches_cpu(dev, dim, n_el, degree, mixed):
+    """The PCG at degrees 9 and 12 on the card against the CPU port, with
+    the same λs.  dw (K1r f32 in the cycle, K5r for A.p, K7 between the
+    levels): both converge to 1e-8, their counts within a tenth of each
+    other; the entries are not compared, since f32 cycles at these degrees
+    scatter by 1e-2 to 7e-1 between two orders of summation (the CPU port
+    against the JAX package, tests/test_torch_wide_degrees.py).  f64 cycles
+    (K1r f64): the first 8 entries of the histories within 1e-8."""
+    cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=16.0))
+    runs, lams = {}, None
+    for d in (dev, torch.device("cpu")):
+        pcg = MGPreconditionedCG(
+            poisson_problem(dim, n_el, degree=degree, device=d,
+                            operator="kron"), 2, cfg, mixed=mixed,
+            operator="kron", precision="dw" if mixed else "f64")
+        assert all(lev.A.plan.runtime and lev.A.plan.P == degree
+                   for lev in pcg.levels)
+        pcg.lams = lams = lams or pcg.lams
+        before = dict(counters.snapshot())
+        runs[d.type] = pcg.solve(tol=1e-8, maxiter=100)
+        if d.type == "cuda":
+            grown = counters.diff(counters.snapshot(), before)
+            assert grown.get("kron_mode_rt.cheb", 0) > 0, grown
+            if mixed:
+                assert pcg._plan_df.runtime and pcg._plan_df.P == degree
+                assert grown.get("residual_kron_df_rt", 0) > 0, grown
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    if mixed:
+        assert gpu.converged and cpu.converged
+        assert abs(gpu.iterations - cpu.iterations) <= cpu.iterations // 10
+    else:
+        for a, b in zip(gpu.residuals[:8], cpu.residuals[:8]):
+            assert abs(a - b) <= 1e-8 * b, (a, b)

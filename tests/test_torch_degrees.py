@@ -432,16 +432,36 @@ def test_periodic_degree_8_stalls_as_in_jax():
 # -- the limits ---------------------------------------------------------------------
 
 def test_degree_9_is_refused_on_the_card_and_runs_plain_on_the_cpu():
-    """Above the widest compiled half-width a plan on a CUDA device raises,
-    naming the half-widths and the degree; the CPU's plain versions take
-    any degree."""
-    with pytest.raises(RuntimeError) as err:
-        k1.refuse_half_width((9, 9, 9), torch.device("cuda"))
-    msg = str(err.value)
-    assert "(1, 2, 3, 5, 8)" in msg and "degree 9" in msg
-    k1.refuse_half_width((8, 8, 8), torch.device("cuda"))   # no refusal
+    """Degree 9 is no longer refused on the card: its plans are the
+    run-time kernels' (K1r, K5r) at half-width 9.  The refusal sits at the
+    first half-width whose smallest block of the run-time kernel takes more
+    shared memory than a block may have (K1r 38 in f32 and bf16, 28 in
+    f64; K5r 37 with 3 or 4 histories) and names the bytes; the CPU's plain
+    versions take any degree, past that one too (a plan with no tiling)."""
+    cuda = torch.device("cuda")
+    for smem, what, widest in ((k1.k1r_smem(4), "K1r", 37),
+                               (k1.k1r_smem(8), "K1r", 27),
+                               (tf.k5r_smem(3), "K5r", 36),
+                               (tf.k5r_smem(4), "K5r", 36)):
+        k1.refuse_half_width((9, 9, 9), cuda, smem, what)   # no refusal
+        assert k1.widest_half_width(smem) == widest
+        k1.refuse_half_width((widest,) * 3, cuda, smem, what)
+        with pytest.raises(RuntimeError) as err:
+            k1.refuse_half_width((widest + 1,) * 3, cuda, smem, what)
+        msg = str(err.value)
+        need = smem(widest + 1, *k1.SMALLEST_BLOCK)
+        assert need > K2_SMEM
+        assert f"{need} bytes" in msg and str(K2_SMEM) in msg, msg
+        assert f"degree {widest + 1}" in msg and what in msg, msg
+        k1.refuse_half_width((widest + 1,) * 3, torch.device("cpu"), smem,
+                             what)
     pp = poisson_problem(2, 12, degree=9, device="cpu", operator="kron")
-    assert pp.A.plan.P == 9
+    assert pp.A.plan.P == 9 and pp.A.plan.runtime
+    r = pp.A.residual(StencilVector.from_interior(
+        pp.space, torch.zeros(pp.space.npts, dtype=torch.float64)), pp.b)
+    assert torch.equal(r, pp.b.interior)
+    pp = poisson_problem(1, 6, degree=28, device="cpu", operator="kron")
+    assert pp.A.plan.P == 28 and pp.A.plan.tiling is None
     r = pp.A.residual(StencilVector.from_interior(
         pp.space, torch.zeros(pp.space.npts, dtype=torch.float64)), pp.b)
     assert torch.equal(r, pp.b.interior)
