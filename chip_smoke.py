@@ -190,9 +190,9 @@ non-zero:
              at degrees 9-12) through the headline
              example (pcg and dc, f32 cycles) and the dwrr PCG: each converges
              to 1e-10 with a true f64 residual <= 5e-10; every plan at the
-             compiled half-width of its
-             degree (K1: 1, 2, 3, 5, 5, 8, 8, 8; K5: the degree) and K5, K1 and
-             K7 launched; on each pcg run's own operands K5 (the residual and
+             degree's own half-width (the compiled K1 and K5 at 1-3, K1r and
+             K5r from 4 on: ops/kron.py::COMPILED_P) and K5, K1 and K7
+             launched; on each pcg run's own operands K5 (the residual and
              A.p) bit-equal to plain, K1 in every mode on the first two cycle
              levels (1e-5 of max|y|), K7 between them (bit-equal), K5's
              resources and the device times of K5's A.p and K1's cheb pass.
@@ -207,11 +207,13 @@ non-zero:
              K3 in every mode at degrees 5 to 8 (33^3, rows K2 cuts into
              shorter runs, K3's smaller tiles, 513^2).
 23. wide degrees — spline degrees above 8 on the run-time kernels K1r and
-             K5r: the headline at 128^3 at degrees 9, 10 and 12 (pcg and dc
-             through the headline example, and the dwrr PCG, up to 400
-             iterations): pcg and dc at 9 and 10 and dwrr at 9 converge to
-             1e-10 with a true f64 residual <= 5e-10, dwrr at 10 and all three
-             at 12 are logged; every plan at the degree's own half-width, K1r
+             K5r, each three one-axis passes (A on axis 2, B on axis 1, C
+             on axis 0) through its plan's scratch: the headline at 128^3
+             at degrees 9, 10 and 12 (pcg and dc through the headline
+             example, and the dwrr PCG, up to 400 iterations): pcg and dc
+             at 9 and 10 and dwrr at 9 converge to 1e-10 with a true f64
+             residual <= 5e-10, dwrr at 10 and all three at 12 are logged;
+             every plan at the degree's own half-width, every pass of K1r
              and K5r launched; on each pcg run's own operands phase 22's
              checks (K5r bit-equal, K1r in every mode on levels 0-1, K7, K6r,
              K6u).  K1r in every mode (1e-5 of max|y|) and K5r (bit-equal)
@@ -219,9 +221,12 @@ non-zero:
              timed beside their bounds, the plain versions and (K1r's apply)
              the dense per-axis products; at P = 3 and 8 against the compiled
              kernels (equal values, bit-equal words) and K1r at 4, 6 and 7
-             beside compiled K1 at 5 and 8; each kernel's widest half-width
-             (K1r 37 in f32, 27 in f64; K5r 36) on a 5 x 6 x 9 grid, and one
-             past it refused with the bytes.
+             beside compiled K1 at 5 and 8; at P = 9 each pass alone against
+             its plain version on the same inputs (K1r within 1e-5 of
+             max|y|, every mode of pass C; K5r word for word), timed beside
+             its own bound; each kernel's widest half-width (K1r 218 in f32,
+             108 in f64; K5r 138) on a 5 x 6 x 9 grid, and one past it
+             refused with the bytes.
 
 Cut against the earlier version to hold the run time: phase 2 times the
 plain K1 versions with 3 repetitions instead of 5.  Every phase logs what it
@@ -241,8 +246,9 @@ solves), and those of phases 19 (the headline runs and the banded
 examples), 20 (the benches), 21 (every rank of the distributed examples),
 22 and 23 (their solves); the rows of phase 22's instantiations (K5 at
 half-widths 4, 6, 7 and 8, K1 in bf16 at 5 and 8) count its solves at those
-half-widths only, and the rows of K1r (one a mode its solves ran) and K5r
-count phase 23's solves; launches made to compare a kernel with its plain
+half-widths only, and the rows of K1r's and K5r's passes (K1r's pass C
+one a mode its solves ran) count phase 23's solves; launches made to
+compare a kernel with its plain
 version are not counted. Each kernel's ``bound_ms`` is the larger of its bytes
 (every input read once, every output written once) over 3.35 TB/s and its
 operations over the f32 rate outside the tensor cores (K5's adds and
@@ -258,7 +264,6 @@ import gc
 import json
 import math
 import os
-import re
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -269,6 +274,7 @@ import torch.distributed as tdist
 
 from poms_tpu_torch.bench.device import device_ms as _device_ms
 from poms_tpu_torch.bench.device import nvidia_smi_name_power
+from poms_tpu_torch.bench.k1_compare import rt_kernels
 from poms_tpu_torch.bench import kernel_probe as kp
 from poms_tpu_torch.bench import one_dist
 from poms_tpu_torch.bench.kernel_probe import (cuda_event_ms, make_band,
@@ -449,12 +455,15 @@ def _k1_fields(npts, dtype, dev, seed):
             for _ in range(3)]
 
 
-def _k1_against_plain(what, terms, fields, npts, pads, periodic):
+def _k1_against_plain(what, terms, fields, npts, pads, periodic,
+                      half_widths=k1.COMPILED_P):
     """Every K1 check of ``_k1_runs`` on one operator, f32 or f64, against
-    the plain version; returns max|d| per label."""
+    the plain version, on the plan ``half_widths`` route it to; returns
+    max|d| per label."""
     x, b, d = fields
     dtype = x.dtype
-    plan = k1.build_kron_plan(terms, npts, pads, periodic)
+    plan = k1.build_kron_plan(terms, npts, pads, periodic,
+                              half_widths=half_widths)
     diag = plan.diagonal()
     rels, errs = {}, {}
     for label, mode, kw in _k1_runs(b, d):
@@ -1777,11 +1786,13 @@ def phase_stencil_bf16(dev, k4_gbps):
     return rows
 
 
-def _k1_bf16_against_plain(what, terms, fields, npts, pads, periodic):
-    """Every K1 check on one bf16 operator against the bf16 plain version;
-    returns max|d| per label."""
+def _k1_bf16_against_plain(what, terms, fields, npts, pads, periodic,
+                           half_widths=k1.COMPILED_P):
+    """Every K1 check on one bf16 operator against the bf16 plain version,
+    on the plan ``half_widths`` route it to; returns max|d| per label."""
     x, b, d = fields
-    plan = k1.build_kron_plan(terms, npts, pads, periodic)
+    plan = k1.build_kron_plan(terms, npts, pads, periodic,
+                              half_widths=half_widths)
     differ, total, errs = 0, 0, {}
     for label, mode, kw in _k1_runs(b, d):
         kw_k = dict(kw)
@@ -2920,7 +2931,6 @@ DEGREES = tuple(range(1, 9))
 # elements a side: phase 22 at 64^3 since phase 23 runs the headline's 128^3
 # (PERF.md section 5 keeps the degrees 1-8 at 128^3)
 DEGREE_N = 64
-DEGREE_NEW_K5 = (4, 6, 7, 8)   # K5's half-widths new with this phase
 # the residual-replacement PCG's iterations grow with the degree (135 at
 # degree 8; the headline example allows pcg and dc its 100)
 DWRR_MAXITER = 300
@@ -2928,8 +2938,8 @@ DEGREE_BF16 = (4, 5, 8)   # bf16 cycles at 64^3 elements, counts logged
 # pcg and dc may take up to this many (the headline example's default is
 # 100; at 64^3, 4 levels, the degree-8 dc takes more)
 DEGREE_MAXITER = 400
-# K1 bf16's new half-widths, timed on the 64^3 runs' finest level cast to
-# bf16 (the degree equals the half-width), where f32 K1 is timed
+# bf16 K1r (K1 in bf16 at the degree's half-width, logged), timed on the
+# 64^3 runs' finest level cast to bf16, where f32 K1r is timed
 DEGREE_BF16_TIMED = (5, 8)
 DEGREE_BF16_N = 64
 DEGREE_BF16_SMALL = 8      # the same solves on the card and the CPU
@@ -2949,8 +2959,9 @@ DEGREE_BANDED = [((33, 33, 33), 5), ((33, 33, 33), 8), ((9, 12, 129), 8),
 
 
 def _half_width(degree, compiled=k1.COMPILED_P):
-    """The half-width K1 (or, given K5's, K5) runs a degree-p operator at:
-    the first compiled one that holds it, else its own (K1r, K5r)."""
+    """The half-width K1 (or, given K5's table, K5) runs a degree-p
+    operator at: the first of ``compiled`` that holds it, else its own
+    (K1r, K5r)."""
     return next((P for P in compiled if P >= degree), degree)
 
 
@@ -2966,6 +2977,26 @@ def _k5_ops(P, npts):
     return (8 * (W * 9 + (W - 1) * 20) + 3 * 20) * math.prod(npts)
 
 
+def _k1_ops(plan, npts):
+    """K1's f32 operations for one apply of ``plan`` on ``npts``: each
+    contraction of each run of terms (its u, v and pre-summed partials) is
+    2P+1 multiply-adds a point, two operations each at the card's 67 T
+    (Poisson: 7 contractions)."""
+    contractions = sum(len(sp["u_lab"]) + len(sp["v_src"]) + len(sp["g_lab"])
+                       for sp in plan.plans)
+    return 2 * contractions * (2 * plan.P + 1) * math.prod(npts)
+
+
+def _k1_bound(plan, mode, npts, itemsize=4):
+    """(bound_ms, bound_by) of K1 or K1r in ``mode``: the larger of its
+    fields moved once (``K1_FIELDS``, ``itemsize`` bytes a value) over the
+    card's bandwidth and its operations (``_k1_ops``) over its f32 rate."""
+    t_bytes = (K1_FIELDS[mode] * math.prod(npts) * itemsize
+               / HBM_BYTES_PER_S * 1e3)
+    t_ops = _k1_ops(plan, npts) / F32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
 def _degree_check(degree, timed):
     """The ``check`` of one headline run: the launches (read first), the
     compiled half-width of every plan; where ``timed``, K5 (the residual
@@ -2973,8 +3004,10 @@ def _degree_check(degree, timed):
     against plain on its finest fields, K1 in every mode on the first two
     cycle levels and K7 between them against plain, K5's resources and the
     device time of K5's A.p and of K1's cheb pass on the finest cycle
-    level; at the degrees of the bf16 rows (5 and 8), that level cast to
-    bf16: K1 bf16 against plain and timed there (``_k1_bf16_times``)."""
+    level; at degrees 5 and 8, that level cast to bf16: K1 in bf16
+    against plain and timed there (``_k1_bf16_times``); the compiled
+    instantiations of the degree that the solve leaves to K1r and K5r
+    (``_compiled_k5``, ``_compiled_k1``, ``_compiled_k1_bf16``)."""
     P, P_dw = _half_width(degree), _half_width(degree, twofloat.COMPILED_P_DW)
 
     def check(prob, mg, x):
@@ -2995,34 +3028,19 @@ def _degree_check(degree, timed):
         x64 = torch.randn(sp.npts, generator=g, dtype=torch.float64,
                           device=dev)
         (xh, xl), (bh, bl) = split_f64(x64), split_f64(prob.b.interior)
-        zero = torch.zeros_like(xh)
-        for flags, explicit, neg in (
-                ((bh, bl, xh, xl), (bh, bl, xh, xl), False),
-                ((None, None, xh, None), (zero, zero, xh, zero), True)):
-            got = twofloat.residual_kron_df(
-                mg._terms_df, *flags, sp.pads, labels=mg._labels,
-                periodic=sp.periodic, plan=mg._plan_df, negate=neg)
-            torch.cuda.synchronize()
-            want = twofloat.residual_kron_df_plain(
-                mg._terms_df, *explicit, sp.pads, mg._labels, sp.periodic,
-                neg)
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"K5 at degree {degree} (P = {P_dw}) is "
-                                     f"not bit-equal to plain at {sp.npts}")
-            del got, want
+        _k5_on_solve(mg, mg._plan_df, (bh, bl, xh, xl),
+                     f"K5 at degree {degree} (P = {P_dw})")
+        if mg._plan_df.runtime and degree in twofloat.INSTANTIATED_P_DW:
+            out["compiled_k5"] = _compiled_k5(degree, mg, (bh, bl, xh, xl))
         out["k5_resources"] = twofloat.k5_resources(mg._plan_df)
         out["k5_ms"] = _device_ms(lambda: twofloat.residual_kron_df(
             mg._terms_df, None, None, xh, None, sp.pads, labels=mg._labels,
-            periodic=sp.periodic, plan=mg._plan_df, negate=True))
+            periodic=sp.periodic, plan=mg._plan_df, negate=True),
+            kernels=rt_kernels(mg._plan_df, "k5r"))
         out["k5_bound_ms"] = _k5_ops(P_dw, sp.npts) / F32_OPS * 1e3
-        if P_dw in DEGREE_NEW_K5:
-            out["k5_plain_ms"] = _device_ms(
-                lambda: twofloat.residual_kron_df_plain(
-                    mg._terms_df, zero, zero, xh, zero, sp.pads, mg._labels,
-                    sp.periodic, True), 2)
         out["k6r_err"] = _k6_against_plain(f"degree {degree}", xh, xl, bh, bl,
                                            g)
-        del x64, xh, xl, bh, bl, zero
+        del x64, xh, xl, bh, bl
         errs = {}
         for l in (0, 1):
             A = low[l].A
@@ -3035,9 +3053,13 @@ def _degree_check(degree, timed):
             if l == 0:
                 xf, b, d = fields
                 out["k1_ms"] = _device_ms(lambda: k1.kron_mode(
-                    "cheb", A.plan, xf, b=b, d=d, c1=0.3, c2=0.7))
-                out["k1_bound_ms"] = (K1_FIELDS["cheb"] * math.prod(lsp.npts)
-                                      * 4 / HBM_BYTES_PER_S * 1e3)
+                    "cheb", A.plan, xf, b=b, d=d, c1=0.3, c2=0.7),
+                    kernels=rt_kernels(A.plan, "k1r"))
+                out["k1_bound_ms"], out["k1_bound_by"] = _k1_bound(
+                    A.plan, "cheb", lsp.npts)
+                if (degree in k1.INSTANTIATED_P
+                        and degree not in k1.COMPILED_P):
+                    out["compiled_k1"] = _compiled_k1(degree, A, fields)
                 if degree in DEGREE_BF16_TIMED:
                     out["bf16"] = _k1_bf16_level(A, degree,
                                                  out["k1_ms"])
@@ -3065,10 +3087,106 @@ def _degree_check(degree, timed):
             f"{res['blocks_per_sm']} blocks an SM; K5 A.p "
             f"{out['k5_ms']:.4f} ms (operation bound "
             f"{out['k5_bound_ms']:.4f} ms), K1 cheb at {lev.A.space.npts} "
-            f"{out['k1_ms']:.4f} ms (byte bound {out['k1_bound_ms']:.4f} ms)")
+            f"{out['k1_ms']:.4f} ms ({out['k1_bound_by']} bound "
+            f"{out['k1_bound_ms']:.4f} ms)")
         return out
 
     return check
+
+
+def _k5_on_solve(mg, plan, pairs, what):
+    """K5 (or K5r) of ``plan`` on a solve's own operator and fields: the
+    residual (b and x_l given) and A.p, bit-equal to plain."""
+    bh, bl, xh, xl = pairs
+    sp = mg.problem.space
+    zero = torch.zeros_like(xh)
+    for flags, explicit, neg in (
+            ((bh, bl, xh, xl), (bh, bl, xh, xl), False),
+            ((None, None, xh, None), (zero, zero, xh, zero), True)):
+        got = twofloat.residual_kron_df(
+            mg._terms_df, *flags, sp.pads, labels=mg._labels,
+            periodic=sp.periodic, plan=plan, negate=neg)
+        torch.cuda.synchronize()
+        want = twofloat.residual_kron_df_plain(
+            mg._terms_df, *explicit, sp.pads, mg._labels, sp.periodic, neg)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{what} is not bit-equal to plain at "
+                                 f"{sp.npts}")
+
+
+def _compiled_k5(degree, mg, pairs):
+    """The compiled K5 at the degree's half-width, which the solves leave
+    to K5r (``twofloat.COMPILED_P_DW``), asked for by ``half_widths`` on
+    the solve's own operator and fields: bit-equal to plain (residual and
+    A.p), its A.p device time beside its operation bound, its
+    resources."""
+    sp = mg.problem.space
+    plan = twofloat.build_kron_df_plan(
+        mg._terms_df, sp.npts, sp.pads, sp.periodic, mg._labels,
+        half_widths=twofloat.INSTANTIATED_P_DW)
+    assert not plan.runtime and plan.P == degree, (degree, plan.P)
+    _k5_on_solve(mg, plan, pairs, f"compiled K5 at P = {plan.P}")
+    xh = pairs[2]
+    res = twofloat.k5_resources(plan)
+    r = {"P": plan.P, "npts": sp.npts,
+         "ms": _device_ms(lambda: twofloat.residual_kron_df(
+             mg._terms_df, None, None, xh, None, sp.pads, labels=mg._labels,
+             periodic=sp.periodic, plan=plan, negate=True)),
+         "bound_ms": _k5_ops(plan.P, sp.npts) / F32_OPS * 1e3,
+         **{k: res[k] for k in ("registers", "local_bytes", "smem_bytes",
+                                "blocks_per_sm")}}
+    log(f"[degrees] compiled K5 at P = {plan.P} (asked for by half_widths) "
+        f"on the degree-{degree} solve's operands at {sp.npts}: bit-equal "
+        f"to plain (residual, A.p); A.p {r['ms']:.4f} ms (operation bound "
+        f"{r['bound_ms']:.4f} ms), {r['registers']} registers, "
+        f"{r['local_bytes']} bytes local, {r['smem_bytes']} bytes shared, "
+        f"{r['blocks_per_sm']} blocks an SM")
+    del plan
+    return r
+
+
+def _compiled_k1(degree, A, fields):
+    """The compiled K1 (f32) at the half-width of the cycle level ``A``,
+    which the solves leave to K1r (``k1.COMPILED_P``), asked for by
+    ``half_widths``: every mode against plain on the level's operator,
+    each output beside K1r's (equal or not, logged), its cheb device time
+    beside its bound, its resources."""
+    sp = A.space
+    x, b, d = fields
+    errs = _k1_against_plain(f"compiled, degree {degree} level 0, ",
+                             A.terms, fields, sp.npts, sp.pads, sp.periodic,
+                             half_widths=k1.INSTANTIATED_P)
+    plan = k1.build_kron_plan(A.terms, sp.npts, sp.pads, sp.periodic,
+                              half_widths=k1.INSTANTIATED_P)
+    assert not plan.runtime and plan.P == A.plan.P, (plan.P, A.plan.P)
+    equal = True
+    for label, mode, kw in _k1_runs(b, d):
+        kw_r, kw_c = dict(kw), dict(kw)
+        if kw.get("d") is not None:
+            kw_r["d"], kw_c["d"] = d.clone(), d.clone()
+        got = k1.kron_mode(mode, A.plan, x, **kw_r)
+        want = k1.kron_mode(mode, plan, x, **kw_c)
+        torch.cuda.synchronize()
+        if mode != "cheb":
+            got, want = (got,), (want,)
+        equal &= all(torch.equal(g_, w) for g_, w in zip(got, want))
+    res = k1.k1_resources(plan, "cheb")
+    r = {"P": plan.P, "npts": sp.npts, "max_abs_err": max(errs.values()),
+         "equal_to_k1r": bool(equal),
+         "ms": _device_ms(lambda: k1.kron_mode("cheb", plan, x, b=b, d=d,
+                                               c1=0.3, c2=0.7)),
+         **{k: res[k] for k in ("registers", "local_bytes", "smem_bytes",
+                                "blocks_per_sm")}}
+    r["bound_ms"], r["bound_by"] = _k1_bound(plan, "cheb", sp.npts)
+    log(f"[degrees] compiled K1 f32 at P = {plan.P} (asked for by "
+        f"half_widths) on the degree-{degree} level 0 at {sp.npts}: every "
+        f"mode within K1's tolerance of plain (max|d| "
+        f"{r['max_abs_err']:.2e}), {'equal' if equal else 'not equal'} to "
+        f"the solve's K1r; cheb {r['ms']:.4f} ms ({r['bound_by']} bound "
+        f"{r['bound_ms']:.4f} ms), {r['registers']} registers, "
+        f"{r['local_bytes']} bytes local, {r['blocks_per_sm']} blocks an SM")
+    del plan
+    return r
 
 
 def _dwrr_run(degree, dev, n_el, maxiter=DWRR_MAXITER):
@@ -3170,6 +3288,8 @@ def _k1_bf16_level(A, degree, f32_ms):
     r = _k1_bf16_times(A16, degree)
     r["max_abs_err"] = max(errs.values())
     r["f32_ms"] = f32_ms
+    if degree not in k1.COMPILED_P:
+        r["compiled"] = _compiled_k1_bf16(A16, degree)
     log(f"[degrees bf16] K1 cheb at {sp.npts} p={degree}: bf16 "
         f"{r['ms']:.4f} ms, f32 {f32_ms:.4f} ms, bf16/f32 "
         f"{r['ms'] / f32_ms:.3f}")
@@ -3177,9 +3297,39 @@ def _k1_bf16_level(A, degree, f32_ms):
     return r
 
 
+def _compiled_k1_bf16(A, degree):
+    """The compiled K1 in bf16 at the half-width of the bf16 level ``A``,
+    which the solves leave to K1r (``k1.COMPILED_P``), asked for by
+    ``half_widths``: every mode within one bf16 unit of plain, its cheb
+    device time beside its bound, its resources."""
+    sp = A.space
+    x, b, d = _k1_fields(sp.npts, BF16, sp.device, degree)
+    errs = _k1_bf16_against_plain(
+        f"degree {degree} level 0 cast to bf16, compiled, ", A.terms,
+        (x, b, d), sp.npts, sp.pads, sp.periodic,
+        half_widths=k1.INSTANTIATED_P)
+    plan = k1.build_kron_plan(A.terms, sp.npts, sp.pads, sp.periodic,
+                              half_widths=k1.INSTANTIATED_P)
+    assert not plan.runtime and plan.P == degree, (plan.P, degree)
+    res = k1.k1_resources(plan, "cheb")
+    r = {"P": plan.P, "npts": sp.npts, "max_abs_err": max(errs.values()),
+         "ms": _device_ms(lambda: k1.kron_mode("cheb", plan, x, b=b, d=d,
+                                               c1=0.3, c2=0.7)),
+         **{k: res[k] for k in ("registers", "local_bytes", "smem_bytes",
+                                "blocks_per_sm")}}
+    r["bound_ms"], r["bound_by"] = _k1_bound(plan, "cheb", sp.npts, 2)
+    log(f"[degrees bf16] compiled K1 bf16 at P = {plan.P} (asked for by "
+        f"half_widths) at {sp.npts}: every mode within one bf16 unit of "
+        f"plain; cheb {r['ms']:.4f} ms ({r['bound_by']} bound "
+        f"{r['bound_ms']:.4f} ms), {r['registers']} registers, "
+        f"{r['local_bytes']} bytes local, {r['blocks_per_sm']} blocks an SM")
+    del plan
+    return r
+
+
 def _k1_bf16_times(A, degree):
-    """K1's bf16 cheb pass and apply on the bf16 operator ``A`` beside
-    its plain version, its byte bound and the dense bf16 per-axis products
+    """K1's (or K1r's) bf16 cheb pass and apply on the bf16 operator ``A``
+    beside its plain version, its bound and the dense bf16 per-axis products
     of ``_apply_interior_matmul`` (the library's computation of the apply,
     never called by the port)."""
     sp = A.space
@@ -3192,20 +3342,23 @@ def _k1_bf16_times(A, degree):
     rel = float((got.float() - lib.float()).abs().max()
                 / lib.float().abs().max())
     assert rel <= 2 ** -5, rel   # the products round to bf16 per axis
+    counted = rt_kernels(A.plan, "k1r")
     r = {"ms": _device_ms(lambda: k1.kron_mode("cheb", A.plan, x, b=b, d=d,
-                                               c1=0.3, c2=0.7, out=out)),
+                                               c1=0.3, c2=0.7, out=out),
+                          kernels=counted),
          "plain_ms": _device_ms(lambda: k1.kron_mode_plain(
              "cheb", terms32, f32[0], sp.npts, sp.pads, sp.periodic,
              b=f32[1], diag=diag32, d=f32[2], c1=0.3, c2=0.7), 3),
          "apply_ms": _device_ms(lambda: k1.kron_mode("apply", A.plan, x,
-                                                     out=out)),
+                                                     out=out),
+                                kernels=counted),
          "library_ms": _device_ms(lambda: A._apply_interior_matmul(x), 5),
-         "bound_ms": K1_FIELDS["cheb"] * math.prod(sp.npts) * 2
-         / HBM_BYTES_PER_S * 1e3,
          "npts": sp.npts}
+    r["bound_ms"], r["bound_by"] = _k1_bound(A.plan, "cheb", sp.npts, 2)
     log(f"[degrees bf16] K1 bf16 at {sp.npts} p={degree} (P = "
         f"{A.plan.P}): cheb {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-        f"byte bound {r['bound_ms']:.4f} ms); apply {r['apply_ms']:.4f} ms "
+        f"{r['bound_by']} bound {r['bound_ms']:.4f} ms); apply "
+        f"{r['apply_ms']:.4f} ms "
         f"beside the dense bf16 per-axis products {r['library_ms']:.4f} ms "
         f"(rel {rel:.2e} apart)")
     return r
@@ -3259,14 +3412,16 @@ def _degree_periodic(dev):
 
 def _degree_chain(dev):
     """A 6-term operator with nothing shared (runs of terms: three K5
-    launches a call) at P = 8 and P = 3: bit-equal to the single-pass plain
-    version, with b given and as A.p; the launches counted per call."""
+    launches a call) on the compiled K5 at P = 8 and P = 3: bit-equal to the
+    single-pass plain version, with b given and as A.p; the launches
+    counted per call."""
     for npts, p in DEGREE_CHAIN_SHAPES:
         terms, (x, b, _) = _k1_operands(npts, (p,) * 3, torch.float64, dev,
                                         p, DEGREE_CHAIN_TERMS)
         split = {id(B): split_f64(B) for t in terms for B in t}
         tdf = [[split[id(B)] for B in t] for t in terms]
-        plan = twofloat.build_kron_df_plan(tdf, npts, (p,) * 3)
+        plan = twofloat.build_kron_df_plan(
+            tdf, npts, (p,) * 3, half_widths=twofloat.INSTANTIATED_P_DW)
         (xh, xl), (bh, bl) = split_f64(x), split_f64(b)
         zero = torch.zeros_like(xh)
         for flags, explicit, neg in (
@@ -3327,85 +3482,36 @@ def _degree_banded(dev):
                 torch.cuda.empty_cache()
 
 
-def _ptxas_entries(name, pattern):
-    """(kernel, registers, spill store bytes, stack frame bytes) of every
-    entry of ``csrc/<name>.cu`` whose mangled name matches ``pattern``,
-    from the ``-Xptxas -v`` report beside its library."""
-    out, entry = [], None
-    report = _build.BUILD_DIR / f"{name}.log"
-    for line in report.read_text().splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            entry = m.group(1) if re.search(pattern, m.group(1)) else None
-            frame = spills = 0
-            continue
-        if entry is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
-                      line)
-        if m:
-            frame, spills = int(m.group(1)), int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.append((entry, int(m.group(1)), spills, frame))
-            entry = None
-    return out
-
-
-def _degree_registers():
-    """ptxas's registers and spills of this phase's new instantiations: K5
-    at half-widths 4 (the register ring) and 6-8 (the wide kernel), 3 and
-    4 histories each, and K1 in bf16 at 5 and 8 (every mode)."""
-    rows = {"K5 P=4": _ptxas_entries("kron_apply_dw",
-                                     r"kron_march_dw_kernelILi4E"),
-            **{f"K5 P={P}": _ptxas_entries(
-                "kron_apply_dw", rf"kron_march_dw_wide_kernelILi{P}E")
-               for P in (6, 7, 8)},
-            "K1 bf16 P=5": _ptxas_entries(
-                "kron_apply", r"kron_march_kernelIfLi5ELi\dE13__nv_bfloat16"),
-            "K1 bf16 P=8": _ptxas_entries(
-                "kron_apply", r"kron_march_kernelIfLi8ELi\dE13__nv_bfloat16")}
-    for label, entries in rows.items():
-        log(f"[degrees] {label} (ptxas): " + ("; ".join(
-            f"{regs} registers, {spills} bytes spilled, {frame} bytes stack"
-            for _, regs, spills, frame in entries) or "no report found"))
-    return rows
-
-
 def phase_degrees(dev):
     """Every spline degree 1-8 on the card: the headline at 64^3 (pcg and
     dc through examples/headline_solve.main, and the dwrr PCG), converged
     with a true f64 residual <= 5e-10, the kernels on the solves' own
-    operands against plain, K5 and K1 at the compiled half-width of each
-    degree; bf16 cycles at degrees 4, 5 and 8; the periodic dw-PCG at
-    degree 8; a 6-term K5 chain; K2/K3 at degrees 5 and 8.  Returns the
-    launches of its solves, the per-degree rows and the new kernel rows'
-    numbers.
+    operands against plain, K5 and K1 at each degree's half-width (the
+    compiled kernels at 1-3, K1r and K5r from 4 on), and beside them the
+    compiled instantiations no solve takes any more, asked for by
+    ``half_widths`` on the same operands (K5 at 4-8 bit-equal, K1 in f32
+    and bf16 at 5 and 8 in every mode), each timed; bf16 cycles at
+    degrees 4, 5 and 8; the periodic dw-PCG at degree 8; a 6-term chain on
+    the compiled K5; K2/K3 at degrees 5 and 8.  Returns the launches of its
+    solves and the per-degree rows.
 
-    The launches go to the rows whose kernel they ran: K5 at half-widths
-    4, 6, 7, 8 and bf16 K1 at 5 and 8 to rows of their own; the generic K5
-    and f32 K1 rows (timed at P = 3) take only the launches at P = 3; K5 at
-    1, 2, 5 and f32 K1 at 1, 2, 5, 8 are logged per degree and counted in
-    no row.  Every other counter (K6r, K6u, K7) is taken whole."""
+    The launches go to the rows whose kernel they ran: the generic K5 and
+    f32 K1 rows (timed at P = 3) take only the compiled kernels' launches
+    at P = 3 (those at 1 and 2 are logged per degree and counted in no
+    row), the K1r and K5r pass rows those of the run-time kernels (their
+    own counters).  Every other counter (K6r, K6u, K7) is taken whole."""
     from poms_tpu_torch.examples import headline_solve
 
     launches, rows = {}, {}
-    k5_by_p, bf16_p = {}, {}
 
     def add(grown, degree):
         P = _half_width(degree)
         P_dw = _half_width(degree, twofloat.COMPILED_P_DW)
         for k, v in grown.items():
-            if k == "residual_kron_df":
-                if P_dw in DEGREE_NEW_K5:
-                    k5_by_p[P_dw] = k5_by_p.get(P_dw, 0) + v
-                if P_dw != 3:
-                    continue
-            elif k.startswith("kron_mode."):
-                if k.endswith("@bf16") and P in DEGREE_BF16_TIMED:
-                    bf16_p[P] = bf16_p.get(P, 0) + v
-                if P != 3:
-                    continue
+            if k == "residual_kron_df" and P_dw != 3:
+                continue
+            if k.startswith("kron_mode.") and P != 3:
+                continue
             launches[k] = launches.get(k, 0) + v
 
     for degree in DEGREES:
@@ -3453,20 +3559,15 @@ def phase_degrees(dev):
         rows[f"{degree} bf16"] = bf16_rows
         P = _half_width(degree)
         bf16_err[P] = max(bf16_err.get(P, 0.0), err)
-    bf16_times = {}
     for P in DEGREE_BF16_TIMED:
-        r = rows[f"{P} pcg"].pop("bf16")
+        r = rows[f"{P} pcg"]["bf16"]
         r["max_abs_err"] = max(r["max_abs_err"], bf16_err[P])
-        bf16_times[P] = r
-    registers = _degree_registers()
     counters.reset()
     add(_degree_periodic(dev), DEGREE_PERIODIC["degree"])
     _degree_chain(dev)
     _degree_banded(dev)
     log("[degrees] RESULT " + json.dumps(rows))
-    return {"launches": launches, "rows": rows, "k5_by_p": k5_by_p,
-            "bf16_launches": bf16_p, "bf16_times": bf16_times,
-            "registers": registers}
+    return {"launches": launches, "rows": rows}
 
 
 # phase 23: spline degrees above 8 on the run-time kernels K1r and K5r
@@ -3481,6 +3582,7 @@ WIDE_TIMED_P = (9, 10, 12, 16)
 WIDE_COMPILED_P = (3, 8)       # K1r and K5r held to the compiled kernels
 WIDE_PADDED = {4: 5, 6: 8, 7: 8}   # K1r at P against compiled K1 at its pad
 WIDE_SMALL = (5, 6, 9)         # the widest half-widths run on this grid
+WIDE_ROW_P = 9                 # the kernels line's K1r and K5r rows' P
 
 
 def _wide_grid(P):
@@ -3500,12 +3602,106 @@ def _wide_operands(P, dev, seed):
             [[split[id(B)] for B in t] for t in terms64], fields)
 
 
-def _k1r_times(P, terms, fields, compiled=None):
+def _k1r_pass_bounds(plan, mode, npts):
+    """(bound_ms, bound_by) of each K1r pass of ``plan`` in ``mode`` (f32):
+    its own fields once (A: x in, the u partials out; B: u in, the
+    pre-summed partials out; C: those in, the mode's fields) against its
+    multiply-adds (A: the u's, B: the v's and their sums, C: the axis-0
+    contractions), the larger."""
+    sp = plan.plans[0]
+    nu, nv, ng = len(sp["u_lab"]), len(sp["v_src"]), len(sp["g_lab"])
+    W, pts = 2 * plan.P + 1, math.prod(npts)
+    words = {"A": 1 + nu, "B": nu + ng, "C": ng + K1_FIELDS[mode] - 1}
+    fmas = {"A": nu * W, "B": nv * W + ng * nv, "C": ng * W}
+    out = {}
+    for p in k1.RT_PASSES:
+        t_bytes = words[p] * pts * 4 / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * fmas[p] * pts / F32_FLOPS * 1e3
+        out[p] = ((t_ops, "operations") if t_ops > t_bytes
+                  else (t_bytes, "bytes"))
+    return out
+
+
+def _k1r_passes(plan, x, b, d):
+    """Each K1r pass of ``plan`` (f32, one run) alone on the card against
+    its plain version on the same inputs (A from x; B from the u partials
+    A left; C in every mode from the pre-summed partials B left): max|d|
+    over max|y|, held to K1's tolerance; each pass's device time, its
+    plain version's and its bound (``_k1r_pass_bounds``; C per mode)."""
+    from poms_tpu_torch.bench.k1_compare import k1r_pass_ms
+
+    assert len(plan.plans) == 1
+    sp, x3 = plan.plans[0], x.reshape(plan.n3)
+    u, w = k1.k1r_scratch_fields(plan)
+    npts = tuple(x.shape)
+
+    def rel(got, want):
+        e = float((got - want).abs().max() / want.abs().max())
+        assert e <= K1_TOL[torch.float32], e
+        return e
+
+    out = {}
+    k1.k1r_launch_pass("A", plan, 0, x3)
+    want = k1.k1r_pass_plain("A", plan, sp, x)
+    out["A"] = {"max_abs_err": max(rel(u[k], want[k])
+                                   for k in range(len(want))),
+                "plain_ms": _device_ms(lambda: k1.k1r_pass_plain(
+                    "A", plan, sp, x), 3)}
+    k1.k1r_launch_pass("B", plan, 0, x3)
+    src = [t.clone() for t in u]
+    want = k1.k1r_pass_plain("B", plan, sp, src)
+    out["B"] = {"max_abs_err": max(rel(w[k], want[k])
+                                   for k in range(len(want))),
+                "plain_ms": _device_ms(lambda: k1.k1r_pass_plain(
+                    "B", plan, sp, src), 3)}
+    src = [t.clone() for t in w[:len(sp["g_lab"])]]
+    diag = plan.diagonal()
+    res = torch.empty_like(x)
+    d_out = torch.empty_like(x)
+    for mode in k1.MODES:
+        kw = {"b": b if mode in ("residual", "cheb") else None,
+              "d": d if mode == "cheb" else None}
+        k1.k1r_launch_pass("C", plan, 0, x3, mode, out=res,
+                           d_out=d_out if mode == "cheb" else None, c1=0.3,
+                           c2=0.7, **kw)
+        want = k1.k1r_pass_plain("C", plan, sp, src, mode, x, c1=0.3,
+                                 c2=0.7, diag=diag, **kw)
+        torch.cuda.synchronize()
+        err = (max(rel(res, want[0]), rel(d_out, want[1]))
+               if mode == "cheb" else rel(res, want))
+        out[f"C.{mode}"] = {"max_abs_err": err, "plain_ms": _device_ms(
+            lambda: k1.k1r_pass_plain("C", plan, sp, src, mode, x, c1=0.3,
+                                      c2=0.7, diag=diag, **kw), 3)}
+    del src
+    for mode in k1.MODES:
+        bounds = _k1r_pass_bounds(plan, mode, npts)
+        times = k1r_pass_ms(plan, x, mode, b if mode in ("residual", "cheb")
+                            else None, d if mode == "cheb" else None)
+        for p in ("A", "B") if mode == "cheb" else ():
+            out[p].update(ms=times[p], bound_ms=bounds[p][0],
+                          bound_by=bounds[p][1])
+        out[f"C.{mode}"].update(ms=times["C"], bound_ms=bounds["C"][0],
+                                bound_by=bounds["C"][1])
+    res_ = k1.k1_resources(plan, "cheb")["passes"]
+    for key, r in out.items():
+        r.update({k: res_[key[0]][k] for k in ("registers", "local_bytes",
+                                                 "smem_bytes",
+                                                 "blocks_per_sm", "threads")})
+    log(f"[wide] K1r passes P={plan.P} at {npts}: " + ", ".join(
+        f"{k} {r['ms']:.4f} ms ({r['bound_by']} bound {r['bound_ms']:.4f}, "
+        f"plain {r['plain_ms']:.4f}, {r['max_abs_err']:.1e} of max|y|, "
+        f"{r['registers']} registers, {r['blocks_per_sm']} blocks an SM)"
+        for k, r in out.items()))
+    return out
+
+
+def _k1r_times(P, terms, fields, compiled=None, passes=False):
     """K1r in every mode against plain at the grid of P (f32), and its
-    device times; beside them the dense per-axis products (the library
-    call of the apply) and, given ``compiled`` half-widths, the compiled
-    kernel at the first of them that holds P (equal values where that is
-    P itself)."""
+    device times beside its bound (``_k1_bound``); beside them the dense
+    per-axis products (the library call of the apply), with ``passes``
+    each pass alone (``_k1r_passes``) and, given ``compiled`` half-widths,
+    the compiled kernel at the first of them that holds P (equal values
+    where that is P itself)."""
     npts, pads, per = _wide_grid(P)
     dev = fields[0].device
     x, b, d = (f.float() for f in fields)
@@ -3515,13 +3711,17 @@ def _k1r_times(P, terms, fields, compiled=None):
     out = torch.empty_like(x)
     r = {"tiling": plan.tiling, "resources": k1.k1_resources(plan, "cheb"),
          "max_abs_err": errs, "ms": {}, "bound_ms": {}}
+    r["bound_by"] = {}
     for label, mode, kw in _k1_runs(b, d):
         if label == "cheb0":
             continue
         r["ms"][mode] = _device_ms(lambda: k1.kron_mode(mode, plan, x,
-                                                        out=out, **kw))
-        r["bound_ms"][mode] = (K1_FIELDS[mode] * math.prod(npts) * 4
-                               / HBM_BYTES_PER_S * 1e3)
+                                                        out=out, **kw),
+                                   kernels=rt_kernels(plan, "k1r"))
+        r["bound_ms"][mode], r["bound_by"][mode] = _k1_bound(plan, mode,
+                                                             npts)
+    if passes:
+        r["passes"] = _k1r_passes(plan, x, b, d)
     diag = plan.diagonal()
     r["plain_ms"] = {mode: _device_ms(lambda: k1.kron_mode_plain(
         mode, terms, x, npts, pads, per, diag=diag, **kw), 2)
@@ -3565,7 +3765,8 @@ def _k1r_times(P, terms, fields, compiled=None):
         f"{r['resources']['smem_bytes']} bytes shared, "
         f"{r['resources']['blocks_per_sm']} blocks an SM: "
         + ", ".join(f"{m} {ms:.4f} ms ({100 * r['bound_ms'][m] / ms:.1f}% "
-                    f"of {r['bound_ms'][m]:.4f})"
+                    f"of the {r['bound_by'][m]} bound "
+                    f"{r['bound_ms'][m]:.4f})"
                     for m, ms in r["ms"].items())
         + f"; plain cheb {r['plain_ms']['cheb']:.4f} ms; dense per-axis "
         f"products {r['library_ms']:.4f} ms (apply/products "
@@ -3578,18 +3779,80 @@ def _k1r_times(P, terms, fields, compiled=None):
     return r
 
 
-def _k5r_times(P, tdf, fields, compiled=False):
+def _k5r_passes(plan, xh):
+    """Each K5r pass of ``plan`` (one run) alone on the card as A.p (b = 0,
+    no low word of x, negated) against its plain version on the same
+    inputs, word for word; each pass's device time, its plain version's,
+    its operations bound (29 a tap, none fusing, 20 a term added and for
+    b - sum) and its resources."""
+    from poms_tpu_torch.bench.k1_compare import k5r_pass_ms
+
+    assert len(plan.plans) == 1
+    sp = plan.plans[0]
+    u, v = twofloat.k5r_scratch_fields(plan)
+    geo, run = twofloat._df_c_args(plan)[:2]
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    bands = [ptr(t) for pair in zip(plan.bands, plan.bands_lo) for t in pair]
+    rh, rl = torch.empty_like(xh), torch.empty_like(xh)
+    args = (ptr(xh), None, None, None, None, None, *bands, ptr(rh), ptr(rl),
+            geo, run, 1, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    zero = torch.zeros_like(xh)
+    srcs = {"A": (xh, zero)}
+    out = {}
+    for p in twofloat.RT_PASSES:
+        src = srcs[p]
+        twofloat.k5r_launch_pass(p, plan, args, stream)
+        want = twofloat.k5r_pass_plain(p, plan, sp, src, zero, zero,
+                                       negate=True)
+        torch.cuda.synchronize()
+        got = {"A": u, "B": v, "C": [(rh, rl)]}[p]
+        want = [want] if p == "C" else want
+        for g_, w_ in zip(got, want):
+            if not all(torch.equal(a, b_.reshape(a.shape))
+                       for a, b_ in zip(g_, w_)):
+                raise AssertionError(f"K5r pass {p} at P = {plan.P} is not "
+                                     f"bit-equal to its plain version")
+        nxt = {"A": "B", "B": "C"}.get(p)
+        if nxt:
+            srcs[nxt] = [tuple(t.clone() for t in pair) for pair in got]
+        out[p] = {"max_abs_err": 0.0, "plain_ms": _device_ms(
+            lambda: twofloat.k5r_pass_plain(p, plan, sp, src, zero, zero,
+                                            negate=True), 2)}
+    times = k5r_pass_ms(plan, xh)
+    W, pts = 2 * plan.P + 1, math.prod(plan.npts)
+    taps = W * 9 + (W - 1) * 20
+    ops = {"A": len(sp["u_lab"]) * taps, "B": len(sp["v_src"]) * taps,
+           "C": len(sp["w_src"]) * taps + 20 * len(sp["term_w"])}
+    res = twofloat.k5_resources(plan)["passes"]
+    for p in twofloat.RT_PASSES:
+        out[p].update(ms=times[p], bound_ms=ops[p] * pts / F32_OPS * 1e3,
+                      bound_by="operations",
+                      **{k: res[p][k] for k in ("registers", "local_bytes",
+                                                "smem_bytes", "blocks_per_sm",
+                                                "threads")})
+    log(f"[wide] K5r passes P={plan.P} at {plan.npts}, bit-equal to their "
+        f"plain versions: " + ", ".join(
+            f"{p} {r['ms']:.4f} ms (operations bound {r['bound_ms']:.4f}, "
+            f"plain {r['plain_ms']:.4f}, {r['registers']} registers, "
+            f"{r['blocks_per_sm']} blocks an SM)" for p, r in out.items()))
+    del srcs
+    return out
+
+
+def _k5r_times(P, tdf, fields, compiled=False, passes=False):
     """K5r against plain (bit-equal: b and x_l given, and A.p) at the grid
     of P, its A.p device time beside its operation bound and the plain
-    version; with ``compiled``, the compiled K5 of P (bit-equal) and its
-    time."""
+    version; with ``passes`` each pass alone (``_k5r_passes``); with
+    ``compiled``, the compiled K5 of P (bit-equal) and its time."""
     npts, pads, _ = _wide_grid(P)
     (xh, xl), (bh, bl) = split_f64(fields[0]), split_f64(fields[1])
     zero = torch.zeros_like(xh)
     plans = {"rt": twofloat.build_kron_df_plan(tdf, npts, pads,
                                                half_widths=())}
     if compiled:
-        plans["compiled"] = twofloat.build_kron_df_plan(tdf, npts, pads)
+        plans["compiled"] = twofloat.build_kron_df_plan(
+            tdf, npts, pads, half_widths=twofloat.INSTANTIATED_P_DW)
     r = {"ms": {}}
     for name, plan in plans.items():
         for given, explicit, neg in (
@@ -3605,9 +3868,12 @@ def _k5r_times(P, tdf, fields, compiled=False):
                                      f"bit-equal to plain")
             del got, want
         r["ms"][name] = _device_ms(lambda: twofloat.residual_kron_df(
-            tdf, None, None, xh, None, pads, plan=plan, negate=True))
+            tdf, None, None, xh, None, pads, plan=plan, negate=True),
+            kernels=rt_kernels(plan, "k5r"))
     plan = plans["rt"]
     r["tiling"], r["resources"] = plan.tiling, twofloat.k5_resources(plan)
+    if passes:
+        r["passes"] = _k5r_passes(plan, xh)
     r["bound_ms"] = _k5_ops(P, npts) / F32_OPS * 1e3
     r["plain_ms"] = _device_ms(lambda: twofloat.residual_kron_df_plain(
         tdf, zero, zero, xh, zero, pads, None, None, True), 2)
@@ -3634,8 +3900,10 @@ def _wide_kernels(dev):
         terms64, terms, tdf, fields = _wide_operands(P, dev, 23 + P)
         compiled = P in WIDE_COMPILED_P
         rows[P] = {"K1r": _k1r_times(P, terms, fields,
-                                     k1.COMPILED_P if compiled else None),
-                   "K5r": _k5r_times(P, tdf, fields, compiled)}
+                                     k1.INSTANTIATED_P if compiled else None,
+                                     P == WIDE_ROW_P),
+                   "K5r": _k5r_times(P, tdf, fields, compiled,
+                                     P == WIDE_ROW_P)}
         del terms64, terms, tdf, fields
         torch.cuda.empty_cache()
     for P, padded in WIDE_PADDED.items():
@@ -3666,7 +3934,8 @@ def _wide_limits(dev):
                   for g_, w in zip(got, want))
         assert rel <= K1_TOL[dtype], (P, dtype, rel)
         ms = _device_ms(lambda: k1.kron_mode("cheb", plan, x, b=b, d=d,
-                                             c1=0.3, c2=0.7), 3)
+                                             c1=0.3, c2=0.7), 3,
+                        rt_kernels(plan, "k1r"))
         res = k1.k1_resources(plan, "cheb")
         wide, _ = _k1_operands(npts, (P + 1,) * 3, dtype, dev, P)
         try:
@@ -3701,7 +3970,8 @@ def _wide_limits(dev):
         want = twofloat.residual_kron_df_plain(tdf, bh, bl, xh, xl, pads)
         assert all(torch.equal(a, b_) for a, b_ in zip(got, want)), P
         ms = _device_ms(lambda: twofloat.residual_kron_df(
-            tdf, None, None, xh, None, pads, plan=plan, negate=True), 3)
+            tdf, None, None, xh, None, pads, plan=plan, negate=True), 3,
+            rt_kernels(plan, "k5r"))
         res = twofloat.k5_resources(plan)
         if histories == 4:
             wide = _periodic_df_pairs(npts, P + 1, dev)
@@ -3788,7 +4058,8 @@ def phase_wide_degrees(dev):
                 rows[f"{degree} {solver}"] = {"error": str(exc)}
                 continue
             res["run_s"] = time.perf_counter() - t0
-            for key in ("residual_kron_df_rt", "kron_mode_rt.cheb"):
+            for key in ([f"residual_kron_df_rt.{p}" for p in k1.RT_PASSES]
+                        + [f"kron_mode_rt.cheb.{p}" for p in k1.RT_PASSES]):
                 assert grown.get(key, 0) > 0, (degree, solver, key, grown)
             add(grown)
             log(f"[wide] {WIDE_N}^3 p={degree} {solver} "
@@ -3884,8 +4155,8 @@ def main():
 
     def more(key):
         """The launches of phases 19-23 under one counter's key (phase 22's
-        K5 and f32 K1 at half-width 3 only: ``phase_degrees``; phase 23's
-        K1r and K5r in their own rows)."""
+        compiled K5 and f32 K1 at half-width 3 only: ``phase_degrees``;
+        phase 23's K1r and K5r under their own keys, ``wide["rt"]``)."""
         return sum(c.get(key, 0) for c in later)
 
     points = 129 ** 3
@@ -4016,54 +4287,39 @@ def main():
         "replaces": "poms_tpu/ops/twofloat.py:197",
         "launches": periodic["residual_kron_df"], **k5_four,
         "bound_by": "operations", "library_ms": None})
-    # the instantiations of phase 22: K5 at half-widths 4, 6, 7 and 8 (the
-    # last three the wide design; a row's numbers: A.p at 64^3 at the
-    # degree equal to P) and K1 in bf16 at 5 and 8 (the cheb pass on the
-    # 64^3 runs' finest level cast to bf16, where f32 K1 is timed; the
-    # max|d| also over the 64^3 bf16 cycles' first two levels)
-    for P in DEGREE_NEW_K5:
-        r = degrees["rows"][f"{P} pcg"]
-        kernels.append({
-            "name": f"residual_kron_df.P{P}", "route": "cuda",
-            "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
-            "replaces": "poms_tpu/ops/twofloat.py:197",
-            "launches": degrees["k5_by_p"][P], "max_abs_err": 0.0,
-            "ms": r["k5_ms"], "plain_ms": r["k5_plain_ms"],
-            "bound_ms": r["k5_bound_ms"], "bound_by": "operations",
-            "library_ms": None})
-    for P, r in sorted(degrees["bf16_times"].items()):
-        kernels.append({
-            "name": f"kron_apply.bf16.P{P}", "route": "cuda",
-            "source": "poms_tpu_torch/csrc/kron_apply.cu",
-            "replaces": "poms_tpu/ops/pallas/kron.py:157",
-            "launches": degrees["bf16_launches"][P],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": r["library_ms"]})
-    # phase 23's run-time kernels, launched by its solves at degrees 9, 10
-    # and 12: K1r in each mode they ran (the numbers: f32 at P = 9, 135^3)
-    # and K5r (A.p at P = 9)
-    k1r = wide["kernels"][9]["K1r"]
-    for m in k1.MODES:
-        n = wide["rt"].get(f"kron_mode_rt.{m}", 0)
+    # the run-time kernels, launched by the solves of phase 22 (degrees
+    # 4-8) and 23 (9, 10, 12), one row a pass, the launches of every dtype:
+    # K1r's passes A and B (launched in every mode) and its pass C in each
+    # mode they ran (the numbers: f32 at P = 9, 135^3, each pass alone),
+    # K5r's three passes (A.p at P = 9)
+    k1r = wide["kernels"][WIDE_ROW_P]["K1r"]["passes"]
+    pass_keys = {"A": [f"kron_mode_rt.{m}.A" for m in k1.MODES],
+                 "B": [f"kron_mode_rt.{m}.B" for m in k1.MODES]}
+    pass_keys.update({f"C.{m}": [f"kron_mode_rt.{m}.C"] for m in k1.MODES})
+    for key, counts in pass_keys.items():
+        n = sum(wide["rt"].get(c, 0) + more(c) for c in counts)
         if n:
+            r = k1r[key]
             kernels.append({
-                "name": f"kron_apply_rt.{m}", "route": "cuda",
+                "name": f"kron_apply_rt.{key}", "route": "cuda",
                 "source": "poms_tpu_torch/csrc/kron_apply.cu",
                 "replaces": "poms_tpu/ops/pallas/kron.py:157",
-                "launches": n, "max_abs_err": k1r["max_abs_err"][m],
-                "ms": k1r["ms"][m], "plain_ms": k1r["plain_ms"][m],
-                "bound_ms": k1r["bound_ms"][m], "bound_by": "bytes",
-                "library_ms": k1r["library_ms"] if m == "apply" else None})
-    k5r = wide["kernels"][9]["K5r"]
-    kernels.append({
-        "name": "residual_kron_df_rt", "route": "cuda",
-        "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
-        "replaces": "poms_tpu/ops/twofloat.py:197",
-        "launches": wide["rt"]["residual_kron_df_rt"], "max_abs_err": 0.0,
-        "ms": k5r["ms"]["rt"], "plain_ms": k5r["plain_ms"],
-        "bound_ms": k5r["bound_ms"], "bound_by": "operations",
-        "library_ms": None})
+                "launches": n, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None})
+    k5r = wide["kernels"][WIDE_ROW_P]["K5r"]["passes"]
+    for p in twofloat.RT_PASSES:
+        r = k5r[p]
+        kernels.append({
+            "name": f"residual_kron_df_rt.{p}", "route": "cuda",
+            "source": "poms_tpu_torch/csrc/kron_apply_dw.cu",
+            "replaces": "poms_tpu/ops/twofloat.py:197",
+            "launches": wide["rt"][f"residual_kron_df_rt.{p}"]
+            + more(f"residual_kron_df_rt.{p}"),
+            "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "operations",
+            "library_ms": None})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:

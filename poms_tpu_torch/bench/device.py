@@ -11,9 +11,11 @@ __all__ = ["nvidia_smi_name_power", "device_ms", "profiler_ms",
            "graph_event_ms", "stream_event_ms"]
 
 
-def profiler_ms(fn, reps: int = 20, with_cpu: bool = False):
+def profiler_ms(fn, reps: int = 20, with_cpu: bool = False, kernels=None):
     """The profiler's device time summed over every kernel that ``reps``
-    calls launched, per call; None if the profile holds no device event."""
+    calls launched, per call; None if the profile holds no device event,
+    or, given ``kernels`` = (name, n), where it does not hold n kernels a
+    call whose names contain ``name`` (it lost some)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -25,9 +27,13 @@ def profiler_ms(fn, reps: int = 20, with_cpu: bool = False):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    if kernels is not None:
+        name, n = kernels
+        if sum(e.count for e in events if name in e.key) != n * reps:
+            return None
     return us / 1e3 / reps if us > 0 else None
 
 
@@ -111,19 +117,23 @@ def _checked(fn, ms: float, reps: int) -> float:
     return ev
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, kernels=None) -> float:
     """Kernel time per call on the card, mean of ``reps`` calls after one
     warm-up call: the profiler's device time, held against CUDA events
     (:func:`_checked`).  A profile can come back without device events,
     and then the next ones often do too, so after three such profiles the
     time is taken by CUDA events instead, around a replayed graph of the
     calls, or around the plain calls where they cannot be captured; a line
-    on the standard error says so."""
+    on the standard error says so.  ``kernels`` = (name, n): each call
+    launches n kernels whose names contain ``name``, and a profile that
+    holds another count of them lost some and counts as one without
+    device events (a call of several kernels that lost one can read well
+    above :data:`LOST` of its time)."""
     import torch
 
     fn()
     for attempt in range(3):
-        ms = profiler_ms(fn, reps, with_cpu=attempt == 2)
+        ms = profiler_ms(fn, reps, with_cpu=attempt == 2, kernels=kernels)
         if ms is not None:
             return _checked(fn, ms, reps)
     try:
@@ -132,9 +142,11 @@ def device_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         ms = stream_event_ms(fn, reps)
         how = f"the calls on the stream (no graph: {type(exc).__name__})"
-    print(f"[device_ms] the profiler recorded no device time; {ms:.4f} ms "
-          f"per call is by CUDA events around {how}", file=sys.stderr,
-          flush=True)
+    lost = "" if kernels is None else (
+        f" or not {kernels[1]} {kernels[0]} kernels a call")
+    print(f"[device_ms] the profiler recorded no device time{lost}; "
+          f"{ms:.4f} ms per call is by CUDA events around {how}",
+          file=sys.stderr, flush=True)
     return ms
 
 

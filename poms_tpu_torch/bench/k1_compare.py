@@ -21,6 +21,31 @@ old, new, new, old.  ``--sweep`` times ``apply`` and ``cheb`` at every shape
 ``SWEEP_RUNS``; the cost model of ``ops/kron.py::k1_step_cost`` was fitted to
 such a sweep.
 
+``--rt-ab OLD_DIR`` is the one-call A/B of the run-time kernels: it builds
+an earlier commit's ``kron_apply.cu`` and ``kron_apply_dw.cu`` and imports
+its ``ops/kron.py`` and ``ops/twofloat.py``, all four copied into
+``OLD_DIR`` first, since the card's copy of the repository has no git::
+
+    mkdir -p _checkout/old && for f in csrc/kron_apply.cu \
+        csrc/kron_apply_dw.cu ops/kron.py ops/twofloat.py; do \
+      git show HEAD:poms_tpu_torch/$f > _checkout/old/$(basename $f); done
+    python -m poms_tpu_torch.bench.k1_compare [--rt-ab _checkout/old \
+        [--sweep-rt]] [--route]
+
+and then, at P = 9, 10, 12, 16 on ``chip_smoke.py``'s grids ((126 + P)³
+points, Poisson-shaped f32 bands), times the earlier and the current K1r in
+every mode and K5r's A·p in turns (old, new, new, old), checks that their
+outputs are ``torch.equal``, and times each new pass alone (a call of
+several kernels is timed only from a profile that holds every one of
+them, ``device_ms``'s ``kernels``); ``--sweep-rt`` times each pass at
+every block size of ``RT_WARPS`` (the cost models' data).  ``--route``
+times the headline ``pcg`` at 128³ elements at degrees 4–8 with the
+compiled K1 and K5 and with K1r and K5r at the degree's own half-width,
+in turns (every plan of the solver built anew before its first solve,
+with ``half_widths`` every compiled half-width for the first and none
+for the second: ``route_pcg``), the measurement the half-width tables
+``COMPILED_P`` and ``COMPILED_P_DW`` route by.
+
 One ``RESULT {...}`` line per measurement.  Needs a CUDA card.
 """
 import ctypes
@@ -75,6 +100,258 @@ def _old_kernel(source):
     return apply
 
 
+RT_P = (9, 10, 12, 16)       # the A/B's half-widths (chip_smoke.WIDE_TIMED_P)
+ROUTE_DEGREES = (4, 5, 6, 7, 8)
+
+
+def wide_grid(P):
+    """chip_smoke.py's grid for half-width P: 128³ elements, (126 + P)³
+    points."""
+    n = 126 + P
+    return (n,) * 3, (P,) * 3, (False,) * 3
+
+
+def _import_old(old_dir):
+    """An earlier commit's ``ops/kron.py`` and ``ops/twofloat.py`` (copied
+    into ``old_dir``) as the modules ``kron_old`` and ``twofloat_old``,
+    each loading that commit's kernels built from ``old_dir``'s sources."""
+    import importlib.util
+    import types
+    from pathlib import Path
+
+    libs = {name: build_old(str(Path(old_dir) / f"{name}.cu"), name)
+            for name in ("kron_apply", "kron_apply_dw")}
+    mods = {}
+    for name, src in (("kron_old", "kron.py"),
+                      ("twofloat_old", "twofloat.py")):
+        text = (Path(old_dir) / src).read_text().replace(
+            "from poms_tpu_torch.ops.kron import", "from kron_old import")
+        spec = importlib.util.spec_from_loader(name, loader=None)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        exec(compile(text, str(Path(old_dir) / src), "exec"), mod.__dict__)
+        mod._build = types.SimpleNamespace(load=libs.__getitem__)
+        mods[name] = mod
+    return mods["kron_old"], mods["twofloat_old"]
+
+
+def rt_kernels(plan, family):
+    """``device_ms``'s ``kernels`` for one call of ``plan`` (``family``
+    "k1r" or "k5r"): a run-time plan launches its three passes once a run
+    of terms, a compiled one a kernel a run (None: nothing to count)."""
+    return (f"{family}_pass_", 3 * len(plan.plans)) if plan.runtime else None
+
+
+def k1r_pass_ms(plan, x, mode, b=None, d=None, c1=0.3, c2=0.7):
+    """Device ms of each K1r pass of ``plan``'s first run alone (the
+    scratch filled by a whole call first), as {pass: ms}."""
+    import torch
+
+    from poms_tpu_torch.bench.device import device_ms
+    from poms_tpu_torch.ops import kron
+
+    kron.kron_mode(mode, plan, x, b=b, d=None if d is None else d.clone(),
+                   c1=c1, c2=c2)
+    x3 = x.reshape(plan.n3)
+    out, d_out = torch.empty_like(x), torch.empty_like(x)
+    kw = {"b": b, "d": d, "d_out": d_out if mode == "cheb" else None,
+          "out": out, "c1": c1, "c2": c2}
+    return {p: device_ms(lambda: kron.k1r_launch_pass(p, plan, 0, x3, mode,
+                                                      **kw),
+                         kernels=("k1r_pass_", 1))
+            for p in kron.RT_PASSES}
+
+
+def k5r_pass_ms(plan, xh):
+    """Device ms of each K5r pass of ``plan``'s first run alone as A·p
+    (b = 0, no low word of x, negated), as {pass: ms}."""
+    import torch
+
+    from poms_tpu_torch.bench.device import device_ms
+    from poms_tpu_torch.ops import twofloat
+
+    geo, run = twofloat._df_c_args(plan)[:2]
+    rh, rl = torch.empty_like(xh), torch.empty_like(xh)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    bands = [ptr(t) for pair in zip(plan.bands, plan.bands_lo) for t in pair]
+    args = (ptr(xh), None, None, None, None, None, *bands, ptr(rh), ptr(rl),
+            geo, run, 1, int(len(plan.plans) == 1))
+    stream = torch.cuda.current_stream().cuda_stream
+    for p in twofloat.RT_PASSES:
+        twofloat.k5r_launch_pass(p, plan, args, stream)
+    return {p: device_ms(lambda: twofloat.k5r_launch_pass(p, plan, args,
+                                                          stream),
+                         kernels=("k5r_pass_", 1))
+            for p in twofloat.RT_PASSES}
+
+
+def rt_ab(old_dir, sweep=False, result=print):
+    """The one-call A/B of K1r and K5r against an earlier commit's (see the
+    module docstring); returns the rows it printed."""
+    import numpy as np
+    import torch
+
+    from poms_tpu_torch.bench.device import device_ms
+    from poms_tpu_torch.ops import kron, twofloat
+
+    kron_old, tf_old = _import_old(old_dir)
+    dev = torch.device("cuda", 0)
+    rows = []
+
+    def emit(**kw):
+        rows.append(kw)
+        result(**kw)
+
+    for P in RT_P:
+        npts, pads, per = wide_grid(P)
+        rng = np.random.default_rng(23 + P)
+        band = lambda n: torch.as_tensor(   # noqa: E731
+            rng.standard_normal((n, 2 * P + 1)) / 4
+            + 2.0 * (np.arange(2 * P + 1) == P), device=dev)
+        Ks, Ms = [band(n) for n in npts], [band(n) for n in npts]
+        t64 = [[Ks[b] if b == a else Ms[b] for b in range(3)]
+               for a in range(3)]
+        cast = {id(B): B.float() for t in t64 for B in t}
+        split = {id(B): twofloat.split_f64(B) for t in t64 for B in t}
+        terms = [[cast[id(B)] for B in t] for t in t64]
+        tdf = [[split[id(B)] for B in t] for t in t64]
+        x, b, d = (torch.as_tensor(rng.standard_normal(npts),
+                                   dtype=torch.float32, device=dev)
+                   for _ in range(3))
+        new = kron.build_kron_plan(terms, npts, pads, per, half_widths=())
+        old = kron_old.build_kron_plan(terms, npts, pads, per, half_widths=())
+        out = torch.empty_like(x)
+        for mode in kron.MODES:
+            kw = {"b": b} if mode in ("residual", "cheb") else {}
+            if mode == "cheb":
+                kw.update(c1=0.3, c2=0.7)
+            got = [m.kron_mode(mode, pl, x, **kw, **(
+                {"d": d.clone()} if mode == "cheb" else {}))
+                for m, pl in ((kron, new), (kron_old, old))]
+            torch.cuda.synchronize()
+            if mode != "cheb":
+                got = [(g,) for g in got]
+            equal = all(torch.equal(g, o) for g, o in zip(*got))
+            del got
+            fns = {"old": lambda: kron_old.kron_mode(mode, old, x, out=out,
+                                                     **kw, **({"d": d} if
+                                                     mode == "cheb" else {})),
+                   "new": lambda: kron.kron_mode(mode, new, x, out=out, **kw,
+                                                 **({"d": d} if mode ==
+                                                    "cheb" else {}))}
+            ms = {"old": [], "new": []}
+            counted = {"old": ("kron_march_rt_kernel", len(old.plans)),
+                       "new": rt_kernels(new, "k1r")}
+            for who in ("old", "new", "new", "old"):
+                ms[who].append(device_ms(fns[who], kernels=counted[who]))
+            emit(kernel=f"K1r.{mode}", P=P, npts=npts[0], equal=equal,
+                 old_ms=ms["old"], new_ms=ms["new"],
+                 ratio=min(ms["new"]) / min(ms["old"]),
+                 new_tiling=new.tiling, old_tiling=old.tiling,
+                 passes_ms=k1r_pass_ms(new, x, mode, kw.get("b"),
+                                       d if mode == "cheb" else None))
+        (xh, xl), (bh, bl) = (twofloat.split_f64(t.double()) for t in (x, b))
+        new5 = twofloat.build_kron_df_plan(tdf, npts, pads, half_widths=())
+        old5 = tf_old.build_kron_df_plan(tdf, npts, pads, half_widths=())
+        equal = True
+        for given in ((bh, bl, xh, xl), (None, None, xh, None)):
+            g = twofloat.residual_kron_df(tdf, *given, pads, plan=new5,
+                                          negate=given[0] is None)
+            o = tf_old.residual_kron_df(tdf, *given, pads, plan=old5,
+                                        negate=given[0] is None)
+            torch.cuda.synchronize()
+            equal &= all(torch.equal(a_, b_) for a_, b_ in zip(g, o))
+        fns = {"old": lambda: tf_old.residual_kron_df(
+                   tdf, None, None, xh, None, pads, plan=old5, negate=True),
+               "new": lambda: twofloat.residual_kron_df(
+                   tdf, None, None, xh, None, pads, plan=new5, negate=True)}
+        ms = {"old": [], "new": []}
+        counted = {"old": ("kron_march_dw_rt_kernel", len(old5.plans)),
+                   "new": rt_kernels(new5, "k5r")}
+        for who in ("old", "new", "new", "old"):
+            ms[who].append(device_ms(fns[who], kernels=counted[who]))
+        emit(kernel="K5r.Ap", P=P, npts=npts[0], equal=bool(equal),
+             old_ms=ms["old"], new_ms=ms["new"],
+             ratio=min(ms["new"]) / min(ms["old"]), new_tiling=new5.tiling,
+             old_tiling=old5.tiling, passes_ms=k5r_pass_ms(new5, xh))
+        if sweep:
+            for warps in kron.RT_WARPS:
+                for plan, fn in ((new, k1r_pass_ms), (new5, k5r_pass_ms)):
+                    keep = plan.tiling
+                    plan.tiling = (keep[0], warps, warps, warps)
+                    plan._cargs = []
+                    times = (fn(plan, x, "cheb", b, d) if plan is new
+                             else fn(plan, xh))
+                    emit(kernel=f"{'K1r' if plan is new else 'K5r'}.sweep",
+                         P=P, warps=warps, TL=keep[0], passes_ms=times)
+                    plan.tiling, plan._cargs = keep, []
+        del new, old, new5, old5, x, b, d, xh, xl, bh, bl
+        torch.cuda.empty_cache()
+    return rows
+
+
+def route(result=print):
+    """The headline ``pcg`` at 128³ elements at each of ``ROUTE_DEGREES``
+    on the compiled K1 and K5 and on K1r and K5r, in turns (compiled,
+    run-time, run-time, compiled): the measurement ``COMPILED_P`` and
+    ``COMPILED_P_DW`` route by."""
+    import torch
+
+    from poms_tpu_torch.ops import kron, twofloat
+
+    dev = torch.device("cuda", 0)
+    compiled = (kron.INSTANTIATED_P, twofloat.INSTANTIATED_P_DW)
+    for degree in ROUTE_DEGREES:
+        for kind, tables in (("compiled", compiled), ("runtime", ((), ())),
+                             ("runtime", ((), ())), ("compiled", compiled)):
+            result(kernel="route.pcg", degree=degree, kernels=kind,
+                   **route_pcg(128, degree, tables, dev))
+            torch.cuda.empty_cache()
+
+
+def route_pcg(n_el, degree, half_widths, dev, maxiter=400):
+    """The headline ``pcg`` (``examples/headline_solve.build``) with every
+    Kronecker plan of its solver built anew at ``half_widths`` = (K1's,
+    K5's table) before the first solve (its λ estimates stay those of the
+    default plans): iterations, ms per iteration of the second (replayed)
+    solve and the true f64 residual."""
+    import time
+
+    import torch
+
+    from poms_tpu_torch.core.kron import KroneckerSumOperator
+    from poms_tpu_torch.examples import headline_solve
+    from poms_tpu_torch.ops import kron, twofloat
+
+    k1_table, k5_table = half_widths
+    prob, mg = headline_solve.build(n_el, degree, "pcg", dev)
+    for levels in (mg.levels, mg.levels_pre):
+        for lev in levels:
+            A = lev.A
+            if isinstance(A, KroneckerSumOperator):
+                sp = A.space
+                A.plan = kron.build_kron_plan(A.terms, sp.npts, sp.pads,
+                                              sp.periodic,
+                                              half_widths=k1_table)
+    sp = prob.space
+    mg._plan_df = twofloat.build_kron_df_plan(
+        mg._terms_df, sp.npts, sp.pads, sp.periodic, mg._labels,
+        half_widths=k5_table)
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else lambda: None)
+    mg.solve_compiled(tol=1e-10, maxiter=maxiter)     # warm up, capture
+    sync()
+    t0 = time.perf_counter()
+    x, rn, it = mg.solve_compiled(tol=1e-10, maxiter=maxiter)
+    sync()
+    wall = time.perf_counter() - t0
+    true = float(torch.linalg.vector_norm(prob.A.residual(x, prob.b)))
+    return {"iterations": int(it), "rn": float(rn),
+            "ms_per_iter": wall / max(int(it), 1) * 1e3,
+            "true_residual": true,
+            "P": (mg.levels_pre[0].A.plan.P, mg._plan_df.P)}
+
+
 def main():
     args = sys.argv[1:]
     old_src = args[args.index("--old") + 1] if "--old" in args else None
@@ -97,6 +374,16 @@ def main():
         raise SystemExit("k1_compare measures the card: no CUDA device found")
     dev = torch.device("cuda", 0)
     card = nvidia_smi_name_power()
+    if "--rt-ab" in args or "--route" in args:
+        def printed(**kw):
+            print("RESULT " + json.dumps({**kw, "card": card}), flush=True)
+
+        if "--rt-ab" in args:
+            rt_ab(args[args.index("--rt-ab") + 1], "--sweep-rt" in args,
+                  printed)
+        if "--route" in args:
+            route(printed)
+        return
     bw = sol_bandwidth(torch.cuda.get_device_name(0)) * 1e9
     print(f"card: {card}; bound at {bw / 1e12:.2f} TB/s", flush=True)
     old = _old_kernel(old_src) if old_src else None

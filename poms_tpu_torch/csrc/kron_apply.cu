@@ -63,25 +63,38 @@
 // arithmetic is the f32 kernel's, and the epilogue rounds once on the store
 // (cheb: x + d is formed from the unrounded d).  Where an operator takes
 // several launches the sum between them (acc, out_hi) stays f32.  Every
-// dtype has every half-width (1, 2, 3, 5, 8: spline degrees 1 to 8).
+// dtype is compiled at half-widths 1, 2, 3, 5 and 8; plans take it at 1-3
+// and K1r at every other (ops/kron.py::COMPILED_P, chosen end to end).
 //
-// K1r (kron_march_rt_kernel, entries kron_apply_rt_*): bands wider than 8
-// (spline degrees above 8), the half-width a launch argument.  What grows
-// with P in the compiled kernel is what it keeps in registers: the axis-2
-// band rows and the 2P+1 output planes of axis 0.  K1r keeps them in shared
-// memory, as K5's wide kernel does: the band rows of axes 2 and 1 of the
-// tile, and each thread's ring of 2P+1 output planes (its own slots, so the
-// ring needs no barrier); the taps are loops, the shared memory is sized at
-// launch (smem_bytes_rt, ops/kron.py::k1r_smem).  One column a thread.  The
-// plan data, the epilogues and the arithmetic order are the compiled
-// kernel's: taps in order, the first assigned and the others multiply-added,
-// the v's summed in order before the axis-0 pass, each output plane taking
-// its taps in order and, per tap, the pre-summed partials in order.  Its
-// smallest block (one row, one column, one plane) fits the card's shared
-// memory up to P = 37 in f32 and bf16 and P = 27 in f64; wider bands are
-// refused by the host (ops/kron.py::refuse_half_width).
+// K1r (k1r_pass_a/b/c, entries kron_apply_rt_*): bands wider than the
+// compiled half-widths, the half-width a launch argument, as three one-axis
+// passes through the plan's scratch in device memory (kron_pass.cuh), the
+// structure of the JAX reference's residual_kron_df:
+//   A (axis 2): x -> the u partials (kCU fields of T);
+//   B (axis 1): u -> the pre-summed partials wsum (kCG fields), the v's
+//               summed with g_mult in order as K1 sums them;
+//   C (axis 0): wsum -> A x, then the mode's epilogue, K1's own.
+// What bounds it on an H100: its bytes (x once, 4 + 4 fields of scratch
+// written and read, the epilogue's fields), as long as each pass keeps the
+// shared-memory pipe under its multiply-adds.  So a thread owns several
+// outputs (register micro-tiles): in pass A two columns of kRowsA rows (a
+// band pair serves kRowsA rows, a window pair two taps of two columns: half
+// a shared-memory word a multiply-add in f32), in B and C kOutR outputs
+// along the axis, whose inputs each serve kOutR outputs and whose band rows
+// arrive as one broadcast vector per tap.  No ring, no recomputed halo: a
+// pass's halo costs loads along its own axis.  The operations of each
+// output and their order are the compiled kernel's: taps in order, the
+// first two as one expression in pass A, the rest multiply-added; the v's
+// summed in order; on axis 0 per tap each pre-summed partial in turn (a
+// zero-padded tap or a ghost plane adds an exact zero); the diagonal from
+// the centre columns without FMA.  An f32 written to the scratch and read
+// back is exact, so K1r equals the compiled kernel at its half-widths.  Its
+// smallest block (one warp a pass) fits the card's shared memory up to the
+// half-width ops/kron.py::widest_half_width finds for k1r_smem; wider bands
+// are refused by the host (ops/kron.py::refuse_half_width).
 
 #include "kron_march.cuh"
+#include "kron_pass.cuh"
 
 namespace {
 
@@ -463,261 +476,381 @@ kron_march_kernel(const Args<T, IO> a) {
   kron::cp_async_wait<0>();
 }
 
-// shared memory of K1r, in T units after the offset table: the ring of
-// windows, the u partials, the axis-0 band rows of the run, the axis-2 and
-// axis-1 band rows of the tile, and each thread's ring of W output planes
-__host__ __device__ inline size_t smem_bytes_rt(const Geometry& g, int P,
-                                                size_t elem) {
-  const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
-  return WR * WC * sizeof(int64_t) +
-         (kron::kStages * WR * WC + kCU * WR * g.T2 +
-          kCG * (g.chunk + 4 * P) * W + kCU * W * g.T2 + kCV * W * g.T1 +
-          W * g.T1 * g.T2) *
-             elem;
+// -- K1r: three one-axis passes (see the note at the top) --------------------
+
+constexpr int kRowsA = 4;  // pass A: rows of the field a thread
+constexpr int kOutR = 4;   // passes B and C: outputs along the axis a thread
+
+// geometry of the run-time passes: the field, the half-width, the terms
+// (for the diagonal), pass A's tile (TL columns, even, of G * kRowsA rows)
+// and the warps of a pass-B and a pass-C block
+struct RtGeo {
+  int n0, n1, n2;
+  int per0, per1, per2;
+  int P, R;
+  int TL, G;
+  int NWB, NWC;
+  int64_t s0, s1, s2;  // element strides of x
+};
+
+template <typename T, typename IO>
+struct RtArgs {
+  const IO* x;
+  const IO* band[3];
+  const IO* col[3];
+  const T* acc;
+  const IO* b;
+  const IO* d_in;
+  IO* d_out;
+  IO* out;
+  T* out_hi;
+  T c1, c2;
+  // the plan's scratch: kCU u partials, then kCG pre-summed partials, each
+  // a contiguous (n0, n1, n2) field of T
+  T* scratch;
+  // this pass's band table for this run of terms, laid out by the host
+  // (ops/kron.py::k1r_tables) as each block's shared memory holds it: per
+  // block of outputs one slice (A: (k, t, column) of a tile of columns;
+  // B, C: the layout above pass A)
+  const T* table;
+  RtGeo g;
+  Plan p;
+};
+
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+// two neighbouring values of shared memory (p aligned to two values)
+template <typename T>
+__device__ __forceinline__ typename Pair<T>::type ld2(const T* p) {
+  return *reinterpret_cast<const typename Pair<T>::type*>(p);
 }
 
-// K1r: kron_march_kernel with the half-width P a launch argument and one
-// column a thread (see the note at the top).  Thread (tj, tl) of the tile
-// reads column tl of the axis-2 rows (k, t, column), row tj of the axis-1
-// rows (k, t, row) and its own ring slots (slot, thread).
-template <typename T, int MODE, typename IO>
-__global__ void __launch_bounds__(kMaxThreads)
-kron_march_rt_kernel(const Args<T, IO> a, const int P) {
-  const int W = 2 * P + 1;
-  constexpr int S = kron::kStages;
-  constexpr bool need_b = MODE == kResidual || MODE == kCheb;
-  constexpr bool need_dg = MODE == kDinv || MODE == kCheb;
-  const Geometry& g = a.g;
+// kOutR neighbouring values of shared memory (p aligned to 16 bytes)
+template <typename T>
+__device__ __forceinline__ void ld_row(const T* p, T (&v)[kOutR]) {
+#pragma unroll
+  for (int q = 0; q < kOutR; q += 2) {
+    const typename Pair<T>::type w = ld2(p + q);
+    v[q] = w.x, v[q + 1] = w.y;
+  }
+}
+
+// shared memory of each pass, in bytes (ops/kron.py::k1r_smem mirrors it)
+__host__ __device__ inline size_t smem_a(const RtGeo& g, size_t elem) {
+  const size_t W = 2 * g.P + 1;
+  return ((size_t)g.G * kRowsA * (g.TL + 2 * g.P) + kCU * W * g.TL) * elem;
+}
+__host__ __device__ inline size_t smem_bc(int NW, int P, int sources,
+                                          int bands, size_t elem) {
+  const size_t rows = (size_t)NW * kOutR + 2 * P, NPB = kOutR + 2 * P;
+  return (sources * rows * kpass::kLanes + (size_t)bands * NW * NPB * kOutR) *
+         elem;
+}
+
+// The band rows of a strided pass as each thread walks its inputs:
+// bd[((k * NW + grp) * NPB + p) * kOutR + r] is the coefficient of input
+// row p (of the thread's window) for its output r, tap p - r of band row
+// a0 + grp * kOutR + r; zero off the band, past the grid and for absent
+// partials.  The host lays one such slice out per block along the axis
+// (ops/kron.py::k1r_tables), so a block copies it whole.
+
+// Pass A, axis 2: u[k] = sum_t B2[u_lab[k]][l][t] x[.., l + t - P] for the
+// kCU distinct axis-2 bands.  A thread owns two neighbouring columns of
+// kRowsA rows: every band pair it reads serves kRowsA rows, every window
+// pair two taps of two columns.  Taps 0 and 1 are one expression, as in
+// K1 (the compiler fuses the first product into the add: fma(c0, x0,
+// c1 x1)); the others are multiply-added in order.
+template <typename T, typename IO>
+__global__ void __launch_bounds__(kMaxThreads) k1r_pass_a(
+    const RtArgs<T, IO> a) {
+  const RtGeo& g = a.g;
   const Plan& pl = a.p;
-  const int T1 = g.T1, T2 = g.T2, NT = T1 * T2;
-  const int WR = T1 + 2 * P, WC = T2 + 2 * P, NW = WR * WC;
-  const int nthreads = blockDim.x;
-  const int crows = g.chunk + 4 * P;  // rows of the axis-0 coefficient table
-
+  const int P = g.P, W = 2 * P + 1, TL = g.TL, WC = TL + 2 * P;
+  const int NP = TL / 2, rows = g.G * kRowsA;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int64_t* soff = reinterpret_cast<int64_t*>(smem_raw);
-  T* win = reinterpret_cast<T*>(soff + NW);
-  T* u = win + S * NW;
-  T* c0s = u + kCU * WR * T2;
-  T* c2s = c0s + kCG * crows * W;
-  T* c1s = c2s + kCU * W * T2;
-  T* ring = c1s + kCV * W * T1;
+  T* win = reinterpret_cast<T*>(smem_raw);  // rows x WC
+  T* cb = win + rows * WC;                  // (k, t, column)
+  const int l0 = blockIdx.x * TL;
+  const int64_t row0 = (int64_t)blockIdx.y * rows;
+  const int64_t nrows = (int64_t)g.n0 * g.n1;
 
-  const int tid = threadIdx.x;
-  const int tj = tid / T2, tl = tid - tj * T2;
-  const bool in_tile = tid < NT;
-  const int j0 = blockIdx.y * T1, l0 = blockIdx.x * T2;
-  const int gj = j0 + tj, gl = l0 + tl;
-  const bool row_ok = in_tile && gj < g.n1;
-  const bool owns = row_ok && gl < g.n2;
-  const int i_begin = blockIdx.z * g.chunk;
-  const int i_end = min(i_begin + g.chunk, g.n0);
-  const int nu = pl.nu, nv = pl.nv, ng = pl.ng;
-  const bool has_acc = a.acc != nullptr, has_d = a.d_in != nullptr;
+  // the window: a warp a row at a time, a lane a column
+  const int lane = threadIdx.x % kpass::kLanes;
+  const int nwarps = blockDim.x / kpass::kLanes;
+  for (int r = threadIdx.x / kpass::kLanes; r < rows; r += nwarps) {
+    const int64_t row = row0 + r;
+    int64_t rbase = -1;
+    if (row < nrows) {
+      const int i = (int)row / g.n1, j = (int)row - i * g.n1;
+      rbase = i * g.s0 + j * g.s1;
+    }
+    for (int c = lane; c < WC; c += kpass::kLanes) {
+      const int gl = kron::resolve(l0 - P + c, g.n2, g.per2);
+      kpass::stage<T, IO>(win + r * WC + c, a.x,
+                          (rbase < 0 || gl < 0) ? -1 : rbase + gl * g.s2);
+    }
+  }
+  // the band rows of the tile's columns, (k, t, column)
+  kpass::copy_table(cb, a.table + (int64_t)blockIdx.x * kCU * W * TL,
+                    kCU * W * TL);
+  kron::cp_async_commit();
+  kron::cp_async_wait<0>();
+  __syncthreads();
 
-  kron::build_window_offsets(soff, g, P, j0, l0);
-  // axis-0 band rows of output planes [i_begin - 2P, i_begin + chunk + 2P),
-  // per pre-summed partial: zero outside the grid and for absent partials
-  for (int e = tid; e < kCG * crows * W; e += nthreads) {
-    const int gi = e / (crows * W);
-    const int rem = e - gi * crows * W;
-    const int i = i_begin - 2 * P + rem / W;
-    c0s[e] =
-        (gi < ng && i >= 0 && i < g.n0)
-            ? up(a.band[0][((int64_t)pl.g_lab[gi] * g.n0 + i) * W + rem % W])
-            : T(0);
+  const int pair = threadIdx.x % NP, grp = threadIdx.x / NP;
+  if (grp >= g.G) return;
+  const int c0 = 2 * pair;
+  using V = typename Pair<T>::type;
+  T s[kCU][kRowsA][2];
+  V xr[kRowsA];  // window values (t, t + 1) of the next taps, per row
+  {
+    V b0[kCU], b1[kCU];
+#pragma unroll
+    for (int k = 0; k < kCU; ++k) {
+      b0[k] = ld2(cb + k * W * TL + c0);
+      b1[k] = ld2(cb + (k * W + 1) * TL + c0);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsA; ++r) {
+      const T* xw = win + (grp * kRowsA + r) * WC + c0;
+      const V cur = ld2(xw), nxt = ld2(xw + 2);
+#pragma unroll
+      for (int k = 0; k < kCU; ++k) {
+        T s0 = b0[k].x * cur.x;
+        s0 += b1[k].x * cur.y;
+        T s1 = b0[k].y * cur.y;
+        s1 += b1[k].y * nxt.x;
+        s[k][r][0] = s0;
+        s[k][r][1] = s1;
+      }
+      xr[r] = nxt;
+    }
   }
-  // the tile's band rows, axis 2 per column and axis 1 per row: zero for
-  // absent partials and outside the grid, so the arithmetic below needs no
-  // branches
-  for (int e = tid; e < kCU * W * T2; e += nthreads) {
-    const int k = e / (W * T2), t = e / T2 - k * W, c = e - (e / T2) * T2;
-    c2s[e] = (k < nu && l0 + c < g.n2)
-                 ? up(a.band[2][((int64_t)pl.u_lab[k] * g.n2 + l0 + c) * W + t])
-                 : T(0);
+  for (int t = 2; t + 1 < W; t += 2) {
+    V bt[kCU], bu[kCU];
+#pragma unroll
+    for (int k = 0; k < kCU; ++k) {
+      bt[k] = ld2(cb + (k * W + t) * TL + c0);
+      bu[k] = ld2(cb + (k * W + t + 1) * TL + c0);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsA; ++r) {
+      const V cur = xr[r];
+      const V nxt = ld2(win + (grp * kRowsA + r) * WC + c0 + t + 2);
+#pragma unroll
+      for (int k = 0; k < kCU; ++k) {
+        s[k][r][0] += bt[k].x * cur.x;
+        s[k][r][1] += bt[k].y * cur.y;
+        s[k][r][0] += bu[k].x * cur.y;
+        s[k][r][1] += bu[k].y * nxt.x;
+      }
+      xr[r] = nxt;
+    }
   }
-  for (int e = tid; e < kCV * W * T1; e += nthreads) {
-    const int k = e / (W * T1), t = e / T1 - k * W, r = e - (e / T1) * T1;
-    c1s[e] = (k < nv && j0 + r < g.n1)
-                 ? up(a.band[1][((int64_t)pl.v_lab[k] * g.n1 + j0 + r) * W + t])
-                 : T(0);
+  {  // the last tap, 2P
+    V bt[kCU];
+#pragma unroll
+    for (int k = 0; k < kCU; ++k) bt[k] = ld2(cb + (k * W + 2 * P) * TL + c0);
+#pragma unroll
+    for (int r = 0; r < kRowsA; ++r)
+#pragma unroll
+      for (int k = 0; k < kCU; ++k) {
+        s[k][r][0] += bt[k].x * xr[r].x;
+        s[k][r][1] += bt[k].y * xr[r].y;
+      }
   }
+  const int64_t npts = nrows * g.n2;
+  const int l = l0 + c0;
+#pragma unroll
+  for (int r = 0; r < kRowsA; ++r) {
+    const int64_t row = row0 + grp * kRowsA + r;
+    if (row >= nrows) break;
+#pragma unroll
+    for (int k = 0; k < kCU; ++k) {
+      if (k >= pl.nu) break;
+      T* uk = a.scratch + k * npts + row * g.n2 + l;
+      if (l < g.n2) uk[0] = s[k][r][0];
+      if (l + 1 < g.n2) uk[1] = s[k][r][1];
+    }
+  }
+}
+
+// Pass B, axis 1: v[k] = sum_t B1[v_lab[k]][j][t] u[v_src[k]][.., j + t - P,
+// ..] and the pre-summed partials wsum[gi] = sum_k g_mult[gi][k] v[k], in
+// order.  A thread owns kOutR neighbouring outputs along axis 1: each u
+// value it reads serves kOutR outputs of each v, each band read (a
+// broadcast) kOutR outputs; an output takes its taps in order, from zero.
+template <typename T, typename IO>
+__global__ void __launch_bounds__(kMaxThreads) k1r_pass_b(
+    const RtArgs<T, IO> a) {
+  const RtGeo& g = a.g;
+  const Plan& pl = a.p;
+  const int P = g.P, NW = g.NWB, NPB = kOutR + 2 * P;
+  const int TAH = NW * kOutR + 2 * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);  // (source, row, lane)
+  T* bd = tile + kCU * TAH * kpass::kLanes;
+  const int l0 = blockIdx.x * kpass::kLanes, j0 = blockIdx.y * NW * kOutR;
+  const int i = blockIdx.z;
+  const int64_t plane = (int64_t)g.n1 * g.n2, npts = plane * g.n0;
+  for (int s = 0; s < pl.nu; ++s)
+    kpass::stage_strided(tile + s * TAH * kpass::kLanes,
+                         a.scratch + s * npts + i * plane, g.n2, g.n1,
+                         g.per1, j0, P, TAH, l0, g.n2);
+  const int nbd = kCV * NW * NPB * kOutR;
+  kpass::copy_table(bd, a.table + (int64_t)blockIdx.y * nbd, nbd);
+  kron::cp_async_commit();
+  kron::cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x % kpass::kLanes;
+  const int grp = threadIdx.x / kpass::kLanes;
   T gm[kCG][kCV];
 #pragma unroll
   for (int gi = 0; gi < kCG; ++gi)
 #pragma unroll
     for (int k = 0; k < kCV; ++k)
-      gm[gi][k] = (gi < ng && k < nv) ? T(pl.g_mult[gi][k]) : T(0);
-  int uoff[kCV];  // where each v reads its u column
+      gm[gi][k] = (gi < pl.ng && k < pl.nv) ? T(pl.g_mult[gi][k]) : T(0);
+  int src[kCV];
+#pragma unroll
+  for (int k = 0; k < kCV; ++k) src[k] = k < pl.nv ? pl.v_src[k] : 0;
+  const bool two = pl.nu > 1;
+  const T* in0 = tile + grp * kOutR * kpass::kLanes + lane;
+  const T* in1 = in0 + TAH * kpass::kLanes;
+  T v[kCV][kOutR];
 #pragma unroll
   for (int k = 0; k < kCV; ++k)
-    uoff[k] = ((k < nv ? pl.v_src[k] : 0) * WR + tj) * T2 + tl;
-
-  // the diagonal's centre columns along axes 1 and 2 do not change on the
-  // march: the first kRD terms' stay in registers
-  T d1[kRD], d2[kRD];
-  if (need_dg) {
 #pragma unroll
-    for (int r = 0; r < kRD; ++r) {
-      d1[r] = (r < g.R && row_ok) ? up(a.col[1][r * g.n1 + gj]) : T(0);
-      d2[r] = (r < g.R && owns) ? up(a.col[2][r * g.n2 + gl]) : T(0);
+    for (int r = 0; r < kOutR; ++r) v[k][r] = T(0);
+  for (int p = 0; p < NPB; ++p) {
+    const T x0 = in0[p * kpass::kLanes];
+    const T x1 = two ? in1[p * kpass::kLanes] : T(0);
+#pragma unroll
+    for (int k = 0; k < kCV; ++k) {
+      const T xk = src[k] == 0 ? x0 : x1;
+      T c[kOutR];
+      ld_row(bd + ((k * NW + grp) * NPB + p) * kOutR, c);
+#pragma unroll
+      for (int r = 0; r < kOutR; ++r) v[k][r] += c[r] * xk;
     }
   }
-
-  // ring[s * NT + tid]: the sum so far of one output plane; slot `base`
-  // holds plane q - P, slot base + s (mod W) plane q - P + s
-  if (in_tile)
-    for (int s = 0; s < W; ++s) ring[s * NT + tid] = T(0);
-
-  __syncthreads();  // the offset table is complete
-
-  // the window elements this thread copies, as in kron_march_kernel
-  int loff[kNL];
+  const int l = l0 + lane;
+  if (l >= g.n2) return;
 #pragma unroll
-  for (int k = 0; k < kNL; ++k) {
-    const int e = tid + k * nthreads;
-    const int64_t o = e < NW ? soff[e] : -1;
-    loff[k] = (int)o;
-    if (e < NW && o < 0)
-      for (int sb = 0; sb < S; ++sb) win[sb * NW + e] = T(0);
+  for (int r = 0; r < kOutR; ++r) {
+    const int j = j0 + grp * kOutR + r;
+    if (j >= g.n1) break;
+#pragma unroll
+    for (int gi = 0; gi < kCG; ++gi) {
+      if (gi >= pl.ng) break;
+      T wsum = gm[gi][0] * v[0][r];
+#pragma unroll
+      for (int k = 1; k < kCV; ++k) wsum += gm[gi][k] * v[k][r];
+      a.scratch[(kCU + gi) * npts + i * plane + (int64_t)j * g.n2 + l] = wsum;
+    }
   }
-  const bool tail = NW > kNL * nthreads;
+}
 
-  const int q_begin = i_begin - P, q_end = i_end + P;
-  int buf = 0;
-  auto issue = [&](int q, int sb) {
-    const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -1;
-    if (gq >= 0) {
-      const IO* src = a.x + gq * g.s0;
-      T* dst = win + sb * NW + tid;
+// Pass C, axis 0: A x = sum_gi sum_t B0[g_lab[gi]][i][t] wsum[gi][i + t - P]
+// (per tap, the pre-summed partials in order, each multiply-added onto the
+// output's running sum), then the mode's epilogue, K1's own.  A thread owns
+// kOutR neighbouring outputs along axis 0.
+template <typename T, int MODE, typename IO>
+__global__ void __launch_bounds__(kMaxThreads) k1r_pass_c(
+    const RtArgs<T, IO> a) {
+  constexpr bool need_b = MODE == kResidual || MODE == kCheb;
+  constexpr bool need_dg = MODE == kDinv || MODE == kCheb;
+  const RtGeo& g = a.g;
+  const Plan& pl = a.p;
+  const int P = g.P, NW = g.NWC, NPB = kOutR + 2 * P;
+  const int TAH = NW * kOutR + 2 * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);  // (partial, row, lane)
+  T* bd = tile + kCG * TAH * kpass::kLanes;
+  const int l0 = blockIdx.x * kpass::kLanes, j = blockIdx.y;
+  const int i0 = blockIdx.z * NW * kOutR;
+  const int64_t plane = (int64_t)g.n1 * g.n2, npts = plane * g.n0;
+  for (int s = 0; s < pl.ng; ++s)
+    kpass::stage_strided(tile + s * TAH * kpass::kLanes,
+                         a.scratch + (kCU + s) * npts + (int64_t)j * g.n2,
+                         plane, g.n0, g.per0, i0, P, TAH, l0, g.n2);
+  const int nbd = kCG * NW * NPB * kOutR;
+  kpass::copy_table(bd, a.table + (int64_t)blockIdx.z * nbd, nbd);
+  kron::cp_async_commit();
+
+  // the epilogue's operands, asked for now so that they arrive under the
+  // tile's copy and the arithmetic
+  const int lane = threadIdx.x % kpass::kLanes;
+  const int grp = threadIdx.x / kpass::kLanes;
+  const int l = l0 + lane;
+  const bool has_acc = a.acc != nullptr, has_d = a.d_in != nullptr;
+  T acc_v[kOutR], b_v[kOutR], d_v[kOutR], x_v[kOutR], dg[kOutR];
 #pragma unroll
-      for (int k = 0; k < kNL; ++k)
-        if (loff[k] >= 0)
-          kron::fill_element(dst + k * nthreads, src + loff[k]);
-      if (tail)
-        kron::load_window(win + sb * NW, a.x, soff, NW, gq * g.s0,
-                          kNL * nthreads);
+  for (int r = 0; r < kOutR; ++r) {
+    acc_v[r] = b_v[r] = d_v[r] = x_v[r] = dg[r] = T(0);
+    const int i = i0 + grp * kOutR + r;
+    if (l >= g.n2 || i >= g.n0) continue;
+    const int64_t idx = i * plane + (int64_t)j * g.n2 + l;
+    if (has_acc) acc_v[r] = a.acc[idx];
+    if (need_b) b_v[r] = up(a.b[idx]);
+    if (MODE == kCheb) {
+      if (has_d) d_v[r] = up(a.d_in[idx]);
+      x_v[r] = up(a.x[i * g.s0 + j * g.s1 + l * g.s2]);
     }
-    kron::cp_async_commit();
-  };
-  for (int k = 0; k < S - 1; ++k) issue(q_begin + k, k);
-
-  const int64_t plane = (int64_t)g.n1 * g.n2;
-  const int64_t base_idx = (int64_t)gj * g.n2 + gl;
-  const int64_t xbase = gj * g.s1 + gl * g.s2;
-  int base = 0;
-  for (int q = q_begin; q < q_end; ++q) {
-    const int gq = kron::resolve(q, g.n0, g.per0);
-    issue(q + S - 1, buf == 0 ? S - 1 : buf - 1);
-
-    // the epilogue's operands of the plane this step completes
-    const int i = q - P;
-    const bool emits = i >= i_begin && owns;
-    const int64_t idx = base_idx + i * plane;
-    T acc_v = T(0), b_v = T(0), d_v = T(0), x_v = T(0), dg = T(0);
-    if (emits) {
-      if (has_acc) acc_v = a.acc[idx];
-      if (need_b) b_v = up(a.b[idx]);
-      if (MODE == kCheb) {
-        if (has_d) d_v = up(a.d_in[idx]);
-        x_v = up(a.x[i * g.s0 + xbase]);
-      }
-      if (need_dg) {
-#pragma unroll
-        for (int r = 0; r < kRD; ++r)
-          if (r < g.R)
-            dg = add_rn(dg, mul_rn(mul_rn(up(a.col[0][r * g.n0 + i]), d1[r]),
-                                   d2[r]));
-        for (int r = kRD; r < g.R; ++r)
-          dg = add_rn(dg, mul_rn(mul_rn(up(a.col[0][r * g.n0 + i]),
-                                        up(a.col[1][r * g.n1 + gj])),
-                                 up(a.col[2][r * g.n2 + gl])));
-      }
-    }
-
-    kron::cp_async_wait<S - 1>();  // all but the newest S - 1: plane q is in
-    __syncthreads();
-
-    if (gq >= 0) {  // a zero ghost plane adds nothing (uniform branch)
-      const T* wq = win + buf * NW;
-      // axis 2: u[k][rr][tl] = sum_t c2[k][t][tl] * window[rr][tl + t]
-      if (in_tile) {
-        for (int rr = tj; rr < WR; rr += T1) {
-          const T* xrow = wq + rr * WC + tl;
-          // taps 0 and 1 as one expression, as the compiled kernel's
-          // unrolled chain presents them: the compiler fuses the first
-          // product into the add (fma(c0, x0, c1 x1)), so these bits match
-          T s[kCU];
-#pragma unroll
-          for (int k = 0; k < kCU; ++k) {
-            s[k] = c2s[k * W * T2 + tl] * xrow[0];
-            s[k] += c2s[(k * W + 1) * T2 + tl] * xrow[1];
-          }
-          for (int t = 2; t < W; ++t) {
-            const T xv = xrow[t];
-#pragma unroll
-            for (int k = 0; k < kCU; ++k)
-              s[k] += c2s[(k * W + t) * T2 + tl] * xv;
-          }
-#pragma unroll
-          for (int k = 0; k < kCU; ++k) u[(k * WR + rr) * T2 + tl] = s[k];
-        }
-      }
-      __syncthreads();
-      // axis 1: v[k] = sum_t c1[k][t][tj] * u[v_src[k]][tj + t][tl], then
-      // the sums that share an axis-0 band
-      if (in_tile) {
-        T v[kCV];
-#pragma unroll
-        for (int k = 0; k < kCV; ++k) v[k] = T(0);
-        for (int t = 0; t < W; ++t)
-#pragma unroll
-          for (int k = 0; k < kCV; ++k)
-            v[k] += c1s[(k * W + t) * T1 + tj] * u[uoff[k] + t * T2];
-        T wsum[kCG];
-#pragma unroll
-        for (int gi = 0; gi < kCG; ++gi) {
-          wsum[gi] = gm[gi][0] * v[0];
-#pragma unroll
-          for (int k = 1; k < kCV; ++k) wsum[gi] += gm[gi][k] * v[k];
-        }
-        // axis 0: output plane q - P + s takes tap 2P - s of plane q
-        const T* cq = c0s + (q - i_begin + P) * W + 2 * P;
-        int sl = base;
-        for (int s = 0; s < W; ++s) {
-          T o = ring[sl * NT + tid];
-#pragma unroll
-          for (int gi = 0; gi < kCG; ++gi)
-            o += cq[gi * crows * W + s * (W - 1)] * wsum[gi];
-          ring[sl * NT + tid] = o;
-          sl = sl + 1 == W ? 0 : sl + 1;
-        }
-      }
-    }
-
-    if (emits) {  // output plane i: its last input has arrived
-      const T ax = acc_v + ring[base * NT + tid];
-      T r = ax;
-      if (need_b) r = b_v - ax;
-      if (need_dg) r = r / dg;
-      if (MODE == kCheb) {
-        T d = a.c2 * r;
-        if (has_d) d += a.c1 * d_v;
-        store(a.d_out + idx, d);
-        store(a.out + idx, x_v + d);
-      } else if (MODE == kApply && a.out_hi != nullptr) {
-        a.out_hi[idx] = r;
-      } else {
-        store(a.out + idx, r);
-      }
-    }
-    if (in_tile) ring[base * NT + tid] = T(0);  // from now plane q + P + 1's
-    base = base + 1 == W ? 0 : base + 1;
-    buf = buf + 1 == S ? 0 : buf + 1;
-    // the next step's barrier orders these reads of u before its writes; a
-    // window is refilled S - 1 steps after its last read
+    if (need_dg)
+      for (int q = 0; q < g.R; ++q)
+        dg[r] = add_rn(dg[r], mul_rn(mul_rn(up(a.col[0][q * g.n0 + i]),
+                                            up(a.col[1][q * g.n1 + j])),
+                                     up(a.col[2][q * g.n2 + l])));
   }
   kron::cp_async_wait<0>();
+  __syncthreads();
+
+  const bool two = pl.ng > 1;
+  const T* in0 = tile + grp * kOutR * kpass::kLanes + lane;
+  const T* in1 = in0 + TAH * kpass::kLanes;
+  const T* bd0 = bd + grp * NPB * kOutR;
+  const T* bd1 = bd0 + NW * NPB * kOutR;
+  T o[kOutR];
+#pragma unroll
+  for (int r = 0; r < kOutR; ++r) o[r] = T(0);
+  for (int p = 0; p < NPB; ++p) {
+    T c[kOutR];
+    const T w0 = in0[p * kpass::kLanes];
+    ld_row(bd0 + p * kOutR, c);
+#pragma unroll
+    for (int r = 0; r < kOutR; ++r) o[r] += c[r] * w0;
+    if (two) {
+      const T w1 = in1[p * kpass::kLanes];
+      ld_row(bd1 + p * kOutR, c);
+#pragma unroll
+      for (int r = 0; r < kOutR; ++r) o[r] += c[r] * w1;
+    }
+  }
+
+  if (l >= g.n2) return;
+#pragma unroll
+  for (int r = 0; r < kOutR; ++r) {
+    const int i = i0 + grp * kOutR + r;
+    if (i >= g.n0) break;
+    const int64_t idx = i * plane + (int64_t)j * g.n2 + l;
+    const T ax = acc_v[r] + o[r];
+    T res = ax;
+    if (need_b) res = b_v[r] - ax;
+    if (need_dg) res = res / dg[r];
+    if (MODE == kCheb) {
+      T d = a.c2 * res;
+      if (has_d) d += a.c1 * d_v[r];
+      store(a.d_out + idx, d);
+      store(a.out + idx, x_v[r] + d);
+    } else if (MODE == kApply && a.out_hi != nullptr) {
+      a.out_hi[idx] = res;
+    } else {
+      store(a.out + idx, res);
+    }
+  }
 }
 
 template <typename T, int P, int MODE, typename IO>
@@ -756,51 +889,88 @@ int launch_p(const Args<T, IO>& a, cudaStream_t stream) {
   }
 }
 
-template <typename T, int MODE, typename IO>
-int launch_rt_m(const Args<T, IO>& a, int P, cudaStream_t stream) {
-  const Geometry& g = a.g;
-  if (P < 1 || g.threads > kMaxThreads || g.threads < g.T1 * g.T2 ||
-      g.threads % 32 != 0)
+// K1r: one pass (0 A, 1 B, 2 C) of the run-time design
+template <typename T, typename IO>
+int launch_rt(int pass, int mode, const RtArgs<T, IO>& a,
+              cudaStream_t stream) {
+  const RtGeo& g = a.g;
+  const size_t elem = sizeof(T);
+  const int threads_a = 32 * ((g.TL / 2 * g.G + 31) / 32);
+  if (g.P < 1 || g.TL < 2 || g.TL % 2 != 0 || g.G < 1 ||
+      threads_a > kMaxThreads || g.NWB < 1 || g.NWB > kpass::kMaxWarps ||
+      g.NWC < 1 || g.NWC > kpass::kMaxWarps ||
+      (int64_t)g.n0 * g.n1 > INT32_MAX || a.scratch == nullptr ||
+      a.table == nullptr)
     return (int)cudaErrorInvalidConfiguration;
-  // the copy offsets a thread keeps are 32-bit: the last in-plane offset
-  if ((g.n1 - 1) * g.s1 + (g.n2 - 1) * g.s2 > (int64_t)INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes_rt(g, P, sizeof(T));
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kron_march_rt_kernel<T, MODE, IO>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, or the next launch reports it
+  const int tiles2 = (g.n2 + kpass::kLanes - 1) / kpass::kLanes;
+  cudaError_t err;
+  if (pass == 0) {
+    const size_t bytes = smem_a(g, elem);
+    if ((err = kpass::allow_smem(k1r_pass_a<T, IO>, bytes)) != cudaSuccess)
       return (int)err;
+    const int per = g.G * kRowsA;
+    const dim3 grid((g.n2 + g.TL - 1) / g.TL, (g.n0 * g.n1 + per - 1) / per);
+    k1r_pass_a<T, IO><<<grid, threads_a, bytes, stream>>>(a);
+  } else if (pass == 1) {
+    const size_t bytes = smem_bc(g.NWB, g.P, kCU, kCV, elem);
+    if ((err = kpass::allow_smem(k1r_pass_b<T, IO>, bytes)) != cudaSuccess)
+      return (int)err;
+    const int per = g.NWB * kOutR;
+    const dim3 grid(tiles2, (g.n1 + per - 1) / per, g.n0);
+    k1r_pass_b<T, IO><<<grid, g.NWB * kpass::kLanes, bytes, stream>>>(a);
+  } else {
+    const size_t bytes = smem_bc(g.NWC, g.P, kCG, kCG, elem);
+    const int per = g.NWC * kOutR;
+    const dim3 grid(tiles2, g.n1, (g.n0 + per - 1) / per);
+    const int threads = g.NWC * kpass::kLanes;
+    auto go = [&](auto kernel) {
+      const cudaError_t e = kpass::allow_smem(kernel, bytes);
+      if (e != cudaSuccess) return (int)e;
+      kernel<<<grid, threads, bytes, stream>>>(a);
+      return 0;
+    };
+    int e;
+    switch (mode) {
+      case kApply: e = go(k1r_pass_c<T, kApply, IO>); break;
+      case kResidual: e = go(k1r_pass_c<T, kResidual, IO>); break;
+      case kDinv: e = go(k1r_pass_c<T, kDinv, IO>); break;
+      default: e = go(k1r_pass_c<T, kCheb, IO>); break;
     }
+    if (e != 0) return e;
   }
-  const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
-                  (g.n0 + g.chunk - 1) / g.chunk);
-  kron_march_rt_kernel<T, MODE, IO><<<grid, g.threads, bytes, stream>>>(a, P);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename IO>
-int launch_rt(const Args<T, IO>& a, int P, cudaStream_t stream) {
-  switch (a.mode) {
-    case kApply: return launch_rt_m<T, kApply, IO>(a, P, stream);
-    case kResidual: return launch_rt_m<T, kResidual, IO>(a, P, stream);
-    case kDinv: return launch_rt_m<T, kDinv, IO>(a, P, stream);
-    default: return launch_rt_m<T, kCheb, IO>(a, P, stream);
-  }
+// plan: nu nv ng u_lab[kCU] v_src[kCV] v_lab[kCV] g_lab[kCG] g_mult[kCG][kCV]
+bool parse_plan(const int* plan, Plan& p) {
+  const int* q = plan;
+  p.nu = *q++, p.nv = *q++, p.ng = *q++;
+  for (int k = 0; k < kCU; ++k) p.u_lab[k] = *q++;
+  for (int k = 0; k < kCV; ++k) p.v_src[k] = *q++;
+  for (int k = 0; k < kCV; ++k) p.v_lab[k] = *q++;
+  for (int k = 0; k < kCG; ++k) p.g_lab[k] = *q++;
+  for (int gi = 0; gi < kCG; ++gi)
+    for (int k = 0; k < kCV; ++k) p.g_mult[gi][k] = *q++;
+  return !(p.nu < 1 || p.nu > kCU || p.nv < 1 || p.nv > kCV || p.ng < 1 ||
+           p.ng > kCG);
+}
+
+// the operands every mode checks: b where the mode reads it, one output
+bool operands_ok(int mode, const void* b, const void* out,
+                 const void* out_hi) {
+  if (mode < 0 || mode > kCheb) return false;
+  if ((mode == kResidual || mode == kCheb) && b == nullptr) return false;
+  return out_hi != nullptr ? mode == kApply : out != nullptr;
 }
 
 // geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
-// plan: nu nv ng u_lab[kCU] v_src[kCV] v_lab[kCV] g_lab[kCG] g_mult[kCG][kCV]
-// runtime: K1r at half-width P, else the compiled kernel of P
 template <typename T, typename IO>
 int launch(const void* x, const void* b0, const void* b1, const void* b2,
            const void* c0, const void* c1, const void* c2, const void* acc,
            const void* b, const void* d_in, void* d_out, void* out,
            void* out_hi, double s1, double s2, int mode,
            const int64_t* xstrides, const int* geo, const int* plan,
-           void* stream, bool runtime) {
+           void* stream) {
   Args<T, IO> a;
   a.x = (const IO*)x;
   a.band[0] = (const IO*)b0;
@@ -825,25 +995,10 @@ int launch(const void* x, const void* b0, const void* b1, const void* b2,
   g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
   g.R = geo[11];
   g.s0 = xstrides[0], g.s1 = xstrides[1], g.s2 = xstrides[2];
-  Plan& p = a.p;
-  const int* q = plan;
-  p.nu = *q++, p.nv = *q++, p.ng = *q++;
-  for (int k = 0; k < kCU; ++k) p.u_lab[k] = *q++;
-  for (int k = 0; k < kCV; ++k) p.v_src[k] = *q++;
-  for (int k = 0; k < kCV; ++k) p.v_lab[k] = *q++;
-  for (int k = 0; k < kCG; ++k) p.g_lab[k] = *q++;
-  for (int gi = 0; gi < kCG; ++gi)
-    for (int k = 0; k < kCV; ++k) p.g_mult[gi][k] = *q++;
-  if (p.nu < 1 || p.nu > kCU || p.nv < 1 || p.nv > kCV || p.ng < 1 ||
-      p.ng > kCG || g.T1 < 1 || g.T2 < 1 || g.chunk < 1 || mode < 0 ||
-      mode > kCheb)
-    return (int)cudaErrorInvalidValue;
-  if ((mode == kResidual || mode == kCheb) && b == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (out_hi != nullptr ? mode != kApply : out == nullptr)
+  if (!parse_plan(plan, a.p) || g.T1 < 1 || g.T2 < 1 || g.chunk < 1 ||
+      !operands_ok(mode, b, out, out_hi))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (runtime) return launch_rt<T, IO>(a, P, st);
   switch (P) {  // the instantiated half-widths; ops/kron.py pads bands to one
     case 1: return launch_p<T, 1, IO>(a, st);
     case 2: return launch_p<T, 2, IO>(a, st);
@@ -854,17 +1009,56 @@ int launch(const void* x, const void* b0, const void* b1, const void* b2,
   }
 }
 
+// K1r's geo: n0 n1 n2 per0 per1 per2 P R TL G NWB NWC
+void parse_rt_geo(const int* geo, RtGeo& g) {
+  g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
+  g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];
+  g.P = geo[6], g.R = geo[7];
+  g.TL = geo[8], g.G = geo[9], g.NWB = geo[10], g.NWC = geo[11];
+}
+
+template <typename T, typename IO>
+int launch_rt_pass(int pass, const void* x, const void* b0, const void* b1,
+                   const void* b2, const void* c0, const void* c1,
+                   const void* c2, const void* acc, const void* b,
+                   const void* d_in, void* d_out, void* out, void* out_hi,
+                   double s1, double s2, int mode, const int64_t* xstrides,
+                   const int* geo, const int* plan, void* scratch,
+                   const void* table, void* stream) {
+  RtArgs<T, IO> a;
+  a.x = (const IO*)x;
+  a.band[0] = (const IO*)b0;
+  a.band[1] = (const IO*)b1;
+  a.band[2] = (const IO*)b2;
+  a.col[0] = (const IO*)c0;
+  a.col[1] = (const IO*)c1;
+  a.col[2] = (const IO*)c2;
+  a.acc = (const T*)acc;
+  a.b = (const IO*)b;
+  a.d_in = (const IO*)d_in;
+  a.d_out = (IO*)d_out;
+  a.out = (IO*)out;
+  a.out_hi = (T*)out_hi;
+  a.c1 = (T)s1;
+  a.c2 = (T)s2;
+  a.scratch = (T*)scratch;
+  a.table = (const T*)table;
+  parse_rt_geo(geo, a.g);
+  a.g.s0 = xstrides[0], a.g.s1 = xstrides[1], a.g.s2 = xstrides[2];
+  if (!parse_plan(plan, a.p) || pass < 0 || pass > 2 ||
+      (pass == 2 && !operands_ok(mode, b, out, out_hi)))
+    return (int)cudaErrorInvalidValue;
+  return launch_rt<T, IO>(pass, mode, a, (cudaStream_t)stream);
+}
+
 template <typename T, int P, int MODE, typename IO>
 int resources_pm(const Geometry& g, int* out) {
   return kron::resources_of(kron_march_kernel<T, P, MODE, IO>, g.threads,
-                      smem_bytes<P>(g, sizeof(T)), out);
+                            smem_bytes<P>(g, sizeof(T)), out);
 }
 
 template <typename T, int MODE, typename IO>
-int resources_m(const Geometry& g, int P, int runtime, int* out) {
-  if (runtime)
-    return kron::resources_of(kron_march_rt_kernel<T, MODE, IO>, g.threads,
-                        smem_bytes_rt(g, P, sizeof(T)), out);
+int resources_m(const Geometry& g, int P, int* out) {
   switch (P) {
     case 1: return resources_pm<T, 1, MODE, IO>(g, out);
     case 2: return resources_pm<T, 2, MODE, IO>(g, out);
@@ -876,12 +1070,45 @@ int resources_m(const Geometry& g, int P, int runtime, int* out) {
 }
 
 template <typename T, typename IO>
-int resources_t(int mode, const Geometry& g, int P, int runtime, int* out) {
+int resources_t(int mode, const Geometry& g, int P, int* out) {
   switch (mode) {
-    case kApply: return resources_m<T, kApply, IO>(g, P, runtime, out);
-    case kResidual: return resources_m<T, kResidual, IO>(g, P, runtime, out);
-    case kDinv: return resources_m<T, kDinv, IO>(g, P, runtime, out);
-    case kCheb: return resources_m<T, kCheb, IO>(g, P, runtime, out);
+    case kApply: return resources_m<T, kApply, IO>(g, P, out);
+    case kResidual: return resources_m<T, kResidual, IO>(g, P, out);
+    case kDinv: return resources_m<T, kDinv, IO>(g, P, out);
+    case kCheb: return resources_m<T, kCheb, IO>(g, P, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename IO>
+int resources_rt(int pass, int mode, const RtGeo& g, int* out) {
+  const size_t elem = sizeof(T);
+  switch (pass) {
+    case 0:
+      return kron::resources_of(k1r_pass_a<T, IO>,
+                                32 * ((g.TL / 2 * g.G + 31) / 32),
+                                smem_a(g, elem), out);
+    case 1:
+      return kron::resources_of(k1r_pass_b<T, IO>, g.NWB * kpass::kLanes,
+                                smem_bc(g.NWB, g.P, kCU, kCV, elem), out);
+    case 2: {
+      const int threads = g.NWC * kpass::kLanes;
+      const size_t bytes = smem_bc(g.NWC, g.P, kCG, kCG, elem);
+      switch (mode) {
+        case kApply:
+          return kron::resources_of(k1r_pass_c<T, kApply, IO>, threads,
+                                    bytes, out);
+        case kResidual:
+          return kron::resources_of(k1r_pass_c<T, kResidual, IO>, threads,
+                                    bytes, out);
+        case kDinv:
+          return kron::resources_of(k1r_pass_c<T, kDinv, IO>, threads,
+                                    bytes, out);
+        default:
+          return kron::resources_of(k1r_pass_c<T, kCheb, IO>, threads,
+                                    bytes, out);
+      }
+    }
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -890,81 +1117,59 @@ int resources_t(int mode, const Geometry& g, int P, int runtime, int* out) {
 
 extern "C" {
 
-int kron_apply_f32(const void* x, const void* b0, const void* b1,
-                   const void* b2, const void* c0, const void* c1,
-                   const void* c2, const void* acc, const void* b,
-                   const void* d_in, void* d_out, void* out, void* out_hi,
-                   double s1, double s2, int mode, const int64_t* xstrides,
-                   const int* geo, const int* plan, void* stream) {
-  return launch<float, float>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in, d_out,
-                              out, out_hi, s1, s2, mode, xstrides, geo, plan,
-                              stream, false);
-}
+#define KRON_APPLY_ENTRY(NAME, T, IO)                                       \
+  int NAME(const void* x, const void* b0, const void* b1, const void* b2,  \
+           const void* c0, const void* c1, const void* c2, const void* acc, \
+           const void* b, const void* d_in, void* d_out, void* out,         \
+           void* out_hi, double s1, double s2, int mode,                    \
+           const int64_t* xstrides, const int* geo, const int* plan,        \
+           void* stream) {                                                  \
+    return launch<T, IO>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in, d_out,    \
+                         out, out_hi, s1, s2, mode, xstrides, geo, plan,    \
+                         stream);                                           \
+  }
+
+// K1r, one pass (0: A, 1: B, 2: C) of the run-time design: the compiled
+// entries' arguments, K1r's geo, the plan's scratch (kCU + kCG fields of
+// the arithmetic type) and the pass's band table of the run
+#define KRON_APPLY_RT_ENTRY(NAME, T, IO)                                    \
+  int NAME(int pass, const void* x, const void* b0, const void* b1,         \
+           const void* b2, const void* c0, const void* c1, const void* c2,  \
+           const void* acc, const void* b, const void* d_in, void* d_out,   \
+           void* out, void* out_hi, double s1, double s2, int mode,         \
+           const int64_t* xstrides, const int* geo, const int* plan,        \
+           void* scratch, const void* table, void* stream) {                \
+    return launch_rt_pass<T, IO>(pass, x, b0, b1, b2, c0, c1, c2, acc, b,   \
+                                 d_in, d_out, out, out_hi, s1, s2, mode,    \
+                                 xstrides, geo, plan, scratch, table,       \
+                                 stream);                                   \
+  }
 
 // fields and bands bfloat16; acc and out_hi (the sum between the launches of
 // one operator) float
-int kron_apply_bf16(const void* x, const void* b0, const void* b1,
-                    const void* b2, const void* c0, const void* c1,
-                    const void* c2, const void* acc, const void* b,
-                    const void* d_in, void* d_out, void* out, void* out_hi,
-                    double s1, double s2, int mode, const int64_t* xstrides,
-                    const int* geo, const int* plan, void* stream) {
-  return launch<float, __nv_bfloat16>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
-                                      d_out, out, out_hi, s1, s2, mode,
-                                      xstrides, geo, plan, stream, false);
-}
-
-int kron_apply_f64(const void* x, const void* b0, const void* b1,
-                   const void* b2, const void* c0, const void* c1,
-                   const void* c2, const void* acc, const void* b,
-                   const void* d_in, void* d_out, void* out, void* out_hi,
-                   double s1, double s2, int mode, const int64_t* xstrides,
-                   const int* geo, const int* plan, void* stream) {
-  return launch<double, double>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
-                                d_out, out, out_hi, s1, s2, mode, xstrides,
-                                geo, plan, stream, false);
-}
-
-// K1r, the half-width geo[6] taken at run time: the same arguments
-int kron_apply_rt_f32(const void* x, const void* b0, const void* b1,
-                      const void* b2, const void* c0, const void* c1,
-                      const void* c2, const void* acc, const void* b,
-                      const void* d_in, void* d_out, void* out, void* out_hi,
-                      double s1, double s2, int mode, const int64_t* xstrides,
-                      const int* geo, const int* plan, void* stream) {
-  return launch<float, float>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in, d_out,
-                              out, out_hi, s1, s2, mode, xstrides, geo, plan,
-                              stream, true);
-}
-
-int kron_apply_rt_bf16(const void* x, const void* b0, const void* b1,
-                       const void* b2, const void* c0, const void* c1,
-                       const void* c2, const void* acc, const void* b,
-                       const void* d_in, void* d_out, void* out, void* out_hi,
-                       double s1, double s2, int mode,
-                       const int64_t* xstrides, const int* geo,
-                       const int* plan, void* stream) {
-  return launch<float, __nv_bfloat16>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
-                                      d_out, out, out_hi, s1, s2, mode,
-                                      xstrides, geo, plan, stream, true);
-}
-
-int kron_apply_rt_f64(const void* x, const void* b0, const void* b1,
-                      const void* b2, const void* c0, const void* c1,
-                      const void* c2, const void* acc, const void* b,
-                      const void* d_in, void* d_out, void* out, void* out_hi,
-                      double s1, double s2, int mode, const int64_t* xstrides,
-                      const int* geo, const int* plan, void* stream) {
-  return launch<double, double>(x, b0, b1, b2, c0, c1, c2, acc, b, d_in,
-                                d_out, out, out_hi, s1, s2, mode, xstrides,
-                                geo, plan, stream, true);
-}
+KRON_APPLY_ENTRY(kron_apply_f32, float, float)
+KRON_APPLY_ENTRY(kron_apply_bf16, float, __nv_bfloat16)
+KRON_APPLY_ENTRY(kron_apply_f64, double, double)
+KRON_APPLY_RT_ENTRY(kron_apply_rt_f32, float, float)
+KRON_APPLY_RT_ENTRY(kron_apply_rt_bf16, float, __nv_bfloat16)
+KRON_APPLY_RT_ENTRY(kron_apply_rt_f64, double, double)
 
 // out: registers a thread, local memory a thread in bytes (spills), shared
 // memory a block in bytes, blocks an SM holds, for a launch of geo in `mode`
-// (dtype 0 f32, 1 f64, 2 bf16; runtime: K1r's)
-int kron_apply_resources(int dtype, int mode, int runtime, const int* geo,
+// (dtype 0 f32, 1 f64, 2 bf16); pass -1: the compiled kernel's, 0-2: K1r's
+// pass (geo then K1r's)
+int kron_apply_resources(int dtype, int mode, int pass, const int* geo,
                          int* out) {
+  if (pass >= 0) {
+    RtGeo g;
+    parse_rt_geo(geo, g);
+    switch (dtype) {
+      case 0: return resources_rt<float, float>(pass, mode, g, out);
+      case 1: return resources_rt<double, double>(pass, mode, g, out);
+      case 2: return resources_rt<float, __nv_bfloat16>(pass, mode, g, out);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   Geometry g;
   g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
   g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];
@@ -973,10 +1178,9 @@ int kron_apply_resources(int dtype, int mode, int runtime, const int* geo,
   g.R = geo[11];
   g.s0 = (int64_t)g.n1 * g.n2, g.s1 = g.n2, g.s2 = 1;
   switch (dtype) {
-    case 0: return resources_t<float, float>(mode, g, P, runtime, out);
-    case 1: return resources_t<double, double>(mode, g, P, runtime, out);
-    case 2:
-      return resources_t<float, __nv_bfloat16>(mode, g, P, runtime, out);
+    case 0: return resources_t<float, float>(mode, g, P, out);
+    case 1: return resources_t<double, double>(mode, g, P, out);
+    case 2: return resources_t<float, __nv_bfloat16>(mode, g, P, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,10 +37,12 @@
 // operator: sigma M M M, K M M, M K M, M M K) runs the 4-history one, which
 // may spill and is slower, and is bit-equal all the same.
 //
-// Every half-width 1 to 8 is instantiated (spline degrees 1 to 8, no tap
-// padded; ops/twofloat.py::COMPILED_P_DW).  Wide ones (P > kRegisterP: 6,
-// 7, 8) take a second kernel, kron_march_dw_wide_kernel: the band rows of
-// axes 1 and 2 and the axis-0 ring of each history live in shared memory
+// Every half-width 1 to 8 is instantiated (no tap padded); plans take the
+// compiled kernel at 1-3 and K5r at every other
+// (ops/twofloat.py::COMPILED_P_DW, chosen end to end).  Wide ones
+// (P > kRegisterP: 6, 7, 8) take a second kernel,
+// kron_march_dw_wide_kernel: the band rows of axes 1 and 2 and the
+// axis-0 ring of each history live in shared memory
 // (the ring a thread's own slots, so it needs no barrier), and only one
 // window row of x sits in registers.  Its registers do not grow with P;
 // the ring's shared memory does (2 CW (2P+1) words a thread), and the
@@ -48,14 +50,23 @@
 // (ops/twofloat.py::k5_smem_bytes mirrors smem_bytes_wide).  It performs
 // the same operations in the same order.
 //
-// K5r: bands wider than 8 (spline degrees above 8) run on the same body with
-// the half-width a launch argument (kron_march_dw_rt_kernel, entry
-// kron_residual_dw_rt): the shared memory is sized at launch, the taps are
-// loops, and the window row is read from shared memory tap by tap.  The
-// operations and their order are the wide kernel's, so its words too equal
-// the plain version's.  Its smallest block (one row, one column, one plane)
-// fits the card's shared memory up to P = 36 with 3 or 4 histories; wider
-// bands are refused by the host (ops/kron.py::refuse_half_width).
+// K5r (k5r_pass_a/b/c, entry kron_residual_dw_rt): bands wider than the
+// compiled half-widths, the half-width a launch argument, as three one-axis
+// passes through the plan's scratch in device memory (kron_pass.cuh), the
+// JAX reference's own structure (residual_kron_df contracts one axis at a
+// time): A (axis 2) x -> the u pairs, B (axis 1) u -> each v pair, C (axis
+// 0) one contraction per distinct history, then the terms and b - sum as
+// emit() forms them.  What bounds it: the operations (29 a tap, none
+// fusing), so no pass keeps a ring or recomputes a halo row, and a thread
+// owns several outputs whose double-word chains are independent (kRowsA or
+// kOutR per partial: up to 8 chains a thread in pass C), in blocks small
+// enough that several share an SM.  Each chain's operations are the plain
+// version's in its order (taps in order, the first assigned), and a pair
+// written to the scratch and read back is exact, so the words equal the
+// plain version's.  Its smallest block (one warp a pass) fits the card's
+// shared memory up to the half-width ops/kron.py::widest_half_width finds
+// for ops/twofloat.py::k5r_smem; wider bands are refused by the host
+// (ops/kron.py::refuse_half_width).
 //
 // More terms than one launch holds (kCU u, kCV v, kCW histories, kCT terms):
 // the host splits the terms, in order, into runs that fit, one launch each.
@@ -78,6 +89,7 @@
 
 #include "dw_eft.cuh"
 #include "kron_march.cuh"
+#include "kron_pass.cuh"
 
 namespace {
 
@@ -129,8 +141,8 @@ __host__ __device__ inline size_t smem_bytes(const Geometry& g) {
 // (or the first term assigned); the last launch writes b - sum (negated on
 // request), every other one the sum.  The choice is a branch around the add,
 // so y is never indexed by a value (which would put it in local memory)
-template <int CW>
-__device__ __forceinline__ void emit(const Args& a, const dw (&y)[CW],
+template <typename A, int CW>
+__device__ __forceinline__ void emit(const A& a, const dw (&y)[CW],
                                      int64_t idx) {
   const Plan& pl = a.p;
   const bool has_acc = a.acc_h != nullptr;
@@ -345,13 +357,11 @@ __host__ __device__ inline size_t smem_bytes_wide(const Geometry& g, int P,
 // note at the top).  Thread (tj, tl) of the tile reads column tl of the
 // axis-2 rows (k, t, column: neighbouring threads, neighbouring words), row
 // tj of the axis-1 rows (a broadcast) and its own ring slots (k, slot,
-// thread).  PC: the compiled half-width, or 0 for K5r, whose half-width is
-// P_rt (the loops over taps then run, not unrolled, and the window row is
-// read from shared memory where the compiled kernel holds it in registers).
-template <int PC, int CW>
-__device__ __forceinline__ void march_wide(const Args& a, const int P_rt) {
-  const int P = PC > 0 ? PC : P_rt;
-  const int W = 2 * P + 1;
+// thread).
+template <int P, int CW>
+__global__ void __launch_bounds__(kMaxThreads)
+kron_march_dw_wide_kernel(const Args a) {
+  constexpr int W = 2 * P + 1;
   constexpr int S = kron::kStages;
   const Geometry& g = a.g;
   const Plan& pl = a.p;
@@ -451,29 +461,19 @@ __device__ __forceinline__ void march_wide(const Args& a, const int P_rt) {
       const float* wl = win_l + buf * NW;
       if (in_tile) {
         for (int rr = tj; rr < WR; rr += T1) {
-          // tap t's window value: from registers (compiled P) or from
-          // shared memory (K5r)
-          dw xv[PC > 0 ? 2 * PC + 1 : 1];
-          if constexpr (PC > 0) {
+          dw xv[W];
 #pragma unroll
-            for (int t = 0; t < W; ++t)
-              xv[t] = dw{wh[rr * WC + tl + t], wl[rr * WC + tl + t]};
-          }
-          const auto x_at = [&](int t) -> dw {
-            if constexpr (PC > 0)
-              return xv[t];
-            else
-              return dw{wh[rr * WC + tl + t], wl[rr * WC + tl + t]};
-          };
+          for (int t = 0; t < W; ++t)
+            xv[t] = dw{wh[rr * WC + tl + t], wl[rr * WC + tl + t]};
 #pragma unroll
           for (int k = 0; k < kCU; ++k) {
             if (k < pl.nu) {
               const int cb = k * W * T2 + tl;
-              dw s = dw_mul(dw{c2h[cb], c2l[cb]}, x_at(0));
+              dw s = dw_mul(dw{c2h[cb], c2l[cb]}, xv[0]);
 #pragma unroll
               for (int t = 1; t < W; ++t)
                 s = dw_add(s, dw_mul(dw{c2h[cb + t * T2], c2l[cb + t * T2]},
-                                     x_at(t)));
+                                     xv[t]));
               u_h[(k * WR + rr) * T2 + tl] = s.h;
               u_l[(k * WR + rr) * T2 + tl] = s.l;
             }
@@ -542,17 +542,283 @@ __device__ __forceinline__ void march_wide(const Args& a, const int P_rt) {
   kron::cp_async_wait<0>();
 }
 
-template <int P, int CW>
-__global__ void __launch_bounds__(kMaxThreads)
-kron_march_dw_wide_kernel(const Args a) {
-  march_wide<P, CW>(a, P);
+// -- K5r: three one-axis passes (see the note at the top) --------------------
+
+constexpr int kRowsA = 2;  // pass A: rows of the field a thread
+constexpr int kOutR = 2;   // passes B and C: outputs along the axis a thread
+
+// geometry of the run-time passes: the field, the half-width, the warps of
+// a block of each pass (pass A: 32 columns, kRowsA rows a warp)
+struct RtGeo {
+  int n0, n1, n2;
+  int per0, per1, per2;
+  int P;
+  int NWA, NWB, NWC;
+};
+
+struct RtArgs {
+  const float* xh;
+  const float* xl;  // null: zeros
+  const float* bh;  // null: b = 0 (then bl is null too)
+  const float* bl;
+  const float* acc_h;  // null: no earlier launch; else its sum of terms
+  const float* acc_l;
+  const float* band_h[3];
+  const float* band_l[3];
+  float* rh;
+  float* rl;
+  int negate;
+  int last;
+  // the plan's scratch, each a contiguous (n0, n1, n2) f32 field: the hi
+  // and lo words of the kCU u partials, then of the kCV v partials
+  float* scratch;
+  // this pass's band table for this run of terms, laid out by the host
+  // (ops/twofloat.py::k5r_tables) as each block's shared memory holds it,
+  // hi then lo: per tile of columns (k, t, column) in pass A, per block of
+  // outputs (k, output, t) in B and C
+  const float* table;
+  RtGeo g;
+  Plan p;
+};
+
+// shared memory of each pass, in bytes (ops/twofloat.py::k5r_smem mirrors
+// it): the staged tile and the band rows, hi and lo
+__host__ __device__ inline size_t smem_pass(int pass, int NW, int P) {
+  const size_t W = 2 * P + 1, L = kpass::kLanes;
+  if (pass == 0)
+    return 2 * ((size_t)NW * kRowsA * (L + 2 * P) + kCU * W * L) *
+           sizeof(float);
+  const size_t rows = (size_t)NW * kOutR + 2 * P;
+  const int sources = pass == 1 ? kCU : kCV, bands = pass == 1 ? kCV : kCW;
+  return 2 * (sources * rows * L + (size_t)bands * NW * kOutR * W) *
+         sizeof(float);
 }
 
-// K5r: the half-width P a launch argument
-template <int CW>
-__global__ void __launch_bounds__(kMaxThreads)
-kron_march_dw_rt_kernel(const Args a, const int P) {
-  march_wide<0, CW>(a, P);
+// stage a strided pass's tile of a double-word field (hi, lo)
+__device__ __forceinline__ void stage_pair(float* th, float* tl,
+                                           const float* fh, const float* fl,
+                                           int64_t sa, int n_a, int per,
+                                           int a0, int P, int rows, int l0,
+                                           int n2) {
+  kpass::stage_strided(th, fh, sa, n_a, per, a0, P, rows, l0, n2);
+  kpass::stage_strided(tl, fl, sa, n_a, per, a0, P, rows, l0, n2);
+}
+
+// Pass A, axis 2: u[k] = sum_t B2[u_lab[k]][l][t] x[.., l + t - P] in
+// double-word, the first tap assigned and the others added in order.  A
+// thread owns one column of kRowsA rows: kRowsA * nu independent chains.
+__global__ void __launch_bounds__(kMaxThreads) k5r_pass_a(const RtArgs a) {
+  const RtGeo& g = a.g;
+  const Plan& pl = a.p;
+  const int P = g.P, W = 2 * P + 1, L = kpass::kLanes, WC = L + 2 * P;
+  const int rows = g.NWA * kRowsA;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* wh = reinterpret_cast<float*>(smem_raw);  // rows x WC
+  float* wl = wh + rows * WC;
+  float* ch = wl + rows * WC;  // (k, t, column)
+  float* cl = ch + kCU * W * L;
+  const int l0 = blockIdx.x * L;
+  const int64_t row0 = (int64_t)blockIdx.y * rows;
+  const int64_t nrows = (int64_t)g.n0 * g.n1;
+  // the window: a warp a row at a time, a lane a column
+  for (int r = threadIdx.x / L; r < rows; r += blockDim.x / L) {
+    const int64_t row = row0 + r;
+    for (int c = threadIdx.x % L; c < WC; c += L) {
+      const int gl = kron::resolve(l0 - P + c, g.n2, g.per2);
+      const int64_t off = (row < nrows && gl >= 0) ? row * g.n2 + gl : -1;
+      kpass::stage<float, float>(wh + r * WC + c, a.xh, off);
+      if (a.xl != nullptr)
+        kpass::stage<float, float>(wl + r * WC + c, a.xl, off);
+      else
+        wl[r * WC + c] = 0.0f;  // the low word is zero: never loaded
+    }
+  }
+  kpass::copy_table(ch, a.table + (int64_t)blockIdx.x * 2 * kCU * W * L,
+                    2 * kCU * W * L);
+  kron::cp_async_commit();
+  kron::cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x % L, grp = threadIdx.x / L;
+  const int nu = pl.nu;
+  dw s[kCU][kRowsA];
+  const int xb = grp * kRowsA * WC + lane;
+#pragma unroll
+  for (int k = 0; k < kCU; ++k) {
+    const dw c = dw{ch[k * W * L + lane], cl[k * W * L + lane]};
+#pragma unroll
+    for (int r = 0; r < kRowsA; ++r)
+      s[k][r] = k < nu ? dw_mul(c, dw{wh[xb + r * WC], wl[xb + r * WC]})
+                       : dw{0.0f, 0.0f};
+  }
+  for (int t = 1; t < W; ++t) {
+    dw x[kRowsA];
+#pragma unroll
+    for (int r = 0; r < kRowsA; ++r)
+      x[r] = dw{wh[xb + r * WC + t], wl[xb + r * WC + t]};
+#pragma unroll
+    for (int k = 0; k < kCU; ++k) {
+      if (k >= nu) break;
+      const int cb = (k * W + t) * L + lane;
+      const dw c = dw{ch[cb], cl[cb]};
+#pragma unroll
+      for (int r = 0; r < kRowsA; ++r)
+        s[k][r] = dw_add(s[k][r], dw_mul(c, x[r]));
+    }
+  }
+  const int l = l0 + lane;
+  if (l >= g.n2) return;
+  const int64_t npts = nrows * g.n2;
+#pragma unroll
+  for (int r = 0; r < kRowsA; ++r) {
+    const int64_t row = row0 + grp * kRowsA + r;
+    if (row >= nrows) break;
+#pragma unroll
+    for (int k = 0; k < kCU; ++k) {
+      if (k >= nu) break;
+      a.scratch[2 * k * npts + row * g.n2 + l] = s[k][r].h;
+      a.scratch[(2 * k + 1) * npts + row * g.n2 + l] = s[k][r].l;
+    }
+  }
+}
+
+// Pass B, axis 1: v[k] = sum_t B1[v_lab[k]][j][t] u[v_src[k]][.., j + t -
+// P, ..], each v written on its own (the double-word kernel sums no
+// partials before the last contraction).  A thread owns kOutR outputs along
+// axis 1: kOutR * nv independent chains.
+__global__ void __launch_bounds__(kMaxThreads) k5r_pass_b(const RtArgs a) {
+  const RtGeo& g = a.g;
+  const Plan& pl = a.p;
+  const int P = g.P, W = 2 * P + 1, L = kpass::kLanes, NW = g.NWB;
+  const int TA = NW * kOutR, TAH = TA + 2 * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* th = reinterpret_cast<float*>(smem_raw);  // (source, row, lane)
+  float* tl = th + kCU * TAH * L;
+  float* bdh = tl + kCU * TAH * L;  // (k, output, t)
+  float* bdl = bdh + kCV * TA * W;
+  const int l0 = blockIdx.x * L, j0 = blockIdx.y * TA, i = blockIdx.z;
+  const int64_t plane = (int64_t)g.n1 * g.n2, npts = plane * g.n0;
+  for (int s = 0; s < pl.nu; ++s)
+    stage_pair(th + s * TAH * L, tl + s * TAH * L,
+               a.scratch + 2 * s * npts + i * plane,
+               a.scratch + (2 * s + 1) * npts + i * plane, g.n2, g.n1,
+               g.per1, j0, P, TAH, l0, g.n2);
+  kpass::copy_table(bdh, a.table + (int64_t)blockIdx.y * 2 * kCV * TA * W,
+                    2 * kCV * TA * W);
+  kron::cp_async_commit();
+  kron::cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x % L, grp = threadIdx.x / L;
+  const int nv = pl.nv;
+  dw s[kCV][kOutR];
+  int ub[kCV];  // where each v reads its u column
+#pragma unroll
+  for (int k = 0; k < kCV; ++k) {
+    ub[k] = ((k < nv ? pl.v_src[k] : 0) * TAH + grp * kOutR) * L + lane;
+#pragma unroll
+    for (int r = 0; r < kOutR; ++r) {
+      const int cb = (k * TA + grp * kOutR + r) * W;
+      const int ui = ub[k] + r * L;
+      s[k][r] = k < nv ? dw_mul(dw{bdh[cb], bdl[cb]}, dw{th[ui], tl[ui]})
+                       : dw{0.0f, 0.0f};
+    }
+  }
+  for (int t = 1; t < W; ++t) {
+#pragma unroll
+    for (int k = 0; k < kCV; ++k) {
+      if (k >= nv) break;
+#pragma unroll
+      for (int r = 0; r < kOutR; ++r) {
+        const int cb = (k * TA + grp * kOutR + r) * W + t;
+        const int ui = ub[k] + (r + t) * L;
+        s[k][r] = dw_add(s[k][r], dw_mul(dw{bdh[cb], bdl[cb]},
+                                         dw{th[ui], tl[ui]}));
+      }
+    }
+  }
+  const int l = l0 + lane;
+  if (l >= g.n2) return;
+#pragma unroll
+  for (int r = 0; r < kOutR; ++r) {
+    const int j = j0 + grp * kOutR + r;
+    if (j >= g.n1) break;
+    const int64_t idx = i * plane + (int64_t)j * g.n2 + l;
+#pragma unroll
+    for (int k = 0; k < kCV; ++k) {
+      if (k >= nv) break;
+      a.scratch[2 * (kCU + k) * npts + idx] = s[k][r].h;
+      a.scratch[(2 * (kCU + k) + 1) * npts + idx] = s[k][r].l;
+    }
+  }
+}
+
+// Pass C, axis 0: the history k = sum_t B0[w_lab[k]][i][t] v[w_src[k]][i +
+// t - P, ..] for each distinct history, then the terms in order onto the
+// earlier launches' sum and the last launch's b - sum (emit).  A thread
+// owns kOutR outputs along axis 0: kOutR * nw independent chains.
+__global__ void __launch_bounds__(kMaxThreads) k5r_pass_c(const RtArgs a) {
+  const RtGeo& g = a.g;
+  const Plan& pl = a.p;
+  const int P = g.P, W = 2 * P + 1, L = kpass::kLanes, NW = g.NWC;
+  const int TA = NW * kOutR, TAH = TA + 2 * P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* th = reinterpret_cast<float*>(smem_raw);  // (v, row, lane)
+  float* tl = th + kCV * TAH * L;
+  float* bdh = tl + kCV * TAH * L;  // (history, output, t)
+  float* bdl = bdh + kCW * TA * W;
+  const int l0 = blockIdx.x * L, j = blockIdx.y, i0 = blockIdx.z * TA;
+  const int64_t plane = (int64_t)g.n1 * g.n2, npts = plane * g.n0;
+  for (int s = 0; s < pl.nv; ++s)
+    stage_pair(th + s * TAH * L, tl + s * TAH * L,
+               a.scratch + 2 * (kCU + s) * npts + (int64_t)j * g.n2,
+               a.scratch + (2 * (kCU + s) + 1) * npts + (int64_t)j * g.n2,
+               plane, g.n0, g.per0, i0, P, TAH, l0, g.n2);
+  kpass::copy_table(bdh, a.table + (int64_t)blockIdx.z * 2 * kCW * TA * W,
+                    2 * kCW * TA * W);
+  kron::cp_async_commit();
+  kron::cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x % L, grp = threadIdx.x / L;
+  const int nw = pl.nw;
+  dw y[kCW][kOutR];
+  int vb[kCW];  // where each history reads its v column
+#pragma unroll
+  for (int k = 0; k < kCW; ++k) {
+    vb[k] = ((k < nw ? pl.w_src[k] : 0) * TAH + grp * kOutR) * L + lane;
+#pragma unroll
+    for (int r = 0; r < kOutR; ++r) {
+      const int cb = (k * TA + grp * kOutR + r) * W;
+      const int vi = vb[k] + r * L;
+      y[k][r] = k < nw ? dw_mul(dw{bdh[cb], bdl[cb]}, dw{th[vi], tl[vi]})
+                       : dw{0.0f, 0.0f};
+    }
+  }
+  for (int t = 1; t < W; ++t) {
+#pragma unroll
+    for (int k = 0; k < kCW; ++k) {
+      if (k >= nw) break;
+#pragma unroll
+      for (int r = 0; r < kOutR; ++r) {
+        const int cb = (k * TA + grp * kOutR + r) * W + t;
+        const int vi = vb[k] + (r + t) * L;
+        y[k][r] = dw_add(y[k][r], dw_mul(dw{bdh[cb], bdl[cb]},
+                                         dw{th[vi], tl[vi]}));
+      }
+    }
+  }
+  const int l = l0 + lane;
+  if (l >= g.n2) return;
+#pragma unroll
+  for (int r = 0; r < kOutR; ++r) {
+    const int i = i0 + grp * kOutR + r;
+    if (i >= g.n0) break;
+    dw yr[kCW];
+#pragma unroll
+    for (int k = 0; k < kCW; ++k) yr[k] = y[k][r];
+    emit(a, yr, i * plane + (int64_t)j * g.n2 + l);
+  }
 }
 
 // the kernel and the shared memory of half-width P with CW histories
@@ -602,32 +868,31 @@ int launch_p(const Args& a, cudaStream_t stream) {
   return a.p.nw <= 3 ? launch_pw<P, 3>(a, stream) : launch_pw<P, 4>(a, stream);
 }
 
-// K5r: the shared memory of the half-width P, sized at launch
-template <int CW>
-int launch_rt_w(const Args& a, int P, cudaStream_t stream) {
-  const Geometry& g = a.g;
-  if (P < 1 || g.threads > kMaxThreads || g.threads < g.T1 * g.T2 ||
-      g.threads % 32 != 0)
+// K5r: one pass (0 A, 1 B, 2 C) of the run-time design
+int launch_rt(int pass, const RtArgs& a, cudaStream_t stream) {
+  const RtGeo& g = a.g;
+  const int NW = pass == 0 ? g.NWA : pass == 1 ? g.NWB : g.NWC;
+  if (g.P < 1 || NW < 1 || NW > kpass::kMaxWarps || a.scratch == nullptr ||
+      a.table == nullptr)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t bytes = smem_bytes_wide(g, P, CW);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kron_march_dw_rt_kernel<CW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, or the next launch reports it
-      return (int)err;
-    }
+  const size_t bytes = smem_pass(pass, NW, g.P);
+  const int threads = NW * kpass::kLanes;
+  const int tiles2 = (g.n2 + kpass::kLanes - 1) / kpass::kLanes;
+  const auto kernel = pass == 0 ? k5r_pass_a : pass == 1 ? k5r_pass_b
+                                                         : k5r_pass_c;
+  const cudaError_t err = kpass::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid;
+  if (pass == 0) {
+    const int64_t rows = (int64_t)g.n0 * g.n1, per = NW * kRowsA;
+    grid = dim3(tiles2, (unsigned)((rows + per - 1) / per));
+  } else if (pass == 1) {
+    grid = dim3(tiles2, (g.n1 + NW * kOutR - 1) / (NW * kOutR), g.n0);
+  } else {
+    grid = dim3(tiles2, g.n1, (g.n0 + NW * kOutR - 1) / (NW * kOutR));
   }
-  const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
-                  (g.n0 + g.chunk - 1) / g.chunk);
-  kron_march_dw_rt_kernel<CW><<<grid, g.threads, bytes, stream>>>(a, P);
+  kernel<<<grid, threads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-int launch_rt(const Args& a, int P, cudaStream_t stream) {
-  return a.p.nw <= 3 ? launch_rt_w<3>(a, P, stream)
-                     : launch_rt_w<4>(a, P, stream);
 }
 
 template <int P>
@@ -639,27 +904,9 @@ int resources_p(const Args& a, int* out) {
                                           smem_of<P, 4>(g), out);
 }
 
-int resources_rt(const Args& a, int P, int* out) {
-  const Geometry& g = a.g;
-  return a.p.nw <= 3
-             ? kron::resources_of(kron_march_dw_rt_kernel<3>, g.threads,
-                                  smem_bytes_wide(g, P, 3), out)
-             : kron::resources_of(kron_march_dw_rt_kernel<4>, g.threads,
-                                  smem_bytes_wide(g, P, 4), out);
-}
-
-// geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
 // plan: nu nv nw nt u_lab[kCU] v_src[kCV] v_lab[kCV] w_src[kCW] w_lab[kCW]
 //       term_w[kCT]
-bool parse(const int* geo, const int* plan, Args& a, int& P) {
-  Geometry& g = a.g;
-  g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
-  g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];
-  P = geo[6];
-  g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
-  g.R = geo[11];
-  g.s0 = (int64_t)g.n1 * g.n2, g.s1 = g.n2, g.s2 = 1;  // contiguous fields
-  Plan& p = a.p;
+bool parse_plan(const int* plan, Plan& p) {
   const int* q = plan;
   p.nu = *q++, p.nv = *q++, p.nw = *q++, p.nt = *q++;
   for (int k = 0; k < kCU; ++k) p.u_lab[k] = *q++;
@@ -669,8 +916,19 @@ bool parse(const int* geo, const int* plan, Args& a, int& P) {
   for (int k = 0; k < kCW; ++k) p.w_lab[k] = *q++;
   for (int k = 0; k < kCT; ++k) p.term_w[k] = *q++;
   return !(p.nu < 1 || p.nu > kCU || p.nv < 1 || p.nv > kCV || p.nw < 1 ||
-           p.nw > kCW || p.nt < 1 || p.nt > kCT || g.T1 < 1 || g.T2 < 1 ||
-           g.chunk < 1);
+           p.nw > kCW || p.nt < 1 || p.nt > kCT);
+}
+
+// geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
+bool parse(const int* geo, const int* plan, Args& a, int& P) {
+  Geometry& g = a.g;
+  g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
+  g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];
+  P = geo[6];
+  g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
+  g.R = geo[11];
+  g.s0 = (int64_t)g.n1 * g.n2, g.s1 = g.n2, g.s2 = 1;  // contiguous fields
+  return parse_plan(plan, a.p) && g.T1 >= 1 && g.T2 >= 1 && g.chunk >= 1;
 }
 
 // the arguments of one launch, checked: false for an invalid plan or
@@ -688,6 +946,16 @@ bool pack(const float* xh, const float* xl, const float* bh, const float* bl,
   a.rh = rh, a.rl = rl, a.negate = negate;
   return parse(geo, plan, a, P) && (bh == nullptr) == (bl == nullptr) &&
          (acc_h == nullptr) == (acc_l == nullptr);
+}
+
+// K5r's geo: n0 n1 n2 per0 per1 per2 P R NWA NWB NWC
+bool parse_rt(const int* geo, const int* plan, RtArgs& a) {
+  RtGeo& g = a.g;
+  g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
+  g.per0 = geo[3], g.per1 = geo[4], g.per2 = geo[5];
+  g.P = geo[6];
+  g.NWA = geo[8], g.NWB = geo[9], g.NWC = geo[10];
+  return parse_plan(plan, a.p);
 }
 
 // the error-free transformations on their own, for the exactness check:
@@ -736,31 +1004,48 @@ int kron_residual_dw(const float* xh, const float* xl, const float* bh,
   }
 }
 
-// K5r, the half-width geo[6] taken at run time: the same arguments
-int kron_residual_dw_rt(const float* xh, const float* xl, const float* bh,
-                        const float* bl, const float* acc_h,
+// K5r, one pass (0: A, 1: B, 2: C) of the run-time design: the compiled
+// entry's arguments, K5r's geo, the plan's scratch (2 (kCU + kCV) f32
+// fields) and the pass's band table of the run
+int kron_residual_dw_rt(int pass, const float* xh, const float* xl,
+                        const float* bh, const float* bl, const float* acc_h,
                         const float* acc_l, const float* b0h,
                         const float* b0l, const float* b1h, const float* b1l,
                         const float* b2h, const float* b2l, float* rh,
                         float* rl, const int* geo, const int* plan,
-                        int negate, int last, void* stream) {
-  Args a;
-  int P;
-  if (!pack(xh, xl, bh, bl, acc_h, acc_l, b0h, b0l, b1h, b1l, b2h, b2l, rh,
-            rl, geo, plan, negate, last, a, P))
+                        int negate, int last, float* scratch,
+                        const float* table, void* stream) {
+  RtArgs a;
+  a.xh = xh, a.xl = xl, a.bh = bh, a.bl = bl;
+  a.acc_h = acc_h, a.acc_l = acc_l, a.last = last, a.negate = negate;
+  a.band_h[0] = b0h, a.band_h[1] = b1h, a.band_h[2] = b2h;
+  a.band_l[0] = b0l, a.band_l[1] = b1l, a.band_l[2] = b2l;
+  a.rh = rh, a.rl = rl, a.scratch = scratch, a.table = table;
+  if (!parse_rt(geo, plan, a) || pass < 0 || pass > 2 ||
+      (bh == nullptr) != (bl == nullptr) ||
+      (acc_h == nullptr) != (acc_l == nullptr) ||
+      (pass == 2 && (rh == nullptr || rl == nullptr)))
     return (int)cudaErrorInvalidValue;
-  return launch_rt(a, P, (cudaStream_t)stream);
+  return launch_rt(pass, a, (cudaStream_t)stream);
 }
 
 // out: registers a thread, local memory a thread in bytes (spills), shared
 // memory a block in bytes, blocks an SM holds, for the launch of geo and plan
-// (runtime: K5r's)
+// (pass -1: the compiled kernel's; 0-2: K5r's pass, geo then K5r's)
 int kron_residual_dw_resources(const int* geo, const int* plan, int* out,
-                               int runtime) {
+                               int pass) {
+  if (pass >= 0) {
+    RtArgs a;
+    if (!parse_rt(geo, plan, a) || pass > 2) return (int)cudaErrorInvalidValue;
+    const int NW = pass == 0 ? a.g.NWA : pass == 1 ? a.g.NWB : a.g.NWC;
+    const auto kernel = pass == 0 ? k5r_pass_a : pass == 1 ? k5r_pass_b
+                                                           : k5r_pass_c;
+    return kron::resources_of(kernel, NW * kpass::kLanes,
+                              smem_pass(pass, NW, a.g.P), out);
+  }
   Args a;
   int P;
   if (!parse(geo, plan, a, P)) return (int)cudaErrorInvalidValue;
-  if (runtime) return resources_rt(a, P, out);
   switch (P) {
     case 1: return resources_p<1>(a, out);
     case 2: return resources_p<2>(a, out);

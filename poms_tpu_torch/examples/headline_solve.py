@@ -13,8 +13,8 @@ Counterpart of the JAX package's ``examples/headline_solve.py``:
 Run:  python -m poms_tpu_torch.examples.headline_solve [n_el] [degree]
           [solver] [--cpu]
       solver ∈ {dc, pcg}   (defect correction | dw-precision MG-PCG)
-      degree 1-8 on the compiled K1 and K5; above 8 on K1r and K5r, which
-      take the half-width at run time, up to half-width 36
+      degree 1-3 on the compiled K1 and K5; from 4 on K1r and K5r, which
+      take the half-width at run time, up to half-width 138
       (``ops/kron.py::widest_half_width``; wider bands are refused on the
       card)
 

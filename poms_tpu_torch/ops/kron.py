@@ -11,14 +11,17 @@ Counterpart of ``poms_tpu/ops/pallas/kron.py::kron_apply_pallas``.
 
 For a CUDA tensor it launches the hand-written kernel of
 ``csrc/kron_apply.cu`` (f32, f64 or bf16; 1D and 2D lifted to 3D) or raises:
-K1, compiled at the half-widths ``COMPILED_P``, or K1r, which takes the
-half-width at run time (bands wider than 8, spline degrees above 8);
-for a CPU tensor it runs :func:`kron_mode_plain`, built on the shared-partial
-chain of 1D axis contractions of ``poms_tpu/core/kron.py::_apply_interior``
+K1, compiled at ``INSTANTIATED_P`` and taken by plans at the half-widths
+of ``COMPILED_P`` (1-3), or K1r, which takes the half-width at run time
+(every other half-width: spline degrees 4 and up) as three one-axis passes
+through a scratch buffer of the plan (:func:`k1r_launch_pass`, each pass's
+plain version :func:`k1r_pass_plain`); for a CPU tensor it runs
+:func:`kron_mode_plain`, built on the shared-partial chain of 1D axis
+contractions of ``poms_tpu/core/kron.py::_apply_interior``
 (:func:`kron_apply_plain`).  ``kron_mode.launches[mode]`` counts kernel
 launches per mode (``launches_by_dtype[name][mode]`` those of one
-instantiation), ``kron_mode.runtime.launches[mode]`` those of K1r among
-them, and ``kron_apply.launches`` those of ``apply``.
+instantiation), ``kron_mode.runtime.launches[f"{mode}.{pass}"]`` those of
+each K1r pass among them, and ``kron_apply.launches`` those of ``apply``.
 
 A bf16 operator (bf16 bands and fields) is computed in f32 and rounded once
 per output value, by the kernel and by the plain version alike
@@ -55,9 +58,12 @@ __all__ = ["MODES", "kron_apply", "kron_apply_plain", "kron_mode",
            "band_labels",
            "sharing_plan", "chunk_terms", "build_kron_plan", "plan_apply",
            "diagonal_from_columns", "kron_tiling", "k1_step_cost", "KronPlan",
-           "stack_bands", "refuse_half_width", "COMPILED_P", "k1r_smem",
-           "k1r_step_cost", "widest_half_width", "SMALLEST_BLOCK",
-           "k1_resources"]
+           "stack_bands", "refuse_half_width", "COMPILED_P",
+           "INSTANTIATED_P", "k1r_smem",
+           "k1r_pass_smem", "k1r_step_cost", "runtime_tiling",
+           "widest_half_width", "SMALLEST_BLOCK", "RT_PASSES",
+           "k1_resources", "k1r_launch_pass", "k1r_scratch_fields",
+           "k1r_pass_plain", "k1r_passes_plain"]
 
 MODES = ("apply", "residual", "dinv", "cheb")
 _KERNELS = {torch.float32: "kron_apply_f32", torch.float64: "kron_apply_f64",
@@ -66,19 +72,32 @@ _KERNELS_RT = {dt: name.replace("apply_", "apply_rt_")
                for dt, name in _KERNELS.items()}
 # mirrored in csrc/kron_apply.cu (kCU, kCV, kCG, the instantiated half-widths,
 # kMaxThreads, columns and min_blocks): partials one launch may hold per axis,
-# compiled P (every dtype: spline degrees 1-8 run on the card, 4 on 5, 6 and
-# 7 on 8; wider bands run on K1r at their own half-width; K5 has its own,
-# ops/twofloat.py::COMPILED_P_DW)
+# and the half-widths K1 is compiled at (every dtype)
 CAPS = {"u": 2, "v": 3, "g": 2}
-COMPILED_P = (1, 2, 3, 5, 8)
+INSTANTIATED_P = (1, 2, 3, 5, 8)
+# The half-widths plans take the compiled K1 at (``build_kron_plan``'s
+# default); every other runs on K1r at its own.  Chosen end to end: the
+# headline dw-PCG at 128³ elements steps faster from degree 4 on with K1r
+# and K5r than with the compiled kernels padded or not (NVIDIA H100 80GB
+# HBM3; bench/k1_compare.py --route, PERF.md section 5), so only 1-3 stay
+# compiled.  K5 routes by ops/twofloat.py::COMPILED_P_DW.
+COMPILED_P = (1, 2, 3)
 SM_COUNT = 132   # H100 SXM: the tiling's cost model where no card is asked
 MAX_THREADS = 256         # block size limit
 STAGES = 4                # kron::kStages: window buffers in the ring
-SM_SMEM = 233472          # shared memory of an SM, 1 KB of it kept per block
-# the smallest block of a run-time kernel (K1r, K5r): one row and one column
-# of the tile, one output plane; a half-width whose smallest block exceeds
-# the shared memory a block may have is refused on the card
-SMALLEST_BLOCK = (1, 1, 1)
+# the run-time kernels (K1r, K5r: three one-axis passes, csrc/kron_pass.cuh):
+# 32 columns a warp in the strided passes, at most 8 warps a block; K1r's
+# pass A owns 2 columns of RT_ROWS_A rows a thread, its passes B and C
+# RT_OUT outputs along the axis (kRowsA, kOutR of csrc/kron_apply.cu)
+LANES = 32
+RT_WARPS = (8, 4, 2, 1)
+RT_ROWS_A = 4
+RT_OUT = 4
+RT_PASSES = ("A", "B", "C")
+# the smallest block of a run-time kernel: one warp a pass (K1r's pass A
+# on 64 columns); a half-width whose smallest block exceeds the shared
+# memory a block may have is refused on the card
+SMALLEST_BLOCK = (1,)
 
 
 def arithmetic_itemsize(dtype: torch.dtype) -> int:
@@ -116,58 +135,110 @@ def k1_step_cost(itemsize: int, P: int):
     return cost
 
 
-def k1r_smem(itemsize: int):
-    """Shared memory of a K1r block, ``smem(P, T1, T2, chunk)`` in bytes
-    (``csrc/kron_apply.cu::smem_bytes_rt``; ``itemsize`` of the arithmetic
-    type): the offset table, the ring of windows, the u partials, the
-    axis-0 band rows of the run, the axis-2 and axis-1 band rows of the
-    tile, and each thread's ring of 2P+1 output planes."""
-    def smem(P, T1, T2, chunk):
-        WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
-        words = (STAGES * WR * WC + CAPS["u"] * WR * T2
-                 + CAPS["g"] * (chunk + 4 * P) * W + CAPS["u"] * W * T2
-                 + CAPS["v"] * W * T1 + W * T1 * T2)
-        return 8 * WR * WC + itemsize * words
+def k1r_pass_smem(itemsize: int, P: int, pass_: str, warps: int,
+                  TL: int = 2 * LANES) -> int:
+    """Shared memory of one K1r pass's block in bytes
+    (``csrc/kron_apply.cu::smem_a``/``smem_bc``; ``itemsize`` of the
+    arithmetic type): its staged tile and band table; pass A's tile the
+    window of its rows (TL + 2P wide), its table the tile's axis-2 band
+    rows; B's and C's tiles the block's outputs and 2P halo rows, 32
+    columns, per source, their tables each thread's band rows (RT_OUT + 2P
+    taps a row)."""
+    W, npb = 2 * P + 1, RT_OUT + 2 * P
+    if pass_ == "A":
+        words = (_pass_blocks((1, 1, TL), "A", warps, TL, RT_ROWS_A,
+                              RT_OUT)[1] * (TL + 2 * P)
+                 + CAPS["u"] * W * TL)
+    else:
+        rows = warps * RT_OUT + 2 * P
+        src, nb = ((CAPS["u"], CAPS["v"]) if pass_ == "B"
+                   else (CAPS["g"], CAPS["g"]))
+        words = src * rows * LANES + nb * warps * npb * RT_OUT
+    return itemsize * words
 
-    return smem
+
+def k1r_smem(itemsize: int):
+    """K1r's shared memory, ``smem(P, warps)`` in bytes: its largest pass
+    at ``warps`` warps a block (:func:`k1r_pass_smem`)."""
+    return lambda P, warps: max(k1r_pass_smem(itemsize, P, p, warps)
+                                for p in RT_PASSES)
 
 
 def widest_half_width(smem) -> int:
     """The widest half-width whose smallest block (``SMALLEST_BLOCK``)
     takes no more than the shared memory a block may have, for a run-time
-    kernel's ``smem(P, T1, T2, chunk)``."""
+    kernel's ``smem(P, warps)``."""
     P = 1
     while smem(P + 1, *SMALLEST_BLOCK) <= K2_SMEM:
         P += 1
     return P
 
 
-def k1r_step_cost(itemsize: int, P: int):
-    """K1r's cost model for :func:`kron_tiling`, in µs, K1's
-    (:func:`k1_step_cost`) with the run-time kernel's work: a thread's
-    multiply-adds and shared-memory reads of a plane step (the axis-2 pass
-    over its rows of the window, axis 1, the axis-0 taps into its ring of
-    output planes) and its share of the window's copy; as many blocks an
-    SM as its shared memory and 2048 threads allow; infinite for a block
-    over the card's limit."""
-    W = 2 * P + 1
-    smem = k1r_smem(itemsize)
+def _pass_blocks(n3, pass_, warps, TL, rows_a, out_r, cols_a=2):
+    """Blocks of one run-time pass, and a block's outputs along its axis (or
+    rows, pass A) and columns: pass A's threads own ``cols_a`` columns of
+    ``rows_a`` rows, the strided passes' ``out_r`` outputs along the axis."""
+    n0, n1, n2 = n3
+    if pass_ == "A":
+        rows = (LANES * warps) // (TL // cols_a) * rows_a
+        return math.ceil(n2 / TL) * math.ceil(n0 * n1 / rows), rows, TL
+    per = warps * out_r
+    along = n1 if pass_ == "B" else n0
+    return (math.ceil(n2 / LANES) * math.ceil(along / per)
+            * (n0 if pass_ == "B" else n1)), per, LANES
 
-    def cost(T1, T2, threads, chunk, blocks, sms):
-        need = smem(P, T1, T2, chunk)
+
+def k1r_step_cost(itemsize: int, P: int):
+    """K1r's cost model for :func:`runtime_tiling`, in arbitrary units:
+    ``cost(n3, pass, warps, TL, sms)`` is the work of all blocks (a
+    block's: the words it stages, the halo and its band table included,
+    and its multiply-adds at 8 a staged word), as if there were two blocks
+    an SM where there are fewer; infinite for a block over the card's
+    shared memory.  The staged band table makes larger blocks cheaper per
+    output, as ``bench/k1_compare.py --sweep-rt`` measures on the card."""
+    W = 2 * P + 1
+    fma = {"A": CAPS["u"], "B": CAPS["v"], "C": CAPS["g"]}
+    src = {"A": 1, "B": CAPS["u"], "C": CAPS["g"]}
+    table = {"A": lambda w, TL: CAPS["u"] * W * TL,
+             "B": lambda w, TL: CAPS["v"] * w * (RT_OUT + 2 * P) * RT_OUT,
+             "C": lambda w, TL: CAPS["g"] * w * (RT_OUT + 2 * P) * RT_OUT}
+
+    def cost(n3, pass_, warps, TL, sms):
+        need = k1r_pass_smem(itemsize, P, pass_, warps, TL)
         if need > K2_SMEM:
             return math.inf
-        per_sm = max(1, min(2048 // threads, SM_SMEM // (need + 1024)))
-        waves = math.ceil(blocks / (sms * per_sm))
-        resident = min(per_sm, math.ceil(blocks / waves / sms))
-        rows = T1 + 2 * P
-        work = (W * (1.5 * CAPS["u"] * math.ceil(rows / T1)
-                     + 1.5 * CAPS["v"] + CAPS["g"] + 2)
-                + 2 * rows * (T2 + 2 * P) / threads)
-        step = 1.0 + 0.0015 * threads * resident * work / 49
-        return waves * (2.0 + (chunk + 2 * P) * step)
+        blocks, rows, cols = _pass_blocks(n3, pass_, warps, TL, RT_ROWS_A,
+                                          RT_OUT)
+        staged = src[pass_] * (rows + 2 * P) * cols + table[pass_](warps, TL)
+        work = staged + rows * cols * W * fma[pass_] / 8
+        return max(blocks, 2 * sms) * work
 
     return cost
+
+
+def runtime_tiling(n3, P: int, cost, sms: int = SM_COUNT,
+                   max_cols: int = 2 * LANES):
+    """(TL, warps A, warps B, warps C): the run-time kernels' launch shape.
+    Pass A's tiles are ``TL`` columns wide (even, an even split of axis 2
+    into tiles of at most ``max_cols``; K5r's are 32); each pass takes the
+    block size of ``RT_WARPS`` with the least modelled time,
+    ``cost(n3, pass, warps, TL, sms)`` (:func:`k1r_step_cost`,
+    ``twofloat.k5_step_cost(runtime=True)``), infinite for a block that does
+    not fit.  Raises where no block of some pass fits."""
+    n2 = n3[2]
+    if max_cols == LANES:
+        TL = LANES
+    else:
+        k = math.ceil(n2 / max_cols)
+        TL = 2 * math.ceil(math.ceil(n2 / k) / 2)
+    shape = [TL]
+    for pass_ in RT_PASSES:
+        c, warps = min((cost(n3, pass_, w, TL, sms), w) for w in RT_WARPS)
+        if math.isinf(c):
+            raise ValueError(f"no tiling of {n3} at half-width {P} fits a "
+                             f"block")
+        shape.append(warps)
+    return tuple(shape)
 
 
 def apply_band_1d_axis(band1: torch.Tensor, x: torch.Tensor, axis: int,
@@ -313,12 +384,6 @@ def chunk_terms(labels, caps: dict = CAPS) -> List[List[int]]:
     return chunks
 
 
-def _even_spans(n: int, most: int):
-    """Every size ⌈n/k⌉ ≤ ``most`` of k even parts of n, largest first."""
-    return sorted({math.ceil(n / k) for k in range(1, n + 1)
-                   if math.ceil(n / k) <= most}, reverse=True)
-
-
 def _tiles(n3, threads_max: int, cols: int):
     """The compiled kernels' candidate (T1, T2, chunk, blocks): tile widths
     of 16 to 64 columns, the tallest tile for three block sizes, up to 64
@@ -341,32 +406,15 @@ def _tiles(n3, threads_max: int, cols: int):
                     yield T1, T2, chunk, k1 * k2 * nchunks
 
 
-def _narrow_tiles(n3, threads_max: int):
-    """The run-time kernels' candidates: every even split of each axis, so
-    tiles narrower than 16 columns (down to one row, one column and one
-    plane, ``SMALLEST_BLOCK``), which are all that fit a block at large
-    half-widths."""
-    n0, n1, n2 = n3
-    for T2 in _even_spans(n2, threads_max if n1 == 1 else 64):
-        for T1 in _even_spans(n1, threads_max // T2):
-            for chunk in _even_spans(n0, n0):
-                blocks = (math.ceil(n0 / chunk) * math.ceil(n1 / T1)
-                          * math.ceil(n2 / T2))
-                yield T1, T2, chunk, blocks
-
-
 def kron_tiling(n3, P: int, threads_max: int, cost, sms: int = SM_COUNT,
-                cols: int = 1, narrow: bool = False):
+                cols: int = 1):
     """(T1, T2, chunk): a block owns a T1 × T2 column of the (axis 1,
     axis 2) grid and marches over ``chunk`` output planes of axis 0; a
     thread owns ``cols`` neighbouring columns (T2 is a multiple of it).
 
     Tiles divide each axis evenly (a 2^k+1 grid gets no nearly empty last
     tile).  Among tile widths of 16 to 64 columns, three block sizes and up
-    to 64 runs of planes the one with the least modelled time is taken
-    (``narrow``, the run-time kernels: where none of them fits, as at large
-    half-widths, every even split of each axis, down to tiles of one row
-    and one column and runs of one plane):
+    to 64 runs of planes the one with the least modelled time is taken:
     ``cost(T1, T2, threads, chunk, blocks, sms)`` is the kernel's own model
     (K1's: :func:`k1_step_cost`), infinite for a block that does not fit.
     Splitting axis 0 adds 2P halo planes per run but fills the SMs at small
@@ -381,8 +429,6 @@ def kron_tiling(n3, P: int, threads_max: int, cost, sms: int = SM_COUNT,
         return best
 
     best = least(_tiles(n3, threads_max, cols))
-    if narrow and (best is None or math.isinf(best[0])):
-        best = least(_narrow_tiles(n3, threads_max))
     if best is None or math.isinf(best[0]):
         raise ValueError(f"no tiling of {n3} at half-width {P} fits a block")
     return best[1:]
@@ -411,6 +457,10 @@ class KronPlan:
     device: torch.device
     runtime: bool = False         # P is no compiled half-width: K1r / K5r
     bands_lo: Optional[List[torch.Tensor]] = None   # K5: the lo words
+    # K1r / K5r on the card: the passes' scratch (see build_kron_plan) and
+    # their band tables per launch shape (k1r_tables, twofloat.k5r_tables)
+    scratch: Optional[torch.Tensor] = None
+    _tables: dict = field(default_factory=dict)
     _cargs: list = field(default_factory=list)
     _diag: Optional[torch.Tensor] = None
     _f32: Optional[tuple] = None
@@ -453,16 +503,16 @@ def _compiled_half_width(pads, half_widths=COMPILED_P) -> int:
 
 def refuse_half_width(pads, device: torch.device, smem, what: str):
     """On the card, raise where not even the smallest block of the run-time
-    kernel ``what`` (``SMALLEST_BLOCK``: one row, one column, one plane)
-    fits the shared memory a block may have; ``smem(P, T1, T2, chunk)`` is
-    its bytes (:func:`k1r_smem`, ``twofloat.k5r_smem``).  The plain
-    versions on the CPU take any half-width."""
+    kernel ``what`` (``SMALLEST_BLOCK``: one warp a pass) fits the shared
+    memory a block may have; ``smem(P, warps)`` is its bytes
+    (:func:`k1r_smem`, ``twofloat.k5r_smem``).  The plain versions on the
+    CPU take any half-width."""
     p = max(max(pads), 1)
     need = smem(p, *SMALLEST_BLOCK)
     if device.type == "cuda" and need > K2_SMEM:
         raise RuntimeError(
             f"{what} cannot stage a block at half-width {p} (spline degree "
-            f"{p}): its smallest block (one row, one column, one plane) "
+            f"{p}): its smallest block (one warp a pass) "
             f"takes {need} bytes of shared memory, and a block may have "
             f"{K2_SMEM}; it takes half-widths up to "
             f"{widest_half_width(smem)}")
@@ -499,18 +549,32 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
                     tcols: Optional[int] = None, cost=None,
                     caps: dict = CAPS,
                     half_widths: Sequence[int] = COMPILED_P,
-                    smem=None, what: str = "K1r") -> KronPlan:
+                    smem=None, what: str = "K1r",
+                    scratch_words: int = CAPS["u"] + CAPS["g"],
+                    k1r: bool = True,
+                    rt_cols: int = 2 * LANES) -> KronPlan:
     """Everything a launch needs besides the fields, once per operator.
     ``labels[a][r]`` (default: identity of the band tensors) names the
     sharing; ``threads_max``, ``tcols`` (default: K1's columns per thread
     for the dtype and half-width) and ``cost`` (default: K1's model, or
     K1r's) shape the tile; ``caps`` bound a launch's partials
     (:func:`chunk_terms`); the bands are padded to the first of
-    ``half_widths`` that holds them, else the plan is the run-time
-    kernel's (``runtime``), at the bands' own half-width, and ``smem``
-    (default: K1r's, :func:`k1r_smem`) and ``what`` name its block: on the
-    card a half-width no block of it fits raises (:func:`refuse_half_width`;
-    on the CPU such a plan has no tiling)."""
+    ``half_widths`` (default: ``COMPILED_P``) that holds them, else the
+    plan is the run-time kernel's (``runtime``), at the bands' own
+    half-width, and ``smem`` (default: K1r's, :func:`k1r_smem`)
+    and ``what`` name its block: on the card a half-width no block of it
+    fits raises (:func:`refuse_half_width`; on the CPU such a plan has no
+    tiling; ``rt_cols``: the widest pass-A tile, :func:`runtime_tiling`).
+
+    A run-time plan built on the card owns its passes' scratch:
+    ``scratch_words`` fields of the arithmetic type (default K1r's: the
+    kCU u partials and the kCG pre-summed partials, 4 a point; 42 MB at
+    138³ in f32), made here once and reused by every launch of the plan,
+    graph replays included.  So two launches of one plan must not run at
+    the same time (on two streams); the solvers run theirs on one.  Where
+    ``k1r`` (the plan is K1r's, not K5r's: ``twofloat.build_kron_df_plan``
+    makes K5r's tables itself) its band tables (:func:`k1r_tables`, a few
+    hundred KB) are made here too."""
     npts, pads = tuple(int(n) for n in npts), tuple(int(p) for p in pads)
     periodic = tuple(bool(q) for q in periodic)
     d = len(npts)
@@ -544,18 +608,27 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
         cost = (k1r_step_cost if runtime else k1_step_cost)(itemsize, P)
     sms = (torch.cuda.get_device_properties(first.device).multi_processor_count
            if first.device.type == "cuda" else SM_COUNT)
-    tiling = None
-    if not runtime or smem(P, *SMALLEST_BLOCK) <= K2_SMEM:
-        tiling = kron_tiling(n3, P, threads_max, cost, sms, tcols,
-                             narrow=runtime)
-    return KronPlan(
+    tiling, scratch = None, None
+    if not runtime:
+        tiling = kron_tiling(n3, P, threads_max, cost, sms, tcols)
+    elif smem(P, *SMALLEST_BLOCK) <= K2_SMEM:
+        tiling = runtime_tiling(n3, P, cost, sms, rt_cols)
+        if first.device.type == "cuda":
+            scratch = torch.empty(scratch_words * math.prod(n3),
+                                  device=first.device,
+                                  dtype=torch.float32 if itemsize == 4
+                                  else first.dtype)
+    plan = KronPlan(
         terms=tuple(tuple(term) for term in terms), ndim=d, npts=npts,
         pads=pads, periodic=periodic, n3=n3, per3=per3,
         pads3=pads3, P=P, labels=labels,
         bands=stack_bands(terms, labels, n3, pads3, P), cols=cols,
         chunks=chunks, plans=[sharing_plan(labels, c) for c in chunks],
         tiling=tiling, tcols=tcols, dtype=first.dtype, device=first.device,
-        runtime=runtime)
+        runtime=runtime, scratch=scratch)
+    if scratch is not None and k1r:
+        k1r_tables(plan)   # made here, before any graph captures a launch
+    return plan
 
 
 def plan_apply(plan: KronPlan, x_int: torch.Tensor,
@@ -592,15 +665,8 @@ def plan_apply(plan: KronPlan, x_int: torch.Tensor,
     return total.reshape(plan.npts)
 
 
-# -- the modes ---------------------------------------------------------------
-
-def kron_mode_plain(mode: str, terms, x_int: torch.Tensor, npts, pads,
-                    periodic, b: Optional[torch.Tensor] = None,
-                    diag: Optional[torch.Tensor] = None,
-                    d: Optional[torch.Tensor] = None, c1: float = 0.0,
-                    c2: float = 1.0):
-    """Plain PyTorch version of every mode (``cheb`` returns (x_new, d))."""
-    ax = kron_apply_plain(terms, x_int, npts, pads, periodic)
+def _epilogue(mode, ax, x_int, b, diag, d, c1, c2):
+    """The modes' epilogue on A x (``cheb`` returns (x_new, d))."""
     if mode == "apply":
         return ax
     if mode == "residual":
@@ -614,14 +680,108 @@ def kron_mode_plain(mode: str, terms, x_int: torch.Tensor, npts, pads,
     raise ValueError(f"unknown kron mode {mode!r}")
 
 
+def k1r_pass_plain(pass_: str, plan: KronPlan, sp: dict, src,
+                   mode: str = "apply", x_int=None, b=None, d=None,
+                   c1: float = 0.0, c2: float = 1.0, acc=None, diag=None):
+    """Plain PyTorch version of one K1r pass of the run of terms ``sp`` (one
+    of ``plan.plans``), on fields of the arithmetic type (a bf16 plan's
+    bands are cast to f32 here):
+
+    - ``"A"`` (axis 2): ``src`` the field x → the u partials, one (n3)
+      field per ``sp["u_lab"]``;
+    - ``"B"`` (axis 1): ``src`` the u partials → the pre-summed partials,
+      one per ``sp["g_lab"]``: Σ_k g_mult[g][k]·v_k, v_k = B1·u[v_src[k]];
+    - ``"C"`` (axis 0): ``src`` the pre-summed partials → Σ_g B0·w_g onto
+      ``acc`` (the earlier runs' A x), then ``mode``'s epilogue (``x_int``,
+      ``b``, ``diag``, ``d``, ``c1``, ``c2`` as :func:`kron_mode_plain`).
+    """
+    P, per = plan.P, plan.per3
+
+    def band(a, lab):
+        B = plan.bands[a][lab]
+        return B.float() if B.dtype == torch.bfloat16 else B
+
+    if pass_ == "A":
+        x3 = src.reshape(plan.n3)
+        return [apply_band_1d_axis(band(2, lab), x3, 2, P, per[2])
+                for lab in sp["u_lab"]]
+    if pass_ == "B":
+        v = [apply_band_1d_axis(band(1, lab), src[s], 1, P, per[1])
+             for s, lab in zip(sp["v_src"], sp["v_lab"])]
+        out = []
+        for mult in sp["g_mult"]:
+            w = None
+            for k, m in enumerate(mult):
+                if m:
+                    w = m * v[k] if w is None else w + m * v[k]
+            out.append(w)
+        return out
+    if pass_ != "C":
+        raise ValueError(f"unknown K1r pass {pass_!r}")
+    ax = None
+    for lab, w in zip(sp["g_lab"], src):
+        y = apply_band_1d_axis(band(0, lab), w, 0, P, per[0])
+        ax = y if ax is None else ax + y
+    if acc is not None:
+        ax = acc.reshape(plan.n3) + ax
+    return _epilogue(mode, ax.reshape(plan.npts), x_int, b, diag, d, c1, c2)
+
+
+def k1r_passes_plain(mode: str, plan: KronPlan, x_int, b=None, d=None,
+                     c1: float = 0.0, c2: float = 1.0):
+    """K1r's three plain passes chained as the card chains them: per run of
+    terms A, B, C, every run but the last adding its A x onto the earlier
+    runs' (``apply``), the last applying ``mode``'s epilogue; a bf16 plan
+    computes in f32 and rounds each result once."""
+    low = x_int.dtype == torch.bfloat16
+
+    def hi(t):
+        return None if t is None or not low else t.to(torch.float32)
+
+    if low:
+        x_int, b, d = hi(x_int), hi(b), hi(d)
+        diag = plan.operands_f32()[1]
+    else:
+        diag = plan.diagonal()
+    acc = None
+    for k, sp in enumerate(plan.plans):
+        last = k == len(plan.plans) - 1
+        u = k1r_pass_plain("A", plan, sp, x_int)
+        w = k1r_pass_plain("B", plan, sp, u)
+        acc = k1r_pass_plain("C", plan, sp, w, mode if last else "apply",
+                             x_int, b, d, c1, c2, acc, diag)
+    if low:
+        return (tuple(t.to(torch.bfloat16) for t in acc) if mode == "cheb"
+                else acc.to(torch.bfloat16))
+    return acc
+
+
+# -- the modes ---------------------------------------------------------------
+
+def kron_mode_plain(mode: str, terms, x_int: torch.Tensor, npts, pads,
+                    periodic, b: Optional[torch.Tensor] = None,
+                    diag: Optional[torch.Tensor] = None,
+                    d: Optional[torch.Tensor] = None, c1: float = 0.0,
+                    c2: float = 1.0):
+    """Plain PyTorch version of every mode (``cheb`` returns (x_new, d))."""
+    if mode not in MODES:
+        raise ValueError(f"unknown kron mode {mode!r}")
+    ax = kron_apply_plain(terms, x_int, npts, pads, periodic)
+    return _epilogue(mode, ax, x_int, b, diag, d, c1, c2)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("kron_apply")
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for fn in (*_KERNELS.values(), *_KERNELS_RT.values()):
+    for fn in _KERNELS.values():
         f = getattr(lib, fn)
         f.argtypes = [ptr] * 13 + [f64, f64, i32, ptr, ptr, ptr, ptr]
+        f.restype = i32
+    for fn in _KERNELS_RT.values():   # K1r: the pass first; scratch, table
+        f = getattr(lib, fn)
+        f.argtypes = [i32] + [ptr] * 13 + [f64, f64, i32] + [ptr] * 6
         f.restype = i32
     lib.kron_apply_resources.argtypes = [i32, i32, i32, ptr, ptr]
     lib.kron_apply_resources.restype = i32
@@ -631,6 +791,10 @@ def _library() -> ctypes.CDLL:
 
 
 def _geometry_ints(plan: KronPlan, tiling) -> list:
+    if plan.runtime:   # K1r: (TL, warps of passes A, B, C)
+        TL, wa, wb, wc = tiling
+        return [*plan.n3, *(int(q) for q in plan.per3), plan.P,
+                plan.n_terms, TL, (LANES * wa) // (TL // 2), wb, wc]
     T1, T2, chunk = tiling
     threads = 32 * math.ceil(T1 * (T2 // plan.tcols) / 32)
     return [*plan.n3, *(int(q) for q in plan.per3), plan.P, T1, T2, chunk,
@@ -748,28 +912,27 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
     if mode == "cheb" and d is None:
         d_out = torch.empty_like(out)
     x3 = x_int.reshape(plan.n3) if x_int.ndim != 3 else x_int
+    # a bf16 operator's sum between launches stays f32 (``out_hi``)
+    wide = x_int.dtype == torch.bfloat16
+    if plan.runtime:
+        return _launch_rt(mode, plan, x3, b, d, d_out, out, c1, c2, tiling,
+                          wide, stream)
     strides = (ctypes.c_int64 * 3)(*x3.stride())
     geo, *runs = _c_args(plan)
     if tiling is not None:
         ints = _geometry_ints(plan, tiling)
         geo = (ctypes.c_int * len(ints))(*ints)
     lib = _library()
-    fn = getattr(lib, (_KERNELS_RT if plan.runtime else _KERNELS)[x_int.dtype])
+    fn = getattr(lib, _KERNELS[x_int.dtype])
     bands = [t.data_ptr() for t in plan.bands]
     cols = [t.data_ptr() for t in plan.cols]
-    # a bf16 operator's sum between launches stays f32 (``out_hi``)
-    wide = x_int.dtype == torch.bfloat16
     acc = None
-    for k, run in enumerate(runs):
+    for k, (run, target) in enumerate(zip(runs,
+                                          _runs_targets(plan, out, wide))):
         last = k == len(runs) - 1
         # every run but the last adds its terms' A·x to ``acc``; the last
         # one applies the mode's epilogue to the whole sum
         run_mode = mode if last else "apply"
-        if last:
-            target = out
-        else:
-            target = torch.empty(plan.npts, device=out.device,
-                                 dtype=torch.float32 if wide else out.dtype)
         as_hi = wide and not last
         err = fn(x3.data_ptr(), *bands, *cols, _ptr(acc),
                  _ptr(b) if last else None, _ptr(d) if last else None,
@@ -782,8 +945,6 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
                 f"kron_apply kernel launch failed ({run_mode}): "
                 + lib.kron_apply_error_string(err).decode())
         _count.count(kron_mode, x_int.dtype, run_mode)
-        if plan.runtime:
-            _count.count(kron_mode.runtime, x_int.dtype, run_mode)
         if run_mode == "apply":
             kron_apply.launches += 1
         acc = target
@@ -792,27 +953,192 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
     return out
 
 
+def _runs_targets(plan: KronPlan, out, wide: bool):
+    """The buffer each run of terms writes: a fresh one (f32 for a bf16
+    operator: ``out_hi``) for every run but the last, ``out`` for it."""
+    n = len(plan.plans)
+    return [out if k == n - 1 else torch.empty(
+        plan.npts, device=out.device,
+        dtype=torch.float32 if wide else out.dtype) for k in range(n)]
+
+
+def strided_table(bands_a, labs, kmax: int, NW: int, P: int,
+                  dtype) -> torch.Tensor:
+    """K1r's band table of a strided pass (B on axis 1, C on axis 0) of one
+    run of terms, as each block's shared memory holds it: per block of
+    ``NW``·RT_OUT outputs along the axis one slice (kmax, NW, RT_OUT + 2P,
+    RT_OUT), the entry [.., k, grp, p, r] the coefficient of a thread's
+    input row p for its output r (tap p − r of band row grp·RT_OUT + r of
+    the block), zero off the band, past the grid and for k ≥ len(labs)."""
+    n_a, W, R = bands_a.shape[1], 2 * P + 1, RT_OUT
+    dev = bands_a.device
+    nb = math.ceil(n_a / (NW * R))
+
+    def ar(n):
+        return torch.arange(n, device=dev)
+
+    a = (ar(nb)[:, None, None, None] * NW * R
+         + ar(NW)[None, :, None, None] * R + ar(R)[None, None, None, :])
+    t = ar(R + 2 * P)[None, None, :, None] - ar(R)[None, None, None, :]
+    valid = (t >= 0) & (t < W) & (a < n_a)
+    a, t = a.clamp(max=n_a - 1), t.clamp(0, W - 1)
+    out = torch.zeros((nb, kmax, NW, R + 2 * P, R), dtype=dtype, device=dev)
+    for k, lab in enumerate(labs):
+        out[:, k] = torch.where(valid, bands_a[lab].to(dtype)[a, t], 0)
+    return out.contiguous()
+
+
+def column_table(bands2, labs, kmax: int, TL: int, dtype,
+                 lo=None) -> torch.Tensor:
+    """The band table of pass A (axis 2) of one run of terms: per tile of
+    ``TL`` columns one slice (kmax, 2P + 1, TL), (k, tap, column), zero
+    past the grid and for k ≥ len(labs); with ``lo`` (K5r) hi then lo,
+    (tiles, 2, kmax, 2P + 1, TL)."""
+    n2, W = bands2.shape[1], bands2.shape[2]
+    nt = math.ceil(n2 / TL)
+    dev = bands2.device
+    lcol = (torch.arange(nt, device=dev)[:, None, None] * TL
+            + torch.arange(TL, device=dev)[None, None, :])
+    t = torch.arange(W, device=dev)[None, :, None]
+    valid = lcol < n2
+    lcol = lcol.clamp(max=n2 - 1)
+    sources = [bands2] if lo is None else [bands2, lo]
+    out = torch.zeros((nt, len(sources), kmax, W, TL), dtype=dtype,
+                      device=dev)
+    for h, src in enumerate(sources):
+        for k, lab in enumerate(labs):
+            out[:, h, k] = torch.where(valid, src[lab].to(dtype)[lcol, t], 0)
+    return (out[:, 0] if lo is None else out).contiguous()
+
+
+def k1r_tables(plan: KronPlan, tiling=None) -> list:
+    """K1r's band tables of ``tiling`` (default the plan's), per run of
+    terms the tables of passes A, B and C in the arithmetic type
+    (:func:`column_table`, :func:`strided_table`), made on the plan's
+    device once per launch shape and kept on the plan."""
+    tiling = tuple(plan.tiling if tiling is None else tiling)
+    if tiling not in plan._tables:
+        TL, _, wb, wc = tiling
+        dtype = (torch.float64 if plan.dtype == torch.float64
+                 else torch.float32)
+        plan._tables[tiling] = [
+            (column_table(plan.bands[2], sp["u_lab"], CAPS["u"], TL, dtype),
+             strided_table(plan.bands[1], sp["v_lab"], CAPS["v"], wb,
+                           plan.P, dtype),
+             strided_table(plan.bands[0], sp["g_lab"], CAPS["g"], wc,
+                           plan.P, dtype))
+            for sp in plan.plans]
+    return plan._tables[tiling]
+
+
+def k1r_launch_pass(pass_: str, plan: KronPlan, run: int, x3, mode="apply",
+                    acc=None, b=None, d=None, d_out=None, out=None,
+                    out_hi=None, c1=0.0, c2=1.0, stream=None, tiling=None):
+    """Launch one K1r pass (``"A"``, ``"B"`` or ``"C"``) of run ``run`` of
+    ``plan`` on ``stream`` (default: the current one) and count it: A reads
+    ``x3`` and writes the u partials into ``plan.scratch``, B reads them
+    and writes the pre-summed partials there, C reads those (and ``acc``,
+    ``b``, ``d``, ``x3``) and writes ``out`` (``out_hi``, ``d_out``) in
+    ``mode`` (:func:`k1r_scratch_fields` views the scratch)."""
+    geo, *runs = _c_args(plan)
+    if tiling is not None:
+        ints = _geometry_ints(plan, tiling)
+        geo = (ctypes.c_int * len(ints))(*ints)
+    if stream is None:
+        stream = torch.cuda.current_stream(x3.device).cuda_stream
+    strides = (ctypes.c_int64 * 3)(*x3.stride())
+    lib = _library()
+    fn = getattr(lib, _KERNELS_RT[x3.dtype])
+    table = k1r_tables(plan, tiling)[run][RT_PASSES.index(pass_)]
+    err = fn(RT_PASSES.index(pass_), x3.data_ptr(),
+             *(t.data_ptr() for t in plan.bands),
+             *(t.data_ptr() for t in plan.cols), _ptr(acc), _ptr(b), _ptr(d),
+             _ptr(d_out), _ptr(out), _ptr(out_hi), float(c1), float(c2),
+             MODES.index(mode), strides, geo, runs[run],
+             plan.scratch.data_ptr(), table.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"kron_apply K1r pass {pass_} launch failed ({mode}): "
+            + lib.kron_apply_error_string(err).decode())
+    _count.count(kron_mode, x3.dtype, mode)
+    _count.count(kron_mode.runtime, x3.dtype, f"{mode}.{pass_}")
+    if mode == "apply":
+        kron_apply.launches += 1
+
+
+def k1r_scratch_fields(plan: KronPlan):
+    """(u, w): a K1r plan's scratch as the kCU u partials and the kCG
+    pre-summed partials, each an (n0, n1, n2) field."""
+    f = plan.scratch.view(-1, *plan.n3)
+    return list(f[:CAPS["u"]]), list(f[CAPS["u"]:CAPS["u"] + CAPS["g"]])
+
+
+def _launch_rt(mode, plan: KronPlan, x3, b, d, d_out, out, c1, c2, tiling,
+               wide, stream):
+    """K1r: per run of terms its three passes through the plan's scratch,
+    every run but the last adding its A x onto ``acc``."""
+    if plan.scratch is None:
+        raise RuntimeError("this K1r plan was built off the card: it has no "
+                           "scratch")
+    acc = None
+    targets = _runs_targets(plan, out, wide)
+    for k, target in enumerate(targets):
+        last = k == len(targets) - 1
+        as_hi = wide and not last
+        for pass_ in RT_PASSES:
+            k1r_launch_pass(
+                pass_, plan, k, x3, mode if last else "apply", acc=acc,
+                b=b if last else None, d=d if last else None,
+                d_out=d_out if last and mode == "cheb" else None,
+                out=None if as_hi else target,
+                out_hi=target if as_hi else None, c1=c1, c2=c2,
+                stream=stream, tiling=tiling)
+        acc = target
+    if mode == "cheb":
+        return out, d_out
+    return out
+
+
 _count.attach(kron_mode, MODES)
-kron_mode.runtime = SimpleNamespace()   # K1r's launches among them
-_count.attach(kron_mode.runtime, MODES)
+kron_mode.runtime = SimpleNamespace()   # K1r's launches, per mode and pass
+_count.attach(kron_mode.runtime, [f"{m}.{p}" for m in MODES
+                                  for p in RT_PASSES])
 
 
 def k1_resources(plan: KronPlan, mode: str = "cheb") -> dict:
-    """What K1's (or K1r's) launch of ``plan`` in ``mode`` gets on the
-    card: registers and local memory (spilled registers) a thread, shared
-    memory a block, blocks an SM holds at once, threads a block."""
+    """What K1's launch of ``plan`` in ``mode`` gets on the card: registers
+    and local memory (spilled registers) a thread, shared memory a block,
+    blocks an SM holds at once, threads a block.  For K1r the same of each
+    pass under ``passes`` (A, B, C), and at the top level the most
+    registers, local memory, shared memory and threads and the fewest
+    blocks an SM of the three."""
     geo = _c_args(plan)[0]
-    out = (ctypes.c_int * 4)()
     lib = _library()
-    with torch.cuda.device(plan.device):
-        err = lib.kron_apply_resources(
-            list(_KERNELS).index(plan.dtype), MODES.index(mode),
-            int(plan.runtime), geo, out)
-    if err != 0:
-        raise RuntimeError("k1_resources: "
-                           + lib.kron_apply_error_string(err).decode())
-    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
-            "blocks_per_sm": out[3], "threads": geo[10]}
+
+    def query(pass_):
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(plan.device):
+            err = lib.kron_apply_resources(
+                list(_KERNELS).index(plan.dtype), MODES.index(mode), pass_,
+                geo, out)
+        if err != 0:
+            raise RuntimeError("k1_resources: "
+                               + lib.kron_apply_error_string(err).decode())
+        return {"registers": out[0], "local_bytes": out[1],
+                "smem_bytes": out[2], "blocks_per_sm": out[3]}
+
+    if not plan.runtime:
+        return {**query(-1), "threads": geo[10]}
+    TL, wa, wb, wc = plan.tiling
+    passes = {p: {**query(i), "threads": LANES * w}
+              for i, (p, w) in enumerate(zip(RT_PASSES, (wa, wb, wc)))}
+    passes["A"]["threads"] = LANES * math.ceil(
+        TL // 2 * ((LANES * wa) // (TL // 2)) / LANES)
+    return {**{k: max(r[k] for r in passes.values())
+               for k in ("registers", "local_bytes", "smem_bytes",
+                         "threads")},
+            "blocks_per_sm": min(r["blocks_per_sm"] for r in passes.values()),
+            "passes": passes}
 
 
 def kron_apply(terms: Sequence[Sequence[torch.Tensor]], x_int: torch.Tensor,

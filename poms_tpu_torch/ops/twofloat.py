@@ -12,15 +12,19 @@ two_prod takes its pair from the exact f64 product: the FMA's pair, which
 the kernels compute.
 
 K5: for CUDA tensors :func:`residual_kron_df` launches the hand-written
-kernel of ``csrc/kron_apply_dw.cu`` (or raises): K5 at the compiled
-half-widths 1-8, K5r (the half-width taken at run time) above them; for
-CPU tensors it runs :func:`residual_kron_df_plain`.  The kernel performs
-the plain version's operations in its order with adds and multiplies the
-compiler may not fuse, so its words equal the plain version's.  An operator with more partials or
-terms than one launch holds (``CAPS_DW``) takes several launches, chained
-through the double-word sum of the terms done so far.
-``residual_kron_df.launches`` counts kernel launches,
-``residual_kron_df.runtime.launches`` those of K5r among them.
+kernel of ``csrc/kron_apply_dw.cu`` (or raises): K5, compiled at
+``INSTANTIATED_P_DW`` and taken at the half-widths of ``COMPILED_P_DW``
+(1-3), K5r (the half-width taken at run time, three
+one-axis passes through a scratch buffer of the plan:
+:func:`k5r_launch_pass`, each pass's plain version :func:`k5r_pass_plain`)
+at every other; for CPU tensors it runs :func:`residual_kron_df_plain`.
+The kernels perform the plain version's operations in its order with adds
+and multiplies the compiler may not fuse, so their words equal the plain
+version's.  An operator with more partials or terms than one launch holds
+(``CAPS_DW``) takes several runs, chained through the double-word sum of
+the terms done so far.  ``residual_kron_df.launches`` counts kernel
+launches, ``residual_kron_df.runtime.launches[pass]`` those of each K5r
+pass among them.
 
 K6: the dots and norms (:func:`dw_dot_stack`, :func:`dw_dot`,
 :func:`dw_norm2`, :func:`dw_sum_tree`) launch ``csrc/dw_reduce.cu`` for CUDA
@@ -49,18 +53,22 @@ import torch.nn.functional as F
 
 from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.ops import _build
-from poms_tpu_torch.ops.kron import (STAGES, KronPlan, _compiled_half_width,
-                                     _lift_labels, band_labels,
+from poms_tpu_torch.ops import _count
+from poms_tpu_torch.ops.kron import (LANES, RT_PASSES, STAGES,
+                                     KronPlan, _compiled_half_width,
+                                     _lift_labels, _pass_blocks, band_labels,
                                      build_kron_plan, chunk_terms,
-                                     refuse_half_width, sharing_plan,
-                                     stack_bands)
+                                     column_table, refuse_half_width,
+                                     sharing_plan, stack_bands)
 from poms_tpu_torch.ops.stencil import K2_SMEM
 
 __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_mul", "dw_mul_fd", "dw_neg", "residual_kron_df",
            "residual_kron_df_plain", "build_kron_df_plan",
-           "COMPILED_P_DW", "k5_step_cost", "k5_smem_bytes", "k5r_smem",
-           "k5_resources",
+           "COMPILED_P_DW", "INSTANTIATED_P_DW", "k5_step_cost",
+           "k5_smem_bytes", "k5r_smem",
+           "k5r_pass_smem", "k5_resources", "k5r_launch_pass",
+           "k5r_scratch_fields", "k5r_pass_plain", "k5r_passes_plain",
            "eft_on_card",
            "dw_norm2", "dw_dot", "dw_sum_tree", "dw_dot_stack",
            "dw_norm2_plain", "dw_dot_plain", "dw_sum_tree_plain",
@@ -70,10 +78,14 @@ __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
 
 # mirrored in csrc/kron_apply_dw.cu (kCU, kCV, kCW, kCT, kMaxThreads,
 # kRegisterP, kron::kStages and the instantiated half-widths): what one
-# launch holds, and the widest half-width of the register ring; wider bands
-# than the compiled ones run on K5r at their own half-width
+# launch holds, the half-widths K5 is compiled at, and the widest of its
+# register ring
 CAPS_DW = {"u": 2, "v": 3, "w": 4, "t": 4}
-COMPILED_P_DW = (1, 2, 3, 4, 5, 6, 7, 8)
+INSTANTIATED_P_DW = (1, 2, 3, 4, 5, 6, 7, 8)
+# the half-widths plans take the compiled K5 at (``build_kron_df_plan``'s
+# default); every other runs on K5r at its own.  Chosen end to end with
+# ops/kron.py::COMPILED_P: K5r is faster from 4 on
+COMPILED_P_DW = (1, 2, 3)
 MAX_THREADS_DW = 256
 REGISTER_P_DW = 5
 
@@ -202,34 +214,82 @@ def residual_kron_df_plain(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh,
 
 
 def k5_smem_bytes(P: int, histories: int, T1: int, T2: int,
-                  chunk: int, runtime: bool = False) -> int:
-    """Shared memory of a K5 block (``kron_apply_dw.cu::smem_bytes``, and
-    ``smem_bytes_wide`` above ``REGISTER_P_DW`` and for K5r, ``runtime``);
-    ``histories``: the instantiation's (3 or 4)."""
+                  chunk: int) -> int:
+    """Shared memory of a compiled K5 block (``kron_apply_dw.cu::smem_bytes``,
+    and ``smem_bytes_wide`` above ``REGISTER_P_DW``); ``histories``: the
+    instantiation's (3 or 4)."""
     WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
     words = (STAGES * WR * WC + CAPS_DW["u"] * WR * T2
              + histories * chunk * W)
-    if runtime or P > REGISTER_P_DW:
+    if P > REGISTER_P_DW:
         words += (CAPS_DW["u"] * W * T2 + CAPS_DW["v"] * W * T1
                   + histories * W * T1 * T2)
     return 8 * WR * WC + 2 * 4 * words
 
 
+RT_ROWS_A_DW = 2   # K5r's pass A: rows a thread (kRowsA of kron_apply_dw.cu)
+RT_OUT_DW = 2      # K5r's passes B and C: outputs along the axis a thread
+
+
+def k5r_pass_smem(P: int, pass_: str, warps: int) -> int:
+    """Shared memory of one K5r pass's block in bytes
+    (``csrc/kron_apply_dw.cu::smem_pass``): its staged tile (32 columns;
+    pass A ``warps``·RT_ROWS_A_DW rows 32 + 2P wide, B and C the block's
+    outputs and 2P halo rows per source) and its band rows, hi and lo."""
+    W, L = 2 * P + 1, LANES
+    if pass_ == "A":
+        words = warps * RT_ROWS_A_DW * (L + 2 * P) + CAPS_DW["u"] * W * L
+    else:
+        rows = warps * RT_OUT_DW + 2 * P
+        src, nb = ((CAPS_DW["u"], CAPS_DW["v"]) if pass_ == "B"
+                   else (CAPS_DW["v"], CAPS_DW["w"]))
+        words = src * rows * L + nb * warps * RT_OUT_DW * W
+    return 2 * 4 * words
+
+
 def k5r_smem(histories: int):
-    """K5r's shared memory, ``smem(P, T1, T2, chunk)`` in bytes, for the
-    instantiation of ``histories`` (3 or 4): the wide layout."""
-    return lambda P, T1, T2, chunk: k5_smem_bytes(P, histories, T1, T2,
-                                                  chunk, runtime=True)
+    """K5r's shared memory, ``smem(P, warps)`` in bytes: its largest pass
+    at ``warps`` warps a block (:func:`k5r_pass_smem`; the same for 3 and
+    4 ``histories``: pass C holds room for every history's band rows)."""
+    del histories
+    return lambda P, warps: max(k5r_pass_smem(P, p, warps)
+                                for p in RT_PASSES)
 
 
 def k5_step_cost(P: int, histories: int = 3, runtime: bool = False):
     """K5's cost model for :func:`poms_tpu_torch.ops.kron.kron_tiling`: one
     block an SM, a plane step costing its warps' contractions (the axis-2
     pass over T1 + 2P rows, the two others over T1) and the window load;
-    infinite for a block whose shared memory exceeds the card's limit
-    (``runtime``: K5r's layout)."""
+    infinite for a block whose shared memory exceeds the card's limit.
+    ``runtime``: K5r's model for
+    :func:`poms_tpu_torch.ops.kron.runtime_tiling`,
+    ``cost(n3, pass, warps, TL, sms)``: the work of all blocks (a block's
+    staged words, band tables included, and its double-word taps, 29
+    operations each at 8 a staged word), as if there were two blocks an SM
+    where there are fewer; infinite for a block over the card's shared
+    memory (``bench/k1_compare.py --sweep-rt`` measures the passes at
+    each block size on the card)."""
+    if runtime:
+        W = 2 * P + 1
+        chains = {"A": CAPS_DW["u"], "B": CAPS_DW["v"], "C": histories}
+        src = {"A": 1, "B": CAPS_DW["u"], "C": CAPS_DW["v"]}
+        bands = {"A": CAPS_DW["u"], "B": CAPS_DW["v"], "C": CAPS_DW["w"]}
+
+        def rt_cost(n3, pass_, warps, TL, sms):
+            need = k5r_pass_smem(P, pass_, warps)
+            if need > K2_SMEM:
+                return math.inf
+            blocks, rows, cols = _pass_blocks(n3, pass_, warps, TL,
+                                              RT_ROWS_A_DW, RT_OUT_DW, 1)
+            table = 2 * bands[pass_] * W * (LANES if pass_ == "A" else rows)
+            work = (2 * src[pass_] * (rows + 2 * P) * cols + table
+                    + rows * cols * W * chains[pass_] * 29 / 8)
+            return max(blocks, 2 * sms) * work
+
+        return rt_cost
+
     def cost(T1, T2, threads, chunk, blocks, sms):
-        if k5_smem_bytes(P, histories, T1, T2, chunk, runtime) > K2_SMEM:
+        if k5_smem_bytes(P, histories, T1, T2, chunk) > K2_SMEM:
             return math.inf
         rows = T1 + 2 * P
         step = (threads / 32 * (3.0 * rows / T1 + 5.0)
@@ -239,14 +299,18 @@ def k5_step_cost(P: int, histories: int = 3, runtime: bool = False):
     return cost
 
 
-def build_kron_df_plan(terms_df, npts, pads, periodic=None,
-                       labels=None, half_widths=COMPILED_P_DW) -> KronPlan:
+def build_kron_df_plan(terms_df, npts, pads, periodic=None, labels=None,
+                       half_widths: Sequence[int] = COMPILED_P_DW
+                       ) -> KronPlan:
     """K5's launch data, once per operator: K1's plan of the hi bands (the
     lifted geometry, the sharing plan cut into runs of terms that one K5
     launch holds) with the lo bands stacked beside them and a tiling for
     K5's block size and shared memory.  Bands wider than every one of
-    ``half_widths`` (default: the compiled ones) take K5r at their own
-    half-width; on the card a half-width no block of K5r fits raises."""
+    ``half_widths`` (default: ``COMPILED_P_DW``) take K5r
+    at their own half-width; on the card a half-width no block of K5r fits
+    raises.  A K5r plan built on the card owns its passes' scratch: the hi
+    and lo words of the kCU u and kCV v partials, 40 bytes a point (105 MB
+    at 138³), reused by every launch of the plan."""
     periodic = (False,) * len(npts) if periodic is None else periodic
     hi = [[B[0] for B in term] for term in terms_df]
     lo = [[B[1] for B in term] for term in terms_df]
@@ -260,9 +324,14 @@ def build_kron_df_plan(terms_df, npts, pads, periodic=None,
                            cost=k5_step_cost(P, histories, runtime),
                            caps=CAPS_DW, half_widths=half_widths,
                            smem=k5r_smem(histories),
-                           what=f"K5r ({histories} histories)")
+                           what=f"K5r ({histories} histories)",
+                           scratch_words=2 * (CAPS_DW["u"] + CAPS_DW["v"]),
+                           k1r=False,
+                           rt_cols=LANES)
     plan.bands_lo = stack_bands(lo, plan.labels, plan.n3, plan.pads3, plan.P,
                                 centre=0.0)
+    if plan.scratch is not None:
+        k5r_tables(plan)   # made here, before any graph captures a launch
     return plan
 
 
@@ -271,9 +340,12 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("kron_apply_dw")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in ("kron_residual_dw", "kron_residual_dw_rt"):
-        getattr(lib, fn).argtypes = [ptr] * 16 + [i32, i32, ptr]
-        getattr(lib, fn).restype = i32
+    lib.kron_residual_dw.argtypes = [ptr] * 16 + [i32, i32, ptr]
+    lib.kron_residual_dw.restype = i32
+    # K5r: the pass first, the scratch and the band table before the stream
+    lib.kron_residual_dw_rt.argtypes = [i32] + [ptr] * 16 + [i32, i32, ptr,
+                                                             ptr, ptr]
+    lib.kron_residual_dw_rt.restype = i32
     lib.kron_residual_dw_resources.argtypes = [ptr] * 3 + [i32]
     lib.kron_residual_dw_resources.restype = i32
     lib.kron_dw_eft_test.argtypes = [ptr] * 5 + [i32, ptr]
@@ -309,9 +381,13 @@ def _df_c_args(plan: KronPlan):
                     + padded(sp["w_lab"], caps[2])
                     + padded(sp["term_w"], caps[3]))
             runs.append((ctypes.c_int * len(ints))(*ints))
-        T1, T2, chunk = plan.tiling
-        geo = [*plan.n3, *(int(q) for q in plan.per3), plan.P, T1, T2, chunk,
-               32 * math.ceil(T1 * T2 / 32), plan.n_terms]
+        if plan.runtime:   # K5r: (32, warps of passes A, B, C)
+            geo = [*plan.n3, *(int(q) for q in plan.per3), plan.P,
+                   plan.n_terms, *plan.tiling[1:]]
+        else:
+            T1, T2, chunk = plan.tiling
+            geo = [*plan.n3, *(int(q) for q in plan.per3), plan.P, T1, T2,
+                   chunk, 32 * math.ceil(T1 * T2 / 32), plan.n_terms]
         plan._cargs = [(ctypes.c_int * len(geo))(*geo)] + runs
     return plan._cargs
 
@@ -366,38 +442,177 @@ def _launch_df(plan: KronPlan, bh, bl, xh, xl, negate, stream):
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     bands = [ptr(t) for pair in zip(plan.bands, plan.bands_lo) for t in pair]
     lib = _library()
-    fn = lib.kron_residual_dw_rt if plan.runtime else lib.kron_residual_dw
+    if plan.runtime and plan.scratch is None:
+        raise RuntimeError("this K5r plan was built off the card: it has no "
+                           "scratch")
     acc = (None, None)
     for k, run in enumerate(runs):
         # every run but the last writes the sum of the terms so far
         last = k == len(runs) - 1
         rh, rl = torch.empty_like(xh), torch.empty_like(xh)
-        err = fn(ptr(xh), ptr(xl), ptr(bh) if last else None,
-                 ptr(bl) if last else None, *map(ptr, acc), *bands, ptr(rh),
-                 ptr(rl), geo, run, int(bool(negate)), int(last), stream)
-        _raise_if(err, "residual_kron_df")
-        residual_kron_df.launches += 1
+        args = (ptr(xh), ptr(xl), ptr(bh) if last else None,
+                ptr(bl) if last else None, *map(ptr, acc), *bands, ptr(rh),
+                ptr(rl), geo, run, int(bool(negate)), int(last))
         if plan.runtime:
-            residual_kron_df.runtime.launches += 1
+            for pass_ in RT_PASSES:
+                k5r_launch_pass(pass_, plan, args, stream, k)
+        else:
+            _raise_if(lib.kron_residual_dw(*args, stream),
+                      "residual_kron_df")
+            residual_kron_df.launches += 1
         acc = (rh, rl)
     return rh, rl
 
 
+def _strided_table(hi, lo, labs, kmax: int, NW: int, P: int):
+    """K5r's band table of a strided pass (B on axis 1, C on axis 0) of one
+    run of terms, as each block's shared memory holds it: per block of
+    ``NW``·RT_OUT_DW outputs along the axis one slice (2, kmax,
+    NW·RT_OUT_DW, 2P + 1), hi then lo, each output's band row, zero past
+    the grid and for k ≥ len(labs)."""
+    n_a, W = hi.shape[1], 2 * P + 1
+    TA = NW * RT_OUT_DW
+    nb = math.ceil(n_a / TA)
+    a = (torch.arange(nb, device=hi.device)[:, None] * TA
+         + torch.arange(TA, device=hi.device)[None, :])
+    valid = (a < n_a)[..., None]
+    a = a.clamp(max=n_a - 1)
+    out = torch.zeros((nb, 2, kmax, TA, W), dtype=torch.float32,
+                      device=hi.device)
+    for h, src in enumerate((hi, lo)):
+        for k, lab in enumerate(labs):
+            out[:, h, k] = torch.where(valid, src[lab][a], 0)
+    return out.contiguous()
+
+
+def k5r_tables(plan: KronPlan) -> list:
+    """K5r's band tables, per run of terms those of passes A, B and C, hi
+    then lo (``kron.column_table``, :func:`_strided_table`), made on the
+    plan's device once and kept on the plan."""
+    tiling = tuple(plan.tiling)
+    if tiling not in plan._tables:
+        _, _, wb, wc = tiling
+        hi, lo = plan.bands, plan.bands_lo
+        plan._tables[tiling] = [
+            (column_table(hi[2], sp["u_lab"], CAPS_DW["u"], LANES,
+                          torch.float32, lo[2]),
+             _strided_table(hi[1], lo[1], sp["v_lab"], CAPS_DW["v"], wb,
+                            plan.P),
+             _strided_table(hi[0], lo[0], sp["w_lab"], CAPS_DW["w"], wc,
+                            plan.P))
+            for sp in plan.plans]
+    return plan._tables[tiling]
+
+
+def k5r_launch_pass(pass_: str, plan: KronPlan, args, stream, run: int = 0):
+    """Launch one K5r pass (``"A"``, ``"B"`` or ``"C"``) of run ``run`` with
+    the compiled entry's arguments ``args`` (pointers, geo, that run's
+    plan, negate, last), the plan's scratch and the pass's band table, and
+    count it: A reads x and writes the u pairs into ``plan.scratch``, B
+    reads them and writes the v pairs, C reads those and writes the result
+    (:func:`k5r_scratch_fields` views the scratch)."""
+    table = k5r_tables(plan)[run][RT_PASSES.index(pass_)]
+    _raise_if(_library().kron_residual_dw_rt(
+        RT_PASSES.index(pass_), *args, plan.scratch.data_ptr(),
+        table.data_ptr(), stream), f"residual_kron_df K5r pass {pass_}")
+    residual_kron_df.launches += 1
+    _count.count(residual_kron_df.runtime, torch.float32, pass_)
+
+
+def k5r_scratch_fields(plan: KronPlan):
+    """(u, v): a K5r plan's scratch as the kCU u pairs and the kCV v pairs,
+    each pair two (n0, n1, n2) fields (hi, lo)."""
+    f = plan.scratch.view(-1, *plan.n3)
+    nu = CAPS_DW["u"]
+    pairs = [(f[2 * k], f[2 * k + 1]) for k in range(nu + CAPS_DW["v"])]
+    return pairs[:nu], pairs[nu:]
+
+
+def k5r_pass_plain(pass_: str, plan: KronPlan, sp: dict, src, bh=None,
+                   bl=None, acc=None, negate: bool = False,
+                   last: bool = True):
+    """Plain PyTorch version of one K5r pass of the run of terms ``sp``
+    (one of ``plan.plans``), on (n3) double-word fields (hi, lo):
+
+    - ``"A"`` (axis 2): ``src`` the pair x → the u pairs (``sp["u_lab"]``);
+    - ``"B"`` (axis 1): ``src`` the u pairs → the v pairs
+      (``sp["v_src"]``, ``sp["v_lab"]``);
+    - ``"C"`` (axis 0): ``src`` the v pairs → one contraction per distinct
+      history (``sp["w_src"]``, ``sp["w_lab"]``), the terms added in order
+      onto ``acc`` (the earlier runs' sum, or the first term assigned);
+      ``last`` returns b − sum (``negate``: its negation, word by word),
+      else the sum.
+
+    Each tap's operations and their order are the kernel's."""
+    P, per = plan.P, plan.per3
+    bands = list(zip(plan.bands, plan.bands_lo))
+    if pass_ == "A":
+        x = tuple(t.reshape(plan.n3) for t in src)
+        return [_apply_band_1d_axis_df(*(B[lab] for B in bands[2]), *x, 2, P,
+                                       per[2]) for lab in sp["u_lab"]]
+    if pass_ == "B":
+        return [_apply_band_1d_axis_df(*(B[lab] for B in bands[1]), *src[s],
+                                       1, P, per[1])
+                for s, lab in zip(sp["v_src"], sp["v_lab"])]
+    if pass_ != "C":
+        raise ValueError(f"unknown K5r pass {pass_!r}")
+    w = [_apply_band_1d_axis_df(*(B[lab] for B in bands[0]), *src[s], 0, P,
+                                per[0])
+         for s, lab in zip(sp["w_src"], sp["w_lab"])]
+    axh, axl = (None, None) if acc is None else acc
+    for k in sp["term_w"]:
+        axh, axl = w[k] if axh is None else dw_add(axh, axl, *w[k])
+    if not last:
+        return axh, axl
+    rh, rl = dw_add(bh.reshape(plan.n3), bl.reshape(plan.n3), -axh, -axl)
+    return dw_neg(rh, rl) if negate else (rh, rl)
+
+
+def k5r_passes_plain(plan: KronPlan, bh, bl, xh, xl, negate: bool = False):
+    """K5r's three plain passes chained as the card chains them: per run of
+    terms A, B, C, every run but the last writing the sum of the terms so
+    far, the last b − sum; equal to :func:`residual_kron_df_plain` word for
+    word."""
+    acc = None
+    for k, sp in enumerate(plan.plans):
+        last = k == len(plan.plans) - 1
+        u = k5r_pass_plain("A", plan, sp, (xh, xl))
+        v = k5r_pass_plain("B", plan, sp, u)
+        acc = k5r_pass_plain("C", plan, sp, v, bh, bl, acc, negate, last)
+    return tuple(t.reshape(plan.npts) for t in acc)
+
+
 residual_kron_df.launches = 0
-residual_kron_df.runtime = SimpleNamespace(launches=0)   # K5r's among them
+residual_kron_df.runtime = SimpleNamespace()   # K5r's among them, per pass
+_count.attach(residual_kron_df.runtime, RT_PASSES)
 
 
 def k5_resources(plan: KronPlan) -> dict:
-    """What K5's (or K5r's) first launch of ``plan`` gets on the card:
-    registers and local memory (spilled registers) a thread, shared memory
-    a block, blocks an SM holds at once, threads a block."""
+    """What K5's first launch of ``plan`` gets on the card: registers and
+    local memory (spilled registers) a thread, shared memory a block, blocks
+    an SM holds at once, threads a block.  For K5r the same of each pass
+    under ``passes`` (A, B, C), and at the top level the most registers,
+    local memory, shared memory and threads and the fewest blocks an SM of
+    the three."""
     geo, ints = _df_c_args(plan)[:2]
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(plan.device):
-        _raise_if(_library().kron_residual_dw_resources(
-            geo, ints, out, int(plan.runtime)), "k5_resources")
-    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2],
-            "blocks_per_sm": out[3], "threads": geo[10]}
+
+    def query(pass_):
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(plan.device):
+            _raise_if(_library().kron_residual_dw_resources(
+                geo, ints, out, pass_), "k5_resources")
+        return {"registers": out[0], "local_bytes": out[1],
+                "smem_bytes": out[2], "blocks_per_sm": out[3]}
+
+    if not plan.runtime:
+        return {**query(-1), "threads": geo[10]}
+    passes = {p: {**query(i), "threads": LANES * w}
+              for i, (p, w) in enumerate(zip(RT_PASSES, plan.tiling[1:]))}
+    return {**{k: max(r[k] for r in passes.values())
+               for k in ("registers", "local_bytes", "smem_bytes",
+                         "threads")},
+            "blocks_per_sm": min(r["blocks_per_sm"] for r in passes.values()),
+            "passes": passes}
 
 
 def eft_on_card(ah, al, bh, bl):

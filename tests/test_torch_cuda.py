@@ -23,8 +23,9 @@ from poms_tpu_torch.models.periodic import periodic_problem
 from poms_tpu_torch.models.poisson import poisson_problem
 from poms_tpu_torch.ops import counters, twofloat
 from poms_tpu_torch.ops import transfer as k7
-from poms_tpu_torch.ops.kron import (MODES as K1_MODES, build_kron_plan,
-                                     kron_apply, kron_apply_plain, kron_mode,
+from poms_tpu_torch.ops.kron import (INSTANTIATED_P, MODES as K1_MODES,
+                                     build_kron_plan, kron_apply,
+                                     kron_apply_plain, kron_mode,
                                      kron_mode_plain)
 from poms_tpu_torch.ops.stencil import (MODES, color_mask, stencil_apply,
                                         stencil_apply_plain)
@@ -90,13 +91,15 @@ def test_k1_kernel_refuses_what_it_lacks(dev):
 
 
 def test_k1_refused_launch_raises(dev):
-    """p = 38: not even K1r's smallest block fits a block's shared memory
-    in f32, the plan is refused, the wrapper raises, and the next launch
-    runs."""
-    terms, x = _operands((4, 5, 6), 38, torch.float32, dev)
+    """One past K1r's widest half-width in f32 (219): not even its smallest
+    block fits a block's shared memory, the plan is refused, the wrapper
+    raises, and the next launch runs."""
+    from poms_tpu_torch.ops import kron as k1
+    p = k1.widest_half_width(k1.k1r_smem(4)) + 1
+    terms, x = _operands((4, 5, 6), p, torch.float32, dev)
     before = dict(kron_mode.launches)
     with pytest.raises(RuntimeError, match="bytes of shared memory"):
-        kron_apply(terms, x, (4, 5, 6), (38,) * 3, (False,) * 3)
+        kron_apply(terms, x, (4, 5, 6), (p,) * 3, (False,) * 3)
     assert kron_mode.launches == before
     terms, x = _operands((6, 7, 8), 1, torch.float32, dev)
     y = kron_apply(terms, x, (6, 7, 8), (1,) * 3, (False,) * 3)
@@ -143,10 +146,13 @@ def test_k1_modes_match_plain(dev, npts, pads, periodic, free, mode, dtype,
                               tol):
     """Every mode in 1D/2D/3D, mixed pads and periodicity, a strided x and a
     4-term operator that takes two launches: within K1's tolerance of the
-    plain version (summation order, FMA)."""
+    plain version (summation order, FMA); the compiled kernel at every
+    half-width (asked for by ``half_widths`` at 5)."""
     terms, (x, b, d) = _mode_operands(npts, pads, dtype, dev, free,
                                       seed=sum(npts))
-    plan = build_kron_plan(terms, npts, pads, periodic)
+    plan = build_kron_plan(terms, npts, pads, periodic,
+                           half_widths=INSTANTIATED_P)
+    assert not plan.runtime
     kw = {}
     if mode in ("residual", "cheb", "cheb0"):
         kw["b"] = b
@@ -228,7 +234,7 @@ def test_k5_spills_nothing(dev, four):
 def test_k5_refuses_what_it_lacks(dev):
     """Five sharing-free terms exceed one launch (2 u partials): they run in
     three launches chained through the sum so far, bit-equal to the single
-    pass; a float64 field and a half-width past K5r's widest (36) are
+    pass; a float64 field and a half-width past K5r's widest (138) are
     refused."""
     rng = np.random.default_rng(0)
     free = [[twofloat.split_f64(torch.as_tensor(
@@ -248,11 +254,11 @@ def test_k5_refuses_what_it_lacks(dev):
         twofloat.residual_kron_df(free[:1], None, None, xh.double(), None,
                                   (1, 1))
     wide = [[twofloat.split_f64(torch.as_tensor(
-        rng.standard_normal((20, 75)), device=dev)) for _ in range(2)]]
+        rng.standard_normal((20, 279)), device=dev)) for _ in range(2)]]
     with pytest.raises(RuntimeError, match="bytes of shared memory"):
         twofloat.residual_kron_df(wide, None, None,
                                   torch.zeros((20, 20), device=dev), None,
-                                  (37, 37))
+                                  (139, 139))
 
 
 # K5's new half-widths 6-8 (the shared-memory design) and 4: Poisson-shaped
@@ -272,8 +278,10 @@ K5_WIDE = [((20, 22, 40), (8, 8, 8), (False,) * 3, False),
 @pytest.mark.parametrize("negate", [False, True])
 def test_k5_wide_half_widths_are_bit_equal_to_plain(dev, npts, pads,
                                                     periodic, four, negate):
-    """K5 at half-widths 4, 6, 7 and 8 with 3 and 4 histories: the words
-    equal the plain version's, b and x_l given, negated or not."""
+    """The compiled K5 at half-widths 4, 6, 7 and 8 (asked for by
+    ``half_widths``: plans take K5r there since the routing) with 3 and 4
+    histories: the words equal the plain version's, b and x_l given,
+    negated or not."""
     if four:
         tdf = _periodic_df_terms(npts, pads, dev, seed=sum(npts))
     else:
@@ -284,7 +292,9 @@ def test_k5_wide_half_widths_are_bit_equal_to_plain(dev, npts, pads,
     rng = np.random.default_rng(len(npts))
     (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
         rng.standard_normal(npts), device=dev)) for _ in range(2))
-    plan = twofloat.build_kron_df_plan(tdf, npts, pads, periodic)
+    plan = twofloat.build_kron_df_plan(
+        tdf, npts, pads, periodic, half_widths=twofloat.INSTANTIATED_P_DW)
+    assert not plan.runtime
     before = twofloat.residual_kron_df.launches
     got = twofloat.residual_kron_df(tdf, bh, bl, xh, xl, pads,
                                     periodic=periodic, plan=plan,
@@ -302,16 +312,19 @@ def test_k5_wide_half_widths_are_bit_equal_to_plain(dev, npts, pads,
 @pytest.mark.parametrize("nterms,p", [(5, 8), (6, 8), (5, 3), (6, 2)])
 def test_k5_chained_launches_are_bit_equal_to_the_single_pass(dev, nterms,
                                                               p):
-    """Operators of 5 and 6 sharing-free terms: one launch per run of terms,
-    each adding onto the sum of the runs before it, the last forming
-    b - sum; the words equal the single pass's, also as A.p."""
+    """Operators of 5 and 6 sharing-free terms on the compiled K5 (asked
+    for by ``half_widths`` at 8): one launch per run of terms, each adding
+    onto the sum of the runs before it, the last forming b - sum; the words
+    equal the single pass's, also as A.p."""
     npts = (p + 12, p + 13, 2 * p + 20)
     terms, (x, b, _) = _mode_operands(npts, (p,) * 3, torch.float64, dev,
                                       nterms, seed=nterms + p)
     tdf = [[twofloat.split_f64(B) for B in t] for t in terms]
     (xh, xl), (bh, bl) = twofloat.split_f64(x), twofloat.split_f64(b)
     zero = torch.zeros_like(xh)
-    plan = twofloat.build_kron_df_plan(tdf, npts, (p,) * 3)
+    plan = twofloat.build_kron_df_plan(
+        tdf, npts, (p,) * 3, half_widths=twofloat.INSTANTIATED_P_DW)
+    assert not plan.runtime
     for given, explicit, negate in (((bh, bl, xh, xl), (bh, bl, xh, xl),
                                      False),
                                     ((None, None, xh, None),
@@ -329,8 +342,8 @@ def test_k5_chained_launches_are_bit_equal_to_the_single_pass(dev, nterms,
 
 
 def test_degree_6_dw_pcg_on_card_matches_cpu(dev):
-    """3D Poisson at degree 6, 16^3 elements, 2 levels (K1 at half-width
-    8, K5 at 6): the card takes the CPU port's iterations with the same
+    """3D Poisson at degree 6, 16^3 elements, 2 levels (K1r and K5r at
+    half-width 6): the card takes the CPU port's iterations with the same
     λs, solutions within 1e-6 of max|x|."""
     cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
         "chebyshev", cheb_fraction=16.0))
@@ -998,15 +1011,18 @@ BF16_K1_SHAPES = [((17, 17, 17), (3, 3, 3), (False,) * 3, 0),
 @pytest.mark.parametrize("npts,pads,periodic,free", BF16_K1_SHAPES)
 @pytest.mark.parametrize("mode", K1_MODES + ("cheb0",))
 def test_k1_bf16_modes_match_plain(dev, npts, pads, periodic, free, mode):
-    """K1's bf16 instantiation against its plain version (f32 arithmetic,
-    one rounding), odd row lengths and a two-launch operator (whose sum
+    """K1's bf16 instantiation (every compiled half-width, asked for by
+    ``half_widths``) against its plain version (f32 arithmetic, one
+    rounding), odd row lengths and a two-launch operator (whose sum
     between the launches stays f32) among the shapes."""
     terms, (x, b, d) = _mode_operands(npts, pads, torch.float32, dev, free,
                                       seed=sum(npts))
     cast = {}
     terms = [[cast.setdefault(id(B), B.to(BF16)) for B in t] for t in terms]
     x, b, d = x.to(BF16), b.to(BF16), d.to(BF16)
-    plan = build_kron_plan(terms, npts, pads, periodic)
+    plan = build_kron_plan(terms, npts, pads, periodic,
+                           half_widths=INSTANTIATED_P)
+    assert not plan.runtime
     kw = {}
     real = mode.replace("0", "")
     if real in ("residual", "cheb"):
@@ -1035,8 +1051,8 @@ def test_k1_bf16_modes_match_plain(dev, npts, pads, periodic, free, mode):
 
 def test_k1_bf16_stops_at_half_width_3(dev):
     """bf16 has every compiled half-width (1, 2, 3, 5, 8: degrees 1-8) and
-    K1r above them; past K1r's widest (37) the plan is refused on the card,
-    naming the bytes."""
+    K1r above them; past K1r's widest (218) the plan is refused on the
+    card, naming the bytes."""
     for p in (5, 8):
         terms, (x, _, _) = _mode_operands((16, 17, 18), (p,) * 3,
                                           torch.float32, dev, 0)
@@ -1044,11 +1060,11 @@ def test_k1_bf16_stops_at_half_width_3(dev):
         y = kron_apply(terms, x.to(BF16), (16, 17, 18), (p,) * 3,
                        (False,) * 3)
         assert y.dtype == BF16 and bool(torch.isfinite(y.float()).all())
-    terms, (x, _, _) = _mode_operands((4, 5, 6), (38, 38, 38), torch.float32,
-                                      dev, 0)
+    terms, (x, _, _) = _mode_operands((4, 5, 6), (219, 219, 219),
+                                      torch.float32, dev, 0)
     terms = [[B.to(BF16) for B in t] for t in terms]
     with pytest.raises(RuntimeError, match="bytes of shared memory"):
-        kron_apply(terms, x.to(BF16), (4, 5, 6), (38,) * 3, (False,) * 3)
+        kron_apply(terms, x.to(BF16), (4, 5, 6), (219,) * 3, (False,) * 3)
 
 
 @pytest.mark.parametrize("kind,n_el,d", K7_CASES)
@@ -1341,7 +1357,8 @@ def test_k1r_modes_match_plain(dev, npts, pads, periodic, free, mode, dtype):
     """K1r in every mode and dtype at half-widths 9 and 12, periodic or
     not, 1D-3D and a two-launch operator: within the compiled K1's
     tolerances of the plain version (max|Δ|/max|y| ≤ 1e-5 in f32, 1e-12 in
-    f64; bf16 one unit in the last place plus the f32 sums' error)."""
+    f64; bf16 one unit in the last place plus the f32 sums' error); three
+    launches (passes A, B, C) a run of terms."""
     terms, x, real, kw = _k1_case(npts, pads, dtype, dev, free, mode)
     plan = build_kron_plan(terms, npts, pads, periodic)
     assert plan.runtime and plan.P == max(pads) and plan.tcols == 1
@@ -1353,7 +1370,7 @@ def test_k1r_modes_match_plain(dev, npts, pads, periodic, free, mode, dtype):
     before = sum(kron_mode.runtime.launches.values())
     got = _on_card(real, plan, x, kw)
     assert sum(kron_mode.runtime.launches.values()) - before \
-        == len(plan.plans)
+        == 3 * len(plan.plans)
     if real != "cheb":
         want = (want,)
     for g, w in zip(got, want):
@@ -1380,7 +1397,8 @@ def test_k1r_equals_the_compiled_kernel(dev, npts, pads, periodic, free,
     in the same order."""
     for mode in K1_MODES + ("cheb0",):
         terms, x, real, kw = _k1_case(npts, pads, dtype, dev, free, mode)
-        compiled = build_kron_plan(terms, npts, pads, periodic)
+        compiled = build_kron_plan(terms, npts, pads, periodic,
+                                   half_widths=INSTANTIATED_P)
         runtime = build_kron_plan(terms, npts, pads, periodic,
                                   half_widths=())
         assert not compiled.runtime and runtime.runtime
@@ -1415,7 +1433,8 @@ K5R_SHAPES = [((20, 22, 40), (9, 9, 9), (False,) * 3, False),
 def test_k5r_is_bit_equal_to_plain(dev, npts, pads, periodic, four, negate):
     """K5r at half-widths 9, 12 and 16 with 3 and 4 histories: the words
     equal the plain version's, b and x_l given and as A.p (the zero
-    flags), negated or not; registers within the limit."""
+    flags), negated or not, three launches (passes A, B, C) a call;
+    registers within the limit."""
     tdf = _k5_terms(npts, pads, dev, four)
     rng = np.random.default_rng(len(npts))
     (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
@@ -1425,11 +1444,12 @@ def test_k5r_is_bit_equal_to_plain(dev, npts, pads, periodic, four, negate):
     assert plan.runtime and plan.P == max(pads)
     for given, explicit in (((bh, bl, xh, xl), (bh, bl, xh, xl)),
                             ((None, None, xh, None), (zero, zero, xh, zero))):
-        before = twofloat.residual_kron_df.runtime.launches
+        before = sum(twofloat.residual_kron_df.runtime.launches.values())
         got = twofloat.residual_kron_df(tdf, *given, pads, periodic=periodic,
                                         plan=plan, negate=negate)
         torch.cuda.synchronize()
-        assert twofloat.residual_kron_df.runtime.launches == before + 1
+        assert sum(twofloat.residual_kron_df.runtime.launches.values()) \
+            == before + 3
         want = twofloat.residual_kron_df_plain(tdf, *explicit, pads, None,
                                                periodic, negate)
         for g, w in zip(got, want):
@@ -1440,9 +1460,9 @@ def test_k5r_is_bit_equal_to_plain(dev, npts, pads, periodic, four, negate):
 
 @pytest.mark.parametrize("p", [9, 12, 16])
 def test_k5r_chained_launches_are_bit_equal_to_the_single_pass(dev, p):
-    """A 6-term operator sharing nothing (three K5r launches a call, each
-    adding onto the sum of the runs before it): the single pass's words,
-    with b given and as A.p."""
+    """A 6-term operator sharing nothing (three K5r runs a call, three
+    launches each, each run adding onto the sum of the runs before it): the
+    single pass's words, with b given and as A.p."""
     npts = (p + 12, p + 13, 2 * p + 20)
     tdf = _k5_terms(npts, (p,) * 3, dev, False, free=6)
     rng = np.random.default_rng(p)
@@ -1455,11 +1475,12 @@ def test_k5r_chained_launches_are_bit_equal_to_the_single_pass(dev, p):
                                      False),
                                     ((None, None, xh, None),
                                      (zero, zero, xh, zero), True)):
-        before = twofloat.residual_kron_df.runtime.launches
+        before = sum(twofloat.residual_kron_df.runtime.launches.values())
         got = twofloat.residual_kron_df(tdf, *given, (p,) * 3, plan=plan,
                                         negate=negate)
         torch.cuda.synchronize()
-        assert twofloat.residual_kron_df.runtime.launches - before == 3
+        assert sum(twofloat.residual_kron_df.runtime.launches.values()) \
+            - before == 9
         want = twofloat.residual_kron_df_plain(tdf, *explicit, (p,) * 3,
                                                negate=negate)
         for g, w in zip(got, want):
@@ -1478,7 +1499,8 @@ def test_k5r_equals_the_compiled_kernel(dev, npts, p, four):
     (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
         rng.standard_normal(npts), device=dev)) for _ in range(2))
     runtime = twofloat.build_kron_df_plan(tdf, npts, pads, half_widths=())
-    compiled = twofloat.build_kron_df_plan(tdf, npts, pads)
+    compiled = twofloat.build_kron_df_plan(
+        tdf, npts, pads, half_widths=twofloat.INSTANTIATED_P_DW)
     assert runtime.runtime and not compiled.runtime
     for plan_args in ((bh, bl, xh, xl), (None, None, xh, None)):
         got = twofloat.residual_kron_df(tdf, *plan_args, pads, plan=runtime)
@@ -1489,14 +1511,15 @@ def test_k5r_equals_the_compiled_kernel(dev, npts, p, four):
 
 
 def test_the_widest_half_widths_run_and_the_next_is_refused(dev):
-    """At the widest half-width each run-time kernel takes (K1r 37 in f32
-    and bf16, 27 in f64; K5r 36) a small operator runs on the card against
-    its plain version; one past it the plan is refused, naming the bytes."""
+    """At the widest half-width each run-time kernel takes (K1r 218 in f32
+    and bf16, 108 in f64; K5r 138) a small operator runs on the card
+    against its plain version; one past it the plan is refused, naming the
+    bytes."""
     from poms_tpu_torch.ops import kron as k1
     npts = (5, 6, 9)
     for dtype, itemsize in ((torch.float32, 4), (torch.float64, 8)):
         P = k1.widest_half_width(k1.k1r_smem(itemsize))
-        assert P == {4: 37, 8: 27}[itemsize]
+        assert P == {4: 218, 8: 108}[itemsize]
         terms, x, real, kw = _k1_case(npts, (P,) * 3, dtype, dev, 0, "cheb")
         plan = build_kron_plan(terms, npts, (P,) * 3, (False,) * 3)
         want = kron_mode_plain(real, terms, x, npts, (P,) * 3, (False,) * 3,
@@ -1509,7 +1532,7 @@ def test_the_widest_half_widths_run_and_the_next_is_refused(dev):
             build_kron_plan(terms, npts, (P + 1,) * 3, (False,) * 3)
     for four in (False, True):
         P = k1.widest_half_width(twofloat.k5r_smem(4 if four else 3))
-        assert P == 36
+        assert P == 138
         tdf = _k5_terms(npts, (P,) * 3, dev, four)
         (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
             np.random.default_rng(P).standard_normal(npts), device=dev))
@@ -1549,10 +1572,12 @@ def test_high_degree_pcg_on_card_matches_cpu(dev, dim, n_el, degree, mixed):
         runs[d.type] = pcg.solve(tol=1e-8, maxiter=100)
         if d.type == "cuda":
             grown = counters.diff(counters.snapshot(), before)
-            assert grown.get("kron_mode_rt.cheb", 0) > 0, grown
+            assert all(grown.get(f"kron_mode_rt.cheb.{p}", 0) > 0
+                       for p in "ABC"), grown
             if mixed:
                 assert pcg._plan_df.runtime and pcg._plan_df.P == degree
-                assert grown.get("residual_kron_df_rt", 0) > 0, grown
+                assert all(grown.get(f"residual_kron_df_rt.{p}", 0) > 0
+                           for p in "ABC"), grown
     gpu, cpu = runs["cuda"], runs["cpu"]
     if mixed:
         assert gpu.converged and cpu.converged
@@ -1560,3 +1585,123 @@ def test_high_degree_pcg_on_card_matches_cpu(dev, dim, n_el, degree, mixed):
     else:
         for a, b in zip(gpu.residuals[:8], cpu.residuals[:8]):
             assert abs(a - b) <= 1e-8 * b, (a, b)
+
+
+# -- K1r and K5r pass by pass, and under graph capture -------------------
+
+@pytest.mark.parametrize("npts,pads,periodic,free", [
+    ((20, 22, 40), (9, 9, 9), (False,) * 3, 0),
+    ((26, 28, 33), (12, 12, 12), (True, False, True), 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16],
+                         ids=["f32", "f64", "bf16"])
+def test_k1r_passes_match_their_plain_versions(dev, npts, pads, periodic,
+                                               free, dtype):
+    """Each K1r pass alone against its plain version on the same inputs:
+    A from x, B from the u partials A left in the scratch, C (every mode,
+    onto the earlier runs' sum) from the pre-summed partials B left there;
+    within K1's tolerances of max|y| (bf16: f32 arithmetic, f32 scratch)."""
+    from poms_tpu_torch.ops import kron as k1
+    work = torch.float64 if dtype == torch.float64 else torch.float32
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    terms, x, _, _ = _k1_case(npts, pads, dtype, dev, free, "apply")
+    _, _, _, kw = _k1_case(npts, pads, dtype, dev, free, "cheb")
+    plan = build_kron_plan(terms, npts, pads, periodic)
+    assert plan.runtime and plan.scratch is not None
+    x3 = x.reshape(plan.n3)
+    u, w = k1.k1r_scratch_fields(plan)
+
+    def close(got, want):
+        if got.dtype == BF16:   # one rounding of the f32 result
+            return _bf16_differing(got.cpu(), want.to(BF16).cpu()) \
+                <= max(2, got.numel() // 50)
+        got, want = got.to(work).cpu(), want.to(work).cpu()
+        return float((got - want).abs().max() / want.abs().max()) <= tol
+
+    for r, sp in enumerate(plan.plans):
+        acc = (torch.randn(plan.npts, device=dev, dtype=work)
+               if r else None)
+        k1.k1r_launch_pass("A", plan, r, x3)
+        want = k1.k1r_pass_plain("A", plan, sp, x.to(work))
+        assert all(close(u[k], want[k]) for k in range(len(want)))
+        k1.k1r_launch_pass("B", plan, r, x3)
+        want = k1.k1r_pass_plain("B", plan, sp, [t.clone() for t in u])
+        assert all(close(w[k], want[k]) for k in range(len(want)))
+        src = [t.clone() for t in w[:len(sp["g_lab"])]]
+        for mode in K1_MODES:
+            b = kw["b"] if mode in ("residual", "cheb") else None
+            d = kw["d"] if mode == "cheb" else None
+            out = torch.empty(plan.npts, dtype=dtype, device=dev)
+            d_out = torch.empty_like(out)
+            k1.k1r_launch_pass("C", plan, r, x3, mode, acc=acc, b=b, d=d,
+                               d_out=d_out if mode == "cheb" else None,
+                               out=out, c1=0.3, c2=0.7)
+            diag = (plan.operands_f32()[1] if dtype == BF16
+                    else plan.diagonal())
+            want = k1.k1r_pass_plain(
+                "C", plan, sp, src, mode, x.to(work),
+                None if b is None else b.to(work),
+                None if d is None else d.to(work), 0.3, 0.7, acc, diag)
+            torch.cuda.synchronize()
+            if mode == "cheb":
+                assert close(out, want[0]) and close(d_out, want[1])
+            else:
+                assert close(out, want)
+
+
+@pytest.mark.parametrize("npts,pads,periodic,four", [
+    ((20, 22, 40), (9, 9, 9), (False,) * 3, False),
+    ((26, 28, 33), (12, 12, 12), (True, False, True), True)])
+def test_k5r_passes_are_bit_equal_to_their_plain_versions(dev, npts, pads,
+                                                          periodic, four):
+    """Each K5r pass alone against its plain version on the same inputs (A
+    from x, B from the u pairs A left in the scratch, C from the v pairs B
+    left there, b given and as A.p): word for word."""
+    tdf = _k5_terms(npts, pads, dev, four)
+    rng = np.random.default_rng(len(npts) + 5)
+    (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
+        rng.standard_normal(npts), device=dev)) for _ in range(2))
+    plan = twofloat.build_kron_df_plan(tdf, npts, pads, periodic)
+    assert plan.runtime and len(plan.plans) == 1
+    sp = plan.plans[0]
+    u, v = twofloat.k5r_scratch_fields(plan)
+    geo, run = twofloat._df_c_args(plan)[:2]
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    bands = [ptr(t) for pair in zip(plan.bands, plan.bands_lo) for t in pair]
+    stream = torch.cuda.current_stream().cuda_stream
+    rh, rl = torch.empty_like(xh), torch.empty_like(xh)
+    args = (ptr(xh), ptr(xl), ptr(bh), ptr(bl), None, None, *bands, ptr(rh),
+            ptr(rl), geo, run, 0, 1)
+    twofloat.k5r_launch_pass("A", plan, args, stream)
+    want = twofloat.k5r_pass_plain("A", plan, sp, (xh, xl))
+    torch.cuda.synchronize()
+    for k, pair in enumerate(want):
+        assert all(torch.equal(a, b) for a, b in zip(u[k], pair))
+    twofloat.k5r_launch_pass("B", plan, args, stream)
+    want = twofloat.k5r_pass_plain("B", plan, sp, [tuple(t.clone() for t in p)
+                                                   for p in u])
+    torch.cuda.synchronize()
+    for k, pair in enumerate(want):
+        assert all(torch.equal(a, b) for a, b in zip(v[k], pair))
+    src = [tuple(t.clone() for t in p) for p in v]
+    twofloat.k5r_launch_pass("C", plan, args, stream)
+    want = twofloat.k5r_pass_plain("C", plan, sp, src, bh, bl)
+    torch.cuda.synchronize()
+    assert torch.equal(rh, want[0].reshape(npts))
+    assert torch.equal(rl, want[1].reshape(npts))
+
+
+def test_degree_9_graph_replay_equals_the_eager_solve(dev):
+    """The dw-PCG at degree 9 (K1r in the cycles, K5r for A.p, each plan's
+    scratch captured in the graph): solve_compiled's replayed history
+    equals the eager solve's entry for entry."""
+    prob = poisson_problem(3, 16, degree=9, device=dev, operator="kron")
+    cfg = CycleConfig(nu1=1, nu2=1, smoother=SmootherConfig(
+        "chebyshev", cheb_fraction=16.0))
+    pcg = MGPreconditionedCG(prob, 2, cfg, mixed=True, operator="kron",
+                             precision="dw")
+    assert pcg._plan_df.runtime and pcg._plan_df.scratch is not None
+    eager = pcg.solve(tol=1e-10, maxiter=30)
+    x, rn, it = pcg.solve_compiled(tol=1e-10, maxiter=30)
+    x, rn, it = pcg.solve_compiled(tol=1e-10, maxiter=30)   # replayed
+    assert int(it) == eager.iterations
+    assert float(rn) == eager.residuals[-1]

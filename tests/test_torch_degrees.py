@@ -107,7 +107,7 @@ def test_k1_modes_match_jax(degree, shape, bits, mode):
                            dtype=tdt, device="cpu"),
         _terms([torch.as_tensor(K, dtype=tdt) for K in Ks],
                [torch.as_tensor(M, dtype=tdt) for M in Ms]))
-    assert op.plan.P == (5 if degree == 5 else 8)
+    assert op.plan.P == degree and op.plan.runtime   # K1r from 4 on
     xj, bj, dj = (jnp.asarray(f, jdt) for f in fields)
     xt, bt, dt = (torch.as_tensor(f, dtype=tdt) for f in fields)
     ax = ref.dot(RefVec.from_interior(ref.space, xj)).interior
@@ -390,14 +390,16 @@ def test_solver_solve_compiled_matches_solve(solved):
 
 
 def test_headline_example_builds_degrees_6_and_8_on_their_half_widths():
-    """The headline example's solvers at degrees 8 and 6: K5's plan at the
-    degree itself, every cycle level's K1 plan at the compiled half-width
-    8."""
+    """The headline example's solvers at degrees 8 and 6: K5's plan and
+    every cycle level's K1 plan at the degree itself, on the run-time
+    kernels (K5r, K1r), which take degrees 4-8 since they step faster
+    there than the compiled ones."""
     for solver, degree in (("pcg", 8), ("dc", 6)):
         _, mg = headline_solve.build(8, degree, solver, device="cpu")
         low = mg.levels_pre if solver == "pcg" else mg.levels32
-        assert mg._plan_df.P == degree
-        assert [lev.A.plan.P for lev in low] == [8] * len(low)
+        assert mg._plan_df.P == degree and mg._plan_df.runtime
+        assert [lev.A.plan.P for lev in low] == [degree] * len(low)
+        assert all(lev.A.plan.runtime for lev in low)
 
 
 @pytest.mark.slow
@@ -434,15 +436,16 @@ def test_periodic_degree_8_stalls_as_in_jax():
 def test_degree_9_is_refused_on_the_card_and_runs_plain_on_the_cpu():
     """Degree 9 is no longer refused on the card: its plans are the
     run-time kernels' (K1r, K5r) at half-width 9.  The refusal sits at the
-    first half-width whose smallest block of the run-time kernel takes more
-    shared memory than a block may have (K1r 38 in f32 and bf16, 28 in
-    f64; K5r 37 with 3 or 4 histories) and names the bytes; the CPU's plain
-    versions take any degree, past that one too (a plan with no tiling)."""
+    first half-width whose smallest block of the run-time kernel (one warp
+    a pass) takes more shared memory than a block may have (K1r 219 in f32
+    and bf16, 109 in f64; K5r 139 with 3 or 4 histories) and names the
+    bytes; the CPU's plain versions take any half-width, past that one too
+    (a plan with no tiling and no scratch)."""
     cuda = torch.device("cuda")
-    for smem, what, widest in ((k1.k1r_smem(4), "K1r", 37),
-                               (k1.k1r_smem(8), "K1r", 27),
-                               (tf.k5r_smem(3), "K5r", 36),
-                               (tf.k5r_smem(4), "K5r", 36)):
+    for smem, what, widest in ((k1.k1r_smem(4), "K1r", 218),
+                               (k1.k1r_smem(8), "K1r", 108),
+                               (tf.k5r_smem(3), "K5r", 138),
+                               (tf.k5r_smem(4), "K5r", 138)):
         k1.refuse_half_width((9, 9, 9), cuda, smem, what)   # no refusal
         assert k1.widest_half_width(smem) == widest
         k1.refuse_half_width((widest,) * 3, cuda, smem, what)
@@ -460,11 +463,15 @@ def test_degree_9_is_refused_on_the_card_and_runs_plain_on_the_cpu():
     r = pp.A.residual(StencilVector.from_interior(
         pp.space, torch.zeros(pp.space.npts, dtype=torch.float64)), pp.b)
     assert torch.equal(r, pp.b.interior)
-    pp = poisson_problem(1, 6, degree=28, device="cpu", operator="kron")
-    assert pp.A.plan.P == 28 and pp.A.plan.tiling is None
-    r = pp.A.residual(StencilVector.from_interior(
-        pp.space, torch.zeros(pp.space.npts, dtype=torch.float64)), pp.b)
-    assert torch.equal(r, pp.b.interior)
+    rng = np.random.default_rng(109)
+    band = torch.from_numpy(rng.standard_normal((40, 219)))
+    plan = k1.build_kron_plan([[band]], (40,), (109,), (False,))
+    assert plan.runtime and plan.P == 109
+    assert plan.tiling is None and plan.scratch is None
+    b = torch.from_numpy(rng.standard_normal(40))
+    assert torch.equal(k1.kron_mode("residual", plan,
+                                    torch.zeros(40, dtype=torch.float64), b=b),
+                       b)
 
 
 def test_k2_plan_cuts_runs_for_wide_bands_and_refuses_what_never_fits():

@@ -206,7 +206,7 @@ def test_device_ms_checks_the_profile_against_events(monkeypatch, capsys,
         return graph
 
     monkeypatch.setattr(device, "profiler_ms",
-                        lambda fn, reps, with_cpu=False: prof)
+                        lambda fn, reps, with_cpu=False, kernels=None: prof)
     monkeypatch.setattr(device, "stream_event_ms", lambda fn, reps: stream)
     monkeypatch.setattr(device, "graph_event_ms", graph_ms)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
@@ -221,7 +221,7 @@ def test_device_ms_falls_back_to_events(monkeypatch, capsys, capturable):
     from poms_tpu_torch.bench import device
     asked = []
 
-    def no_profile(fn, reps, with_cpu=False):
+    def no_profile(fn, reps, with_cpu=False, kernels=None):
         asked.append(with_cpu)
 
     def graph(fn, reps):
@@ -240,3 +240,63 @@ def test_device_ms_falls_back_to_events(monkeypatch, capsys, capturable):
     err = capsys.readouterr().err
     assert "no device time" in err
     assert ("replayed graph" in err) == capturable
+
+
+@pytest.mark.parametrize("counts,want", [
+    ({"k1r_pass_a": 4, "k1r_pass_b": 4, "k1r_pass_c": 4}, 0.03),
+    ({"k1r_pass_a": 4, "k1r_pass_b": 4, "k1r_pass_c": 3}, None),  # lost one
+    ({"k1r_pass_a": 4, "k1r_pass_b": 4}, None),        # lost a whole pass
+])
+def test_profiler_ms_refuses_a_profile_that_lost_a_kernel(monkeypatch,
+                                                          counts, want):
+    """Given the kernels a call launches, a profile holding another count
+    of them is None (lost), however much device time it read."""
+    import torch.profiler
+
+    from poms_tpu_torch.bench import device
+
+    class Event:
+        def __init__(self, key, count):
+            self.key, self.count = key, count
+            self.device_type = torch.autograd.DeviceType.CUDA
+            self.self_device_time_total = 10.0 * count   # µs
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [Event(f"void {k}<float, float>(Args)", n)
+                    for k, n in counts.items()]
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ms = device.profiler_ms(lambda: None, 4, kernels=("k1r_pass_", 3))
+    assert ms == pytest.approx(want) if want else ms is None
+    # without the kernels asked for, the time is taken as it came
+    assert device.profiler_ms(lambda: None, 4) == pytest.approx(
+        sum(counts.values()) * 10.0 / 1e3 / 4)
+
+
+def test_device_ms_says_which_kernels_the_profiles_lost(monkeypatch, capsys):
+    """Three profiles that lost kernels of the calls: the graph's event
+    time, and the line on the standard error names the kernels."""
+    from poms_tpu_torch.bench import device
+
+    asked = []
+
+    def lost(fn, reps, with_cpu=False, kernels=None):
+        asked.append(kernels)
+
+    monkeypatch.setattr(device, "profiler_ms", lost)
+    monkeypatch.setattr(device, "graph_event_ms", lambda fn, reps: 0.25)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert device.device_ms(lambda: None, 4, ("k5r_pass_", 3)) == 0.25
+    assert asked == [("k5r_pass_", 3)] * 3
+    assert "not 3 k5r_pass_ kernels a call" in capsys.readouterr().err

@@ -13,6 +13,8 @@ cycles of the defect correction: the dw-PCG's f32 cycles at these degrees
 scatter by 1e-2 to 7e-1 between two orders of summation (the port against
 the JAX package at 8³ degree 9), so its entries are not compared.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,8 +50,8 @@ DEGREES = (9, 10, 12)
 TOL = {32: 1e-6, 64: 1e-13}
 DT = {32: (jnp.float32, torch.float32), 64: (jnp.float64, torch.float64)}
 # the widest half-width of each run-time kernel: its smallest block (one
-# row, one column, one plane) within a block's shared memory
-WIDEST = {"K1r f32": 37, "K1r f64": 27, "K5r 3": 36, "K5r 4": 36}
+# warp a pass) within a block's shared memory
+WIDEST = {"K1r f32": 218, "K1r f64": 108, "K5r 3": 138, "K5r 4": 138}
 
 
 def _smem(name):
@@ -253,53 +255,159 @@ def test_k5r_plan_equals_the_single_pass(p, nterms, periodic):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("p,nterms,periodic", [(9, 3, False), (9, 4, True),
+                                               (12, 3, True), (12, 6, False),
+                                               (12, 4, False)])
+def test_k5r_plain_passes_chained_are_the_single_pass(p, nterms, periodic):
+    """K5r's three plain passes (``k5r_pass_plain``), chained per run of
+    terms as the card chains them: 3 histories (Poisson), 4 (the periodic
+    shifted shape) and 6 sharing-free terms in three runs, periodic or not,
+    give ``residual_kron_df_plain``'s words bit for bit, b given and as
+    A·p, negated or not."""
+    rng = np.random.default_rng(p + nterms)
+    npts = (2 * p + 3, 2 * p + 4, 2 * p + 5)
+    if nterms == 6:
+        terms = _split_terms([[rng.standard_normal((n, 2 * p + 1))
+                               for n in npts] for _ in range(nterms)])
+    else:
+        Ks, Ms, _ = _bands(npts, p, seed=p)
+        terms = _split_terms(_terms(Ks, Ms, 0.5 * Ms[0] if nterms == 4
+                                    else None))
+    per = (periodic,) * 3
+    plan = tf.build_kron_df_plan(terms, npts, (p,) * 3, per)
+    assert plan.runtime and len(plan.chunks) == (3 if nterms == 6 else 1)
+    assert len(k1.sharing_plan(plan.labels, plan.chunks[0])["w_src"]) == \
+        {3: 3, 4: 4, 6: 2}[nterms]
+    (xh, xl), (bh, bl) = (tf.split_f64(torch.from_numpy(
+        rng.standard_normal(npts))) for _ in range(2))
+    zero = torch.zeros_like(xh)
+    for given, negate in (((bh, bl, xh, xl), False),
+                          ((zero, zero, xh, zero), True)):
+        got = tf.k5r_passes_plain(plan, *given, negate)
+        want = tf.residual_kron_df_plain(terms, *given, (p,) * 3,
+                                         periodic=per, negate=negate)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("degree", [9, 12])
+@pytest.mark.parametrize("shape", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16], ids=["f32", "f64", "bf16"])
+def test_k1r_plain_passes_chained_match_kron_mode_plain(degree, shape,
+                                                        dtype):
+    """K1r's three plain passes (``k1r_pass_plain``), chained per run of
+    terms as the card chains them (a 4-term 3D operator in two runs), give
+    ``kron_mode_plain`` in every mode and dtype: within 1e-6 of max|y| in
+    f32, 1e-13 in f64 (the order of the sums differs), one bf16 unit
+    (both round once from f32)."""
+    npts, periodic = _shapes(degree)[shape]
+    pads = (degree,) * len(npts)
+    Ks, Ms, (x, b, d) = _bands(npts, degree, seed=3 * degree + shape)
+    cast = {}
+    terms = _terms([cast.setdefault(id(K), torch.as_tensor(K).to(dtype))
+                    for K in Ks],
+                   [cast.setdefault(id(M), torch.as_tensor(M).to(dtype))
+                    for M in Ms],
+                   torch.as_tensor(0.5 * Ms[0]).to(dtype)
+                   if len(npts) == 3 else None)
+    plan = k1.build_kron_plan(terms, npts, pads, periodic)
+    assert plan.runtime and len(plan.plans) == (2 if len(npts) == 3 else 1)
+    x, b, d = (torch.from_numpy(t).to(dtype) for t in (x, b, d))
+    for mode in k1.MODES:
+        kw = {"b": b} if mode in ("residual", "cheb") else {}
+        if mode == "cheb":
+            kw.update(d=d, c1=0.3, c2=0.7)
+        got = k1.k1r_passes_plain(mode, plan, x, **kw)
+        want = k1.kron_mode(mode, plan, x, **kw)
+        if mode != "cheb":
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            if dtype == torch.bfloat16:
+                ulp = torch.finfo(torch.bfloat16).eps
+                assert bool(((g.float() - w.float()).abs()
+                             <= ulp * w.float().abs() + 1e-30).all())
+            else:
+                tol = 1e-6 if dtype == torch.float32 else 1e-13
+                assert _rel(g, w.numpy()) <= tol, mode
+
+
 # -- the run-time tiling and its limits --------------------------------------
 
 @pytest.mark.parametrize("name", sorted(WIDEST))
 def test_runtime_tiling_fits_to_the_widest_half_width(name):
     """At the headline's 128³ elements ((126 + P)³ points) every half-width
-    from 9 to the kernel's widest gets a tile within a block's shared
-    memory: one of 16 or more columns where such fits (to P = 12 in every
-    kernel), narrower beyond; one past the widest no block fits, and the
-    card refuses it naming the bytes."""
+    from 9 to the kernel's widest gets a launch shape whose every pass's
+    block fits a block's shared memory (pass A's tiles at most 64 columns
+    wide for K1r, 32 for K5r, even, an even split of axis 2); up to P = 16
+    the grid fills the card without the smallest blocks; one past the
+    widest no block fits, the card refuses it naming the bytes, and the
+    tiling of a grid whose rows take pass A's widest tile raises."""
     smem = _smem(name)
     widest = WIDEST[name]
     assert k1.widest_half_width(smem) == widest
     kernel, kind = name.split()
     for P in range(9, widest + 1):
-        if kernel == "K1r":
-            cost = k1.k1r_step_cost(4 if kind == "f32" else 8, P)
-        else:
-            cost = tf.k5_step_cost(P, int(kind), runtime=True)
         n3 = (126 + P,) * 3
-        T1, T2, chunk = k1.kron_tiling(n3, P, k1.MAX_THREADS, cost,
-                                       narrow=True)
-        assert T1 * T2 <= k1.MAX_THREADS
-        assert smem(P, T1, T2, chunk) <= K2_SMEM, (P, T1, T2, chunk)
-        if P <= 12:
-            assert T2 >= 16, (P, T1, T2, chunk)
-    assert T2 < 16      # the widest: only narrow tiles fit
+        if kernel == "K1r":
+            itemsize = 4 if kind == "f32" else 8
+            TL, *warps = k1.runtime_tiling(n3, P,
+                                           k1.k1r_step_cost(itemsize, P))
+            need = [k1.k1r_pass_smem(itemsize, P, p, w, TL)
+                    for p, w in zip(k1.RT_PASSES, warps)]
+            assert TL % 2 == 0 and TL <= 64 and TL * math.ceil(
+                n3[2] / TL) - n3[2] < math.ceil(n3[2] / TL) * 2
+        else:
+            TL, *warps = k1.runtime_tiling(
+                n3, P, tf.k5_step_cost(P, int(kind), runtime=True),
+                max_cols=k1.LANES)
+            need = [tf.k5r_pass_smem(P, p, w)
+                    for p, w in zip(k1.RT_PASSES, warps)]
+            assert TL == k1.LANES
+        assert all(w in k1.RT_WARPS for w in warps)
+        assert max(need) <= K2_SMEM, (P, TL, warps, need)
+        if P <= 16:
+            assert max(warps) > 1, (P, warps)
     need = smem(widest + 1, *k1.SMALLEST_BLOCK)
-    assert need > K2_SMEM
+    assert need > K2_SMEM >= smem(widest, *k1.SMALLEST_BLOCK)
     with pytest.raises(RuntimeError, match=f"{need} bytes"):
         k1.refuse_half_width((widest + 1,) * 3, torch.device("cuda"), smem,
                              kernel)
     with pytest.raises(ValueError, match="fits a block"):
-        k1.kron_tiling((126 + widest + 1,) * 3, widest + 1, k1.MAX_THREADS,
-                       tf.k5_step_cost(widest + 1, 4, runtime=True)
-                       if kernel == "K5r" else
-                       k1.k1r_step_cost(4 if kind == "f32" else 8,
-                                        widest + 1), narrow=True)
+        k1.runtime_tiling((126 + widest + 1,) * 2 + (64,), widest + 1,
+                          tf.k5_step_cost(widest + 1, 4, runtime=True)
+                          if kernel == "K5r" else
+                          k1.k1r_step_cost(4 if kind == "f32" else 8,
+                                           widest + 1),
+                          max_cols=k1.LANES if kernel == "K5r" else 64)
+
+
+@pytest.mark.parametrize("itemsize,words", [(4, 4), (8, 4), (2, 4)])
+def test_runtime_scratch_bytes(itemsize, words):
+    """A run-time plan's scratch: K1r (kCU + kCG) fields of its arithmetic
+    type (bf16 in f32), 42 MB at 138³ in f32; K5r 2 (kCU + kCV) f32 fields,
+    105 MB at 138³; the plan's docstrings state them."""
+    n = 138 ** 3
+    arith = 4 if itemsize == 2 else itemsize
+    assert words == k1.CAPS["u"] + k1.CAPS["g"]
+    assert round(words * n * arith / 1e6) == {4: 42, 8: 84}[arith]
+    assert round(2 * (tf.CAPS_DW["u"] + tf.CAPS_DW["v"]) * n * 4 / 1e6) \
+        == 105
+    assert "42 MB" in k1.build_kron_plan.__doc__
+    assert "105 MB" in tf.build_kron_df_plan.__doc__
 
 
 def test_compiled_tilings_are_unchanged():
-    """The compiled kernels' plans (P ≤ 8) take the tiles of the standard
-    search with K1's model; an empty ``half_widths`` gives K1r's plan at
-    any P, one column a thread."""
-    for P in (1, 2, 3, 5, 8):
+    """The compiled kernels' plans (every compiled half-width, asked for by
+    ``half_widths`` above 3) take the tiles of the standard search with
+    K1's model; an empty ``half_widths`` gives K1r's plan at any P, one
+    column a thread."""
+    for P in k1.INSTANTIATED_P:
         plan = k1.build_kron_plan([[torch.zeros(n, 2 * P + 1)
                                     for n in (129,) * 3]], (129,) * 3,
-                                  (P,) * 3, (False,) * 3)
+                                  (P,) * 3, (False,) * 3,
+                                  half_widths=k1.INSTANTIATED_P)
         assert not plan.runtime and plan.tiling == k1.kron_tiling(
             (129,) * 3, P, k1.MAX_THREADS, k1.k1_step_cost(4, P),
             cols=k1.columns_per_thread(4, P))
