@@ -6,7 +6,8 @@ operator (K2's fused passes on a banded level, K3's under
 ``POMS_TPU_SPMV=v2`` with the level's packed band; on a Kronecker-sum level
 one K1 pass per Chebyshev step and per residual), transfers are banded
 gathers (K7, one pass per axis), and the coarsest level is a pair of
-triangular solves.
+triangular solves.  Each level of a cycle is a span ``poms.cycle.L<l>`` and
+the coarse solve ``poms.cycle.coarse`` (:mod:`poms_tpu_torch.utils.trace`).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from poms_tpu_torch.core.vector import StencilVector
 from poms_tpu_torch.mg.hierarchy import Level
 from poms_tpu_torch.mg.smoother import SmootherConfig, smooth_step
 from poms_tpu_torch.ops.transfer import apply_transfer
+from poms_tpu_torch.utils.trace import span
 
 __all__ = ["CycleConfig", "cycle", "fmg"]
 
@@ -31,33 +33,35 @@ class CycleConfig:
 
 def _coarse_solve(level: Level, b: StencilVector) -> StencilVector:
     sp = level.A.space
-    x_flat = level.chol.solve(b.interior.reshape(-1))
+    with span("poms.cycle.coarse"):
+        x_flat = level.chol.solve(b.interior.reshape(-1))
     return StencilVector.from_interior(sp, x_flat.reshape(sp.npts))
 
 
 def cycle(levels: List[Level], l: int, x: StencilVector, b: StencilVector,
           cfg: CycleConfig, lams=None) -> StencilVector:
     """One γ-cycle starting at level ``l`` (0 = finest)."""
-    level = levels[l]
-    lam = lams[l] if lams is not None else None
-    if level.chol is not None:  # coarsest
-        return _coarse_solve(level, b)
-    for _ in range(cfg.nu1):
-        x = smooth_step(level.A, x, b, cfg.smoother, lam_max=lam)
-    r_int = level.A.residual(x, b)   # one fused pass: K2/K3, or K1 (kron)
-    sp_c = levels[l + 1].A.space
-    b_c = StencilVector.from_interior(sp_c,
-                                      apply_transfer(level.restrict, r_int))
-    x_c = StencilVector.zeros(sp_c)
-    for _ in range(cfg.gamma):
-        x_c = cycle(levels, l + 1, x_c, b_c, cfg, lams)
-    # x + P·x_c, the sum formed in the last axis' transfer pass
-    x = StencilVector.from_interior(
-        level.A.space, apply_transfer(level.prolong, x_c.interior,
-                                      add=x.interior))
-    for _ in range(cfg.nu2):
-        x = smooth_step(level.A, x, b, cfg.smoother, lam_max=lam)
-    return x
+    with span(f"poms.cycle.L{l}"):
+        level = levels[l]
+        lam = lams[l] if lams is not None else None
+        if level.chol is not None:  # coarsest
+            return _coarse_solve(level, b)
+        for _ in range(cfg.nu1):
+            x = smooth_step(level.A, x, b, cfg.smoother, lam_max=lam)
+        r_int = level.A.residual(x, b)   # one fused pass: K2/K3, or K1
+        sp_c = levels[l + 1].A.space
+        b_c = StencilVector.from_interior(
+            sp_c, apply_transfer(level.restrict, r_int))
+        x_c = StencilVector.zeros(sp_c)
+        for _ in range(cfg.gamma):
+            x_c = cycle(levels, l + 1, x_c, b_c, cfg, lams)
+        # x + P·x_c, the sum formed in the last axis' transfer pass
+        x = StencilVector.from_interior(
+            level.A.space, apply_transfer(level.prolong, x_c.interior,
+                                          add=x.interior))
+        for _ in range(cfg.nu2):
+            x = smooth_step(level.A, x, b, cfg.smoother, lam_max=lam)
+        return x
 
 
 def fmg(levels: List[Level], b: StencilVector, cfg: CycleConfig,

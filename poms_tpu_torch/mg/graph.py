@@ -5,7 +5,8 @@ each costing the host more than the card; a captured graph replays them with
 one call.  :class:`GraphedStep` holds the step's state in static buffers,
 warms the step up on a side stream (kernel libraries loaded, launch plans
 built, the library workspaces of the coarse solve allocated), captures one
-step whose outputs are copied back into the state inside the graph, and
+step whose outputs are copied back into the state inside the graph (the
+bytes of :func:`copy_bytes` a replay, counted as ``graph.copy_bytes``), and
 replays it.  Everything a step reads from the host at capture time (the
 Chebyshev coefficients from the λ estimates, tile sizes) is baked into the
 graph.  Capture failure raises: there is no eager path behind it.
@@ -17,8 +18,18 @@ from typing import Callable, Sequence
 import torch
 
 from poms_tpu_torch.ops import counters
+from poms_tpu_torch.utils.trace import span
 
-__all__ = ["GraphedStep"]
+__all__ = ["GraphedStep", "copy_bytes"]
+
+
+def copy_bytes(state: Sequence[torch.Tensor],
+               new: Sequence[torch.Tensor]) -> int:
+    """Bytes the copy-back ``buf.copy_(t)`` of each state buffer moves: a
+    buffer given a new tensor is read once (``t``) and written once; a
+    tensor returned as its own buffer is skipped, as ``copy_`` skips it."""
+    return sum(2 * t.numel() * t.element_size()
+               for buf, t in zip(state, new) if t is not buf)
 
 
 class GraphedStep:
@@ -28,7 +39,8 @@ class GraphedStep:
     shapes and dtypes are made here and filled by :meth:`load`.  ``rn`` is a
     0-dim tensor; after :meth:`replay` ``self.rn`` holds it.  Replays advance
     the wrappers' launch counters by the launches captured
-    (``self.captured``)."""
+    (``self.captured``) and ``graph.copy_bytes`` by the copy-back's
+    bytes."""
 
     def __init__(self, step: Callable, state: Sequence[torch.Tensor],
                  consts: Sequence[torch.Tensor] = ()):
@@ -56,6 +68,7 @@ class GraphedStep:
                     buf.copy_(t)
                 self.rn.copy_(rn)
             self.captured = counters.diff(counters.snapshot(), before)
+            self.captured["graph.copy_bytes"] = copy_bytes(self.state, new)
         self.replays = 0
 
     def load(self, state, consts=()):
@@ -65,7 +78,8 @@ class GraphedStep:
             buf.copy_(t)
 
     def replay(self) -> torch.Tensor:
-        self.graph.replay()
+        with span("poms.graph.replay"):
+            self.graph.replay()
         counters.add(self.captured)
         self.replays += 1
         return self.rn

@@ -63,6 +63,7 @@ from poms_tpu_torch.ops.twofloat import (build_kron_df_plan, dw_dot,
                                          dw_dot_stack, dw_norm2, dw_update,
                                          merge_f64, residual_kron_df,
                                          split_f64)
+from poms_tpu_torch.utils.trace import span
 
 __all__ = ["MGPreconditionedCG", "MixedPrecisionMG"]
 
@@ -182,10 +183,11 @@ class MixedPrecisionMG(LamsOwner, _DoubleWordOperator):
         self.inner_cycles = max(1, int(inner_cycles))
         self.problem = problem
         self.levels64 = build_levels(problem, num_levels, operator)
-        self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
-                                                       self.levels64[0].A))
-        self.lams = attach_spectral_estimates(self.levels64,
-                                              self.cfg.smoother)
+        with span("poms.setup.lambda", sync=True):
+            self.cfg = replace(cfg, smoother=resolve_omega(
+                cfg.smoother, self.levels64[0].A))
+            self.lams = attach_spectral_estimates(self.levels64,
+                                                  self.cfg.smoother)
         self.levels32 = _cast_levels(self.levels64, low_dtype)
         self.low_dtype = low_dtype
         if residual == "twofloat":
@@ -236,14 +238,17 @@ class MixedPrecisionMG(LamsOwner, _DoubleWordOperator):
 
     def _start(self, b: Optional[StencilVector], b_pair=None):
         """(state, consts, step, ‖r₀‖) at x = 0."""
-        if self.residual_mode == "twofloat":
-            bh, bl = b_pair if b_pair is not None else split_f64(b.interior)
-            rn = dw_norm2(bh, bl)
-            zero = torch.zeros_like(bh)
-            return (zero, zero, bh, bl, rn), (bh, bl), self._step_tf, rn
-        b_int = b.interior
-        return ((torch.zeros_like(b_int),), (b_int,), self._step,
-                _norm(b_int))
+        with span("poms.solve.start"):
+            if self.residual_mode == "twofloat":
+                bh, bl = b_pair if b_pair is not None \
+                    else split_f64(b.interior)
+                rn = dw_norm2(bh, bl)
+                zero = torch.zeros_like(bh)
+                return ((zero, zero, bh, bl, rn), (bh, bl), self._step_tf,
+                        rn)
+            b_int = b.interior
+            return ((torch.zeros_like(b_int),), (b_int,), self._step,
+                    _norm(b_int))
 
     def _x_interior(self, state) -> torch.Tensor:
         if self.residual_mode == "twofloat":
@@ -253,24 +258,26 @@ class MixedPrecisionMG(LamsOwner, _DoubleWordOperator):
     def solve(self, b: Optional[StencilVector] = None, tol: float = 1e-10,
               maxiter: int = 100, logger=None) -> SolveResult:
         """Host loop; records ‖r‖ after every correction (one sync each)."""
-        b = b if b is not None else self.problem.b
-        state, consts, step, _ = self._start(b)
-        residuals = [float(b.norm())]
-        wall = []
-        it, converged = 0, residuals[-1] <= tol
-        while not converged and it < maxiter:
-            t0 = time.perf_counter()
-            *state, rn = step(*state, *consts)
-            rn = float(rn)
-            wall.append(time.perf_counter() - t0)
-            residuals.append(rn)
-            it += 1
-            converged = rn <= tol
-            log_rho(logger, it, residuals, wall[-1])
-        return SolveResult(x=StencilVector.from_interior(
-                               self.problem.space, self._x_interior(state)),
-                           residuals=residuals, iterations=it,
-                           converged=converged, wall_times=wall)
+        with span("poms.solve"):
+            b = b if b is not None else self.problem.b
+            state, consts, step, _ = self._start(b)
+            residuals = [float(b.norm())]
+            wall = []
+            it, converged = 0, residuals[-1] <= tol
+            while not converged and it < maxiter:
+                t0 = time.perf_counter()
+                *state, rn = step(*state, *consts)
+                rn = float(rn)
+                wall.append(time.perf_counter() - t0)
+                residuals.append(rn)
+                it += 1
+                converged = rn <= tol
+                log_rho(logger, it, residuals, wall[-1])
+            return SolveResult(
+                x=StencilVector.from_interior(self.problem.space,
+                                              self._x_interior(state)),
+                residuals=residuals, iterations=it, converged=converged,
+                wall_times=wall)
 
     def solve_compiled(self, b: Optional[StencilVector] = None,
                        tol: float = 1e-10, maxiter: int = 100,
@@ -283,26 +290,27 @@ class MixedPrecisionMG(LamsOwner, _DoubleWordOperator):
         side so the caller can free the f64 ``b``; ``return_x=False``
         returns the f64 interior instead of a StencilVector.
         """
-        if b_pair is None:
-            b = b if b is not None else self.problem.b
-        elif self.residual_mode != "twofloat":
-            raise ValueError("b_pair is for residual='twofloat'")
-        state, consts, step, rn = self._start(b, b_pair)
-        if state[0].device.type == "cuda":
-            state, rn, it = _graph_loop(self, self.residual_mode, step, state,
-                                        consts, rn, tol, maxiter)
-        else:
-            it = 0
-            while float(rn) > tol and it < maxiter:
-                *state, rn = step(*state, *consts)
-                it += 1
-        x_int = self._x_interior(state)
-        if state[0].device.type == "cuda" \
-                and self.residual_mode != "twofloat":
-            x_int = x_int.clone()   # the graph's buffer stays the solver's
-        if return_x:
-            x_int = StencilVector.from_interior(self.problem.space, x_int)
-        return x_int, rn, it
+        with span("poms.solve"):
+            if b_pair is None:
+                b = b if b is not None else self.problem.b
+            elif self.residual_mode != "twofloat":
+                raise ValueError("b_pair is for residual='twofloat'")
+            state, consts, step, rn = self._start(b, b_pair)
+            if state[0].device.type == "cuda":
+                state, rn, it = _graph_loop(self, self.residual_mode, step,
+                                            state, consts, rn, tol, maxiter)
+            else:
+                it = 0
+                while float(rn) > tol and it < maxiter:
+                    *state, rn = step(*state, *consts)
+                    it += 1
+            x_int = self._x_interior(state)
+            if state[0].device.type == "cuda" \
+                    and self.residual_mode != "twofloat":
+                x_int = x_int.clone()   # the graph's buffer stays the solver's
+            if return_x:
+                x_int = StencilVector.from_interior(self.problem.space, x_int)
+            return x_int, rn, it
 
 
 class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
@@ -323,9 +331,11 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
         self.replace_every = 3
         self.problem = problem
         self.levels = build_levels(problem, num_levels, operator)
-        self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
-                                                       self.levels[0].A))
-        self.lams = attach_spectral_estimates(self.levels, self.cfg.smoother)
+        with span("poms.setup.lambda", sync=True):
+            self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
+                                                           self.levels[0].A))
+            self.lams = attach_spectral_estimates(self.levels,
+                                                  self.cfg.smoother)
         self.mixed = mixed and problem.space.dtype == torch.float64
         if precision in ("dw", "dwrr") and not self.mixed:
             raise ValueError(f"precision={precision!r} requires mixed=True "
@@ -436,21 +446,23 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
     def _start(self, b: Optional[StencilVector], b_pair=None):
         """(state, consts, step, ‖r₀‖, iterations per step) at x = 0, the
         first preconditioned residual included."""
-        if self.precision in ("dw", "dwrr"):
-            bh, bl = b_pair if b_pair is not None else split_f64(b.interior)
-            rn = dw_norm2(bh, bl)
-            z = self._precond_dw(bh, bl, rn)
-            zero = torch.zeros_like(bh)
-            rz = dw_dot(z, None, bh, bl)
-            if self.precision == "dw":
-                return ((zero, zero, bh, bl, z, z, rz), (), self._step_dw,
-                        rn, 1)
-            return ((zero, zero, bh, z, z, rz), (bh, bl), self._round_dwrr,
-                    rn, self.replace_every)
-        z = self._precond(b)
-        state = (torch.zeros_like(b.interior), b.interior, z.interior,
-                 z.interior, b.dot(z))
-        return state, (), self._step_interiors, b.norm(), 1
+        with span("poms.solve.start"):
+            if self.precision in ("dw", "dwrr"):
+                bh, bl = b_pair if b_pair is not None \
+                    else split_f64(b.interior)
+                rn = dw_norm2(bh, bl)
+                z = self._precond_dw(bh, bl, rn)
+                zero = torch.zeros_like(bh)
+                rz = dw_dot(z, None, bh, bl)
+                if self.precision == "dw":
+                    return ((zero, zero, bh, bl, z, z, rz), (), self._step_dw,
+                            rn, 1)
+                return ((zero, zero, bh, z, z, rz), (bh, bl), self._round_dwrr,
+                        rn, self.replace_every)
+            z = self._precond(b)
+            state = (torch.zeros_like(b.interior), b.interior, z.interior,
+                     z.interior, b.dot(z))
+            return state, (), self._step_interiors, b.norm(), 1
 
     def _x_interior(self, state) -> torch.Tensor:
         if self.precision in ("dw", "dwrr"):
@@ -462,32 +474,34 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
         """Host loop; records ‖r‖ after every iteration (one sync each).
         ``dwrr`` has no per-iteration history: its result is one
         :meth:`solve_compiled` run with the two-entry history [‖b‖, ‖r‖]."""
-        b = b if b is not None else self.problem.b
-        sp = self.problem.space
-        residuals = [float(b.norm())]
-        if self.precision == "dwrr":
-            x, rn, it = self.solve_compiled(b, tol=tol, maxiter=maxiter)
-            return SolveResult(x=x, residuals=residuals + [float(rn)],
-                               iterations=it, converged=float(rn) <= tol)
-        if residuals[-1] <= tol:
-            return SolveResult(x=StencilVector.zeros(sp), residuals=residuals,
-                               iterations=0, converged=True)
-        state, _, step, _, _ = self._start(b)
-        wall = []
-        it, converged = 0, False
-        while not converged and it < maxiter:
-            t0 = time.perf_counter()
-            *state, rn = step(*state)
-            rn = float(rn)
-            wall.append(time.perf_counter() - t0)
-            residuals.append(rn)
-            it += 1
-            converged = rn <= tol
-            log_rho(logger, it, residuals, wall[-1])
-        return SolveResult(x=StencilVector.from_interior(
-                               sp, self._x_interior(state)),
-                           residuals=residuals, iterations=it,
-                           converged=converged, wall_times=wall)
+        with span("poms.solve"):
+            b = b if b is not None else self.problem.b
+            sp = self.problem.space
+            residuals = [float(b.norm())]
+            if self.precision == "dwrr":
+                x, rn, it = self.solve_compiled(b, tol=tol, maxiter=maxiter)
+                return SolveResult(x=x, residuals=residuals + [float(rn)],
+                                   iterations=it, converged=float(rn) <= tol)
+            if residuals[-1] <= tol:
+                return SolveResult(x=StencilVector.zeros(sp),
+                                   residuals=residuals, iterations=0,
+                                   converged=True)
+            state, _, step, _, _ = self._start(b)
+            wall = []
+            it, converged = 0, False
+            while not converged and it < maxiter:
+                t0 = time.perf_counter()
+                *state, rn = step(*state)
+                rn = float(rn)
+                wall.append(time.perf_counter() - t0)
+                residuals.append(rn)
+                it += 1
+                converged = rn <= tol
+                log_rho(logger, it, residuals, wall[-1])
+            return SolveResult(x=StencilVector.from_interior(
+                                   sp, self._x_interior(state)),
+                               residuals=residuals, iterations=it,
+                               converged=converged, wall_times=wall)
 
     def solve_compiled(self, b: Optional[StencilVector] = None,
                        tol: float = 1e-10, maxiter: int = 100,
@@ -501,22 +515,23 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
         can free the f64 ``b``; ``return_x=False`` returns the f64 interior
         instead of a StencilVector.
         """
-        if b_pair is None:
-            b = b if b is not None else self.problem.b
-        elif self.precision == "f64":
-            raise ValueError("b_pair is for precision='dw' and 'dwrr'")
-        state, consts, step, rn, per_step = self._start(b, b_pair)
-        if state[0].device.type == "cuda":
-            state, rn, it = _graph_loop(self, self.precision, step, state,
-                                        consts, rn, tol, maxiter, per_step)
-        else:
-            it = 0
-            while float(rn) > tol and it < maxiter:
-                *state, rn = step(*state, *consts)
-                it += per_step
-        x_int = self._x_interior(state)
-        if state[0].device.type == "cuda" and self.precision == "f64":
-            x_int = x_int.clone()   # the graph's buffer stays the solver's
-        if return_x:
-            x_int = StencilVector.from_interior(self.problem.space, x_int)
-        return x_int, rn, it
+        with span("poms.solve"):
+            if b_pair is None:
+                b = b if b is not None else self.problem.b
+            elif self.precision == "f64":
+                raise ValueError("b_pair is for precision='dw' and 'dwrr'")
+            state, consts, step, rn, per_step = self._start(b, b_pair)
+            if state[0].device.type == "cuda":
+                state, rn, it = _graph_loop(self, self.precision, step, state,
+                                            consts, rn, tol, maxiter, per_step)
+            else:
+                it = 0
+                while float(rn) > tol and it < maxiter:
+                    *state, rn = step(*state, *consts)
+                    it += per_step
+            x_int = self._x_interior(state)
+            if state[0].device.type == "cuda" and self.precision == "f64":
+                x_int = x_int.clone()   # the graph's buffer stays the solver's
+            if return_x:
+                x_int = StencilVector.from_interior(self.problem.space, x_int)
+            return x_int, rn, it

@@ -20,6 +20,7 @@ from poms_tpu_torch.mg.graph import GraphedStep
 from poms_tpu_torch.mg.hierarchy import Level, build_hierarchy
 from poms_tpu_torch.mg.smoother import attach_spectral_estimates, resolve_omega
 from poms_tpu_torch.models.periodic import build_periodic_hierarchy
+from poms_tpu_torch.utils.trace import span
 
 __all__ = ["MultigridSolver", "SolveResult", "LamsOwner", "log_rho",
            "build_levels"]
@@ -30,7 +31,8 @@ def build_levels(problem, num_levels: int, operator: str) -> List[Level]:
     builds its own, as the JAX package's mixed-precision solvers do."""
     build = (build_periodic_hierarchy if hasattr(problem, "shift")
              else build_hierarchy)
-    return build(problem, num_levels, operator=operator)
+    with span("poms.setup.hierarchy", sync=True):
+        return build(problem, num_levels, operator=operator)
 
 
 @dataclass
@@ -80,9 +82,11 @@ class MultigridSolver(LamsOwner):
                  cfg: CycleConfig = CycleConfig(), operator: str = "banded"):
         self.problem = problem
         self.levels: List[Level] = build_levels(problem, num_levels, operator)
-        self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
-                                                       self.levels[0].A))
-        self.lams = attach_spectral_estimates(self.levels, self.cfg.smoother)
+        with span("poms.setup.lambda", sync=True):
+            self.cfg = replace(cfg, smoother=resolve_omega(cfg.smoother,
+                                                           self.levels[0].A))
+            self.lams = attach_spectral_estimates(self.levels,
+                                                  self.cfg.smoother)
 
     def _residual_norm(self, x: StencilVector, b: StencilVector):
         return (b - self.levels[0].A.dot(x)).norm()

@@ -3,17 +3,23 @@
 A wrapper counts where it launches its kernel: ``wrapper.launches`` (one
 integer, or one per mode) over every dtype, and
 ``wrapper.launches_by_dtype[name]`` (the same shape) for each instantiation,
-``name`` one of ``f32``, ``f64``, ``bf16``.  :mod:`poms_tpu_torch.ops.counters`
-reads and advances both.
+``name`` one of ``f32``, ``f64``, ``bf16``.  :data:`BYTES` holds the counters
+of bytes rather than launches.  :mod:`poms_tpu_torch.ops.counters` reads and
+advances all of them.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["DTYPE_NAMES", "attach", "count"]
+__all__ = ["DTYPE_NAMES", "BYTES", "attach", "count"]
 
 DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64",
                torch.bfloat16: "bf16"}
+
+# ``graph.copy_bytes``: what GraphedStep's copy-back moves, advanced at every
+# replay (mg/graph.py); ``kron.scratch_bytes``: the scratch of K1r and K5r
+# plans, advanced where a plan allocates it (ops/kron.py::plan_scratch)
+BYTES = {"graph.copy_bytes": 0, "kron.scratch_bytes": 0}
 
 
 def attach(wrapper, modes=None) -> None:

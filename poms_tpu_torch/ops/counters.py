@@ -11,12 +11,16 @@ instantiation of a wrapper that takes several
 (:mod:`poms_tpu_torch.ops._count`); ``kron_mode_rt.mode.pass`` and
 ``residual_kron_df_rt.pass`` count the passes (A, B, C) of the run-time
 kernels K1r and K5r, whose launches ``kron_mode`` and ``residual_kron_df``
-count as well.
+count as well.  Two keys count bytes, not launches: ``graph.copy_bytes``, the
+copy-back of :class:`~poms_tpu_torch.mg.graph.GraphedStep` (its replays add
+it with their launches), and ``kron.scratch_bytes``, the scratch allocated for
+K1r and K5r plans (``ops/kron.py::plan_scratch``).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from poms_tpu_torch.ops._count import BYTES
 from poms_tpu_torch.ops.kron import kron_apply, kron_mode
 from poms_tpu_torch.ops.stencil import stencil_apply
 from poms_tpu_torch.ops.stencil_v2 import stencil_apply_v2
@@ -45,6 +49,7 @@ def snapshot() -> Dict[str, int]:
             out.update({f"{name}.{m}@{dt}": n for m, n in per_mode.items()})
     out.update({f"transfer@{dt}": n
                 for dt, n in apply_transfer.launches_by_dtype.items()})
+    out.update(BYTES)
     return out
 
 
@@ -55,6 +60,9 @@ def diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
 def add(delta: Dict[str, int]) -> None:
     """Advance the counters by ``delta`` (keys as :func:`snapshot`'s)."""
     for key, n in delta.items():
+        if key in BYTES:
+            BYTES[key] += n
+            continue
         key, _, dt = key.partition("@")
         name, _, mode = key.partition(".")
         fn = _BY_MODE[name] if mode else _PLAIN[name]

@@ -56,7 +56,8 @@ from poms_tpu_torch.ops.stencil import K2_SMEM
 __all__ = ["MODES", "kron_apply", "kron_apply_plain", "kron_mode",
            "kron_mode_plain", "kron_mode_plain_bf16", "apply_band_1d_axis",
            "band_labels",
-           "sharing_plan", "chunk_terms", "build_kron_plan", "plan_apply",
+           "sharing_plan", "chunk_terms", "build_kron_plan", "plan_scratch",
+           "plan_apply",
            "diagonal_from_columns", "kron_tiling", "k1_step_cost", "KronPlan",
            "stack_bands", "refuse_half_width", "COMPILED_P",
            "INSTANTIATED_P", "k1r_smem",
@@ -544,6 +545,16 @@ def stack_bands(terms, labels, n3, pads3, P: int, centre: float = 1.0):
     return bands
 
 
+def plan_scratch(numel: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """A run-time plan's scratch, its bytes added to the counter
+    ``kron.scratch_bytes`` (``ops/counters.py``)."""
+    scratch = torch.empty(numel, dtype=dtype, device=device)
+    _count.BYTES["kron.scratch_bytes"] += scratch.numel() \
+        * scratch.element_size()
+    return scratch
+
+
 def build_kron_plan(terms, npts, pads, periodic, labels=None,
                     threads_max: int = MAX_THREADS,
                     tcols: Optional[int] = None, cost=None,
@@ -569,9 +580,10 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     A run-time plan built on the card owns its passes' scratch:
     ``scratch_words`` fields of the arithmetic type (default K1r's: the
     kCU u partials and the kCG pre-summed partials, 4 a point; 42 MB at
-    138³ in f32), made here once and reused by every launch of the plan,
-    graph replays included.  So two launches of one plan must not run at
-    the same time (on two streams); the solvers run theirs on one.  Where
+    138³ in f32), made here once (:func:`plan_scratch`, which counts it)
+    and reused by every launch of the plan, graph replays included.  So
+    two launches of one plan must not run at the same time (on two
+    streams); the solvers run theirs on one.  Where
     ``k1r`` (the plan is K1r's, not K5r's: ``twofloat.build_kron_df_plan``
     makes K5r's tables itself) its band tables (:func:`k1r_tables`, a few
     hundred KB) are made here too."""
@@ -614,10 +626,9 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     elif smem(P, *SMALLEST_BLOCK) <= K2_SMEM:
         tiling = runtime_tiling(n3, P, cost, sms, rt_cols)
         if first.device.type == "cuda":
-            scratch = torch.empty(scratch_words * math.prod(n3),
-                                  device=first.device,
-                                  dtype=torch.float32 if itemsize == 4
-                                  else first.dtype)
+            scratch = plan_scratch(scratch_words * math.prod(n3),
+                                   torch.float32 if itemsize == 4
+                                   else first.dtype, first.device)
     plan = KronPlan(
         terms=tuple(tuple(term) for term in terms), ndim=d, npts=npts,
         pads=pads, periodic=periodic, n3=n3, per3=per3,

@@ -61,6 +61,7 @@ from poms_tpu_torch.ops.kron import (LANES, RT_PASSES, STAGES,
                                      column_table, refuse_half_width,
                                      sharing_plan, stack_bands)
 from poms_tpu_torch.ops.stencil import K2_SMEM
+from poms_tpu_torch.utils.trace import span
 
 __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_mul", "dw_mul_fd", "dw_neg", "residual_kron_df",
@@ -767,8 +768,9 @@ def _reduce(pairs, plain, sqrt=False):
     if first.device.type != "cuda":
         raise NotImplementedError(
             f"double-word reductions on {first.device.type} tensors")
-    outs = [_launch_reduce(pairs[i:i + MAX_DOTS], sqrt)
-            for i in range(0, len(pairs), MAX_DOTS)]
+    with span("poms.k6r", pairs=pairs, sqrt=sqrt):
+        outs = [_launch_reduce(pairs[i:i + MAX_DOTS], sqrt)
+                for i in range(0, len(pairs), MAX_DOTS)]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -888,7 +890,18 @@ def dw_update(mode: str, *ops):
     if first.device.type != "cuda":
         raise NotImplementedError(
             f"dw_update on {first.device.type} tensors")
-    fields, scalars = ops[:n_in], ops[n_in:]
+    with span("poms.k6u", mode=mode, ops=ops):
+        return _launch_update(mode, ops[:n_in], ops[n_in:], n_out)
+
+
+dw_update.launches = 0
+
+
+def _launch_update(mode: str, fields, scalars, n_out: int):
+    """K6u on the card: :func:`dw_update`'s checks of the fields and
+    scalars, then one launch."""
+    first = fields[0]
+    n_s = len(scalars)
     if mode == "dwrr":
         if (fields[3] is None) != (fields[4] is None):
             raise ValueError("ap and rf are given or omitted together")
@@ -920,6 +933,3 @@ def dw_update(mode: str, *ops):
                            + lib.dw_update_error_string(err).decode())
     dw_update.launches += 1
     return outs[0] if n_out == 1 else tuple(outs)
-
-
-dw_update.launches = 0

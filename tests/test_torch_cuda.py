@@ -1705,3 +1705,54 @@ def test_degree_9_graph_replay_equals_the_eager_solve(dev):
     x, rn, it = pcg.solve_compiled(tol=1e-10, maxiter=30)   # replayed
     assert int(it) == eager.iterations
     assert float(rn) == eager.residuals[-1]
+
+
+def test_each_graph_replay_range_owns_its_kernels(dev, tmp_path):
+    """A 64^3 dw-PCG solve replayed under the profiler with a recording:
+    every ``poms.graph.replay`` range owns the kernels of one replay (tied
+    through its cudaGraphLaunch), as many for each and at least the
+    hand-written ones the counters add a replay; the copy-back counter
+    advances by twice the state's bytes a replay."""
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    repo = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from benchmark import spans as bspans
+    from benchmark import trace as btrace
+    from benchmark.harness import hand_kernels
+    from poms_tpu_torch.utils import trace
+
+    prob = poisson_problem(3, 64, degree=3, device=dev, operator="kron")
+    pcg = MGPreconditionedCG(prob, 4, _cheb_cfg(), mixed=True,
+                             operator="kron", precision="dw")
+    pcg.solve_compiled(tol=1e-10, maxiter=40)          # capture
+    graph = pcg._graphs["dw"]
+    n = 65 ** 3                   # the unknowns of 64^3 cubic elements
+    assert graph.captured["graph.copy_bytes"] == 2 * (6 * 4 * n + 8)
+    torch.cuda.synchronize()
+    before = counters.snapshot()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with trace.recording() as records:
+            _, rn, it = pcg.solve_compiled(tol=1e-10, maxiter=40)
+            torch.cuda.synchronize()
+    grown = counters.diff(counters.snapshot(), before)
+    path = tmp_path / "replayed.json"
+    prof.export_chrome_trace(str(path))
+    events = btrace.load(path)
+    joined = bspans.join(events, records)
+    ops = bspans.owned(events, joined)
+    kernels = [sum(op.get("cat") == "kernel" for op in ops.get(r.id, ()))
+               for r, _ in joined if r.name == "poms.graph.replay"]
+    assert len(kernels) == it > 0
+    assert min(kernels) == max(kernels) >= max(1, hand_kernels(
+        graph.captured))
+    assert grown["graph.copy_bytes"] == it * graph.captured[
+        "graph.copy_bytes"]
+    start = [r.id for r, _ in joined if r.name == "poms.solve.start"]
+    start_kernels = sum(op.get("cat") == "kernel" for op in ops[start[0]])
+    assert sum(kernels) + start_kernels >= hand_kernels(grown)
+    assert len(bspans.replay_gaps(joined, ops)) == it - 1

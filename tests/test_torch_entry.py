@@ -26,13 +26,11 @@ def test_port_imports_no_jax():
         "import poms_tpu_torch.ops.dispatch, poms_tpu_torch.mg.solver\n"
         "import poms_tpu_torch.bench.one_impl\n"
         "import poms_tpu_torch.bench.kernel_probe\n"
-        "import poms_tpu_torch.bench.profile_banded\n"
         "import poms_tpu_torch.bench.roofline, poms_tpu_torch.ops.stencil_v2\n"
         "import poms_tpu_torch.bench.k1_compare\n"
-        "import poms_tpu_torch.bench.profile_dw\n"
         "import poms_tpu_torch.bench.one_solve, poms_tpu_torch.mg.graph\n"
         "import poms_tpu_torch.ops.counters, poms_tpu_torch.mg.mixed\n"
-        "import poms_tpu_torch.utils.logging\n"
+        "import poms_tpu_torch.utils.logging, poms_tpu_torch.utils.trace\n"
         "import poms_tpu_torch.utils.checkpoint\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'poms_tpu'))\n"
@@ -89,14 +87,6 @@ def test_each_kernel_probe_refuses_without_a_card(probe):
     assert "no CUDA device" in proc.stderr
 
 
-def test_profile_banded_refuses_without_a_card():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present; the profile would run")
-    proc = _run(["-m", "poms_tpu_torch.bench.profile_banded", "8", "2", "1"])
-    assert proc.returncode != 0
-    assert "RESULT" not in proc.stdout
-
-
 def test_default_device_is_the_card_or_an_error():
     """Without ``device`` the entry points use the current CUDA card; with
     no card they raise: never a quiet CPU run."""
@@ -127,7 +117,7 @@ def test_default_device_is_the_card_or_an_error():
                            device="cpu").space.device.type == "cpu"
 
 
-@pytest.mark.parametrize("module", ["k1_compare", "profile_dw", "one_solve"])
+@pytest.mark.parametrize("module", ["k1_compare", "one_solve"])
 def test_kron_benches_refuse_without_a_card(module):
     proc = _refuses([f"poms_tpu_torch.bench.{module}"])
     assert "no CUDA device" in proc.stderr
