@@ -2,24 +2,37 @@
 and (optionally) an earlier K1 source.
 
     python -m poms_tpu_torch.bench.k1_compare [--old SOURCE.cu] [--sweep]
+        [--shapes 129,65]
 
-For each level shape of the headline solve (129³, 65³, 33³, 17³; p = 3,
-f32, Poisson-shaped terms) and each mode it prints the kernel's device time
-(``torch.profiler``, mean of 20) and stream time (CUDA events, host overhead
-included), the bound (bytes each read or written once over the card's
-published bandwidth) and the plain version's device time at 129³.  K5 is
-timed at 129³ as the headline step calls it (A·p: b and the low word of x
-omitted) beside its plain version and both of its bounds.
+For each level shape of the headline solve (513³, 257³, 129³, 65³, 33³,
+17³, 9³, or those of ``--shapes``; p = 3, f32, Poisson-shaped terms) and
+each mode it prints the kernel's
+device time (``torch.profiler``, mean of 20) and stream time (CUDA events,
+host overhead included), the bound (bytes each read or written once over
+the card's published bandwidth), what the launch gets (registers, spills,
+shared memory, blocks an SM) and, from 129³ up, the plain version's device
+time.  K5 is timed at 129³ as the headline step calls it (A·p: b and the
+low word of x omitted) beside its plain version and both of its bounds.
 
 ``--old SOURCE.cu`` also builds that source (the K1 of this package before
 its redesign: padded input, one block per 4×8×32 tile, every term's three
 passes through shared memory) with the wrapper it had (ghost padding and
 band stacking per call) and times it in turns with the new ``apply``:
 old, new, new, old.  ``--sweep`` times ``apply`` and ``cheb`` at every shape
-(device time, mean of 20) over a set of tilings (T1, T2, chunk): tile widths
-``SWEEP_T2``, blocks of up to 256, 128 and 64 threads, and the run counts
-``SWEEP_RUNS``; the cost model of ``ops/kron.py::k1_step_cost`` was fitted to
-such a sweep.
+(device time, mean of 20) at each micro-tile height (rows a thread,
+``ops/kron.py::rows_options``) over a set of tilings (T1, T2, chunk):
+``sweep_tilings``; the model (``k1_step_cost``, one set of constants a
+height) was fitted to such a sweep.
+
+``--k1-ab OLD_DIR [--dtype f32|bf16|f64]`` is the one-call A/B of the
+compiled K1: it builds an earlier commit's ``kron_apply.cu`` and imports
+its ``ops/kron.py`` (both copied into ``OLD_DIR`` as for ``--rt-ab``, with
+any header of ``csrc/`` that changed since: a source's own directory is
+searched first), and at every shape of ``SHAPES`` (or ``--shapes``)
+times the earlier and
+the current kernel in every mode in turns (old, new, new, old), each at
+its own plan's tiling, on fields and bands of the dtype (default f32), and
+checks that their outputs are ``torch.equal``.
 
 ``--rt-ab OLD_DIR`` is the one-call A/B of the run-time kernels: it builds
 an earlier commit's ``kron_apply.cu`` and ``kron_apply_dw.cu`` and imports
@@ -53,11 +66,15 @@ import json
 import subprocess
 import sys
 
-SHAPES = (129, 65, 33, 17)
+SHAPES = (513, 257, 129, 65, 33, 17, 9)
+PLAIN_FROM = 129       # the plain version is timed at this shape and above
 FIELDS = {"apply": 2, "residual": 3, "dinv": 2, "cheb": 5}   # moved once
-SWEEP_T2 = (12, 16, 18, 22, 26, 34, 44)            # tile widths of --sweep
-SWEEP_RUNS = {129: (3, 4, 5, 6, 8, 11), 65: (2, 3, 4, 6, 8, 11),
-              33: (3, 6, 11, 17, 33), 17: (3, 6, 9, 17)}   # runs of planes
+SWEEP_T2 = (16, 18, 22, 26, 34, 44, 58, 64)        # tile widths of --sweep
+SWEEP_RUNS = {513: (1, 2, 3, 4, 6, 9), 257: (1, 2, 3, 4, 6),
+              129: (2, 3, 4, 6, 8, 13), 65: (1, 2, 3, 4, 8, 13),
+              33: (1, 3, 6, 11, 17, 33), 17: (1, 3, 6, 9, 17),
+              9: (1, 3, 9)}   # runs
+SWEEP_TOP = 12         # the model's first candidates, also swept
 
 
 def build_old(source, name):
@@ -111,19 +128,21 @@ def wide_grid(P):
     return (n,) * 3, (P,) * 3, (False,) * 3
 
 
-def _import_old(old_dir):
+def _import_old(old_dir, k5=True):
     """An earlier commit's ``ops/kron.py`` and ``ops/twofloat.py`` (copied
     into ``old_dir``) as the modules ``kron_old`` and ``twofloat_old``,
-    each loading that commit's kernels built from ``old_dir``'s sources."""
+    each loading that commit's kernels built from ``old_dir``'s sources
+    (``k5=False``: ``kron_old`` alone, and None for ``twofloat_old``)."""
     import importlib.util
     import types
     from pathlib import Path
 
+    names = ("kron_apply", "kron_apply_dw") if k5 else ("kron_apply",)
     libs = {name: build_old(str(Path(old_dir) / f"{name}.cu"), name)
-            for name in ("kron_apply", "kron_apply_dw")}
-    mods = {}
+            for name in names}
+    mods = {"twofloat_old": None}
     for name, src in (("kron_old", "kron.py"),
-                      ("twofloat_old", "twofloat.py")):
+                      ("twofloat_old", "twofloat.py"))[:len(names)]:
         text = (Path(old_dir) / src).read_text().replace(
             "from poms_tpu_torch.ops.kron import", "from kron_old import")
         spec = importlib.util.spec_from_loader(name, loader=None)
@@ -290,6 +309,109 @@ def rt_ab(old_dir, sweep=False, result=print):
     return rows
 
 
+def sweep_tilings(n, plan, sms):
+    """``--sweep``'s tilings of K1 at n³ for ``plan``'s rows and columns a
+    thread: tile widths ``SWEEP_T2``, the tallest tile for blocks of up to
+    256, 128 and 64 threads, the run counts ``SWEEP_RUNS``, then the
+    ``SWEEP_TOP`` candidates the cost model ranks first."""
+    from poms_tpu_torch.ops import kron
+
+    R, C = plan.trows, plan.tcols
+    seen, tilings = set(), []
+    for T2 in SWEEP_T2:
+        for threads in (256, 128, 64):
+            per_row = -(-min(T2, n) // C)
+            k1 = -(-n // max(R, threads // per_row * R))
+            T1 = R * -(-(-(-n // k1)) // R)
+            for nchunks in SWEEP_RUNS[n]:
+                tiling = (T1, per_row * C, -(-n // nchunks))
+                if tiling in seen or T1 // R * per_row > 256:
+                    continue
+                seen.add(tiling)
+                tilings.append(tiling)
+    cost = kron.k1_step_cost(4, 3, R)
+    ranked = sorted(
+        (cost(T1, T2, 32 * -(-(T1 // R) * (T2 // C) // 32), ch, bl, sms),
+         (T1, T2, ch))
+        for T1, T2, ch, bl in kron._tiles((n,) * 3, kron.MAX_THREADS, C, R,
+                                          kron.warp_widths(C, R)))
+    return tilings + [t for _, t in ranked[:SWEEP_TOP] if t not in seen]
+
+
+def k1_operands(n, dev, dtype=None):
+    """Poisson-shaped terms (p = 3) and three fields at n³, from seed n."""
+    import numpy as np
+    import torch
+
+    dtype = dtype or torch.float32
+    rng = np.random.default_rng(n)
+    mk = lambda: torch.as_tensor(   # noqa: E731
+        rng.standard_normal((n, 7)) / 4 + 2.0 * (np.arange(7) == 3),
+        dtype=dtype, device=dev)
+    Ks, Ms = [mk() for _ in range(3)], [mk() for _ in range(3)]
+    terms = [[Ks[b] if b == a else Ms[b] for b in range(3)]
+             for a in range(3)]
+    fields = [torch.as_tensor(rng.standard_normal((n,) * 3), dtype=dtype,
+                              device=dev) for _ in range(3)]
+    return terms, fields
+
+
+def k1_mode_kwargs(mode, b, d):
+    """``kron_mode``'s operands of ``mode`` (``d`` as given)."""
+    kw = {"b": b} if mode in ("residual", "cheb") else {}
+    if mode == "cheb":
+        kw.update(d=d, c1=0.3, c2=0.7)
+    return kw
+
+
+def k1_ab(old_dir, result=print, shapes=SHAPES, dtype=None):
+    """The one-call A/B of the compiled K1 against an earlier commit's (see
+    the module docstring), on operands of ``dtype`` (default f32); returns
+    the rows it printed."""
+    import torch
+
+    from poms_tpu_torch.bench.device import device_ms
+    from poms_tpu_torch.ops import kron
+
+    kron_old, _ = _import_old(old_dir, k5=False)
+    dev = torch.device("cuda", 0)
+    rows = []
+    for n in shapes:
+        npts, pads, per = (n,) * 3, (3,) * 3, (False,) * 3
+        terms, (x, b, d) = k1_operands(n, dev, dtype)
+        new = kron.build_kron_plan(terms, npts, pads, per)
+        old = kron_old.build_kron_plan(terms, npts, pads, per)
+        out = torch.empty_like(x)
+        for mode in kron.MODES:
+            got = []
+            for m, pl in ((kron, new), (kron_old, old)):
+                kw = k1_mode_kwargs(mode, b, d.clone())
+                res = m.kron_mode(mode, pl, x, **kw)
+                got.append(res if mode == "cheb" else (res,))
+            torch.cuda.synchronize()
+            equal = all(torch.equal(g, o) for g, o in zip(*got))
+            del got
+            kw = k1_mode_kwargs(mode, b, d)
+            fns = {"old": lambda: kron_old.kron_mode(mode, old, x, out=out,
+                                                     **kw),
+                   "new": lambda: kron.kron_mode(mode, new, x, out=out,
+                                                 **kw)}
+            ms = {"old": [], "new": []}
+            for who in ("old", "new", "new", "old"):
+                ms[who].append(device_ms(fns[who]))
+            row = dict(kernel=f"K1.ab.{mode}", n=n, dtype=str(x.dtype),
+                       equal=equal,
+                       old_ms=ms["old"], new_ms=ms["new"],
+                       ratio=min(ms["new"]) / min(ms["old"]),
+                       new_tiling=new.tiling, old_tiling=old.tiling,
+                       new_resources=kron.k1_resources(new, mode))
+            rows.append(row)
+            result(**row)
+        del new, old, terms, x, b, d, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def route(result=print):
     """The headline ``pcg`` at 128³ elements at each of ``ROUTE_DEGREES``
     on the compiled K1 and K5 and on K1r and K5r, in turns (compiled,
@@ -356,15 +478,17 @@ def main():
     args = sys.argv[1:]
     old_src = args[args.index("--old") + 1] if "--old" in args else None
     sweep = "--sweep" in args
+    shapes = (tuple(int(v) for v in args[args.index("--shapes") + 1]
+                    .split(",")) if "--shapes" in args else SHAPES)
 
-    import numpy as np
     import torch
 
     from poms_tpu_torch.bench.device import device_ms, nvidia_smi_name_power
     from poms_tpu_torch.bench.kernel_probe import cuda_event_ms
     from poms_tpu_torch.bench.roofline import sol_bandwidth
-    from poms_tpu_torch.ops.kron import (MODES, build_kron_plan, kron_mode,
-                                         kron_mode_plain)
+    from poms_tpu_torch.ops.kron import (MODES, build_kron_plan,
+                                         k1_resources, kron_mode,
+                                         kron_mode_plain, rows_options)
     from poms_tpu_torch.ops.twofloat import (build_kron_df_plan,
                                              residual_kron_df,
                                              residual_kron_df_plain,
@@ -373,11 +497,18 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("k1_compare measures the card: no CUDA device found")
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = nvidia_smi_name_power()
-    if "--rt-ab" in args or "--route" in args:
+    if "--rt-ab" in args or "--route" in args or "--k1-ab" in args:
         def printed(**kw):
             print("RESULT " + json.dumps({**kw, "card": card}), flush=True)
 
+        if "--k1-ab" in args:
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+                     "f64": torch.float64}[
+                args[args.index("--dtype") + 1] if "--dtype" in args
+                else "f32"]
+            k1_ab(args[args.index("--k1-ab") + 1], printed, shapes, dtype)
         if "--rt-ab" in args:
             rt_ab(args[args.index("--rt-ab") + 1], "--sweep-rt" in args,
                   printed)
@@ -388,46 +519,31 @@ def main():
     print(f"card: {card}; bound at {bw / 1e12:.2f} TB/s", flush=True)
     old = _old_kernel(old_src) if old_src else None
 
-    def operands(n, dtype=torch.float32):
-        rng = np.random.default_rng(n)
-        mk = lambda: torch.as_tensor(   # noqa: E731
-            rng.standard_normal((n, 7)) / 4 + 2.0 * (np.arange(7) == 3),
-            dtype=dtype, device=dev)
-        Ks, Ms = [mk() for _ in range(3)], [mk() for _ in range(3)]
-        terms = [[Ks[b] if b == a else Ms[b] for b in range(3)]
-                 for a in range(3)]
-        fields = [torch.as_tensor(rng.standard_normal((n,) * 3), dtype=dtype,
-                                  device=dev) for _ in range(3)]
-        return terms, fields
-
     def result(**kw):
         print("RESULT " + json.dumps({**kw, "card": card}), flush=True)
 
-    for n in SHAPES:
+    for n in shapes:
         npts, pads, per = (n,) * 3, (3,) * 3, (False,) * 3
-        terms, (x, b, d) = operands(n)
+        terms, (x, b, d) = k1_operands(n, dev)
         plan = build_kron_plan(terms, npts, pads, per)
         out = torch.empty_like(x)
 
         def run(mode, tiling=None):
-            kw = {"b": b} if mode in ("residual", "cheb") else {}
-            if mode == "cheb":
-                kw.update(d=d, c1=0.3, c2=0.7)
-            return kron_mode(mode, plan, x, out=out, tiling=tiling, **kw)
+            return kron_mode(mode, plan, x, out=out, tiling=tiling,
+                             **k1_mode_kwargs(mode, b, d))
 
         for mode in MODES:
             bound = FIELDS[mode] * n ** 3 * 4 / bw * 1e3
             ms = device_ms(lambda: run(mode))
             row = dict(kernel=f"K1.{mode}", n=n, tiling=plan.tiling, ms=ms,
                        events_ms=cuda_event_ms(lambda: run(mode)),
-                       bound_ms=bound, share_of_bound=bound / ms)
-            if n == SHAPES[0]:
+                       bound_ms=bound, share_of_bound=bound / ms,
+                       resources=k1_resources(plan, mode))
+            if n >= PLAIN_FROM:
                 diag = plan.diagonal()
-                kw = {"b": b} if mode in ("residual", "cheb") else {}
-                if mode == "cheb":
-                    kw.update(d=d, c1=0.3, c2=0.7)
                 row["plain_ms"] = device_ms(lambda: kron_mode_plain(
-                    mode, terms, x, npts, pads, per, diag=diag, **kw), 5)
+                    mode, terms, x, npts, pads, per, diag=diag,
+                    **k1_mode_kwargs(mode, b, d)), 5)
             result(**row)
         if old is not None:
             turns = [("old", lambda: old(terms, x, npts, pads, per)),
@@ -436,31 +552,26 @@ def main():
                 result(kernel=f"K1.apply.{who}", n=n, ms=device_ms(fn),
                        events_ms=cuda_event_ms(fn))
         if sweep:
-            seen = set()
-            for T2 in SWEEP_T2:
-                for threads in (256, 128, 64):
-                    per_row = -(-min(T2, n) // plan.tcols)
-                    k1 = -(-n // max(1, threads // per_row))
-                    T1 = -(-n // k1)
-                    for nchunks in SWEEP_RUNS[n]:
-                        tiling = (T1, per_row * plan.tcols, -(-n // nchunks))
-                        if tiling in seen or T1 * per_row > 256:
-                            continue
-                        seen.add(tiling)
-                        result(kernel="K1.sweep", n=n, tiling=tiling,
-                               blocks=(k1 * -(-n // tiling[1])
-                                       * -(-n // tiling[2])),
-                               apply_ms=device_ms(
-                                   lambda: run("apply", tiling)),
-                               cheb_ms=device_ms(
-                                   lambda: run("cheb", tiling)))
+            for R in rows_options(3):
+                rplan = build_kron_plan(terms, npts, pads, per, trows=(R,))
+                for tiling in sweep_tilings(n, rplan, sms):
+                    def swept(mode):
+                        return device_ms(lambda: kron_mode(
+                            mode, rplan, x, out=out, tiling=tiling,
+                            **k1_mode_kwargs(mode, b, d)))
+
+                    result(kernel="K1.sweep", n=n, rows=R, tiling=tiling,
+                           blocks=(-(-n // tiling[0]) * -(-n // tiling[1])
+                                   * -(-n // tiling[2])),
+                           apply_ms=swept("apply"), cheb_ms=swept("cheb"))
+                del rplan
         del plan, terms, x, b, d, out
         torch.cuda.empty_cache()
 
     # K5 at 129^3 as the headline step calls it: A p in double-word
-    n = SHAPES[0]
+    n = 129
     npts, pads, per = (n,) * 3, (3,) * 3, (False,) * 3
-    terms, (x, _, _) = operands(n, torch.float64)
+    terms, (x, _, _) = k1_operands(n, dev, torch.float64)
     split = {id(B): split_f64(B) for term in terms for B in term}
     tdf = [[split[id(B)] for B in term] for term in terms]
     plan = build_kron_df_plan(tdf, npts, pads, per)

@@ -13,37 +13,53 @@
 //
 // What bounds it on an H100: the bytes.  apply reads x and writes y once
 // (8 bytes per point in f32: 5.1 us at 129^3 at 3.35 TB/s), cheb moves five
-// fields (12.8 us); the ~55 multiply-adds per point stay on chip, and below
-// about 65^3 the launch itself is the bound.  What the kernel is held back by
-// in practice is instruction issue and latency: a step of the march is a
-// chain of short phases between two barriers, so everything below is about
-// fewer instructions per point and more independent work per thread.
+// fields (12.8 us; 0.81 ms at 513^3); the ~55 multiply-adds per point stay
+// on chip, and below about 65^3 the launch itself is the bound.  What the
+// kernel is held back by in practice is instruction issue and latency
+// between block barriers, so everything below is about fewer barriers and
+// instructions per point and more independent work per thread.
 //
 // Design.  A block owns a T1 x T2 column of the (axis 1, axis 2) grid and
-// marches over a run of axis-0 planes (kron_march.cuh: cp.async window loads
-// into a ring of buffers, index rules instead of a padded copy; a thread's
-// copy offsets are the same for every plane and stay in registers).  A thread
-// owns C neighbouring columns (columns<T, P>()).  Per plane:
-//   axis 2: each thread contracts its own columns of the window for the
-//           distinct axis-2 bands (u partials, into shared memory); its band
-//           rows sit in registers for the whole march;
-//   axis 1: each thread contracts the u rows below it for the distinct
-//           (u, axis-1 band) pairs (v partials, in registers);
+// marches over a run of axis-0 planes: cp.async window loads (T1 + 2P rows
+// by T2 + 2P columns) into a ring of buffers, index rules instead of a
+// padded copy (a table of the window's in-plane source offsets, int32).
+// A thread owns a register micro-tile of R rows by C columns (R a template
+// parameter the host's tile model picks per grid, rows_compiled();
+// columns<T, P>(); two by two in f32 at P <= 3 on the fine grids), and a
+// row group's threads are consecutive, so a tile 64 columns wide puts one
+// row group in a warp.
+// Step q of the march, one block barrier:
+//   axis 2: the axis-2 pass of plane q + 1: each thread contracts its own
+//           columns of the window for the distinct axis-2 bands, over the
+//           window rows of its row group's turn (u partials, into the
+//           shared buffer the last step did not read); its band rows sit in
+//           registers for the whole march;
+//   axis 1: plane q: each thread contracts the R + 2P u rows of its group
+//           for the distinct (u, axis-1 band) pairs (v partials, in
+//           registers): every u pair it reads serves R rows, and the band
+//           rows come from a table in shared memory laid out so that one
+//           vector read holds a tap's coefficients for the R rows;
 //   sum:    the v's that meet the same axis-0 band are added first, so
 //           Poisson needs 2 + 3 + 2 contractions instead of 9;
 //   axis 0: plane q of those sums is added, tap by tap, to the 2P+1 output
-//           planes it reaches, which are accumulated in registers; the band
-//           rows of this run of planes come from shared memory (one broadcast
-//           read per coefficient).  Plane q - P is then complete;
-//   epilogue: its operands (b, d, x, the diagonal's column of axis 0) are
-//           asked for at the top of the step, so they arrive under the
-//           arithmetic.
+//           planes it reaches, which are accumulated in registers (a ring,
+//           shifted each step: unrolling the march by 2P+1 to index it
+//           statically measured slower in cheb, whose unrolled loop is
+//           several times the size); the band rows of this run of planes
+//           come from shared memory.  Plane q - P is then complete;
+//   epilogue: its operands b and d are asked for at the top of the step,
+//           so they arrive under the arithmetic; at P <= 3 x is read from
+//           the window of its plane, which the ring keeps P + 1 planes
+//           longer than the axis-2 pass needs it (cheb then reads four
+//           fields from device memory, not five); the diagonal's centre
+//           columns come from small tables in shared memory.
 // The arithmetic has no branches on the plan: an absent partial has zero band
-// rows, so the chains of multiply-adds of all partials interleave.  The mode
-// is a template parameter (no epilogue code of another mode in the loop).
-// No plane is recomputed along axis 0 except the 2P planes where two runs
-// meet.  The host splits axis 0 into runs and picks the tile from a cost
-// model fitted to a sweep on the card (ops/kron.py::kron_tiling).
+// rows, and a zero ghost plane is a window of zeros, so the chains of
+// multiply-adds of all partials interleave.  The mode is a template
+// parameter (no epilogue code of another mode in the loop).  No plane is
+// recomputed along axis 0 except the 2P planes where two runs meet.  The
+// host splits axis 0 into runs and picks the tile and R from a cost model
+// fitted to a sweep on the card (ops/kron.py::k1_tiling).
 //
 // The sharing plan (which band each partial uses, which v's are summed) is
 // built once per operator on the host and arrives as a few integers.  One
@@ -58,7 +74,7 @@
 // bf16 cycle runs its Kronecker apply through XLA.  There the fields (x, b,
 // d, the outputs) and the bands are __nv_bfloat16 (IO) and everything on chip
 // is f32 (T): the window takes converted values by plain loads
-// (kron_march.cuh::fill_element: no cp.async for 2-byte elements), the bands
+// (kron_march.cuh::load_window: no cp.async for 2-byte elements), the bands
 // are converted as they are read into registers and shared memory, the
 // arithmetic is the f32 kernel's, and the epilogue rounds once on the store
 // (cheb: x + d is formed from the unrounded d).  Where an operator takes
@@ -105,8 +121,7 @@ using kron::Geometry;
 constexpr int kCU = 2;  // u partials per launch (distinct axis-2 bands)
 constexpr int kCV = 3;  // v partials per launch
 constexpr int kCG = 2;  // pre-summed partials per launch (axis-0 bands)
-constexpr int kRD = 3;  // terms whose diagonal columns a thread keeps
-constexpr int kNL = 4;  // window elements a thread copies by its own offsets
+constexpr int kRD = 3;  // terms whose diagonal columns a block tabulates
 constexpr int kMaxThreads = 256;
 
 enum Mode { kApply = 0, kResidual = 1, kDinv = 2, kCheb = 3 };
@@ -133,6 +148,7 @@ struct Args {
   IO* out;
   T* out_hi;          // apply only: the result unrounded, instead of out
   T c1, c2;
+  T gm[kCG][kCV];  // the plan's g_mult in T (zero for absent entries)
   int mode;
   Geometry g;
   Plan p;
@@ -146,8 +162,20 @@ __host__ __device__ constexpr int columns() {
   return (sizeof(T) == 4 && P <= 3) ? 2 : 1;
 }
 
+// rows of the tile one thread owns (its register micro-tile is R rows x
+// columns), a launch's choice among those compiled: 2 or 1 at P <= 3 (at 2
+// every u value and every band vector the axis-1 pass reads serves two
+// rows, which pays where blocks fill the SMs; on coarse grids, whose few
+// blocks leave the SMs half idle, a thread's chain of work sets the pace and
+// 1 row is faster), 1 for the wide bands, whose ring and axis-2 band rows
+// fill the registers
+template <int P, int R>
+__host__ __device__ constexpr bool rows_compiled() {
+  return R == 1 || (R == 2 && P <= 3);
+}
+
 // blocks that must fit an SM together: two where 128 registers a thread are
-// enough (while one block waits at a barrier the other computes)
+// enough (while one block waits at its barrier the other computes)
 template <typename T, int P>
 __host__ __device__ constexpr int min_blocks() {
   return (sizeof(T) == 4 && P <= 3) ? 2 : 1;
@@ -166,82 +194,182 @@ __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
 
-// C neighbouring values from shared memory (p aligned to C values): one
-// vector load for C = 2
-template <typename T, int C>
-__device__ __forceinline__ void load_cols(const T* p, T (&v)[C]) {
+// N neighbouring values of shared memory, two a load where T is float and
+// N even (p then 8-byte aligned)
+template <typename T, int N>
+__device__ __forceinline__ void ld_run(const T* p, T (&v)[N]) {
+  if constexpr (sizeof(T) == 4 && N % 2 == 0) {
 #pragma unroll
-  for (int c = 0; c < C; ++c) v[c] = p[c];
-}
-template <>
-__device__ __forceinline__ void load_cols<float, 2>(const float* p,
-                                                    float (&v)[2]) {
-  const float2 q = *reinterpret_cast<const float2*>(p);
-  v[0] = q.x, v[1] = q.y;
+    for (int k = 0; k < N; k += 2) {
+      const float2 q = *reinterpret_cast<const float2*>(p + k);
+      v[k] = q.x, v[k + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = p[k];
+  }
 }
 
-// shared memory, in T units after the offset table: the ring of windows,
-// the u partials, the axis-0 band rows of this run of planes
+// N neighbouring values of shared memory, one load where they fill 16 bytes
+// (p then 16-byte aligned)
+template <typename T, int N>
+__device__ __forceinline__ void ld_vec(const T* p, T (&v)[N]) {
+  if constexpr (sizeof(T) == 4 && N == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (sizeof(T) == 8 && N == 2) {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    ld_run<T, N>(p, v);
+  }
+}
+
+// N neighbouring values into shared memory, as ld_run reads them
+template <typename T, int N>
+__device__ __forceinline__ void st_run(T* p, const T (&v)[N]) {
+  if constexpr (sizeof(T) == 4 && N % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 2)
+      *reinterpret_cast<float2*>(p + k) = make_float2(v[k], v[k + 1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = v[k];
+  }
+}
+
+__host__ __device__ constexpr size_t align16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// whether the epilogue reads x of its plane from the window: where the
+// ring's P + 1 more planes fit beside wide tiles (P <= 3)
 template <int P>
-__host__ __device__ inline size_t smem_bytes(const Geometry& g, size_t elem) {
-  const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
-  return WR * WC * sizeof(int64_t) +
-         (kron::kStages * WR * WC + kCU * WR * g.T2 +
-          kCG * (g.chunk + 4 * P) * W) *
-             elem;
+__host__ __device__ constexpr bool x_from_window() {
+  return P <= 3;
 }
 
-template <typename T, int P, int MODE, typename IO>
+// window buffers of the ring: the planes whose copies are in flight
+// (kron::kStages ahead), and where x_from_window the P + 1 planes of the
+// outputs still open
+template <int P>
+__host__ __device__ constexpr int window_buffers() {
+  return kron::kStages + (x_from_window<P>() ? P + 1 : 0);
+}
+
+// shared memory of the compiled kernel, by byte offset, each section
+// 16-byte aligned (ops/kron.py::k1_smem_bytes mirrors it): the ring of
+// windows, the u partials of two planes, the axis-1 band rows of the tile's
+// rows, the axis-0 band rows of this run of planes, the diagonal's centre
+// columns (axis 0 over the run, axis 1 over the tile's rows, axis 2 over its
+// columns), the window's in-plane source offsets
+template <typename T, int P, int R>
+struct K1Smem {
+  size_t win, u, c1, c0, dg, off, bytes;
+  __host__ __device__ explicit K1Smem(const Geometry& g) {
+    const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
+    const size_t e = sizeof(T);
+    win = 0;
+    u = align16(win + window_buffers<P>() * WR * WC * e);
+    c1 = align16(u + 2 * kCU * WR * g.T2 * e);
+    c0 = align16(c1 + kCV * g.T1 * (R + 2 * P) * e);
+    dg = align16(c0 + kCG * (g.chunk + 4 * P) * W * e);
+    off = align16(dg + kRD * (g.chunk + g.T1 + g.T2) * e);
+    bytes = align16(off + WR * WC * sizeof(int));
+  }
+};
+
+// values asked for at once by a thread filling a table of shared memory
+constexpr int kFill = 4;
+
+// dst[e] = value(e) for e < n, each thread taking e = tid, tid + nthreads,
+// ...: kFill values are asked for before any is stored, so that their
+// trips to memory overlap
+template <typename T, typename F>
+__device__ __forceinline__ void fill_table(T* dst, int n, F value) {
+  for (int e0 = threadIdx.x; e0 < n; e0 += kFill * blockDim.x) {
+    T v[kFill];
+#pragma unroll
+    for (int k = 0; k < kFill; ++k) {
+      const int e = e0 + k * blockDim.x;
+      v[k] = e < n ? value(e) : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kFill; ++k) {
+      const int e = e0 + k * blockDim.x;
+      if (e < n) dst[e] = v[k];
+    }
+  }
+}
+
+template <typename T, int P, int R, int MODE, typename IO>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks<T, P>())
 kron_march_kernel(const Args<T, IO> a) {
+  static_assert(rows_compiled<P, R>());
   constexpr int W = 2 * P + 1;
   constexpr int C = columns<T, P>();
-  constexpr int S = kron::kStages;
+  constexpr int RH = R + 2 * P;  // u rows a row group's outputs reach
+  constexpr int D = kron::kStages;    // planes a copy is started ahead
+  constexpr int S = window_buffers<P>();
   constexpr bool need_b = MODE == kResidual || MODE == kCheb;
   constexpr bool need_dg = MODE == kDinv || MODE == kCheb;
   const Geometry& g = a.g;
   const Plan& pl = a.p;
-  const int T1 = g.T1, T2 = g.T2;  // T2 is a multiple of C
-  const int TC = T2 / C;           // threads per tile row
+  const int T1 = g.T1, T2 = g.T2;      // multiples of R and of C
+  const int NC = T2 / C, NG = T1 / R;  // column groups, row groups
   const int WR = T1 + 2 * P, WC = T2 + 2 * P, NW = WR * WC;
+  const int UB = kCU * WR * T2;  // one plane's u partials
   const int nthreads = blockDim.x;
   const int crows = g.chunk + 4 * P;  // rows of the axis-0 coefficient table
+  const int nd = g.chunk + T1 + T2;   // entries of a term's diagonal table
 
+  const K1Smem<T, P, R> L(g);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int64_t* soff = reinterpret_cast<int64_t*>(smem_raw);
-  T* win = reinterpret_cast<T*>(soff + NW);
-  T* u = win + S * NW;
-  T* c0s = u + kCU * WR * T2;
+  T* win = reinterpret_cast<T*>(smem_raw + L.win);
+  T* u = reinterpret_cast<T*>(smem_raw + L.u);
+  T* c1t = reinterpret_cast<T*>(smem_raw + L.c1);
+  T* c0s = reinterpret_cast<T*>(smem_raw + L.c0);
+  T* dgt = reinterpret_cast<T*>(smem_raw + L.dg);
+  int* soff = reinterpret_cast<int*>(smem_raw + L.off);
 
   const int tid = threadIdx.x;
-  const int tj = tid / TC, tl = (tid - tj * TC) * C;  // row, first column
-  const bool in_tile = tid < T1 * TC;
+  const int tg = tid / NC, tl = (tid - tg * NC) * C;  // row group, column
+  const bool in_tile = tid < NG * NC;
   const int j0 = blockIdx.y * T1, l0 = blockIdx.x * T2;
-  const int gj = j0 + tj, gl = l0 + tl;
-  const bool row_ok = in_tile && gj < g.n1;
-  bool owns[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) owns[c] = row_ok && gl + c < g.n2;
+  const int gj = j0 + tg * R, gl = l0 + tl;  // first row and column owned
+  // rows and columns owned inside the grid
+  const int nrow = in_tile ? min(R, g.n1 - gj) : 0;
+  const int ncol = min(C, g.n2 - gl);
   const int i_begin = blockIdx.z * g.chunk;
   const int i_end = min(i_begin + g.chunk, g.n0);
   const int nu = pl.nu, nv = pl.nv, ng = pl.ng;
   const bool has_acc = a.acc != nullptr, has_d = a.d_in != nullptr;
 
+  // input planes q in [i_begin - P, i_end + P): plane q lands in window
+  // buffer (q - q_begin) % S, its copy started D steps before its axis-2
+  // pass (and, where x_from_window, kept until the epilogue of output
+  // plane q has read x); a zero ghost plane is filled with zeros (one
+  // commit per plane, empty or not, keeps the group count in step).  A
+  // thread copies the window elements whose offsets it wrote, so the
+  // first copies start before any barrier.
+  const int q_begin = i_begin - P, q_end = i_end + P;
+  auto issue = [&](int q, int sb) {
+    const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -2;
+    T* dst = win + sb * NW;
+    if (gq >= 0) {
+      kron::load_window(dst, a.x + gq * g.s0, soff, NW, 0);
+    } else if (gq == -1) {
+      for (int e = tid; e < NW; e += nthreads) dst[e] = T(0);
+    }
+    kron::cp_async_commit();
+  };
   kron::build_window_offsets(soff, g, P, j0, l0);
-  // axis-0 band rows of output planes [i_begin - 2P, i_begin + chunk + 2P),
-  // per pre-summed partial: zero outside the grid and for absent partials
-  for (int e = tid; e < kCG * crows * W; e += nthreads) {
-    const int gi = e / (crows * W);
-    const int rem = e - gi * crows * W;
-    const int i = i_begin - 2 * P + rem / W;
-    c0s[e] =
-        (gi < ng && i >= 0 && i < g.n0)
-            ? up(a.band[0][((int64_t)pl.g_lab[gi] * g.n0 + i) * W + rem % W])
-            : T(0);
-  }
-  // this thread's band rows: axis 2 at its columns, axis 1 at row gj; an
-  // absent partial has zero rows, so the arithmetic below needs no branches
-  T c2r[kCU][C][W], c1r[kCV][W];
+  for (int k = 0; k < D; ++k) issue(q_begin + k, k);
+
+  // the tables, while the first planes arrive.  This thread's axis-2 band
+  // rows at its columns (in registers for the march); an absent partial
+  // has zero rows, so the arithmetic below needs no branches
+  T c2r[kCU][C][W];
 #pragma unroll
   for (int k = 0; k < kCU; ++k)
 #pragma unroll
@@ -252,226 +380,251 @@ kron_march_kernel(const Args<T, IO> a) {
             (k < nu && in_tile && gl + c < g.n2)
                 ? up(a.band[2][((int64_t)pl.u_lab[k] * g.n2 + gl + c) * W + t])
                 : T(0);
-#pragma unroll
-  for (int k = 0; k < kCV; ++k)
-#pragma unroll
-    for (int t = 0; t < W; ++t)
-      c1r[k][t] =
-          (k < nv && row_ok)
-              ? up(a.band[1][((int64_t)pl.v_lab[k] * g.n1 + gj) * W + t])
-              : T(0);
-  T gm[kCG][kCV];
-#pragma unroll
-  for (int gi = 0; gi < kCG; ++gi)
-#pragma unroll
-    for (int k = 0; k < kCV; ++k)
-      gm[gi][k] = (gi < ng && k < nv) ? T(pl.g_mult[gi][k]) : T(0);
-  int uoff[kCV];  // where each v reads its u column
-#pragma unroll
-  for (int k = 0; k < kCV; ++k)
-    uoff[k] = ((k < nv ? pl.v_src[k] : 0) * WR + tj) * T2 + tl;
-
-  // the diagonal's centre columns along axes 1 and 2 do not change on the
-  // march: the first kRD terms' stay in registers
-  T d1[kRD], d2[kRD][C];
+  // axis-0 band rows of output planes [i_begin - 2P, i_begin + chunk + 2P),
+  // per pre-summed partial: zero outside the grid and for absent partials
+  fill_table(c0s, kCG * crows * W, [&](int e) {
+    const int gi = e / (crows * W);
+    const int rem = e - gi * crows * W;
+    const int i = i_begin - 2 * P + rem / W;
+    const int64_t row = (int64_t)pl.g_lab[gi] * g.n0 + i;
+    return (gi < ng && i >= 0 && i < g.n0) ? up(a.band[0][row * W + rem % W])
+                                           : T(0);
+  });
+  // axis-1 band rows as the row groups read them:
+  // c1t[((k * NG + grp) * RH + p) * R + r] multiplies u row p of group grp
+  // for its output row r, tap p - r of band row j0 + grp * R + r; zero off
+  // the band, past the grid and for absent partials
+  fill_table(c1t, kCV * T1 * RH, [&](int e) {
+    const int r = e % R, p = e / R % RH, kg = e / (R * RH);
+    const int k = kg / NG, j = j0 + (kg - k * NG) * R + r, t = p - r;
+    return (k < nv && j < g.n1 && t >= 0 && t < W)
+               ? up(a.band[1][((int64_t)pl.v_lab[k] * g.n1 + j) * W + t])
+               : T(0);
+  });
+  // the diagonal's centre columns of the first kRD terms: axis 0 at the
+  // run's planes, axis 1 at the tile's rows, axis 2 at its columns
   if (need_dg) {
-#pragma unroll
-    for (int r = 0; r < kRD; ++r) {
-      d1[r] = (r < g.R && row_ok) ? up(a.col[1][r * g.n1 + gj]) : T(0);
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        d2[r][c] =
-            (r < g.R && owns[c]) ? up(a.col[2][r * g.n2 + gl + c]) : T(0);
-    }
+    fill_table(dgt, kRD * nd, [&](int e) {
+      const int r = e / nd, m = e - r * nd;
+      T c = T(0);
+      if (r < g.R) {
+        if (m < g.chunk) {
+          if (i_begin + m < g.n0) c = up(a.col[0][r * g.n0 + i_begin + m]);
+        } else if (m < g.chunk + T1) {
+          const int j = j0 + m - g.chunk;
+          if (j < g.n1) c = up(a.col[1][r * g.n1 + j]);
+        } else {
+          const int l = l0 + m - g.chunk - T1;
+          if (l < g.n2) c = up(a.col[2][r * g.n2 + l]);
+        }
+      }
+      return c;
+    });
   }
-
-  // outs[c][s]: the sum so far of output plane q - P + s; plane q of the
-  // pre-summed partials adds its tap to each of the W planes it reaches
-  T outs[C][W];
+  int uoff[kCV];  // where each v reads its u rows
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int s = 0; s < W; ++s) outs[c][s] = T(0);
+  for (int k = 0; k < kCV; ++k)
+    uoff[k] = ((k < nv ? pl.v_src[k] : 0) * WR + tg * R) * T2 + tl;
 
-  __syncthreads();  // the offset table is complete
-
-  // The window elements this thread copies are the same for every plane, so
-  // their in-plane source offsets stay in registers (the first kNL of them;
-  // a window larger than kNL per thread takes the rest through the table).
-  // An element whose index rule gives zero is zero in every plane: it is
-  // written once here and never copied.
-  int loff[kNL];
+  // outs[s][r][c]: the sum so far of output plane q - P + s; plane q of
+  // the pre-summed partials adds its tap to each of the W planes it reaches
+  T outs[W][R][C];
 #pragma unroll
-  for (int k = 0; k < kNL; ++k) {
-    const int e = tid + k * nthreads;
-    const int64_t o = e < NW ? soff[e] : -1;
-    loff[k] = (int)o;
-    if (e < NW && o < 0)
-      for (int sb = 0; sb < S; ++sb) win[sb * NW + e] = T(0);
-  }
-  const bool tail = NW > kNL * nthreads;
-
-  // input planes q in [i_begin - P, i_end + P); plane q lands in buffer
-  // (q - q_begin) % S, its copy started S - 1 steps ahead (one commit per
-  // step, empty or not, keeps the group count in step)
-  const int q_begin = i_begin - P, q_end = i_end + P;
-  int buf = 0;
-  auto issue = [&](int q, int sb) {
-    const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -1;
-    if (gq >= 0) {
-      const IO* src = a.x + gq * g.s0;
-      T* dst = win + sb * NW + tid;
+  for (int s = 0; s < W; ++s)
 #pragma unroll
-      for (int k = 0; k < kNL; ++k)
-        if (loff[k] >= 0)
-          kron::fill_element(dst + k * nthreads, src + loff[k]);
-      if (tail)
-        kron::load_window(win + sb * NW, a.x, soff, NW, gq * g.s0,
-                          kNL * nthreads);
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) outs[s][r][c] = T(0);
+
+  // axis 2 of the plane in window wq into the u partials uq:
+  // u[k][rr][l] = sum_t c2r[k][.][t] * window[rr][l + t] for the thread's C
+  // columns l, over the window rows of its row group's turn
+  auto axis2 = [&](const T* wq, T* uq) {
+    if (!in_tile) return;
+    for (int rr = tg; rr < WR; rr += NG) {
+      T xv[W + C - 1];
+      ld_run<T, W + C - 1>(wq + rr * WC + tl, xv);
+      T s[kCU][C];
+#pragma unroll
+      for (int k = 0; k < kCU; ++k)
+#pragma unroll
+        for (int c = 0; c < C; ++c) s[k][c] = c2r[k][c][0] * xv[c];
+#pragma unroll
+      for (int t = 1; t < W; ++t)
+#pragma unroll
+        for (int k = 0; k < kCU; ++k)
+#pragma unroll
+          for (int c = 0; c < C; ++c) s[k][c] += c2r[k][c][t] * xv[t + c];
+#pragma unroll
+      for (int k = 0; k < kCU; ++k)
+        st_run<T, C>(uq + (k * WR + rr) * T2 + tl, s[k]);
     }
-    kron::cp_async_commit();
   };
-  for (int k = 0; k < S - 1; ++k) issue(q_begin + k, k);
+
+  kron::cp_async_wait<D - 1>();  // plane q_begin is in
+  __syncthreads();                // and the tables are complete
+  axis2(win, u);
 
   const int64_t plane = (int64_t)g.n1 * g.n2;
   const int64_t base = (int64_t)gj * g.n2 + gl;
-  const int64_t xbase = gj * g.s1 + gl * g.s2;
+  int sb = 0;  // the window buffer of plane q
+  // The march.  One barrier a step: step q runs the axis-2 pass of plane
+  // q + 1 (into the other u buffer) beside the axis-1 and axis-0 passes of
+  // plane q.
   for (int q = q_begin; q < q_end; ++q) {
-    const int gq = kron::resolve(q, g.n0, g.per0);
-    issue(q + S - 1, buf == 0 ? S - 1 : buf - 1);
+    const int step = q - q_begin;
+    const int sn = sb + 1 == S ? 0 : sb + 1;
 
     // the epilogue's operands of the plane this step completes, asked for
-    // now so that they arrive under the step's arithmetic
+    // now so that they arrive under the step's arithmetic (the sum of
+    // earlier launches, rarely there, is read where it is added; x, where
+    // the ring keeps its plane, from the window)
     const int i = q - P;
-    const bool emits = i >= i_begin && row_ok;
+    const bool emits = i >= i_begin;
     const int64_t idx = base + i * plane;
-    T acc_v[C], b_v[C], d_v[C], x_v[C], dg[C];
+    T b_v[R][C], d_v[R][C], x_v[R][C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      acc_v[c] = b_v[c] = d_v[c] = x_v[c] = dg[c] = T(0);
-      if (emits && owns[c]) {
-        if (has_acc) acc_v[c] = a.acc[idx + c];
-        if (need_b) b_v[c] = up(a.b[idx + c]);
-        if (MODE == kCheb) {
-          if (has_d) d_v[c] = up(a.d_in[idx + c]);
-          x_v[c] = up(a.x[i * g.s0 + xbase + c * g.s2]);
-        }
-        if (need_dg) {
-#pragma unroll
-          for (int r = 0; r < kRD; ++r)
-            if (r < g.R)
-              dg[c] = add_rn(dg[c], mul_rn(mul_rn(up(a.col[0][r * g.n0 + i]),
-                                                  d1[r]),
-                                           d2[r][c]));
-          for (int r = kRD; r < g.R; ++r)
-            dg[c] = add_rn(dg[c],
-                           mul_rn(mul_rn(up(a.col[0][r * g.n0 + i]),
-                                         up(a.col[1][r * g.n1 + gj])),
-                                  up(a.col[2][r * g.n2 + gl + c])));
-        }
-      }
-    }
-
-    kron::cp_async_wait<S - 1>();  // all but the newest S - 1: plane q is in
-    __syncthreads();
-
-    if (gq >= 0) {  // a zero ghost plane adds nothing (uniform branch)
-      const T* wq = win + buf * NW;
-      // axis 2: u[k][rr][l] = sum_t c2r[k][.][t] * window[rr][l + t] for the
-      // thread's C columns l, from W + C - 1 window values
-      if (in_tile) {
-        for (int rr = tj; rr < WR; rr += T1) {
-          const T* xrow = wq + rr * WC + tl;
-          T xv[W + C - 1];
-#pragma unroll
-          for (int t = 0; t < W + C - 1; ++t) xv[t] = xrow[t];
-          T s[kCU][C];
-#pragma unroll
-          for (int k = 0; k < kCU; ++k)
-#pragma unroll
-            for (int c = 0; c < C; ++c) s[k][c] = c2r[k][c][0] * xv[c];
-#pragma unroll
-          for (int t = 1; t < W; ++t)
-#pragma unroll
-            for (int k = 0; k < kCU; ++k)
-#pragma unroll
-              for (int c = 0; c < C; ++c) s[k][c] += c2r[k][c][t] * xv[t + c];
-#pragma unroll
-          for (int k = 0; k < kCU; ++k)
-#pragma unroll
-            for (int c = 0; c < C; ++c)
-              u[(k * WR + rr) * T2 + tl + c] = s[k][c];
-        }
-      }
-      __syncthreads();
-      // axis 1: v[k] = sum_t c1r[k][t] * u[v_src[k]][tj + t][l], then the
-      // sums that share an axis-0 band
-      if (in_tile) {
-        T v[kCV][C];
-#pragma unroll
-        for (int k = 0; k < kCV; ++k)
-#pragma unroll
-          for (int c = 0; c < C; ++c) v[k][c] = T(0);
-#pragma unroll
-        for (int t = 0; t < W; ++t)
-#pragma unroll
-          for (int k = 0; k < kCV; ++k) {
-            T uv[C];
-            load_cols<T, C>(u + uoff[k] + t * T2, uv);
-#pragma unroll
-            for (int c = 0; c < C; ++c) v[k][c] += c1r[k][t] * uv[c];
-          }
-        T wsum[kCG][C];
-#pragma unroll
-        for (int gi = 0; gi < kCG; ++gi)
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            wsum[gi][c] = gm[gi][0] * v[0][c];
-#pragma unroll
-            for (int k = 1; k < kCV; ++k) wsum[gi][c] += gm[gi][k] * v[k][c];
-          }
-        // axis 0: output plane q - P + s takes tap 2P - s of plane q
-        const T* cq = c0s + (q - i_begin + P) * W + 2 * P;
-#pragma unroll
-        for (int gi = 0; gi < kCG; ++gi)
-#pragma unroll
-          for (int s = 0; s < W; ++s) {
-            const T coef = cq[gi * crows * W + s * (W - 1)];
-#pragma unroll
-            for (int c = 0; c < C; ++c) outs[c][s] += coef * wsum[gi][c];
-          }
-      }
-    }
-
-    if (emits) {  // output plane i: its last input has arrived
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        if (!owns[c]) continue;
-        const T ax = acc_v[c] + outs[c][0];
-        T r = ax;
-        if (need_b) r = b_v[c] - ax;
-        if (need_dg) r = r / dg[c];
-        if (MODE == kCheb) {
-          T d = a.c2 * r;
-          if (has_d) d += a.c1 * d_v[c];
-          store(a.d_out + idx + c, d);
-          store(a.out + idx + c, x_v[c] + d);
-        } else if (MODE == kApply && a.out_hi != nullptr) {
-          a.out_hi[idx + c] = r;
-        } else {
-          store(a.out + idx + c, r);
+        b_v[r][c] = d_v[r][c] = T(0);
+        if constexpr (!x_from_window<P>()) x_v[r][c] = T(0);
+        if (emits && r < nrow && c < ncol) {
+          const int64_t o = idx + r * g.n2 + c;
+          if (need_b) b_v[r][c] = up(a.b[o]);
+          if (MODE == kCheb && has_d) d_v[r][c] = up(a.d_in[o]);
+          if constexpr (MODE == kCheb && !x_from_window<P>())
+            x_v[r][c] = up(a.x[i * g.s0 + (gj + r) * g.s1 + (gl + c) * g.s2]);
         }
       }
+
+    kron::cp_async_wait<D - 2>();  // plane q + 1 is in
+    __syncthreads();
+    // this barrier orders the last step's reads of the window buffer of
+    // plane q + D - S and of u buffer (step + 1) & 1 before the writes below
+    issue(q + D, sb + D < S ? sb + D : sb + D - S);
+    axis2(win + sn * NW, u + ((step + 1) & 1) * UB);
+
+    if (in_tile) {
+      // axis 1: v[k][r] = sum_t B1[v_lab[k]][gj + r][t] * u[v_src[k]] at
+      // row gj + r + t - P (u rows r + t of the group's window), then the
+      // sums that share an axis-0 band
+      const T* uq = u + (step & 1) * UB;
+      const T* cg = c1t + tg * RH * R;
+      T v[kCV][R][C];
+#pragma unroll
+      for (int k = 0; k < kCV; ++k)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) v[k][r][c] = T(0);
+#pragma unroll
+      for (int p = 0; p < RH; ++p)
+#pragma unroll
+        for (int k = 0; k < kCV; ++k) {
+          T uv[C], cv[R];
+          ld_run<T, C>(uq + uoff[k] + p * T2, uv);
+          ld_vec<T, R>(cg + (k * NG * RH + p) * R, cv);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int c = 0; c < C; ++c) v[k][r][c] += cv[r] * uv[c];
+        }
+      T wsum[kCG][R][C];
+#pragma unroll
+      for (int gi = 0; gi < kCG; ++gi)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            wsum[gi][r][c] = a.gm[gi][0] * v[0][r][c];
+#pragma unroll
+            for (int k = 1; k < kCV; ++k)
+              wsum[gi][r][c] += a.gm[gi][k] * v[k][r][c];
+          }
+      // axis 0: output plane q - P + s takes tap 2P - s of plane q
+      const T* cq = c0s + (q - i_begin + P) * W + 2 * P;
+#pragma unroll
+      for (int gi = 0; gi < kCG; ++gi)
+#pragma unroll
+        for (int s = 0; s < W; ++s) {
+          const T coef = cq[gi * crows * W + s * (W - 1)];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              outs[s][r][c] += coef * wsum[gi][r][c];
+        }
+    }
+
+    if (emits && nrow > 0) {  // output plane i: its last input has arrived
+      // x of plane i, in the window that plane q - P was copied into
+      const T* xi = win + (sb + D + 1 < S ? sb + D + 1 : sb + D + 1 - S) * NW;
+      T dg[R][C];
+      if (need_dg) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) dg[r][c] = T(0);
+#pragma unroll
+        for (int rd = 0; rd < kRD; ++rd) {
+          if (rd >= g.R) break;
+          const T* dr = dgt + rd * nd;
+          const T d0 = dr[i - i_begin];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              dg[r][c] = add_rn(
+                  dg[r][c], mul_rn(mul_rn(d0, dr[g.chunk + tg * R + r]),
+                                   dr[g.chunk + T1 + tl + c]));
+        }
+        for (int rd = kRD; rd < g.R; ++rd)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              if (r < nrow && c < ncol)
+                dg[r][c] = add_rn(
+                    dg[r][c],
+                    mul_rn(mul_rn(up(a.col[0][rd * g.n0 + i]),
+                                  up(a.col[1][rd * g.n1 + gj + r])),
+                           up(a.col[2][rd * g.n2 + gl + c])));
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (r >= nrow || c >= ncol) continue;
+          const int64_t o = idx + r * g.n2 + c;
+          const T ax = (has_acc ? a.acc[o] : T(0)) + outs[0][r][c];
+          T res = ax;
+          if (need_b) res = b_v[r][c] - ax;
+          if (need_dg) res = res / dg[r][c];
+          if (MODE == kCheb) {
+            T d = a.c2 * res;
+            if (has_d) d += a.c1 * d_v[r][c];
+            store(a.d_out + o, d);
+            if constexpr (x_from_window<P>())
+              store(a.out + o, xi[(tg * R + r + P) * WC + tl + c + P] + d);
+            else
+              store(a.out + o, x_v[r][c] + d);
+          } else if (MODE == kApply && a.out_hi != nullptr) {
+            a.out_hi[o] = res;
+          } else {
+            store(a.out + o, res);
+          }
+        }
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int s = 0; s + 1 < W; ++s) outs[c][s] = outs[c][s + 1];
-      outs[c][W - 1] = T(0);
-    }
-    buf = buf + 1 == S ? 0 : buf + 1;
-    // the next step's barrier orders these reads of u before its writes; a
-    // window is refilled S - 1 steps after its last read
+      for (int c = 0; c < C; ++c) {
+#pragma unroll
+        for (int s = 0; s + 1 < W; ++s) outs[s][r][c] = outs[s + 1][r][c];
+        outs[W - 1][r][c] = T(0);
+      }
+    sb = sn;
   }
   kron::cp_async_wait<0>();
 }
@@ -853,20 +1006,20 @@ __global__ void __launch_bounds__(kMaxThreads) k1r_pass_c(
   }
 }
 
-template <typename T, int P, int MODE, typename IO>
+template <typename T, int P, int R, int MODE, typename IO>
 int launch_pm(const Args<T, IO>& a, cudaStream_t stream) {
   const Geometry& g = a.g;
   constexpr int C = columns<T, P>();
-  if (g.threads > kMaxThreads || g.T2 % C != 0 ||
-      g.threads < g.T1 * (g.T2 / C) || g.threads % 32 != 0)
+  if (g.threads > kMaxThreads || g.T2 % C != 0 || g.T1 % R != 0 ||
+      g.threads < (g.T1 / R) * (g.T2 / C) || g.threads % 32 != 0)
     return (int)cudaErrorInvalidConfiguration;
-  // the copy offsets a thread keeps are 32-bit: the last in-plane offset
+  // the window's source offsets are 32-bit: the last in-plane offset
   if ((g.n1 - 1) * g.s1 + (g.n2 - 1) * g.s2 > (int64_t)INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes<P>(g, sizeof(T));
+  const size_t bytes = K1Smem<T, P, R>(g).bytes;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kron_march_kernel<T, P, MODE, IO>,
+        kron_march_kernel<T, P, R, MODE, IO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, or the next launch reports it
@@ -875,18 +1028,28 @@ int launch_pm(const Args<T, IO>& a, cudaStream_t stream) {
   }
   const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
                   (g.n0 + g.chunk - 1) / g.chunk);
-  kron_march_kernel<T, P, MODE, IO><<<grid, g.threads, bytes, stream>>>(a);
+  kron_march_kernel<T, P, R, MODE, IO><<<grid, g.threads, bytes, stream>>>(
+      a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int P, typename IO>
-int launch_p(const Args<T, IO>& a, cudaStream_t stream) {
+template <typename T, int P, int R, typename IO>
+int launch_pr(const Args<T, IO>& a, cudaStream_t stream) {
   switch (a.mode) {
-    case kApply: return launch_pm<T, P, kApply, IO>(a, stream);
-    case kResidual: return launch_pm<T, P, kResidual, IO>(a, stream);
-    case kDinv: return launch_pm<T, P, kDinv, IO>(a, stream);
-    default: return launch_pm<T, P, kCheb, IO>(a, stream);
+    case kApply: return launch_pm<T, P, R, kApply, IO>(a, stream);
+    case kResidual: return launch_pm<T, P, R, kResidual, IO>(a, stream);
+    case kDinv: return launch_pm<T, P, R, kDinv, IO>(a, stream);
+    default: return launch_pm<T, P, R, kCheb, IO>(a, stream);
   }
+}
+
+// the launch at `rows` rows a thread, where that is compiled
+template <typename T, int P, typename IO>
+int launch_p(const Args<T, IO>& a, int rows, cudaStream_t stream) {
+  if constexpr (rows_compiled<P, 2>())
+    if (rows == 2) return launch_pr<T, P, 2, IO>(a, stream);
+  return rows == 1 ? launch_pr<T, P, 1, IO>(a, stream)
+                   : (int)cudaErrorInvalidConfiguration;
 }
 
 // K1r: one pass (0 A, 1 B, 2 C) of the run-time design
@@ -963,7 +1126,7 @@ bool operands_ok(int mode, const void* b, const void* out,
   return out_hi != nullptr ? mode == kApply : out != nullptr;
 }
 
-// geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
+// geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R rows
 template <typename T, typename IO>
 int launch(const void* x, const void* b0, const void* b1, const void* b2,
            const void* c0, const void* c1, const void* c2, const void* acc,
@@ -994,17 +1157,21 @@ int launch(const void* x, const void* b0, const void* b1, const void* b2,
   const int P = geo[6];
   g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
   g.R = geo[11];
+  const int rows = geo[12];
   g.s0 = xstrides[0], g.s1 = xstrides[1], g.s2 = xstrides[2];
   if (!parse_plan(plan, a.p) || g.T1 < 1 || g.T2 < 1 || g.chunk < 1 ||
       !operands_ok(mode, b, out, out_hi))
     return (int)cudaErrorInvalidValue;
+  for (int gi = 0; gi < kCG; ++gi)
+    for (int k = 0; k < kCV; ++k)
+      a.gm[gi][k] = (gi < a.p.ng && k < a.p.nv) ? (T)a.p.g_mult[gi][k] : T(0);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (P) {  // the instantiated half-widths; ops/kron.py pads bands to one
-    case 1: return launch_p<T, 1, IO>(a, st);
-    case 2: return launch_p<T, 2, IO>(a, st);
-    case 3: return launch_p<T, 3, IO>(a, st);
-    case 5: return launch_p<T, 5, IO>(a, st);
-    case 8: return launch_p<T, 8, IO>(a, st);
+    case 1: return launch_p<T, 1, IO>(a, rows, st);
+    case 2: return launch_p<T, 2, IO>(a, rows, st);
+    case 3: return launch_p<T, 3, IO>(a, rows, st);
+    case 5: return launch_p<T, 5, IO>(a, rows, st);
+    case 8: return launch_p<T, 8, IO>(a, rows, st);
     default: return (int)cudaErrorInvalidValue;  // no such kernel: K1r's
   }
 }
@@ -1051,31 +1218,39 @@ int launch_rt_pass(int pass, const void* x, const void* b0, const void* b1,
   return launch_rt<T, IO>(pass, mode, a, (cudaStream_t)stream);
 }
 
+template <typename T, int P, int R, int MODE, typename IO>
+int resources_prm(const Geometry& g, int* out) {
+  return kron::resources_of(kron_march_kernel<T, P, R, MODE, IO>, g.threads,
+                            K1Smem<T, P, R>(g).bytes, out);
+}
+
 template <typename T, int P, int MODE, typename IO>
-int resources_pm(const Geometry& g, int* out) {
-  return kron::resources_of(kron_march_kernel<T, P, MODE, IO>, g.threads,
-                            smem_bytes<P>(g, sizeof(T)), out);
+int resources_pm(const Geometry& g, int rows, int* out) {
+  if constexpr (rows_compiled<P, 2>())
+    if (rows == 2) return resources_prm<T, P, 2, MODE, IO>(g, out);
+  return rows == 1 ? resources_prm<T, P, 1, MODE, IO>(g, out)
+                   : (int)cudaErrorInvalidConfiguration;
 }
 
 template <typename T, int MODE, typename IO>
-int resources_m(const Geometry& g, int P, int* out) {
+int resources_m(const Geometry& g, int P, int rows, int* out) {
   switch (P) {
-    case 1: return resources_pm<T, 1, MODE, IO>(g, out);
-    case 2: return resources_pm<T, 2, MODE, IO>(g, out);
-    case 3: return resources_pm<T, 3, MODE, IO>(g, out);
-    case 5: return resources_pm<T, 5, MODE, IO>(g, out);
-    case 8: return resources_pm<T, 8, MODE, IO>(g, out);
+    case 1: return resources_pm<T, 1, MODE, IO>(g, rows, out);
+    case 2: return resources_pm<T, 2, MODE, IO>(g, rows, out);
+    case 3: return resources_pm<T, 3, MODE, IO>(g, rows, out);
+    case 5: return resources_pm<T, 5, MODE, IO>(g, rows, out);
+    case 8: return resources_pm<T, 8, MODE, IO>(g, rows, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T, typename IO>
-int resources_t(int mode, const Geometry& g, int P, int* out) {
+int resources_t(int mode, const Geometry& g, int P, int rows, int* out) {
   switch (mode) {
-    case kApply: return resources_m<T, kApply, IO>(g, P, out);
-    case kResidual: return resources_m<T, kResidual, IO>(g, P, out);
-    case kDinv: return resources_m<T, kDinv, IO>(g, P, out);
-    case kCheb: return resources_m<T, kCheb, IO>(g, P, out);
+    case kApply: return resources_m<T, kApply, IO>(g, P, rows, out);
+    case kResidual: return resources_m<T, kResidual, IO>(g, P, rows, out);
+    case kDinv: return resources_m<T, kDinv, IO>(g, P, rows, out);
+    case kCheb: return resources_m<T, kCheb, IO>(g, P, rows, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1176,11 +1351,12 @@ int kron_apply_resources(int dtype, int mode, int pass, const int* geo,
   const int P = geo[6];
   g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
   g.R = geo[11];
+  const int rows = geo[12];
   g.s0 = (int64_t)g.n1 * g.n2, g.s1 = g.n2, g.s2 = 1;
   switch (dtype) {
-    case 0: return resources_t<float, float>(mode, g, P, out);
-    case 1: return resources_t<double, double>(mode, g, P, out);
-    case 2: return resources_t<float, __nv_bfloat16>(mode, g, P, out);
+    case 0: return resources_t<float, float>(mode, g, P, rows, out);
+    case 1: return resources_t<double, double>(mode, g, P, rows, out);
+    case 2: return resources_t<float, __nv_bfloat16>(mode, g, P, rows, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

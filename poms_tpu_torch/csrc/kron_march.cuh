@@ -16,10 +16,12 @@
 //
 // A bf16 field cannot take this route: cp.async copies 4, 8 or 16 bytes,
 // never 2, and the rows of a 2^k+1 field in bf16 are only 2-byte aligned, so
-// pairs cannot be copied either.  fill_element() then loads the value with a
-// plain load, converts it and stores f32 into the same window; the ring keeps
-// its order (a window is still written a barrier after its last read), only
-// the overlap of the copy with the arithmetic is lost.
+// pairs cannot be copied either.  load_window() then loads the values with
+// plain loads (kLoadBatch of them asked for before any is stored, so that
+// their trips to memory overlap), converts them and stores f32 into the same
+// window; the ring keeps its order (a window is still written a barrier
+// after its last read), only the overlap of the copy with the arithmetic is
+// lost.
 
 #pragma once
 
@@ -71,23 +73,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// one window element from a field stored as IO into a window of T: the
-// asynchronous copy where the two types are the same, else load, convert,
-// store
-template <typename T, typename IO>
-__device__ __forceinline__ void fill_element(T* smem_dst,
-                                             const IO* gmem_src) {
-  if constexpr (sizeof(IO) == sizeof(T)) {
-    cp_async_zfill<sizeof(T)>(smem_dst, gmem_src, true);
-  } else {
-    *smem_dst = io::up(*gmem_src);
-  }
-}
-
 // soff[e], e = rr * WC + cc: element offset within a plane of x of window
 // element (rr, cc) of the tile at (j0, l0), or -1 where the index rule gives
-// a zero
-__device__ __forceinline__ void build_window_offsets(int64_t* soff,
+// a zero (Off: the table's type, int64_t or, where a plane's offsets fit,
+// int)
+template <typename Off>
+__device__ __forceinline__ void build_window_offsets(Off* soff,
                                                      const Geometry& g, int P,
                                                      int j0, int l0) {
   const int WR = g.T1 + 2 * P, WC = g.T2 + 2 * P;
@@ -99,20 +90,38 @@ __device__ __forceinline__ void build_window_offsets(int64_t* soff,
   }
 }
 
+// plain loads of a bf16 window asked for at once, per thread
+constexpr int kLoadBatch = 4;
+
 // start the copy of plane gq (>= 0) of x into win, from window element
-// `first` on
-template <typename T, typename IO>
+// `first` on; a thread copies the elements whose offsets it wrote in
+// build_window_offsets (the same stride over the block)
+template <typename T, typename IO, typename Off>
 __device__ __forceinline__ void load_window(T* win, const IO* __restrict__ x,
-                                            const int64_t* soff, int count,
+                                            const Off* soff, int count,
                                             int64_t plane_base,
                                             int first = 0) {
-  for (int e = first + threadIdx.x; e < count; e += blockDim.x) {
-    const int64_t o = soff[e];
-    if constexpr (sizeof(IO) == sizeof(T)) {
+  if constexpr (sizeof(IO) == sizeof(T)) {
+    for (int e = first + threadIdx.x; e < count; e += blockDim.x) {
+      const int64_t o = soff[e];
       cp_async_zfill<sizeof(T)>(win + e, x + (o < 0 ? 0 : plane_base + o),
                                 o >= 0);
-    } else {
-      win[e] = o >= 0 ? io::up(x[plane_base + o]) : T(0);
+    }
+  } else {
+    for (int e0 = first + threadIdx.x; e0 < count;
+         e0 += kLoadBatch * blockDim.x) {
+      T v[kLoadBatch];
+#pragma unroll
+      for (int k = 0; k < kLoadBatch; ++k) {
+        const int e = e0 + k * blockDim.x;
+        const int64_t o = e < count ? (int64_t)soff[e] : -1;
+        v[k] = o >= 0 ? io::up(x[plane_base + o]) : T(0);
+      }
+#pragma unroll
+      for (int k = 0; k < kLoadBatch; ++k) {
+        const int e = e0 + k * blockDim.x;
+        if (e < count) win[e] = v[k];
+      }
     }
   }
 }

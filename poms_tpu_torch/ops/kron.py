@@ -58,7 +58,9 @@ __all__ = ["MODES", "kron_apply", "kron_apply_plain", "kron_mode",
            "band_labels",
            "sharing_plan", "chunk_terms", "build_kron_plan", "plan_scratch",
            "plan_apply",
-           "diagonal_from_columns", "kron_tiling", "k1_step_cost", "KronPlan",
+           "diagonal_from_columns", "kron_tiling", "k1_step_cost",
+           "k1_smem_bytes", "rows_options", "k1_tiling", "warp_widths",
+           "KronPlan",
            "stack_bands", "refuse_half_width", "COMPILED_P",
            "INSTANTIATED_P", "k1r_smem",
            "k1r_pass_smem", "k1r_step_cost", "runtime_tiling",
@@ -71,9 +73,10 @@ _KERNELS = {torch.float32: "kron_apply_f32", torch.float64: "kron_apply_f64",
             torch.bfloat16: "kron_apply_bf16"}
 _KERNELS_RT = {dt: name.replace("apply_", "apply_rt_")
                for dt, name in _KERNELS.items()}
-# mirrored in csrc/kron_apply.cu (kCU, kCV, kCG, the instantiated half-widths,
-# kMaxThreads, columns and min_blocks): partials one launch may hold per axis,
-# and the half-widths K1 is compiled at (every dtype)
+# mirrored in csrc/kron_apply.cu (kCU, kCV, kCG, the instantiated
+# half-widths, kMaxThreads, columns, rows_compiled and min_blocks): partials
+# one launch may hold per axis, and the half-widths K1 is compiled at (every
+# dtype)
 CAPS = {"u": 2, "v": 3, "g": 2}
 INSTANTIATED_P = (1, 2, 3, 5, 8)
 # The half-widths plans take the compiled K1 at (``build_kron_plan``'s
@@ -84,8 +87,18 @@ INSTANTIATED_P = (1, 2, 3, 5, 8)
 # compiled.  K5 routes by ops/twofloat.py::COMPILED_P_DW.
 COMPILED_P = (1, 2, 3)
 SM_COUNT = 132   # H100 SXM: the tiling's cost model where no card is asked
+SM_SMEM = 233472          # shared memory of an H100 SM, for blocks an SM
+SM_REGS = 65536           # registers of an H100 SM
 MAX_THREADS = 256         # block size limit
 STAGES = 4                # kron::kStages: window buffers in the ring
+K1_DIAG_TERMS = 3         # kRD: terms whose diagonal columns K1 tabulates
+# K1's cost model (k1_step_cost) per micro-tile height (rows a thread), µs:
+# fitted to a sweep of tilings at both heights on an H100
+# (bench/k1_compare.py --sweep)
+K1_COST = {2: {"step": 1.22, "halo2": 2.499e-04, "halo1": 2.893e-04,
+               "segment": 1.41e-04, "block": 0.5361},
+           1: {"step": 0.9831, "halo2": 2.822e-04, "halo1": 2.659e-04,
+               "segment": 5.436e-05, "block": 0.749}}
 # the run-time kernels (K1r, K5r: three one-axis passes, csrc/kron_pass.cuh):
 # 32 columns a warp in the strided passes, at most 8 warps a block; K1r's
 # pass A owns 2 columns of RT_ROWS_A rows a thread, its passes B and C
@@ -115,23 +128,87 @@ def columns_per_thread(itemsize: int, P: int) -> int:
     return 2 if itemsize == 4 and P <= 3 else 1
 
 
-def k1_step_cost(itemsize: int, P: int):
-    """K1's cost model for :func:`kron_tiling`, in µs, fitted to a sweep of
-    tilings at 129³, 65³, 33³ and 17³ (p = 3, f32) on an H100: a plane step
-    costs 1 µs (two barriers and a chain of short phases) plus 1.5 ns per
-    thread resident on the SM (×1.6 where the axis-2 pass needs a second
-    round for the halo rows), a block 2 µs to start; two blocks share an SM
-    where 128 registers a thread suffice (f32, P ≤ 3)."""
-    threads_per_sm = 512 if columns_per_thread(itemsize, P) == 2 else 256
+def rows_options(P: int) -> Tuple[int, ...]:
+    """Tile rows one thread may own in K1 (its register micro-tile is rows
+    × :func:`columns_per_thread`; csrc/kron_apply.cu::rows_compiled): 2 or
+    1 at P ≤ 3, which the tile model chooses per grid with the tile (2
+    where blocks fill the SMs, 1 on coarse grids, where a thread's chain of
+    work sets the pace); 1 for the wider bands."""
+    return (2, 1) if P <= 3 else (1,)
+
+
+def warp_widths(cols: int, rows: int) -> Tuple[int, ...]:
+    """K1's tile widths offered besides those that divide axis 2 evenly:
+    where a thread owns two rows, the widths whose row groups of threads
+    owning ``cols`` columns fill 8, 16 or 32 lanes (at 513³ and 257³ the
+    64-wide tile beat every even width on an H100, its last tile ragged);
+    none at one row."""
+    if rows == 1:
+        return ()
+    return tuple(cols * lanes for lanes in (8, 16, 32))
+
+
+def k1_smem_bytes(itemsize: int, P: int, T1: int, T2: int, chunk: int,
+                  rows: int) -> int:
+    """Shared memory of a K1 block (csrc/kron_apply.cu, ``K1Smem``): the
+    ring of window buffers (``STAGES`` planes in flight and, at P ≤ 3,
+    the P + 1 of the outputs still open, whose x the epilogue reads from
+    them), the u partials of two planes, the axis-1 band table (``rows``
+    a thread), the axis-0 band rows of the run, the diagonal's centre
+    columns and the window's int32 source offsets, each section 16-byte
+    aligned."""
+    def up16(b):
+        return -(-b // 16) * 16
+
+    WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
+    sizes = ((STAGES + (P + 1 if P <= 3 else 0)) * WR * WC * itemsize,
+             2 * CAPS["u"] * WR * T2 * itemsize,
+             CAPS["v"] * T1 * (rows + 2 * P) * itemsize,
+             CAPS["g"] * (chunk + 4 * P) * W * itemsize,
+             K1_DIAG_TERMS * (chunk + T1 + T2) * itemsize, WR * WC * 4)
+    return sum(up16(s) for s in sizes)
+
+
+def k1_step_cost(itemsize: int, P: int, rows: int = 1):
+    """K1's cost model for :func:`kron_tiling` at ``rows`` rows a thread,
+    in µs, its constants ``K1_COST[rows]`` fitted to a sweep of tilings at
+    the headline solve's level shapes (513³ to 9³, p = 3, f32,
+    ``bench/k1_compare.py --sweep``) on an H100: blocks run in waves of as
+    many as an SM holds (by its registers, 128 a thread where that
+    suffices, f32 at P ≤ 3, else 255, and by its shared memory); a block
+    marches over its run's planes and 2P more, a step costing
+    ``"step"`` (its barrier and the latency of its chain) plus the work of
+    the points the SM's resident blocks hold, but never fewer than four
+    warps' (one a scheduler: below that a thread's own chain sets the
+    pace, which is why a thread owning one row wins on coarse grids): per
+    point, the axis-2 halo (window columns over tile columns, ``"halo2"``),
+    the axis-1 halo (window rows over tile rows, ``"halo1"``) and the rows
+    of the tile a warp's threads touch (``"segment"`` each: a warp of one
+    row group reads and writes whole runs of a row), all scaled by the
+    taps; each block adds ``"block"`` over the SMs (its start and set-up).
+    Infinite for a block over the card's shared memory."""
+    regs = 128 if itemsize == 4 and P <= 3 else 255
+    cols = columns_per_thread(itemsize, P)
+    taps = (2 * P + 1) / 7
+    k = K1_COST[rows]
 
     def cost(T1, T2, threads, chunk, blocks, sms):
-        per_sm = max(1, threads_per_sm // threads)
+        smem = k1_smem_bytes(itemsize, P, T1, T2, chunk, rows)
+        if smem > K2_SMEM:
+            return math.inf
+        per_sm = max(1, min(SM_REGS // (regs * threads),
+                            SM_SMEM // (smem + 1024), 32))
         waves = math.ceil(blocks / (sms * per_sm))
         resident = min(per_sm, math.ceil(blocks / waves / sms))
-        rounds = math.ceil((T1 + 2 * P) / T1)
-        step = 1.0 + (0.0015 * threads * resident * (1 + 0.6 * (rounds - 1))
-                      * (2 * P + 1) / 7)
-        return waves * (2.0 + (chunk + 2 * P) * step)
+        nc = T2 // cols   # threads of a row group
+        segments = (32 // nc + (32 % nc > 0) if nc <= 32
+                    else 1 + (nc % 32 > 0))
+        points = max(resident * T1 * T2, 4 * 32 * rows * cols)
+        work = points * taps * (k["halo2"] * (T2 + 2 * P) / T2
+                                + k["halo1"] * (T1 + 2 * P) / T1
+                                + k["segment"] * segments)
+        return (waves * (chunk + 2 * P) * (k["step"] + work)
+                + k["block"] * blocks / sms)
 
     return cost
 
@@ -385,22 +462,30 @@ def chunk_terms(labels, caps: dict = CAPS) -> List[List[int]]:
     return chunks
 
 
-def _tiles(n3, threads_max: int, cols: int):
+def _tiles(n3, threads_max: int, cols: int, rows: int = 1,
+           extra: Sequence[int] = ()):
     """The compiled kernels' candidate (T1, T2, chunk, blocks): tile widths
-    of 16 to 64 columns, the tallest tile for three block sizes, up to 64
-    runs of planes."""
+    of 16 to 64 columns that divide axis 2 evenly, and the ``extra`` widths
+    narrower than axis 2 (K1's :func:`warp_widths`); the tallest tile for
+    three block sizes (a thread owning ``rows`` × ``cols`` points, T1 a
+    multiple of ``rows``); up to 64 runs of planes."""
     n0, n1, n2 = n3
     t2_cap = threads_max * cols if n1 == 1 else 64
     k2_min = math.ceil(n2 / t2_cap)
+    widths = []   # (T2, tiles along axis 2)
     for k2 in range(k2_min, min(n2, k2_min + 63) + 1):
         T2 = cols * math.ceil(n2 / k2 / cols)
         if T2 < min(16, n2):
             break
+        widths.append((T2, k2))
+    widths += [(T2, math.ceil(n2 / T2)) for T2 in extra
+               if T2 < n2 and T2 not in (w for w, _ in widths)]
+    for T2, k2 in widths:
         for budget in (threads_max, threads_max // 2, threads_max // 4):
             if budget < T2 // cols:
                 continue
-            k1 = math.ceil(n1 / (budget // (T2 // cols)))
-            T1 = math.ceil(n1 / k1)
+            k1 = math.ceil(n1 / (budget // (T2 // cols) * rows))
+            T1 = rows * math.ceil(math.ceil(n1 / k1) / rows)
             for nchunks in range(1, min(n0, 64) + 1):
                 chunk = math.ceil(n0 / nchunks)
                 if math.ceil(n0 / chunk) == nchunks:
@@ -408,31 +493,60 @@ def _tiles(n3, threads_max: int, cols: int):
 
 
 def kron_tiling(n3, P: int, threads_max: int, cost, sms: int = SM_COUNT,
-                cols: int = 1):
+                cols: int = 1, rows: int = 1, extra: Sequence[int] = ()):
     """(T1, T2, chunk): a block owns a T1 × T2 column of the (axis 1,
     axis 2) grid and marches over ``chunk`` output planes of axis 0; a
-    thread owns ``cols`` neighbouring columns (T2 is a multiple of it).
+    thread owns ``rows`` × ``cols`` neighbouring points (T1 and T2 are
+    multiples of them).
 
     Tiles divide each axis evenly (a 2^k+1 grid gets no nearly empty last
-    tile).  Among tile widths of 16 to 64 columns, three block sizes and up
-    to 64 runs of planes the one with the least modelled time is taken:
+    tile), but for the ``extra`` widths offered (K1's :func:`warp_widths`):
+    those are taken only narrower than axis 2, and their last tile along it
+    may be ragged (fewer than half its columns idle; the cost model weighs
+    the idle lanes).  Among tile widths of 16 to 64 columns, three block
+    sizes and up to 64 runs of planes the one with the least modelled time
+    is taken:
     ``cost(T1, T2, threads, chunk, blocks, sms)`` is the kernel's own model
     (K1's: :func:`k1_step_cost`), infinite for a block that does not fit.
     Splitting axis 0 adds 2P halo planes per run but fills the SMs at small
     grids.
     """
-    def least(tiles, best=None):
-        for T1, T2, chunk, blocks in tiles:
-            threads = 32 * math.ceil(T1 * (T2 // cols) / 32)
-            c = cost(T1, T2, threads, chunk, blocks, sms)
-            if best is None or c < best[0]:
-                best = (c, T1, T2, chunk)
-        return best
-
-    best = least(_tiles(n3, threads_max, cols))
+    best = _least_tiling(n3, threads_max, cost, sms, cols, rows, extra)
     if best is None or math.isinf(best[0]):
         raise ValueError(f"no tiling of {n3} at half-width {P} fits a block")
     return best[1:]
+
+
+def _least_tiling(n3, threads_max, cost, sms, cols, rows, extra):
+    """(modelled time, T1, T2, chunk) of :func:`kron_tiling`'s choice, or
+    None where ``_tiles`` offers nothing."""
+    best = None
+    for T1, T2, chunk, blocks in _tiles(n3, threads_max, cols, rows, extra):
+        threads = 32 * math.ceil(T1 // rows * (T2 // cols) / 32)
+        c = cost(T1, T2, threads, chunk, blocks, sms)
+        if best is None or c < best[0]:
+            best = (c, T1, T2, chunk)
+    return best
+
+
+def k1_tiling(n3, P: int, itemsize: int, threads_max: int = MAX_THREADS,
+              sms: int = SM_COUNT, cols: Optional[int] = None,
+              rows: Sequence[int] = None, cost=None, widths=None):
+    """(rows, (T1, T2, chunk)): K1's micro-tile height, among ``rows``
+    (default :func:`rows_options`), and tile, the pair with the least
+    modelled time (``cost(rows)``, default :func:`k1_step_cost`; the extra
+    widths ``widths(rows)``, default :func:`warp_widths`)."""
+    cols = columns_per_thread(itemsize, P) if cols is None else cols
+    best = None
+    for R in rows_options(P) if rows is None else rows:
+        c = (k1_step_cost(itemsize, P, R) if cost is None else cost(R))
+        w = warp_widths(cols, R) if widths is None else widths(R)
+        got = _least_tiling(n3, threads_max, c, sms, cols, R, w)
+        if got is not None and (best is None or got[0] < best[0][0]):
+            best = (got, R)
+    if best is None or math.isinf(best[0][0]):
+        raise ValueError(f"no tiling of {n3} at half-width {P} fits a block")
+    return best[1], best[0][1:]
 
 
 @dataclass
@@ -457,6 +571,7 @@ class KronPlan:
     dtype: torch.dtype
     device: torch.device
     runtime: bool = False         # P is no compiled half-width: K1r / K5r
+    trows: int = 1                # tile rows per thread
     bands_lo: Optional[List[torch.Tensor]] = None   # K5: the lo words
     # K1r / K5r on the card: the passes' scratch (see build_kron_plan) and
     # their band tables per launch shape (k1r_tables, twofloat.k5r_tables)
@@ -557,7 +672,9 @@ def plan_scratch(numel: int, dtype: torch.dtype,
 
 def build_kron_plan(terms, npts, pads, periodic, labels=None,
                     threads_max: int = MAX_THREADS,
-                    tcols: Optional[int] = None, cost=None,
+                    tcols: Optional[int] = None,
+                    trows: Optional[Sequence[int]] = None,
+                    widths: Optional[Sequence[int]] = None, cost=None,
                     caps: dict = CAPS,
                     half_widths: Sequence[int] = COMPILED_P,
                     smem=None, what: str = "K1r",
@@ -567,8 +684,11 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     """Everything a launch needs besides the fields, once per operator.
     ``labels[a][r]`` (default: identity of the band tensors) names the
     sharing; ``threads_max``, ``tcols`` (default: K1's columns per thread
-    for the dtype and half-width) and ``cost`` (default: K1's model, or
-    K1r's) shape the tile; ``caps`` bound a launch's partials
+    for the dtype and half-width), ``trows`` (the rows per thread to choose
+    among with the tile, default: K1's :func:`rows_options`), ``widths``
+    (tile widths offered besides the even ones, default: K1's
+    :func:`warp_widths`) and ``cost`` (default: K1's model at each row
+    count, or K1r's) shape the tile; ``caps`` bound a launch's partials
     (:func:`chunk_terms`); the bands are padded to the first of
     ``half_widths`` (default: ``COMPILED_P``) that holds them, else the
     plan is the run-time kernel's (``runtime``), at the bands' own
@@ -616,14 +736,16 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     chunks = chunk_terms(labels, caps)
     if tcols is None:
         tcols = 1 if runtime else columns_per_thread(itemsize, P)
-    if cost is None:
-        cost = (k1r_step_cost if runtime else k1_step_cost)(itemsize, P)
     sms = (torch.cuda.get_device_properties(first.device).multi_processor_count
            if first.device.type == "cuda" else SM_COUNT)
     tiling, scratch = None, None
     if not runtime:
-        tiling = kron_tiling(n3, P, threads_max, cost, sms, tcols)
+        trows, tiling = k1_tiling(
+            n3, P, itemsize, threads_max, sms, tcols, trows,
+            None if cost is None else lambda R: cost,
+            None if widths is None else lambda R: widths)
     elif smem(P, *SMALLEST_BLOCK) <= K2_SMEM:
+        cost = k1r_step_cost(itemsize, P) if cost is None else cost
         tiling = runtime_tiling(n3, P, cost, sms, rt_cols)
         if first.device.type == "cuda":
             scratch = plan_scratch(scratch_words * math.prod(n3),
@@ -636,7 +758,8 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
         bands=stack_bands(terms, labels, n3, pads3, P), cols=cols,
         chunks=chunks, plans=[sharing_plan(labels, c) for c in chunks],
         tiling=tiling, tcols=tcols, dtype=first.dtype, device=first.device,
-        runtime=runtime, scratch=scratch)
+        runtime=runtime, trows=1 if trows is None else trows,
+        scratch=scratch)
     if scratch is not None and k1r:
         k1r_tables(plan)   # made here, before any graph captures a launch
     return plan
@@ -807,9 +930,9 @@ def _geometry_ints(plan: KronPlan, tiling) -> list:
         return [*plan.n3, *(int(q) for q in plan.per3), plan.P,
                 plan.n_terms, TL, (LANES * wa) // (TL // 2), wb, wc]
     T1, T2, chunk = tiling
-    threads = 32 * math.ceil(T1 * (T2 // plan.tcols) / 32)
+    threads = 32 * math.ceil(T1 // plan.trows * (T2 // plan.tcols) / 32)
     return [*plan.n3, *(int(q) for q in plan.per3), plan.P, T1, T2, chunk,
-            threads, plan.n_terms]
+            threads, plan.n_terms, plan.trows]
 
 
 def _plan_ints(sp: dict) -> list:

@@ -321,7 +321,8 @@ def build_kron_df_plan(terms_df, npts, pads, periodic=None, labels=None,
     P = _compiled_half_width(pads, half_widths)
     runtime = P not in half_widths
     plan = build_kron_plan(hi, npts, pads, periodic, labels=labels,
-                           threads_max=MAX_THREADS_DW, tcols=1,
+                           threads_max=MAX_THREADS_DW, tcols=1, trows=(1,),
+                           widths=(),
                            cost=k5_step_cost(P, histories, runtime),
                            caps=CAPS_DW, half_widths=half_widths,
                            smem=k5r_smem(histories),

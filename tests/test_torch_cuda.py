@@ -26,7 +26,7 @@ from poms_tpu_torch.ops import transfer as k7
 from poms_tpu_torch.ops.kron import (INSTANTIATED_P, MODES as K1_MODES,
                                      build_kron_plan, kron_apply,
                                      kron_apply_plain, kron_mode,
-                                     kron_mode_plain)
+                                     kron_mode_plain, rows_options)
 from poms_tpu_torch.ops.stencil import (MODES, color_mask, stencil_apply,
                                         stencil_apply_plain)
 from poms_tpu_torch.ops.stencil_v2 import (pack_band_v2, stencil_apply_v2,
@@ -1387,25 +1387,36 @@ def test_k1r_modes_match_plain(dev, npts, pads, periodic, free, mode, dtype):
     ((33, 35, 70), (3, 3, 3), (False,) * 3, 0),
     ((20, 22, 41), (8, 8, 8), (True,) * 3, 0),
     ((18, 19, 37), (8, 8, 8), (False,) * 3, 4),
-    ((40, 300), (3, 3), (False, True), 0)])
+    ((40, 300), (3, 3), (False, True), 0),
+    # half-widths 1 and 2; odd rows and columns leave the last micro-tile
+    # (two rows by two columns) ragged; axis 0 cut into many runs
+    ((23, 17, 41), (1, 1, 1), (False,) * 3, 0),
+    ((21, 25, 33), (2, 2, 2), (True, False, True), 0),
+    ((20, 21, 19), (2, 1, 2), (False,) * 3, 4),
+    ((300, 29, 35), (3, 3, 3), (False,) * 3, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16],
                          ids=["f32", "f64", "bf16"])
 def test_k1r_equals_the_compiled_kernel(dev, npts, pads, periodic, free,
                                         dtype):
-    """At half-widths 3 and 8 K1r (a plan with no compiled half-width)
-    gives the compiled kernel's values in every mode: the same operations
-    in the same order."""
+    """At half-widths 1, 2, 3 and 8 K1r (a plan with no compiled
+    half-width) gives the compiled kernel's values in every mode, at every
+    micro-tile height compiled there (two rows a thread or one at P <= 3):
+    the same operations in the same order."""
     for mode in K1_MODES + ("cheb0",):
         terms, x, real, kw = _k1_case(npts, pads, dtype, dev, free, mode)
-        compiled = build_kron_plan(terms, npts, pads, periodic,
-                                   half_widths=INSTANTIATED_P)
         runtime = build_kron_plan(terms, npts, pads, periodic,
                                   half_widths=())
-        assert not compiled.runtime and runtime.runtime
-        assert compiled.P == runtime.P == max(pads)
-        for g, w in zip(_on_card(real, runtime, x, kw),
-                        _on_card(real, compiled, x, kw)):
-            assert torch.equal(g, w), (mode, float((g - w).abs().max()))
+        assert runtime.runtime and runtime.P == max(pads)
+        for rows in rows_options(max(pads)):
+            compiled = build_kron_plan(terms, npts, pads, periodic,
+                                       half_widths=INSTANTIATED_P,
+                                       trows=(rows,))
+            assert not compiled.runtime and compiled.P == max(pads)
+            assert compiled.trows == rows
+            for g, w in zip(_on_card(real, runtime, x, kw),
+                            _on_card(real, compiled, x, kw)):
+                assert torch.equal(g, w), (mode, rows,
+                                           float((g - w).abs().max()))
 
 
 def _k5_terms(npts, pads, dev, four, free=0):

@@ -10,6 +10,8 @@ executed or checked in Python, where it can be tested without a card; the
 CUDA kernel itself is held against the plain version in
 tests/test_torch_cuda.py.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -258,42 +260,67 @@ def test_plan_geometry_and_bands(npts, pads, periodic):
 @pytest.mark.parametrize("P,threads,cols", [(1, 256, 2), (3, 256, 2),
                                             (3, 256, 1), (8, 128, 1)])
 def test_tiling_fits_a_block(n3, P, threads, cols):
-    T1, T2, chunk = kron_tiling(n3, P, threads,
-                                kron.k1_step_cost(4 if cols == 2 else 8, P),
-                                cols=cols)
-    assert 1 <= T1 <= n3[1] and 1 <= chunk <= n3[0]
-    assert 1 <= T2 < n3[2] + cols and T2 % cols == 0
-    assert T1 * (T2 // cols) <= threads
-    # tiles divide the axes evenly: the last one misses at most ``cols``
-    # points per tile of its axis
-    for n, T, c in ((n3[1], T1, 1), (n3[2], T2, cols)):
-        tiles = -(-n // T)
-        assert 0 <= tiles * T - n < c * tiles
+    itemsize = 4 if cols == 2 else 8
+    for rows in kron.rows_options(P):
+        extra = kron.warp_widths(cols, rows)
+        T1, T2, chunk = kron_tiling(n3, P, threads,
+                                    kron.k1_step_cost(itemsize, P, rows),
+                                    cols=cols, rows=rows, extra=extra)
+        assert 1 <= T1 < n3[1] + rows and 1 <= chunk <= n3[0]
+        assert 1 <= T2 < n3[2] + cols and T2 % cols == 0 and T1 % rows == 0
+        assert (T1 // rows) * (T2 // cols) <= threads
+        # tiles divide the axes evenly: the last one misses at most
+        # ``rows`` (``cols``) points per tile of its axis
+        tiles1, tiles2 = -(-n3[1] // T1), -(-n3[2] // T2)
+        assert 0 <= tiles1 * T1 - n3[1] < rows * tiles1
+        ragged = tiles2 * T2 - n3[2]
+        if T2 in extra and ragged >= cols * tiles2:
+            # but for a width whose row groups fill whole warps (K1 at two
+            # rows a thread), ragged by design: it is offered only narrower
+            # than the axis, so its last tile holds a point and fewer than
+            # half its columns idle (11% at 513, 20% at 257, 47% at 17,
+            # where the 16-wide tile measured 3-6% faster on an H100 than
+            # the even 18-wide one)
+            assert T2 < n3[2] and ragged < T2 and 2 * ragged < tiles2 * T2
+        else:
+            assert 0 <= ragged < cols * tiles2
 
 
-@pytest.mark.parametrize("n,tiling", [(129, (11, 44, 19)), (65, (13, 34, 5)),
-                                      (33, (17, 18, 1)), (17, (6, 18, 1))])
-def test_tiling_model_at_the_level_shapes(n, tiling):
-    """K1's cost model (f32, p = 3, two columns a thread, 132 SMs) picks the
-    tilings it was fitted to reproduce; each was within 6% of the best of a
-    sweep on an H100 (`bench/k1_compare.py --sweep`)."""
-    assert kron_tiling((n,) * 3, 3, kron.MAX_THREADS, kron.k1_step_cost(4, 3),
-                       cols=2) == tiling
+@pytest.mark.parametrize("n,rows,tiling", [
+    (513, 2, (16, 64, 65)), (257, 2, (18, 52, 37)), (129, 1, (11, 44, 19)),
+    (65, 1, (13, 34, 5)), (33, 1, (17, 18, 1)), (17, 1, (9, 18, 1)),
+    (9, 1, (9, 10, 1))])
+def test_tiling_model_at_the_level_shapes(n, rows, tiling):
+    """K1's cost model (f32, p = 3, two columns a thread, 132 SMs) picks
+    these micro-tile heights and tilings at the headline solve's level
+    shapes: two rows a thread on the fine grids, one on the coarse ones;
+    each was the best of a sweep of both heights on an H100 or within 4%
+    of it (`bench/k1_compare.py --sweep`)."""
+    assert kron.k1_tiling((n,) * 3, 3, 4) == (rows, tiling)
 
 
 def test_k1_step_cost_shape():
     """The model's terms: a second wave of blocks costs, more planes cost,
     f64 (255 registers a thread) fits one 256-thread block an SM where f32
-    at p ≤ 3 fits two."""
-    f32, f64 = kron.k1_step_cost(4, 3), kron.k1_step_cost(8, 3)
-    one_wave = f32(11, 44, 256, 19, 264, 132)
-    assert f32(11, 44, 256, 19, 265, 132) > 1.9 * one_wave
-    assert f32(11, 44, 256, 20, 264, 132) > one_wave
-    assert f64(11, 44, 256, 19, 264, 132) == pytest.approx(
-        2 * f64(11, 44, 256, 19, 132, 132))
-    assert f32(11, 44, 256, 19, 132, 132) < one_wave   # half-filled SMs
+    at p ≤ 3 fits two, a row group that fills its warps costs less than
+    one whose warps reach into the next row, and a block over the card's
+    shared memory cannot run."""
+    f32, f64 = kron.k1_step_cost(4, 3, 2), kron.k1_step_cost(8, 3, 2)
+    one_wave = f32(16, 64, 256, 65, 264, 132)
+    assert f32(16, 64, 256, 65, 265, 132) > 1.9 * one_wave
+    assert f32(16, 64, 256, 66, 264, 132) > one_wave
+    assert f64(16, 64, 256, 65, 264, 132) == pytest.approx(
+        2 * f64(16, 64, 256, 65, 132, 132))
+    assert f32(16, 64, 256, 65, 132, 132) < one_wave   # half-filled SMs
+    assert f32(16, 58, 256, 65, 264, 132) > one_wave   # 29 lanes a row
+    assert f32(16, 64, 256, 4000, 264, 132) == math.inf
     assert kron.columns_per_thread(4, 3) == 2
     assert kron.columns_per_thread(8, 3) == kron.columns_per_thread(4, 5) == 1
+    assert kron.rows_options(3) == kron.rows_options(1) == (2, 1)
+    assert kron.rows_options(5) == kron.rows_options(8) == (1,)
+    assert kron.warp_widths(2, 2) == (16, 32, 64)
+    assert kron.warp_widths(1, 2) == (8, 16, 32)
+    assert kron.warp_widths(2, 1) == kron.warp_widths(1, 1) == ()
 
 
 def test_kron_mode_argument_checks():

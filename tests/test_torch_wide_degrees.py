@@ -408,9 +408,8 @@ def test_compiled_tilings_are_unchanged():
                                     for n in (129,) * 3]], (129,) * 3,
                                   (P,) * 3, (False,) * 3,
                                   half_widths=k1.INSTANTIATED_P)
-        assert not plan.runtime and plan.tiling == k1.kron_tiling(
-            (129,) * 3, P, k1.MAX_THREADS, k1.k1_step_cost(4, P),
-            cols=k1.columns_per_thread(4, P))
+        assert not plan.runtime and (plan.trows, plan.tiling) == (
+            k1.k1_tiling((129,) * 3, P, 4))
     runtime = k1.build_kron_plan([[torch.zeros(129, 7)] * 3], (129,) * 3,
                                  (3,) * 3, (False,) * 3, half_widths=())
     assert runtime.runtime and runtime.P == 3 and runtime.tcols == 1
