@@ -3,9 +3,13 @@ the check of the window's solutions against the plain reference.
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``,
 its configuration in the file that names, its traffic in
-``benchmark/traffic/<traffic>.json``, and each metric's reader in
-``benchmark/metrics/<metric>.py``.  A later cell, configuration, traffic mix
-or metric is a new file and a new entry; no file here names one.
+``benchmark/traffic/<traffic>.json``, each metric's reader in
+``benchmark/metrics/<metric>.py``, and the kinds its configuration names
+(:func:`kinds`): the program's problem in ``benchmark/problems/<kind>.py``,
+its solver in ``benchmark/solvers/<kind>.py`` and the plain reference's
+side of the problem in ``benchmark/reference/kinds/<kind>.py``.  A later
+cell, configuration, traffic mix, metric, problem, solver or reference is a
+new file and a new entry; no file here names one.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ from benchmark import work
 from benchmark.reference import check as ref_check
 from benchmark.reference import rhs
 
-__all__ = ["ROOT", "manifest", "cell", "metric_names", "reader", "Context",
-           "build", "run", "FORBIDDEN"]
+__all__ = ["ROOT", "manifest", "cell", "metric_names", "reader", "kinds",
+           "Context", "build", "run", "FORBIDDEN"]
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "poms_tpu")
@@ -40,6 +44,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "poms_tpu")
 # keys split K1r's and K5r's launches by pass, ``@dtype`` by dtype)
 HAND_KERNELS = ("kron_mode", "residual_kron_df", "dw_reduce", "dw_update",
                 "transfer", "stencil_apply", "stencil_apply_v2")
+DTYPES = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
+# where each kind a configuration names is found: the problem's kind (its
+# ``problem.kind``, "poisson" where it names none) selects the program's
+# problem and the reference's side of it, ``solver.kind`` the solver
+KIND_DIRS = {"problem": "benchmark/problems", "solver": "benchmark/solvers",
+             "reference": "benchmark/reference/kinds"}
 EAGER_STEPS = 3            # eager steps the rooflines are read over
 PROFILED_S = 0.5           # whole solves replayed under the profiler: about
 PROFILED_MAX = 10          # this long, at least 2 and at most this many
@@ -73,14 +83,36 @@ def metric_names(man: dict, name: str, traced: bool) -> list:
     return [m for m in group if name in m.get("workloads", [name])]
 
 
-def reader(name: str, root: Path = ROOT):
-    """The module ``benchmark/metrics/<name>.py``."""
-    path = root / "benchmark" / "metrics" / f"{name}.py"
+def _module(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(name: str, root: Path = ROOT):
+    """The module ``benchmark/metrics/<name>.py``."""
+    return _module(root / "benchmark" / "metrics" / f"{name}.py",
+                   "benchmark_metric_" + name)
+
+
+def kinds(config: dict, root: Path = ROOT) -> dict:
+    """{"problem", "solver", "reference": module} of the kinds ``config``
+    names, each loaded from its file under :data:`KIND_DIRS`.  A kind with
+    no file is refused, naming the path looked for, before any is loaded."""
+    problem = config["problem"].get("kind", "poisson")
+    named = {"problem": problem, "solver": config["solver"]["kind"],
+             "reference": problem}
+    paths = {role: root / KIND_DIRS[role] / f"{kind}.py"
+             for role, kind in named.items()}
+    for role, path in paths.items():
+        if not path.is_file():
+            raise FileNotFoundError(
+                f"configuration {config.get('name')!r} names the {role} "
+                f"kind {named[role]!r}, and there is no {path}")
+    return {role: _module(path, f"benchmark_{role}_{named[role]}")
+            for role, path in paths.items()}
 
 
 def _merge(base: dict, over: dict) -> dict:
@@ -98,40 +130,31 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def build(config: dict, device, times: dict):
-    """(problem, solver) of the configuration, timing each into ``times``."""
-    from poms_tpu_torch.mg.cycles import CycleConfig
-    from poms_tpu_torch.mg.mixed import MGPreconditionedCG
-    from poms_tpu_torch.mg.smoother import SmootherConfig
-    from poms_tpu_torch.models.poisson import poisson_problem
-
-    dtypes = {"f64": torch.float64, "f32": torch.float32,
-              "bf16": torch.bfloat16}
-    pr, so = config["problem"], config["solver"]
+def build(config: dict, kind: dict, traffic: dict, seed: int, device,
+          times: dict):
+    """(problem, solver, pool) of the configuration, by the modules of its
+    kinds (``kind``, as :func:`kinds` gives them), timing each into
+    ``times``: the pool holds the traffic's right-hand sides for ``seed``,
+    made by the reference kind and handed to the program as its vectors."""
+    pr = config["problem"]
     t0 = time.perf_counter()
-    prob = poisson_problem(3, pr["n_el"], degree=pr["degree"],
-                           operator=pr["operator"],
-                           dtype=dtypes[pr["dtype"]],
-                           device=device)
+    prob = kind["problem"].make(pr, DTYPES[pr["dtype"]], device)
     _sync(device)
     times["problem"] = time.perf_counter() - t0
-    cyc = so["cycle"]
-    cfg = CycleConfig(nu1=cyc["nu1"], nu2=cyc["nu2"],
-                      smoother=SmootherConfig(
-                          cyc["smoother"], cheb_degree=cyc["cheb_degree"],
-                          cheb_fraction=cyc["cheb_fraction"]))
-    if so["kind"] != "pcg":
-        raise ValueError(f"solver kind {so['kind']!r}: only 'pcg' is built")
     t0 = time.perf_counter()
-    solver = MGPreconditionedCG(prob, num_levels=so["levels"], cfg=cfg,
-                                mixed=so["mixed"],
-                                low_dtype=dtypes[so["low_dtype"]],
-                                operator=pr["operator"],
-                                precision=so["precision"])
+    solver = kind["solver"].make(prob, config["solver"], pr, DTYPES)
     _sync(device)
     times["solver"] = time.perf_counter() - t0
     prob.b = None              # the cell brings its own right-hand sides
-    return prob, solver
+    from poms_tpu_torch.core.vector import StencilVector
+
+    t0 = time.perf_counter()
+    pool = [StencilVector.from_interior(prob.space, b.to(prob.space.dtype))
+            for b in rhs.pool(kind["reference"], pr, traffic["sources"], seed,
+                              device)]
+    _sync(device)
+    times["rhs"] = time.perf_counter() - t0
+    return prob, solver, pool
 
 
 def _counters():
@@ -342,18 +365,12 @@ def run(man: dict, name: str, seed: int, seconds: float, traced: bool,
     os.environ.pop("POMS_TPU_SPMV", None)     # the default engine, K2
     ctx = Context()
     times = {"before": time.perf_counter() - t_process}
-    pr = config["problem"]
-    prob, solver = build(config, device, times)
+    t0 = time.perf_counter()
+    kind = kinds(config, root)          # refused here, before any set-up
+    times["kinds"] = time.perf_counter() - t0
+    prob, solver, pool = build(config, kind, traffic, seed, device, times)
     if solve_hook is not None:
         solve_hook(solver)
-    from poms_tpu_torch.core.vector import StencilVector
-
-    dtype = prob.space.dtype
-    pool = [StencilVector.from_interior(prob.space, b.to(dtype))
-            for b in rhs.pool(pr["n_el"], pr["degree"], traffic["sources"],
-                              seed, device)]
-    _sync(device)
-    times["rhs"] = time.perf_counter() - t_process - sum(times.values())
     tol, maxiter = config["tol"], config["maxiter"]
     t0 = time.perf_counter()
     x, rn, it = solver.solve_compiled(pool[0], tol=tol, maxiter=maxiter,
@@ -387,7 +404,8 @@ def run(man: dict, name: str, seed: int, seconds: float, traced: bool,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     residuals = ref_check.residuals(
-        pr["n_el"], pr["degree"], traffic["sources"], seed, kept, device)
+        kind["reference"], config["problem"], traffic["sources"], seed, kept,
+        device)
     del kept
     failed = sum(not s[2] for s in ctx.solves)
     limit = config["check"]["residual_limit"]

@@ -1,27 +1,27 @@
 """The right-hand sides of a cell, made from the seed.
 
-A traffic file names a few smooth sources, each a sum of separable sine
-products c·sin(m0·π·x)·sin(m1·π·y)·sin(m2·π·z); the first is the
-configuration's manufactured source 3π²·sin(πx)·sin(πy)·sin(πz).  The load
-vector of such a source is a sum of outer products of 1D load vectors, so it
-is cheap to make at any grid.  Each is scaled to the manufactured source's
-‖b‖₂, so that the absolute tolerance means the same accuracy for all.
+A traffic file names a few smooth sources, each a sum of separable products
+c·f_m0(x)·f_m1(y)·f_m2(z) of 1D modes.  The load vector of such a source is a
+sum of outer products of 1D load vectors, so it is cheap to make at any grid.
+What a mode is, the sign a mirror x → 1 − x puts on it, and the ‖b‖₂ every
+source is scaled to (so that the absolute tolerance means the same accuracy
+for all) are the reference kind's (``benchmark/reference/kinds/<kind>.py``,
+``load``, ``mirror_sign`` and ``target_norm``); for ``poisson`` the modes are
+sin(mπx) and the first source is the manufactured 3π²·sin(πx)·sin(πy)·sin(πz).
 
 The seed changes the numbers and not the work: each slot of the pool takes
 one of the sources (every source once, in an order drawn from the seed)
 under a symmetry of the cube drawn from the seed (a permutation of the axes,
-a mirror on each axis, a sign).  The operator commutes with these, so a
-solver takes the same iterations on every seed, up to rounding.
+a mirror on each axis, a sign), drawn alike for every kind.  The operator
+commutes with these, so a solver takes the same iterations on every seed, up
+to rounding.
 """
 from __future__ import annotations
 
-import math
 import random
 from typing import List, Sequence
 
 import torch
-
-from benchmark.reference.bspline import load
 
 __all__ = ["draw", "make", "one", "pool"]
 
@@ -44,22 +44,22 @@ def draw(sources: Sequence, seed: int) -> List[dict]:
     return slots
 
 
-def _terms(source, slot):
+def _terms(kind, source, slot):
     """The source's separable terms after the slot's symmetry: axis a of
     the result carries mode ``modes[axes[a]]``; a mirror on an axis of mode
-    m multiplies the term by (-1)^(m+1), since sin(mπ(1-x)) does so."""
+    m multiplies the term by the kind's ``mirror_sign(m)``."""
     out = []
     for term in source:
         modes = [term["modes"][a] for a in slot["axes"]]
         c = term["coef"] * slot["sign"]
         for a in range(3):
-            if slot["mirror"][a] and modes[a] % 2 == 0:
-                c = -c
+            if slot["mirror"][a]:
+                c *= kind.mirror_sign(modes[a])
         out.append((c, modes))
     return out
 
 
-def make(n_el: int, degree: int, terms, device) -> torch.Tensor:
+def make(kind, problem: dict, terms, device) -> torch.Tensor:
     """Σ c·(s_m0 ⊗ s_m1 ⊗ s_m2), the 1D load vectors made once per mode."""
     vec = {}
     total = None
@@ -67,7 +67,7 @@ def make(n_el: int, degree: int, terms, device) -> torch.Tensor:
         v = []
         for m in modes:
             if m not in vec:
-                vec[m] = torch.as_tensor(load(n_el, degree, m),
+                vec[m] = torch.as_tensor(kind.load(problem, m),
                                          dtype=torch.float64, device=device)
             v.append(vec[m])
         t = (c * v[0])[:, None, None] * v[1][None, :, None] \
@@ -80,24 +80,21 @@ def make(n_el: int, degree: int, terms, device) -> torch.Tensor:
     return total
 
 
-def _target(n_el: int, degree: int) -> float:
-    """‖b‖₂ of the manufactured source 3π²·sin(πx)·sin(πy)·sin(πz)."""
-    s = float(torch.linalg.vector_norm(torch.as_tensor(load(n_el, degree, 1))))
-    return 3 * math.pi ** 2 * s ** 3
-
-
-def one(n_el: int, degree: int, sources: Sequence, seed: int, k: int,
+def one(kind, problem: dict, sources: Sequence, seed: int, k: int,
         device) -> torch.Tensor:
     """Slot ``k`` of the pool of :func:`pool`."""
     slot = draw(sources, seed)[k]
-    b = make(n_el, degree, _terms(sources[slot["source"]], slot), device)
-    b *= _target(n_el, degree) / float(torch.linalg.vector_norm(b))
+    b = make(kind, problem, _terms(kind, sources[slot["source"]], slot),
+             device)
+    b *= kind.target_norm(problem) / float(torch.linalg.vector_norm(b))
     return b
 
 
-def pool(n_el: int, degree: int, sources: Sequence, seed: int,
+def pool(kind, problem: dict, sources: Sequence, seed: int,
          device) -> List[torch.Tensor]:
-    """The pool's right-hand sides, in the order of :func:`draw`, each an
-    (n, n, n) f64 tensor on ``device`` scaled to the manufactured ‖b‖₂."""
-    return [one(n_el, degree, sources, seed, k, device)
+    """The pool's right-hand sides of the reference kind ``kind`` (its
+    module) for the configuration's ``problem`` entry, in the order of
+    :func:`draw`, each an (n, n, n) f64 tensor on ``device`` scaled to the
+    kind's ``target_norm``."""
+    return [one(kind, problem, sources, seed, k, device)
             for k in range(len(sources))]

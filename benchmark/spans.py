@@ -4,12 +4,13 @@
 
     python3 benchmark/spans.py --workload <cell> --seed <n>
 
-It builds the cell as ``run.py`` does, with a recording over set-up, then
-profiles a few eager steps and a few whole replayed solves with a recording
-over each, and prints one JSON line: set-up by span, the plans' scratch, the
-cycle's levels, K6r and K6u per call, and the replayed solves' idle time
-split into the gaps between graph replays, the eager starts and the rest by
-name.  No metric of ``BENCHMARK.json`` reads this yet (the harness takes no
+It builds the cell as ``run.py`` does (``harness.build``, by the kinds its
+configuration names), with a recording over set-up, then profiles a few
+eager steps and a few whole replayed solves with a recording over each, and
+prints one JSON line: set-up by span, the plans' scratch, the cycle's
+levels, K6r and K6u per call, and the replayed solves' idle time split into
+the gaps between graph replays, the eager starts and the rest by name.  No
+metric of ``BENCHMARK.json`` reads this yet (the harness takes no
 recording); its functions are what such readers need.
 
 A record joins the trace by occurrence: the k-th ``poms.*`` range of a name,
@@ -296,8 +297,6 @@ def main(argv=None) -> int:
     import torch
 
     from benchmark import harness
-    from benchmark.reference import rhs
-    from poms_tpu_torch.core.vector import StencilVector
     from poms_tpu_torch.ops import counters
     from poms_tpu_torch.utils import trace
 
@@ -308,15 +307,12 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     man = harness.manifest(root)
     _, config, traffic = harness.cell(man, args.workload, root)
-    pr = config["problem"]
+    kind = harness.kinds(config, root)
     times = {}
     with trace.recording() as setup:
-        prob, solver = harness.build(config, device, times)
+        _, solver, pool = harness.build(config, kind, traffic, args.seed,
+                                        device, times)
     scratch = counters.snapshot()["kron.scratch_bytes"]
-    dtype = prob.space.dtype
-    pool = [StencilVector.from_interior(prob.space, b.to(dtype))
-            for b in rhs.pool(pr["n_el"], pr["degree"], traffic["sources"],
-                              args.seed, device)]
     tol, maxiter = config["tol"], config["maxiter"]
     solver.solve_compiled(pool[0], tol=tol, maxiter=maxiter, return_x=False)
     torch.cuda.synchronize()

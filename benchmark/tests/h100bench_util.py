@@ -11,7 +11,17 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from benchmark import harness  # noqa: E402
+
 TINY = "tiny_kron"
+
+
+def reference_kind(name: str = "poisson", root: Path = ROOT):
+    """The module of the reference kind ``name``, loaded from its file as
+    :func:`benchmark.harness.kinds` loads it (and nothing of the program)."""
+    return harness._module(
+        root / harness.KIND_DIRS["reference"] / f"{name}.py",
+        "test_reference_" + name)
 
 
 def tiny_root(tmp: Path, operator: str = "kron", n_el: int = 8,

@@ -8,10 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from h100bench_util import ROOT
+from h100bench_util import ROOT, reference_kind
 
 from benchmark.reference import bspline, rhs
 from benchmark.reference.operator import KronSum
+
+POISSON = reference_kind()
 
 SOURCES = __import__("json").loads(
     (ROOT / "benchmark/traffic/smooth4.json").read_text())["sources"]
@@ -49,16 +51,21 @@ def test_operator_is_the_ports(operator, n_el, p):
     assert torch.allclose(ours, theirs, rtol=1e-12, atol=1e-12)
 
 
+def _problem(n_el, degree):
+    return {"n_el": n_el, "degree": degree}
+
+
 def test_rhs_is_made_from_the_seed():
-    a = rhs.pool(8, 3, SOURCES, 2 ** 33 + 7, "cpu")
-    b = rhs.pool(8, 3, SOURCES, 2 ** 33 + 7, "cpu")
-    c = rhs.pool(8, 3, SOURCES, 11, "cpu")
+    pr = _problem(8, 3)
+    a = rhs.pool(POISSON, pr, SOURCES, 2 ** 33 + 7, "cpu")
+    b = rhs.pool(POISSON, pr, SOURCES, 2 ** 33 + 7, "cpu")
+    c = rhs.pool(POISSON, pr, SOURCES, 11, "cpu")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert any(not torch.equal(x, y) for x, y in zip(a, c))
     target = 3 * np.pi ** 2 * np.linalg.norm(bspline.load(8, 3, 1)) ** 3
     for x in a + c:
         assert float(torch.linalg.vector_norm(x)) == pytest.approx(target)
-    assert torch.equal(rhs.one(8, 3, SOURCES, 11, 2, "cpu"), c[2])
+    assert torch.equal(rhs.one(POISSON, pr, SOURCES, 11, 2, "cpu"), c[2])
 
 
 def test_every_seed_takes_every_source_under_a_symmetry():
@@ -74,19 +81,29 @@ def test_every_seed_takes_every_source_under_a_symmetry():
                 dims = [d for d in range(3) if flips >> d & 1]
                 cands.append(tuple(u.flip(dims).reshape(-1)[:64].tolist()))
         return min(cands)
-    ref = sorted(canon(x) for x in rhs.pool(6, 2, SOURCES, 1, "cpu"))
+    pr = _problem(6, 2)
+    ref = sorted(canon(x) for x in rhs.pool(POISSON, pr, SOURCES, 1, "cpu"))
     for seed in (2, 3, 2 ** 31 + 5):
-        got = sorted(canon(x) for x in rhs.pool(6, 2, SOURCES, seed, "cpu"))
+        got = sorted(canon(x)
+                     for x in rhs.pool(POISSON, pr, SOURCES, seed, "cpu"))
         assert np.allclose(np.array(got), np.array(ref), rtol=1e-12,
                            atol=1e-15)
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    code = ("import sys; sys.path.insert(0, %r); "
+    """The reference's modules and every reference kind, each kind loaded
+    from its file as the harness loads it."""
+    code = ("import sys, importlib.util, pathlib; sys.path.insert(0, %r); "
             "import benchmark.reference.check, benchmark.reference.rhs; "
+            "kinds = pathlib.Path(%r).glob('*.py'); "
+            "specs = [importlib.util.spec_from_file_location(p.stem, p) "
+            "for p in kinds]; "
+            "[s.loader.exec_module(importlib.util.module_from_spec(s)) "
+            "for s in specs]; "
             "bad = {m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'poms_tpu', 'poms_tpu_torch'}; "
-            "print(sorted(bad))" % str(ROOT))
+            "print(len(specs), sorted(bad))"
+            % (str(ROOT), str(ROOT / "benchmark/reference/kinds")))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True).stdout.strip()
-    assert out == "[]"
+    assert out.endswith(" []") and int(out.split()[0]) >= 1

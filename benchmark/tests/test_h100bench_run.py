@@ -45,11 +45,16 @@ def test_the_result_line(root, traced):
         harness.manifest(root), TINY, traced)}
     if traced:
         assert "breakdown" in out
-        # the CPU has no device trace and launches no kernel: only the
-        # clocks and the iteration counts read
+        # the CPU has no device trace and launches no kernel: no idle share
+        # and no roofline (K1, K5, K7, K6r, K6u), no hand-written kernel a
+        # step; its solve_compiled is the eager loop, which replays no graph
+        # and so copies nothing back; and the run-time plans get their
+        # scratch on the card only: only the clocks and the iteration
+        # counts read
         assert set(out["metrics"]) == wanted - {
             "idle_share", "kron_roofline", "dw_roofline", "transfer_roofline",
-            "kernels_per_iter"}
+            "reduce_roofline", "update_roofline", "kernels_per_iter",
+            "copy_gb_per_iter", "scratch_gib"}
     else:
         assert set(out["metrics"]) == wanted - {"peak_mem_gib"}
     for m in out["metrics"].values():
@@ -65,24 +70,28 @@ def test_the_traced_run_counts_every_call(root):
     spans = {}
     for m in harness.metric_names(man, TINY, True):
         spans.update(getattr(harness.reader(m["name"], root), "SPANS", {}))
-    assert set(spans) == {"kron", "dw", "transfer"}
-    prob, solver = harness.build(config, torch.device("cpu"), {})
-    from poms_tpu_torch.core.vector import StencilVector
-    from benchmark.reference import rhs
-    b = StencilVector.from_interior(prob.space, rhs.one(
-        8, 3, traffic["sources"], 1, 0, "cpu"))
+    assert set(spans) == {"kron", "dw", "transfer", "k6r", "k6u"}
+    _, solver, pool = harness.build(config, harness.kinds(config, root),
+                                    traffic, 1, torch.device("cpu"), {})
     ranges = harness.Spans(spans)
     with ranges.installed():
-        solver.solve(b, tol=1e-10, maxiter=2)
+        solver.solve(pool[0], tol=1e-10, maxiter=2)
     layers = [c[0] for c in ranges.calls.values()]
     # the start and 2 steps: 3 cycles of 2 smoothed levels (ν1 + ν2 = 2
     # Chebyshev(4) steps each: 8 `cheb` passes) and a residual a level
     # before the restriction; 2 double-word A·p; a restriction and a
-    # prolongation a cycle
+    # prolongation a cycle; K6r: ‖b‖ and z·b at the start, then a step's
+    # p·Ap, ‖r‖ and the stacked pair of dots; K6u: each cycle's scaling
+    # in and out, and a step's `cg` and `direction` updates
     assert layers.count("kron") == 3 * (8 + 1)
     assert layers.count("dw") == 2
     assert layers.count("transfer") == 3 * 2
-    assert all(c[1] > 0 and c[2] > 0 for c in ranges.calls.values())
+    assert layers.count("k6r") == 2 + 2 * 3
+    assert layers.count("k6u") == 3 * 2 + 2 * 2
+    # each call has its bytes and operations; K6r and K6u are held to their
+    # bytes alone (benchmark/work/k6.py)
+    assert all(c[1] > 0 and (c[2] > 0) == (c[0] not in ("k6r", "k6u"))
+               for c in ranges.calls.values())
     assert calls.dtype_name(torch.zeros(1)) == "f32"
 
 
