@@ -39,8 +39,9 @@ class GraphedStep:
     shapes and dtypes are made here and filled by :meth:`load`.  ``rn`` is a
     0-dim tensor; after :meth:`replay` ``self.rn`` holds it.  Replays advance
     the wrappers' launch counters by the launches captured
-    (``self.captured``) and ``graph.copy_bytes`` by the copy-back's
-    bytes."""
+    (``self.captured``), the byte counters the captured step advanced
+    (``kron.partial_bytes``) by what it advanced, and ``graph.copy_bytes``
+    by the copy-back's bytes."""
 
     def __init__(self, step: Callable, state: Sequence[torch.Tensor],
                  consts: Sequence[torch.Tensor] = ()):

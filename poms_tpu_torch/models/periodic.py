@@ -18,6 +18,10 @@ JAX package bands them as wide as the axis (W = n_in); the port's
 ``ops/transfer.py::bands_from_dense`` returns the narrowest cyclic band
 (``wrap=True``: ⌈(p+2)/2⌉ taps for the prolongation, p + 2 for the
 restriction), whose taps add up to the same bits.
+
+``operator="kron"`` holds A as the Kronecker-sum operator of the 1D
+circulant bands alone: the banded form's (2p+1)^d coefficients a point are
+343 × 512³ × 8 B = 368 GB at 512³, more than a card holds.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ class PeriodicProblem:
     n_el: Tuple[int, ...]
     shift: float
     space: StencilVectorSpace
-    A: StencilMatrix
+    A: StencilMatrix | KroneckerSumOperator
     b: StencilVector
     bands_1d: list  # per-dim (K, M) numpy circulant bands
 
@@ -76,18 +80,28 @@ def _band_from_1d(bands_1d, shift, space) -> torch.Tensor:
 
 def periodic_problem(dim: int, n_el, degree: int = 3, shift: float = 1.0,
                      dtype: torch.dtype = torch.float64, seed: int = 0,
+                     operator: str = "banded",
                      device=None) -> PeriodicProblem:
     """Assemble the periodic shifted-Laplace system with a random right-hand
-    side drawn from ``np.random.default_rng(seed)``.  ``device=None`` is the
-    current CUDA card (an error when there is none)."""
+    side drawn from ``np.random.default_rng(seed)``.  ``operator="banded"``
+    composes the (2p+1)^d-per-point band on ``device``; ``"kron"`` keeps A
+    in the Kronecker-sum form (:func:`_kron_periodic`) and composes no band.
+    ``device=None`` is the current CUDA card (an error when there is
+    none)."""
     device = resolve_device(device)
+    if operator not in ("banded", "kron"):
+        raise ValueError(f"operator={operator!r}: 'banded' or 'kron'")
     if isinstance(n_el, int):
         n_el = (n_el,) * dim
     n_el = tuple(int(x) for x in n_el)
     bands_1d = [assemble_periodic_1d(ne, degree) for ne in n_el]
     space = StencilVectorSpace(npts=n_el, pads=degree, periodic=True,
                                dtype=dtype, device=device)
-    A = StencilMatrix.from_band_t(space, _band_from_1d(bands_1d, shift, space))
+    if operator == "kron":
+        A = _kron_periodic(bands_1d, shift, space)
+    else:
+        A = StencilMatrix.from_band_t(space,
+                                      _band_from_1d(bands_1d, shift, space))
     rng = np.random.default_rng(seed)
     b = StencilVector.from_interior(
         space, torch.as_tensor(rng.standard_normal(n_el)))
@@ -142,15 +156,17 @@ def _kron_periodic(bands_1d, shift, space) -> KroneckerSumOperator:
 def build_periodic_hierarchy(problem: PeriodicProblem, num_levels: int,
                              operator: str = "banded"):
     """Levels finest→coarsest for the periodic shifted-Laplace problem; each
-    coarsening halves n_el per dim (even, with n/2 > 2p).  Under the v2
-    engine every banded level packs its band for K3 here."""
+    coarsening halves n_el per dim (even, with n/2 > 2p).  The finest
+    operator is ``problem.A``; with ``operator="kron"`` on a banded problem,
+    the Kronecker-sum operator of the 1D bands.  Under the v2 engine every
+    banded level packs its band for K3 here."""
     if operator not in ("banded", "kron"):
         raise ValueError(f"operator={operator!r}: 'banded' or 'kron'")
     p, d, n_el = problem.degree, problem.dim, problem.n_el
     bands_1d = problem.bands_1d
     space = problem.space
     A = problem.A
-    if operator == "kron":
+    if operator == "kron" and not isinstance(A, KroneckerSumOperator):
         A = _kron_periodic(bands_1d, problem.shift, space)
     levels = []
     for _ in range(num_levels - 1):

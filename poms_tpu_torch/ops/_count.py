@@ -18,8 +18,12 @@ DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64",
 
 # ``graph.copy_bytes``: what GraphedStep's copy-back moves, advanced at every
 # replay (mg/graph.py); ``kron.scratch_bytes``: the scratch of K1r and K5r
-# plans, advanced where a plan allocates it (ops/kron.py::plan_scratch)
-BYTES = {"graph.copy_bytes": 0, "kron.scratch_bytes": 0}
+# plans, advanced where a plan allocates it (ops/kron.py::plan_scratch);
+# ``kron.partial_bytes``: the partial sums K1 and K1r pass between the runs
+# of terms of one call, written and read back (ops/kron.py::_count_partial),
+# which a replay adds with its launches
+BYTES = {"graph.copy_bytes": 0, "kron.scratch_bytes": 0,
+         "kron.partial_bytes": 0}
 
 
 def attach(wrapper, modes=None) -> None:

@@ -1081,6 +1081,8 @@ def _launch(mode, plan: KronPlan, x_int, b, d, c1, c2, out, tiling, stream):
         _count.count(kron_mode, x_int.dtype, run_mode)
         if run_mode == "apply":
             kron_apply.launches += 1
+        if not last:
+            _count_partial(target)
         acc = target
     if mode == "cheb":
         return out, d_out
@@ -1094,6 +1096,12 @@ def _runs_targets(plan: KronPlan, out, wide: bool):
     return [out if k == n - 1 else torch.empty(
         plan.npts, device=out.device,
         dtype=torch.float32 if wide else out.dtype) for k in range(n)]
+
+
+def _count_partial(acc: torch.Tensor) -> None:
+    """``kron.partial_bytes``: the partial sum ``acc`` that a run of terms
+    but the last writes and the next run reads back, once each."""
+    _count.BYTES["kron.partial_bytes"] += 2 * acc.numel() * acc.element_size()
 
 
 def strided_table(bands_a, labs, kmax: int, NW: int, P: int,
@@ -1227,6 +1235,8 @@ def _launch_rt(mode, plan: KronPlan, x3, b, d, d_out, out, c1, c2, tiling,
                 out=None if as_hi else target,
                 out_hi=target if as_hi else None, c1=c1, c2=c2,
                 stream=stream, tiling=tiling)
+        if not last:
+            _count_partial(target)
         acc = target
     if mode == "cheb":
         return out, d_out

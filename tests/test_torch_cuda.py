@@ -1767,3 +1767,57 @@ def test_each_graph_replay_range_owns_its_kernels(dev, tmp_path):
     start_kernels = sum(op.get("cat") == "kernel" for op in ops[start[0]])
     assert sum(kernels) + start_kernels >= hand_kernels(grown)
     assert len(bspans.replay_gaps(joined, ops)) == it - 1
+
+
+# -- kron.partial_bytes: the partial sum between K1's runs of terms ----------
+
+def _cast_terms(terms, dtype):
+    """The terms in ``dtype``, one cast a distinct band (the sharing kept)."""
+    cast = {}
+    return [[cast.setdefault(id(B), B.to(dtype)) for B in term]
+            for term in terms]
+
+
+@pytest.mark.parametrize("degree,dtype", [
+    (3, torch.float32), (3, torch.float64), (3, BF16), (5, torch.float32)],
+    ids=["p3-f32", "p3-f64", "p3-bf16", "p5-f32-k1r"])
+def test_kron_partial_bytes_counts_the_sum_between_runs(dev, degree, dtype):
+    """Each K1 (K1r at degree 5) call on the four-term periodic operator, in
+    every mode, advances ``kron.partial_bytes`` by 2 × n × the partial sum's
+    bytes (f32 for a bf16 operator), eagerly and at every replay of a
+    captured graph; the three-term Dirichlet operator leaves it at 0."""
+    from poms_tpu_torch.mg.graph import GraphedStep
+
+    key = "kron.partial_bytes"
+    per = periodic_problem(3, 32, degree=degree, operator="kron", device=dev)
+    pois = poisson_problem(3, 32, degree=degree, operator="kron", device=dev)
+    g = torch.Generator(device=dev).manual_seed(degree)
+    for prob, runs in ((per, 2), (pois, 1)):
+        A = prob.A
+        plan = build_kron_plan(_cast_terms(A.terms, dtype), A.space.npts,
+                               A.space.pads, A.space.periodic)
+        assert len(plan.plans) == runs
+        n = plan.n3[0] * plan.n3[1] * plan.n3[2]
+        want = (runs - 1) * 2 * n * (8 if dtype == torch.float64 else 4)
+        x, b = (torch.randn(plan.npts, generator=g, dtype=torch.float32,
+                            device=dev).to(dtype) for _ in range(2))
+        for mode in K1_MODES:
+            before = counters.snapshot()
+            kron_mode(mode, plan, x, b=b if mode in ("residual", "cheb")
+                      else None)
+            torch.cuda.synchronize()
+            assert counters.diff(counters.snapshot(), before).get(key, 0) \
+                == want, mode
+
+        def step(x, b):
+            y, d = kron_mode("cheb", plan, x, b=b, c2=0.5)
+            return y, torch.linalg.vector_norm(d.float())
+
+        graph = GraphedStep(step, [x], [b])
+        assert graph.captured.get(key, 0) == want
+        before = counters.snapshot()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert counters.diff(counters.snapshot(), before).get(key, 0) \
+            == 3 * want
