@@ -20,7 +20,8 @@ non-zero:
              periodic ones, a 2D, a 1D and a mixed-periodic 3D shape with
              unequal pads, a 4-term operator that takes two launches, and
              the periodic shifted operator of phase 17 on every level of
-             its hierarchy (128³ down to 8³, 4 terms, two launches)
+             its hierarchy (128³ down to 8³, 4 terms that K1's plan folds
+             to 3: one launch)
              (max|Δ|/max|y| ≤ 1e-5 and ≤ 1e-12: the summation order differs
              and the kernel uses FMA); the device time (profiler) of each
              mode at 129³, 65³, 33³, 17³ f32 beside its bound (bytes each
@@ -437,8 +438,9 @@ def phase_build():
 
 def _periodic_kron_levels(dev, dtype):
     """(npts, terms) of every level of phase 17's Kronecker-sum hierarchy:
-    the periodic shifted operator (4 terms: two launches per pass) from the
-    1D circulant bands, coarsened as build_periodic_hierarchy does."""
+    the periodic shifted operator (4 terms, which K1's plan folds to 3: one
+    launch a pass) from the 1D circulant bands, coarsened as
+    build_periodic_hierarchy does."""
     bands = [assemble_periodic_1d(PERIODIC_LEVELS[0], 3)] * 3
     for n in PERIODIC_LEVELS:
         space = StencilVectorSpace(npts=(n,) * 3, pads=3, periodic=True,
@@ -3366,7 +3368,7 @@ def _k1_bf16_times(A, degree):
 
 def _degree_periodic(dev):
     """The periodic dw-PCG at degree 8: K5 with 4 histories at P = 8 (and
-    K1 with two launches a pass); counts logged."""
+    K1r on the plan's three folded terms); counts logged."""
     from poms_tpu_torch.mg.cycles import CycleConfig as _Cycle
 
     c = DEGREE_PERIODIC

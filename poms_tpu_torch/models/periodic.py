@@ -144,7 +144,10 @@ def _coarse_bands_periodic(bands_1d, P1s):
 def _kron_periodic(bands_1d, shift, space) -> KroneckerSumOperator:
     """σ·⊗M + Σ_a ⊗(K_a in slot a) as a Kronecker-sum operator: σ folded
     into the first M factor of the shift term, the M bands shared across the
-    terms so the apply reuses partial products."""
+    terms so the apply reuses partial products.  K1's plan folds the shift
+    term and K⊗M⊗… into (K + σM)⊗M⊗… (``ops/kron.py::fold_terms``: one
+    launch a pass); the operator keeps these terms, and K5 runs them as
+    they are."""
     d = len(bands_1d)
     Ks, Ms = _factors(bands_1d, space)
     shift_term = [shift * Ms[0]] + [Ms[b] for b in range(1, d)]

@@ -21,9 +21,11 @@ DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64",
 # plans, advanced where a plan allocates it (ops/kron.py::plan_scratch);
 # ``kron.partial_bytes``: the partial sums K1 and K1r pass between the runs
 # of terms of one call, written and read back (ops/kron.py::_count_partial),
-# which a replay adds with its launches
+# which a replay adds with its launches; ``kron.folded_terms`` (a count of
+# terms, not bytes): the terms that K1's plans folded away, advanced where a
+# plan is built (ops/kron.py::build_kron_plan)
 BYTES = {"graph.copy_bytes": 0, "kron.scratch_bytes": 0,
-         "kron.partial_bytes": 0}
+         "kron.partial_bytes": 0, "kron.folded_terms": 0}
 
 
 def attach(wrapper, modes=None) -> None:

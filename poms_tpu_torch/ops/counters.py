@@ -17,7 +17,10 @@ add it with their launches), ``kron.scratch_bytes``, the scratch allocated
 for K1r and K5r plans (``ops/kron.py::plan_scratch``), and
 ``kron.partial_bytes``, the partial sums that K1 and K1r write and read back
 between the runs of terms of one call (``ops/kron.py::_count_partial``; a
-replay adds what its capture counted).
+replay adds what its capture counted).  ``kron.folded_terms`` counts the
+terms that K1's plans folded away where they were built
+(``ops/kron.py::build_kron_plan``; 1 for a 3D periodic shifted operator, 0
+for a Dirichlet one).
 """
 from __future__ import annotations
 

@@ -31,17 +31,20 @@ through XLA in bf16, so the port's is at least as exact and not bitwise with
 it.
 
 What the kernel needs beyond the field is built once per operator by
-:func:`build_kron_plan`: the distinct bands of each axis stacked and
-zero-padded to one compiled half-width (or, for K1r, at their own), the
+:func:`build_kron_plan`: the terms that share their bands on every axis but one
+folded into one (:func:`fold_terms`), the distinct bands of each axis stacked
+and zero-padded to one compiled half-width (or, for K1r, at their own), the
 centre columns for the in-kernel diagonal, the **sharing plan** (which
-(partial, band) pairs each axis contracts, and which partials are summed
-before the last contraction) as small integer arrays, and the tiling.  :func:`plan_apply` executes the same
-control data in plain PyTorch, so it is tested where no card is.
+(partial, band) pairs each axis contracts, and which partials are summed before
+the last contraction) as small integer arrays, and the tiling.
+:func:`plan_apply` executes the same control data in plain PyTorch, so it is
+tested where no card is.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -56,7 +59,8 @@ from poms_tpu_torch.ops.stencil import K2_SMEM
 __all__ = ["MODES", "kron_apply", "kron_apply_plain", "kron_mode",
            "kron_mode_plain", "kron_mode_plain_bf16", "apply_band_1d_axis",
            "band_labels",
-           "sharing_plan", "chunk_terms", "build_kron_plan", "plan_scratch",
+           "sharing_plan", "chunk_terms", "fold_terms", "build_kron_plan",
+           "plan_scratch",
            "plan_apply",
            "diagonal_from_columns", "kron_tiling", "k1_step_cost",
            "k1_smem_bytes", "rows_options", "k1_tiling", "warp_widths",
@@ -462,6 +466,63 @@ def chunk_terms(labels, caps: dict = CAPS) -> List[List[int]]:
     return chunks
 
 
+def _merged_labels(labels, i: int, j: int, a: int) -> List[List[int]]:
+    """``labels`` with term j folded into term i on axis ``a``: term j gone,
+    term i's band on ``a`` a new one, every axis renumbered in order of
+    first use (as :func:`band_labels` numbers)."""
+    out = []
+    for b, row in enumerate(labels):
+        row = list(row)
+        if b == a:
+            row[i] = max(row) + 1
+        del row[j]
+        seen = {}
+        out.append([seen.setdefault(lab, len(seen)) for lab in row])
+    return out
+
+
+def _sum_bands(parts) -> torch.Tensor:
+    """Σ of the bands ``parts``, added in f64 and rounded once to their
+    dtype."""
+    total = None
+    for B in parts:
+        total = B.double() if total is None else total + B.double()
+    return total.to(parts[0].dtype)
+
+
+def fold_terms(terms, labels, caps: dict = CAPS):
+    """(terms, labels) with every pair of terms that shares its bands on
+    every axis but one folded into one term, whose band on that axis is the
+    sum of theirs (:func:`_sum_bands`): B⊗C⊗D + B'⊗C⊗D = (B + B')⊗C⊗D.
+    Pairs are taken in order, again until none folds, and a fold is kept
+    only where the terms then take no more runs of ``caps``
+    (:func:`chunk_terms`) than the unfolded ones.  ``labels[a][r]`` (not
+    lifted) names the sharing; an operator with no such pair keeps its band
+    objects and labels.  The periodic shifted operator σ·M⊗M⊗M + K⊗M⊗M +
+    M⊗K⊗M + M⊗M⊗K folds to (σM + K)⊗M⊗M + M⊗K⊗M + M⊗M⊗K, the Dirichlet
+    operator's sharing: one run of K1's caps, not two."""
+    d = len(labels)
+    parts = [[(B,) for B in term] for term in terms]
+    runs = len(chunk_terms(_lift_labels(labels), caps))
+    folded = True
+    while folded:
+        folded = False
+        for i, j in itertools.combinations(range(len(parts)), 2):
+            differ = [a for a in range(d) if labels[a][i] != labels[a][j]]
+            if len(differ) != 1:
+                continue
+            a = differ[0]
+            trial = _merged_labels(labels, i, j, a)
+            if len(chunk_terms(_lift_labels(trial), caps)) > runs:
+                continue
+            parts[i][a] = parts[i][a] + parts[j][a]
+            del parts[j]
+            labels, folded = trial, True
+            break
+    return ([tuple(p[0] if len(p) == 1 else _sum_bands(p) for p in term)
+             for term in parts], labels)
+
+
 def _tiles(n3, threads_max: int, cols: int, rows: int = 1,
            extra: Sequence[int] = ()):
     """The compiled kernels' candidate (T1, T2, chunk, blocks): tile widths
@@ -680,7 +741,8 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
                     smem=None, what: str = "K1r",
                     scratch_words: int = CAPS["u"] + CAPS["g"],
                     k1r: bool = True,
-                    rt_cols: int = 2 * LANES) -> KronPlan:
+                    rt_cols: int = 2 * LANES,
+                    fold: bool = True) -> KronPlan:
     """Everything a launch needs besides the fields, once per operator.
     ``labels[a][r]`` (default: identity of the band tensors) names the
     sharing; ``threads_max``, ``tcols`` (default: K1's columns per thread
@@ -706,7 +768,15 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     streams); the solvers run theirs on one.  Where
     ``k1r`` (the plan is K1r's, not K5r's: ``twofloat.build_kron_df_plan``
     makes K5r's tables itself) its band tables (:func:`k1r_tables`, a few
-    hundred KB) are made here too."""
+    hundred KB) are made here too.
+
+    Where ``fold``, terms that share their bands on every axis but one are
+    folded first (:func:`fold_terms`; the counter ``kron.folded_terms``
+    adds the terms it removed), and the plan's ``terms``, ``labels``,
+    ``bands`` and ``cols`` are the folded operator's: the kernel, the plain
+    versions of :func:`kron_mode` and :meth:`KronPlan.diagonal` compute it.
+    K5's plan passes False: its bands were split into hi and lo words
+    before it sees them."""
     npts, pads = tuple(int(n) for n in npts), tuple(int(p) for p in pads)
     periodic = tuple(bool(q) for q in periodic)
     d = len(npts)
@@ -728,7 +798,12 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
         smem = k1r_smem(itemsize)
     if runtime:
         refuse_half_width(pads, first.device, smem, what)
-    labels = _lift_labels(band_labels(terms) if labels is None else labels)
+    labels = band_labels(terms) if labels is None else labels
+    if fold:
+        n_terms = len(terms)
+        terms, labels = fold_terms(terms, labels, caps)
+        _count.BYTES["kron.folded_terms"] += n_terms - len(terms)
+    labels = _lift_labels(labels)
     cols = [torch.ones((len(terms), 1), dtype=first.dtype,
                        device=first.device) for _ in range(lead)]
     cols += [torch.stack([term[a][:, pads[a]] for term in terms]).contiguous()

@@ -306,7 +306,9 @@ def build_kron_df_plan(terms_df, npts, pads, periodic=None, labels=None,
     """K5's launch data, once per operator: K1's plan of the hi bands (the
     lifted geometry, the sharing plan cut into runs of terms that one K5
     launch holds) with the lo bands stacked beside them and a tiling for
-    K5's block size and shared memory.  Bands wider than every one of
+    K5's block size and shared memory; its terms are not folded (K1's
+    ``build_kron_plan(fold=False)``: a folded band would have to be summed
+    before the split into words).  Bands wider than every one of
     ``half_widths`` (default: ``COMPILED_P_DW``) take K5r
     at their own half-width; on the card a half-width no block of K5r fits
     raises.  A K5r plan built on the card owns its passes' scratch: the hi
@@ -329,7 +331,7 @@ def build_kron_df_plan(terms_df, npts, pads, periodic=None, labels=None,
                            what=f"K5r ({histories} histories)",
                            scratch_words=2 * (CAPS_DW["u"] + CAPS_DW["v"]),
                            k1r=False,
-                           rt_cols=LANES)
+                           rt_cols=LANES, fold=False)
     plan.bands_lo = stack_bands(lo, plan.labels, plan.n3, plan.pads3, plan.P,
                                 centre=0.0)
     if plan.scratch is not None:

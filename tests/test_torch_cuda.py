@@ -1778,25 +1778,40 @@ def _cast_terms(terms, dtype):
             for term in terms]
 
 
+def _unfoldable_terms(A):
+    """Four terms of the periodic operator ``A``'s bands with three distinct
+    axis-0 bands, no two sharing two axes' bands (σM⊗K⊗K, K⊗M⊗M, M⊗K⊗M,
+    M⊗M⊗K): K1's plan folds none and takes two runs."""
+    (S, _, _), (K0, M1, M2), (M0, K1, _), (_, _, K2) = A.terms
+    return [[S, K1, K2], [K0, M1, M2], [M0, K1, M2], [M0, M1, K2]]
+
+
 @pytest.mark.parametrize("degree,dtype", [
     (3, torch.float32), (3, torch.float64), (3, BF16), (5, torch.float32)],
     ids=["p3-f32", "p3-f64", "p3-bf16", "p5-f32-k1r"])
 def test_kron_partial_bytes_counts_the_sum_between_runs(dev, degree, dtype):
-    """Each K1 (K1r at degree 5) call on the four-term periodic operator, in
-    every mode, advances ``kron.partial_bytes`` by 2 × n × the partial sum's
-    bytes (f32 for a bf16 operator), eagerly and at every replay of a
-    captured graph; the three-term Dirichlet operator leaves it at 0."""
+    """Each K1 (K1r at degree 5) call on a four-term operator that no fold
+    brings into one run, in every mode, advances ``kron.partial_bytes`` by
+    2 × n × the partial sum's bytes (f32 for a bf16 operator), eagerly and
+    at every replay of a captured graph; the periodic shifted operator,
+    whose plan folds σ·M⊗M⊗M + K⊗M⊗M into one term, and the three-term
+    Dirichlet operator take one run a call (one launch; K1r three, one a
+    pass) and leave it at 0."""
     from poms_tpu_torch.mg.graph import GraphedStep
 
     key = "kron.partial_bytes"
     per = periodic_problem(3, 32, degree=degree, operator="kron", device=dev)
     pois = poisson_problem(3, 32, degree=degree, operator="kron", device=dev)
     g = torch.Generator(device=dev).manual_seed(degree)
-    for prob, runs in ((per, 2), (pois, 1)):
-        A = prob.A
-        plan = build_kron_plan(_cast_terms(A.terms, dtype), A.space.npts,
-                               A.space.pads, A.space.periodic)
+    for A, terms, runs, folded in ((per.A, _unfoldable_terms(per.A), 2, 0),
+                                   (per.A, per.A.terms, 1, 1),
+                                   (pois.A, pois.A.terms, 1, 0)):
+        sp = A.space
+        plan = build_kron_plan(_cast_terms(terms, dtype), sp.npts, sp.pads,
+                               sp.periodic)
         assert len(plan.plans) == runs
+        assert plan.n_terms == len(terms) - folded
+        launches = runs * (3 if plan.runtime else 1)
         n = plan.n3[0] * plan.n3[1] * plan.n3[2]
         want = (runs - 1) * 2 * n * (8 if dtype == torch.float64 else 4)
         x, b = (torch.randn(plan.npts, generator=g, dtype=torch.float32,
@@ -1806,8 +1821,10 @@ def test_kron_partial_bytes_counts_the_sum_between_runs(dev, degree, dtype):
             kron_mode(mode, plan, x, b=b if mode in ("residual", "cheb")
                       else None)
             torch.cuda.synchronize()
-            assert counters.diff(counters.snapshot(), before).get(key, 0) \
-                == want, mode
+            grown = counters.diff(counters.snapshot(), before)
+            assert grown.get(key, 0) == want, mode
+            assert sum(grown.get(f"kron_mode.{m}", 0) for m in K1_MODES) \
+                == launches, mode
 
         def step(x, b):
             y, d = kron_mode("cheb", plan, x, b=b, c2=0.5)
@@ -1819,5 +1836,7 @@ def test_kron_partial_bytes_counts_the_sum_between_runs(dev, degree, dtype):
         for _ in range(3):
             graph.replay()
         torch.cuda.synchronize()
-        assert counters.diff(counters.snapshot(), before).get(key, 0) \
-            == 3 * want
+        grown = counters.diff(counters.snapshot(), before)
+        assert grown.get(key, 0) == 3 * want
+        assert sum(grown.get(f"kron_mode.{m}", 0) for m in K1_MODES) \
+            == 3 * launches

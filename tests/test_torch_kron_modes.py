@@ -169,18 +169,24 @@ def test_plan_evaluator_equals_plain(npts, pads, periodic, kind):
     """The plan executed by the Python evaluator (stacked zero-padded bands,
     lifted axes, runs of terms, shared partials) is A·x: bit for bit with
     one contraction per history (the double-word kernel's last stage), to
-    summation order with the sums before the last contraction (K1's)."""
+    summation order with the sums before the last contraction (K1's).  A·x
+    is the plan's operator: in 1D the four free terms differ on their one
+    axis and fold into one (``fold_terms``), within 1e-13 of the four."""
     terms = (_poisson_terms(npts, pads) if kind == "poisson"
              else _free_terms(npts, pads, int(kind[-1])))
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(npts))
     plan = build_kron_plan(terms, npts, pads, periodic)
-    want = kron_apply_plain(terms, x, npts, pads, periodic)
+    assert plan.n_terms == (1 if len(npts) == 1 else len(terms))
+    want = kron_apply_plain(plan.terms, x, npts, pads, periodic)
     assert torch.equal(plan_apply(plan, x, presum=False), want)
     assert _rel(plan_apply(plan, x), want.numpy()) <= 1e-13
+    unfolded = kron_apply_plain(terms, x, npts, pads, periodic)
+    assert _rel(plan_apply(plan, x), unfolded.numpy()) <= 1e-13
     for sp in plan.plans:
         assert len(sp["u_lab"]) <= CAPS["u"] and len(sp["v_src"]) <= CAPS["v"]
         assert len(sp["g_lab"]) <= CAPS["g"]
-    assert sorted(r for c in plan.chunks for r in c) == list(range(len(terms)))
+    assert sorted(r for c in plan.chunks for r in c) == list(
+        range(plan.n_terms))
 
 
 def test_poisson_plan_is_seven_passes():

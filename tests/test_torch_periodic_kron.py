@@ -17,7 +17,7 @@ from poms_tpu_torch.models.periodic import (_band_from_1d,
                                             build_periodic_hierarchy,
                                             periodic_problem)
 from poms_tpu_torch.models.poisson import poisson_problem
-from poms_tpu_torch.ops.kron import chunk_terms
+from poms_tpu_torch.ops.kron import _lift_labels, chunk_terms
 
 torch.set_num_threads(1)
 
@@ -109,12 +109,32 @@ def test_the_kron_problem_gives_the_banded_problems_kron_hierarchy():
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_the_shifted_operator_takes_two_runs_of_terms_in_3d(dim):
-    """K1's launch caps split the 3D shifted operator's four terms (three
-    distinct axis-0 bands: σM, K, M) into two runs, whose partial sum is
-    what ``kron.partial_bytes`` counts; Dirichlet Poisson takes one run."""
+    """The shifted operator keeps its terms (four in 3D: three distinct
+    axis-0 bands σM, K, M), but K1's plan folds σ·M⊗M⊗M + K⊗M⊗M into
+    (σM + K)⊗M⊗M: one run of terms in 2D and in 3D, so no partial sum is
+    written between runs, as for Dirichlet Poisson."""
     prob = periodic_problem(dim, 16, degree=3, operator="kron", device="cpu")
-    runs = chunk_terms(prob.A.plan.labels)
-    assert len(runs) == (2 if dim == 3 else 1)
-    assert sorted(r for run in runs for r in run) == list(range(dim + 1))
+    assert len(prob.A.terms) == dim + 1
+    assert len(chunk_terms(_lift_labels(prob.A._band_labels()))) == \
+        (2 if dim == 3 else 1)
+    plan = prob.A.plan
+    assert plan.n_terms == dim and plan.chunks == [list(range(dim))]
+    assert len(chunk_terms(plan.labels)) == 1
     pois = poisson_problem(dim, 16, degree=3, operator="kron", device="cpu")
     assert len(chunk_terms(pois.A.plan.labels)) == 1
+    assert plan.labels == pois.A.plan.labels
+
+
+def test_an_unfoldable_four_term_operator_takes_two_runs():
+    """Four 3D terms with three distinct axis-0 bands, no two of them
+    sharing two axes' bands (σM⊗K⊗K, K⊗M⊗M, M⊗K⊗M, M⊗M⊗K): nothing folds
+    and K1's caps split them into two runs, the path that writes and reads
+    back a partial sum between them."""
+    prob = periodic_problem(3, 16, degree=3, operator="kron", device="cpu")
+    (S, _, _), (K0, M1, M2), (M0, K1, _), (_, _, K2) = prob.A.terms
+    terms = [[S, K1, K2], [K0, M1, M2], [M0, K1, M2], [M0, M1, K2]]
+    A = KroneckerSumOperator(prob.space, terms)
+    assert A.plan.n_terms == 4 and A.plan.chunks == [[0, 1], [2, 3]]
+    assert all(a is b for ta, tb in zip(A.plan.terms, A.terms)
+               for a, b in zip(ta, tb))
+    assert A.plan.labels[0] == [0, 1, 2, 2]
