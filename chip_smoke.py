@@ -200,13 +200,14 @@ non-zero:
              bf16 cycles (defect correction, dw-PCG) at degrees 4, 5 and 8 at
              64^3 (counts logged, not gated; only bf16 K1/K7 on the low
              hierarchy), K1 bf16 in every mode against plain on their first two
-             levels, its cheb and apply times at half-widths 5 and 8 beside the
-             dense bf16 products, and the same solves at 8^3 on the card and
-             the CPU; the periodic dw-PCG at degree 8 (48^3, K5 with 4
-             histories at P = 8; logged); a 6-term operator whose K5 residual
-             takes three chained launches, bit-equal to the single pass; K2 and
-             K3 in every mode at degrees 5 to 8 (33^3, rows K2 cuts into
-             shorter runs, K3's smaller tiles, 513^2).
+             levels, its cheb and apply times at degrees 5 and 8 (K1r)
+             beside the dense bf16 products, and the same solves at 8^3 on
+             the card and the CPU; the periodic dw-PCG at degree 8 (48^3,
+             K5r with 4 histories at P = 8; logged); a 6-term operator whose
+             K5 (P = 3) and K5r (P = 8) residual takes three chained runs,
+             bit-equal to the single pass; K2 and K3 in every mode at
+             degrees 5 to 8 (33^3, rows K2 cuts into shorter runs, K3's
+             smaller tiles, 513^2).
 23. wide degrees — spline degrees above 8 on the run-time kernels K1r and
              K5r, each three one-axis passes (A on axis 2, B on axis 1, C
              on axis 0) through its plan's scratch: the headline at 128^3
@@ -220,9 +221,7 @@ non-zero:
              K6u).  K1r in every mode (1e-5 of max|y|) and K5r (bit-equal)
              against plain at P = 9, 10, 12, 16 on the 128^3-element grids,
              timed beside their bounds, the plain versions and (K1r's apply)
-             the dense per-axis products; at P = 3 and 8 against the compiled
-             kernels (equal values, bit-equal words) and K1r at 4, 6 and 7
-             beside compiled K1 at 5 and 8; at P = 9 each pass alone against
+             the dense per-axis products; at P = 9 each pass alone against
              its plain version on the same inputs (K1r within 1e-5 of
              max|y|, every mode of pass C; K5r word for word), timed beside
              its own bound; each kernel's widest half-width (K1r 218 in f32,
@@ -245,10 +244,10 @@ ceiling, K2 from phases 8 and 9, K3 from phase 12, the probes from phase
 phase 17, and to each row the launches of every rank of phase 18 (its
 solves), and those of phases 19 (the headline runs and the banded
 examples), 20 (the benches), 21 (every rank of the distributed examples),
-22 and 23 (their solves); the rows of phase 22's instantiations (K5 at
-half-widths 4, 6, 7 and 8, K1 in bf16 at 5 and 8) count its solves at those
-half-widths only, and the rows of K1r's and K5r's passes (K1r's pass C
-one a mode its solves ran) count phase 23's solves; launches made to
+22 and 23 (their solves); the compiled K5's and f32 K1's rows take phase
+22's solves at half-width 3 only, and the rows of K1r's and K5r's passes
+(K1r's pass C one a mode its solves ran) count the solves of phases 22 and
+23 on them; launches made to
 compare a kernel with its plain
 version are not counted. Each kernel's ``bound_ms`` is the larger of its bytes
 (every input read once, every output written once) over 3.35 TB/s and its
@@ -457,15 +456,12 @@ def _k1_fields(npts, dtype, dev, seed):
             for _ in range(3)]
 
 
-def _k1_against_plain(what, terms, fields, npts, pads, periodic,
-                      half_widths=k1.COMPILED_P):
+def _k1_against_plain(what, terms, fields, npts, pads, periodic):
     """Every K1 check of ``_k1_runs`` on one operator, f32 or f64, against
-    the plain version, on the plan ``half_widths`` route it to; returns
-    max|d| per label."""
+    the plain version; returns max|d| per label."""
     x, b, d = fields
     dtype = x.dtype
-    plan = k1.build_kron_plan(terms, npts, pads, periodic,
-                              half_widths=half_widths)
+    plan = k1.build_kron_plan(terms, npts, pads, periodic)
     diag = plan.diagonal()
     rels, errs = {}, {}
     for label, mode, kw in _k1_runs(b, d):
@@ -1788,13 +1784,11 @@ def phase_stencil_bf16(dev, k4_gbps):
     return rows
 
 
-def _k1_bf16_against_plain(what, terms, fields, npts, pads, periodic,
-                           half_widths=k1.COMPILED_P):
-    """Every K1 check on one bf16 operator against the bf16 plain version,
-    on the plan ``half_widths`` route it to; returns max|d| per label."""
+def _k1_bf16_against_plain(what, terms, fields, npts, pads, periodic):
+    """Every K1 check on one bf16 operator against the bf16 plain version;
+    returns max|d| per label."""
     x, b, d = fields
-    plan = k1.build_kron_plan(terms, npts, pads, periodic,
-                              half_widths=half_widths)
+    plan = k1.build_kron_plan(terms, npts, pads, periodic)
     differ, total, errs = 0, 0, {}
     for label, mode, kw in _k1_runs(b, d):
         kw_k = dict(kw)
@@ -2960,11 +2954,10 @@ DEGREE_BANDED = [((33, 33, 33), 5), ((33, 33, 33), 8), ((9, 12, 129), 8),
                  ((8, 8, 256), 7), ((513, 513), 5), ((513, 513), 8)]
 
 
-def _half_width(degree, compiled=k1.COMPILED_P):
-    """The half-width K1 (or, given K5's table, K5) runs a degree-p
-    operator at: the first of ``compiled`` that holds it, else its own
-    (K1r, K5r)."""
-    return next((P for P in compiled if P >= degree), degree)
+def _half_width(degree):
+    """The half-width K1 and K5 run a degree-p operator at: the first of
+    ``k1.COMPILED_P`` that holds it, else its own (K1r, K5r)."""
+    return next((P for P in k1.COMPILED_P if P >= degree), degree)
 
 
 def _low_levels(mg):
@@ -3001,21 +2994,19 @@ def _k1_bound(plan, mode, npts, itemsize=4):
 
 def _degree_check(degree, timed):
     """The ``check`` of one headline run: the launches (read first), the
-    compiled half-width of every plan; where ``timed``, K5 (the residual
+    half-width of every plan; where ``timed``, K5 (the residual
     and A.p) bit-equal to plain on the solver's own operands, K6r and K6u
     against plain on its finest fields, K1 in every mode on the first two
     cycle levels and K7 between them against plain, K5's resources and the
     device time of K5's A.p and of K1's cheb pass on the finest cycle
     level; at degrees 5 and 8, that level cast to bf16: K1 in bf16
-    against plain and timed there (``_k1_bf16_times``); the compiled
-    instantiations of the degree that the solve leaves to K1r and K5r
-    (``_compiled_k5``, ``_compiled_k1``, ``_compiled_k1_bf16``)."""
-    P, P_dw = _half_width(degree), _half_width(degree, twofloat.COMPILED_P_DW)
+    against plain and timed there (``_k1_bf16_times``)."""
+    P = _half_width(degree)
 
     def check(prob, mg, x):
         launches = counters.snapshot()
         low = _low_levels(mg)
-        assert mg._plan_df.P == P_dw, (degree, mg._plan_df.P)
+        assert mg._plan_df.P == P, (degree, mg._plan_df.P)
         assert all(lev.A.plan.P == P for lev in low), degree
         missing = [k for k in ("residual_kron_df", "kron_mode.cheb",
                                "transfer") if not launches.get(k, 0)]
@@ -3031,15 +3022,13 @@ def _degree_check(degree, timed):
                           device=dev)
         (xh, xl), (bh, bl) = split_f64(x64), split_f64(prob.b.interior)
         _k5_on_solve(mg, mg._plan_df, (bh, bl, xh, xl),
-                     f"K5 at degree {degree} (P = {P_dw})")
-        if mg._plan_df.runtime and degree in twofloat.INSTANTIATED_P_DW:
-            out["compiled_k5"] = _compiled_k5(degree, mg, (bh, bl, xh, xl))
+                     f"K5 at degree {degree} (P = {P})")
         out["k5_resources"] = twofloat.k5_resources(mg._plan_df)
         out["k5_ms"] = _device_ms(lambda: twofloat.residual_kron_df(
             mg._terms_df, None, None, xh, None, sp.pads, labels=mg._labels,
             periodic=sp.periodic, plan=mg._plan_df, negate=True),
             kernels=rt_kernels(mg._plan_df, "k5r"))
-        out["k5_bound_ms"] = _k5_ops(P_dw, sp.npts) / F32_OPS * 1e3
+        out["k5_bound_ms"] = _k5_ops(P, sp.npts) / F32_OPS * 1e3
         out["k6r_err"] = _k6_against_plain(f"degree {degree}", xh, xl, bh, bl,
                                            g)
         del x64, xh, xl, bh, bl
@@ -3059,9 +3048,6 @@ def _degree_check(degree, timed):
                     kernels=rt_kernels(A.plan, "k1r"))
                 out["k1_bound_ms"], out["k1_bound_by"] = _k1_bound(
                     A.plan, "cheb", lsp.npts)
-                if (degree in k1.INSTANTIATED_P
-                        and degree not in k1.COMPILED_P):
-                    out["compiled_k1"] = _compiled_k1(degree, A, fields)
                 if degree in DEGREE_BF16_TIMED:
                     out["bf16"] = _k1_bf16_level(A, degree,
                                                  out["k1_ms"])
@@ -3078,7 +3064,7 @@ def _degree_check(degree, timed):
             raise AssertionError(f"K7 is not bit-equal to plain at degree "
                                  f"{degree}")
         res = out["k5_resources"]
-        log(f"[degrees] p={degree} (K1 P = {P}, K5 P = {P_dw}) on the "
+        log(f"[degrees] p={degree} (K1 and K5 P = {P}) on the "
             f"solve's operands: K5 "
             f"bit-equal (residual, A.p), K6r {out['k6r_err']:.2e} of "
             f"sum|terms|, K6u every mode bit-equal, K1 every mode on levels "
@@ -3114,81 +3100,6 @@ def _k5_on_solve(mg, plan, pairs, what):
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{what} is not bit-equal to plain at "
                                  f"{sp.npts}")
-
-
-def _compiled_k5(degree, mg, pairs):
-    """The compiled K5 at the degree's half-width, which the solves leave
-    to K5r (``twofloat.COMPILED_P_DW``), asked for by ``half_widths`` on
-    the solve's own operator and fields: bit-equal to plain (residual and
-    A.p), its A.p device time beside its operation bound, its
-    resources."""
-    sp = mg.problem.space
-    plan = twofloat.build_kron_df_plan(
-        mg._terms_df, sp.npts, sp.pads, sp.periodic, mg._labels,
-        half_widths=twofloat.INSTANTIATED_P_DW)
-    assert not plan.runtime and plan.P == degree, (degree, plan.P)
-    _k5_on_solve(mg, plan, pairs, f"compiled K5 at P = {plan.P}")
-    xh = pairs[2]
-    res = twofloat.k5_resources(plan)
-    r = {"P": plan.P, "npts": sp.npts,
-         "ms": _device_ms(lambda: twofloat.residual_kron_df(
-             mg._terms_df, None, None, xh, None, sp.pads, labels=mg._labels,
-             periodic=sp.periodic, plan=plan, negate=True)),
-         "bound_ms": _k5_ops(plan.P, sp.npts) / F32_OPS * 1e3,
-         **{k: res[k] for k in ("registers", "local_bytes", "smem_bytes",
-                                "blocks_per_sm")}}
-    log(f"[degrees] compiled K5 at P = {plan.P} (asked for by half_widths) "
-        f"on the degree-{degree} solve's operands at {sp.npts}: bit-equal "
-        f"to plain (residual, A.p); A.p {r['ms']:.4f} ms (operation bound "
-        f"{r['bound_ms']:.4f} ms), {r['registers']} registers, "
-        f"{r['local_bytes']} bytes local, {r['smem_bytes']} bytes shared, "
-        f"{r['blocks_per_sm']} blocks an SM")
-    del plan
-    return r
-
-
-def _compiled_k1(degree, A, fields):
-    """The compiled K1 (f32) at the half-width of the cycle level ``A``,
-    which the solves leave to K1r (``k1.COMPILED_P``), asked for by
-    ``half_widths``: every mode against plain on the level's operator,
-    each output beside K1r's (equal or not, logged), its cheb device time
-    beside its bound, its resources."""
-    sp = A.space
-    x, b, d = fields
-    errs = _k1_against_plain(f"compiled, degree {degree} level 0, ",
-                             A.terms, fields, sp.npts, sp.pads, sp.periodic,
-                             half_widths=k1.INSTANTIATED_P)
-    plan = k1.build_kron_plan(A.terms, sp.npts, sp.pads, sp.periodic,
-                              half_widths=k1.INSTANTIATED_P)
-    assert not plan.runtime and plan.P == A.plan.P, (plan.P, A.plan.P)
-    equal = True
-    for label, mode, kw in _k1_runs(b, d):
-        kw_r, kw_c = dict(kw), dict(kw)
-        if kw.get("d") is not None:
-            kw_r["d"], kw_c["d"] = d.clone(), d.clone()
-        got = k1.kron_mode(mode, A.plan, x, **kw_r)
-        want = k1.kron_mode(mode, plan, x, **kw_c)
-        torch.cuda.synchronize()
-        if mode != "cheb":
-            got, want = (got,), (want,)
-        equal &= all(torch.equal(g_, w) for g_, w in zip(got, want))
-    res = k1.k1_resources(plan, "cheb")
-    r = {"P": plan.P, "npts": sp.npts, "max_abs_err": max(errs.values()),
-         "equal_to_k1r": bool(equal),
-         "ms": _device_ms(lambda: k1.kron_mode("cheb", plan, x, b=b, d=d,
-                                               c1=0.3, c2=0.7)),
-         **{k: res[k] for k in ("registers", "local_bytes", "smem_bytes",
-                                "blocks_per_sm")}}
-    r["bound_ms"], r["bound_by"] = _k1_bound(plan, "cheb", sp.npts)
-    log(f"[degrees] compiled K1 f32 at P = {plan.P} (asked for by "
-        f"half_widths) on the degree-{degree} level 0 at {sp.npts}: every "
-        f"mode within K1's tolerance of plain (max|d| "
-        f"{r['max_abs_err']:.2e}), {'equal' if equal else 'not equal'} to "
-        f"the solve's K1r; cheb {r['ms']:.4f} ms ({r['bound_by']} bound "
-        f"{r['bound_ms']:.4f} ms), {r['registers']} registers, "
-        f"{r['local_bytes']} bytes local, {r['blocks_per_sm']} blocks an SM")
-    del plan
-    return r
 
 
 def _dwrr_run(degree, dev, n_el, maxiter=DWRR_MAXITER):
@@ -3290,42 +3201,10 @@ def _k1_bf16_level(A, degree, f32_ms):
     r = _k1_bf16_times(A16, degree)
     r["max_abs_err"] = max(errs.values())
     r["f32_ms"] = f32_ms
-    if degree not in k1.COMPILED_P:
-        r["compiled"] = _compiled_k1_bf16(A16, degree)
     log(f"[degrees bf16] K1 cheb at {sp.npts} p={degree}: bf16 "
         f"{r['ms']:.4f} ms, f32 {f32_ms:.4f} ms, bf16/f32 "
         f"{r['ms'] / f32_ms:.3f}")
     del A16
-    return r
-
-
-def _compiled_k1_bf16(A, degree):
-    """The compiled K1 in bf16 at the half-width of the bf16 level ``A``,
-    which the solves leave to K1r (``k1.COMPILED_P``), asked for by
-    ``half_widths``: every mode within one bf16 unit of plain, its cheb
-    device time beside its bound, its resources."""
-    sp = A.space
-    x, b, d = _k1_fields(sp.npts, BF16, sp.device, degree)
-    errs = _k1_bf16_against_plain(
-        f"degree {degree} level 0 cast to bf16, compiled, ", A.terms,
-        (x, b, d), sp.npts, sp.pads, sp.periodic,
-        half_widths=k1.INSTANTIATED_P)
-    plan = k1.build_kron_plan(A.terms, sp.npts, sp.pads, sp.periodic,
-                              half_widths=k1.INSTANTIATED_P)
-    assert not plan.runtime and plan.P == degree, (plan.P, degree)
-    res = k1.k1_resources(plan, "cheb")
-    r = {"P": plan.P, "npts": sp.npts, "max_abs_err": max(errs.values()),
-         "ms": _device_ms(lambda: k1.kron_mode("cheb", plan, x, b=b, d=d,
-                                               c1=0.3, c2=0.7)),
-         **{k: res[k] for k in ("registers", "local_bytes", "smem_bytes",
-                                "blocks_per_sm")}}
-    r["bound_ms"], r["bound_by"] = _k1_bound(plan, "cheb", sp.npts, 2)
-    log(f"[degrees bf16] compiled K1 bf16 at P = {plan.P} (asked for by "
-        f"half_widths) at {sp.npts}: every mode within one bf16 unit of "
-        f"plain; cheb {r['ms']:.4f} ms ({r['bound_by']} bound "
-        f"{r['bound_ms']:.4f} ms), {r['registers']} registers, "
-        f"{r['local_bytes']} bytes local, {r['blocks_per_sm']} blocks an SM")
-    del plan
     return r
 
 
@@ -3380,8 +3259,7 @@ def _degree_periodic(dev):
         mixed=True, operator="kron", precision="dw")
     sp_ = k1.sharing_plan(pcg._plan_df.labels)
     assert len(sp_["w_src"]) == 4, sp_
-    assert pcg._plan_df.P == _half_width(c["degree"],
-                                         twofloat.COMPILED_P_DW)
+    assert pcg._plan_df.P == _half_width(c["degree"])
     _, rn, it = pcg.solve_compiled(tol=1e-10, maxiter=c["maxiter"])
     grown = counters.diff(counters.snapshot(), before)
     g = torch.Generator(device=dev).manual_seed(8)
@@ -3413,17 +3291,17 @@ def _degree_periodic(dev):
 
 
 def _degree_chain(dev):
-    """A 6-term operator with nothing shared (runs of terms: three K5
-    launches a call) on the compiled K5 at P = 8 and P = 3: bit-equal to the
-    single-pass plain version, with b given and as A.p; the launches
-    counted per call."""
+    """A 6-term operator with nothing shared (three runs of terms a call)
+    on K5r at P = 8 (three launches a run) and the compiled K5 at P = 3 (one
+    a run): bit-equal to the single-pass plain version, with b given and as
+    A.p; the launches counted per call."""
     for npts, p in DEGREE_CHAIN_SHAPES:
         terms, (x, b, _) = _k1_operands(npts, (p,) * 3, torch.float64, dev,
                                         p, DEGREE_CHAIN_TERMS)
         split = {id(B): split_f64(B) for t in terms for B in t}
         tdf = [[split[id(B)] for B in t] for t in terms]
-        plan = twofloat.build_kron_df_plan(
-            tdf, npts, (p,) * 3, half_widths=twofloat.INSTANTIATED_P_DW)
+        plan = twofloat.build_kron_df_plan(tdf, npts, (p,) * 3)
+        per_run = len(twofloat.RT_PASSES) if plan.runtime else 1
         (xh, xl), (bh, bl) = split_f64(x), split_f64(b)
         zero = torch.zeros_like(xh)
         for flags, explicit, neg in (
@@ -3434,15 +3312,17 @@ def _degree_chain(dev):
                                             negate=neg)
             torch.cuda.synchronize()
             launched = twofloat.residual_kron_df.launches - before
-            assert launched == len(plan.chunks) > 1, (launched, plan.chunks)
+            assert launched == per_run * len(plan.chunks) > per_run, (
+                launched, plan.chunks)
             want = twofloat.residual_kron_df_plain(tdf, *explicit, (p,) * 3,
                                                    None, None, neg)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"K5's chained launches at {npts} p={p} "
                                      "are not bit-equal to the single pass")
         log(f"[degrees chain] {DEGREE_CHAIN_TERMS} free terms at {npts} "
-            f"p={p} (P = {plan.P}): runs {plan.chunks}, {launched} K5 "
-            f"launches a call, bit-equal to the single pass (b given; A.p)")
+            f"p={p} (P = {plan.P}): runs {plan.chunks}, {launched} "
+            f"{'K5r' if plan.runtime else 'K5'} launches a call, bit-equal "
+            f"to the single pass (b given; A.p)")
         del terms, x, b, tdf, split, xh, xl, bh, bl, zero, got, want
 
 
@@ -3489,13 +3369,10 @@ def phase_degrees(dev):
     dc through examples/headline_solve.main, and the dwrr PCG), converged
     with a true f64 residual <= 5e-10, the kernels on the solves' own
     operands against plain, K5 and K1 at each degree's half-width (the
-    compiled kernels at 1-3, K1r and K5r from 4 on), and beside them the
-    compiled instantiations no solve takes any more, asked for by
-    ``half_widths`` on the same operands (K5 at 4-8 bit-equal, K1 in f32
-    and bf16 at 5 and 8 in every mode), each timed; bf16 cycles at
-    degrees 4, 5 and 8; the periodic dw-PCG at degree 8; a 6-term chain on
-    the compiled K5; K2/K3 at degrees 5 and 8.  Returns the launches of its
-    solves and the per-degree rows.
+    compiled kernels at 1-3, K1r and K5r from 4 on), each timed; bf16
+    cycles at degrees 4, 5 and 8; the periodic dw-PCG at degree 8; a 6-term
+    chain on K5r and the compiled K5; K2/K3 at degrees 5 and 8.  Returns
+    the launches of its solves and the per-degree rows.
 
     The launches go to the rows whose kernel they ran: the generic K5 and
     f32 K1 rows (timed at P = 3) take only the compiled kernels' launches
@@ -3508,9 +3385,8 @@ def phase_degrees(dev):
 
     def add(grown, degree):
         P = _half_width(degree)
-        P_dw = _half_width(degree, twofloat.COMPILED_P_DW)
         for k, v in grown.items():
-            if k == "residual_kron_df" and P_dw != 3:
+            if k == "residual_kron_df" and P != 3:
                 continue
             if k.startswith("kron_mode.") and P != 3:
                 continue
@@ -3518,7 +3394,6 @@ def phase_degrees(dev):
 
     for degree in DEGREES:
         P = _half_width(degree)
-        P_dw = _half_width(degree, twofloat.COMPILED_P_DW)
         for solver in ("pcg", "dc"):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -3533,8 +3408,8 @@ def phase_degrees(dev):
             chk = res.pop("check")
             add(chk.pop("launches"), degree)
             res.update(chk)
-            log(f"[degrees] {DEGREE_N}^3 p={degree} (K1 P = {P}, K5 P = "
-                f"{P_dw}) {solver}: "
+            log(f"[degrees] {DEGREE_N}^3 p={degree} (K1 and K5 P = {P}) "
+                f"{solver}: "
                 f"{res['iterations']} iterations, |r| {res['rn']:.3e}, true "
                 f"f64 |b - Ax| {res['true_residual']:.3e}, L2 error "
                 f"{res['l2_error']:.3e}, replayed {res['ms_per_iter']:.3f} "
@@ -3581,8 +3456,6 @@ WIDE_GATED = {"pcg": (9, 10), "dc": (9, 10), "dwrr": (9,)}
 # K1r and K5r timed at the 128^3-element grid of these half-widths,
 # (128 + P - 2)^3 points, on Poisson-shaped random bands
 WIDE_TIMED_P = (9, 10, 12, 16)
-WIDE_COMPILED_P = (3, 8)       # K1r and K5r held to the compiled kernels
-WIDE_PADDED = {4: 5, 6: 8, 7: 8}   # K1r at P against compiled K1 at its pad
 WIDE_SMALL = (5, 6, 9)         # the widest half-widths run on this grid
 WIDE_ROW_P = 9                 # the kernels line's K1r and K5r rows' P
 
@@ -3697,17 +3570,15 @@ def _k1r_passes(plan, x, b, d):
     return out
 
 
-def _k1r_times(P, terms, fields, compiled=None, passes=False):
+def _k1r_times(P, terms, fields, passes=False):
     """K1r in every mode against plain at the grid of P (f32), and its
     device times beside its bound (``_k1_bound``); beside them the dense
     per-axis products (the library call of the apply), with ``passes``
-    each pass alone (``_k1r_passes``) and, given ``compiled`` half-widths,
-    the compiled kernel at the first of them that holds P (equal values
-    where that is P itself)."""
+    each pass alone (``_k1r_passes``)."""
     npts, pads, per = _wide_grid(P)
     dev = fields[0].device
     x, b, d = (f.float() for f in fields)
-    plan = k1.build_kron_plan(terms, npts, pads, per, half_widths=())
+    plan = k1.build_kron_plan(terms, npts, pads, per)
     errs = _k1_against_plain(f"K1r P={P} ", terms, (x, b, d), npts, pads,
                              per)
     out = torch.empty_like(x)
@@ -3738,29 +3609,6 @@ def _k1r_times(P, terms, fields, compiled=None, passes=False):
     r["library_ms"] = _device_ms(lambda: op._apply_interior_matmul(
         x, tf32=False), 5)
     del op, lib
-    if compiled:
-        cplan = k1.build_kron_plan(terms, npts, pads, per,
-                                   half_widths=compiled)
-        equal = cplan.P == P
-        for label, mode, kw in _k1_runs(b, d):
-            kw_r, kw_c = dict(kw), dict(kw)
-            if kw.get("d") is not None:
-                kw_r["d"], kw_c["d"] = d.clone(), d.clone()
-            got = k1.kron_mode(mode, plan, x, **kw_r)
-            want = k1.kron_mode(mode, cplan, x, **kw_c)
-            torch.cuda.synchronize()
-            if mode != "cheb":
-                got, want = (got,), (want,)
-            for g_, w in zip(got, want):
-                if equal and not torch.equal(g_, w):
-                    raise AssertionError(f"K1r at P = {P} differs from the "
-                                         f"compiled kernel ({label})")
-                rel = float((g_ - w).abs().max() / w.abs().max())
-                assert rel <= K1_TOL[torch.float32], (P, label, rel)
-        r["compiled_P"] = cplan.P
-        r["compiled_ms"] = {m: _device_ms(lambda: k1.kron_mode(
-            m, cplan, x, out=out, **kw)) for label, m, kw in _k1_runs(b, d)
-            if label in ("apply", "cheb")}
     log(f"[wide] K1r P={P} at {npts} f32, tiles {plan.tiling}, "
         f"{r['resources']['registers']} registers, "
         f"{r['resources']['local_bytes']} bytes local, "
@@ -3772,12 +3620,7 @@ def _k1r_times(P, terms, fields, compiled=None, passes=False):
                     for m, ms in r["ms"].items())
         + f"; plain cheb {r['plain_ms']['cheb']:.4f} ms; dense per-axis "
         f"products {r['library_ms']:.4f} ms (apply/products "
-        f"{r['ms']['apply'] / r['library_ms']:.3f})"
-        + (f"; compiled P = {r['compiled_P']}"
-           f"{' (equal values)' if r['compiled_P'] == P else ''}: "
-           + ", ".join(f"{m} {ms:.4f} ms"
-                       for m, ms in r["compiled_ms"].items())
-           if compiled else ""))
+        f"{r['ms']['apply'] / r['library_ms']:.3f})")
     return r
 
 
@@ -3842,37 +3685,29 @@ def _k5r_passes(plan, xh):
     return out
 
 
-def _k5r_times(P, tdf, fields, compiled=False, passes=False):
+def _k5r_times(P, tdf, fields, passes=False):
     """K5r against plain (bit-equal: b and x_l given, and A.p) at the grid
     of P, its A.p device time beside its operation bound and the plain
-    version; with ``passes`` each pass alone (``_k5r_passes``); with
-    ``compiled``, the compiled K5 of P (bit-equal) and its time."""
+    version; with ``passes`` each pass alone (``_k5r_passes``)."""
     npts, pads, _ = _wide_grid(P)
     (xh, xl), (bh, bl) = split_f64(fields[0]), split_f64(fields[1])
     zero = torch.zeros_like(xh)
-    plans = {"rt": twofloat.build_kron_df_plan(tdf, npts, pads,
-                                               half_widths=())}
-    if compiled:
-        plans["compiled"] = twofloat.build_kron_df_plan(
-            tdf, npts, pads, half_widths=twofloat.INSTANTIATED_P_DW)
-    r = {"ms": {}}
-    for name, plan in plans.items():
-        for given, explicit, neg in (
-                ((bh, bl, xh, xl), (bh, bl, xh, xl), False),
-                ((None, None, xh, None), (zero, zero, xh, zero), True)):
-            got = twofloat.residual_kron_df(tdf, *given, pads, plan=plan,
-                                            negate=neg)
-            torch.cuda.synchronize()
-            want = twofloat.residual_kron_df_plain(tdf, *explicit, pads,
-                                                   None, None, neg)
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"K5 ({name}) at P = {P} is not "
-                                     f"bit-equal to plain")
-            del got, want
-        r["ms"][name] = _device_ms(lambda: twofloat.residual_kron_df(
-            tdf, None, None, xh, None, pads, plan=plan, negate=True),
-            kernels=rt_kernels(plan, "k5r"))
-    plan = plans["rt"]
+    plan = twofloat.build_kron_df_plan(tdf, npts, pads)
+    for given, explicit, neg in (
+            ((bh, bl, xh, xl), (bh, bl, xh, xl), False),
+            ((None, None, xh, None), (zero, zero, xh, zero), True)):
+        got = twofloat.residual_kron_df(tdf, *given, pads, plan=plan,
+                                        negate=neg)
+        torch.cuda.synchronize()
+        want = twofloat.residual_kron_df_plain(tdf, *explicit, pads, None,
+                                               None, neg)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K5r at P = {P} is not bit-equal to "
+                                 f"plain")
+        del got, want
+    r = {"ms": _device_ms(lambda: twofloat.residual_kron_df(
+        tdf, None, None, xh, None, pads, plan=plan, negate=True),
+        kernels=rt_kernels(plan, "k5r"))}
     r["tiling"], r["resources"] = plan.tiling, twofloat.k5_resources(plan)
     if passes:
         r["passes"] = _k5r_passes(plan, xh)
@@ -3884,34 +3719,20 @@ def _k5r_times(P, tdf, fields, compiled=False, passes=False):
         f"A.p), tiles {plan.tiling}, {res['registers']} registers, "
         f"{res['local_bytes']} bytes local, {res['smem_bytes']} bytes "
         f"shared, {res['blocks_per_sm']} blocks an SM; A.p "
-        f"{r['ms']['rt']:.4f} ms, operation bound {r['bound_ms']:.4f} ms "
-        f"({100 * r['bound_ms'] / r['ms']['rt']:.1f}%), plain "
-        f"{r['plain_ms']:.4f} ms"
-        + (f"; compiled K5 bit-equal, {r['ms']['compiled']:.4f} ms"
-           if compiled else ""))
+        f"{r['ms']:.4f} ms, operation bound {r['bound_ms']:.4f} ms "
+        f"({100 * r['bound_ms'] / r['ms']:.1f}%), plain "
+        f"{r['plain_ms']:.4f} ms")
     return r
 
 
 def _wide_kernels(dev):
-    """K1r and K5r at the 128^3-element grids of WIDE_TIMED_P, at the
-    compiled half-widths 3 and 8 beside the compiled kernels (equal
-    values, bit-equal words), and K1r at 4, 6 and 7 beside compiled K1 at
-    the half-width it pads them to."""
+    """K1r and K5r at the 128^3-element grids of WIDE_TIMED_P."""
     rows = {}
-    for P in WIDE_COMPILED_P + WIDE_TIMED_P:
+    for P in WIDE_TIMED_P:
         terms64, terms, tdf, fields = _wide_operands(P, dev, 23 + P)
-        compiled = P in WIDE_COMPILED_P
-        rows[P] = {"K1r": _k1r_times(P, terms, fields,
-                                     k1.INSTANTIATED_P if compiled else None,
-                                     P == WIDE_ROW_P),
-                   "K5r": _k5r_times(P, tdf, fields, compiled,
-                                     P == WIDE_ROW_P)}
+        rows[P] = {"K1r": _k1r_times(P, terms, fields, P == WIDE_ROW_P),
+                   "K5r": _k5r_times(P, tdf, fields, P == WIDE_ROW_P)}
         del terms64, terms, tdf, fields
-        torch.cuda.empty_cache()
-    for P, padded in WIDE_PADDED.items():
-        _, terms, _, fields = _wide_operands(P, dev, 23 + P)
-        rows[P] = {"K1r": _k1r_times(P, terms, fields, (padded,))}
-        del terms, fields
         torch.cuda.empty_cache()
     return rows
 
@@ -4013,10 +3834,10 @@ def phase_wide_degrees(dev):
     says, the others logged), every plan at the degree's own half-width
     and K1r and K5r launched; on each pcg run's own operands the checks of
     phase 22 (K5r bit-equal, K1r in every mode on levels 0-1, K7, K6r,
-    K6u); K1r and K5r timed at P = 9, 10, 12, 16, against the compiled
-    kernels at 3 and 8 and K1r at 4, 6, 7; the widest half-widths and the
-    refusal one past them.  Returns the launches of its solves (K1r's and
-    K5r's apart), the rows of each run and the kernels' numbers."""
+    K6u); K1r and K5r timed at P = 9, 10, 12, 16; the widest half-widths
+    and the refusal one past them.  Returns the launches of its solves
+    (K1r's and K5r's apart), the rows of each run and the kernels'
+    numbers."""
     from poms_tpu_torch.examples import headline_solve
 
     launches, rt, rows = {}, {}, {}

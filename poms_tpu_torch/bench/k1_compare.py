@@ -42,8 +42,8 @@ its ``ops/kron.py`` and ``ops/twofloat.py``, all four copied into
     mkdir -p _checkout/old && for f in csrc/kron_apply.cu \
         csrc/kron_apply_dw.cu ops/kron.py ops/twofloat.py; do \
       git show HEAD:poms_tpu_torch/$f > _checkout/old/$(basename $f); done
-    python -m poms_tpu_torch.bench.k1_compare [--rt-ab _checkout/old \
-        [--sweep-rt]] [--route]
+    python -m poms_tpu_torch.bench.k1_compare --rt-ab _checkout/old \
+        [--sweep-rt]
 
 and then, at P = 9, 10, 12, 16 on ``chip_smoke.py``'s grids ((126 + P)³
 points, Poisson-shaped f32 bands), times the earlier and the current K1r in
@@ -51,13 +51,7 @@ every mode and K5r's A·p in turns (old, new, new, old), checks that their
 outputs are ``torch.equal``, and times each new pass alone (a call of
 several kernels is timed only from a profile that holds every one of
 them, ``device_ms``'s ``kernels``); ``--sweep-rt`` times each pass at
-every block size of ``RT_WARPS`` (the cost models' data).  ``--route``
-times the headline ``pcg`` at 128³ elements at degrees 4–8 with the
-compiled K1 and K5 and with K1r and K5r at the degree's own half-width,
-in turns (every plan of the solver built anew before its first solve,
-with ``half_widths`` every compiled half-width for the first and none
-for the second: ``route_pcg``), the measurement the half-width tables
-``COMPILED_P`` and ``COMPILED_P_DW`` route by.
+every block size of ``RT_WARPS`` (the cost models' data).
 
 One ``RESULT {...}`` line per measurement.  Needs a CUDA card.
 """
@@ -118,7 +112,6 @@ def _old_kernel(source):
 
 
 RT_P = (9, 10, 12, 16)       # the A/B's half-widths (chip_smoke.WIDE_TIMED_P)
-ROUTE_DEGREES = (4, 5, 6, 7, 8)
 
 
 def wide_grid(P):
@@ -237,8 +230,8 @@ def rt_ab(old_dir, sweep=False, result=print):
         x, b, d = (torch.as_tensor(rng.standard_normal(npts),
                                    dtype=torch.float32, device=dev)
                    for _ in range(3))
-        new = kron.build_kron_plan(terms, npts, pads, per, half_widths=())
-        old = kron_old.build_kron_plan(terms, npts, pads, per, half_widths=())
+        new = kron.build_kron_plan(terms, npts, pads, per)
+        old = kron_old.build_kron_plan(terms, npts, pads, per)
         out = torch.empty_like(x)
         for mode in kron.MODES:
             kw = {"b": b} if mode in ("residual", "cheb") else {}
@@ -270,8 +263,8 @@ def rt_ab(old_dir, sweep=False, result=print):
                  passes_ms=k1r_pass_ms(new, x, mode, kw.get("b"),
                                        d if mode == "cheb" else None))
         (xh, xl), (bh, bl) = (twofloat.split_f64(t.double()) for t in (x, b))
-        new5 = twofloat.build_kron_df_plan(tdf, npts, pads, half_widths=())
-        old5 = tf_old.build_kron_df_plan(tdf, npts, pads, half_widths=())
+        new5 = twofloat.build_kron_df_plan(tdf, npts, pads)
+        old5 = tf_old.build_kron_df_plan(tdf, npts, pads)
         equal = True
         for given in ((bh, bl, xh, xl), (None, None, xh, None)):
             g = twofloat.residual_kron_df(tdf, *given, pads, plan=new5,
@@ -412,68 +405,6 @@ def k1_ab(old_dir, result=print, shapes=SHAPES, dtype=None):
     return rows
 
 
-def route(result=print):
-    """The headline ``pcg`` at 128³ elements at each of ``ROUTE_DEGREES``
-    on the compiled K1 and K5 and on K1r and K5r, in turns (compiled,
-    run-time, run-time, compiled): the measurement ``COMPILED_P`` and
-    ``COMPILED_P_DW`` route by."""
-    import torch
-
-    from poms_tpu_torch.ops import kron, twofloat
-
-    dev = torch.device("cuda", 0)
-    compiled = (kron.INSTANTIATED_P, twofloat.INSTANTIATED_P_DW)
-    for degree in ROUTE_DEGREES:
-        for kind, tables in (("compiled", compiled), ("runtime", ((), ())),
-                             ("runtime", ((), ())), ("compiled", compiled)):
-            result(kernel="route.pcg", degree=degree, kernels=kind,
-                   **route_pcg(128, degree, tables, dev))
-            torch.cuda.empty_cache()
-
-
-def route_pcg(n_el, degree, half_widths, dev, maxiter=400):
-    """The headline ``pcg`` (``examples/headline_solve.build``) with every
-    Kronecker plan of its solver built anew at ``half_widths`` = (K1's,
-    K5's table) before the first solve (its λ estimates stay those of the
-    default plans): iterations, ms per iteration of the second (replayed)
-    solve and the true f64 residual."""
-    import time
-
-    import torch
-
-    from poms_tpu_torch.core.kron import KroneckerSumOperator
-    from poms_tpu_torch.examples import headline_solve
-    from poms_tpu_torch.ops import kron, twofloat
-
-    k1_table, k5_table = half_widths
-    prob, mg = headline_solve.build(n_el, degree, "pcg", dev)
-    for levels in (mg.levels, mg.levels_pre):
-        for lev in levels:
-            A = lev.A
-            if isinstance(A, KroneckerSumOperator):
-                sp = A.space
-                A.plan = kron.build_kron_plan(A.terms, sp.npts, sp.pads,
-                                              sp.periodic,
-                                              half_widths=k1_table)
-    sp = prob.space
-    mg._plan_df = twofloat.build_kron_df_plan(
-        mg._terms_df, sp.npts, sp.pads, sp.periodic, mg._labels,
-        half_widths=k5_table)
-    sync = (torch.cuda.synchronize if dev.type == "cuda"
-            else lambda: None)
-    mg.solve_compiled(tol=1e-10, maxiter=maxiter)     # warm up, capture
-    sync()
-    t0 = time.perf_counter()
-    x, rn, it = mg.solve_compiled(tol=1e-10, maxiter=maxiter)
-    sync()
-    wall = time.perf_counter() - t0
-    true = float(torch.linalg.vector_norm(prob.A.residual(x, prob.b)))
-    return {"iterations": int(it), "rn": float(rn),
-            "ms_per_iter": wall / max(int(it), 1) * 1e3,
-            "true_residual": true,
-            "P": (mg.levels_pre[0].A.plan.P, mg._plan_df.P)}
-
-
 def main():
     args = sys.argv[1:]
     old_src = args[args.index("--old") + 1] if "--old" in args else None
@@ -499,7 +430,7 @@ def main():
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = nvidia_smi_name_power()
-    if "--rt-ab" in args or "--route" in args or "--k1-ab" in args:
+    if "--rt-ab" in args or "--k1-ab" in args:
         def printed(**kw):
             print("RESULT " + json.dumps({**kw, "card": card}), flush=True)
 
@@ -512,8 +443,6 @@ def main():
         if "--rt-ab" in args:
             rt_ab(args[args.index("--rt-ab") + 1], "--sweep-rt" in args,
                   printed)
-        if "--route" in args:
-            route(printed)
         return
     bw = sol_bandwidth(torch.cuda.get_device_name(0)) * 1e9
     print(f"card: {card}; bound at {bw / 1e12:.2f} TB/s", flush=True)
@@ -552,7 +481,7 @@ def main():
                 result(kernel=f"K1.apply.{who}", n=n, ms=device_ms(fn),
                        events_ms=cuda_event_ms(fn))
         if sweep:
-            for R in rows_options(3):
+            for R in rows_options():
                 rplan = build_kron_plan(terms, npts, pads, per, trows=(R,))
                 for tiling in sweep_tilings(n, rplan, sms):
                     def swept(mode):

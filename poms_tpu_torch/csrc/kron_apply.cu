@@ -23,11 +23,10 @@
 // marches over a run of axis-0 planes: cp.async window loads (T1 + 2P rows
 // by T2 + 2P columns) into a ring of buffers, index rules instead of a
 // padded copy (a table of the window's in-plane source offsets, int32).
-// A thread owns a register micro-tile of R rows by C columns (R a template
-// parameter the host's tile model picks per grid, rows_compiled();
-// columns<T, P>(); two by two in f32 at P <= 3 on the fine grids), and a
-// row group's threads are consecutive, so a tile 64 columns wide puts one
-// row group in a warp.
+// A thread owns a register micro-tile of R rows by C columns (R, 2 or 1, a
+// template parameter the host's tile model picks per grid; columns<T>():
+// two by two in f32 on the fine grids), and a row group's threads are
+// consecutive, so a tile 64 columns wide puts one row group in a warp.
 // Step q of the march, one block barrier:
 //   axis 2: the axis-2 pass of plane q + 1: each thread contracts its own
 //           columns of the window for the distinct axis-2 bands, over the
@@ -48,10 +47,10 @@
 //           several times the size); the band rows of this run of planes
 //           come from shared memory.  Plane q - P is then complete;
 //   epilogue: its operands b and d are asked for at the top of the step,
-//           so they arrive under the arithmetic; at P <= 3 x is read from
-//           the window of its plane, which the ring keeps P + 1 planes
-//           longer than the axis-2 pass needs it (cheb then reads four
-//           fields from device memory, not five); the diagonal's centre
+//           so they arrive under the arithmetic; x is read from the
+//           window of its plane, which the ring keeps P + 1 planes longer
+//           than the axis-2 pass needs it (cheb then reads four fields
+//           from device memory, not five); the diagonal's centre
 //           columns come from small tables in shared memory.
 // The arithmetic has no branches on the plan: an absent partial has zero band
 // rows, and a zero ghost plane is a window of zeros, so the chains of
@@ -78,9 +77,13 @@
 // are converted as they are read into registers and shared memory, the
 // arithmetic is the f32 kernel's, and the epilogue rounds once on the store
 // (cheb: x + d is formed from the unrounded d).  Where an operator takes
-// several launches the sum between them (acc, out_hi) stays f32.  Every
-// dtype is compiled at half-widths 1, 2, 3, 5 and 8; plans take it at 1-3
-// and K1r at every other (ops/kron.py::COMPILED_P, chosen end to end).
+// several launches the sum between them (acc, out_hi) stays f32.
+//
+// One route per half-width (ops/kron.py::COMPILED_P): every dtype is
+// compiled at half-widths 1, 2 and 3, and bands up to 3 wide are padded to
+// the widest of them; every wider band runs on K1r at its own half-width,
+// which stepped the headline solve faster than this kernel from spline
+// degree 4 on (NVIDIA H100 80GB HBM3).
 //
 // K1r (k1r_pass_a/b/c, entries kron_apply_rt_*): bands wider than the
 // compiled half-widths, the half-width a launch argument, as three one-axis
@@ -103,11 +106,11 @@
 // first two as one expression in pass A, the rest multiply-added; the v's
 // summed in order; on axis 0 per tap each pre-summed partial in turn (a
 // zero-padded tap or a ghost plane adds an exact zero); the diagonal from
-// the centre columns without FMA.  An f32 written to the scratch and read
-// back is exact, so K1r equals the compiled kernel at its half-widths.  Its
-// smallest block (one warp a pass) fits the card's shared memory up to the
-// half-width ops/kron.py::widest_half_width finds for k1r_smem; wider bands
-// are refused by the host (ops/kron.py::refuse_half_width).
+// the centre columns without FMA; an f32 written to the scratch and read
+// back is exact, so the scratch changes no output.  Its smallest block (one
+// warp a pass) fits the card's shared memory up to the half-width
+// ops/kron.py::widest_half_width finds for k1r_smem; wider bands are
+// refused by the host (ops/kron.py::refuse_half_width).
 
 #include "kron_march.cuh"
 #include "kron_pass.cuh"
@@ -155,30 +158,18 @@ struct Args {
 };
 
 // columns of the tile one thread owns: two where the registers allow it
-// (f32, P <= 3), so that every shared-memory load of the axis-1 pass and
-// every band coefficient of the axis-0 pass serves two points
-template <typename T, int P>
+// (f32), so that every shared-memory load of the axis-1 pass and every band
+// coefficient of the axis-0 pass serves two points
+template <typename T>
 __host__ __device__ constexpr int columns() {
-  return (sizeof(T) == 4 && P <= 3) ? 2 : 1;
-}
-
-// rows of the tile one thread owns (its register micro-tile is R rows x
-// columns), a launch's choice among those compiled: 2 or 1 at P <= 3 (at 2
-// every u value and every band vector the axis-1 pass reads serves two
-// rows, which pays where blocks fill the SMs; on coarse grids, whose few
-// blocks leave the SMs half idle, a thread's chain of work sets the pace and
-// 1 row is faster), 1 for the wide bands, whose ring and axis-2 band rows
-// fill the registers
-template <int P, int R>
-__host__ __device__ constexpr bool rows_compiled() {
-  return R == 1 || (R == 2 && P <= 3);
+  return sizeof(T) == 4 ? 2 : 1;
 }
 
 // blocks that must fit an SM together: two where 128 registers a thread are
 // enough (while one block waits at its barrier the other computes)
-template <typename T, int P>
+template <typename T>
 __host__ __device__ constexpr int min_blocks() {
-  return (sizeof(T) == 4 && P <= 3) ? 2 : 1;
+  return sizeof(T) == 4 ? 2 : 1;
 }
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
@@ -242,19 +233,12 @@ __host__ __device__ constexpr size_t align16(size_t bytes) {
   return (bytes + 15) / 16 * 16;
 }
 
-// whether the epilogue reads x of its plane from the window: where the
-// ring's P + 1 more planes fit beside wide tiles (P <= 3)
-template <int P>
-__host__ __device__ constexpr bool x_from_window() {
-  return P <= 3;
-}
-
 // window buffers of the ring: the planes whose copies are in flight
-// (kron::kStages ahead), and where x_from_window the P + 1 planes of the
-// outputs still open
+// (kron::kStages ahead), and the P + 1 planes of the outputs still open,
+// whose x the epilogue reads from them
 template <int P>
 __host__ __device__ constexpr int window_buffers() {
-  return kron::kStages + (x_from_window<P>() ? P + 1 : 0);
+  return kron::kStages + P + 1;
 }
 
 // shared memory of the compiled kernel, by byte offset, each section
@@ -303,11 +287,11 @@ __device__ __forceinline__ void fill_table(T* dst, int n, F value) {
 }
 
 template <typename T, int P, int R, int MODE, typename IO>
-__global__ void __launch_bounds__(kMaxThreads, min_blocks<T, P>())
+__global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
 kron_march_kernel(const Args<T, IO> a) {
-  static_assert(rows_compiled<P, R>());
+  static_assert(R == 1 || R == 2);
   constexpr int W = 2 * P + 1;
-  constexpr int C = columns<T, P>();
+  constexpr int C = columns<T>();
   constexpr int RH = R + 2 * P;  // u rows a row group's outputs reach
   constexpr int D = kron::kStages;    // planes a copy is started ahead
   constexpr int S = window_buffers<P>();
@@ -347,11 +331,10 @@ kron_march_kernel(const Args<T, IO> a) {
 
   // input planes q in [i_begin - P, i_end + P): plane q lands in window
   // buffer (q - q_begin) % S, its copy started D steps before its axis-2
-  // pass (and, where x_from_window, kept until the epilogue of output
-  // plane q has read x); a zero ghost plane is filled with zeros (one
-  // commit per plane, empty or not, keeps the group count in step).  A
-  // thread copies the window elements whose offsets it wrote, so the
-  // first copies start before any barrier.
+  // pass and kept until the epilogue of output plane q has read x; a zero
+  // ghost plane is filled with zeros (one commit per plane, empty or not,
+  // keeps the group count in step).  A thread copies the window elements
+  // whose offsets it wrote, so the first copies start before any barrier.
   const int q_begin = i_begin - P, q_end = i_end + P;
   auto issue = [&](int q, int sb) {
     const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -2;
@@ -477,24 +460,21 @@ kron_march_kernel(const Args<T, IO> a) {
 
     // the epilogue's operands of the plane this step completes, asked for
     // now so that they arrive under the step's arithmetic (the sum of
-    // earlier launches, rarely there, is read where it is added; x, where
-    // the ring keeps its plane, from the window)
+    // earlier launches, rarely there, is read where it is added; x from
+    // the window)
     const int i = q - P;
     const bool emits = i >= i_begin;
     const int64_t idx = base + i * plane;
-    T b_v[R][C], d_v[R][C], x_v[R][C];
+    T b_v[R][C], d_v[R][C];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         b_v[r][c] = d_v[r][c] = T(0);
-        if constexpr (!x_from_window<P>()) x_v[r][c] = T(0);
         if (emits && r < nrow && c < ncol) {
           const int64_t o = idx + r * g.n2 + c;
           if (need_b) b_v[r][c] = up(a.b[o]);
           if (MODE == kCheb && has_d) d_v[r][c] = up(a.d_in[o]);
-          if constexpr (MODE == kCheb && !x_from_window<P>())
-            x_v[r][c] = up(a.x[i * g.s0 + (gj + r) * g.s1 + (gl + c) * g.s2]);
         }
       }
 
@@ -605,10 +585,7 @@ kron_march_kernel(const Args<T, IO> a) {
             T d = a.c2 * res;
             if (has_d) d += a.c1 * d_v[r][c];
             store(a.d_out + o, d);
-            if constexpr (x_from_window<P>())
-              store(a.out + o, xi[(tg * R + r + P) * WC + tl + c + P] + d);
-            else
-              store(a.out + o, x_v[r][c] + d);
+            store(a.out + o, xi[(tg * R + r + P) * WC + tl + c + P] + d);
           } else if (MODE == kApply && a.out_hi != nullptr) {
             a.out_hi[o] = res;
           } else {
@@ -1009,7 +986,7 @@ __global__ void __launch_bounds__(kMaxThreads) k1r_pass_c(
 template <typename T, int P, int R, int MODE, typename IO>
 int launch_pm(const Args<T, IO>& a, cudaStream_t stream) {
   const Geometry& g = a.g;
-  constexpr int C = columns<T, P>();
+  constexpr int C = columns<T>();
   if (g.threads > kMaxThreads || g.T2 % C != 0 || g.T1 % R != 0 ||
       g.threads < (g.T1 / R) * (g.T2 / C) || g.threads % 32 != 0)
     return (int)cudaErrorInvalidConfiguration;
@@ -1043,13 +1020,18 @@ int launch_pr(const Args<T, IO>& a, cudaStream_t stream) {
   }
 }
 
-// the launch at `rows` rows a thread, where that is compiled
+// The launch at `rows` rows a thread (the micro-tile is rows x columns),
+// 2 or 1: at 2 every u value and every band vector the axis-1 pass reads
+// serves two rows, which pays where blocks fill the SMs; on coarse grids,
+// whose few blocks leave the SMs half idle, a thread's chain of work sets
+// the pace and 1 row is faster.
 template <typename T, int P, typename IO>
 int launch_p(const Args<T, IO>& a, int rows, cudaStream_t stream) {
-  if constexpr (rows_compiled<P, 2>())
-    if (rows == 2) return launch_pr<T, P, 2, IO>(a, stream);
-  return rows == 1 ? launch_pr<T, P, 1, IO>(a, stream)
-                   : (int)cudaErrorInvalidConfiguration;
+  switch (rows) {
+    case 1: return launch_pr<T, P, 1, IO>(a, stream);
+    case 2: return launch_pr<T, P, 2, IO>(a, stream);
+    default: return (int)cudaErrorInvalidConfiguration;
+  }
 }
 
 // K1r: one pass (0 A, 1 B, 2 C) of the run-time design
@@ -1166,12 +1148,10 @@ int launch(const void* x, const void* b0, const void* b1, const void* b2,
     for (int k = 0; k < kCV; ++k)
       a.gm[gi][k] = (gi < a.p.ng && k < a.p.nv) ? (T)a.p.g_mult[gi][k] : T(0);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (P) {  // the instantiated half-widths; ops/kron.py pads bands to one
+  switch (P) {  // the compiled half-widths; ops/kron.py pads bands to one
     case 1: return launch_p<T, 1, IO>(a, rows, st);
     case 2: return launch_p<T, 2, IO>(a, rows, st);
     case 3: return launch_p<T, 3, IO>(a, rows, st);
-    case 5: return launch_p<T, 5, IO>(a, rows, st);
-    case 8: return launch_p<T, 8, IO>(a, rows, st);
     default: return (int)cudaErrorInvalidValue;  // no such kernel: K1r's
   }
 }
@@ -1226,10 +1206,11 @@ int resources_prm(const Geometry& g, int* out) {
 
 template <typename T, int P, int MODE, typename IO>
 int resources_pm(const Geometry& g, int rows, int* out) {
-  if constexpr (rows_compiled<P, 2>())
-    if (rows == 2) return resources_prm<T, P, 2, MODE, IO>(g, out);
-  return rows == 1 ? resources_prm<T, P, 1, MODE, IO>(g, out)
-                   : (int)cudaErrorInvalidConfiguration;
+  switch (rows) {
+    case 1: return resources_prm<T, P, 1, MODE, IO>(g, out);
+    case 2: return resources_prm<T, P, 2, MODE, IO>(g, out);
+    default: return (int)cudaErrorInvalidConfiguration;
+  }
 }
 
 template <typename T, int MODE, typename IO>
@@ -1238,8 +1219,6 @@ int resources_m(const Geometry& g, int P, int rows, int* out) {
     case 1: return resources_pm<T, 1, MODE, IO>(g, rows, out);
     case 2: return resources_pm<T, 2, MODE, IO>(g, rows, out);
     case 3: return resources_pm<T, 3, MODE, IO>(g, rows, out);
-    case 5: return resources_pm<T, 5, MODE, IO>(g, rows, out);
-    case 8: return resources_pm<T, 8, MODE, IO>(g, rows, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,18 +37,11 @@
 // operator: sigma M M M, K M M, M K M, M M K) runs the 4-history one, which
 // may spill and is slower, and is bit-equal all the same.
 //
-// Every half-width 1 to 8 is instantiated (no tap padded); plans take the
-// compiled kernel at 1-3 and K5r at every other
-// (ops/twofloat.py::COMPILED_P_DW, chosen end to end).  Wide ones
-// (P > kRegisterP: 6, 7, 8) take a second kernel,
-// kron_march_dw_wide_kernel: the band rows of axes 1 and 2 and the
-// axis-0 ring of each history live in shared memory
-// (the ring a thread's own slots, so it needs no barrier), and only one
-// window row of x sits in registers.  Its registers do not grow with P;
-// the ring's shared memory does (2 CW (2P+1) words a thread), and the
-// host's tiling keeps a block within the card's limit
-// (ops/twofloat.py::k5_smem_bytes mirrors smem_bytes_wide).  It performs
-// the same operations in the same order.
+// One route per half-width (ops/kron.py::COMPILED_P, as for K1): this
+// kernel is compiled at half-widths 1, 2 and 3, and bands up to 3 wide are
+// padded to the widest of them; every wider band runs on K5r at its own
+// half-width, which stepped the headline solve faster than the compiled
+// kernels from spline degree 4 on (NVIDIA H100 80GB HBM3).
 //
 // K5r (k5r_pass_a/b/c, entry kron_residual_dw_rt): bands wider than the
 // compiled half-widths, the half-width a launch argument, as three one-axis
@@ -75,7 +68,7 @@
 // one forms dw_add(b, -sum): the additions of the single pass in its order,
 // so the words are the same.
 //
-// Redesigns that were measured and not kept for P <= 5 (129^3, p = 3,
+// Redesigns that were measured and not kept (129^3, p = 3,
 // NVIDIA H100 80GB HBM3 at 700 W; ops/twofloat.py::k5_resources reads the
 // registers): the band rows and the axis-0 ring in shared memory, two
 // columns a thread, no branch on the plan, two blocks of 128 threads an SM
@@ -101,7 +94,6 @@ constexpr int kCV = 3;  // v partials
 constexpr int kCW = 4;  // distinct full histories, at most (CW = 3 or 4)
 constexpr int kCT = 4;  // terms
 constexpr int kMaxThreads = 256;
-constexpr int kRegisterP = 5;  // the widest half-width of the register ring
 
 struct Plan {
   int nu, nv, nw, nt;
@@ -331,208 +323,6 @@ kron_march_dw_kernel(const Args a) {
           for (int t = 1; t < W; ++t)
             s = dw_add(s, dw_mul(dw{c0h[base + t], c0l[base + t]},
                                  ring[k][t]));
-          y[k] = s;
-        }
-      }
-      emit(a, y, ((int64_t)i * g.n1 + gj) * g.n2 + gl);
-    }
-  }
-  kron::cp_async_wait<0>();
-}
-
-// shared memory of the wide kernel: the offset table, the windows, the u
-// partials, the axis-0 band rows of the run, the axis-2 and axis-1 band rows
-// of the tile, and each thread's ring of W planes per history, hi and lo
-__host__ __device__ inline size_t smem_bytes_wide(const Geometry& g, int P,
-                                                  int CW) {
-  const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
-  return WR * WC * sizeof(int64_t) +
-         2 * (kron::kStages * WR * WC + kCU * WR * g.T2 + CW * g.chunk * W +
-              kCU * W * g.T2 + kCV * W * g.T1 + CW * W * g.T1 * g.T2) *
-             sizeof(float);
-}
-
-// The same contractions as kron_march_dw_kernel, for half-widths whose
-// register ring would spill: band rows and ring in shared memory (see the
-// note at the top).  Thread (tj, tl) of the tile reads column tl of the
-// axis-2 rows (k, t, column: neighbouring threads, neighbouring words), row
-// tj of the axis-1 rows (a broadcast) and its own ring slots (k, slot,
-// thread).
-template <int P, int CW>
-__global__ void __launch_bounds__(kMaxThreads)
-kron_march_dw_wide_kernel(const Args a) {
-  constexpr int W = 2 * P + 1;
-  constexpr int S = kron::kStages;
-  const Geometry& g = a.g;
-  const Plan& pl = a.p;
-  const int T1 = g.T1, T2 = g.T2, NT = T1 * T2;
-  const int WR = T1 + 2 * P, WC = T2 + 2 * P;
-  const int NW = WR * WC;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int64_t* soff = reinterpret_cast<int64_t*>(smem_raw);
-  float* win_h = reinterpret_cast<float*>(soff + NW);  // S buffers
-  float* win_l = win_h + S * NW;                       // S buffers
-  float* u_h = win_l + S * NW;
-  float* u_l = u_h + kCU * WR * T2;
-  float* c0h = u_l + kCU * WR * T2;
-  float* c0l = c0h + CW * g.chunk * W;
-  float* c2h = c0l + CW * g.chunk * W;
-  float* c2l = c2h + kCU * W * T2;
-  float* c1h = c2l + kCU * W * T2;
-  float* c1l = c1h + kCV * W * T1;
-  float* rg_h = c1l + kCV * W * T1;
-  float* rg_l = rg_h + CW * W * NT;
-
-  const int tid = threadIdx.x;
-  const int tj = tid / T2, tl = tid - tj * T2;
-  const bool in_tile = tid < NT;
-  const int j0 = blockIdx.y * T1, l0 = blockIdx.x * T2;
-  const int gj = j0 + tj, gl = l0 + tl;
-  const bool owns = in_tile && gj < g.n1 && gl < g.n2;
-  const int i_begin = blockIdx.z * g.chunk;
-  const int i_end = min(i_begin + g.chunk, g.n0);
-
-  kron::build_window_offsets(soff, g, P, j0, l0);
-  for (int e = tid; e < pl.nw * g.chunk * W; e += blockDim.x) {
-    const int k = e / (g.chunk * W);
-    const int rem = e - k * g.chunk * W;
-    const int i = i_begin + rem / W;
-    const int64_t src = ((int64_t)pl.w_lab[k] * g.n0 + i) * W + rem % W;
-    c0h[e] = i < g.n0 ? a.band_h[0][src] : 0.0f;
-    c0l[e] = i < g.n0 ? a.band_l[0][src] : 0.0f;
-  }
-  // band rows: zero for absent partials and outside the grid
-  for (int e = tid; e < kCU * W * T2; e += blockDim.x) {
-    const int k = e / (W * T2), t = e / T2 - k * W, c = e - (e / T2) * T2;
-    const bool ok = k < pl.nu && l0 + c < g.n2;
-    const int64_t src =
-        ((int64_t)(ok ? pl.u_lab[k] : 0) * g.n2 + (ok ? l0 + c : 0)) * W + t;
-    c2h[e] = ok ? a.band_h[2][src] : 0.0f;
-    c2l[e] = ok ? a.band_l[2][src] : 0.0f;
-  }
-  for (int e = tid; e < kCV * W * T1; e += blockDim.x) {
-    const int k = e / (W * T1), t = e / T1 - k * W, r = e - (e / T1) * T1;
-    const bool ok = k < pl.nv && j0 + r < g.n1;
-    const int64_t src =
-        ((int64_t)(ok ? pl.v_lab[k] : 0) * g.n1 + (ok ? j0 + r : 0)) * W + t;
-    c1h[e] = ok ? a.band_h[1][src] : 0.0f;
-    c1l[e] = ok ? a.band_l[1][src] : 0.0f;
-  }
-  if (a.xl == nullptr)  // the low word is zero: fill once, never load
-    for (int e = tid; e < S * NW; e += blockDim.x) win_l[e] = 0.0f;
-
-  __syncthreads();
-
-  const int q_begin = i_begin - P, q_end = i_end + P;
-  for (int q = q_begin; q < q_begin + S - 1; ++q) {
-    const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -1;
-    if (gq >= 0) {
-      const int buf = (q - q_begin) % S;
-      kron::load_window(win_h + buf * NW, a.xh, soff, NW, gq * g.s0);
-      if (a.xl != nullptr)
-        kron::load_window(win_l + buf * NW, a.xl, soff, NW, gq * g.s0);
-    }
-    kron::cp_async_commit();
-  }
-  int slot = 0;  // the ring slot of plane q: (q - q_begin) % W
-  for (int q = q_begin; q < q_end; ++q) {
-    const int buf = (q - q_begin) % S;
-    const int gq = kron::resolve(q, g.n0, g.per0);
-    if (q + S - 1 < q_end) {
-      const int gn = kron::resolve(q + S - 1, g.n0, g.per0);
-      if (gn >= 0) {
-        const int nb = (q + S - 1 - q_begin) % S;
-        kron::load_window(win_h + nb * NW, a.xh, soff, NW, gn * g.s0);
-        if (a.xl != nullptr)
-          kron::load_window(win_l + nb * NW, a.xl, soff, NW, gn * g.s0);
-      }
-    }
-    kron::cp_async_commit();
-    kron::cp_async_wait<S - 1>();
-    __syncthreads();
-
-    dw v[kCV];
-#pragma unroll
-    for (int k = 0; k < kCV; ++k) v[k] = dw{0.0f, 0.0f};
-
-    if (gq >= 0) {  // a zero ghost plane enters the ring as zeros
-      const float* wh = win_h + buf * NW;
-      const float* wl = win_l + buf * NW;
-      if (in_tile) {
-        for (int rr = tj; rr < WR; rr += T1) {
-          dw xv[W];
-#pragma unroll
-          for (int t = 0; t < W; ++t)
-            xv[t] = dw{wh[rr * WC + tl + t], wl[rr * WC + tl + t]};
-#pragma unroll
-          for (int k = 0; k < kCU; ++k) {
-            if (k < pl.nu) {
-              const int cb = k * W * T2 + tl;
-              dw s = dw_mul(dw{c2h[cb], c2l[cb]}, xv[0]);
-#pragma unroll
-              for (int t = 1; t < W; ++t)
-                s = dw_add(s, dw_mul(dw{c2h[cb + t * T2], c2l[cb + t * T2]},
-                                     xv[t]));
-              u_h[(k * WR + rr) * T2 + tl] = s.h;
-              u_l[(k * WR + rr) * T2 + tl] = s.l;
-            }
-          }
-        }
-      }
-      __syncthreads();
-      if (in_tile) {
-#pragma unroll
-        for (int k = 0; k < kCV; ++k) {
-          if (k < pl.nv) {
-            const int base = (pl.v_src[k] * WR + tj) * T2 + tl;
-            const int cb = k * W * T1 + tj;
-            dw s = dw_mul(dw{c1h[cb], c1l[cb]}, dw{u_h[base], u_l[base]});
-#pragma unroll
-            for (int t = 1; t < W; ++t)
-              s = dw_add(s, dw_mul(dw{c1h[cb + t * T1], c1l[cb + t * T1]},
-                                   dw{u_h[base + t * T2],
-                                      u_l[base + t * T2]}));
-            v[k] = s;
-          }
-        }
-      }
-    }
-    // slot `slot` of history k's ring takes plane q of the v it contracts;
-    // the ring holds the planes q - 2P .. q, the oldest at slot + 1
-    if (owns) {
-#pragma unroll
-      for (int k = 0; k < CW; ++k) {
-        if (k < pl.nw) {
-          dw in = dw{0.0f, 0.0f};
-#pragma unroll
-          for (int kk = 0; kk < kCV; ++kk)
-            if (pl.w_src[k] == kk) in = v[kk];
-          rg_h[(k * W + slot) * NT + tid] = in.h;
-          rg_l[(k * W + slot) * NT + tid] = in.l;
-        }
-      }
-    }
-    slot = slot + 1 == W ? 0 : slot + 1;  // now the oldest plane's slot
-
-    const int i = q - P;
-    if (i >= i_begin && owns) {
-      dw y[CW];
-#pragma unroll
-      for (int k = 0; k < CW; ++k) {
-        y[k] = dw{0.0f, 0.0f};
-        if (k < pl.nw) {
-          const int base = (k * g.chunk + (i - i_begin)) * W;
-          const float* rh = rg_h + k * W * NT + tid;
-          const float* rl = rg_l + k * W * NT + tid;
-          int sl = slot;
-          dw s = dw_mul(dw{c0h[base], c0l[base]}, dw{rh[sl * NT], rl[sl * NT]});
-#pragma unroll
-          for (int t = 1; t < W; ++t) {
-            sl = sl + 1 == W ? 0 : sl + 1;
-            s = dw_add(s, dw_mul(dw{c0h[base + t], c0l[base + t]},
-                                 dw{rh[sl * NT], rl[sl * NT]}));
-          }
           y[k] = s;
         }
       }
@@ -821,34 +611,17 @@ __global__ void __launch_bounds__(kMaxThreads) k5r_pass_c(const RtArgs a) {
   }
 }
 
-// the kernel and the shared memory of half-width P with CW histories
-template <int P, int CW>
-inline auto kernel_of() {
-  if constexpr (P > kRegisterP)
-    return kron_march_dw_wide_kernel<P, CW>;
-  else
-    return kron_march_dw_kernel<P, CW>;
-}
-
-template <int P, int CW>
-size_t smem_of(const Geometry& g) {
-  if constexpr (P > kRegisterP)
-    return smem_bytes_wide(g, P, CW);
-  else
-    return smem_bytes<P, CW>(g);
-}
-
 template <int P, int CW>
 int launch_pw(const Args& a, cudaStream_t stream) {
   const Geometry& g = a.g;
   if (g.threads > kMaxThreads || g.threads < g.T1 * g.T2 ||
       g.threads % 32 != 0)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t bytes = smem_of<P, CW>(g);
+  const size_t bytes = smem_bytes<P, CW>(g);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel_of<P, CW>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        kron_march_dw_kernel<P, CW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, or the next launch reports it
       return (int)err;
@@ -856,10 +629,7 @@ int launch_pw(const Args& a, cudaStream_t stream) {
   }
   const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
                   (g.n0 + g.chunk - 1) / g.chunk);
-  if constexpr (P > kRegisterP)
-    kron_march_dw_wide_kernel<P, CW><<<grid, g.threads, bytes, stream>>>(a);
-  else
-    kron_march_dw_kernel<P, CW><<<grid, g.threads, bytes, stream>>>(a);
+  kron_march_dw_kernel<P, CW><<<grid, g.threads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -898,10 +668,11 @@ int launch_rt(int pass, const RtArgs& a, cudaStream_t stream) {
 template <int P>
 int resources_p(const Args& a, int* out) {
   const Geometry& g = a.g;
-  return a.p.nw <= 3 ? kron::resources_of(kernel_of<P, 3>(), g.threads,
-                                          smem_of<P, 3>(g), out)
-                     : kron::resources_of(kernel_of<P, 4>(), g.threads,
-                                          smem_of<P, 4>(g), out);
+  return a.p.nw <= 3
+             ? kron::resources_of(kron_march_dw_kernel<P, 3>, g.threads,
+                                  smem_bytes<P, 3>(g), out)
+             : kron::resources_of(kron_march_dw_kernel<P, 4>, g.threads,
+                                  smem_bytes<P, 4>(g), out);
 }
 
 // plan: nu nv nw nt u_lab[kCU] v_src[kCV] v_lab[kCV] w_src[kCW] w_lab[kCW]
@@ -991,15 +762,10 @@ int kron_residual_dw(const float* xh, const float* xl, const float* bh,
             rl, geo, plan, negate, last, a, P))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (P) {  // the instantiated half-widths
+  switch (P) {  // the compiled half-widths; ops/kron.py pads bands to one
     case 1: return launch_p<1>(a, st);
     case 2: return launch_p<2>(a, st);
     case 3: return launch_p<3>(a, st);
-    case 4: return launch_p<4>(a, st);
-    case 5: return launch_p<5>(a, st);
-    case 6: return launch_p<6>(a, st);
-    case 7: return launch_p<7>(a, st);
-    case 8: return launch_p<8>(a, st);
     default: return (int)cudaErrorInvalidValue;  // no such kernel: K5r's
   }
 }
@@ -1050,11 +816,6 @@ int kron_residual_dw_resources(const int* geo, const int* plan, int* out,
     case 1: return resources_p<1>(a, out);
     case 2: return resources_p<2>(a, out);
     case 3: return resources_p<3>(a, out);
-    case 4: return resources_p<4>(a, out);
-    case 5: return resources_p<5>(a, out);
-    case 6: return resources_p<6>(a, out);
-    case 7: return resources_p<7>(a, out);
-    case 8: return resources_p<8>(a, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,10 +10,10 @@ Counterpart of ``poms_tpu/ops/pallas/kron.py::kron_apply_pallas``.
 - ``cheb``:     z = (b − A x) / diag(A); d ← c1·d + c2·z; x_new = x + d
 
 For a CUDA tensor it launches the hand-written kernel of
-``csrc/kron_apply.cu`` (f32, f64 or bf16; 1D and 2D lifted to 3D) or raises:
-K1, compiled at ``INSTANTIATED_P`` and taken by plans at the half-widths
-of ``COMPILED_P`` (1-3), or K1r, which takes the half-width at run time
-(every other half-width: spline degrees 4 and up) as three one-axis passes
+``csrc/kron_apply.cu`` (f32, f64 or bf16; 1D and 2D lifted to 3D) or raises.
+The half-width alone picks the kernel: K1, compiled at the half-widths of
+``COMPILED_P`` (1-3), or K1r, which takes the half-width at run time
+(every wider band: spline degrees 4 and up) as three one-axis passes
 through a scratch buffer of the plan (:func:`k1r_launch_pass`, each pass's
 plain version :func:`k1r_pass_plain`); for a CPU tensor it runs
 :func:`kron_mode_plain`, built on the shared-partial chain of 1D axis
@@ -65,8 +65,7 @@ __all__ = ["MODES", "kron_apply", "kron_apply_plain", "kron_mode",
            "diagonal_from_columns", "kron_tiling", "k1_step_cost",
            "k1_smem_bytes", "rows_options", "k1_tiling", "warp_widths",
            "KronPlan",
-           "stack_bands", "refuse_half_width", "COMPILED_P",
-           "INSTANTIATED_P", "k1r_smem",
+           "stack_bands", "refuse_half_width", "COMPILED_P", "k1r_smem",
            "k1r_pass_smem", "k1r_step_cost", "runtime_tiling",
            "widest_half_width", "SMALLEST_BLOCK", "RT_PASSES",
            "k1_resources", "k1r_launch_pass", "k1r_scratch_fields",
@@ -77,18 +76,15 @@ _KERNELS = {torch.float32: "kron_apply_f32", torch.float64: "kron_apply_f64",
             torch.bfloat16: "kron_apply_bf16"}
 _KERNELS_RT = {dt: name.replace("apply_", "apply_rt_")
                for dt, name in _KERNELS.items()}
-# mirrored in csrc/kron_apply.cu (kCU, kCV, kCG, the instantiated
-# half-widths, kMaxThreads, columns, rows_compiled and min_blocks): partials
-# one launch may hold per axis, and the half-widths K1 is compiled at (every
-# dtype)
+# mirrored in csrc/kron_apply.cu (kCU, kCV, kCG, kMaxThreads, columns and
+# min_blocks): partials one launch may hold per axis
 CAPS = {"u": 2, "v": 3, "g": 2}
-INSTANTIATED_P = (1, 2, 3, 5, 8)
-# The half-widths plans take the compiled K1 at (``build_kron_plan``'s
-# default); every other runs on K1r at its own.  Chosen end to end: the
-# headline dw-PCG at 128³ elements steps faster from degree 4 on with K1r
-# and K5r than with the compiled kernels padded or not (NVIDIA H100 80GB
-# HBM3; bench/k1_compare.py --route, PERF.md section 5), so only 1-3 stay
-# compiled.  K5 routes by ops/twofloat.py::COMPILED_P_DW.
+# The half-widths K1 and K5 are compiled at (every dtype; the launch
+# switches of csrc/kron_apply.cu and csrc/kron_apply_dw.cu): narrower bands
+# are padded to one of them, every wider band runs on K1r / K5r at its own.
+# Chosen end to end: the headline dw-PCG at 128³ elements stepped 5-33%
+# faster at degrees 4-8 with K1r and K5r than with the compiled kernels,
+# padded or not (NVIDIA H100 80GB HBM3, PERF.md section 6).
 COMPILED_P = (1, 2, 3)
 SM_COUNT = 132   # H100 SXM: the tiling's cost model where no card is asked
 SM_SMEM = 233472          # shared memory of an H100 SM, for blocks an SM
@@ -125,20 +121,20 @@ def arithmetic_itemsize(dtype: torch.dtype) -> int:
         (), dtype=dtype).element_size()
 
 
-def columns_per_thread(itemsize: int, P: int) -> int:
+def columns_per_thread(itemsize: int) -> int:
     """Tile columns one thread owns in K1's instantiation (``itemsize`` of
-    the arithmetic type): two where the registers allow it (f32, P ≤ 3), so
-    T2 is even there."""
-    return 2 if itemsize == 4 and P <= 3 else 1
+    the arithmetic type): two where the registers allow it (f32), so T2 is
+    even there."""
+    return 2 if itemsize == 4 else 1
 
 
-def rows_options(P: int) -> Tuple[int, ...]:
+def rows_options() -> Tuple[int, ...]:
     """Tile rows one thread may own in K1 (its register micro-tile is rows
-    × :func:`columns_per_thread`; csrc/kron_apply.cu::rows_compiled): 2 or
-    1 at P ≤ 3, which the tile model chooses per grid with the tile (2
-    where blocks fill the SMs, 1 on coarse grids, where a thread's chain of
-    work sets the pace); 1 for the wider bands."""
-    return (2, 1) if P <= 3 else (1,)
+    × :func:`columns_per_thread`; csrc/kron_apply.cu::launch_p): 2 or 1,
+    which the tile model chooses per grid with the tile (2 where blocks
+    fill the SMs, 1 on coarse grids, where a thread's chain of work sets
+    the pace)."""
+    return (2, 1)
 
 
 def warp_widths(cols: int, rows: int) -> Tuple[int, ...]:
@@ -155,17 +151,16 @@ def warp_widths(cols: int, rows: int) -> Tuple[int, ...]:
 def k1_smem_bytes(itemsize: int, P: int, T1: int, T2: int, chunk: int,
                   rows: int) -> int:
     """Shared memory of a K1 block (csrc/kron_apply.cu, ``K1Smem``): the
-    ring of window buffers (``STAGES`` planes in flight and, at P ≤ 3,
-    the P + 1 of the outputs still open, whose x the epilogue reads from
-    them), the u partials of two planes, the axis-1 band table (``rows``
-    a thread), the axis-0 band rows of the run, the diagonal's centre
-    columns and the window's int32 source offsets, each section 16-byte
-    aligned."""
+    ring of window buffers (``STAGES`` planes in flight and the P + 1 of
+    the outputs still open, whose x the epilogue reads from them), the u
+    partials of two planes, the axis-1 band table (``rows`` a thread), the
+    axis-0 band rows of the run, the diagonal's centre columns and the
+    window's int32 source offsets, each section 16-byte aligned."""
     def up16(b):
         return -(-b // 16) * 16
 
     WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
-    sizes = ((STAGES + (P + 1 if P <= 3 else 0)) * WR * WC * itemsize,
+    sizes = ((STAGES + P + 1) * WR * WC * itemsize,
              2 * CAPS["u"] * WR * T2 * itemsize,
              CAPS["v"] * T1 * (rows + 2 * P) * itemsize,
              CAPS["g"] * (chunk + 4 * P) * W * itemsize,
@@ -179,8 +174,8 @@ def k1_step_cost(itemsize: int, P: int, rows: int = 1):
     the headline solve's level shapes (513³ to 9³, p = 3, f32,
     ``bench/k1_compare.py --sweep``) on an H100: blocks run in waves of as
     many as an SM holds (by its registers, 128 a thread where that
-    suffices, f32 at P ≤ 3, else 255, and by its shared memory); a block
-    marches over its run's planes and 2P more, a step costing
+    suffices, f32, else 255, and by its shared memory); a block marches
+    over its run's planes and 2P more, a step costing
     ``"step"`` (its barrier and the latency of its chain) plus the work of
     the points the SM's resident blocks hold, but never fewer than four
     warps' (one a scheduler: below that a thread's own chain sets the
@@ -191,8 +186,8 @@ def k1_step_cost(itemsize: int, P: int, rows: int = 1):
     row group reads and writes whole runs of a row), all scaled by the
     taps; each block adds ``"block"`` over the SMs (its start and set-up).
     Infinite for a block over the card's shared memory."""
-    regs = 128 if itemsize == 4 and P <= 3 else 255
-    cols = columns_per_thread(itemsize, P)
+    regs = 128 if itemsize == 4 else 255
+    cols = columns_per_thread(itemsize)
     taps = (2 * P + 1) / 7
     k = K1_COST[rows]
 
@@ -597,9 +592,9 @@ def k1_tiling(n3, P: int, itemsize: int, threads_max: int = MAX_THREADS,
     (default :func:`rows_options`), and tile, the pair with the least
     modelled time (``cost(rows)``, default :func:`k1_step_cost`; the extra
     widths ``widths(rows)``, default :func:`warp_widths`)."""
-    cols = columns_per_thread(itemsize, P) if cols is None else cols
+    cols = columns_per_thread(itemsize) if cols is None else cols
     best = None
-    for R in rows_options(P) if rows is None else rows:
+    for R in rows_options() if rows is None else rows:
         c = (k1_step_cost(itemsize, P, R) if cost is None else cost(R))
         w = warp_widths(cols, R) if widths is None else widths(R)
         got = _least_tiling(n3, threads_max, c, sms, cols, R, w)
@@ -668,11 +663,12 @@ class KronPlan:
         return self._f32
 
 
-def _compiled_half_width(pads, half_widths=COMPILED_P) -> int:
-    """The first of ``half_widths`` that holds the bands, or else their own
-    half-width (the run-time kernels')."""
+def _compiled_half_width(pads) -> int:
+    """The half-width of K1's and K5's plans for bands of half-widths
+    ``pads``: the first of ``COMPILED_P`` that holds them (the compiled
+    kernels'), or else their own (the run-time kernels')."""
     p = max(max(pads), 1)
-    for P in half_widths:
+    for P in COMPILED_P:
         if P >= p:
             return P
     return p
@@ -737,7 +733,6 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
                     trows: Optional[Sequence[int]] = None,
                     widths: Optional[Sequence[int]] = None, cost=None,
                     caps: dict = CAPS,
-                    half_widths: Sequence[int] = COMPILED_P,
                     smem=None, what: str = "K1r",
                     scratch_words: int = CAPS["u"] + CAPS["g"],
                     k1r: bool = True,
@@ -746,15 +741,15 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     """Everything a launch needs besides the fields, once per operator.
     ``labels[a][r]`` (default: identity of the band tensors) names the
     sharing; ``threads_max``, ``tcols`` (default: K1's columns per thread
-    for the dtype and half-width), ``trows`` (the rows per thread to choose
+    for the dtype), ``trows`` (the rows per thread to choose
     among with the tile, default: K1's :func:`rows_options`), ``widths``
     (tile widths offered besides the even ones, default: K1's
     :func:`warp_widths`) and ``cost`` (default: K1's model at each row
     count, or K1r's) shape the tile; ``caps`` bound a launch's partials
     (:func:`chunk_terms`); the bands are padded to the first of
-    ``half_widths`` (default: ``COMPILED_P``) that holds them, else the
-    plan is the run-time kernel's (``runtime``), at the bands' own
-    half-width, and ``smem`` (default: K1r's, :func:`k1r_smem`)
+    ``COMPILED_P`` that holds them, else the plan is the run-time kernel's
+    (``runtime``), at the bands' own half-width, and ``smem`` (default:
+    K1r's, :func:`k1r_smem`)
     and ``what`` name its block: on the card a half-width no block of it
     fits raises (:func:`refuse_half_width`; on the CPU such a plan has no
     tiling; ``rt_cols``: the widest pass-A tile, :func:`runtime_tiling`).
@@ -791,8 +786,8 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     n3 = (1,) * lead + npts
     pads3 = (0,) * lead + pads
     per3 = (False,) * lead + periodic
-    P = _compiled_half_width(pads, half_widths)
-    runtime = P not in half_widths
+    P = _compiled_half_width(pads)
+    runtime = P not in COMPILED_P
     itemsize = arithmetic_itemsize(first.dtype)
     if smem is None:
         smem = k1r_smem(itemsize)
@@ -810,7 +805,7 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
              for a in range(d)]
     chunks = chunk_terms(labels, caps)
     if tcols is None:
-        tcols = 1 if runtime else columns_per_thread(itemsize, P)
+        tcols = 1 if runtime else columns_per_thread(itemsize)
     sms = (torch.cuda.get_device_properties(first.device).multi_processor_count
            if first.device.type == "cuda" else SM_COUNT)
     tiling, scratch = None, None

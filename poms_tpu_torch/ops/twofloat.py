@@ -12,12 +12,12 @@ two_prod takes its pair from the exact f64 product: the FMA's pair, which
 the kernels compute.
 
 K5: for CUDA tensors :func:`residual_kron_df` launches the hand-written
-kernel of ``csrc/kron_apply_dw.cu`` (or raises): K5, compiled at
-``INSTANTIATED_P_DW`` and taken at the half-widths of ``COMPILED_P_DW``
-(1-3), K5r (the half-width taken at run time, three
-one-axis passes through a scratch buffer of the plan:
-:func:`k5r_launch_pass`, each pass's plain version :func:`k5r_pass_plain`)
-at every other; for CPU tensors it runs :func:`residual_kron_df_plain`.
+kernel of ``csrc/kron_apply_dw.cu`` (or raises), picked by the half-width
+alone, as K1's (``ops/kron.py::COMPILED_P``): K5, compiled at half-widths
+1-3, or K5r (the half-width taken at run time, three one-axis passes
+through a scratch buffer of the plan: :func:`k5r_launch_pass`, each pass's
+plain version :func:`k5r_pass_plain`) at every wider one; for CPU tensors
+it runs :func:`residual_kron_df_plain`.
 The kernels perform the plain version's operations in its order with adds
 and multiplies the compiler may not fuse, so their words equal the plain
 version's.  An operator with more partials or terms than one launch holds
@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.ops import _build
 from poms_tpu_torch.ops import _count
-from poms_tpu_torch.ops.kron import (LANES, RT_PASSES, STAGES,
+from poms_tpu_torch.ops.kron import (COMPILED_P, LANES, RT_PASSES, STAGES,
                                      KronPlan, _compiled_half_width,
                                      _lift_labels, _pass_blocks, band_labels,
                                      build_kron_plan, chunk_terms,
@@ -65,8 +65,7 @@ from poms_tpu_torch.utils.trace import span
 
 __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_mul", "dw_mul_fd", "dw_neg", "residual_kron_df",
-           "residual_kron_df_plain", "build_kron_df_plan",
-           "COMPILED_P_DW", "INSTANTIATED_P_DW", "k5_step_cost",
+           "residual_kron_df_plain", "build_kron_df_plan", "k5_step_cost",
            "k5_smem_bytes", "k5r_smem",
            "k5r_pass_smem", "k5_resources", "k5r_launch_pass",
            "k5r_scratch_fields", "k5r_pass_plain", "k5r_passes_plain",
@@ -77,18 +76,10 @@ __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
            "dw_dot_stack_plain", "dw_update", "dw_update_plain",
            "UPDATE_MODES"]
 
-# mirrored in csrc/kron_apply_dw.cu (kCU, kCV, kCW, kCT, kMaxThreads,
-# kRegisterP, kron::kStages and the instantiated half-widths): what one
-# launch holds, the half-widths K5 is compiled at, and the widest of its
-# register ring
+# mirrored in csrc/kron_apply_dw.cu (kCU, kCV, kCW, kCT, kMaxThreads and
+# kron::kStages): what one launch holds
 CAPS_DW = {"u": 2, "v": 3, "w": 4, "t": 4}
-INSTANTIATED_P_DW = (1, 2, 3, 4, 5, 6, 7, 8)
-# the half-widths plans take the compiled K5 at (``build_kron_df_plan``'s
-# default); every other runs on K5r at its own.  Chosen end to end with
-# ops/kron.py::COMPILED_P: K5r is faster from 4 on
-COMPILED_P_DW = (1, 2, 3)
 MAX_THREADS_DW = 256
-REGISTER_P_DW = 5
 
 
 def split_f64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -216,15 +207,12 @@ def residual_kron_df_plain(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh,
 
 def k5_smem_bytes(P: int, histories: int, T1: int, T2: int,
                   chunk: int) -> int:
-    """Shared memory of a compiled K5 block (``kron_apply_dw.cu::smem_bytes``,
-    and ``smem_bytes_wide`` above ``REGISTER_P_DW``); ``histories``: the
-    instantiation's (3 or 4)."""
+    """Shared memory of a compiled K5 block
+    (``kron_apply_dw.cu::smem_bytes``); ``histories``: the instantiation's
+    (3 or 4)."""
     WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
     words = (STAGES * WR * WC + CAPS_DW["u"] * WR * T2
              + histories * chunk * W)
-    if P > REGISTER_P_DW:
-        words += (CAPS_DW["u"] * W * T2 + CAPS_DW["v"] * W * T1
-                  + histories * W * T1 * T2)
     return 8 * WR * WC + 2 * 4 * words
 
 
@@ -300,34 +288,32 @@ def k5_step_cost(P: int, histories: int = 3, runtime: bool = False):
     return cost
 
 
-def build_kron_df_plan(terms_df, npts, pads, periodic=None, labels=None,
-                       half_widths: Sequence[int] = COMPILED_P_DW
-                       ) -> KronPlan:
+def build_kron_df_plan(terms_df, npts, pads, periodic=None,
+                       labels=None) -> KronPlan:
     """K5's launch data, once per operator: K1's plan of the hi bands (the
     lifted geometry, the sharing plan cut into runs of terms that one K5
     launch holds) with the lo bands stacked beside them and a tiling for
     K5's block size and shared memory; its terms are not folded (K1's
     ``build_kron_plan(fold=False)``: a folded band would have to be summed
     before the split into words).  Bands wider than every one of
-    ``half_widths`` (default: ``COMPILED_P_DW``) take K5r
-    at their own half-width; on the card a half-width no block of K5r fits
-    raises.  A K5r plan built on the card owns its passes' scratch: the hi
-    and lo words of the kCU u and kCV v partials, 40 bytes a point (105 MB
-    at 138³), reused by every launch of the plan."""
+    ``COMPILED_P`` take K5r at their own half-width; on the card a
+    half-width no block of K5r fits raises.  A K5r plan built on the card
+    owns its passes' scratch: the hi and lo words of the kCU u and kCV v
+    partials, 40 bytes a point (105 MB at 138³), reused by every launch of
+    the plan."""
     periodic = (False,) * len(npts) if periodic is None else periodic
     hi = [[B[0] for B in term] for term in terms_df]
     lo = [[B[1] for B in term] for term in terms_df]
     lab3 = _lift_labels(band_labels(hi) if labels is None else labels)
     histories = 3 if max(len(sharing_plan(lab3, run)["w_src"])
                          for run in chunk_terms(lab3, CAPS_DW)) <= 3 else 4
-    P = _compiled_half_width(pads, half_widths)
-    runtime = P not in half_widths
+    P = _compiled_half_width(pads)
+    runtime = P not in COMPILED_P
     plan = build_kron_plan(hi, npts, pads, periodic, labels=labels,
                            threads_max=MAX_THREADS_DW, tcols=1, trows=(1,),
                            widths=(),
                            cost=k5_step_cost(P, histories, runtime),
-                           caps=CAPS_DW, half_widths=half_widths,
-                           smem=k5r_smem(histories),
+                           caps=CAPS_DW, smem=k5r_smem(histories),
                            what=f"K5r ({histories} histories)",
                            scratch_words=2 * (CAPS_DW["u"] + CAPS_DW["v"]),
                            k1r=False,

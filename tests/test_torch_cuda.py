@@ -23,7 +23,7 @@ from poms_tpu_torch.models.periodic import periodic_problem
 from poms_tpu_torch.models.poisson import poisson_problem
 from poms_tpu_torch.ops import counters, twofloat
 from poms_tpu_torch.ops import transfer as k7
-from poms_tpu_torch.ops.kron import (INSTANTIATED_P, MODES as K1_MODES,
+from poms_tpu_torch.ops.kron import (MODES as K1_MODES, RT_PASSES,
                                      build_kron_plan, kron_apply,
                                      kron_apply_plain, kron_mode,
                                      kron_mode_plain, rows_options)
@@ -145,14 +145,14 @@ def _mode_operands(npts, pads, dtype, dev, free, seed=0):
 def test_k1_modes_match_plain(dev, npts, pads, periodic, free, mode, dtype,
                               tol):
     """Every mode in 1D/2D/3D, mixed pads and periodicity, a strided x and a
-    4-term operator that takes two launches: within K1's tolerance of the
-    plain version (summation order, FMA); the compiled kernel at every
-    half-width (asked for by ``half_widths`` at 5)."""
+    4-term operator that takes two runs of terms: within K1's tolerance of
+    the plain version (summation order, FMA); the compiled kernel at
+    half-widths 1-3 at both micro-tile heights (two rows a thread and
+    one), K1r (three launches a run) at 5."""
     terms, (x, b, d) = _mode_operands(npts, pads, dtype, dev, free,
                                       seed=sum(npts))
-    plan = build_kron_plan(terms, npts, pads, periodic,
-                           half_widths=INSTANTIATED_P)
-    assert not plan.runtime
+    runtime = max(pads) > 3
+    per_run = len(RT_PASSES) if runtime else 1
     kw = {}
     if mode in ("residual", "cheb", "cheb0"):
         kw["b"] = b
@@ -163,22 +163,27 @@ def test_k1_modes_match_plain(dev, npts, pads, periodic, free, mode, dtype,
     # x as the interior view of a padded field: the kernel takes strides
     x_view = ghost_pad(x, pads, (False,) * len(npts))[
         tuple(slice(p, p + n) for n, p in zip(npts, pads))]
-    before = dict(kron_mode.launches)
-    kw_k = dict(kw, d=d.clone()) if kw.get("d") is not None else kw
-    got = kron_mode(mode, plan, x_view, **kw_k)
-    torch.cuda.synchronize()
-    # one launch per run of terms: the last in ``mode``, the others ``apply``
-    before[mode] += 1
-    before["apply"] += len(plan.plans) - 1
-    assert kron_mode.launches == before
-    want = kron_mode_plain(mode, terms, x, npts, pads, periodic,
-                           diag=plan.diagonal(), **kw)
-    if mode != "cheb":
-        got, want = (got,), (want,)
-    else:
-        assert kw_k.get("d") is None or got[1] is kw_k["d"]   # in place
-    for g, w in zip(got, want):
-        assert float((g - w).abs().max() / w.abs().max()) <= tol
+    for trows in [None] if runtime else [(R,) for R in rows_options()]:
+        plan = build_kron_plan(terms, npts, pads, periodic, trows=trows)
+        assert plan.runtime == runtime
+        assert trows is None or (plan.trows,) == trows
+        before = dict(kron_mode.launches)
+        kw_k = dict(kw, d=d.clone()) if kw.get("d") is not None else kw
+        got = kron_mode(mode, plan, x_view, **kw_k)
+        torch.cuda.synchronize()
+        # per run of terms one launch (K1r: one a pass): the last run's in
+        # ``mode``, the others' ``apply``
+        before[mode] += per_run
+        before["apply"] += per_run * (len(plan.plans) - 1)
+        assert kron_mode.launches == before
+        want = kron_mode_plain(mode, terms, x, npts, pads, periodic,
+                               diag=plan.diagonal(), **kw)
+        if mode != "cheb":
+            got, want = (got,), (want,)
+        else:
+            assert kw_k.get("d") is None or got[1] is kw_k["d"]  # in place
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max() / w.abs().max()) <= tol, trows
 
 
 K5_SHAPES = [((17, 17, 17), (3, 3, 3), (False,) * 3),
@@ -261,70 +266,22 @@ def test_k5_refuses_what_it_lacks(dev):
                                   (139, 139))
 
 
-# K5's new half-widths 6-8 (the shared-memory design) and 4: Poisson-shaped
-# operators (3 histories) and the periodic shape (4 histories)
-K5_WIDE = [((20, 22, 40), (8, 8, 8), (False,) * 3, False),
-           ((19, 21, 34), (6, 6, 6), (False,) * 3, False),
-           ((23, 18, 40), (7, 7, 7), (True,) * 3, False),
-           ((40, 41), (8, 8), (False, False), False),
-           ((18, 20, 36), (8, 8, 8), (True,) * 3, True),
-           ((14, 13, 30), (4, 4, 4), (False,) * 3, True),
-           ((11, 12, 25), (4, 4, 4), (False,) * 3, False),
-           ((16, 17, 30), (6, 6, 6), (True,) * 3, True),
-           ((15, 18, 32), (7, 7, 7), (False,) * 3, True)]
-
-
-@pytest.mark.parametrize("npts,pads,periodic,four", K5_WIDE)
-@pytest.mark.parametrize("negate", [False, True])
-def test_k5_wide_half_widths_are_bit_equal_to_plain(dev, npts, pads,
-                                                    periodic, four, negate):
-    """The compiled K5 at half-widths 4, 6, 7 and 8 (asked for by
-    ``half_widths``: plans take K5r there since the routing) with 3 and 4
-    histories: the words equal the plain version's, b and x_l given,
-    negated or not."""
-    if four:
-        tdf = _periodic_df_terms(npts, pads, dev, seed=sum(npts))
-    else:
-        terms, _ = _mode_operands(npts, pads, torch.float64, dev, 0,
-                                  seed=sum(npts))
-        split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
-        tdf = [[split[id(B)] for B in t] for t in terms]
-    rng = np.random.default_rng(len(npts))
-    (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
-        rng.standard_normal(npts), device=dev)) for _ in range(2))
-    plan = twofloat.build_kron_df_plan(
-        tdf, npts, pads, periodic, half_widths=twofloat.INSTANTIATED_P_DW)
-    assert not plan.runtime
-    before = twofloat.residual_kron_df.launches
-    got = twofloat.residual_kron_df(tdf, bh, bl, xh, xl, pads,
-                                    periodic=periodic, plan=plan,
-                                    negate=negate)
-    torch.cuda.synchronize()
-    assert twofloat.residual_kron_df.launches == before + 1
-    want = twofloat.residual_kron_df_plain(tdf, bh, bl, xh, xl, pads, None,
-                                           periodic, negate)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    res = twofloat.k5_resources(plan)
-    assert res["registers"] <= 255 and res["blocks_per_sm"] >= 1, res
-
-
 @pytest.mark.parametrize("nterms,p", [(5, 8), (6, 8), (5, 3), (6, 2)])
 def test_k5_chained_launches_are_bit_equal_to_the_single_pass(dev, nterms,
                                                               p):
-    """Operators of 5 and 6 sharing-free terms on the compiled K5 (asked
-    for by ``half_widths`` at 8): one launch per run of terms, each adding
-    onto the sum of the runs before it, the last forming b - sum; the words
-    equal the single pass's, also as A.p."""
+    """Operators of 5 and 6 sharing-free terms on the compiled K5 (at 2 and
+    3) and on K5r (at 8): one launch per run of terms (K5r: one a pass),
+    each run adding onto the sum of the runs before it, the last forming
+    b - sum; the words equal the single pass's, also as A.p."""
     npts = (p + 12, p + 13, 2 * p + 20)
     terms, (x, b, _) = _mode_operands(npts, (p,) * 3, torch.float64, dev,
                                       nterms, seed=nterms + p)
     tdf = [[twofloat.split_f64(B) for B in t] for t in terms]
     (xh, xl), (bh, bl) = twofloat.split_f64(x), twofloat.split_f64(b)
     zero = torch.zeros_like(xh)
-    plan = twofloat.build_kron_df_plan(
-        tdf, npts, (p,) * 3, half_widths=twofloat.INSTANTIATED_P_DW)
-    assert not plan.runtime
+    plan = twofloat.build_kron_df_plan(tdf, npts, (p,) * 3)
+    assert plan.runtime == (p > 3)
+    per_run = len(RT_PASSES) if plan.runtime else 1
     for given, explicit, negate in (((bh, bl, xh, xl), (bh, bl, xh, xl),
                                      False),
                                     ((None, None, xh, None),
@@ -334,7 +291,7 @@ def test_k5_chained_launches_are_bit_equal_to_the_single_pass(dev, nterms,
                                         negate=negate)
         torch.cuda.synchronize()
         assert twofloat.residual_kron_df.launches - before \
-            == len(plan.chunks) == 3
+            == per_run * len(plan.chunks) == per_run * 3
         want = twofloat.residual_kron_df_plain(tdf, *explicit, (p,) * 3,
                                                negate=negate)
         for g, w in zip(got, want):
@@ -1000,7 +957,7 @@ BF16_K1_SHAPES = [((17, 17, 17), (3, 3, 3), (False,) * 3, 0),
                   ((30, 257), (3, 3), (False, False), 0),
                   ((4099,), (3,), (True,), 0),
                   ((20, 21, 23), (2, 2, 2), (False,) * 3, 4),
-                  # half-widths 5 and 8 (degrees 4-8)
+                  # degrees 4-8: K1r
                   ((14, 19, 40), (5, 5, 5), (False,) * 3, 0),
                   ((13, 16, 33), (4, 4, 4), (True,) * 3, 0),
                   ((18, 20, 41), (8, 8, 8), (False,) * 3, 0),
@@ -1011,18 +968,17 @@ BF16_K1_SHAPES = [((17, 17, 17), (3, 3, 3), (False,) * 3, 0),
 @pytest.mark.parametrize("npts,pads,periodic,free", BF16_K1_SHAPES)
 @pytest.mark.parametrize("mode", K1_MODES + ("cheb0",))
 def test_k1_bf16_modes_match_plain(dev, npts, pads, periodic, free, mode):
-    """K1's bf16 instantiation (every compiled half-width, asked for by
-    ``half_widths``) against its plain version (f32 arithmetic, one
-    rounding), odd row lengths and a two-launch operator (whose sum
-    between the launches stays f32) among the shapes."""
+    """K1's bf16 instantiation (the compiled kernel at half-widths 1-3 at
+    both micro-tile heights, K1r above them) against its plain version
+    (f32 arithmetic, one rounding), odd row lengths and a two-run operator
+    (whose sum between the runs stays f32) among the shapes."""
     terms, (x, b, d) = _mode_operands(npts, pads, torch.float32, dev, free,
                                       seed=sum(npts))
     cast = {}
     terms = [[cast.setdefault(id(B), B.to(BF16)) for B in t] for t in terms]
     x, b, d = x.to(BF16), b.to(BF16), d.to(BF16)
-    plan = build_kron_plan(terms, npts, pads, periodic,
-                           half_widths=INSTANTIATED_P)
-    assert not plan.runtime
+    runtime = max(pads) > 3
+    per_run = len(RT_PASSES) if runtime else 1
     kw = {}
     real = mode.replace("0", "")
     if real in ("residual", "cheb"):
@@ -1034,25 +990,31 @@ def test_k1_bf16_modes_match_plain(dev, npts, pads, periodic, free, mode):
     want = kron_mode(real, cpu_plan, x.cpu(), **{
         k: v.cpu() if isinstance(v, torch.Tensor) else v
         for k, v in kw.items()})
-    if kw.get("d") is not None:
-        kw["d"] = d.clone()
-    before = kron_mode.launches_by_dtype["bf16"][real]
-    got = kron_mode(real, plan, x, **kw)
-    torch.cuda.synchronize()
-    runs = len(plan.plans)
-    assert kron_mode.launches_by_dtype["bf16"][real] - before \
-        == (runs if real == "apply" else 1)
     if real != "cheb":
-        got, want = (got,), (want,)
-    for g, w in zip(got, want):
-        assert g.dtype == BF16
-        assert _bf16_differing(g.cpu(), w) <= max(2, g.numel() // 50)
+        want = (want,)
+    for trows in [None] if runtime else [(R,) for R in rows_options()]:
+        plan = build_kron_plan(terms, npts, pads, periodic, trows=trows)
+        assert plan.runtime == runtime
+        assert trows is None or (plan.trows,) == trows
+        kw_k = dict(kw, d=d.clone()) if kw.get("d") is not None else kw
+        before = kron_mode.launches_by_dtype["bf16"][real]
+        got = kron_mode(real, plan, x, **kw_k)
+        torch.cuda.synchronize()
+        runs = len(plan.plans)
+        assert kron_mode.launches_by_dtype["bf16"][real] - before \
+            == per_run * (runs if real == "apply" else 1)
+        if real != "cheb":
+            got = (got,)
+        for g, w in zip(got, want):
+            assert g.dtype == BF16
+            assert _bf16_differing(g.cpu(), w) <= max(2, g.numel() // 50), \
+                trows
 
 
 def test_k1_bf16_stops_at_half_width_3(dev):
-    """bf16 has every compiled half-width (1, 2, 3, 5, 8: degrees 1-8) and
-    K1r above them; past K1r's widest (218) the plan is refused on the
-    card, naming the bytes."""
+    """bf16 has the compiled half-widths 1-3 and K1r above them (here 5
+    and 8); past K1r's widest (218) the plan is refused on the card, naming
+    the bytes."""
     for p in (5, 8):
         terms, (x, _, _) = _mode_operands((16, 17, 18), (p,) * 3,
                                           torch.float32, dev, 0)
@@ -1307,7 +1269,7 @@ def test_k2_band_view_off_a_granule(dev, dtype):
     assert torch.equal(got, stencil_apply("spmv", band, x_pad, npts, pads))
 
 
-# -- K1r and K5r: the half-width taken at run time (spline degrees above 8) --
+# -- K1r and K5r: the half-width taken at run time (spline degrees 4 and up) --
 
 # npts, pads, periodic, sharing-free terms (0: Poisson-shaped); a periodic
 # axis holds its band (n > 2p)
@@ -1383,42 +1345,6 @@ def test_k1r_modes_match_plain(dev, npts, pads, periodic, free, mode, dtype):
             assert float((g - w).abs().max() / w.abs().max()) <= tol
 
 
-@pytest.mark.parametrize("npts,pads,periodic,free", [
-    ((33, 35, 70), (3, 3, 3), (False,) * 3, 0),
-    ((20, 22, 41), (8, 8, 8), (True,) * 3, 0),
-    ((18, 19, 37), (8, 8, 8), (False,) * 3, 4),
-    ((40, 300), (3, 3), (False, True), 0),
-    # half-widths 1 and 2; odd rows and columns leave the last micro-tile
-    # (two rows by two columns) ragged; axis 0 cut into many runs
-    ((23, 17, 41), (1, 1, 1), (False,) * 3, 0),
-    ((21, 25, 33), (2, 2, 2), (True, False, True), 0),
-    ((20, 21, 19), (2, 1, 2), (False,) * 3, 4),
-    ((300, 29, 35), (3, 3, 3), (False,) * 3, 0)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16],
-                         ids=["f32", "f64", "bf16"])
-def test_k1r_equals_the_compiled_kernel(dev, npts, pads, periodic, free,
-                                        dtype):
-    """At half-widths 1, 2, 3 and 8 K1r (a plan with no compiled
-    half-width) gives the compiled kernel's values in every mode, at every
-    micro-tile height compiled there (two rows a thread or one at P <= 3):
-    the same operations in the same order."""
-    for mode in K1_MODES + ("cheb0",):
-        terms, x, real, kw = _k1_case(npts, pads, dtype, dev, free, mode)
-        runtime = build_kron_plan(terms, npts, pads, periodic,
-                                  half_widths=())
-        assert runtime.runtime and runtime.P == max(pads)
-        for rows in rows_options(max(pads)):
-            compiled = build_kron_plan(terms, npts, pads, periodic,
-                                       half_widths=INSTANTIATED_P,
-                                       trows=(rows,))
-            assert not compiled.runtime and compiled.P == max(pads)
-            assert compiled.trows == rows
-            for g, w in zip(_on_card(real, runtime, x, kw),
-                            _on_card(real, compiled, x, kw)):
-                assert torch.equal(g, w), (mode, rows,
-                                           float((g - w).abs().max()))
-
-
 def _k5_terms(npts, pads, dev, four, free=0):
     """Double-word terms: Poisson-shaped (3 histories), the periodic
     shifted shape (4) or ``free`` sharing-free terms."""
@@ -1436,13 +1362,24 @@ K5R_SHAPES = [((20, 22, 40), (9, 9, 9), (False,) * 3, False),
               ((26, 28, 33), (12, 12, 12), (True, False, True), True),
               ((36, 37, 40), (16, 16, 16), (False,) * 3, False),
               ((34, 35, 40), (16, 16, 16), (True,) * 3, True),
-              ((40, 61), (12, 12), (False, True), False)]
+              ((40, 61), (12, 12), (False, True), False),
+              # degrees 4 and 6-8 (the shapes K5 took when it was compiled
+              # there)
+              ((20, 22, 40), (8, 8, 8), (False,) * 3, False),
+              ((19, 21, 34), (6, 6, 6), (False,) * 3, False),
+              ((23, 18, 40), (7, 7, 7), (True,) * 3, False),
+              ((40, 41), (8, 8), (False, False), False),
+              ((18, 20, 36), (8, 8, 8), (True,) * 3, True),
+              ((14, 13, 30), (4, 4, 4), (False,) * 3, True),
+              ((11, 12, 25), (4, 4, 4), (False,) * 3, False),
+              ((16, 17, 30), (6, 6, 6), (True,) * 3, True),
+              ((15, 18, 32), (7, 7, 7), (False,) * 3, True)]
 
 
 @pytest.mark.parametrize("npts,pads,periodic,four", K5R_SHAPES)
 @pytest.mark.parametrize("negate", [False, True])
 def test_k5r_is_bit_equal_to_plain(dev, npts, pads, periodic, four, negate):
-    """K5r at half-widths 9, 12 and 16 with 3 and 4 histories: the words
+    """K5r at half-widths 4, 6-9, 12 and 16 with 3 and 4 histories: the words
     equal the plain version's, b and x_l given and as A.p (the zero
     flags), negated or not, three launches (passes A, B, C) a call;
     registers within the limit."""
@@ -1498,30 +1435,7 @@ def test_k5r_chained_launches_are_bit_equal_to_the_single_pass(dev, p):
             assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("npts,p,four", [((33, 35, 70), 3, False),
-                                         ((20, 22, 41), 8, False),
-                                         ((19, 21, 38), 8, True)])
-def test_k5r_equals_the_compiled_kernel(dev, npts, p, four):
-    """At half-widths 3 and 8 K5r (a plan with no compiled half-width)
-    gives the compiled kernel's words."""
-    pads = (p,) * 3
-    tdf = _k5_terms(npts, pads, dev, four)
-    rng = np.random.default_rng(p)
-    (xh, xl), (bh, bl) = (twofloat.split_f64(torch.as_tensor(
-        rng.standard_normal(npts), device=dev)) for _ in range(2))
-    runtime = twofloat.build_kron_df_plan(tdf, npts, pads, half_widths=())
-    compiled = twofloat.build_kron_df_plan(
-        tdf, npts, pads, half_widths=twofloat.INSTANTIATED_P_DW)
-    assert runtime.runtime and not compiled.runtime
-    for plan_args in ((bh, bl, xh, xl), (None, None, xh, None)):
-        got = twofloat.residual_kron_df(tdf, *plan_args, pads, plan=runtime)
-        want = twofloat.residual_kron_df(tdf, *plan_args, pads, plan=compiled)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-
-
-def test_the_widest_half_widths_run_and_the_next_is_refused(dev):
+def test_the_widest_half_width_runs_and_the_next_is_refused(dev):
     """At the widest half-width each run-time kernel takes (K1r 218 in f32
     and bf16, 108 in f64; K5r 138) a small operator runs on the card
     against its plain version; one past it the plan is refused, naming the

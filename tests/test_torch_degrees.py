@@ -1,5 +1,6 @@
-"""Spline degrees 4-8 (the kernels' half-widths 5 and 8) on the CPU against
-the JAX package, and the refusals above them.
+"""Spline degrees 4-8 (K1r's and K5r's half-widths) on the CPU against the
+JAX package, the route each degree's plans take, and the refusals above
+them.
 
 Every input is drawn from numpy seeds and goes through the JAX function and
 the port's wrapper, which runs its plain version for CPU tensors.  K1's
@@ -130,7 +131,7 @@ def test_k1_modes_match_jax(degree, shape, bits, mode):
         assert _rel(got, want) <= TOL[bits]
 
 
-# -- bf16 K1 at half-widths 5 and 8 -------------------------------------------
+# -- bf16 K1 at degrees 5 and 8 -----------------------------------------------
 
 def _bf16(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32)).to(BF16)
@@ -251,8 +252,8 @@ def _split_terms(terms):
 @pytest.mark.parametrize("negate", [False, True])
 def test_k5_chained_runs_equal_the_single_pass(nterms, p, negate):
     """An operator of 5 or 6 terms sharing nothing takes runs of at most 2
-    u partials (3 launches); their chain through the double-word sum of
-    the terms so far, on bands padded to the compiled half-width, gives the
+    u partials (3 runs, on the compiled K5 at 2 and on K5r at 6 and 8);
+    their chain through the double-word sum of the terms so far gives the
     single pass's words bit for bit."""
     rng = np.random.default_rng(nterms + p)
     npts = (p + 3, p + 4, p + 5)
@@ -260,7 +261,7 @@ def test_k5_chained_runs_equal_the_single_pass(nterms, p, negate):
                            for n in npts] for _ in range(nterms)])
     plan = tf.build_kron_df_plan(terms, npts, (p,) * 3)
     assert plan.chunks == [[0, 1], [2, 3], list(range(4, nterms))]
-    assert plan.P == p            # K5 is compiled at every half-width 1-8
+    assert plan.P == p and plan.runtime == (p > 3)   # no tap padded
     (xh, xl), (bh, bl) = (tf.split_f64(torch.from_numpy(
         rng.standard_normal(npts))) for _ in range(2))
     got = _plan_residual_df(plan, bh, bl, xh, xl, negate)
@@ -315,14 +316,18 @@ def test_two_prod_is_exact_where_the_split_cascade_rounds():
 @pytest.mark.parametrize("n", [134, 70, 38, 22])
 @pytest.mark.parametrize("P", [4, 6, 7, 8])
 def test_k5_wide_tiling_fits_a_block(n, P):
-    """At every new half-width (6-8: the shared-memory ring) the tiling
-    picks a block whose shared memory fits the card, with 3 and 4
-    histories; at 3 the register ring's plan is as before."""
+    """At the half-widths of degrees 4-8, which run on K5r, K5r's launch
+    shape gives every pass a block whose shared memory fits the card, with
+    3 and 4 histories; at 3 the compiled K5's plan is as before, and no
+    compiled tiling holds half-width 40."""
     for histories in (3, 4):
-        T1, T2, chunk = k1.kron_tiling((n,) * 3, P, tf.MAX_THREADS_DW,
-                                       tf.k5_step_cost(P, histories))
-        assert T1 * T2 <= tf.MAX_THREADS_DW
-        assert tf.k5_smem_bytes(P, histories, T1, T2, chunk) <= K2_SMEM
+        TL, *warps = k1.runtime_tiling(
+            (n,) * 3, P, tf.k5_step_cost(P, histories, runtime=True),
+            max_cols=k1.LANES)
+        assert TL == k1.LANES and all(w in k1.RT_WARPS for w in warps)
+        need = [tf.k5r_pass_smem(P, p, w) for p, w in zip(k1.RT_PASSES,
+                                                           warps)]
+        assert max(need) <= K2_SMEM, (n, P, histories, warps, need)
     assert k1.kron_tiling((129,) * 3, 3, tf.MAX_THREADS_DW,
                           tf.k5_step_cost(3)) == (15, 17, 43)
     with pytest.raises(ValueError, match="fits a block"):
@@ -379,7 +384,7 @@ def test_solver_counts_match_jax(solved):
     # the tol lies well inside a gap of the history
     h = pres.residuals
     assert h[-1] <= tol / 1.2 and h[-2] >= tol * 1.2, h[-3:]
-    assert port._plan_df.P == degree      # K5 pads no tap at 1-8
+    assert port._plan_df.P == degree      # K5r, at the degree itself
 
 
 def test_solver_solve_compiled_matches_solve(solved):
@@ -389,17 +394,21 @@ def test_solver_solve_compiled_matches_solve(solved):
     assert torch.equal(x.interior, pres.x.interior)
 
 
-def test_headline_example_builds_degrees_6_and_8_on_their_half_widths():
-    """The headline example's solvers at degrees 8 and 6: K5's plan and
-    every cycle level's K1 plan at the degree itself, on the run-time
-    kernels (K5r, K1r), which take degrees 4-8 since they step faster
-    there than the compiled ones."""
-    for solver, degree in (("pcg", 8), ("dc", 6)):
-        _, mg = headline_solve.build(8, degree, solver, device="cpu")
-        low = mg.levels_pre if solver == "pcg" else mg.levels32
-        assert mg._plan_df.P == degree and mg._plan_df.runtime
-        assert [lev.A.plan.P for lev in low] == [degree] * len(low)
-        assert all(lev.A.plan.runtime for lev in low)
+@pytest.mark.parametrize("solver", ["pcg", "dc"])
+@pytest.mark.parametrize("degree", range(1, 13))
+def test_headline_example_routes_each_degree_by_its_half_width(degree,
+                                                               solver):
+    """The headline example's solvers at every degree 1-12 (8³ elements):
+    K5's plan and every cycle level's K1 plan at the degree padded to the
+    first compiled half-width that holds it, on the compiled kernels up to
+    3 and on the run-time kernels (K5r, K1r) at the degree itself from 4
+    on, where they step faster than the compiled ones."""
+    pad = next(P for P in k1.COMPILED_P + (degree,) if P >= degree)
+    _, mg = headline_solve.build(8, degree, solver, device="cpu")
+    low = mg.levels_pre if solver == "pcg" else mg.levels32
+    plans = [mg._plan_df] + [lev.A.plan for lev in low]
+    assert [plan.P for plan in plans] == [max(degree, pad)] * len(plans)
+    assert [plan.runtime for plan in plans] == [degree > 3] * len(plans)
 
 
 @pytest.mark.slow

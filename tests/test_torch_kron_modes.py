@@ -264,10 +264,10 @@ def test_plan_geometry_and_bands(npts, pads, periodic):
                                 (9,) * 3, (1, 1, 1 << 20), (1, 1025, 1025),
                                 (8, 8, 128), (1, 1, 5), (300, 2, 700)])
 @pytest.mark.parametrize("P,threads,cols", [(1, 256, 2), (3, 256, 2),
-                                            (3, 256, 1), (8, 128, 1)])
+                                            (3, 256, 1), (2, 256, 1)])
 def test_tiling_fits_a_block(n3, P, threads, cols):
     itemsize = 4 if cols == 2 else 8
-    for rows in kron.rows_options(P):
+    for rows in kron.rows_options():
         extra = kron.warp_widths(cols, rows)
         T1, T2, chunk = kron_tiling(n3, P, threads,
                                     kron.k1_step_cost(itemsize, P, rows),
@@ -308,7 +308,7 @@ def test_tiling_model_at_the_level_shapes(n, rows, tiling):
 def test_k1_step_cost_shape():
     """The model's terms: a second wave of blocks costs, more planes cost,
     f64 (255 registers a thread) fits one 256-thread block an SM where f32
-    at p ≤ 3 fits two, a row group that fills its warps costs less than
+    fits two, a row group that fills its warps costs less than
     one whose warps reach into the next row, and a block over the card's
     shared memory cannot run."""
     f32, f64 = kron.k1_step_cost(4, 3, 2), kron.k1_step_cost(8, 3, 2)
@@ -320,10 +320,9 @@ def test_k1_step_cost_shape():
     assert f32(16, 64, 256, 65, 132, 132) < one_wave   # half-filled SMs
     assert f32(16, 58, 256, 65, 264, 132) > one_wave   # 29 lanes a row
     assert f32(16, 64, 256, 4000, 264, 132) == math.inf
-    assert kron.columns_per_thread(4, 3) == 2
-    assert kron.columns_per_thread(8, 3) == kron.columns_per_thread(4, 5) == 1
-    assert kron.rows_options(3) == kron.rows_options(1) == (2, 1)
-    assert kron.rows_options(5) == kron.rows_options(8) == (1,)
+    assert kron.columns_per_thread(4) == 2
+    assert kron.columns_per_thread(8) == 1
+    assert kron.rows_options() == (2, 1)
     assert kron.warp_widths(2, 2) == (16, 32, 64)
     assert kron.warp_widths(1, 2) == (8, 16, 32)
     assert kron.warp_widths(2, 1) == kron.warp_widths(1, 1) == ()

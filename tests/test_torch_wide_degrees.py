@@ -35,7 +35,6 @@ from poms_tpu_torch import convert
 from poms_tpu_torch.core.kron import KroneckerSumOperator
 from poms_tpu_torch.core.space import StencilVectorSpace
 from poms_tpu_torch.core.vector import StencilVector
-from poms_tpu_torch.examples import headline_solve
 from poms_tpu_torch.mg.cycles import CycleConfig
 from poms_tpu_torch.mg.mixed import MGPreconditionedCG, MixedPrecisionMG
 from poms_tpu_torch.mg.smoother import SmootherConfig
@@ -408,31 +407,18 @@ def test_runtime_scratch_bytes(itemsize, words):
 
 
 def test_compiled_tilings_are_unchanged():
-    """The compiled kernels' plans (every compiled half-width, asked for by
-    ``half_widths`` above 3) take the tiles of the standard search with
-    K1's model; an empty ``half_widths`` gives K1r's plan at any P, one
-    column a thread."""
-    for P in k1.INSTANTIATED_P:
+    """The compiled kernel's plans (every compiled half-width) take the
+    tiles of the standard search with K1's model; the first half-width
+    past them gives K1r's plan, one column a thread."""
+    for P in k1.COMPILED_P:
         plan = k1.build_kron_plan([[torch.zeros(n, 2 * P + 1)
                                     for n in (129,) * 3]], (129,) * 3,
-                                  (P,) * 3, (False,) * 3,
-                                  half_widths=k1.INSTANTIATED_P)
+                                  (P,) * 3, (False,) * 3)
         assert not plan.runtime and (plan.trows, plan.tiling) == (
             k1.k1_tiling((129,) * 3, P, 4))
-    runtime = k1.build_kron_plan([[torch.zeros(129, 7)] * 3], (129,) * 3,
-                                 (3,) * 3, (False,) * 3, half_widths=())
-    assert runtime.runtime and runtime.P == 3 and runtime.tcols == 1
-
-
-def test_headline_example_builds_degrees_9_and_12_on_their_half_widths():
-    """The headline example's solvers at degrees 9 and 12: K5r's plan and
-    every cycle level's K1r plan at the degree itself."""
-    for solver, degree in (("pcg", 9), ("dc", 12)):
-        _, mg = headline_solve.build(16, degree, solver, device="cpu")
-        low = mg.levels_pre if solver == "pcg" else mg.levels32
-        assert mg._plan_df.runtime and mg._plan_df.P == degree
-        assert all(lev.A.plan.runtime and lev.A.plan.P == degree
-                   for lev in low)
+    runtime = k1.build_kron_plan([[torch.zeros(129, 9)] * 3], (129,) * 3,
+                                 (4,) * 3, (False,) * 3)
+    assert runtime.runtime and runtime.P == 4 and runtime.tcols == 1
 
 
 # -- the solvers at degrees 9 and 10 -----------------------------------------
