@@ -7,9 +7,12 @@ warms the step up on a side stream (kernel libraries loaded, launch plans
 built, the library workspaces of the coarse solve allocated), captures one
 step whose outputs are copied back into the state inside the graph (the
 bytes of :func:`copy_bytes` a replay, counted as ``graph.copy_bytes``), and
-replays it.  Everything a step reads from the host at capture time (the
-Chebyshev coefficients from the λ estimates, tile sizes) is baked into the
-graph.  Capture failure raises: there is no eager path behind it.
+replays it.  A step may write its new state into the buffers it is given
+and return them as themselves: those are not copied, and their bytes are
+counted as ``graph.inplace_bytes`` a replay.  The warm-up step then changes
+the state: :meth:`GraphedStep.load` the start state after construction.
+Everything a step reads from the host at capture time (the Chebyshev
+coefficients from the λ estimates, tile sizes) is baked into the graph.  Capture failure raises: there is no eager path behind it.
 """
 from __future__ import annotations
 
@@ -40,8 +43,9 @@ class GraphedStep:
     0-dim tensor; after :meth:`replay` ``self.rn`` holds it.  Replays advance
     the wrappers' launch counters by the launches captured
     (``self.captured``), the byte counters the captured step advanced
-    (``kron.partial_bytes``) by what it advanced, and ``graph.copy_bytes``
-    by the copy-back's bytes."""
+    (``kron.partial_bytes``) by what it advanced, ``graph.copy_bytes``
+    by the copy-back's bytes, and ``graph.inplace_bytes`` by the bytes of
+    the buffers the step returned as themselves."""
 
     def __init__(self, step: Callable, state: Sequence[torch.Tensor],
                  consts: Sequence[torch.Tensor] = ()):
@@ -70,6 +74,9 @@ class GraphedStep:
                 self.rn.copy_(rn)
             self.captured = counters.diff(counters.snapshot(), before)
             self.captured["graph.copy_bytes"] = copy_bytes(self.state, new)
+            self.captured["graph.inplace_bytes"] = sum(
+                t.numel() * t.element_size()
+                for buf, t in zip(self.state, new) if t is buf)
         self.replays = 0
 
     def load(self, state, consts=()):

@@ -42,6 +42,7 @@ reads one scalar (‖r‖) per replay.  On the CPU it is the eager loop.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import replace
 from typing import Optional
@@ -144,6 +145,8 @@ def _graph_loop(solver, key, step, state, consts, rn, tol, maxiter,
     if key not in solver._graphs:
         solver._graphs[key] = GraphedStep(step, state, consts)
     graph = solver._graphs[key]
+    # after the capture too: its warm-up step may have written its state
+    # buffers in place
     graph.load(state, consts)
     it = 0
     while float(rn) > tol and it < maxiter:
@@ -383,28 +386,39 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
         (one K5 launch on the card)."""
         return self._residual_dw(None, None, ph, None, negate=True)
 
-    def _precond_dw(self, rh, rl, scale):
+    def _precond_dw(self, rh, rl, scale, out=None):
         """z ≈ M⁻¹r: one f32 cycle on the unit-scaled hi word, rescaled by
-        ``scale`` = ‖r‖ (the step computes that norm for convergence)."""
+        ``scale`` = ‖r‖ (the step computes that norm for convergence),
+        written into ``out`` when given."""
         sp_pre = self.levels_pre[0].A.space
         r_hat = StencilVector.from_interior(sp_pre,
                                             dw_update("div", rh, scale))
         z_hat = cycle(self.levels_pre, 0, StencilVector.zeros(sp_pre), r_hat,
                       self.cfg, self.lams)
-        return dw_update("mul", z_hat.interior.to(torch.float32), scale)
+        return dw_update("mul", z_hat.interior.to(torch.float32), scale,
+                         out=None if out is None else (out,))
 
-    def _step_dw(self, xh, xl, rh, rl, z, p, rz):
+    def _step_dw(self, xh, xl, rh, rl, z, p, rz, inplace=False):
+        """One dw-PCG iteration.  ``inplace``: x, r, z and p are written
+        into the buffers given and returned as themselves, for a captured
+        graph's own state buffers only (the eager state holds the caller's
+        b and one z twice)."""
         aph, apl = self._apply_A_dw(p)
         # α = ρ/pᵀAp; x += αp, r −= αAp, the scalars never leave the card
+        out = (xh, xl, rh, rl, torch.empty_like(rh),
+               torch.empty_like(rl)) if inplace else None
         xh, xl, rh, rl, drh, drl = dw_update(
-            "cg", xh, xl, rh, rl, p, aph, apl, rz, dw_dot(p, None, aph, apl))
+            "cg", xh, xl, rh, rl, p, aph, apl, rz, dw_dot(p, None, aph, apl),
+            out=out)
         rn = dw_norm2(rh, rl)
-        z_new = self._precond_dw(rh, rl, rn)
+        # the old z is never read: the state carries it for its layout
+        z_new = self._precond_dw(rh, rl, rn, out=z if inplace else None)
         # ρ_new = z_newᵀr_new and the flexible β = z_newᵀ(r_new − r_old)/ρ
         # with r_new − r_old = −αAp: one pass for both dots
         rz_new, s = dw_dot_stack([(z_new, None, rh, rl),
                                   (z_new, None, drh, drl)])
-        p = dw_update("direction", z_new, p, s, rz)
+        p = dw_update("direction", z_new, p, s, rz,
+                      out=(p,) if inplace else None)
         return xh, xl, rh, rl, z_new, p, rz_new, rn
 
     def _apply_low(self, p):
@@ -522,6 +536,9 @@ class MGPreconditionedCG(LamsOwner, _DoubleWordOperator):
                 raise ValueError("b_pair is for precision='dw' and 'dwrr'")
             state, consts, step, rn, per_step = self._start(b, b_pair)
             if state[0].device.type == "cuda":
+                if self.precision == "dw":
+                    # the graph's step writes into the graph's own buffers
+                    step = functools.partial(step, inplace=True)
                 state, rn, it = _graph_loop(self, self.precision, step, state,
                                             consts, rn, tol, maxiter, per_step)
             else:

@@ -17,14 +17,17 @@ DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64",
                torch.bfloat16: "bf16"}
 
 # ``graph.copy_bytes``: what GraphedStep's copy-back moves, advanced at every
-# replay (mg/graph.py); ``kron.scratch_bytes``: the scratch of K1r and K5r
+# replay (mg/graph.py); ``graph.inplace_bytes``: the state buffers a graph's
+# step wrote in place and returned as themselves, advanced at every replay
+# (mg/graph.py); ``kron.scratch_bytes``: the scratch of K1r and K5r
 # plans, advanced where a plan allocates it (ops/kron.py::plan_scratch);
 # ``kron.partial_bytes``: the partial sums K1 and K1r pass between the runs
 # of terms of one call, written and read back (ops/kron.py::_count_partial),
 # which a replay adds with its launches; ``kron.folded_terms`` (a count of
 # terms, not bytes): the terms that K1's plans folded away, advanced where a
 # plan is built (ops/kron.py::build_kron_plan)
-BYTES = {"graph.copy_bytes": 0, "kron.scratch_bytes": 0,
+BYTES = {"graph.copy_bytes": 0, "graph.inplace_bytes": 0,
+         "kron.scratch_bytes": 0,
          "kron.partial_bytes": 0, "kron.folded_terms": 0}
 
 

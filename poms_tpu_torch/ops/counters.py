@@ -11,10 +11,11 @@ instantiation of a wrapper that takes several
 (:mod:`poms_tpu_torch.ops._count`); ``kron_mode_rt.mode.pass`` and
 ``residual_kron_df_rt.pass`` count the passes (A, B, C) of the run-time
 kernels K1r and K5r, whose launches ``kron_mode`` and ``residual_kron_df``
-count as well.  Three keys count bytes, not launches: ``graph.copy_bytes``,
+count as well.  Four keys count bytes, not launches: ``graph.copy_bytes``,
 the copy-back of :class:`~poms_tpu_torch.mg.graph.GraphedStep` (its replays
-add it with their launches), ``kron.scratch_bytes``, the scratch allocated
-for K1r and K5r plans (``ops/kron.py::plan_scratch``), and
+add it with their launches), ``graph.inplace_bytes``, the state buffers its
+step wrote in place instead (added likewise), ``kron.scratch_bytes``, the
+scratch allocated for K1r and K5r plans (``ops/kron.py::plan_scratch``), and
 ``kron.partial_bytes``, the partial sums that K1 and K1r write and read back
 between the runs of terms of one call (``ops/kron.py::_count_partial``; a
 replay adds what its capture counted).  ``kron.folded_terms`` counts the

@@ -850,7 +850,7 @@ def _update_library() -> ctypes.CDLL:
     return lib
 
 
-def dw_update(mode: str, *ops):
+def dw_update(mode: str, *ops, out=None):
     """One elementwise recurrence of the double-word solvers in one pass,
     its scalars 0-dim f64 tensors on the fields' device (never read by the
     host).  With safe(s) = s if s > 0 else 1:
@@ -865,6 +865,11 @@ def dw_update(mode: str, *ops):
       (xh, xl, dr, rf) or (xh, xl);
     - ``"div"`` / ``"mul"`` (x, s) → x / f32(safe(s)), x · f32(safe(s)).
 
+    ``out``: the contiguous f32 fields of the first's shape and device to
+    write the results into, one per result, returned in its place; an
+    output may be one of the fields read (each point is read before it is
+    written).
+
     CPU tensors take :func:`dw_update_plain`; CUDA tensors launch K6u or
     raise."""
     if mode not in UPDATE_MODES:
@@ -874,28 +879,55 @@ def dw_update(mode: str, *ops):
         raise ValueError(f"dw_update({mode!r}) takes {n_in} fields and "
                          f"{n_s} scalars, got {len(ops)} operands")
     first = ops[0]
+    if mode == "dwrr" and ops[3] is None:
+        n_out = 2
+    if out is not None:
+        out = _check_out(mode, out, first, n_out)
     if first.device.type == "cpu":
-        return dw_update_plain(mode, *ops)
+        got = dw_update_plain(mode, *ops)
+        if out is None:
+            return got
+        for buf, t in zip(out, (got,) if n_out == 1 else got):
+            buf.copy_(t)
+        return out[0] if n_out == 1 else out
     if first.device.type != "cuda":
         raise NotImplementedError(
             f"dw_update on {first.device.type} tensors")
     with span("poms.k6u", mode=mode, ops=ops):
-        return _launch_update(mode, ops[:n_in], ops[n_in:], n_out)
+        return _launch_update(mode, ops[:n_in], ops[n_in:], n_out, out)
 
 
 dw_update.launches = 0
 
 
-def _launch_update(mode: str, fields, scalars, n_out: int):
+def _check_out(mode: str, out, first, n_out: int):
+    """``out`` of :func:`dw_update` as a tuple, or raise: ``n_out``
+    contiguous f32 fields of ``first``'s shape on its device."""
+    out = tuple(out)
+    if len(out) != n_out:
+        raise ValueError(f"dw_update({mode!r}) writes {n_out} fields, "
+                         f"got {len(out)} in out")
+    for j, t in enumerate(out):
+        if t.dtype != torch.float32:
+            raise TypeError(f"out {j} is {t.dtype}, not float32")
+        if t.shape != first.shape or t.device != first.device \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"out {j} is {tuple(t.shape)} on {t.device} (contiguous "
+                f"{t.is_contiguous()}), expected a contiguous "
+                f"{tuple(first.shape)} on {first.device}")
+    return out
+
+
+def _launch_update(mode: str, fields, scalars, n_out: int, out=None):
     """K6u on the card: :func:`dw_update`'s checks of the fields and
-    scalars, then one launch."""
+    scalars, then one launch into ``out`` (checked by :func:`_check_out`)
+    or into new fields."""
     first = fields[0]
     n_s = len(scalars)
     if mode == "dwrr":
         if (fields[3] is None) != (fields[4] is None):
             raise ValueError("ap and rf are given or omitted together")
-        if fields[3] is None:
-            n_out = 2
     elif any(t is None for t in fields):
         raise ValueError(f"dw_update({mode!r}) needs every field")
     flat = [_flat_f32(f"field {j}", t, first) for j, t in enumerate(fields)]
@@ -904,8 +936,9 @@ def _launch_update(mode: str, fields, scalars, n_out: int):
                 or s.device != first.device:
             raise TypeError("the scalars are 0-dim float64 tensors on the "
                             "fields' device")
-    outs = [torch.empty(first.shape, dtype=torch.float32,
-                        device=first.device) for _ in range(n_out)]
+    outs = list(out) if out is not None else [
+        torch.empty(first.shape, dtype=torch.float32, device=first.device)
+        for _ in range(n_out)]
     ptr = ctypes.c_void_p
     ins = [None if t is None else t.data_ptr() for t in flat] \
         + [None] * (7 - len(flat))

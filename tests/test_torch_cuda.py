@@ -1636,8 +1636,10 @@ def test_each_graph_replay_range_owns_its_kernels(dev, tmp_path):
     """A 64^3 dw-PCG solve replayed under the profiler with a recording:
     every ``poms.graph.replay`` range owns the kernels of one replay (tied
     through its cudaGraphLaunch), as many for each and at least the
-    hand-written ones the counters add a replay; the copy-back counter
-    advances by twice the state's bytes a replay."""
+    hand-written ones the counters add a replay; the step writes x, r, z
+    and p into the graph's own buffers, so the copy-back counter advances by
+    twice ρ's 8 bytes a replay and the in-place counter by those fields'
+    bytes."""
     import sys
 
     from torch.profiler import ProfilerActivity, profile
@@ -1656,7 +1658,8 @@ def test_each_graph_replay_range_owns_its_kernels(dev, tmp_path):
     pcg.solve_compiled(tol=1e-10, maxiter=40)          # capture
     graph = pcg._graphs["dw"]
     n = 65 ** 3                   # the unknowns of 64^3 cubic elements
-    assert graph.captured["graph.copy_bytes"] == 2 * (6 * 4 * n + 8)
+    assert graph.captured["graph.copy_bytes"] == 2 * 8
+    assert graph.captured["graph.inplace_bytes"] == 6 * 4 * n
     torch.cuda.synchronize()
     before = counters.snapshot()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1675,12 +1678,80 @@ def test_each_graph_replay_range_owns_its_kernels(dev, tmp_path):
     assert len(kernels) == it > 0
     assert min(kernels) == max(kernels) >= max(1, hand_kernels(
         graph.captured))
-    assert grown["graph.copy_bytes"] == it * graph.captured[
-        "graph.copy_bytes"]
+    for key in ("graph.copy_bytes", "graph.inplace_bytes"):
+        assert grown[key] == it * graph.captured[key]
     start = [r.id for r, _ in joined if r.name == "poms.solve.start"]
     start_kernels = sum(op.get("cat") == "kernel" for op in ops[start[0]])
     assert sum(kernels) + start_kernels >= hand_kernels(grown)
     assert len(bspans.replay_gaps(joined, ops)) == it - 1
+
+
+def test_dw_graph_writes_its_own_buffers_bit_equal_to_the_eager_solve(dev):
+    """64^3 p3 dw-PCG: the replayed in-place step gives the eager solve's x
+    words, ‖r‖ and count; the graph's state buffers stay where they were
+    across replays and solves, and the step returns them as themselves."""
+    prob = poisson_problem(3, 64, degree=3, device=dev, operator="kron")
+    pcg = MGPreconditionedCG(prob, 4, _cheb_cfg(), mixed=True,
+                             operator="kron", precision="dw")
+    eager = pcg.solve(tol=1e-10, maxiter=40)
+    x, rn, it = pcg.solve_compiled(tol=1e-10, maxiter=40)
+    graph = pcg._graphs["dw"]
+    ptrs = [t.data_ptr() for t in graph.state]
+    assert it == eager.iterations > 1 and graph.replays == it
+    assert float(rn) == eager.residuals[-1]
+    assert torch.equal(x.interior, eager.x.interior)
+    x2, rn2, it2 = pcg.solve_compiled(tol=1e-10, maxiter=40)
+    assert it2 == it and float(rn2) == float(rn)
+    assert torch.equal(x2.interior, x.interior)
+    assert [t.data_ptr() for t in graph.state] == ptrs
+    bufs = [t.clone() for t in graph.state]
+    new = pcg._step_dw(*bufs, inplace=True)
+    assert all(a is b for a, b in zip(new[:6], bufs[:6]))
+
+
+def test_k6u_out_aliasing_its_inputs_is_bit_equal(dev):
+    """K6u in every mode with ``out`` aliasing its operands as the in-place
+    step does (x and r for cg, p for direction, the field for mul and div,
+    x for defect and dwrr, rf for dwrr) and with fresh ``out`` fields: the
+    allocating call's words; a wrong out raises before any launch."""
+    n = 65 ** 3
+    g = torch.Generator().manual_seed(7)
+    f = [torch.randn(n, generator=g).to(dev) for _ in range(7)]
+    for k in (1, 3, 6):
+        f[k] *= 1e-8
+    s0 = torch.tensor(0.37, dtype=torch.float64, device=dev)
+    s1 = torch.tensor(1.91, dtype=torch.float64, device=dev)
+    cases = [("cg", (*f, s0, s1), (0, 1, 2, 3, None, None)),
+             ("direction", (f[0], f[2], s0, s1), (1,)),
+             ("defect", (f[0], f[1], f[2], s0), (0, 1)),
+             ("dwrr", (f[0], f[1], f[2], f[4], f[5], s0, s1),
+              (0, 1, None, 4)),
+             ("dwrr", (f[0], f[1], f[2], None, None, s0, s1), (0, 1)),
+             ("div", (f[0], s0), (0,)), ("mul", (f[0], s0), (0,))]
+    for mode, ops, alias in cases:
+        want = twofloat.dw_update(mode, *ops)
+        want = (want,) if isinstance(want, torch.Tensor) else want
+        fresh = [torch.empty_like(f[0]) for _ in alias]
+        got = twofloat.dw_update(mode, *ops, out=fresh)
+        got = (got,) if isinstance(got, torch.Tensor) else got
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), mode
+        ops = [None if t is None else t.clone() for t in ops]
+        out = [ops[j] if j is not None else torch.empty_like(f[0])
+               for j in alias]
+        before = twofloat.dw_update.launches
+        got = twofloat.dw_update(mode, *ops, out=out)
+        assert twofloat.dw_update.launches == before + 1
+        got = (got,) if isinstance(got, torch.Tensor) else got
+        assert all(a is b for a, b in zip(got, out)), mode
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), mode
+    before = twofloat.dw_update.launches
+    with pytest.raises(ValueError):
+        twofloat.dw_update("mul", f[0], s0, out=(f[1][1:],))
+    with pytest.raises(TypeError):
+        twofloat.dw_update("mul", f[0], s0, out=(f[1].double(),))
+    with pytest.raises(ValueError):
+        twofloat.dw_update("mul", f[0], s0, out=(f[1], f[2]))
+    assert twofloat.dw_update.launches == before
 
 
 # -- kron.partial_bytes: the partial sum between K1's runs of terms ----------

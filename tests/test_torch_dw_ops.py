@@ -214,6 +214,109 @@ def test_step_dw_iterates_unchanged_by_the_wrappers():
         assert torch.equal(got, want)
 
 
+# -- K6u's ``out``: results written into given fields --------------------------
+
+# mode, whether dwrr's ap and rf are given, and for each result the operand
+# it overwrites in the solvers' in-place use (None: a fresh field)
+OUT_CASES = [("cg", True, (0, 1, 2, 3, None, None)),
+             ("direction", True, (1,)), ("defect", True, (0, 1)),
+             ("dwrr", True, (0, 1, None, 4)), ("dwrr", False, (0, 1)),
+             ("div", True, (0,)), ("mul", True, (0,))]
+
+
+def _update_operands(mode, with_ap, n=37):
+    """Operands of ``dw_update(mode, ...)`` on CPU f32 fields (low words
+    small) and positive f64 scalars."""
+    g = torch.Generator().manual_seed(len(mode))
+    f = [torch.randn(n, generator=g) for _ in range(7)]
+    for k in (1, 3, 6):
+        f[k] *= 1e-8
+    s0 = torch.tensor(0.37, dtype=torch.float64)
+    s1 = torch.tensor(1.91, dtype=torch.float64)
+    n_in, n_s, _ = port.UPDATE_MODES[mode]
+    fields = f[:n_in]
+    if not with_ap:
+        fields[3] = fields[4] = None
+    return fields + [s0, s1][:n_s]
+
+
+@pytest.mark.parametrize("mode,with_ap,alias", OUT_CASES,
+                         ids=[f"{m}{'' if a else '-x'}"
+                              for m, a, _ in OUT_CASES])
+def test_dw_update_out_is_bit_equal_to_the_allocating_call(mode, with_ap,
+                                                           alias):
+    """``out`` given, fresh or aliasing the operands as the in-place step
+    uses them: the same words as the allocating call, returned as the out
+    fields themselves; a wrong count, dtype or shape raises."""
+    ops = _update_operands(mode, with_ap)
+    want = port.dw_update(mode, *ops)
+    want = (want,) if isinstance(want, torch.Tensor) else want
+    assert len(want) == len(alias)
+    first = ops[0]
+    fresh = [torch.full_like(first, float("nan")) for _ in alias]
+    got = port.dw_update(mode, *ops, out=fresh)
+    got = (got,) if isinstance(got, torch.Tensor) else got
+    assert all(g is b for g, b in zip(got, fresh))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    ops = [t.clone() if t is not None else None for t in ops]
+    out = [ops[j] if j is not None else torch.empty_like(first)
+           for j in alias]
+    got = port.dw_update(mode, *ops, out=out)
+    got = (got,) if isinstance(got, torch.Tensor) else got
+    assert all(g is b for g, b in zip(got, out))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="writes"):
+        port.dw_update(mode, *ops, out=fresh + [fresh[0]])
+    with pytest.raises(TypeError):
+        port.dw_update(mode, *ops, out=[t.double() for t in fresh])
+    with pytest.raises(ValueError, match="expected"):
+        port.dw_update(mode, *ops, out=[t[1:] for t in fresh])
+    with pytest.raises(ValueError, match="expected"):
+        port.dw_update(mode, *ops, out=[torch.empty(2 * first.numel())[::2]
+                                        for _ in fresh])
+
+
+def _dw_pcg(n_el, degree):
+    from poms_tpu_torch.mg.cycles import CycleConfig
+    from poms_tpu_torch.mg.mixed import MGPreconditionedCG
+    from poms_tpu_torch.mg.smoother import SmootherConfig
+    from poms_tpu_torch.models.poisson import poisson_problem
+
+    pp = poisson_problem(3, n_el, degree=degree, device="cpu",
+                         operator="kron")
+    return pp, MGPreconditionedCG(pp, 2, CycleConfig(
+        nu1=1, nu2=1, smoother=SmootherConfig("chebyshev",
+                                              cheb_fraction=16.0)),
+        operator="kron", precision="dw")
+
+
+def test_inplace_step_dw_writes_its_own_buffers():
+    """``_step_dw(..., inplace=True)`` on distinct buffers, as a captured
+    graph holds them: x, r, z and p come back as those buffers, with the
+    allocating step's words, and ρ and ‖r‖ equal."""
+    pp, pcg = _dw_pcg(8, 2)
+    state = pcg._start(pp.b)[0]
+    want = pcg._step_dw(*state)
+    bufs = [t.clone() for t in state]
+    got = pcg._step_dw(*bufs, inplace=True)
+    assert all(g is b for g, b in zip(got[:6], bufs[:6]))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_dw_solves_leave_the_right_hand_side_unchanged():
+    """16^3 p3: ``solve`` leaves the caller's b and ``solve_compiled`` the
+    caller's ``b_pair`` as they were, word for word."""
+    pp, pcg = _dw_pcg(16, 3)
+    b = pp.b.interior.clone()
+    res = pcg.solve(tol=1e-10, maxiter=30)
+    assert res.converged and torch.equal(pp.b.interior, b)
+    pair = port.split_f64(pp.b.interior)
+    kept = [t.clone() for t in pair]
+    _, rn, it = pcg.solve_compiled(tol=1e-10, maxiter=30, b_pair=pair)
+    assert it == res.iterations and float(rn) == res.residuals[-1]
+    assert all(torch.equal(t, k) for t, k in zip(pair, kept))
+
+
 # -- K5's sign operand -------------------------------------------------------------
 
 @pytest.mark.parametrize("npts,pads", [((9, 10, 11), (2, 2, 2)),

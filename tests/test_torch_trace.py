@@ -213,7 +213,7 @@ def test_byte_counters_add_and_hand_kernels_ignores_them():
     grown = counters.diff(counters.snapshot(), before)
     assert grown == delta
     assert hand_kernels(grown) == 35
-    assert hand_kernels({"graph.copy_bytes": 7,
+    assert hand_kernels({"graph.copy_bytes": 7, "graph.inplace_bytes": 5,
                          "kron.scratch_bytes": 9}) == 0
     counters.add({k: -v for k, v in delta.items()})
     assert counters.snapshot() == before
