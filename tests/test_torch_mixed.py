@@ -1,6 +1,8 @@
 """This slice end to end: the port's defect-correction solver
 (``MixedPrecisionMG``), its residual-replacement PCG (``dwrr``), logger and
-checkpoints against the JAX package's, on the CPU.
+checkpoints against the JAX package's, on the CPU; and the headline's
+default solver (twofloat defect correction) against the benchmark's plain
+f64 reference on the benchmark's sources.
 
 The reference runs eagerly (``jax.disable_jit``): XLA:CPU takes minutes to
 compile the double-word graphs.  The port's ``lams`` are the reference's
@@ -8,8 +10,11 @@ estimates (the reference draws its power-iteration start vector from
 ``jax.random``).  On the CPU every kernel wrapper of the port runs its plain
 version, which sums in the reference's order.
 """
+import importlib
 import io
 import json
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -338,3 +343,93 @@ def test_checkpoint_resume_continues_solve(tmp_path):
                     x0=StencilVector.from_interior(prob.space, x_in))
     np.testing.assert_allclose(hist + rest.residuals[1:], full.residuals,
                                rtol=1e-10)
+
+
+# -- the headline's default solver against the benchmark's plain reference ---
+
+REPO = Path(__file__).resolve().parent.parent
+# 16³ (2 levels) and 32³ (3), by the headline example's levels rule
+HEADLINE_SIZES = (16, 32)
+# smooth4's four sources, then a seeded random smooth one
+HEADLINE_SOURCES = (0, 1, 2, 3, "random")
+
+
+def _benchmark_reference():
+    """The benchmark's ``poisson`` reference kind (its bands from NumPy, A
+    applied in f64 by plain PyTorch products; neither package) and the
+    ``smooth4`` traffic's sources."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    kind = importlib.import_module("benchmark.reference.kinds.poisson")
+    sources = json.loads((REPO / "benchmark/traffic/smooth4.json")
+                         .read_text())["sources"]
+    return kind, sources
+
+
+@pytest.fixture(scope="module", params=HEADLINE_SIZES,
+                ids=lambda n: f"n{n}")
+def headline_dc(request):
+    """(problem entry, problem, the headline example's default solver, the
+    reference kind, the sources) at one size."""
+    from poms_tpu_torch.examples.headline_solve import build
+
+    n = request.param
+    prob, mg = build(n, 3, "dc", device="cpu")
+    assert mg.residual_mode == "twofloat"
+    assert mg.cfg.smoother.cheb_fraction == 32.0
+    return ({"n_el": n, "degree": 3}, prob, mg) + _benchmark_reference()
+
+
+def _random_smooth(kind, problem, seed, modes=4):
+    """Σ c·s_a⊗s_b⊗s_c over the modes 1…``modes`` on each axis, c drawn
+    from the seed, scaled as the traffic's sources are.  A random field of
+    every frequency (white noise) is not used: the V-cycle of cubic splines
+    damps its roughest modes by about 0.88 a correction at 16³, with f64
+    residuals as with twofloat ones (the same history to three digits), so
+    it needs some 170 corrections, the cycle's rate and not the precision."""
+    g = torch.Generator().manual_seed(seed)
+    s = torch.stack([torch.as_tensor(kind.load(problem, m))
+                     for m in range(1, modes + 1)])
+    c = torch.randn(modes, modes, modes, generator=g, dtype=torch.float64)
+    b = torch.einsum("abc,ai,bj,ck->ijk", c, s, s, s)
+    return b * (kind.target_norm(problem) / float(torch.linalg.vector_norm(b)))
+
+
+def _pool_slot(kind, problem, sources, seed, k):
+    """Slot ``k`` of the benchmark's pool for ``seed`` (its
+    ``reference/rhs.py``)."""
+    from benchmark.reference import rhs
+    return rhs.one(kind, problem, sources, seed, k, "cpu")
+
+
+@pytest.mark.parametrize("source", HEADLINE_SOURCES, ids=str)
+def test_headline_dc_meets_the_plain_reference(headline_dc, source):
+    """The headline example's default solver (twofloat defect correction,
+    one f32 Chebyshev(4) V-cycle over [λmax/32, λmax] a correction) reaches
+    ‖b − A·x‖₂ ≤ 1e-10 by the benchmark's f64 reference operator on each of
+    the benchmark's sources; x without its low word does not.
+
+    Dropping xl rounds each value of x to f32, an error of up to 2⁻²⁵ of
+    itself at every point and rough from point to point, which A's largest
+    eigenvalues amplify: it leaves ‖b − A·xh‖₂ at 4.7e-9 to 2.8e-8 on these
+    ten cases, 47 to 280 times the tolerance, against the twofloat
+    solution's 8e-11 to 1e-10.  So 1e-10 tells twofloat from f32, and the
+    test holds xh to 10 times it."""
+    from poms_tpu_torch.core.vector import StencilVector
+
+    problem, prob, mg, kind, sources = headline_dc
+    if source == "random":
+        b = _random_smooth(kind, problem, seed=2 ** 31 + 5)
+    else:
+        b = _pool_slot(kind, problem, sources, seed=2 ** 31 + 17, k=source)
+    x, rn, it = mg.solve_compiled(StencilVector.from_interior(prob.space, b),
+                                  tol=TOL, maxiter=100, return_x=False)
+    assert float(rn) <= TOL and it < 100
+    A = kind.operator(problem, "cpu")
+    true = float(torch.linalg.vector_norm(b - A.apply(x)))
+    assert true <= TOL, (it, true)
+    xh = x.to(torch.float32).to(torch.float64)
+    dropped = float(torch.linalg.vector_norm(b - A.apply(xh)))
+    assert dropped > 10 * TOL, (
+        f"‖b − A·xh‖₂ = {dropped:.3e}: x's high word alone should miss "
+        f"1e-10 by more than 10×")
