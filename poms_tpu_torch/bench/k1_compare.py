@@ -53,6 +53,21 @@ several kernels is timed only from a profile that holds every one of
 them, ``device_ms``'s ``kernels``); ``--sweep-rt`` times each pass at
 every block size of ``RT_WARPS`` (the cost models' data).
 
+``--k5-ab OLD_DIR [--sweep-k5]`` is the one-call A/B of the compiled K5:
+it builds an earlier commit's ``kron_apply_dw.cu`` and imports its
+``ops/kron.py`` and ``ops/twofloat.py`` (copied into ``OLD_DIR`` as for
+``--rt-ab``; only that source is built), and at ``K5_CASES`` (513³ as the
+PCG's A·p and as the defect correction's b − A·x with b and the low word,
+512³ periodic with 4 histories, 129³) times the earlier and the current K5
+in turns (old, new, new, old), each at its own plan's tiling, checks that
+both words are ``torch.equal``, and reports each one's registers, spills
+and blocks an SM (``k5_resources``) beside the share of 33.5 T f32
+operations a second (``k5_ops``).  ``--sweep-k5`` times the current K5's
+A·p on ``SWEEP_K5``'s grids (513³ and 512³ with 3 and 4 histories, the
+headline's coarse levels 257³ to 9³ with 3) at each micro-tile height
+(``twofloat.K5_ROWS``) over a set of tilings (``sweep_k5_tilings``): the
+data ``twofloat.K5_COST`` is fitted to.
+
 One ``RESULT {...}`` line per measurement.  Needs a CUDA card.
 """
 import ctypes
@@ -124,25 +139,26 @@ def wide_grid(P):
 def _import_old(old_dir, k5=True):
     """An earlier commit's ``ops/kron.py`` and ``ops/twofloat.py`` (copied
     into ``old_dir``) as the modules ``kron_old`` and ``twofloat_old``,
-    each loading that commit's kernels built from ``old_dir``'s sources
-    (``k5=False``: ``kron_old`` alone, and None for ``twofloat_old``)."""
+    each loading that commit's kernels built from ``old_dir``'s sources at
+    their first launch (``k5=False``: ``kron_old`` alone, and None for
+    ``twofloat_old``)."""
+    import functools
     import importlib.util
     import types
     from pathlib import Path
 
-    names = ("kron_apply", "kron_apply_dw") if k5 else ("kron_apply",)
-    libs = {name: build_old(str(Path(old_dir) / f"{name}.cu"), name)
-            for name in names}
+    libs = functools.cache(
+        lambda name: build_old(str(Path(old_dir) / f"{name}.cu"), name))
     mods = {"twofloat_old": None}
     for name, src in (("kron_old", "kron.py"),
-                      ("twofloat_old", "twofloat.py"))[:len(names)]:
+                      ("twofloat_old", "twofloat.py"))[:2 if k5 else 1]:
         text = (Path(old_dir) / src).read_text().replace(
             "from poms_tpu_torch.ops.kron import", "from kron_old import")
         spec = importlib.util.spec_from_loader(name, loader=None)
         mod = importlib.util.module_from_spec(spec)
         sys.modules[name] = mod
         exec(compile(text, str(Path(old_dir) / src), "exec"), mod.__dict__)
-        mod._build = types.SimpleNamespace(load=libs.__getitem__)
+        mod._build = types.SimpleNamespace(load=libs)
         mods[name] = mod
     return mods["kron_old"], mods["twofloat_old"]
 
@@ -405,6 +421,182 @@ def k1_ab(old_dir, result=print, shapes=SHAPES, dtype=None):
     return rows
 
 
+# the A/B's cases: (name, n, histories, periodic, call), call "Ap" (b = 0,
+# no low word, negated: the PCG step's) or "residual" (b and the low word:
+# the defect correction's)
+K5_CASES = (("513.Ap", 513, 3, False, "Ap"),
+            ("513.residual", 513, 3, False, "residual"),
+            ("512.periodic.Ap", 512, 4, True, "Ap"),
+            ("129.Ap", 129, 3, False, "Ap"))
+
+
+def k5_operands(n, histories, periodic, dev):
+    """Double-word terms at n³, p = 3 (seed n): Poisson-shaped (3
+    histories) or the periodic shifted shape (S M M, K M M, M K M, M M K:
+    4), and x, b as f64 fields split into pairs."""
+    import numpy as np
+    import torch
+
+    from poms_tpu_torch.ops.twofloat import split_f64
+
+    rng = np.random.default_rng(n + histories)
+    mk = lambda: split_f64(torch.as_tensor(   # noqa: E731
+        rng.standard_normal((n, 7)) / 4 + 2.0 * (np.arange(7) == 3),
+        device=dev))
+    Ks, Ms = [mk() for _ in range(3)], [mk() for _ in range(3)]
+    tdf = [[Ks[b] if b == a else Ms[b] for b in range(3)] for a in range(3)]
+    if histories == 4:
+        tdf = [[mk(), Ms[1], Ms[2]]] + tdf
+    x, b = (torch.as_tensor(rng.standard_normal((n,) * 3), device=dev)
+            for _ in range(2))
+    return tdf, split_f64(x), split_f64(b), (periodic,) * 3
+
+
+def k5_ops(n, histories):
+    """f32 operations of a K5 call at n³ (p = 3): each distinct 1D
+    contraction (2 u, 3 v, one per history) of 7 taps, a dw_mul (9) each
+    and a dw_add (20) each but the first, then the terms' adds and b − sum
+    (20 each)."""
+    return ((2 + 3 + histories) * (7 * 9 + 6 * 20)
+            + 20 * (1 + histories)) * n ** 3
+
+
+def k5_ab(old_dir, result=print, sweep=False):
+    """The one-call A/B of the compiled K5 against an earlier commit's, and
+    ``--sweep-k5`` (see the module docstring); returns the rows it
+    printed."""
+    import torch
+
+    from poms_tpu_torch.bench.device import device_ms
+    from poms_tpu_torch.ops import twofloat
+
+    _, tf_old = _import_old(old_dir)
+    dev = torch.device("cuda", 0)
+    rows = []
+
+    def emit(**kw):
+        rows.append(kw)
+        result(**kw)
+
+    for name, n, histories, periodic, call in K5_CASES:
+        tdf, (xh, xl), (bh, bl), per = k5_operands(n, histories, periodic,
+                                                   dev)
+        given = ((None, None, xh, None) if call == "Ap"
+                 else (bh, bl, xh, xl))
+        negate = call == "Ap"
+        pads = (3,) * 3
+        plans = {"new": twofloat.build_kron_df_plan(tdf, (n,) * 3, pads,
+                                                    per),
+                 "old": tf_old.build_kron_df_plan(tdf, (n,) * 3, pads, per)}
+        mods = {"new": twofloat, "old": tf_old}
+        fns = {who: (lambda who=who: mods[who].residual_kron_df(
+            tdf, *given, pads, periodic=per, plan=plans[who],
+            negate=negate)) for who in mods}
+        got = {who: fns[who]() for who in mods}
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, o) for g, o in zip(got["new"],
+                                                      got["old"]))
+        del got
+        ms = {"old": [], "new": []}
+        for who in ("old", "new", "new", "old"):
+            ms[who].append(device_ms(fns[who]))
+        ops = k5_ops(n, histories)
+        emit(kernel=f"K5.ab.{name}", n=n, histories=histories,
+             periodic=periodic, call=call, equal=equal, old_ms=ms["old"],
+             new_ms=ms["new"], ratio=min(ms["new"]) / min(ms["old"]),
+             new_tiling=plans["new"].tiling, new_rows=plans["new"].trows,
+             old_tiling=plans["old"].tiling,
+             new_resources=twofloat.k5_resources(plans["new"]),
+             old_resources=tf_old.k5_resources(plans["old"]),
+             share_33T_new=ops / 33.5e12 * 1e3 / min(ms["new"]),
+             share_33T_old=ops / 33.5e12 * 1e3 / min(ms["old"]))
+        del plans, fns, tdf, xh, xl, bh, bl
+        torch.cuda.empty_cache()
+    if sweep:
+        k5_sweep(emit)
+    return rows
+
+
+def sweep_k5_tilings(n, rows, histories, sms):
+    """``--sweep-k5``'s tilings of K5 at n³ and ``rows`` rows a thread:
+    tile widths 16, 22, 32, 43 and 64 (those not wider than n), the
+    tallest tile for blocks of up to 256 and 128 threads, 1, 3 and 9 runs
+    of planes, then the 8 candidates the cost model ranks first."""
+    from poms_tpu_torch.ops import kron, twofloat
+
+    seen, tilings = set(), []
+    for T2 in (16, 22, 32, 43, 64):
+        for threads in (256, 128):
+            T2 = min(T2, n)
+            k1 = -(-n // max(rows, threads // T2 * rows))
+            T1 = rows * -(-(-(-n // k1)) // rows)
+            for runs in (1, 3, 9):
+                tiling = (T1, T2, -(-n // runs))
+                if tiling not in seen and T1 // rows * T2 <= 256:
+                    seen.add(tiling)
+                    tilings.append(tiling)
+    cost = twofloat.k5_step_cost(3, histories, rows=rows)
+    ranked = sorted(
+        (cost(T1, T2, 32 * -(-(T1 // rows) * T2 // 32), ch, bl, sms),
+         (T1, T2, ch))
+        for T1, T2, ch, bl in kron._tiles((n,) * 3, twofloat.MAX_THREADS_DW,
+                                          1, rows))
+    top = []
+    for _, t in ranked:
+        if len(top) < 8 and t not in seen:
+            seen.add(t)
+            top.append(t)
+    return tilings + top
+
+
+# the sweep's grids: (n, histories, periodic); from SWEEP_K5_SMALL down the
+# coarse grids, timed around a replayed graph
+SWEEP_K5 = ((513, 3, False), (512, 4, True), (513, 4, False), (512, 3, True),
+            (257, 3, False), (129, 3, False), (65, 3, False), (33, 3, False),
+            (17, 3, False), (9, 3, False))
+SWEEP_K5_SMALL = 257
+
+
+def k5_sweep(emit, grids=SWEEP_K5):
+    """K5's A·p on ``grids`` (n, histories, periodic) at each micro-tile
+    height over ``sweep_k5_tilings``: CUDA events around 5 calls at 512³
+    and 513³, around a replayed graph of 20 calls on the coarser grids (a
+    profile late in a process loses kernels)."""
+    import torch
+
+    from poms_tpu_torch.bench.device import graph_event_ms, stream_event_ms
+    from poms_tpu_torch.ops import twofloat
+
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, histories, periodic in grids:
+        tdf, (xh, _), _, per = k5_operands(n, histories, periodic, dev)
+        pads = (3,) * 3
+        plan = twofloat.build_kron_df_plan(tdf, (n,) * 3, pads, per)
+        chosen = (plan.trows, plan.tiling)
+        for R in twofloat.K5_ROWS:
+            for tiling in sweep_k5_tilings(n, R, histories, sms):
+                plan.trows, plan.tiling, plan._cargs = R, tiling, []
+
+                def call():
+                    return twofloat.residual_kron_df(
+                        tdf, None, None, xh, None, pads, periodic=per,
+                        plan=plan, negate=True)
+
+                try:
+                    ms = (stream_event_ms(call, 5) if n > SWEEP_K5_SMALL
+                          else graph_event_ms(call, 20))
+                except RuntimeError as exc:   # the block does not fit
+                    ms = str(exc)[-80:]
+                T1, T2, chunk = tiling
+                emit(kernel="K5.sweep", n=n, histories=histories, rows=R,
+                     tiling=tiling, chosen=chosen == (R, tiling),
+                     blocks=(-(-n // T1) * -(-n // T2) * -(-n // chunk)),
+                     ms=ms)
+        del plan, tdf, xh
+        torch.cuda.empty_cache()
+
+
 def main():
     args = sys.argv[1:]
     old_src = args[args.index("--old") + 1] if "--old" in args else None
@@ -430,7 +622,7 @@ def main():
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = nvidia_smi_name_power()
-    if "--rt-ab" in args or "--k1-ab" in args:
+    if "--rt-ab" in args or "--k1-ab" in args or "--k5-ab" in args:
         def printed(**kw):
             print("RESULT " + json.dumps({**kw, "card": card}), flush=True)
 
@@ -443,6 +635,9 @@ def main():
         if "--rt-ab" in args:
             rt_ab(args[args.index("--rt-ab") + 1], "--sweep-rt" in args,
                   printed)
+        if "--k5-ab" in args:
+            k5_ab(args[args.index("--k5-ab") + 1], printed,
+                  "--sweep-k5" in args)
         return
     bw = sol_bandwidth(torch.cuda.get_device_name(0)) * 1e9
     print(f"card: {card}; bound at {bw / 1e12:.2f} TB/s", flush=True)

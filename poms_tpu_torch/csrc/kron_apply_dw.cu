@@ -14,28 +14,48 @@
 // 129^3, 0.1 ms at the card's 33.5 T non-fused f32 operations per second.
 //
 // Design: the marching skeleton of K1 (kron_march.cuh, kron_apply.cu) with
-// pairs for values: windows of x_h and x_l, u partials in shared memory, v
-// partials and a ring of the last 2P+1 planes in registers.  It mirrors the
-// plain version operation for operation: taps in order t = 0..2P, the first
-// tap assigned and the others added with dw_add; one axis-0 contraction per
-// distinct history (no sum before it); the terms added in order; then
-// dw_add(b, -Ax).  Every add and multiply is an intrinsic that the compiler
-// never contracts; two_prod is p = fl(a b), e = fma(a, b, -p), the pair the
-// plain version rounds from the exact f64 product (the shared functions of
-// dw_eft.cuh).  So the words equal the plain version's bit for bit (up to
-// the sign of a zero).  With `negate`
-// the pair leaves the kernel negated word by word, which is the negated
-// normalised pair: A p itself for the b = 0 call of the PCG step.  Bands narrower than the compiled half-width
-// are zero-padded: a zero tap adds (0, 0), which leaves a normalised pair
-// unchanged.  A null x_l or b is a field of zeros: it is neither read nor
-// allocated, the arithmetic on its zeros is still done.
+// pairs for values.  A block owns a T1 x T2 column of the (axis 1, axis 2)
+// grid and marches over a run of axis-0 planes; a thread owns R rows of one
+// column (R, 2 or 1, a template parameter the host's tile model picks with
+// the tile from the grid and the histories: ops/twofloat.py::K5_ROWS,
+// k5_step_cost).  What bounds it is the issue of dependent f32 operations,
+// so the design gives each thread many independent double-word chains and
+// few other instructions.  Step q of the march, one block barrier:
+//   axis 2: plane q + 1's pass into the u buffer this step does not read:
+//           each thread contracts its column of the window for the kCU
+//           axis-2 bands (in registers), two window rows at a time;
+//   axis 1: plane q: each thread contracts the R + 2P u rows of its group
+//           for each v: every u pair it reads serves R rows, and the band
+//           pairs come from a table in shared memory laid out so that one
+//           vector read returns a tap's pairs for the R rows;
+//   axis 0: plane q of each history's v brings its tap to the 2P + 1 output
+//           planes it reaches, R x CW x (2P + 1) accumulators in registers
+//           (a ring, shifted each step), the band pairs of the run from
+//           shared memory; plane q - P is then complete and emitted.
+// Windows, u partials and band tables hold hi and lo interleaved, so a pair
+// is one 64-bit shared load.  The arithmetic has no branch on the plan: an
+// absent partial has zero band pairs.  It mirrors the plain version
+// operation for operation: each chain takes taps in order t = 0..2P, the
+// first tap assigned and the others added with dw_add (on axis 0 output
+// plane i receives tap t at step i - P + t, so in order too); one axis-0
+// contraction per distinct history (no sum before it); the terms added in
+// order; then dw_add(b, -Ax).  Every add and multiply is an intrinsic that
+// the compiler never contracts; two_prod is p = fl(a b), e = fma(a, b, -p),
+// the pair the plain version rounds from the exact f64 product (the shared
+// functions of dw_eft.cuh).  So the words equal the plain version's bit for
+// bit (up to the sign of a zero).  With `negate` the pair leaves the kernel
+// negated word by word, which is the negated normalised pair: A p itself
+// for the b = 0 call of the PCG step.  Bands narrower than the compiled
+// half-width are zero-padded: a zero tap adds (0, 0), which leaves a
+// normalised pair unchanged.  A zero ghost plane enters axis 0 as zeros.  A
+// null x_l or b is a field of zeros: it is neither read nor allocated, the
+// arithmetic on its zeros is still done.
 //
 // The number of distinct histories a launch holds is a template parameter
 // (CW): an operator with up to 3 (Poisson: 3) runs the 3-history
-// instantiation, whose registers (221 at P = 3) a fourth ring of 2P+1 pairs
-// would push past the limit of 255; one with 4 (the periodic shifted 3D
-// operator: sigma M M M, K M M, M K M, M M K) runs the 4-history one, which
-// may spill and is slower, and is bit-equal all the same.
+// instantiation, one with 4 (the periodic shifted 3D operator: sigma M M M,
+// K M M, M K M, M M K) the 4-history one, whose axis-0 ring is a third
+// larger; both are bit-equal to the plain version.
 //
 // One route per half-width (ops/kron.py::COMPILED_P, as for K1): this
 // kernel is compiled at half-widths 1, 2 and 3, and bands up to 3 wide are
@@ -74,11 +94,22 @@
 // columns a thread, no branch on the plan, two blocks of 128 threads an SM
 // (72-79 registers, no spill): 0.335-0.355 ms; the same with the ring back
 // in registers, three blocks an SM (145 registers): 0.343 ms; against
-// 0.327-0.332 ms for this design.  Clock counters in the first showed its
-// arithmetic passes issuing about 2.3 f32 instructions a cycle per SM with 8
-// warps, the rate this design's time implies too; runs of fewer planes (more
+// 0.327-0.332 ms for the design before this one (one output a thread, the
+// axis-1 band rows in registers, axis 0 gathered from a ring of inputs, two
+// barriers a plane).  Clock counters in the first showed its arithmetic
+// passes issuing about 2.3 f32 instructions a cycle per SM with 8 warps,
+// the rate that design's time implies too; runs of fewer planes (more
 // blocks) lost more to the blocks' uneven spread over the SMs than they
 // gained.
+//
+// This design keeps the ring in registers and was measured at the grids
+// the solves run (same card, in turns with the design before it, words
+// equal): A p at 513^3 15.03-15.59 -> 12.10 ms, b - A x with b and x_l
+// 18.02-18.09 -> 12.29 ms, 512^3 periodic with 4 histories 16.12-16.18 ->
+// 12.06-12.07 ms, 129^3 0.320-0.321 -> 0.283 ms; 166 registers (196 with 4
+// histories), no spill, one block of 256 threads an SM.  One row a thread
+// at two blocks an SM (121 registers) comes within 5% of two rows at 513^3
+// and is faster from 65^3 down, where the tile model takes it.
 
 #include "dw_eft.cuh"
 #include "kron_march.cuh"
@@ -116,26 +147,64 @@ struct Args {
   float* rl;
   int negate;  // write -(b - A x): A x itself when b = 0
   int last;    // 0: write the sum of the terms so far (acc + this launch's)
+  int rows;    // rows of the tile a thread owns (R: 2 or 1)
   Geometry g;
   Plan p;
 };
 
-template <int P, int CW>
-__host__ __device__ inline size_t smem_bytes(const Geometry& g) {
-  const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
-  return WR * WC * sizeof(int64_t) +
-         (2 * kron::kStages * WR * WC + 2 * kCU * WR * g.T2 +
-          2 * CW * g.chunk * W) *
-             sizeof(float);
+__host__ __device__ constexpr size_t align16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// shared memory of the compiled kernel at R rows a thread and CW histories,
+// by byte offset, each section 16-byte aligned (ops/twofloat.py::
+// k5_smem_bytes mirrors it): the ring of windows, the u partials of two
+// planes, the axis-1 band table of the tile's rows, the axis-0 band rows of
+// this run of planes (every value a (hi, lo) pair, 8 bytes), the window's
+// in-plane source offsets (int64)
+template <int P, int R, int CW>
+struct K5Smem {
+  size_t win, u, c1, c0, off, bytes;
+  __host__ __device__ explicit K5Smem(const Geometry& g) {
+    const size_t WR = g.T1 + 2 * P, WC = g.T2 + 2 * P, W = 2 * P + 1;
+    const size_t e = sizeof(float2);
+    win = 0;
+    u = align16(win + kron::kStages * WR * WC * e);
+    c1 = align16(u + 2 * kCU * WR * g.T2 * e);
+    c0 = align16(c1 + kCV * g.T1 * (R + 2 * P) * e);
+    off = align16(c0 + CW * (g.chunk + 4 * P) * W * e);
+    bytes = align16(off + WR * WC * sizeof(int64_t));
+  }
+};
+
+__device__ __forceinline__ dw ld_pair(const float2* p) {
+  const float2 v = *p;
+  return {v.x, v.y};
+}
+
+__device__ __forceinline__ void st_pair(float2* p, dw v) {
+  *p = make_float2(v.h, v.l);
+}
+
+// the R pairs of shared memory at p, one load (p aligned to R pairs)
+template <int R>
+__device__ __forceinline__ void ld_pairs(const float2* p, dw (&v)[R]) {
+  if constexpr (R == 2) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = dw{q.x, q.y}, v[1] = dw{q.z, q.w};
+  } else {
+    v[0] = ld_pair(p);
+  }
 }
 
 // the terms in order, each its history's y, onto the earlier launches' sum
 // (or the first term assigned); the last launch writes b - sum (negated on
-// request), every other one the sum.  The choice is a branch around the add,
-// so y is never indexed by a value (which would put it in local memory)
-template <typename A, int CW>
+// request; b from b_at(), called there only), every other one the sum.  The
+// choice is a branch around the add, so y is never indexed by a value (which
+// would put it in local memory)
+template <typename A, int CW, typename B>
 __device__ __forceinline__ void emit(const A& a, const dw (&y)[CW],
-                                     int64_t idx) {
+                                     int64_t idx, B b_at) {
   const Plan& pl = a.p;
   const bool has_acc = a.acc_h != nullptr;
   dw ax = has_acc ? dw{a.acc_h[idx], a.acc_l[idx]} : dw{0.0f, 0.0f};
@@ -150,54 +219,82 @@ __device__ __forceinline__ void emit(const A& a, const dw (&y)[CW],
     a.rl[idx] = ax.l;
     return;
   }
-  const dw b = a.bh != nullptr ? dw{a.bh[idx], a.bl[idx]} : dw{0.0f, 0.0f};
+  const dw b = b_at();
   const dw r = dw_add(b, dw_neg(ax));
   a.rh[idx] = a.negate ? -r.h : r.h;
   a.rl[idx] = a.negate ? -r.l : r.l;
 }
 
-template <int P, int CW>
+// b at idx (zero where it is absent or this launch is not the last)
+template <typename A>
+__device__ __forceinline__ dw load_b(const A& a, int64_t idx) {
+  return (a.last && a.bh != nullptr) ? dw{a.bh[idx], a.bl[idx]}
+                                     : dw{0.0f, 0.0f};
+}
+
+template <int P, int R, int CW>
 __global__ void __launch_bounds__(kMaxThreads)
 kron_march_dw_kernel(const Args a) {
+  static_assert(R == 1 || R == 2);
   constexpr int W = 2 * P + 1;
+  constexpr int RH = R + 2 * P;     // u rows a row group's outputs reach
+  constexpr int S = kron::kStages;  // window buffers, copies started ahead
   const Geometry& g = a.g;
   const Plan& pl = a.p;
-  const int T1 = g.T1, T2 = g.T2;
-  const int WR = T1 + 2 * P, WC = T2 + 2 * P;
-  const int NW = WR * WC;
+  const int T1 = g.T1, T2 = g.T2;  // T1 a multiple of R
+  const int NG = T1 / R;           // row groups
+  const int WR = T1 + 2 * P, WC = T2 + 2 * P, NW = WR * WC;
+  const int UB = kCU * WR * T2;    // one plane's u pairs
+  const int crows = g.chunk + 4 * P;
+  const int nthreads = blockDim.x;
 
+  const K5Smem<P, R, CW> L(g);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int64_t* soff = reinterpret_cast<int64_t*>(smem_raw);
-  constexpr int S = kron::kStages;
-  float* win_h = reinterpret_cast<float*>(soff + NW);  // S buffers
-  float* win_l = win_h + S * NW;                       // S buffers
-  float* u_h = win_l + S * NW;
-  float* u_l = u_h + kCU * WR * T2;
-  float* c0h = u_l + kCU * WR * T2;
-  float* c0l = c0h + CW * g.chunk * W;
+  float2* win = reinterpret_cast<float2*>(smem_raw + L.win);
+  float2* u = reinterpret_cast<float2*>(smem_raw + L.u);
+  float2* c1t = reinterpret_cast<float2*>(smem_raw + L.c1);
+  float2* c0t = reinterpret_cast<float2*>(smem_raw + L.c0);
+  int64_t* soff = reinterpret_cast<int64_t*>(smem_raw + L.off);
 
   const int tid = threadIdx.x;
-  const int tj = tid / T2, tl = tid - tj * T2;
-  const bool in_tile = tid < T1 * T2;
+  const int tg = tid / T2, tl = tid - tg * T2;  // row group, column
+  const bool in_tile = tid < NG * T2;
   const int j0 = blockIdx.y * T1, l0 = blockIdx.x * T2;
-  const int gj = j0 + tj, gl = l0 + tl;
-  const bool owns = in_tile && gj < g.n1 && gl < g.n2;
+  const int gj = j0 + tg * R, gl = l0 + tl;  // first row owned, column
+  const int nrow = in_tile && gl < g.n2 ? min(R, g.n1 - gj) : 0;
   const int i_begin = blockIdx.z * g.chunk;
   const int i_end = min(i_begin + g.chunk, g.n0);
 
+  // input planes q in [i_begin - P, i_end + P): plane q lands in window
+  // buffer (q - q_begin) % S, its copy started S steps before its axis-2
+  // pass; one commit per plane, empty or not, keeps the group count in step.
+  // A window holds (hi, lo) pairs: a thread copies the words of the
+  // elements whose offsets it wrote, so the first copies need no barrier
+  const int q_begin = i_begin - P, q_end = i_end + P;
+  auto issue = [&](int q) {
+    const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -1;
+    if (gq >= 0) {
+      float2* dst = win + (q - q_begin) % S * NW;
+      const int64_t base = (int64_t)gq * g.s0;
+      for (int e = tid; e < NW; e += nthreads) {
+        const int64_t o = soff[e];
+        const int64_t src = o < 0 ? 0 : base + o;
+        kron::cp_async_zfill<4>(&dst[e].x, a.xh + src, o >= 0);
+        if (a.xl != nullptr)
+          kron::cp_async_zfill<4>(&dst[e].y, a.xl + src, o >= 0);
+      }
+    }
+    kron::cp_async_commit();
+  };
   kron::build_window_offsets(soff, g, P, j0, l0);
-  for (int e = tid; e < pl.nw * g.chunk * W; e += blockDim.x) {
-    const int k = e / (g.chunk * W);
-    const int rem = e - k * g.chunk * W;
-    const int i = i_begin + rem / W;
-    const int64_t src = ((int64_t)pl.w_lab[k] * g.n0 + i) * W + rem % W;
-    c0h[e] = i < g.n0 ? a.band_h[0][src] : 0.0f;
-    c0l[e] = i < g.n0 ? a.band_l[0][src] : 0.0f;
-  }
   if (a.xl == nullptr)  // the low word is zero: fill once, never load
-    for (int e = tid; e < S * NW; e += blockDim.x) win_l[e] = 0.0f;
+    for (int e = tid; e < S * NW; e += nthreads) win[e].y = 0.0f;
+  for (int k = 0; k < S; ++k) issue(q_begin + k);
 
-  dw c2r[kCU][W], c1r[kCV][W];
+  // the tables, while the first planes arrive.  This thread's axis-2 band
+  // rows at its column (in registers for the march); an absent partial has
+  // zero rows, so the arithmetic below needs no branch on the plan
+  dw c2r[kCU][W];
 #pragma unroll
   for (int k = 0; k < kCU; ++k)
 #pragma unroll
@@ -208,126 +305,197 @@ kron_march_dw_kernel(const Args a) {
       c2r[k][t] = ok ? dw{a.band_h[2][src], a.band_l[2][src]}
                      : dw{0.0f, 0.0f};
     }
+  // axis-1 band rows as the row groups read them:
+  // c1t[((k * NG + grp) * RH + p) * R + r] multiplies u row p of group grp
+  // for its output row r, tap p - r of band row j0 + grp * R + r; zero off
+  // the band, past the grid and for absent partials
+  for (int e = tid; e < kCV * T1 * RH; e += nthreads) {
+    const int r = e % R, p = e / R % RH, kg = e / (R * RH);
+    const int k = kg / NG, j = j0 + (kg - k * NG) * R + r, t = p - r;
+    const bool ok = k < pl.nv && j < g.n1 && t >= 0 && t < W;
+    const int64_t src = ok ? ((int64_t)pl.v_lab[k] * g.n1 + j) * W + t : 0;
+    c1t[e] = ok ? make_float2(a.band_h[1][src], a.band_l[1][src])
+                : make_float2(0.0f, 0.0f);
+  }
+  // axis-0 band rows of output planes [i_begin - 2P, i_begin + chunk + 2P),
+  // per history: zero outside the grid and for absent histories
+  for (int e = tid; e < CW * crows * W; e += nthreads) {
+    const int k = e / (crows * W);
+    const int rem = e - k * crows * W;
+    const int i = i_begin - 2 * P + rem / W;
+    const bool ok = k < pl.nw && i >= 0 && i < g.n0;
+    const int64_t src =
+        ok ? ((int64_t)pl.w_lab[k] * g.n0 + i) * W + rem % W : 0;
+    c0t[e] = ok ? make_float2(a.band_h[0][src], a.band_l[0][src])
+                : make_float2(0.0f, 0.0f);
+  }
+  int uoff[kCV];  // where each v reads its u rows
 #pragma unroll
   for (int k = 0; k < kCV; ++k)
-#pragma unroll
-    for (int t = 0; t < W; ++t) {
-      const bool ok = k < pl.nv && owns;
-      const int64_t src = ((int64_t)(ok ? pl.v_lab[k] : 0) * g.n1 +
-                           (ok ? gj : 0)) * W + t;
-      c1r[k][t] = ok ? dw{a.band_h[1][src], a.band_l[1][src]}
-                     : dw{0.0f, 0.0f};
-    }
+    uoff[k] = ((k < pl.nv ? pl.v_src[k] : 0) * WR + tg * R) * T2 + tl;
 
-  dw ring[CW][W];
+  // outs[k][s][r]: history k of output plane q - P + s at row r, its taps
+  // so far; plane q of the v's brings tap 2P - s to each of the W planes it
+  // reaches, the first tap assigned, so each chain is the plain version's
+  dw outs[CW][W][R];
 #pragma unroll
   for (int k = 0; k < CW; ++k)
 #pragma unroll
-    for (int t = 0; t < W; ++t) ring[k][t] = dw{0.0f, 0.0f};
+    for (int s = 0; s < W; ++s)
+#pragma unroll
+      for (int r = 0; r < R; ++r) outs[k][s][r] = dw{0.0f, 0.0f};
 
-  __syncthreads();
-
-  // plane q lands in buffer (q - q_begin) % S, its copy started S - 1 steps
-  // ahead; one commit per step keeps the group count in step
-  const int q_begin = i_begin - P, q_end = i_end + P;
-  for (int q = q_begin; q < q_begin + S - 1; ++q) {
-    const int gq = q < q_end ? kron::resolve(q, g.n0, g.per0) : -1;
-    if (gq >= 0) {
-      const int buf = (q - q_begin) % S;
-      kron::load_window(win_h + buf * NW, a.xh, soff, NW, gq * g.s0);
-      if (a.xl != nullptr)
-        kron::load_window(win_l + buf * NW, a.xl, soff, NW, gq * g.s0);
-    }
-    kron::cp_async_commit();
-  }
-  for (int q = q_begin; q < q_end; ++q) {
-    const int buf = (q - q_begin) % S;
-    const int gq = kron::resolve(q, g.n0, g.per0);
-    if (q + S - 1 < q_end) {
-      const int gn = kron::resolve(q + S - 1, g.n0, g.per0);
-      if (gn >= 0) {
-        const int nb = (q + S - 1 - q_begin) % S;
-        kron::load_window(win_h + nb * NW, a.xh, soff, NW, gn * g.s0);
-        if (a.xl != nullptr)
-          kron::load_window(win_l + nb * NW, a.xl, soff, NW, gn * g.s0);
+  // axis 2 of the plane in window wq into the u pairs uq:
+  // u[k][rr][l] = sum_t c2r[k][t] * window[rr][l + t], taps in order, the
+  // first assigned, over the window rows of this row group's turn, two rows
+  // at a time (2 kCU independent chains)
+  auto axis2 = [&](const float2* wq, float2* uq) {
+    if (!in_tile) return;
+    int rr = tg;
+    for (; rr + NG < WR; rr += 2 * NG) {
+      const float2* x0 = wq + rr * WC + tl;
+      const float2* x1 = x0 + NG * WC;
+      dw s[kCU][2];
+      const dw a0 = ld_pair(x0), a1 = ld_pair(x1);
+#pragma unroll
+      for (int k = 0; k < kCU; ++k) {
+        s[k][0] = dw_mul(c2r[k][0], a0);
+        s[k][1] = dw_mul(c2r[k][0], a1);
       }
-    }
-    kron::cp_async_commit();
-    kron::cp_async_wait<S - 1>();
-    __syncthreads();
-
-    dw v[kCV];
 #pragma unroll
-    for (int k = 0; k < kCV; ++k) v[k] = dw{0.0f, 0.0f};
-
-    if (gq >= 0) {  // a zero ghost plane enters the ring as zeros
-      const float* wh = win_h + buf * NW;
-      const float* wl = win_l + buf * NW;
-      if (in_tile) {
-        for (int rr = tj; rr < WR; rr += T1) {
-          dw xv[W];
+      for (int t = 1; t < W; ++t) {
+        const dw b0 = ld_pair(x0 + t), b1 = ld_pair(x1 + t);
 #pragma unroll
-          for (int t = 0; t < W; ++t)
-            xv[t] = dw{wh[rr * WC + tl + t], wl[rr * WC + tl + t]};
-#pragma unroll
-          for (int k = 0; k < kCU; ++k) {
-            if (k < pl.nu) {
-              dw s = dw_mul(c2r[k][0], xv[0]);
-#pragma unroll
-              for (int t = 1; t < W; ++t)
-                s = dw_add(s, dw_mul(c2r[k][t], xv[t]));
-              u_h[(k * WR + rr) * T2 + tl] = s.h;
-              u_l[(k * WR + rr) * T2 + tl] = s.l;
-            }
-          }
+        for (int k = 0; k < kCU; ++k) {
+          s[k][0] = dw_add(s[k][0], dw_mul(c2r[k][t], b0));
+          s[k][1] = dw_add(s[k][1], dw_mul(c2r[k][t], b1));
         }
       }
-      __syncthreads();
-      if (in_tile) {
+#pragma unroll
+      for (int k = 0; k < kCU; ++k) {
+        st_pair(uq + (k * WR + rr) * T2 + tl, s[k][0]);
+        st_pair(uq + (k * WR + rr + NG) * T2 + tl, s[k][1]);
+      }
+    }
+    if (rr < WR) {
+      const float2* x0 = wq + rr * WC + tl;
+      dw s[kCU];
+      const dw a0 = ld_pair(x0);
+#pragma unroll
+      for (int k = 0; k < kCU; ++k) s[k] = dw_mul(c2r[k][0], a0);
+#pragma unroll
+      for (int t = 1; t < W; ++t) {
+        const dw b0 = ld_pair(x0 + t);
+#pragma unroll
+        for (int k = 0; k < kCU; ++k)
+          s[k] = dw_add(s[k], dw_mul(c2r[k][t], b0));
+      }
+#pragma unroll
+      for (int k = 0; k < kCU; ++k)
+        st_pair(uq + (k * WR + rr) * T2 + tl, s[k]);
+    }
+  };
+
+  kron::cp_async_wait<S - 1>();  // plane q_begin is in
+  __syncthreads();                // and the tables are complete
+  if (kron::resolve(q_begin, g.n0, g.per0) >= 0) axis2(win, u);
+
+  const int64_t plane = (int64_t)g.n1 * g.n2;
+  const int64_t base = (int64_t)gj * g.n2 + gl;
+  // The march.  One barrier a step: step q runs the axis-2 pass of plane
+  // q + 1 (into the u buffer this step does not read) beside the axis-1
+  // and axis-0 passes of plane q.
+  for (int q = q_begin; q < q_end; ++q) {
+    const int step = q - q_begin;
+
+    // b of the plane this step completes, asked for now so that it arrives
+    // under the step's arithmetic
+    const int i = q - P;
+    const bool emits = i >= i_begin;
+    const int64_t idx = base + i * plane;
+    dw bv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      bv[r] = emits && r < nrow ? load_b(a, idx + r * g.n2) : dw{0.0f, 0.0f};
+
+    kron::cp_async_wait<S - 2>();  // plane q + 1 is in
+    __syncthreads();
+    // this barrier orders the last step's reads of plane q's window and of
+    // u buffer (step + 1) & 1 before the writes below
+    issue(q + S);
+    if (q + 1 < q_end && kron::resolve(q + 1, g.n0, g.per0) >= 0)
+      axis2(win + (step + 1) % S * NW, u + ((step + 1) & 1) * UB);
+
+    if (!in_tile) continue;
+    // axis 1: v[k][r] = sum_t B1[v_lab[k]][gj + r][t] * u[v_src[k]] at row
+    // gj + r + t - P (u row r + t of the group's window), taps in order, the
+    // first assigned; every u pair serves R rows.  A zero ghost plane
+    // enters as zeros
+    dw v[kCV][R];
+    if (kron::resolve(q, g.n0, g.per0) >= 0) {
+      const float2* uq = u + (step & 1) * UB;
+      const float2* cg = c1t + tg * RH * R;
+#pragma unroll
+      for (int p = 0; p < RH; ++p)
 #pragma unroll
         for (int k = 0; k < kCV; ++k) {
-          if (k < pl.nv) {
-            const int base = (pl.v_src[k] * WR + tj) * T2 + tl;
-            dw s = dw_mul(c1r[k][0], dw{u_h[base], u_l[base]});
+          const dw uv = ld_pair(uq + uoff[k] + p * T2);
+          dw cv[R];
+          ld_pairs<R>(cg + (k * NG * RH + p) * R, cv);
 #pragma unroll
-            for (int t = 1; t < W; ++t)
-              s = dw_add(s, dw_mul(c1r[k][t], dw{u_h[base + t * T2],
-                                                  u_l[base + t * T2]}));
-            v[k] = s;
+          for (int r = 0; r < R; ++r) {
+            const int t = p - r;
+            if (t < 0 || t >= W) continue;
+            const dw m = dw_mul(cv[r], uv);
+            v[k][r] = t == 0 ? m : dw_add(v[k][r], m);
           }
         }
-      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kCV; ++k)
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[k][r] = dw{0.0f, 0.0f};
     }
-    // ring[k] holds the planes q - 2P .. q of the v that history k contracts
+    // axis 0: history k contracts v[w_src[k]]; output plane q - P + s takes
+    // tap 2P - s of plane q (tap 0, the newest plane's, assigned)
+    const float2* cq = c0t + (q - i_begin + P) * W + 2 * P;
 #pragma unroll
     for (int k = 0; k < CW; ++k) {
-      dw in = dw{0.0f, 0.0f};
+      dw w[R];
 #pragma unroll
-      for (int kk = 0; kk < kCV; ++kk)
-        if (k < pl.nw && pl.w_src[k] == kk) in = v[kk];
+      for (int r = 0; r < R; ++r) {
+        w[r] = dw{0.0f, 0.0f};
 #pragma unroll
-      for (int t = 0; t + 1 < W; ++t) ring[k][t] = ring[k][t + 1];
-      ring[k][W - 1] = in;
-    }
-
-    const int i = q - P;
-    if (i >= i_begin && owns) {
-      dw y[CW];
+        for (int kk = 0; kk < kCV; ++kk)
+          if (k < pl.nw && pl.w_src[k] == kk) w[r] = v[kk][r];
+      }
 #pragma unroll
-      for (int k = 0; k < CW; ++k) {
-        y[k] = dw{0.0f, 0.0f};
-        if (k < pl.nw) {
-          const int base = (k * g.chunk + (i - i_begin)) * W;
-          dw s = dw_mul(dw{c0h[base], c0l[base]}, ring[k][0]);
+      for (int s = 0; s < W; ++s) {
+        const dw c = ld_pair(cq + k * crows * W + s * (W - 1));
 #pragma unroll
-          for (int t = 1; t < W; ++t)
-            s = dw_add(s, dw_mul(dw{c0h[base + t], c0l[base + t]},
-                                 ring[k][t]));
-          y[k] = s;
+        for (int r = 0; r < R; ++r) {
+          const dw m = dw_mul(c, w[r]);
+          outs[k][s][r] = s == W - 1 ? m : dw_add(outs[k][s][r], m);
         }
       }
-      emit(a, y, ((int64_t)i * g.n1 + gj) * g.n2 + gl);
     }
+
+    if (emits) {  // output plane i: its last tap has arrived
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= nrow) continue;
+        dw y[CW];
+#pragma unroll
+        for (int k = 0; k < CW; ++k) y[k] = outs[k][0][r];
+        emit(a, y, idx + r * g.n2, [&] { return bv[r]; });
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CW; ++k)
+#pragma unroll
+      for (int s = 0; s + 1 < W; ++s)
+#pragma unroll
+        for (int r = 0; r < R; ++r) outs[k][s][r] = outs[k][s + 1][r];
   }
   kron::cp_async_wait<0>();
 }
@@ -607,20 +775,23 @@ __global__ void __launch_bounds__(kMaxThreads) k5r_pass_c(const RtArgs a) {
     dw yr[kCW];
 #pragma unroll
     for (int k = 0; k < kCW; ++k) yr[k] = y[k][r];
-    emit(a, yr, i * plane + (int64_t)j * g.n2 + l);
+    const int64_t idx = i * plane + (int64_t)j * g.n2 + l;
+    emit(a, yr, idx, [&] {
+      return a.bh != nullptr ? dw{a.bh[idx], a.bl[idx]} : dw{0.0f, 0.0f};
+    });
   }
 }
 
-template <int P, int CW>
-int launch_pw(const Args& a, cudaStream_t stream) {
+template <int P, int R, int CW>
+int launch_prw(const Args& a, cudaStream_t stream) {
   const Geometry& g = a.g;
-  if (g.threads > kMaxThreads || g.threads < g.T1 * g.T2 ||
-      g.threads % 32 != 0)
+  if (g.threads > kMaxThreads || g.threads < g.T1 / R * g.T2 ||
+      g.threads % 32 != 0 || g.T1 % R != 0)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t bytes = smem_bytes<P, CW>(g);
+  const size_t bytes = K5Smem<P, R, CW>(g).bytes;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kron_march_dw_kernel<P, CW>,
+        kron_march_dw_kernel<P, R, CW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, or the next launch reports it
@@ -629,13 +800,19 @@ int launch_pw(const Args& a, cudaStream_t stream) {
   }
   const dim3 grid((g.n2 + g.T2 - 1) / g.T2, (g.n1 + g.T1 - 1) / g.T1,
                   (g.n0 + g.chunk - 1) / g.chunk);
-  kron_march_dw_kernel<P, CW><<<grid, g.threads, bytes, stream>>>(a);
+  kron_march_dw_kernel<P, R, CW><<<grid, g.threads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// the instantiation of the launch's rows a thread (2 or 1) and histories
+// (3, or 4 for up to kCW)
 template <int P>
 int launch_p(const Args& a, cudaStream_t stream) {
-  return a.p.nw <= 3 ? launch_pw<P, 3>(a, stream) : launch_pw<P, 4>(a, stream);
+  if (a.rows == 2)
+    return a.p.nw <= 3 ? launch_prw<P, 2, 3>(a, stream)
+                       : launch_prw<P, 2, 4>(a, stream);
+  return a.p.nw <= 3 ? launch_prw<P, 1, 3>(a, stream)
+                     : launch_prw<P, 1, 4>(a, stream);
 }
 
 // K5r: one pass (0 A, 1 B, 2 C) of the run-time design
@@ -665,14 +842,19 @@ int launch_rt(int pass, const RtArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int P, int R, int CW>
+int resources_prw(const Args& a, int* out) {
+  return kron::resources_of(kron_march_dw_kernel<P, R, CW>, a.g.threads,
+                            K5Smem<P, R, CW>(a.g).bytes, out);
+}
+
 template <int P>
 int resources_p(const Args& a, int* out) {
-  const Geometry& g = a.g;
-  return a.p.nw <= 3
-             ? kron::resources_of(kron_march_dw_kernel<P, 3>, g.threads,
-                                  smem_bytes<P, 3>(g), out)
-             : kron::resources_of(kron_march_dw_kernel<P, 4>, g.threads,
-                                  smem_bytes<P, 4>(g), out);
+  if (a.rows == 2)
+    return a.p.nw <= 3 ? resources_prw<P, 2, 3>(a, out)
+                       : resources_prw<P, 2, 4>(a, out);
+  return a.p.nw <= 3 ? resources_prw<P, 1, 3>(a, out)
+                     : resources_prw<P, 1, 4>(a, out);
 }
 
 // plan: nu nv nw nt u_lab[kCU] v_src[kCV] v_lab[kCV] w_src[kCW] w_lab[kCW]
@@ -690,7 +872,7 @@ bool parse_plan(const int* plan, Plan& p) {
            p.nw > kCW || p.nt < 1 || p.nt > kCT);
 }
 
-// geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R
+// geo: n0 n1 n2 per0 per1 per2 P T1 T2 chunk threads R rows
 bool parse(const int* geo, const int* plan, Args& a, int& P) {
   Geometry& g = a.g;
   g.n0 = geo[0], g.n1 = geo[1], g.n2 = geo[2];
@@ -698,8 +880,10 @@ bool parse(const int* geo, const int* plan, Args& a, int& P) {
   P = geo[6];
   g.T1 = geo[7], g.T2 = geo[8], g.chunk = geo[9], g.threads = geo[10];
   g.R = geo[11];
+  a.rows = geo[12];
   g.s0 = (int64_t)g.n1 * g.n2, g.s1 = g.n2, g.s2 = 1;  // contiguous fields
-  return parse_plan(plan, a.p) && g.T1 >= 1 && g.T2 >= 1 && g.chunk >= 1;
+  return parse_plan(plan, a.p) && g.T1 >= 1 && g.T2 >= 1 && g.chunk >= 1 &&
+         (a.rows == 1 || a.rows == 2);
 }
 
 // the arguments of one launch, checked: false for an invalid plan or

@@ -25,10 +25,13 @@ DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64",
 # of terms of one call, written and read back (ops/kron.py::_count_partial),
 # which a replay adds with its launches; ``kron.folded_terms`` (a count of
 # terms, not bytes): the terms that K1's plans folded away, advanced where a
-# plan is built (ops/kron.py::build_kron_plan)
+# plan is built (ops/kron.py::build_kron_plan); ``k5.tiled_launches`` (a
+# count of launches): the compiled K5's launches at two rows a thread
+# (ops/twofloat.py::_launch_df), which a replay adds with its launches
 BYTES = {"graph.copy_bytes": 0, "graph.inplace_bytes": 0,
          "kron.scratch_bytes": 0,
-         "kron.partial_bytes": 0, "kron.folded_terms": 0}
+         "kron.partial_bytes": 0, "kron.folded_terms": 0,
+         "k5.tiled_launches": 0}
 
 
 def attach(wrapper, modes=None) -> None:

@@ -21,7 +21,9 @@ between the runs of terms of one call (``ops/kron.py::_count_partial``; a
 replay adds what its capture counted).  ``kron.folded_terms`` counts the
 terms that K1's plans folded away where they were built
 (``ops/kron.py::build_kron_plan``; 1 for a 3D periodic shifted operator, 0
-for a Dirichlet one).
+for a Dirichlet one).  ``k5.tiled_launches`` counts the compiled K5's
+launches at two rows a thread (``ops/twofloat.py::_launch_df``), which
+``residual_kron_df`` counts as well; a replay adds what its capture counted.
 """
 from __future__ import annotations
 

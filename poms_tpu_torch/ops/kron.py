@@ -745,7 +745,9 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     among with the tile, default: K1's :func:`rows_options`), ``widths``
     (tile widths offered besides the even ones, default: K1's
     :func:`warp_widths`) and ``cost`` (default: K1's model at each row
-    count, or K1r's) shape the tile; ``caps`` bound a launch's partials
+    count, or K1r's; for a compiled plan the model at R rows a thread as
+    ``cost(R)``, for a run-time one as :func:`runtime_tiling` takes it)
+    shape the tile; ``caps`` bound a launch's partials
     (:func:`chunk_terms`); the bands are padded to the first of
     ``COMPILED_P`` that holds them, else the plan is the run-time kernel's
     (``runtime``), at the bands' own half-width, and ``smem`` (default:
@@ -811,8 +813,7 @@ def build_kron_plan(terms, npts, pads, periodic, labels=None,
     tiling, scratch = None, None
     if not runtime:
         trows, tiling = k1_tiling(
-            n3, P, itemsize, threads_max, sms, tcols, trows,
-            None if cost is None else lambda R: cost,
+            n3, P, itemsize, threads_max, sms, tcols, trows, cost,
             None if widths is None else lambda R: widths)
     elif smem(P, *SMALLEST_BLOCK) <= K2_SMEM:
         cost = k1r_step_cost(itemsize, P) if cost is None else cost

@@ -54,8 +54,8 @@ import torch.nn.functional as F
 from poms_tpu_torch.core.vector import ghost_pad
 from poms_tpu_torch.ops import _build
 from poms_tpu_torch.ops import _count
-from poms_tpu_torch.ops.kron import (COMPILED_P, LANES, RT_PASSES, STAGES,
-                                     KronPlan, _compiled_half_width,
+from poms_tpu_torch.ops.kron import (COMPILED_P, LANES, RT_PASSES, SM_SMEM,
+                                     STAGES, KronPlan, _compiled_half_width,
                                      _lift_labels, _pass_blocks, band_labels,
                                      build_kron_plan, chunk_terms,
                                      column_table, refuse_half_width,
@@ -80,6 +80,22 @@ __all__ = ["split_f64", "merge_f64", "two_sum", "two_prod", "dw_add",
 # kron::kStages): what one launch holds
 CAPS_DW = {"u": 2, "v": 3, "w": 4, "t": 4}
 MAX_THREADS_DW = 256
+# the rows a thread of the compiled K5 may own (its register micro-tile;
+# csrc/kron_apply_dw.cu::launch_p), among which the tile model chooses per
+# grid with the tile (neither height spills at P = 3 with 3 or 4
+# histories), the warps an SM holds at each height (its registers at P = 3:
+# 166 and 196 at two rows, 122 and 128 at one, so one and two blocks of 256
+# threads), and its cost model (k5_step_cost) per
+# height, µs: fitted to the tilings within 50% of the fastest of their grid
+# and height in a sweep of both heights at the cells' 513³ and 512³ (3 and
+# 4 histories) and the headline's coarse levels 257³ to 9³ (3), on an H100
+# (bench/k1_compare.py --sweep-k5)
+K5_ROWS = (2, 1)
+K5_WARPS = {2: 8, 1: 16}
+K5_COST = {2: {"step": 2.782, "tap": 9.976e-5, "chain": 1.779e-2,
+               "part": 0.191, "tail": 0.1008},
+           1: {"step": 1.048, "tap": 1.556e-4, "chain": 2.485e-2,
+               "part": 0.1501, "tail": 0.184}}
 
 
 def split_f64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -206,14 +222,21 @@ def residual_kron_df_plain(terms_df: Sequence[Sequence[Tuple]], bh, bl, xh,
 
 
 def k5_smem_bytes(P: int, histories: int, T1: int, T2: int,
-                  chunk: int) -> int:
-    """Shared memory of a compiled K5 block
-    (``kron_apply_dw.cu::smem_bytes``); ``histories``: the instantiation's
-    (3 or 4)."""
+                  chunk: int, rows: int = 1) -> int:
+    """Shared memory of a compiled K5 block (``kron_apply_dw.cu::K5Smem``)
+    at ``rows`` rows a thread; ``histories``: the instantiation's (3 or 4).
+    Each section 16-byte aligned: the ring of ``STAGES`` windows, the u
+    partials of two planes, the axis-1 band table, the axis-0 band rows of
+    the run (every value a (hi, lo) pair, 8 bytes) and the window's int64
+    source offsets."""
+    def up16(b):
+        return -(-b // 16) * 16
+
     WR, WC, W = T1 + 2 * P, T2 + 2 * P, 2 * P + 1
-    words = (STAGES * WR * WC + CAPS_DW["u"] * WR * T2
-             + histories * chunk * W)
-    return 8 * WR * WC + 2 * 4 * words
+    sizes = (8 * STAGES * WR * WC, 8 * 2 * CAPS_DW["u"] * WR * T2,
+             8 * CAPS_DW["v"] * T1 * (rows + 2 * P),
+             8 * histories * (chunk + 4 * P) * W, 8 * WR * WC)
+    return sum(up16(s) for s in sizes)
 
 
 RT_ROWS_A_DW = 2   # K5r's pass A: rows a thread (kRowsA of kron_apply_dw.cu)
@@ -245,11 +268,23 @@ def k5r_smem(histories: int):
                                 for p in RT_PASSES)
 
 
-def k5_step_cost(P: int, histories: int = 3, runtime: bool = False):
-    """K5's cost model for :func:`poms_tpu_torch.ops.kron.kron_tiling`: one
-    block an SM, a plane step costing its warps' contractions (the axis-2
-    pass over T1 + 2P rows, the two others over T1) and the window load;
-    infinite for a block whose shared memory exceeds the card's limit.
+def k5_step_cost(P: int, histories: int = 3, runtime: bool = False,
+                 rows: int = 1):
+    """K5's cost model for :func:`poms_tpu_torch.ops.kron.kron_tiling` at
+    ``rows`` rows a thread, in µs, its constants ``K5_COST[rows]``: an SM
+    holds as many blocks as its warps (``K5_WARPS[rows]``) and shared
+    memory allow, and takes its share of the blocks, blocks ÷ SMs ÷ that
+    (at least one block), a ``"part"`` of the last wave's idle room (a
+    wave that is not whole still takes a block's time: on coarse grids,
+    few waves) and ``"tail"`` more (blocks end unevenly); a block marches over its run's
+    planes and 2P more, a step costing ``"step"`` (its barrier) plus the
+    larger of the double-word taps of the SM's resident warps, ``"tap"``
+    each (a thread's taps a step: the axis-1 pass for each v and the
+    axis-0 pass for each history over its rows, the axis-2 pass over its
+    share of the T1 + 2P window rows; idle lanes of a block's last warp
+    count), and the taps of its slowest thread's chains, ``"chain"`` each
+    (where few warps are resident their latency sets the pace).  Infinite
+    for a block whose shared memory exceeds the card's limit.
     ``runtime``: K5r's model for
     :func:`poms_tpu_torch.ops.kron.runtime_tiling`,
     ``cost(n3, pass, warps, TL, sms)``: the work of all blocks (a block's
@@ -277,13 +312,25 @@ def k5_step_cost(P: int, histories: int = 3, runtime: bool = False):
 
         return rt_cost
 
+    k, W = K5_COST[rows], 2 * P + 1
+    outs = rows * (CAPS_DW["v"] + histories)   # axis-1 and axis-0 chains
+
     def cost(T1, T2, threads, chunk, blocks, sms):
-        if k5_smem_bytes(P, histories, T1, T2, chunk) > K2_SMEM:
+        smem = k5_smem_bytes(P, histories, T1, T2, chunk, rows)
+        if smem > K2_SMEM:
             return math.inf
-        rows = T1 + 2 * P
-        step = (threads / 32 * (3.0 * rows / T1 + 5.0)
-                + rows * (T2 + 2 * P) / 64.0)
-        return math.ceil(blocks / sms) * (chunk + 2 * P + 2) * step
+        per_sm = max(1, min(K5_WARPS[rows] * 32 // threads,
+                            SM_SMEM // (smem + 1024)))
+        resident = min(per_sm, max(1.0, blocks / sms))
+        share = T1 + 2 * P, T1 // rows   # window rows over row groups
+        taps = W * (outs + CAPS_DW["u"] * share[0] / share[1])
+        chain = W * (outs + CAPS_DW["u"] * math.ceil(share[0] / share[1]))
+        step = k["step"] + max(k["tap"] * resident * threads * taps,
+                               k["chain"] * chain)
+        fluid = blocks / (sms * per_sm)
+        waves = (max(1.0, fluid + k["part"] * (math.ceil(fluid) - fluid))
+                 + k["tail"])
+        return waves * (chunk + 2 * P) * step
 
     return cost
 
@@ -295,9 +342,10 @@ def build_kron_df_plan(terms_df, npts, pads, periodic=None,
     launch holds) with the lo bands stacked beside them and a tiling for
     K5's block size and shared memory; its terms are not folded (K1's
     ``build_kron_plan(fold=False)``: a folded band would have to be summed
-    before the split into words).  Bands wider than every one of
-    ``COMPILED_P`` take K5r at their own half-width; on the card a
-    half-width no block of K5r fits raises.  A K5r plan built on the card
+    before the split into words); the compiled K5's rows a thread and tile
+    come from its cost model among ``K5_ROWS``.  Bands
+    wider than every one of ``COMPILED_P`` take K5r at their own
+    half-width; on the card a half-width no block of K5r fits raises.  A K5r plan built on the card
     owns its passes' scratch: the hi and lo words of the kCU u and kCV v
     partials, 40 bytes a point (105 MB at 138³), reused by every launch of
     the plan."""
@@ -309,10 +357,12 @@ def build_kron_df_plan(terms_df, npts, pads, periodic=None,
                          for run in chunk_terms(lab3, CAPS_DW)) <= 3 else 4
     P = _compiled_half_width(pads)
     runtime = P not in COMPILED_P
+    cost = (k5_step_cost(P, histories, runtime=True) if runtime
+            else lambda R: k5_step_cost(P, histories, rows=R))
     plan = build_kron_plan(hi, npts, pads, periodic, labels=labels,
-                           threads_max=MAX_THREADS_DW, tcols=1, trows=(1,),
-                           widths=(),
-                           cost=k5_step_cost(P, histories, runtime),
+                           threads_max=MAX_THREADS_DW, tcols=1,
+                           trows=None if runtime else K5_ROWS,
+                           widths=(), cost=cost,
                            caps=CAPS_DW, smem=k5r_smem(histories),
                            what=f"K5r ({histories} histories)",
                            scratch_words=2 * (CAPS_DW["u"] + CAPS_DW["v"]),
@@ -377,7 +427,8 @@ def _df_c_args(plan: KronPlan):
         else:
             T1, T2, chunk = plan.tiling
             geo = [*plan.n3, *(int(q) for q in plan.per3), plan.P, T1, T2,
-                   chunk, 32 * math.ceil(T1 * T2 / 32), plan.n_terms]
+                   chunk, 32 * math.ceil(T1 // plan.trows * T2 / 32),
+                   plan.n_terms, plan.trows]
         plan._cargs = [(ctypes.c_int * len(geo))(*geo)] + runs
     return plan._cargs
 
@@ -450,6 +501,7 @@ def _launch_df(plan: KronPlan, bh, bl, xh, xl, negate, stream):
             _raise_if(lib.kron_residual_dw(*args, stream),
                       "residual_kron_df")
             residual_kron_df.launches += 1
+            _count.BYTES["k5.tiled_launches"] += plan.trows == 2
         acc = (rh, rl)
     return rh, rl
 

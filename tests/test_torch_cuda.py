@@ -5,6 +5,8 @@ no jax, so it also runs where jax is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -o addopts=''
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -23,8 +25,8 @@ from poms_tpu_torch.models.periodic import periodic_problem
 from poms_tpu_torch.models.poisson import poisson_problem
 from poms_tpu_torch.ops import counters, twofloat
 from poms_tpu_torch.ops import transfer as k7
-from poms_tpu_torch.ops.kron import (MODES as K1_MODES, RT_PASSES,
-                                     build_kron_plan, kron_apply,
+from poms_tpu_torch.ops.kron import (MODES as K1_MODES, RT_PASSES, SM_SMEM,
+                                     build_kron_plan, k1_tiling, kron_apply,
                                      kron_apply_plain, kron_mode,
                                      kron_mode_plain, rows_options)
 from poms_tpu_torch.ops.stencil import (MODES, color_mask, stencil_apply,
@@ -191,14 +193,41 @@ K5_SHAPES = [((17, 17, 17), (3, 3, 3), (False,) * 3),
              ((8, 8, 128), (2, 2, 2), (True,) * 3),
              ((6, 5, 9), (3, 2, 1), (False, True, False)),
              ((300, 257), (3, 3), (False, False)),
-             ((5000,), (2,), (True,))]
+             ((5000,), (2,), (True,)),
+             # rows that divide neither by two nor by the tile, each
+             # half-width, Dirichlet and periodic
+             ((33, 35, 37), (3, 3, 3), (False,) * 3),
+             ((33, 35, 37), (3, 3, 3), (True,) * 3),
+             ((20, 19, 23), (1, 1, 1), (False, False, True)),
+             ((21, 18, 25), (2, 2, 2), (True, False, False))]
+
+
+def _k5_at_rows(plan, R):
+    """``plan`` re-tiled by K5's tile model at R rows a thread alone."""
+    histories = 3 if max(len(p["w_src"]) for p in plan.plans) <= 3 else 4
+    sms = torch.cuda.get_device_properties(plan.device).multi_processor_count
+    plan.trows, plan.tiling = k1_tiling(
+        plan.n3, plan.P, 4, twofloat.MAX_THREADS_DW, sms, 1, (R,),
+        lambda r: twofloat.k5_step_cost(plan.P, histories, rows=r),
+        lambda r: ())
+    plan._cargs = []
+    return plan
+
+
+def _k5_rows_plans(tdf, npts, pads, periodic=None):
+    """K5's plan at each height of micro-tile the tile model may choose
+    (``twofloat.K5_ROWS``), each at its own tile."""
+    return [_k5_at_rows(twofloat.build_kron_df_plan(tdf, npts, pads,
+                                                    periodic), R)
+            for R in twofloat.K5_ROWS]
 
 
 @pytest.mark.parametrize("npts,pads,periodic", K5_SHAPES)
 @pytest.mark.parametrize("flags", ["full", "zero"])
 def test_k5_kernel_is_bit_equal_to_plain(dev, npts, pads, periodic, flags):
     """The double-word residual's words equal the plain version's, with
-    b and x_l given and with the zero flags of the A·p call."""
+    b and x_l given and with the zero flags of the A·p call, at each
+    height of micro-tile (rows a thread)."""
     terms, (x, b, _) = _mode_operands(npts, pads, torch.float64, dev, 0,
                                       seed=sum(npts) + 1)
     split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
@@ -208,32 +237,46 @@ def test_k5_kernel_is_bit_equal_to_plain(dev, npts, pads, periodic, flags):
     given, explicit = {"full": ((bh, bl, xh, xl), (bh, bl, xh, xl)),
                        "zero": ((None, None, xh, None),
                                 (zero, zero, xh, zero))}[flags]
-    before = twofloat.residual_kron_df.launches
-    got = twofloat.residual_kron_df(tdf, *given, pads, periodic=periodic)
-    torch.cuda.synchronize()
-    assert twofloat.residual_kron_df.launches == before + 1
     want = twofloat.residual_kron_df_plain(tdf, *explicit, pads, None,
                                            periodic)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for plan in [None] + _k5_rows_plans(tdf, npts, pads, periodic):
+        before = twofloat.residual_kron_df.launches
+        got = twofloat.residual_kron_df(tdf, *given, pads, periodic=periodic,
+                                        plan=plan)
+        torch.cuda.synchronize()
+        assert twofloat.residual_kron_df.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), plan and plan.trows
 
 
 @pytest.mark.parametrize("four", [False, True])
 def test_k5_spills_nothing(dev, four):
     """At half-width 3 the compiled K5 keeps its values in registers (no
-    local memory) and its 129^3 launch fits an SM, with four histories as
-    well."""
-    npts, pads = (129,) * 3, (3,) * 3
-    if four:
-        tdf = _periodic_df_terms(npts, pads, dev, seed=5)
-    else:
-        terms, _ = _mode_operands(npts, pads, torch.float64, dev, 0, seed=5)
-        split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
-        tdf = [[split[id(B)] for B in t] for t in terms]
-    plan = twofloat.build_kron_df_plan(tdf, npts, pads)
-    res = twofloat.k5_resources(plan)
-    assert res["local_bytes"] == 0, res
-    assert 0 < res["registers"] <= 255 and res["blocks_per_sm"] >= 1, res
+    local memory) at every height of micro-tile the tile model may choose,
+    and its 129^3 and 513^3 launches fit an SM, with four histories as
+    well; its shared memory is what ``k5_smem_bytes`` reckons, and the
+    blocks an SM holds are what the tile model reckons from
+    ``twofloat.K5_WARPS`` and that shared memory."""
+    pads = (3,) * 3
+    for n in (129, 513):
+        npts = (n,) * 3
+        if four:
+            tdf = _periodic_df_terms(npts, pads, dev, seed=5)
+        else:
+            terms, _ = _mode_operands(npts, pads, torch.float64, dev, 0,
+                                      seed=5)
+            split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
+            tdf = [[split[id(B)] for B in t] for t in terms]
+        for plan in _k5_rows_plans(tdf, npts, pads):
+            res = twofloat.k5_resources(plan)
+            assert res["local_bytes"] == 0, (n, plan.trows, res)
+            assert 0 < res["registers"] <= 255, res
+            assert res["blocks_per_sm"] >= 1, res
+            assert res["smem_bytes"] == twofloat.k5_smem_bytes(
+                3, 4 if four else 3, *plan.tiling, plan.trows), res
+            assert res["blocks_per_sm"] == max(1, min(
+                twofloat.K5_WARPS[plan.trows] * 32 // res["threads"],
+                SM_SMEM // (res["smem_bytes"] + 1024))), (n, plan.trows, res)
 
 
 def test_k5_refuses_what_it_lacks(dev):
@@ -266,13 +309,15 @@ def test_k5_refuses_what_it_lacks(dev):
                                   (139, 139))
 
 
-@pytest.mark.parametrize("nterms,p", [(5, 8), (6, 8), (5, 3), (6, 2)])
+@pytest.mark.parametrize("nterms,p", [(5, 8), (6, 8), (5, 3), (6, 2),
+                                     (5, 1)])
 def test_k5_chained_launches_are_bit_equal_to_the_single_pass(dev, nterms,
                                                               p):
-    """Operators of 5 and 6 sharing-free terms on the compiled K5 (at 2 and
-    3) and on K5r (at 8): one launch per run of terms (K5r: one a pass),
-    each run adding onto the sum of the runs before it, the last forming
-    b - sum; the words equal the single pass's, also as A.p."""
+    """Operators of 5 and 6 sharing-free terms on the compiled K5 (at 1, 2
+    and 3, at each height of micro-tile) and on K5r (at 8): one launch per
+    run of terms (K5r: one a pass), each run adding onto the sum of the
+    runs before it, the last forming b - sum; the words equal the single
+    pass's, also as A.p."""
     npts = (p + 12, p + 13, 2 * p + 20)
     terms, (x, b, _) = _mode_operands(npts, (p,) * 3, torch.float64, dev,
                                       nterms, seed=nterms + p)
@@ -282,10 +327,11 @@ def test_k5_chained_launches_are_bit_equal_to_the_single_pass(dev, nterms,
     plan = twofloat.build_kron_df_plan(tdf, npts, (p,) * 3)
     assert plan.runtime == (p > 3)
     per_run = len(RT_PASSES) if plan.runtime else 1
-    for given, explicit, negate in (((bh, bl, xh, xl), (bh, bl, xh, xl),
-                                     False),
-                                    ((None, None, xh, None),
-                                     (zero, zero, xh, zero), True)):
+    plans = [plan] if plan.runtime else _k5_rows_plans(tdf, npts, (p,) * 3)
+    for plan, (given, explicit, negate) in itertools.product(
+            plans, (((bh, bl, xh, xl), (bh, bl, xh, xl), False),
+                    ((None, None, xh, None), (zero, zero, xh, zero),
+                     True))):
         before = twofloat.residual_kron_df.launches
         got = twofloat.residual_kron_df(tdf, *given, (p,) * 3, plan=plan,
                                         negate=negate)
@@ -584,21 +630,23 @@ def test_probe_kernels_match_plain(dev, n, p, variant):
 
 @pytest.mark.parametrize("negate", [False, True])
 def test_k5_negate_on_card(dev, negate):
-    terms, (x, b, _) = _mode_operands((17, 33, 65), (3, 3, 3), torch.float64,
+    npts = (17, 33, 65)
+    terms, (x, b, _) = _mode_operands(npts, (3, 3, 3), torch.float64,
                                       dev, 0, seed=3)
     split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
     tdf = [[split[id(B)] for B in t] for t in terms]
     xh, _ = twofloat.split_f64(x)
     zero = torch.zeros_like(xh)
-    got = twofloat.residual_kron_df(tdf, None, None, xh, None, (3, 3, 3),
-                                    negate=negate)
     want = twofloat.residual_kron_df_plain(tdf, zero, zero, xh, zero,
                                            (3, 3, 3), negate=negate)
     plain = twofloat.residual_kron_df_plain(tdf, zero, zero, xh, zero,
                                             (3, 3, 3))
     sign = -1.0 if negate else 1.0
-    for g, w, p in zip(got, want, plain):
-        assert torch.equal(g, w) and torch.equal(g, sign * p)
+    for plan in [None] + _k5_rows_plans(tdf, npts, (3, 3, 3)):
+        got = twofloat.residual_kron_df(tdf, None, None, xh, None,
+                                        (3, 3, 3), plan=plan, negate=negate)
+        for g, w, p in zip(got, want, plain):
+            assert torch.equal(g, w) and torch.equal(g, sign * p)
 
 
 @pytest.mark.parametrize("n", [1, 7, 4913, 2 ** 20 + 1, 129 ** 3])
@@ -1072,7 +1120,10 @@ def _periodic_df_terms(npts, pads, dev, seed):
 @pytest.mark.parametrize("npts,pads,periodic", [
     ((16, 16, 16), (2, 2, 2), (True,) * 3),
     ((9, 13, 31), (3, 2, 1), (False, True, False)),
-    ((33, 33, 33), (3, 3, 3), (True,) * 3)])
+    ((33, 33, 33), (3, 3, 3), (True,) * 3),
+    ((33, 35, 37), (3, 3, 3), (False,) * 3),
+    ((21, 18, 25), (1, 1, 1), (True,) * 3),
+    ((17, 23, 19), (2, 2, 2), (False, True, True))])
 @pytest.mark.parametrize("flags", ["full", "zero"])
 def test_k5_four_histories_are_bit_equal_to_plain(dev, npts, pads, periodic,
                                                   flags):
@@ -1085,14 +1136,62 @@ def test_k5_four_histories_are_bit_equal_to_plain(dev, npts, pads, periodic,
     given, explicit = {"full": ((bh, bl, xh, xl), (bh, bl, xh, xl)),
                        "zero": ((None, None, xh, None),
                                 (zero, zero, xh, zero))}[flags]
-    before = twofloat.residual_kron_df.launches
-    got = twofloat.residual_kron_df(tdf, *given, pads, periodic=periodic)
-    torch.cuda.synchronize()
-    assert twofloat.residual_kron_df.launches == before + 1
     want = twofloat.residual_kron_df_plain(tdf, *explicit, pads, None,
                                            periodic)
-    for g_, w in zip(got, want):
-        assert torch.equal(g_, w)
+    for plan in [None] + _k5_rows_plans(tdf, npts, pads, periodic):
+        before = twofloat.residual_kron_df.launches
+        got = twofloat.residual_kron_df(tdf, *given, pads, periodic=periodic,
+                                        plan=plan)
+        torch.cuda.synchronize()
+        assert twofloat.residual_kron_df.launches == before + 1
+        for g_, w in zip(got, want):
+            assert torch.equal(g_, w), plan and plan.trows
+
+
+def test_k5_tiled_launches_counts_the_two_row_launches(dev):
+    """``k5.tiled_launches`` rises by one a compiled K5 launch at two rows
+    a thread, by none at one row or on K5r, and at every replay of a
+    captured graph by what its capture counted; ``residual_kron_df``'s
+    launches rise as before."""
+    from poms_tpu_torch.mg.graph import GraphedStep
+
+    key = "k5.tiled_launches"
+    npts, pads = (33, 35, 37), (3, 3, 3)
+    terms, (x, _, _) = _mode_operands(npts, pads, torch.float64, dev, 0,
+                                      seed=7)
+    split = {id(B): twofloat.split_f64(B) for t in terms for B in t}
+    tdf = [[split[id(B)] for B in t] for t in terms]
+    xh, _ = twofloat.split_f64(x)
+    for R in (2, 1):
+        plan = _k5_at_rows(twofloat.build_kron_df_plan(tdf, npts, pads), R)
+        before = counters.snapshot()
+        twofloat.residual_kron_df(tdf, None, None, xh, None, pads,
+                                  plan=plan, negate=True)
+        torch.cuda.synchronize()
+        grown = counters.diff(counters.snapshot(), before)
+        assert grown.get(key, 0) == (R == 2) and \
+            grown["residual_kron_df"] == 1
+
+        def step(x):
+            y = twofloat.residual_kron_df(tdf, None, None, x, None, pads,
+                                          plan=plan, negate=True)[0]
+            return y, torch.linalg.vector_norm(y)
+
+        graph = GraphedStep(step, [xh])
+        assert graph.captured.get(key, 0) == (R == 2)
+        before = counters.snapshot()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        grown = counters.diff(counters.snapshot(), before)
+        assert grown.get(key, 0) == 3 * (R == 2)
+        assert grown["residual_kron_df"] == 3
+    wide = _k5_terms((20, 22, 40), (9, 9, 9), dev, False)
+    xw = torch.ones((20, 22, 40), device=dev)
+    before = counters.snapshot()
+    twofloat.residual_kron_df(wide, None, None, xw, None, (9, 9, 9))
+    torch.cuda.synchronize()
+    assert counters.diff(counters.snapshot(), before).get(key, 0) == 0
 
 
 @pytest.mark.parametrize("case", ["twofloat-bf16", "dw-bf16", "banded-bf16",

@@ -14,7 +14,8 @@ if REPO not in sys.path:
 
 from benchmark import spans as bspans  # noqa: E402
 from benchmark import trace as btrace  # noqa: E402
-from benchmark.harness import Context, hand_kernels, reader  # noqa: E402
+from benchmark.harness import (HAND_KERNELS, Context,  # noqa: E402
+                               hand_kernels, reader)
 from benchmark.work import k6  # noqa: E402
 from poms_tpu_torch.mg import graph  # noqa: E402
 from poms_tpu_torch.mg.cycles import CycleConfig  # noqa: E402
@@ -215,6 +216,24 @@ def test_byte_counters_add_and_hand_kernels_ignores_them():
     assert hand_kernels(grown) == 35
     assert hand_kernels({"graph.copy_bytes": 7, "graph.inplace_bytes": 5,
                          "kron.scratch_bytes": 9}) == 0
+    counters.add({k: -v for k, v in delta.items()})
+    assert counters.snapshot() == before
+
+
+def test_k5_tiled_launches_is_no_second_kernel_count():
+    """``k5.tiled_launches`` counts compiled K5 launches that
+    ``residual_kron_df`` counts already: in a counters diff that holds
+    both, ``hand_kernels`` counts each K5 launch once, and the key's
+    prefix names no hand-written kernel."""
+    assert "k5.tiled_launches" in counters.snapshot()
+    assert "k5" not in HAND_KERNELS
+    before = counters.snapshot()
+    delta = {"residual_kron_df": 8, "k5.tiled_launches": 8,
+             "kron_mode.cheb": 32, "kron_mode.cheb@f32": 32}
+    counters.add(delta)
+    grown = counters.diff(counters.snapshot(), before)
+    assert grown == delta
+    assert hand_kernels(grown) == 40
     counters.add({k: -v for k, v in delta.items()})
     assert counters.snapshot() == before
 

@@ -247,6 +247,67 @@ def test_two_prod_fma_form_equals_split_form_bitwise():
     assert float(mp[0]) + float(me[0]) != float(tiny) * float(tiny)
 
 
+def _k5_bands(n, histories):
+    """Double-word bands at n³, p = 3: Poisson-shaped terms (3 histories) or
+    the periodic shifted shape (4: S M M, K M M, M K M, M M K)."""
+    rng = np.random.default_rng(n)
+
+    def band():
+        return port.split_f64(torch.from_numpy(rng.standard_normal((n, 7))))
+
+    K, M = [band() for _ in range(3)], [band() for _ in range(3)]
+    terms = [[K[b] if b == a else M[b] for b in range(3)] for a in range(3)]
+    return ([[band(), M[1], M[2]]] if histories == 4 else []) + terms
+
+
+# shared memory of the compiled K5 as its launch reports it on the card
+# (k5_resources on an NVIDIA H100 80GB HBM3): (P, histories, T1, T2, chunk,
+# rows) -> bytes of the kernel's K5Smem
+K5_SMEM_ON_CARD = {(3, 3, 24, 20, 171, 2): 85760, (3, 3, 12, 20, 257, 1): 77456,
+                   (3, 4, 32, 16, 512, 2): 176416,
+                   (3, 4, 16, 16, 512, 1): 150688,
+                   (3, 3, 26, 17, 43, 2): 61088, (3, 3, 9, 26, 26, 1): 39584,
+                   (3, 3, 26, 19, 171, 2): 87200,
+                   (3, 4, 32, 16, 256, 2): 119072,
+                   (3, 3, 26, 19, 22, 2): 62160}
+
+
+@pytest.mark.parametrize("n", [513, 512, 257, 129, 65, 33, 17, 9])
+@pytest.mark.parametrize("histories", [3, 4])
+def test_k5_tile_model_fits_a_block_at_each_height(n, histories):
+    """The compiled K5's tile model (``k5_step_cost`` at each height of
+    ``K5_ROWS``) gives every grid of the headline's levels a block that
+    fits: at most 256 threads, T1 a multiple of the rows a thread, shared
+    memory (``k5_smem_bytes``, the kernel's as the card reported it) within
+    the card's limit, and the height it chooses is the cheaper one; at
+    513³ with 3 histories it takes two rows a thread."""
+    from poms_tpu_torch.ops.stencil import K2_SMEM
+
+    for key, want in K5_SMEM_ON_CARD.items():
+        assert port.k5_smem_bytes(*key) == want, key
+    tdf = _k5_bands(n, histories)
+    plan = port.build_kron_df_plan(tdf, (n,) * 3, (3,) * 3)
+    assert plan.trows in port.K5_ROWS
+    costs = {}
+    for R in port.K5_ROWS:
+        # the tile the model gives at R rows a thread alone
+        cost = port.k5_step_cost(3, histories, rows=R)
+        trows, (T1, T2, chunk) = kron_ops.k1_tiling(
+            (n,) * 3, 3, 4, port.MAX_THREADS_DW, kron_ops.SM_COUNT, 1, (R,),
+            lambda r: cost, lambda r: ())
+        assert trows == R and T1 % R == 0 and T1 // R * T2 <= 256
+        assert port.k5_smem_bytes(3, histories, T1, T2, chunk,
+                                  R) <= K2_SMEM
+        blocks = -(-n // T1) * -(-n // T2) * -(-n // chunk)
+        costs[R] = cost(T1, T2, 32 * -(-(T1 // R) * T2 // 32), chunk,
+                        blocks, kron_ops.SM_COUNT)
+        if R == plan.trows:
+            assert (T1, T2, chunk) == plan.tiling
+    assert costs[plan.trows] == min(costs.values())
+    if n == 513 and histories == 3:
+        assert plan.trows == 2
+
+
 def test_kron_df_plan_layout_and_limits():
     """K5's launch data: K1's plan of the hi bands, the lo bands stacked by
     the same labels (a lifted axis: hi 1, lo 0), the sharing plan in the
@@ -261,10 +322,13 @@ def test_kron_df_plan_layout_and_limits():
     lab = plan.labels[2][0]
     assert torch.equal(plan.bands_lo[2][lab], tdf[0][1][1])
     T1, T2, _ = plan.tiling
-    assert T1 * T2 <= port.MAX_THREADS_DW
-    # K5 keeps its own cost model: one block an SM, 3 runs of 43 planes
+    assert T1 % plan.trows == 0
+    assert T1 // plan.trows * T2 <= port.MAX_THREADS_DW
+    # K5 keeps its own cost model: at two rows a thread, tiles of 26 × 19,
+    # 6 runs of 22 planes
     assert kron_ops.kron_tiling((129,) * 3, 3, port.MAX_THREADS_DW,
-                                port.k5_step_cost(3)) == (15, 17, 43)
+                                port.k5_step_cost(3, rows=2),
+                                rows=2) == (26, 19, 22)
     geo, ints = port._df_c_args(plan)
     assert list(ints)[:4] == [2, 2, 2, 2]     # u, v, histories, terms
     assert len(ints) == 4 + sum(port.CAPS_DW[k] * m
