@@ -11,6 +11,7 @@ nor anything of ``poms_tpu_torch``, and takes nothing the program made.
   operator, its 1D loads, the sign a mirror puts on a mode, the ‖b‖₂ every
   source is scaled to.  A new problem kind is a new file there;
 - :mod:`.bspline`, :mod:`.operator`: the 1D B-spline bands and loads (open
-  uniform knots, homogeneous Dirichlet conditions) and the 3D Kronecker-sum
-  stiffness operator in f64, which the ``poisson`` kind uses.
+  uniform knots, homogeneous Dirichlet conditions) and the Kronecker-sum
+  stiffness operator of 1, 2 or 3 axes in f64, which the ``poisson`` kind
+  uses.
 """

@@ -1,15 +1,17 @@
 """Reference kind ``periodic``: the shifted Helmholtz problem u − Δu (σ = 1
-by default) of uniform periodic B-splines on the unit cube,
-A = σ·M⊗M⊗M + K⊗M⊗M + M⊗K⊗M + M⊗M⊗K, the 1D loads the moments of
+by default) of uniform periodic B-splines on the unit box of the
+configuration's ``dim`` axes (3 where it names none),
+A = σ·(M on every axis) + Σ_a (K on axis a, M on the others), in 3D
+σ·M⊗M⊗M + K⊗M⊗M + M⊗K⊗M + M⊗M⊗K; the 1D loads the moments of
 sin(2πmx), and every source scaled to the ‖b‖₂ of the manufactured
-u = sin(2πx)·sin(2πy)·sin(2πz)."""
+u = Π_a sin(2πx_a)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from benchmark.reference.operator import _axis
+from benchmark.reference.operator import kron_sum
 from benchmark.reference.periodic_bspline import load as _load
 from benchmark.reference.periodic_bspline import stiffness_mass
 
@@ -25,22 +27,9 @@ class ShiftedKronSum:
         self.shift = float(shift)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """A·x for an (n, n, n) f64 field, by dense 1D products (no TF32)."""
-        torch.backends.cuda.matmul.allow_tf32 = False
-        K, M = self.K, self.M
-        mx = _axis(M, x, 2)
-        kx = _axis(K, x, 2)
-        # axis 1, then axis 0: K⊗(M⊗M) x + M⊗(K⊗M + M⊗K + σ·M⊗M) x
-        mm = _axis(M, mx, 1)
-        inner = _axis(K, mx, 1)
-        del mx
-        inner += _axis(M, kx, 1)
-        del kx
-        inner += self.shift * mm
-        out = _axis(K, mm, 0)
-        del mm
-        out += _axis(M, inner, 0)
-        return out
+        """A·x for an (n,)·d f64 field, d = 1, 2 or 3, by dense 1D products
+        (no TF32)."""
+        return kron_sum(self.K, self.M, x, self.shift)
 
 
 def operator(problem: dict, device) -> ShiftedKronSum:
@@ -60,7 +49,8 @@ def mirror_sign(mode: int) -> float:
 
 
 def target_norm(problem: dict) -> float:
-    """‖b‖₂ of the manufactured source (σ + 12π²)·sin(2πx)·sin(2πy)·
-    sin(2πz)."""
+    """‖b‖₂ of the manufactured source (σ + 4dπ²)·Π_a sin(2πx_a), d the
+    problem's axes."""
+    d = problem.get("dim", 3)
     s = float(torch.linalg.vector_norm(torch.as_tensor(load(problem, 1))))
-    return (problem["shift"] + 12 * math.pi ** 2) * s ** 3
+    return (problem["shift"] + 4 * d * math.pi ** 2) * s ** d

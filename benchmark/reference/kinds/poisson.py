@@ -1,6 +1,8 @@
-"""Reference kind ``poisson``: 3D Poisson on the unit cube with homogeneous
-Dirichlet conditions, A = K⊗M⊗M + M⊗K⊗M + M⊗M⊗K, the 1D loads the moments
-of sin(mπx), and every source scaled to the manufactured source's ‖b‖₂."""
+"""Reference kind ``poisson``: Poisson on the unit box of the configuration's
+``dim`` axes (3 where it names none) with homogeneous Dirichlet conditions,
+A = Σ_a (K on axis a, M on the others), in 3D K⊗M⊗M + M⊗K⊗M + M⊗M⊗K; the
+1D loads the moments of sin(mπx), and every source scaled to the
+manufactured source's ‖b‖₂."""
 from __future__ import annotations
 
 import math
@@ -28,6 +30,8 @@ def mirror_sign(mode: int) -> float:
 
 
 def target_norm(problem: dict) -> float:
-    """‖b‖₂ of the manufactured source 3π²·sin(πx)·sin(πy)·sin(πz)."""
+    """‖b‖₂ of the manufactured source dπ²·Π_a sin(πx_a), d the problem's
+    axes (in 3D 3π²·sin(πx)·sin(πy)·sin(πz))."""
+    d = problem.get("dim", 3)
     s = float(torch.linalg.vector_norm(torch.as_tensor(load(problem, 1))))
-    return 3 * math.pi ** 2 * s ** 3
+    return d * math.pi ** 2 * s ** d

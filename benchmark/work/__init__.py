@@ -33,19 +33,23 @@ def least_s(nbytes: float, flops: float, dtype: str) -> float:
 
 
 def contractions(labels) -> int:
-    """1D contractions of a 3D sum of Kronecker products, whose band on axis
-    a of term r has label ``labels[a][r]`` (equal labels, equal bands), in
-    the order axis 2, 1, 0 with every shared partial product made once and
-    the terms that share an axis-0 band summed before it.  Poisson: 7."""
-    terms = range(len(labels[0]))
-    return (len({labels[2][r] for r in terms})
-            + len({(labels[1][r], labels[2][r]) for r in terms})
+    """1D contractions of a sum of Kronecker products over d = len(labels)
+    axes, whose band on axis a of term r has label ``labels[a][r]`` (equal
+    labels, equal bands), in the order axis d−1, …, 0 with every shared
+    partial product made once and the terms that share an axis-0 band
+    summed before it: the distinct histories (labels on axes a … d−1) of
+    each axis a ≥ 1, and the distinct axis-0 bands.  Poisson: 7 in 3D, 4 in
+    2D, 1 in 1D."""
+    d, terms = len(labels), range(len(labels[0]))
+    return (sum(len({tuple(labels[b][r] for b in range(a, d))
+                     for r in terms}) for a in range(1, d))
             + len({labels[0][r] for r in terms}))
 
 
 def _bands_bytes(npts, labels, p, itemsize) -> int:
+    """Each distinct band of each of the operator's own axes, once."""
     return sum(len(set(labels[a])) * npts[a] * (2 * p + 1) * itemsize
-               for a in range(3))
+               for a in range(len(npts)))
 
 
 # fields read and written by one Kronecker-sum pass in each mode, and the
@@ -58,7 +62,8 @@ _KRON_EPILOGUE = {"apply": 0, "residual": 1, "dinv": 1, "cheb": 6}
 def kron(mode: str, npts, p: int, labels, itemsize: int,
          first_cheb: bool = False):
     """(bytes, operations) of one Kronecker-sum pass in ``mode`` over the
-    3D field ``npts`` with half-width ``p``; ``first_cheb``: the first
+    field ``npts`` of 1, 2 or 3 axes (``labels`` one row an axis) with
+    half-width ``p``; ``first_cheb``: the first
     Chebyshev step, which has no direction to read."""
     n = math.prod(npts)
     fields = _KRON_FIELDS[mode] - (1 if mode == "cheb" and first_cheb else 0)

@@ -22,17 +22,21 @@ def _arg(args, kwargs, i, name, default=None):
 
 
 def kron_mode(args, kwargs):
-    """``poms_tpu_torch.ops.kron.kron_mode(mode, plan, x_int, b, d, ...)``."""
+    """``poms_tpu_torch.ops.kron.kron_mode(mode, plan, x_int, b, d, ...)``,
+    counted on the operator's own axes: its points ``plan.npts`` and the
+    rows of its labels that the plan's lift to 3D did not add."""
     mode, plan, x = args[0], args[1], args[2]
     d = _arg(args, kwargs, 4, "d")
-    nbytes, flops = work.kron(mode, plan.n3, max(plan.pads), plan.labels,
-                              x.element_size(), first_cheb=d is None)
+    nbytes, flops = work.kron(mode, plan.npts, max(plan.pads),
+                              plan.labels[3 - plan.ndim:], x.element_size(),
+                              first_cheb=d is None)
     return nbytes, flops, dtype_name(x)
 
 
 def residual_kron_df(args, kwargs):
-    """``residual_kron_df(terms_df, bh, bl, xh, xl, pads, labels=...)`` on
-    3D fields, as ``mg/mixed.py`` calls it (the sharing labels given)."""
+    """``residual_kron_df(terms_df, bh, bl, xh, xl, pads, labels=...)`` as
+    ``mg/mixed.py`` calls it: the field's own shape and the sharing labels
+    as given, one row an axis of 1, 2 or 3."""
     bh, xh, xl = args[1], args[3], args[4]
     pads = _arg(args, kwargs, 5, "pads")
     nbytes, flops = work.kron_dw(tuple(xh.shape), max(pads), kwargs["labels"],
